@@ -1,0 +1,73 @@
+"""landhydrology_tpu_torch — the PyTorch + CUDA port of landhydrology_tpu.
+
+A batched 1-D soil-column solver for coupled water (Richards equation) and
+energy (heat equation) transport.  State tensors are ``(nz, *batch)`` with
+the columns contiguous; the explicit SSPRK33 hot path runs in one
+hand-written CUDA kernel per ``steps_per_call`` steps
+(``ops/cuda/column_kernel.py``, engine ``"fused"``), and every function also
+runs eagerly on CPU or GPU tensors (engine ``"torch"``).
+
+The public API mirrors ``landhydrology_tpu``'s, minus what is not ported yet
+(see ROADMAP.md).  This package imports neither JAX nor landhydrology_tpu.
+"""
+
+from landhydrology_tpu_torch.constants import EarthParameterSet, default_earth_param_set
+from landhydrology_tpu_torch.domains import Column, ColumnGrid, make_function_space
+from landhydrology_tpu_torch.models.soil import (
+    BatchedBC,
+    Dirichlet,
+    FreeDrainage,
+    NoBC,
+    PrescribedAtmosForcing,
+    PrescribedHydrologyModel,
+    PrescribedTemperatureModel,
+    SoilColumnBC,
+    SoilComponentBC,
+    SoilEnergyModel,
+    SoilHydrologyModel,
+    SoilModel,
+    SoilParams,
+    VerticalFlux,
+    boundary_fluxes,
+    default_initial_conditions,
+    initialize_auxiliary,
+    initialize_prognostic,
+    initialize_states,
+    make_rhs,
+    make_update_aux,
+)
+from landhydrology_tpu_torch.simulations import Simulation, run, step
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "EarthParameterSet",
+    "default_earth_param_set",
+    "Column",
+    "ColumnGrid",
+    "make_function_space",
+    "SoilParams",
+    "SoilModel",
+    "SoilEnergyModel",
+    "SoilHydrologyModel",
+    "PrescribedTemperatureModel",
+    "PrescribedHydrologyModel",
+    "NoBC",
+    "BatchedBC",
+    "VerticalFlux",
+    "Dirichlet",
+    "FreeDrainage",
+    "SoilComponentBC",
+    "SoilColumnBC",
+    "PrescribedAtmosForcing",
+    "boundary_fluxes",
+    "make_rhs",
+    "make_update_aux",
+    "initialize_states",
+    "initialize_prognostic",
+    "initialize_auxiliary",
+    "default_initial_conditions",
+    "Simulation",
+    "run",
+    "step",
+]

@@ -1,0 +1,106 @@
+"""Carry models and states over from the JAX package.
+
+``model_from_reference`` builds this package's :class:`SoilModel` from a
+``landhydrology_tpu`` ``SoilModel``.  It reads the reference's frozen
+dataclasses by class name and ``dataclasses.fields``, and each array leaf
+through ``np.asarray``, so it needs no JAX import.  User callables (BC
+values, profiles) are carried over as they are and must accept tensors; the
+reference's own default profiles are replaced by this package's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from landhydrology_tpu_torch.constants import EarthParameterSet
+from landhydrology_tpu_torch.domains import Column
+from landhydrology_tpu_torch.models.soil.boundary import (
+    BatchedBC,
+    Dirichlet,
+    FreeDrainage,
+    NoBC,
+    PrescribedAtmosForcing,
+    SoilColumnBC,
+    SoilComponentBC,
+    VerticalFlux,
+)
+from landhydrology_tpu_torch.models.soil.model import (
+    PrescribedHydrologyModel,
+    PrescribedTemperatureModel,
+    SoilEnergyModel,
+    SoilHydrologyModel,
+    SoilModel,
+)
+from landhydrology_tpu_torch.models.soil.params import SoilParams
+from landhydrology_tpu_torch.models.soil.water import (
+    IceImpedance,
+    NoEffect,
+    TemperatureDependentViscosity,
+    vanGenuchten,
+)
+
+_PORTED = {
+    cls.__name__: cls
+    for cls in (
+        EarthParameterSet, Column, SoilParams, vanGenuchten, NoEffect,
+        TemperatureDependentViscosity, IceImpedance, SoilEnergyModel,
+        SoilHydrologyModel, PrescribedTemperatureModel,
+        PrescribedHydrologyModel, SoilModel, NoBC, VerticalFlux, Dirichlet,
+        FreeDrainage, SoilComponentBC, SoilColumnBC, BatchedBC,
+        PrescribedAtmosForcing,
+    )
+}
+_REFERENCE_PACKAGE = "landhydrology_tpu."
+
+
+def _convert(obj, device, dtype):
+    if obj is None or isinstance(obj, (bool, int, float, str, tuple)):
+        return obj
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        cls = _PORTED.get(type(obj).__name__)
+        if cls is None:
+            raise NotImplementedError(f"{type(obj).__name__} is not ported yet")
+        port_fields = {f.name: f for f in dataclasses.fields(cls)}
+        kwargs = {}
+        for f in dataclasses.fields(obj):
+            if cls is SoilModel and f.name == "dtype":
+                continue
+            value = getattr(obj, f.name)
+            if callable(value) and getattr(value, "__module__", "").startswith(
+                _REFERENCE_PACKAGE
+            ):
+                kwargs[f.name] = port_fields[f.name].default  # default profile
+            else:
+                kwargs[f.name] = _convert(value, device, dtype)
+        if cls is SoilModel:
+            kwargs.update(dtype=dtype, device=device)
+        return cls(**kwargs)
+    if callable(obj):
+        return obj
+    arr = np.array(obj)  # a writable copy
+    if arr.ndim == 0:
+        return arr.item()
+    return torch.as_tensor(arr, dtype=dtype, device=device)
+
+
+def model_from_reference(ref_model, device="cpu", dtype=torch.float64) -> SoilModel:
+    """This package's model equivalent to the JAX package's ``ref_model``,
+    with its tensors in ``dtype`` on ``device``."""
+    return _convert(ref_model, device, dtype)
+
+
+def state_from_numpy(Y: dict, device="cpu", dtype=torch.float64) -> dict:
+    """A nested state dict of array-likes as contiguous tensors."""
+    if isinstance(Y, dict):
+        return {k: state_from_numpy(v, device, dtype) for k, v in Y.items()}
+    return torch.as_tensor(np.array(Y), dtype=dtype, device=device).contiguous()
+
+
+def state_to_numpy(Y: dict) -> dict:
+    """A nested state dict of tensors as numpy arrays."""
+    if isinstance(Y, dict):
+        return {k: state_to_numpy(v) for k, v in Y.items()}
+    return Y.detach().cpu().numpy()

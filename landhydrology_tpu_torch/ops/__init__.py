@@ -1,0 +1,1 @@
+"""Stencil operators and the hand-written CUDA kernels."""
