@@ -17,6 +17,10 @@ import torch
 
 from landhydrology_tpu_torch.constants import EarthParameterSet
 from landhydrology_tpu_torch.domains import Column
+from landhydrology_tpu_torch.models.soil.freeze_thaw import (
+    EquilibriumFreezeThaw,
+    FreezeThaw,
+)
 from landhydrology_tpu_torch.models.soil.boundary import (
     BatchedBC,
     Dirichlet,
@@ -50,7 +54,7 @@ _PORTED = {
         SoilHydrologyModel, PrescribedTemperatureModel,
         PrescribedHydrologyModel, SoilModel, NoBC, VerticalFlux, Dirichlet,
         FreeDrainage, SoilComponentBC, SoilColumnBC, BatchedBC,
-        PrescribedAtmosForcing,
+        PrescribedAtmosForcing, FreezeThaw, EquilibriumFreezeThaw,
     )
 }
 _REFERENCE_PACKAGE = "landhydrology_tpu."
@@ -86,14 +90,16 @@ def _convert(obj, device, dtype):
     return torch.as_tensor(arr, dtype=dtype, device=device)
 
 
-def model_from_reference(ref_model, device="cpu", dtype=torch.float64) -> SoilModel:
+def model_from_reference(ref_model, device="cuda", dtype=torch.float64) -> SoilModel:
     """This package's model equivalent to the JAX package's ``ref_model``,
-    with its tensors in ``dtype`` on ``device``."""
+    with its tensors in ``dtype`` on ``device`` (the card unless the caller
+    asks for ``"cpu"``)."""
     return _convert(ref_model, device, dtype)
 
 
-def state_from_numpy(Y: dict, device="cpu", dtype=torch.float64) -> dict:
-    """A nested state dict of array-likes as contiguous tensors."""
+def state_from_numpy(Y: dict, device="cuda", dtype=torch.float64) -> dict:
+    """A nested state dict of array-likes as contiguous tensors on ``device``
+    (the card unless the caller asks for ``"cpu"``)."""
     if isinstance(Y, dict):
         return {k: state_from_numpy(v, device, dtype) for k, v in Y.items()}
     return torch.as_tensor(np.array(Y), dtype=dtype, device=device).contiguous()

@@ -79,9 +79,10 @@ class ColumnGrid:
 
 
 def make_function_space(
-    domain, dtype: torch.dtype = torch.float64, device="cpu"
+    domain, dtype: torch.dtype = torch.float64, device="cuda"
 ) -> ColumnGrid:
-    """Build the (center, face) coordinate grid for a column.
+    """Build the (center, face) coordinate grid for a column, on ``device``
+    (the card unless the caller asks for ``"cpu"``).
 
     The mesh arithmetic is done in float64 numpy and then cast, so float32
     grids still place centers at exact midpoints."""

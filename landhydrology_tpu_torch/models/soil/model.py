@@ -3,7 +3,8 @@
 PyTorch port of ``landhydrology_tpu/models/soil/model.py``: the 2 energy x
 2 hydrology lattice of frozen dataclasses; ``make_rhs`` (rhs.py) selects
 the tendency by ``isinstance``.  The model carries an explicit ``dtype``
-(default float64) and ``device``; its parameter tensors live there.
+(default float64) and ``device`` (default ``"cuda"``; CPU runs ask for
+``device="cpu"``); its parameter tensors live there.
 """
 
 from __future__ import annotations
@@ -16,6 +17,10 @@ import torch
 from landhydrology_tpu_torch.constants import EarthParameterSet, default_earth_param_set
 from landhydrology_tpu_torch.domains import Column
 from landhydrology_tpu_torch.models.base import AbstractModel
+from landhydrology_tpu_torch.models.soil.freeze_thaw import (
+    EquilibriumFreezeThaw,
+    FreezeThaw,
+)
 from landhydrology_tpu_torch.models.soil.params import SoilParams
 from landhydrology_tpu_torch.models.soil.water import (
     AbstractConductivityFactor,
@@ -79,9 +84,12 @@ class SoilModel(AbstractModel):
     ``make_rhs(model)`` turns into the tendency function and
     ``initialize_states(model, ic, t0)`` into state tensors.
 
-    Lateral coupling, freeze-thaw and lagged coefficients are not ported
-    yet: a non-default ``lateral_coupling``, ``freeze_thaw`` or
-    ``coefficient_update`` raises ``NotImplementedError``.
+    ``freeze_thaw`` is ``None``, a :class:`FreezeThaw` (rate sources in the
+    rhs) or an :class:`EquilibriumFreezeThaw` (a projection after each
+    step); ``coefficient_update="step"`` evaluates the nonlinear
+    coefficients once per step (``lagged.py``).  Lateral coupling is not
+    ported yet: a non-default ``lateral_coupling`` raises
+    ``NotImplementedError``.
     """
 
     domain: Column
@@ -96,12 +104,15 @@ class SoilModel(AbstractModel):
     earth_param_set: EarthParameterSet = default_earth_param_set
     name: str = "soil"
     dtype: torch.dtype = torch.float64
-    device: Any = "cpu"
+    device: Any = "cuda"
     lateral_coupling: Optional[Any] = None
+    #: optional phase change, coupled combination only
     freeze_thaw: Optional[Any] = None
     #: static promise that theta_i is identically zero: drops the frozen
     #: branches of the thermal closures and the effective-porosity correction
     assume_no_ice: bool = False
+    #: ``"stage"``: coefficients in every RK stage; ``"step"``: once per
+    #: step, frozen across the stages (LaggedCoefficientStepper)
     coefficient_update: str = "stage"
 
     def __post_init__(self):
@@ -114,15 +125,25 @@ class SoilModel(AbstractModel):
                 "SoilModel.coefficient_update must be 'stage' or 'step'; "
                 f"got {self.coefficient_update!r}"
             )
-        if self.coefficient_update == "step":
-            raise NotImplementedError(
-                "coefficient_update='step' (lagged coefficients, kernel B2) "
-                "is not ported yet: ROADMAP A8"
-            )
         if self.freeze_thaw is not None:
-            raise NotImplementedError(
-                "freeze_thaw (kernel B3) is not ported yet: ROADMAP A9"
-            )
+            if not isinstance(self.freeze_thaw, (FreezeThaw, EquilibriumFreezeThaw)):
+                raise TypeError(
+                    "freeze_thaw must be a FreezeThaw or an EquilibriumFreezeThaw; "
+                    f"got {type(self.freeze_thaw).__name__}"
+                )
+            # the phase change reads rho_e_int and the retention curve
+            if not isinstance(self.energy_model, SoilEnergyModel):
+                raise TypeError(
+                    "freeze_thaw requires a dynamic SoilEnergyModel (phase "
+                    "change is driven by the prognostic rho_e_int); got "
+                    f"{type(self.energy_model).__name__}"
+                )
+            if not isinstance(self.hydrology_model, SoilHydrologyModel):
+                raise TypeError(
+                    "freeze_thaw requires a dynamic SoilHydrologyModel (the "
+                    "equilibrium liquid fraction comes from its retention "
+                    f"curve); got {type(self.hydrology_model).__name__}"
+                )
         if self.lateral_coupling is not None:
             raise NotImplementedError(
                 "lateral_coupling is not ported yet: ROADMAP A13"

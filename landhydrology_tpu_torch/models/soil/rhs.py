@@ -9,7 +9,9 @@ and returns ``rhs(Y, Ya, t) -> dY`` over dicts of ``(nz, *batch)`` tensors:
   d vartheta_l/dt = -div(-K grad h), h = psi + z
 - (SoilEnergy, Prescribed) -> heat only: d rho_e_int/dt = -div(-kappa grad T)
 - (SoilEnergy, SoilHydrology) -> fully coupled, adds the advected liquid
-  internal energy flux -rho_e_int_liq K grad h
+  internal energy flux -rho_e_int_liq K grad h, and with ``FreezeThaw`` the
+  phase-change rate sources (``EquilibriumFreezeThaw`` adds nothing here:
+  its projection runs after each step)
 
 This is the eager path; ``ops/cuda/column_kernel.py`` runs the coupled
 branch inside one CUDA kernel.
@@ -25,6 +27,10 @@ from landhydrology_tpu_torch.domains import ColumnGrid, make_function_space
 from landhydrology_tpu_torch.models.soil import heat as sh
 from landhydrology_tpu_torch.models.soil import water as sw
 from landhydrology_tpu_torch.models.soil.boundary import boundary_fluxes
+from landhydrology_tpu_torch.models.soil.freeze_thaw import (
+    FreezeThaw,
+    phase_change_sources,
+)
 from landhydrology_tpu_torch.models.soil.model import (
     PrescribedHydrologyModel,
     PrescribedTemperatureModel,
@@ -292,10 +298,24 @@ def _make_rhs_soil(energy, hydrology, model: SoilModel, grid: ColumnGrid):
                 fluxes["top"]["f_rho_e_int"],
                 dz,
             )
+            d_theta_i = torch.zeros_like(theta_i)
+            if isinstance(model.freeze_thaw, FreezeThaw):
+                src_l, src_i = phase_change_sources(
+                    model.freeze_thaw,
+                    model.hydrology_model.hydraulic_model,
+                    theta_l,
+                    theta_i,
+                    T,
+                    sp.nu,
+                    rho_c_s,
+                    param_set,
+                )
+                d_vartheta_l = d_vartheta_l + src_l
+                d_theta_i = d_theta_i + src_i
             return {
                 name: {
                     "vartheta_l": d_vartheta_l,
-                    "theta_i": torch.zeros_like(theta_i),
+                    "theta_i": d_theta_i,
                     "rho_e_int": d_rho_e_int,
                 }
             }

@@ -1,7 +1,7 @@
 """Fused multi-step column kernel (CUDA, Hopper) and its plain version.
 
 Replaces ``landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run``
-in its explicit mode (kernel B1): ``steps_per_call`` SSPRK33 steps of the
+in its explicit SSPRK33 modes: ``steps_per_call`` SSPRK33 steps of the
 coupled water + energy tendency per launch, updating the state in place.
 The CUDA source is ``csrc/column_kernel.cu``; it is compiled with ``nvcc``
 for ``sm_90a`` into a shared library with a plain C interface at first use
@@ -10,6 +10,10 @@ and bound with ``ctypes``.
 - One thread owns one column and sweeps its levels; the grid is
   ``ceil(ncol / tile_cols)`` blocks of ``tile_cols`` threads, with the ragged
   last block masked, so ``ncol`` need not be a multiple of the tile.
+- The model selects the kernel's mode (:func:`kernel_mode`), a template
+  instance of the source: stage coefficients (B1) or lagged ones
+  (``coefficient_update="step"``, B2), with ``assume_no_ice``, or with
+  freeze-thaw rate sources or the equilibrium projection (B3).
 - Per-column parameters arrive as a pointer plus a column stride (0 for a
   scalar).  Column constants the closures derive from the parameters
   (``m``, ``alpha**-n``, ``k_dry``, the Kersten exponents, ...) are
@@ -20,19 +24,20 @@ and bound with ``ctypes``.
   ``t = t0 + i*dt`` and ``t, t + dt, t + dt/2``, in the model dtype.
 
 The plain version, :func:`fused_column_run_plain`, is the same number of
-``SSPRK33.step(make_rhs(...))`` calls in eager PyTorch.  A run on CPU tensors
-uses it; a run on CUDA tensors launches the kernel or raises.
+eager ``stepper.step`` calls, with the model's step policies wrapped around
+SSPRK33 as ``Simulation`` wraps them.  A run on CPU tensors uses it; a run on
+CUDA tensors launches the kernel or raises.
 
 Modes of the JAX factory not ported yet raise ``NotImplementedError`` on
-either device: lagged coefficients (B2) and freeze-thaw (B3) at model
-construction, non-SSPRK33 and implicit steppers (B4), MOST (B5, at BC
+either device: non-SSPRK33 and implicit steppers (B4), MOST (B5, at BC
 construction), the LandModel pond (B6), streamed forcing (B7), streamed
 geometry (B8) and ``differentiable=True`` (B9); so do the water-only and
-heat-only branches and ``assume_no_ice``.
+heat-only branches.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import fcntl
 import hashlib
@@ -46,6 +51,17 @@ import torch
 
 from landhydrology_tpu_torch.domains import make_function_space
 from landhydrology_tpu_torch.models.soil import heat as sh
+from landhydrology_tpu_torch.models.soil.freeze_thaw import (
+    EquilibriumFreezeThaw,
+    FreezeThaw,
+    PhaseEquilibriumStepper,
+    wrap_stepper_with_projection,
+)
+from landhydrology_tpu_torch.models.soil.lagged import (
+    LaggedCoefficientStepper,
+    _chain_contains,
+    wrap_stepper_for_soil,
+)
 from landhydrology_tpu_torch.models.soil.boundary import (
     Dirichlet,
     FreeDrainage,
@@ -70,7 +86,7 @@ SOURCE = _PACKAGE / "csrc" / "column_kernel.cu"
 BUILD_DIR = _PACKAGE / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 #: per-column kernel inputs, in the order of ``enum Param`` in the source
@@ -79,6 +95,7 @@ PARAM_NAMES = (
     "inv_n", "alpha_pow_neg_n", "ln_kappa_sat_unfrozen", "ln_kappa_sat_frozen",
     "kappa_dry", "neg_b", "kersten_exp_unfrozen", "kersten_exp_bracket",
     "kersten_exp_frozen", "visc_gamma", "visc_T_ref", "impedance_coef",
+    "kappa_sat_unfrozen", "alpha", "n", "tau",
 )
 #: (face, component) of each BC slot, in the order of ``enum BCSlot``
 BC_SLOTS = (
@@ -89,6 +106,9 @@ _BC_KIND = {VerticalFlux: 1, Dirichlet: 2, FreeDrainage: 3}
 _STAGES = 3  # SSPRK33
 _FN_NAMES = {torch.float32: "column_kernel_ssprk33_f32",
              torch.float64: "column_kernel_ssprk33_f64"}
+
+#: bits of the kernel's mode word, as ``enum Mode`` in the source
+MODE_LAGGED, MODE_FREEZE_RATE, MODE_FREEZE_EQ, MODE_NO_ICE = 1, 2, 4, 8
 
 _P = len(PARAM_NAMES)
 _B = len(BC_SLOTS)
@@ -114,6 +134,8 @@ class _KernelArgs(ctypes.Structure):
         ("n_steps", ctypes.c_int64),
         ("viscosity", ctypes.c_int64),
         ("impedance", ctypes.c_int64),
+        ("mode", ctypes.c_int64),
+        ("n_iter", ctypes.c_int64),
         ("dt", ctypes.c_double),
         ("dz", ctypes.c_double),
         ("T_0", ctypes.c_double),
@@ -121,6 +143,10 @@ class _KernelArgs(ctypes.Structure):
         ("LH_f0", ctypes.c_double),
         ("rho_cp_l", ctypes.c_double),
         ("rho_cp_i", ctypes.c_double),
+        ("rho_cloud_liq", ctypes.c_double),
+        ("grav", ctypes.c_double),
+        ("T_lo", ctypes.c_double),
+        ("T_hi", ctypes.c_double),
     ]
 
 
@@ -145,7 +171,9 @@ def _nvcc() -> str:
 def build_library() -> Path:
     """Compile the kernel source into ``_build/`` (once per source and flag
     set; concurrent processes serialize on a lock file and publish the
-    library by atomic rename).  Returns the library's path."""
+    library by atomic rename).  ptxas's report (registers and spills of each
+    template instance) is kept beside it as ``<library>.ptxas.txt``.
+    Returns the library's path."""
     digest = hashlib.sha256(
         SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
@@ -164,6 +192,7 @@ def build_library() -> Path:
                     f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
                     f"{proc.stdout}{proc.stderr}"
                 )
+            lib.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
             os.replace(tmp, lib)
     return lib
 
@@ -194,9 +223,45 @@ def load_library() -> ctypes.CDLL:
     return _library
 
 
-#: launches of the column kernel by every run in this process; a caller may
-#: reset it to 0 and read it back around a run
-LAUNCHES = 0
+#: launches of the column kernel by every run in this process, per mode
+#: (:func:`mode_name`); a caller may clear it and read it back around a run
+LAUNCHES: collections.Counter = collections.Counter()
+
+
+def kernel_mode(model: SoilModel) -> int:
+    """The kernel's mode word for ``model``: ``MODE_*`` bits."""
+    mode = MODE_LAGGED if model.coefficient_update == "step" else 0
+    if isinstance(model.freeze_thaw, FreezeThaw):
+        mode |= MODE_FREEZE_RATE
+    elif isinstance(model.freeze_thaw, EquilibriumFreezeThaw):
+        mode |= MODE_FREEZE_EQ
+    if model.assume_no_ice:
+        mode |= MODE_NO_ICE
+    return mode
+
+
+def mode_name(mode: int) -> str:
+    """The kernel table's name of a mode: ``B1`` (stage coefficients) or
+    ``B2`` (lagged), ``-no-ice`` for ``assume_no_ice``, and ``B3-rate`` /
+    ``B3-eq`` for freeze-thaw (``B2+B3-rate`` with lagged coefficients)."""
+    name = "B2" if mode & MODE_LAGGED else "B1"
+    if mode & MODE_NO_ICE:
+        name += "-no-ice"
+    freeze = {MODE_FREEZE_RATE: "B3-rate", MODE_FREEZE_EQ: "B3-eq"}.get(
+        mode & (MODE_FREEZE_RATE | MODE_FREEZE_EQ)
+    )
+    if freeze:
+        name = freeze if name == "B1" else f"{name}+{freeze}"
+    return name
+
+
+def scratch_fields(mode: int) -> int:
+    """Scratch values per cell: the two SSPRK33 stage states, and with
+    lagged coefficients K, kappa, 1/rho_c_s, rho_e_int_l K (and rho_c_s for
+    the rate sources)."""
+    if not mode & MODE_LAGGED:
+        return 6
+    return 11 if mode & MODE_FREEZE_RATE else 10
 
 
 # --------------------------------------------------------------------------
@@ -216,6 +281,7 @@ def column_params(model: SoilModel) -> dict:
     imp = hydrology.impedance_factor
     is_visc = isinstance(visc, TemperatureDependentViscosity)
     is_imp = isinstance(imp, IceImpedance)
+    ft = model.freeze_thaw
     return {
         "nu": sp.nu,
         "S_s": sp.S_s,
@@ -237,6 +303,10 @@ def column_params(model: SoilModel) -> dict:
         "visc_gamma": visc.gamma if is_visc else 0.0,
         "visc_T_ref": visc.T_ref if is_visc else 0.0,
         "impedance_coef": (-math.log(10.0)) * imp.omega if is_imp else 0.0,
+        "kappa_sat_unfrozen": sp.kappa_sat_unfrozen,
+        "alpha": hm.alpha,
+        "n": hm.n,
+        "tau": ft.tau if isinstance(ft, FreezeThaw) else 1.0,
     }
 
 
@@ -315,16 +385,30 @@ def bc_tables(
 # --------------------------------------------------------------------------
 
 
+_POLICY_STEPPERS = (LaggedCoefficientStepper, PhaseEquilibriumStepper)
+
+
+def _base_stepper(stepper):
+    """``stepper`` without the step-policy wrappers the model implies."""
+    while isinstance(stepper, _POLICY_STEPPERS):
+        stepper = stepper.inner
+    return stepper
+
+
 def fused_column_run_plain(
     model: SoilModel, stepper: AbstractTimestepper, dt, steps_per_call: int, Y: dict, t0
 ) -> dict:
     """The plain PyTorch version of one kernel launch: ``steps_per_call``
-    eager ``stepper.step(make_rhs(model))`` calls from ``t0``.  Returns a new
+    eager ``stepper.step(make_rhs(model))`` calls from ``t0``, with the
+    model's step policies wrapped around ``stepper`` as ``Simulation`` wraps
+    them (projection inside, lagged coefficients outside).  Returns a new
     state and leaves ``Y`` as it was."""
     dtype = model.float_dtype
     device = Y[model.name]["vartheta_l"].device
     grid = make_function_space(model.domain, dtype, device)
     rhs = make_rhs(model, grid)
+    stepper = wrap_stepper_with_projection(_base_stepper(stepper), model)
+    stepper = wrap_stepper_for_soil(stepper, model, grid)
     Ya = {"zc": grid.zc, model.name: {}}
     dt_t = torch.as_tensor(dt, dtype=dtype)
     for t in step_times(t0, dt, steps_per_call, dtype):
@@ -337,13 +421,14 @@ class FusedColumnRun:
     ``t0``, **in place**: the tensors of ``Y`` are overwritten and ``Y`` is
     returned.  CUDA tensors go through the kernel (or the call raises); CPU
     tensors through :func:`fused_column_run_plain`.  Each launch adds one
-    to the module's ``LAUNCHES``."""
+    to the module's ``LAUNCHES`` under the name of its mode."""
 
     def __init__(self, model: SoilModel, dt: float, steps_per_call: int, tile_cols: int):
         self.model = model
         self.dt = float(dt)
         self.steps_per_call = int(steps_per_call)
         self.tile_cols = int(tile_cols)
+        self.mode = kernel_mode(model)
         self._device_inputs = {}  # (device, ncol) -> (params, zc, dz, BC tables)
 
     def __call__(self, Y: dict, t0) -> dict:
@@ -400,7 +485,6 @@ class FusedColumnRun:
         return self._device_inputs[key]
 
     def _launch(self, fields, t0, device):
-        global LAUNCHES
         model = self.model
         dtype = model.float_dtype
         nz, ncol = fields[0].shape
@@ -408,7 +492,7 @@ class FusedColumnRun:
         tables = bc_tables(
             model, t0, self.dt, self.steps_per_call, ncol, device, reuse=constant_tables
         )
-        scratch = torch.empty(6 * nz * ncol, dtype=dtype, device=device)
+        scratch = torch.empty(scratch_fields(self.mode) * nz * ncol, dtype=dtype, device=device)
         args = kernel_args(
             model, fields, scratch, zc, dz, params, tables, self.steps_per_call, self.dt
         )
@@ -420,7 +504,7 @@ class FusedColumnRun:
             )
         if rc != 0:
             raise RuntimeError(f"column kernel launch failed: cudaError {rc}")
-        LAUNCHES += 1
+        LAUNCHES[mode_name(self.mode)] += 1
 
 
 def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt) -> _KernelArgs:
@@ -445,6 +529,10 @@ def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt) -> 
     a.nz, a.ncol, a.n_steps = nz, ncol, n_steps
     a.viscosity = int(isinstance(hydrology.viscosity_factor, TemperatureDependentViscosity))
     a.impedance = int(isinstance(hydrology.impedance_factor, IceImpedance))
+    a.mode = kernel_mode(model)
+    ft = model.freeze_thaw
+    if isinstance(ft, EquilibriumFreezeThaw):
+        a.n_iter, a.T_lo, a.T_hi = int(ft.n_iter), float(ft.T_lo), float(ft.T_hi)
     a.dt = dt
     a.dz = dz
     a.T_0 = ps.T_0
@@ -452,6 +540,8 @@ def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt) -> 
     a.LH_f0 = ps.LH_f0
     a.rho_cp_l = ps.rho_cp_l
     a.rho_cp_i = ps.rho_cp_i
+    a.rho_cloud_liq = ps.rho_cloud_liq
+    a.grav = ps.grav
     return a
 
 
@@ -475,10 +565,6 @@ def _check_model(model) -> None:
             "the fused kernel runs the coupled (SoilEnergyModel, "
             "SoilHydrologyModel) branch only; the water-only and heat-only "
             "branches of kernel B1 are not ported yet (ROADMAP B1)"
-        )
-    if model.assume_no_ice:
-        raise NotImplementedError(
-            "assume_no_ice is not ported to the fused kernel yet (ROADMAP B1)"
         )
     if len(model.domain.batch_shape) != 1:
         raise ValueError(
@@ -514,16 +600,30 @@ def make_fused_column_run(
     differentiable: bool = False,
 ) -> FusedColumnRun:
     """Build ``run(Y, t0) -> Y`` advancing ``steps_per_call`` SSPRK33 steps
-    per call **in place** (see :class:`FusedColumnRun`).  ``tile_cols`` is
+    per call **in place** (see :class:`FusedColumnRun`).  The kernel's mode
+    follows the model (:func:`kernel_mode`); ``stepper`` is SSPRK33, bare or
+    in the step-policy wrappers ``Simulation`` puts around it.  ``tile_cols`` is
     the number of columns (threads) per CUDA block, a multiple of 32 up to
     1024; ``ncol`` need not be a multiple of it.  Time advances
     ``steps_per_call * dt`` per call."""
     _check_model(model)
-    if type(stepper) is not SSPRK33:
+    base = _base_stepper(stepper)
+    if type(base) is not SSPRK33:
         raise NotImplementedError(
-            f"the fused kernel steps with SSPRK33 only; {type(stepper).__name__} "
+            f"the fused kernel steps with SSPRK33 only; {type(base).__name__} "
             "is not ported (implicit steps are kernel B4, ROADMAP A10)"
         )
+    # the kernel's step policies come from the model: a policy wrapper the
+    # model does not call for would otherwise be dropped silently
+    implied = wrap_stepper_for_soil(wrap_stepper_with_projection(base, model), model)
+    st = stepper
+    while isinstance(st, _POLICY_STEPPERS):
+        if not _chain_contains(implied, type(st)):
+            raise ValueError(
+                f"{type(st).__name__} in the stepper, but the model's "
+                "coefficient_update / freeze_thaw do not call for it"
+            )
+        st = st.inner
     if streamed_geometry is not None:
         raise NotImplementedError(
             "streamed geometry (kernel B8) is not ported yet: ROADMAP A13"

@@ -19,6 +19,8 @@ from typing import Optional
 
 import torch
 
+from landhydrology_tpu_torch.models.soil.freeze_thaw import wrap_stepper_with_projection
+from landhydrology_tpu_torch.models.soil.lagged import wrap_stepper_for_soil
 from landhydrology_tpu_torch.models.soil.rhs import make_rhs
 from landhydrology_tpu_torch.timestepping import SSPRK33, AbstractTimestepper, tree_map
 
@@ -83,6 +85,12 @@ class Simulation:
         if engine not in ("torch", "fused"):
             raise ValueError(f"unknown engine {engine!r}")
         self.model = model
+        # step policies, as the JAX package applies them: the equilibrium
+        # projection wraps the stepper and the lagged-coefficient policy is
+        # outermost, so each step is coefficients, stages, projection; the
+        # fused engine runs the same order inside the kernel
+        stepper = wrap_stepper_with_projection(stepper, model)
+        stepper = wrap_stepper_for_soil(stepper, model)
         self.stepper = stepper
         self.dt = float(dt)
         self.tspan = (float(tspan[0]), float(tspan[1]))

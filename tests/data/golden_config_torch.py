@@ -1,7 +1,14 @@
-"""Golden #1 (``golden_config.build_model_and_state``) built with the
-PyTorch port alone, with no JAX: the same ``np.random.default_rng(42)``
-draws in the same order, the same model, the same initial state.  The
-reference trajectory is ``golden_coupled_f64.npz``."""
+"""Goldens built with the PyTorch port alone, with no JAX.
+
+- ``build_model_and_state``: golden #1 (``golden_config.build_model_and_state``),
+  the same ``np.random.default_rng(42)`` draws in the same order, the same
+  model, the same initial state; its trajectory is ``golden_coupled_f64.npz``,
+  and with ``coefficient_update="step"`` ``golden_lagged_f64.npz``.
+- ``build_freeze_model_and_state``: the freeze-thaw golden
+  (``golden_config.build_freeze_model_and_state``), ``golden_freeze_f64.npz``.
+
+The builders put their tensors on ``device``, the card unless the caller
+asks for ``"cpu"``."""
 
 import numpy as np
 
@@ -11,7 +18,7 @@ NCOL = 8
 DT = 10.0
 
 
-def build_model_and_state(dtype, device="cpu"):
+def build_model_and_state(dtype, device="cuda"):
     import torch
 
     from landhydrology_tpu_torch import (
@@ -91,3 +98,68 @@ def build_model_and_state(dtype, device="cpu"):
 
     Y, Ya = initialize_states(model, ic, 0.0)
     return model, Y, Ya, DT
+
+
+FREEZE_STEPS = 64
+FREEZE_DT = 5.0
+
+
+def build_freeze_model_and_state(dtype, device="cuda", nz=16, ncol=4, freeze_thaw=None):
+    """Freeze-thaw golden: a coupled column cooled from above through the
+    freezing point with rate-based phase change (``FreezeThaw(tau=60)``).
+    ``nz``, ``ncol`` and ``freeze_thaw`` widen it or swap the scheme; the
+    defaults are the golden's."""
+    import torch
+
+    from landhydrology_tpu_torch import (
+        Column,
+        Dirichlet,
+        SoilColumnBC,
+        SoilComponentBC,
+        SoilEnergyModel,
+        SoilHydrologyModel,
+        SoilModel,
+        SoilParams,
+        VerticalFlux,
+        initialize_states,
+    )
+    from landhydrology_tpu_torch.constants import default_earth_param_set as ps
+    from landhydrology_tpu_torch.models.soil import vanGenuchten
+    from landhydrology_tpu_torch.models.soil.freeze_thaw import FreezeThaw
+    from landhydrology_tpu_torch.models.soil.heat import (
+        volumetric_heat_capacity,
+        volumetric_internal_energy,
+    )
+
+    model = SoilModel(
+        domain=Column(zlim=(-1.0, 0.0), nelements=nz, batch_shape=(ncol,)),
+        energy_model=SoilEnergyModel(),
+        hydrology_model=SoilHydrologyModel(
+            hydraulic_model=vanGenuchten(n=2.0, alpha=2.6, Ksat=1e-7, theta_r=0.05)
+        ),
+        boundary_conditions=SoilColumnBC(
+            top=SoilComponentBC(
+                hydrology=VerticalFlux(0.0),
+                energy=Dirichlet(lambda t: 263.15),  # -10 C surface
+            ),
+            bottom=SoilComponentBC(hydrology=VerticalFlux(0.0), energy=VerticalFlux(0.0)),
+        ),
+        soil_param_set=SoilParams(nu=0.4, S_s=1e-3, rho_c_ds=1.3e6),
+        freeze_thaw=FreezeThaw(tau=60.0) if freeze_thaw is None else freeze_thaw,
+        dtype=dtype,
+        device=device,
+    )
+
+    def ic(z, m):
+        th = torch.full((nz, ncol), 0.3, dtype=dtype, device=device)
+        ti = torch.zeros((nz, ncol), dtype=dtype, device=device)
+        T = torch.full((nz, ncol), 274.0, dtype=dtype, device=device)  # just above freezing
+        rcs = volumetric_heat_capacity(th, ti, 1.3e6, ps)
+        return {
+            "vartheta_l": th,
+            "theta_i": ti,
+            "rho_e_int": volumetric_internal_energy(ti, rcs, T, ps),
+        }
+
+    Y, Ya = initialize_states(model, ic, 0.0)
+    return model, Y, Ya, FREEZE_DT

@@ -28,6 +28,7 @@ from landhydrology_tpu_torch import (
     Dirichlet,
     FreeDrainage,
     PrescribedAtmosForcing,
+    PrescribedHydrologyModel,
     PrescribedTemperatureModel,
     SoilColumnBC,
     SoilComponentBC,
@@ -60,10 +61,10 @@ def _assert_close_f64(got, ref, rtol=1e-12):
 
 
 def test_plain_run_matches_golden_in_place():
-    model, Y, _, dt = gct.build_model_and_state(torch.float64)
+    model, Y, _, dt = gct.build_model_and_state(torch.float64, "cpu")
     tensors = [Y["soil"][k] for k in FIELDS]
     run = ck.make_fused_column_run(model, SSPRK33(), dt=dt, steps_per_call=gct.N_STEPS)
-    before = ck.LAUNCHES
+    before = dict(ck.LAUNCHES)
     out = run(Y, 0.0)
     assert out is Y and all(Y["soil"][k] is t for k, t in zip(FIELDS, tensors))
     assert ck.LAUNCHES == before  # the CPU path launches no kernel
@@ -109,8 +110,8 @@ def test_plain_run_matches_jax_fused_kernel(case):
     jm, Y, dt, tile = _jax_case(case)
     spc, t0 = 4, 30.0
     ref = jax_fused(jm, JSSPRK33(), dt=dt, steps_per_call=spc, tile_cols=tile, interpret=True)(Y, t0)
-    Yt = state_from_numpy(Y)
-    ck.make_fused_column_run(model_from_reference(jm), SSPRK33(), dt=dt, steps_per_call=spc)(Yt, t0)
+    Yt = state_from_numpy(Y, device="cpu")
+    ck.make_fused_column_run(model_from_reference(jm, device="cpu"), SSPRK33(), dt=dt, steps_per_call=spc)(Yt, t0)
     _assert_close_f64(state_to_numpy(Yt)["soil"], {k: np.asarray(v) for k, v in ref["soil"].items()})
 
 
@@ -131,8 +132,8 @@ def test_ragged_column_count_runs():
     Yr = Y
     for i in range(6):
         Yr = JSSPRK33().step(rhs, Yr, {"zc": grid.zc, "soil": {}}, jnp.asarray(2.0 + i * 5.0), jnp.asarray(5.0))
-    Yt = state_from_numpy(Y)
-    ck.make_fused_column_run(model_from_reference(jm), SSPRK33(), dt=5.0, steps_per_call=6, tile_cols=32)(Yt, 2.0)
+    Yt = state_from_numpy(Y, device="cpu")
+    ck.make_fused_column_run(model_from_reference(jm, device="cpu"), SSPRK33(), dt=5.0, steps_per_call=6, tile_cols=32)(Yt, 2.0)
     _assert_close_f64(state_to_numpy(Yt)["soil"], jax.tree_util.tree_map(np.asarray, Yr)["soil"])
 
 
@@ -166,7 +167,7 @@ def test_bc_value_table_matches_direct_calls(value, shape, dtype):
 def test_constant_bc_tables_are_reused_across_launches():
     """Tables of constant BC values are built once per column count; the
     tables of callable values follow the launch's t0."""
-    model, _, _, dt = gct.build_model_and_state(torch.float64)
+    model, _, _, dt = gct.build_model_and_state(torch.float64, "cpu")
     run = ck.make_fused_column_run(model, SSPRK33(), dt=dt, steps_per_call=3)
     inputs = run._inputs(8, torch.device("cpu"))
     assert run._inputs(8, torch.device("cpu")) is inputs
@@ -191,7 +192,7 @@ def test_step_times_follow_the_kernel_arithmetic():
 
 
 def _golden_port():
-    return gct.build_model_and_state(torch.float64)[0]
+    return gct.build_model_and_state(torch.float64, "cpu")[0]
 
 
 class _LandLike:
@@ -206,11 +207,14 @@ class _LandLike:
 )
 def test_unported_modes_raise(mode):
     model = _golden_port()
-    if mode == "B2_lagged":
-        with pytest.raises(NotImplementedError, match="A8"):
-            dataclasses.replace(model, coefficient_update="step")
-    elif mode == "B3_freeze_thaw":
-        with pytest.raises(NotImplementedError, match="A9"):
+    if mode == "B2_lagged":  # ported: the water-only lagged branch is not
+        lagged_water_only = dataclasses.replace(
+            model, energy_model=PrescribedTemperatureModel(), coefficient_update="step"
+        )
+        with pytest.raises(NotImplementedError, match="branch"):
+            ck.make_fused_column_run(lagged_water_only)
+    elif mode == "B3_freeze_thaw":  # ported: an unknown scheme is refused
+        with pytest.raises(TypeError, match="FreezeThaw"):
             dataclasses.replace(model, freeze_thaw=object())
     elif mode == "B4_stepper":
         for stepper in (ForwardEuler(), SSPRK22()):
@@ -238,12 +242,17 @@ def test_unported_modes_raise(mode):
 
 
 def test_unported_branches_and_options_raise():
+    """The water-only and heat-only branches still raise; assume_no_ice is
+    ported and builds a run of the no-ice kernel."""
     model = _golden_port()
     water_only = dataclasses.replace(model, energy_model=PrescribedTemperatureModel())
     with pytest.raises(NotImplementedError, match="branch"):
         ck.make_fused_column_run(water_only)
-    with pytest.raises(NotImplementedError, match="assume_no_ice"):
-        ck.make_fused_column_run(dataclasses.replace(model, assume_no_ice=True))
+    heat_only = dataclasses.replace(model, hydrology_model=PrescribedHydrologyModel())
+    with pytest.raises(NotImplementedError, match="branch"):
+        ck.make_fused_column_run(heat_only)
+    run = ck.make_fused_column_run(dataclasses.replace(model, assume_no_ice=True))
+    assert ck.mode_name(run.mode) == "B1-no-ice"
 
 
 def test_factory_rejects_bad_configuration():
@@ -295,7 +304,7 @@ def test_argument_struct_mirrors_the_cuda_source():
 
 
 def test_kernel_args_pack_the_golden_model():
-    model, Y, _, dt = gct.build_model_and_state(torch.float64)
+    model, Y, _, dt = gct.build_model_and_state(torch.float64, "cpu")
     run = ck.make_fused_column_run(model, SSPRK33(), dt=dt, steps_per_call=3)
     fields = [Y["soil"][k] for k in FIELDS]
     params, zc, dz, constant_tables = run._inputs(8, torch.device("cpu"))
@@ -303,6 +312,7 @@ def test_kernel_args_pack_the_golden_model():
     scratch = torch.empty(6 * 24 * 8, dtype=torch.float64)
     a = ck.kernel_args(model, fields, scratch, zc, dz, params, tables, 3, dt)
     assert (a.nz, a.ncol, a.n_steps, a.dt, a.dz) == (24, 8, 3, 10.0, 1.2 / 24)
+    assert a.mode == 0 and a.rho_cloud_liq == 1.0e3 and a.grav == 9.81
     assert list(a.bc_kind) == [1, 3, 2, 2]  # flux, free drainage, Dirichlet x2
     nu = dict(zip(ck.PARAM_NAMES, params))["nu"]
     assert nu[1] == 1 and torch.equal(nu[0], model.soil_param_set.nu)
@@ -319,10 +329,10 @@ def test_cuda_kernel_matches_golden_and_plain(cuda_device, dtype):
     model, Y, _, dt = gct.build_model_and_state(dtype, cuda_device)
     plain = state_to_numpy(ck.fused_column_run_plain(model, SSPRK33(), dt, gct.N_STEPS, Y, 0.0))["soil"]
     run = ck.make_fused_column_run(model, SSPRK33(), dt=dt, steps_per_call=gct.N_STEPS)
-    before = ck.LAUNCHES
+    ck.LAUNCHES.clear()
     run(Y, 0.0)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES == before + 1
+    assert ck.LAUNCHES == {"B1": 1}
     got = state_to_numpy(Y)["soil"]
     if dtype == torch.float64:
         _assert_close_f64(got, golden)

@@ -42,9 +42,9 @@ RTOL = 1e-13
 def _assert_rhs_equal(jmodel, Y, Ya, t):
     """Port rhs == JAX rhs on the same model, state and time."""
     ref = jax_make_rhs(jmodel)(Y, Ya, jnp.asarray(t, dtype=jnp.float64))
-    model = model_from_reference(jmodel)
+    model = model_from_reference(jmodel, device="cpu")
     got = make_rhs(model)(
-        state_from_numpy(Y), state_from_numpy(Ya), torch.tensor(t, dtype=torch.float64)
+        state_from_numpy(Y, device="cpu"), state_from_numpy(Ya, device="cpu"), torch.tensor(t, dtype=torch.float64)
     )
     got, ref = state_to_numpy(got), {k: {f: np.asarray(v) for f, v in d.items()} for k, d in ref.items()}
     assert got.keys() == ref.keys() and got["soil"].keys() == ref["soil"].keys()
@@ -189,7 +189,7 @@ def test_rhs_no_dynamics():
     zc = _aux(jmodel)["zc"]
     Ya = {"zc": zc, "soil": {"T": jnp.full_like(zc, 288.0), "vartheta_l": jnp.zeros_like(zc),
                              "theta_i": jnp.zeros_like(zc)}}
-    assert make_rhs(model_from_reference(jmodel))({"soil": {}}, state_from_numpy(Ya), 0.0) == {"soil": {}}
+    assert make_rhs(model_from_reference(jmodel, device="cpu"))({"soil": {}}, state_from_numpy(Ya, device="cpu"), 0.0) == {"soil": {}}
 
 
 def test_rhs_missing_bc_raises():
@@ -200,4 +200,4 @@ def test_rhs_missing_bc_raises():
                      bottom=SoilComponentBC(hydrology=FreeDrainage(), energy=VerticalFlux(0.0))),
     )
     with pytest.raises(ValueError, match="f_rho_e_int"):
-        make_rhs(model_from_reference(jmodel))(state_from_numpy(_state()), state_from_numpy(_aux(jmodel)), 0.0)
+        make_rhs(model_from_reference(jmodel, device="cpu"))(state_from_numpy(_state(), device="cpu"), state_from_numpy(_aux(jmodel), device="cpu"), 0.0)

@@ -55,7 +55,7 @@ def _assert_solutions_equal(port_sol, jax_sol, rtol):
 
 def _port_case(dtype=torch.float64):
     jm, Y, Ya, dt = gc.build_model_and_state(jnp.float64)
-    return model_from_reference(jm, dtype=dtype), state_from_numpy(Y, dtype=dtype), jm, Y, Ya, dt
+    return model_from_reference(jm, dtype=dtype, device="cpu"), state_from_numpy(Y, dtype=dtype, device="cpu"), jm, Y, Ya, dt
 
 
 @pytest.mark.parametrize("tspan,saveat", [((0.0, 640.0), 160.0), ((0.0, 250.0), 100.0)],
@@ -110,7 +110,7 @@ def test_callbacks_match_jax(engine):
 
 @pytest.mark.parametrize("engine", ["torch", "fused"])
 def test_golden_f64(engine):
-    model, Y, Ya, dt = gct.build_model_and_state(torch.float64)
+    model, Y, Ya, dt = gct.build_model_and_state(torch.float64, "cpu")
     sol = Simulation(model, SSPRK33(), Y_init=Y, Ya_init=Ya, dt=dt, tspan=(0.0, gct.N_STEPS * dt),
                      engine=engine, steps_per_call=16).run()
     golden = np.load(GOLDEN)
@@ -122,7 +122,7 @@ def test_golden_f64(engine):
 
 @pytest.mark.parametrize("engine", ["torch", "fused"])
 def test_golden_f32_loose(engine):
-    model, Y, Ya, dt = gct.build_model_and_state(torch.float32)
+    model, Y, Ya, dt = gct.build_model_and_state(torch.float32, "cpu")
     sol = Simulation(model, SSPRK33(), Y_init=Y, Ya_init=Ya, dt=dt, tspan=(0.0, gct.N_STEPS * dt),
                      engine=engine, steps_per_call=32).run()
     assert sol.ts.dtype == torch.float32
@@ -137,14 +137,14 @@ def test_golden_f32_loose(engine):
 def test_golden_config_torch_reproduces_jax_config(dtype):
     jdtype = jnp.float64 if dtype == torch.float64 else jnp.float32
     jm, Y, Ya, dt = gc.build_model_and_state(jdtype)
-    model, Yt, Yat, dtt = gct.build_model_and_state(dtype)
+    model, Yt, Yat, dtt = gct.build_model_and_state(dtype, "cpu")
     assert dt == dtt and (gct.NZ, gct.NCOL, gct.N_STEPS) == (gc.NZ, gc.NCOL, gc.N_STEPS)
     for k in FIELDS:
         got = Yt["soil"][k]
         assert got.dtype == dtype and got.is_contiguous()
         np.testing.assert_array_equal(got.numpy(), np.asarray(Y["soil"][k]), err_msg=k)
     np.testing.assert_array_equal(Yat["zc"].numpy(), np.asarray(Ya["zc"]))
-    ref = model_from_reference(jm, dtype=dtype)
+    ref = model_from_reference(jm, dtype=dtype, device="cpu")
     for a, b in ((model.soil_param_set, ref.soil_param_set),
                  (model.hydrology_model.hydraulic_model, ref.hydrology_model.hydraulic_model)):
         for f in dataclasses.fields(a):
@@ -215,7 +215,7 @@ def test_package_imports_no_jax():
         "import landhydrology_tpu_torch.ops.cuda.column_kernel, landhydrology_tpu_torch.diagnostics\n"
         "import chip_smoke\n"
         "from tests.data import golden_config_torch as g\n"
-        "m, Y, Ya, dt = g.build_model_and_state(torch.float64)\n"
+        "m, Y, Ya, dt = g.build_model_and_state(torch.float64, 'cpu')\n"
         "landhydrology_tpu_torch.Simulation(m, Y_init=Y, Ya_init=Ya, dt=dt, tspan=(0, 2 * dt)).run()\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'landhydrology_tpu'))\n"
         "print(bad)\n"
@@ -238,7 +238,7 @@ def test_steppers_match_jax(name):
 
     model, Yt, jm, Y, Ya, dt = _port_case()
     jrhs, rhs = jax_make_rhs(jm), make_rhs(model)
-    Yat = state_from_numpy(Ya)
+    Yat = state_from_numpy(Ya, device="cpu")
     jstep, step = getattr(jts, name)(), getattr(tts, name)()
     dt_t = torch.tensor(dt, dtype=torch.float64)
     for i in range(3):
@@ -247,3 +247,32 @@ def test_steppers_match_jax(name):
         Yt = step.step(rhs, Yt, Yat, torch.tensor(t, dtype=torch.float64), dt_t)
     for k in FIELDS:
         np.testing.assert_allclose(Yt["soil"][k].numpy(), np.asarray(Y["soil"][k]), rtol=1e-13, atol=1e-18, err_msg=k)
+
+
+def test_entry_points_default_to_the_card():
+    """SoilModel, make_function_space, model_from_reference, state_from_numpy
+    and the golden builders name CUDA unless the caller asks for the CPU;
+    without a GPU, building tensors on that default raises (there is no
+    silent CPU path)."""
+    import inspect
+
+    from landhydrology_tpu_torch import Column, SoilModel, make_function_space
+
+    model = SoilModel(domain=Column(zlim=(-1.0, 0.0), nelements=4, batch_shape=(2,)))
+    assert model.device == "cuda"
+    for fn in (make_function_space, model_from_reference, state_from_numpy,
+               gct.build_model_and_state, gct.build_freeze_model_and_state):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    jm = gc.build_model_and_state(jnp.float64)[0]
+    attempts = (
+        lambda: model.default_initial_conditions()[0]["soil"]["vartheta_l"],
+        lambda: make_function_space(model.domain).zc,
+        lambda: model_from_reference(jm).soil_param_set.nu,
+        lambda: state_from_numpy({"soil": {"vartheta_l": np.zeros((4, 2))}})["soil"]["vartheta_l"],
+    )
+    for attempt in attempts:
+        if torch.cuda.is_available():
+            assert attempt().device.type == "cuda"
+        else:
+            with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+                attempt()
