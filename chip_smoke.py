@@ -7,15 +7,23 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
 ``_check``):
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles ``landhydrology_tpu_torch/csrc/column_kernel.cu`` with
-   nvcc, and reads the instruction cost of exp, log, sqrt and a division
-   from ``cuobjdump -sass`` of small kernels (``op_costs``), for the bounds;
-3. goldens in f64 through the kernel (rtol 1e-12, atol 1e-16): golden #1
+2. build: compiles ``landhydrology_tpu_torch/csrc/column_kernel.cu`` and
+   ``csrc/implicit_kernel.cu`` with nvcc, one process each, in parallel;
+   prints the registers of every template instance; reads the instruction
+   cost of exp, log, sqrt and a division from ``cuobjdump -sass`` of small
+   kernels (``op_costs``), for the bounds;
+3. goldens in f64 through the kernels (rtol 1e-12, atol 1e-16): golden #1
    against ``golden_coupled_f64.npz`` in modes B1 and B1-no-ice, and against
    ``golden_lagged_f64.npz`` in B2 and B2-no-ice (64 steps of dt=10); the
    freeze golden against ``golden_freeze_f64.npz`` in B3-rate, and in B3-eq,
    B2+B3-rate and B2+B3-eq against the plain version (64 steps of dt=5);
-   then BC/parameter variants on 1,000 columns in B1, B2, B3-rate and B3-eq;
+   golden #1 under ``TRBDF2Soil(iters=3)`` against ``golden_implicit_f64.npz``
+   (16 steps of dt=120; Thomas at rtol 1e-12, PCR within atol 1e-9), and
+   under ``BackwardEulerSoil`` / ``BackwardEulerRichards`` against the plain
+   version; the JAX fused tests' implicit cases (the stiff infiltration at
+   20x CFL, heterogeneous parameters, PCR against Thomas); then BC/parameter
+   variants on 1,000 columns in B1, B2, B3-rate, B3-eq, B1-water, B1-heat,
+   B4-trbdf2-water and B4-trbdf2-heat, f64 and f32;
 4. the main paths at full width: ``Simulation(model, SSPRK33(),
    engine="fused")`` on the benchmark configuration (nz=64, ncol=65,536,
    steps_per_call=32, 96 steps of dt=1, saved every 32 steps) in float32 and
@@ -29,8 +37,20 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    with moisture and temperature varied by column, under ``FreezeThaw(tau=60)``
    (B3-rate) and ``EquilibriumFreezeThaw()`` (B3-eq), 64 steps of dt=5 in two
    launches, f32 and f64, driven and checked as in phase 4; ice must form;
-6. times of every mode's kernel and plain version at its phase-4/5 shape
-   (CUDA events, in turns), beside the least time the card could take.
+8. the stiff path at full width (``bench.py``'s ``implicit`` path):
+   ``bench.py::build_stiff`` at nz=64 x 65,536, ``dt_exp`` as bench.py
+   computes it; ``TRBDF2Soil(iters=2)`` at 40 dt_exp, 8 steps in one launch
+   (Thomas, and PCR), and SSPRK33 at dt_exp over the same horizon (320
+   steps, 8 launches), f32 and f64, driven and checked as in phase 4, with
+   the matched-horizon RMSE (below 1e-2, bench.py's gate) and maximum
+   deviation, and each path's wall time end to end;
+9. the other new modes at full width: B1-heat and B4-trbdf2-heat on a
+   heat-only column, B4-trbdf2, B4-be-soil and B4-be-richards on the
+   benchmark configuration, B4-be-richards-water on the stiff column, f32
+   and f64, driven and checked as in phase 4;
+6. times of every mode's kernel and plain version at its phase-4/5/8/9
+   shape (CUDA events, in turns), beside the least time the card could take,
+   and the scratch traffic per cell and step of the implicit kernel.
 
 With ``--profile`` a seventh phase follows for B1 and B2 at the phase-4
 shape: six timings each of the kernel and the plain version in turns, a
@@ -39,8 +59,9 @@ shape: six timings each of the kernel and the plain version in turns, a
 (device busy time, its share of the wall time, the kernel's share of both).
 
 Exits non-zero on any failure, and without a result when no GPU is present.
-The line before the last two is the ``{"kernels": [...]}`` record; the last
-line is ``{"ok": true, "device": {...}}``.
+The line before the last three is the whole run's time, the line before
+the last two the ``{"kernels": [...]}`` record, then the card's name and
+power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -49,6 +70,7 @@ import argparse
 import collections
 import dataclasses
 import importlib.util
+import math
 import re
 import shutil
 import json
@@ -63,6 +85,7 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 NZ, NCOL, N_STEPS, SPC, DT = 64, 65536, 96, 32, 1.0
 FREEZE_STEPS, FREEZE_DT = 64, 5.0  # the freeze golden's run, in two launches
+STIFF_FACTOR, STIFF_STEPS = 40, 8  # bench.py's --implicit-dt-factor and spc_im
 #: the TPU kernel every mode replaces: pl.pallas_call of _run
 REPLACES = "landhydrology_tpu/ops/pallas/column_kernel.py:624"
 #: H100 SXM data sheet: HBM3 bytes/s, and FLOP/s outside the tensor cores
@@ -214,6 +237,141 @@ def build_freeze_wide(gc, dtype, device, freeze_thaw):
     return model, Y, Ya, dt
 
 
+def build_stiff(nz, ncol, dtype, device):
+    """``bench.py::build_stiff``, built with the port's API: the stiff sand
+    infiltration (``richards_equation.jl:98-190``), water-only, a callable
+    Dirichlet top at 0.267 and free drainage below, initial moisture
+    0.10-0.12 varied by column."""
+    from landhydrology_tpu_torch import (
+        Column, Dirichlet, FreeDrainage, PrescribedTemperatureModel, SoilColumnBC,
+        SoilComponentBC, SoilHydrologyModel, SoilModel, SoilParams, initialize_states,
+    )
+    from landhydrology_tpu_torch.models.soil import vanGenuchten
+
+    model = SoilModel(
+        domain=Column(zlim=(-1.5, 0.0), nelements=nz, batch_shape=(ncol,)),
+        energy_model=PrescribedTemperatureModel(),
+        hydrology_model=SoilHydrologyModel(
+            hydraulic_model=vanGenuchten(n=3.96, alpha=2.7, Ksat=34.0 / 3600.0 / 100.0, theta_r=0.075)
+        ),
+        boundary_conditions=SoilColumnBC(
+            top=SoilComponentBC(hydrology=Dirichlet(lambda t: 0.267)),
+            bottom=SoilComponentBC(hydrology=FreeDrainage()),
+        ),
+        soil_param_set=SoilParams(nu=0.287, S_s=1e-3),
+        dtype=dtype, device=device,
+    )
+
+    def ic(z, m):
+        col = torch.arange(ncol, dtype=dtype, device=device)[None, :] / ncol
+        theta = 0.10 + 0.02 * col + 0.0 * z
+        return {"vartheta_l": theta.expand(nz, ncol), "theta_i": torch.zeros((nz, ncol), dtype=dtype, device=device)}
+
+    Y, Ya = initialize_states(model, ic, 0.0)
+    return model, Y, Ya
+
+
+def stiff_dt_explicit(model, Y):
+    """``dt_exp`` of bench.py's implicit path: half the explicit limit at
+    the sharpest state the run can visit, the dry initial value 0.1 and the
+    Dirichlet value 0.267 on alternating cells."""
+    from landhydrology_tpu_torch.diagnostics import explicit_dt_limit
+
+    v = Y["soil"]["vartheta_l"]
+    levels = torch.arange(v.shape[0], device=v.device)[:, None] % 2 == 0
+    dry, wet = (torch.tensor(x, dtype=v.dtype, device=v.device) for x in (0.1, 0.267))
+    front = torch.where(levels, dry, wet).expand(v.shape)
+    return 0.5 * float(explicit_dt_limit(model, {"soil": dict(Y["soil"], vartheta_l=front)}))
+
+
+def build_heat_only(nz, ncol, dtype, device, seed=None):
+    """A heat-only column (PrescribedHydrologyModel, the branch of
+    ``tests/soil/test_heat.py``): the benchmark configuration's soil with
+    prescribed moisture 0.25 + 0.05 z (+ 1e-6 t) and a little ice, a
+    callable Dirichlet top at 281 K and a zero-flux bottom (with ``seed``: a
+    per-column flux); temperature 284-290 K varied by column."""
+    from landhydrology_tpu_torch import (
+        Dirichlet, PrescribedHydrologyModel, SoilColumnBC, SoilComponentBC, VerticalFlux,
+    )
+    from landhydrology_tpu_torch.constants import default_earth_param_set as ps
+    from landhydrology_tpu_torch.models.soil.heat import (
+        volumetric_heat_capacity, volumetric_internal_energy,
+    )
+
+    model, _, _ = build_bench_model(nz, ncol, dtype, device)
+    flux = 0.0
+    if seed is not None:
+        flux = torch.as_tensor(np.random.default_rng(seed).uniform(-5.0, 5.0, ncol), dtype=dtype, device=device)
+    model = dataclasses.replace(
+        model,
+        hydrology_model=PrescribedHydrologyModel(
+            vartheta_l_profile=lambda z, t: 0.25 + 0.05 * z + 1e-6 * t,
+            theta_i_profile=lambda z, t: 0.01 + 0.0 * z,
+        ),
+        boundary_conditions=SoilColumnBC(
+            top=SoilComponentBC(energy=Dirichlet(lambda t: 281.0 + 0.0 * t)),
+            bottom=SoilComponentBC(energy=VerticalFlux(flux)),
+        ),
+    )
+    from landhydrology_tpu_torch.domains import make_function_space
+
+    z = make_function_space(model.domain, dtype, device).zc
+    col = torch.arange(ncol, dtype=dtype, device=device)[None, :] / ncol
+    T = (284.0 + 6.0 * col + 2.0 * z).expand(nz, ncol)
+    theta, theta_i = (0.25 + 0.05 * z).expand(nz, ncol), torch.full((nz, ncol), 0.01, dtype=dtype, device=device)
+    rho_c_s = volumetric_heat_capacity(theta, theta_i, model.soil_param_set.rho_c_ds, ps)
+    Y = {"soil": {"rho_e_int": volumetric_internal_energy(theta_i, rho_c_s, T, ps).contiguous()}}
+    return model, Y, {"zc": z, "soil": {}}
+
+
+def build_kernel_test_model(top, bottom, nz, ncol, dtype, device, seed=0, heterogeneous=False):
+    """The coupled column of the JAX package's fused-kernel tests
+    (``tests/test_pallas_kernel.py::_model/_state``): the benchmark soil with
+    the given hydrology BCs, zero-flux energy faces and random moisture and
+    temperature; with ``heterogeneous`` per-column van Genuchten parameters
+    and porosity (``:476-519``)."""
+    from landhydrology_tpu_torch import SoilColumnBC, SoilComponentBC, VerticalFlux
+    from landhydrology_tpu_torch.constants import default_earth_param_set as ps
+    from landhydrology_tpu_torch.models.soil import vanGenuchten
+    from landhydrology_tpu_torch.models.soil.heat import (
+        volumetric_heat_capacity, volumetric_internal_energy,
+    )
+
+    model, _, _ = build_bench_model(nz, ncol, dtype, device)
+    model = dataclasses.replace(model, boundary_conditions=SoilColumnBC(
+        top=SoilComponentBC(hydrology=top, energy=VerticalFlux(0.0)),
+        bottom=SoilComponentBC(hydrology=bottom, energy=VerticalFlux(0.0)),
+    ))
+    rng = np.random.default_rng(seed)
+
+    def tensor(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    if heterogeneous:
+        hm = vanGenuchten(n=tensor(rng.uniform(1.8, 3.0, ncol)), alpha=tensor(rng.uniform(1.5, 4.0, ncol)),
+                          Ksat=tensor(rng.uniform(1e-7, 1e-5, ncol)), theta_r=tensor(rng.uniform(0.0, 0.05, ncol)))
+        model = dataclasses.replace(
+            model,
+            hydrology_model=dataclasses.replace(model.hydrology_model, hydraulic_model=hm),
+            soil_param_set=dataclasses.replace(model.soil_param_set, nu=tensor(rng.uniform(0.45, 0.55, ncol))),
+        )
+    theta = tensor(0.3 + 0.1 * rng.random((nz, ncol)))
+    theta_i = torch.zeros_like(theta)
+    T = tensor(285.0 + 5.0 * rng.random((nz, ncol)))
+    rho_c_s = volumetric_heat_capacity(theta, theta_i, model.soil_param_set.rho_c_ds, ps)
+    return model, {"soil": {"vartheta_l": theta, "theta_i": theta_i,
+                            "rho_e_int": volumetric_internal_energy(theta_i, rho_c_s, T, ps)}}
+
+
+def implicit(name, model, iters=2, tridiag="thomas"):
+    """The port's implicit stepper ``name`` for ``model``, on its grid."""
+    from landhydrology_tpu_torch import imex
+    from landhydrology_tpu_torch.domains import make_function_space
+
+    grid = make_function_space(model.domain, model.float_dtype, model.device)
+    return getattr(imex, name)(model=model, grid=grid, iters=iters, tridiag=tridiag)
+
+
 # ---- the least time the card could take ----
 
 #: small kernels whose SASS gives the cost of one call of each operation
@@ -274,65 +432,169 @@ def op_costs(ck):
     return costs
 
 
-def registers(ck, lib):
-    """``{kernel name: registers per thread}`` of each template instance,
-    from the ptxas report the build keeps beside the library."""
-    out, name = {}, None
-    for line in lib.with_suffix(".ptxas.txt").read_text().splitlines():
-        m = re.search(r"Compiling entry function '\w*ssprk33_column_kernelI([fd])Li(\d+)E", line)
-        if m:
-            name = f"{'f32' if m.group(1) == 'f' else 'f64'}, {ck.mode_name(int(m.group(2)))}"
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name:
-            out[name], name = int(m.group(1)), None
+def registers(ck, libs):
+    """``{kernel name: registers per thread}`` of each template instance of
+    both kernels, from the ptxas reports the build keeps beside the
+    libraries."""
+    out = {}
+    for lib in libs.values():
+        name = None
+        for line in lib.with_suffix(".ptxas.txt").read_text().splitlines():
+            m = re.search(r"Compiling entry function '\w*?(ssprk33|implicit)_column_kernelI([fd])Li(\d+)E", line)
+            if m:
+                name = f"{'f32' if m.group(2) == 'f' else 'f64'}, {ck.mode_name(int(m.group(3)))}"
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                out[name], name = int(m.group(1)), None
     return out
 
 
-def cell_step_ops(ck, mode, n_iter=60):
-    """Operations per cell and step of one mode, counted from
-    ``csrc/column_kernel.cu``: calls of exp, log, pow, sqrt and divisions by
-    name, and the other floating-point operations (``op``; a multiply-add
-    counts once).  Work that depends on the data is left out (the frozen
-    Kersten branch, the conductivity factors, the boundary faces), so the
-    count is a lower bound."""
+#: operations per cell of the pieces the modes are made of, counted from
+#: csrc/column_common.cuh and the kernel sources (a multiply-add counts
+#: once); the data-dependent parts (the frozen Kersten branch, the
+#: conductivity factors, the boundary faces) are left out
+_HYDRAULIC = dict(op=22, div=2, exp=2, log=2, sqrt=1)  # conductivity()
+_THERMAL = dict(op=29, div=4, exp=3, log=2)  # T, rho_c_s, thermal_conductivity()
+_PSI = dict(op=13, div=2, exp=2, log=2)  # pressure_head()
+_TEMP = dict(op=5, div=1)  # rho_c_s and T of the coupled state (in _THERMAL)
+_DPSI = dict(op=25, div=2, exp=2, log=2)  # dpsi_dtheta()
+
+
+def cell_step_ops(ck, mode, n_iter=60, iters=2, nz=NZ):
+    """Operations per cell and step of one mode, counted from the sources:
+    calls of exp, log, pow, sqrt and divisions by name, and the other
+    floating-point operations (``op``; a multiply-add counts once).  Work
+    that depends on the data is left out, so the count is a lower bound.
+    The implicit modes count their rhs evaluations, the closed-form C of
+    each water sweep, and each sweep's assembly and solve (Thomas, or
+    ceil(log2 nz) PCR levels).  A water sweep reads only the vartheta_l
+    tendency, which needs no kappa: in the coupled branch its rhs counts K
+    at the T of the coupled state, and no thermal conductivity or energy
+    flux (the kernel computes them there all the same)."""
     no_ice = bool(mode & ck.MODE_NO_ICE)
-    closures = (dict(op=36, div=4, exp=4, log=4, sqrt=1) if no_ice  # closures<T, M>
-                else dict(op=51, div=6, exp=5, log=4, sqrt=1))
-    psi = dict(op=13, div=2, exp=2, log=2)  # pressure_head
-    flux = dict(op=21, div=4)  # interior face fluxes and the stage update
+    water = not mode & ck.MODE_HEAT
+    heat = not mode & ck.MODE_WATER
     ops = collections.Counter()
 
     def add(n, **counts):
         for k, v in counts.items():
             ops[k] += n * v
 
-    if mode & ck.MODE_LAGGED:  # coefficients once, then psi and T per stage
-        add(1, **closures)
-        add(1, op=5, div=1)  # nu_eff, theta_l, 1/rho_c_s, rho_e_int_l K
-        add(3, **psi)
-        add(3, **flux)
-        add(3, op=4 if no_ice else 7)  # nu_eff, theta_l, T, h
+    closures = (dict(op=36, div=4, exp=4, log=4, sqrt=1) if no_ice  # closures<T, M>
+                else dict(op=51, div=6, exp=5, log=4, sqrt=1))
+
+    def rhs(n, water_sweep=False):  # n rhs evaluations of the branch, with the face fluxes
+        if water and heat and not water_sweep:
+            add(n, **closures)
+            add(n, **_PSI)
+            add(n, op=6 + 15, div=4)  # nu_eff, theta_l, rho_e_int_l K, h; fluxes, divergence
+        elif water:  # the water-only branch, or a water sweep's water tendency
+            add(n, **_HYDRAULIC)
+            add(n, **_PSI)
+            add(n, op=3 + 8, div=2)
+            if heat:
+                add(n, **_TEMP)
+        else:
+            add(n, **_THERMAL)
+            add(n, op=2 + 7, div=2)
+
+    fields = (2 if water else 0) + (1 if heat else 0)
+    implicit = mode & ck.MODE_IMPLICIT
+    if not implicit:
+        if mode & ck.MODE_LAGGED:  # coefficients once, then psi and T per stage
+            add(1, **closures)
+            add(1, op=5, div=1)  # nu_eff, theta_l, 1/rho_c_s, rho_e_int_l K
+            add(3, **_PSI)
+            add(3, op=21, div=4)  # interior face fluxes and the stage update
+            add(3, op=4 if no_ice else 7)  # nu_eff, theta_l, T, h
+        else:
+            rhs(3)
+            add(3, op=2 * fields)  # the stage combination
+        if mode & ck.MODE_FREEZE_RATE:  # phase_change_sources per stage
+            add(3, op=26, div=5, pow=2)
+        if mode & ck.MODE_FREEZE_EQ:  # bisection, first residual, last partition
+            add(1, op=28 * n_iter + 41, div=n_iter + 2, pow=2 * n_iter + 4)
+        return ops
+    pcr = bool(mode & ck.MODE_PCR)
+    levels = math.ceil(math.log2(nz)) if nz > 1 else 0
+
+    def sweeps(n, water_sweep):
+        if water_sweep:
+            add(n, **_DPSI)
+        else:
+            add(n, div=1)  # 1 / rho_c_s
+        add(n, op=20)  # the row of I - w A and b
+        if pcr:
+            add(n, op=12 * levels, div=2 * levels + 1)
+        else:
+            add(n, op=7, div=1)  # elimination and back substitution
+        add(n, op=3 if water_sweep else 1)  # clamp, update
+
+    if mode & ck.MODE_TRBDF2:
+        rhs(1)  # f(u^n)
+        if water:
+            rhs(2 * iters, water_sweep=True)
+            sweeps(2 * iters, True)
+        if heat:
+            rhs(2 * iters)
+            sweeps(2 * iters, False)
+        add(1, op=5 * fields)  # c1 = u + w1 f, c2 = a1 u* + a2 u
     else:
-        add(3, **closures)
-        add(3, **psi)
-        add(3, **flux)
-        add(3, op=6)  # nu_eff, theta_l, rho_e_int_l K, h
-    if mode & ck.MODE_FREEZE_RATE:  # phase_change_sources per stage
-        add(3, op=26, div=5, pow=2)
-    if mode & ck.MODE_FREEZE_EQ:  # bisection, first residual, last partition
-        add(1, op=28 * n_iter + 41, div=n_iter + 2, pow=2 * n_iter + 4)
+        rhs(iters, water_sweep=True)
+        sweeps(iters, True)
+        if mode & ck.MODE_BE_SOIL:
+            rhs(iters)
+            sweeps(iters, False)
+        elif heat:  # BackwardEulerRichards' explicit update of theta_i, rho_e_int
+            rhs(1)
     return ops
 
 
-def bound_ms(ck, costs, mode, dtype, cells, steps, n_iter=60):
+def state_fields(ck, mode):
+    """Prognostic fields of the mode's branch: 3 coupled, 2 water-only
+    (vartheta_l, theta_i), 1 heat-only."""
+    return 1 if mode & ck.MODE_HEAT else 2 if mode & ck.MODE_WATER else 3
+
+
+def scratch_values_per_cell_step(ck, mode, iters=2):
+    """Global-memory accesses (loads plus stores) per cell and step that the
+    implicit kernel's design moves through its scratch and state, counted
+    from ``csrc/implicit_kernel.cu``: per Newton sweep the rhs pass (state
+    in, F, K, C out), the assembly (K and C at three levels, F, c, u in; cp,
+    dp out, or PCR's four fields and ceil(log2 nz) passes of twelve loads
+    and four stores), the back substitution (cp, dp, u in; u out)."""
+    water = not mode & ck.MODE_HEAT
+    heat = not mode & ck.MODE_WATER
+    fields = state_fields(ck, mode)
+    levels = math.ceil(math.log2(NZ))
+
+    def sweep(reads_state):
+        if mode & ck.MODE_PCR:  # assembly, the levels, x = b / d and the update
+            solve = 9 + 4 + (12 + 4) * levels + 2 + 2
+        else:  # assembly with the forward elimination, back substitution
+            solve = 9 + 2 + 4
+        return reads_state + 3 + solve
+
+    if mode & ck.MODE_TRBDF2:
+        per_stage = iters * ((sweep(fields) if water else 0) + (sweep(fields) if heat else 0) + (2 if water else 0))
+        return fields + 2 * fields + 2 * per_stage + 3 * fields + 2 * fields  # f(u^n), c2, copy back
+    n = iters * sweep(fields) + 2 * 2  # water sweeps, copies of vartheta_l
+    if mode & ck.MODE_BE_SOIL:
+        n += iters * sweep(fields) + 2 * 2
+    elif heat:
+        n += fields + 2
+    return n
+
+
+def bound_ms(ck, costs, mode, dtype, cells, steps, n_iter=60, iters=2):
     """``(ms, "bytes" or "operations")``: the larger of the state's bytes
-    (three fields read and written once per launch) over HBM bandwidth and
-    the floating-point instructions over the card's rate for the type (one
-    fused multiply-add, two FLOPs, per lane and clock)."""
-    ops = cell_step_ops(ck, mode, n_iter)
+    (the branch's fields read and written once per launch) over HBM
+    bandwidth and the floating-point instructions over the card's rate for
+    the type (one fused multiply-add, two FLOPs, per lane and clock)."""
+    ops = cell_step_ops(ck, mode, n_iter, iters)
     instructions = ops["op"] + sum(ops[k] * costs[dtype][k] for k in costs[dtype])
     itemsize = torch.finfo(dtype).bits // 8
-    t_bytes = 6 * itemsize * cells / HBM_BYTES_PER_S
+    t_bytes = 2 * state_fields(ck, mode) * itemsize * cells / HBM_BYTES_PER_S
     t_ops = cells * steps * instructions / (PEAK_FLOPS[dtype] / 2)
     return (1e3 * t_ops, "operations") if t_ops >= t_bytes else (1e3 * t_bytes, "bytes")
 
@@ -347,13 +609,16 @@ def _max_abs(a, b):
 
 def _check(a, b, dtype, what):
     """The repo's bars: f64 rtol 1e-12 (atol 1e-16); f32 atol 2e-4 on the
-    water contents and relative 5e-4 on rho_e_int."""
+    water contents and relative 5e-4 on rho_e_int (on the fields the branch
+    has)."""
     if dtype == torch.float64:
         for k in a:
             np.testing.assert_allclose(a[k], b[k], rtol=1e-12, atol=1e-16, err_msg=f"{what}/{k}")
-    else:
-        for k in ("vartheta_l", "theta_i"):
+        return
+    for k in ("vartheta_l", "theta_i"):
+        if k in a:
             np.testing.assert_allclose(a[k], b[k], rtol=0, atol=2e-4, err_msg=f"{what}/{k}")
+    if "rho_e_int" in a:
         rel = np.abs(a["rho_e_int"] - b["rho_e_int"]) / (np.abs(b["rho_e_int"]) + 1e3)
         if not np.max(rel) < 5e-4:
             raise AssertionError(f"{what}/rho_e_int: relative error {np.max(rel)} >= 5e-4")
@@ -538,38 +803,43 @@ def profile_main_path(dtype, device, smi, coefficient_update):
     print(events.table(sort_by=key, row_limit=8), flush=True)
 
 
-def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving):
-    """One main path: ``Simulation(model, SSPRK33(), engine="fused")`` for
-    ``n_steps`` steps saved every ``spc``, with the launch counts set to 0
-    just before the run and read just after, held against the plain version
-    (``_check``, or ``_check_freeze`` with freeze-thaw, and
-    ``_check_increment``).  Returns the kernel's final state, its launch
-    count and its largest deviation from the plain version."""
+def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving, stepper=None):
+    """One main path: ``Simulation(model, stepper, engine="fused")``
+    (SSPRK33 by default) for ``n_steps`` steps saved every ``spc``, with the
+    launch counts set to 0 just before the run and read just after, held
+    against the plain version (``_check``, or ``_check_freeze`` with
+    freeze-thaw, and ``_check_increment``).  Returns the kernel's final
+    state, its launch count, its largest deviation from the plain version
+    and the run's wall time in ms (host clock, synchronized)."""
     from landhydrology_tpu_torch import Simulation
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
+    stepper = SSPRK33() if stepper is None else stepper
     dtype = model.float_dtype
-    name = ck.mode_name(ck.kernel_mode(model))
+    name = ck.mode_name(ck.kernel_mode(model, stepper))
     sim = Simulation(
-        model, SSPRK33(), Y_init=Y0, Ya_init=Ya, dt=dt, tspan=(0.0, n_steps * dt),
+        model, stepper, Y_init=Y0, Ya_init=Ya, dt=dt, tspan=(0.0, n_steps * dt),
         saveat=spc * dt, engine="fused", steps_per_call=spc,
     )
     torch.cuda.synchronize()
     ck.LAUNCHES.clear()
+    t_wall = time.perf_counter()
     sol = sim.run()
     torch.cuda.synchronize()
+    wall = (time.perf_counter() - t_wall) * 1e3
     launches = dict(ck.LAUNCHES)
     if launches != {name: n_steps // spc}:
         raise AssertionError(f"{what}: expected {n_steps // spc} launches of {name}, counted {launches}")
     saves = n_steps // spc + 1
-    if sol.ts.tolist() != [i * spc * dt for i in range(saves)]:
+    expect_ts = torch.arange(saves, dtype=torch.float64) * (spc * torch.tensor(dt, dtype=dtype)).double()
+    if not torch.allclose(sol.ts.double().cpu(), expect_ts, rtol=1e-6, atol=0):
         raise AssertionError(f"{what}: saved times {sol.ts.tolist()}")
     for k, v in sol.us["soil"].items():
         if tuple(v.shape) != (saves, *Y0["soil"][k].shape) or not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{what}: saved {k} has shape {tuple(v.shape)} or non-finite values")
     Yp, t = Y0, torch.as_tensor(0.0, dtype=dtype)
     for _ in range(n_steps // spc):
-        Yp = ck.fused_column_run_plain(model, SSPRK33(), dt, spc, Yp, t)
+        Yp = ck.fused_column_run_plain(model, stepper, dt, spc, Yp, t)
         t = t + spc * torch.as_tensor(dt, dtype=dtype)
     torch.cuda.synchronize()
     kern, plain = _np(sim.Y), _np(Yp)
@@ -581,23 +851,26 @@ def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving):
         extra = f" (freeze bars: partition +{water:.3e}, rho_e_int +{energy:.3e})" if water else ""
     shares = _check_increment(kern, plain, _np(Y0), dtype, what, moving)
     err = _max_abs(kern, plain)
-    print(f"[{what}] {str(dtype)[6:]} {name} Simulation(engine='fused') {tuple(Y0['soil']['vartheta_l'].shape)} "
+    first = next(iter(kern))
+    print(f"[{what}] {str(dtype)[6:]} {name} Simulation(engine='fused') {tuple(Y0['soil'][first].shape)} "
           f"{n_steps} steps: {launches[name]} launches, finite, kernel vs plain max abs {err:.3e} "
-          f"(vartheta_l {np.max(np.abs(kern['vartheta_l'] - plain['vartheta_l'])):.3e}); change error / "
-          f"largest change {_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g}){extra}", flush=True)
-    return kern, launches[name], err
+          f"({first} {np.max(np.abs(kern[first] - plain[first])):.3e}); change error / "
+          f"largest change {_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g}){extra}; wall {wall:.3f} ms",
+          flush=True)
+    return kern, launches[name], err, wall
 
 
-def time_mode(ck, model, Y0, dt, spc):
+def time_mode(ck, model, Y0, dt, spc, stepper=None):
     """``(kernel ms, plain ms)`` per launch of ``spc`` steps: CUDA events,
     in turns (plain, kernel x5, kernel x5, plain), each pair averaged."""
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
-    run = ck.make_fused_column_run(model, SSPRK33(), dt=dt, steps_per_call=spc)
+    stepper = SSPRK33() if stepper is None else stepper
+    run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=spc)
     Yk = _clone(Y0)
     run(Yk, 0.0)  # warm-up
     fused_column = lambda: run(Yk, 0.0)  # noqa: E731
-    plain_column = lambda: ck.fused_column_run_plain(model, SSPRK33(), dt, spc, Y0, 0.0)  # noqa: E731
+    plain_column = lambda: ck.fused_column_run_plain(model, stepper, dt, spc, Y0, 0.0)  # noqa: E731
     plain_column()
     p1 = _time_ms(plain_column, 1)
     k1 = _time_ms(fused_column, 5)
@@ -606,18 +879,65 @@ def time_mode(ck, model, Y0, dt, spc):
     return (k1, k2), (p1, p2)
 
 
-def check_golden(ck, model, Y, dt, n_steps, golden, what):
+def host_per_launch(ck, model, Y0, Ya, dt, spc, stepper, reps=5):
+    """Where a launch's host time goes, in ms (host clock, medians of
+    ``reps``): the whole call of a ``FusedColumnRun`` (it returns once the
+    kernel is queued), the BC and profile tables built alone the same way
+    (not waiting for their copies to the card), and a warm
+    ``Simulation.run`` of ``reps`` launches against the kernel time alone
+    (CUDA events) of as many launches."""
+    from landhydrology_tpu_torch import Simulation
+
+    run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=spc)
+    Y = _clone(Y0)
+    run(Y, 0.0)
+    field = next(iter(Y["soil"].values()))
+    ncol, device = field.shape[1], field.device
+    calls, tables = [], []
+    for i in range(reps):
+        t0 = i * spc * dt
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run(Y, t0)
+        calls.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        _, zc, _, constant = run._inputs(ncol, device)
+        t = time.perf_counter()
+        ck.bc_tables(model, t0, dt, spc, ncol, device, reuse=constant, stepper=run.stepper)
+        times, _ = ck.table_times(run.stepper, t0, dt, spc, model.float_dtype)
+        ck.profile_tables(model, zc, times)
+        tables.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+    sim = Simulation(model, stepper, Y_init=Y0, Ya_init=Ya, dt=dt, tspan=(0.0, reps * spc * dt),
+                     saveat=spc * dt, engine="fused", steps_per_call=spc)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) * 1e3
+    kernel = reps * _time_ms(lambda: run(Y, 0.0), reps)
+    return float(np.median(calls)), float(np.median(tables)), wall, kernel
+
+
+def check_golden(ck, model, Y, dt, n_steps, golden, what, stepper=None, atol=None):
     """f64 through the kernel in one launch against a golden (or, with
-    ``golden=None``, against the plain version alone), rtol 1e-12."""
+    ``golden=None``, against the plain version alone), rtol 1e-12 (with
+    ``atol``: within that absolute distance of the golden's vartheta_l)."""
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
-    plain = _np(ck.fused_column_run_plain(model, SSPRK33(), dt, n_steps, Y, 0.0))
-    ck.make_fused_column_run(model, SSPRK33(), dt=dt, steps_per_call=n_steps)(Y, 0.0)
+    stepper = SSPRK33() if stepper is None else stepper
+    plain = _np(ck.fused_column_run_plain(model, stepper, dt, n_steps, Y, 0.0))
+    ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=n_steps)(Y, 0.0)
     torch.cuda.synchronize()
     kern = _np(Y)
-    name = ck.mode_name(ck.kernel_mode(model))
+    name = ck.mode_name(ck.kernel_mode(model, stepper))
     line = f"[3 golden] f64 {name} {what}:"
-    if golden is not None:
+    if golden is not None and atol is not None:
+        dev = float(np.max(np.abs(kern["vartheta_l"] - golden["vartheta_l"])))
+        if not dev <= atol:
+            raise AssertionError(f"{what}: vartheta_l {dev:.3e} from the golden > {atol:g}")
+        line += f" kernel vs golden vartheta_l max abs {dev:.3e} (bar {atol:g});"
+    elif golden is not None:
         for k in kern:
             np.testing.assert_allclose(kern[k], golden[k], rtol=1e-12, atol=1e-16, err_msg=f"{what}/{k}")
         rel = max(float(np.max(np.abs(kern[k] - golden[k]) / (np.abs(golden[k]) + 1e-300))) for k in kern)
@@ -625,6 +945,32 @@ def check_golden(ck, model, Y, dt, n_steps, golden, what):
     _check(kern, plain, torch.float64, f"{what} plain")
     print(f"{line} vs plain max abs {_max_abs(kern, plain):.3e}", flush=True)
     return kern
+
+
+def check_variant(ck, model, Y, dt, n_steps, t0, what, moving, stepper=None):
+    """One launch of ``n_steps`` from ``t0`` against the plain version:
+    ``_check`` and ``_check_increment``."""
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    stepper = SSPRK33() if stepper is None else stepper
+    dtype = model.float_dtype
+    start = _np(Y)
+    plain = _np(ck.fused_column_run_plain(model, stepper, dt, n_steps, Y, t0))
+    ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=n_steps)(Y, t0)
+    torch.cuda.synchronize()
+    kern = _np(Y)
+    _check(kern, plain, dtype, what)
+    shares = _check_increment(kern, plain, start, dtype, what, moving)
+    return kern, plain, shares
+
+
+
+def kernel_of(ck, mode, dtype):
+    """``(kernel name, source path in the repo)`` of the instance that runs
+    ``mode``."""
+    lib, _ = ck._entry(mode, dtype)
+    kernel = "implicit_column_kernel" if lib == "implicit_kernel" else "ssprk33_column_kernel"
+    return kernel, os.path.relpath(ck.SOURCES[lib], HERE)
 
 
 def main() -> int:
@@ -635,7 +981,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, HERE)
+    from landhydrology_tpu_torch import (
+        Dirichlet, FreeDrainage, PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC,
+        VerticalFlux,
+    )
+    from landhydrology_tpu_torch.models.soil import TemperatureDependentViscosity
     from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw, FreezeThaw
     from landhydrology_tpu_torch.ops.cuda import column_kernel as ck
     from landhydrology_tpu_torch.timestepping import SSPRK33
@@ -648,21 +1000,22 @@ def main() -> int:
           f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
     t = time.perf_counter()
-    lib = ck.build_library()
-    ck.load_library()
+    libs = ck.build_library()
+    for name in ck.SOURCES:
+        ck.load_library(name)
     build_s = time.perf_counter() - t
     costs = op_costs(ck)
-    print(f"[2 build] {ck.SOURCE.name} -> sm_90a in {build_s:.3f} s; registers per thread "
-          f"(ptxas): {registers(ck, lib)}; FP instructions per call "
-          f"(cuobjdump -sass, fast path): " + "; ".join(
+    print(f"[2 build] {', '.join(p.name for p in ck.SOURCES.values())} -> sm_90a in {build_s:.3f} s "
+          f"(one nvcc each, in parallel); registers per thread (ptxas): {registers(ck, libs)}; "
+          f"FP instructions per call (cuobjdump -sass, fast path): " + "; ".join(
               f"{str(d)[6:]} " + ", ".join(f"{k} {v}" for k, v in c.items()) for d, c in costs.items()),
           flush=True)
 
-    # ---- 3: goldens in f64 through the kernel, and variants ----
+    # ---- 3: goldens in f64 through the kernels, and variants ----
     gc = _load_golden_config()
     data = os.path.join(HERE, "tests", "data")
     golden = {name: np.load(os.path.join(data, f"golden_{name}_f64.npz"))
-              for name in ("coupled", "lagged", "freeze")}
+              for name in ("coupled", "lagged", "freeze", "implicit")}
     for kw, ref in (({}, "coupled"), ({"assume_no_ice": True}, "coupled"),
                     ({"coefficient_update": "step"}, "lagged"),
                     ({"coefficient_update": "step", "assume_no_ice": True}, "lagged")):
@@ -679,35 +1032,94 @@ def main() -> int:
         model, Y, _, dt = gc.build_freeze_model_and_state(torch.float64, device, freeze_thaw=freeze)
         check_golden(ck, dataclasses.replace(model, coefficient_update=lagged), Y, dt,
                      gc.FREEZE_STEPS, None, f"freeze golden's column, {type(freeze).__name__}")
+    # golden #6: golden #1 under TR-BDF2 at dt=120 (test_golden_trajectories.py)
+    for tridiag, atol in (("thomas", None), ("pcr", 1e-9)):
+        model, Y, _, _ = gc.build_model_and_state(torch.float64, device)
+        check_golden(ck, model, Y, 120.0, gc.N_STEPS // 4, golden["implicit"],
+                     f"golden #1 under TRBDF2Soil(iters=3, {tridiag!r}) vs golden_implicit_f64.npz",
+                     stepper=implicit("TRBDF2Soil", model, 3, tridiag), atol=atol)
+    for name in ("BackwardEulerSoil", "BackwardEulerRichards"):
+        model, Y, _, _ = gc.build_model_and_state(torch.float64, device)
+        check_golden(ck, model, Y, 120.0, gc.N_STEPS // 4, None, f"golden #1 under {name}(iters=2)",
+                     stepper=implicit(name, model, 2))
+    # the JAX package's fused implicit tests (tests/test_pallas_kernel.py:395-555)
+    small = dict(nz=16, ncol=256, dtype=torch.float64, device=device)
+    model, Y = build_kernel_test_model(VerticalFlux(0.0), VerticalFlux(0.0), **small)
+    check_golden(ck, model, Y, 600.0, 4, None, "test_pallas_kernel BackwardEulerSoil(iters=2) at dt=600",
+                 stepper=implicit("BackwardEulerSoil", model, 2))
+    model, _, _ = build_stiff(**small)
+    Y = {"soil": {"vartheta_l": torch.full((16, 256), 0.1, dtype=torch.float64, device=device),
+                  "theta_i": torch.zeros((16, 256), dtype=torch.float64, device=device)}}
+    kern = check_golden(ck, model, Y, 5.0, 4, None,
+                        "test_pallas_kernel stiff infiltration at 20x CFL, TRBDF2Soil(iters=2)",
+                        stepper=implicit("TRBDF2Soil", model, 2))
+    if not (np.isfinite(kern["vartheta_l"]).all() and float(np.max(kern["vartheta_l"])) > 0.101):
+        raise AssertionError("stiff infiltration: no finite wetting front")
+    model, Y = build_kernel_test_model(VerticalFlux(0.0), VerticalFlux(0.0), seed=7, heterogeneous=True, **small)
+    check_golden(ck, model, Y, 300.0, 4, None, "test_pallas_kernel heterogeneous parameters, TRBDF2Soil(iters=2)",
+                 stepper=implicit("TRBDF2Soil", model, 2))
+    outs = {}
+    for tridiag in ("thomas", "pcr"):
+        model, Y = build_kernel_test_model(VerticalFlux(0.0), VerticalFlux(0.0), **small)
+        outs[tridiag] = check_golden(ck, model, Y, 600.0, 2, None,
+                                     f"test_pallas_kernel TRBDF2Soil(iters=3, {tridiag!r}) at dt=600",
+                                     stepper=implicit("TRBDF2Soil", model, 3, tridiag))
+    rel = max(float(np.max(np.abs(outs["thomas"][k] - outs["pcr"][k]))) / (float(np.max(np.abs(outs["thomas"][k]))) or 1.0)
+              for k in outs["thomas"])
+    if not rel < 1e-9:
+        raise AssertionError(f"PCR and Thomas kernels differ by {rel:.3e} of the field scale")
+    print(f"[3 golden] f64 B4-trbdf2 vs B4-trbdf2-pcr (kernels): max deviation / field scale {rel:.3e} "
+          f"(bar 1e-9)", flush=True)
+
     variants = ({}, {"coefficient_update": "step"}, {"freeze_thaw": FreezeThaw(tau=60.0)},
                 {"freeze_thaw": EquilibriumFreezeThaw()})
     for dtype in (torch.float64, torch.float32):
         for kw in variants:
             model, Y = build_variant_model(1000, dtype, device, seed=7)
             model = dataclasses.replace(model, **kw)
-            start = _np(Y)
-            plain = _np(ck.fused_column_run_plain(model, SSPRK33(), 5.0, 8, Y, 2.0))
-            ck.make_fused_column_run(model, SSPRK33(), dt=5.0, steps_per_call=8)(Y, 2.0)
-            torch.cuda.synchronize()
-            kern = _np(Y)
-            what = f"variant {dtype} {ck.mode_name(ck.kernel_mode(model))}"
-            _check(kern, plain, dtype, what)
-            shares = _check_increment(kern, plain, start, dtype, what, ("vartheta_l", "rho_e_int"))
+            kern, plain, shares = check_variant(ck, model, Y, 5.0, 8, 2.0, f"variant {dtype} {kw}",
+                                                ("vartheta_l", "rho_e_int"))
             print(f"[3 variant] {str(dtype)[6:]} {ck.mode_name(ck.kernel_mode(model))} ncol=1000 "
                   f"Dirichlet/flux/callable BCs, per-column params, viscosity+impedance, ice: kernel vs "
                   f"plain max abs {_max_abs(kern, plain):.3e}; change error / largest change "
                   f"{_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g})", flush=True)
+        # the water-only and heat-only branches and TR-BDF2 on them
+        stiff, Y, _ = build_stiff(16, 1000, dtype, device)
+        water = dataclasses.replace(
+            stiff,
+            energy_model=PrescribedTemperatureModel(T_profile=lambda z, t: 285.0 + 3.0 * z + 1e-3 * t),
+            hydrology_model=dataclasses.replace(stiff.hydrology_model,
+                                                viscosity_factor=TemperatureDependentViscosity()),
+            boundary_conditions=SoilColumnBC(top=SoilComponentBC(hydrology=Dirichlet(lambda t: 0.25 + 1e-3 * t)),
+                                             bottom=SoilComponentBC(hydrology=FreeDrainage())),
+        )
+        heat, Yh, _ = build_heat_only(16, 1000, dtype, device, seed=3)
+        cases = (
+            (water, Y, SSPRK33(), 0.05, 10, "callable Dirichlet top, T profile, viscosity", ("vartheta_l",)),
+            (stiff, Y, implicit("TRBDF2Soil", stiff, 2), 5.0, 4, "stiff infiltration, callable Dirichlet top",
+             ("vartheta_l",)),
+            (heat, Yh, SSPRK33(), 10.0, 10, "callable Dirichlet top, per-column flux, profiles", ("rho_e_int",)),
+            (heat, Yh, implicit("TRBDF2Soil", heat, 2), 600.0, 4,
+             "callable Dirichlet top, per-column flux, profiles", ("rho_e_int",)),
+        )
+        for model, Y0, stepper, dt, n, what, moving in cases:
+            name = ck.mode_name(ck.kernel_mode(model, stepper))
+            kern, plain, shares = check_variant(ck, model, _clone(Y0), dt, n, 2.0,
+                                                f"variant {dtype} {name}", moving, stepper=stepper)
+            print(f"[3 variant] {str(dtype)[6:]} {name} ncol=1000 {what}: kernel vs plain max abs "
+                  f"{_max_abs(kern, plain):.3e}; change error / largest change {_fmt(shares)} "
+                  f"(bar {INCREMENT_RTOL[dtype]:g})", flush=True)
 
     # ---- 4 and 5: the main paths at full width ----
-    paths = []  # (model, start state, dt, steps per launch, launches, error)
+    paths = []  # (model, start state, dt, steps per launch, launches, error, stepper)
     for dtype in (torch.float32, torch.float64):
         stage_final = None
         for kw in ({}, {"assume_no_ice": True}, {"coefficient_update": "step"},
                    {"coefficient_update": "step", "assume_no_ice": True}):
             model, Y0, Ya = build_bench_model(NZ, NCOL, dtype, device)
             model = dataclasses.replace(model, **kw)
-            kern, launches, err = drive_path(ck, model, Y0, Ya, DT, N_STEPS, SPC, "4 main",
-                                             ("vartheta_l", "rho_e_int"))
+            kern, launches, err, _ = drive_path(ck, model, Y0, Ya, DT, N_STEPS, SPC, "4 main",
+                                                ("vartheta_l", "rho_e_int"))
             if not kw:
                 stage_final = kern["vartheta_l"]
             if kw.get("coefficient_update") == "step":
@@ -724,39 +1136,109 @@ def main() -> int:
                 print(f"[4 main] {str(dtype)[6:]} {ck.mode_name(ck.kernel_mode(model))} max_dev_lagged "
                       f"(max |vartheta_l| deviation from the stage run) {dev:.3e} (bench.py bar 1e-2), "
                       f"{share:.3e} of the largest change", flush=True)
-            paths.append((model, Y0, DT, SPC, launches, err))
+            paths.append((model, Y0, DT, SPC, launches, err, SSPRK33()))
         for freeze in (FreezeThaw(tau=60.0), EquilibriumFreezeThaw()):
             model, Y0, Ya, dt = build_freeze_wide(gc, dtype, device, freeze)
-            kern, launches, err = drive_path(ck, model, Y0, Ya, dt, FREEZE_STEPS, FREEZE_STEPS // 2,
-                                             "5 freeze", ("vartheta_l", "theta_i", "rho_e_int"))
+            kern, launches, err, _ = drive_path(ck, model, Y0, Ya, dt, FREEZE_STEPS, FREEZE_STEPS // 2,
+                                                "5 freeze", ("vartheta_l", "theta_i", "rho_e_int"))
             ice = float(np.max(kern["theta_i"]))
             if not ice > 1e-4:
                 raise AssertionError(f"freeze at width: no ice formed (max theta_i {ice})")
             print(f"[5 freeze] {str(dtype)[6:]} {ck.mode_name(ck.kernel_mode(model))} max theta_i "
                   f"{ice:.4e} (> 1e-4: ice formed)", flush=True)
-            paths.append((model, Y0, dt, FREEZE_STEPS // 2, launches, err))
+            paths.append((model, Y0, dt, FREEZE_STEPS // 2, launches, err, SSPRK33()))
+        torch.cuda.empty_cache()
+
+    # ---- 8: the stiff path at full width (bench.py's implicit path) ----
+    points = NZ * NCOL
+    for dtype in (torch.float32, torch.float64):
+        model, Y0, Ya = build_stiff(NZ, NCOL, dtype, device)
+        dt_exp = stiff_dt_explicit(model, Y0)
+        dt_imp = STIFF_FACTOR * dt_exp
+        finals, walls = {}, {}
+        for tridiag in ("thomas", "pcr"):
+            st = implicit("TRBDF2Soil", model, 2, tridiag)
+            kern, launches, err, walls[tridiag] = drive_path(
+                ck, model, Y0, Ya, dt_imp, STIFF_STEPS, STIFF_STEPS, "8 stiff", ("vartheta_l",), stepper=st
+            )
+            finals[tridiag] = kern["vartheta_l"]
+            paths.append((model, Y0, dt_imp, STIFF_STEPS, launches, err, st))
+        n_exp = STIFF_STEPS * STIFF_FACTOR
+        kern, launches, err, walls["explicit"] = drive_path(
+            ck, model, Y0, Ya, dt_exp, n_exp, STIFF_FACTOR, "8 stiff", ("vartheta_l",)
+        )
+        paths.append((model, Y0, dt_exp, STIFF_FACTOR, launches, err, SSPRK33()))
+        tag = str(dtype)[6:]
+        for tridiag, v_imp in finals.items():
+            rmse = float(np.sqrt(np.mean((v_imp - kern["vartheta_l"]) ** 2)))
+            dev = float(np.max(np.abs(v_imp - kern["vartheta_l"])))
+            if not (np.isfinite(v_imp).all() and rmse < 1e-2):
+                raise AssertionError(f"stiff path {tag} {tridiag}: RMSE {rmse} against the explicit run")
+            print(f"[8 stiff] {tag} TR-BDF2 ({tridiag}) vs SSPRK33 at the matched horizon "
+                  f"{STIFF_STEPS * dt_imp!r} s: RMSE {rmse:.4e} (bench.py bar 1e-2), max deviation {dev:.4e}",
+                  flush=True)
+        rates = {k: points * (n_exp if k == "explicit" else STIFF_STEPS) / (w / 1e3) for k, w in walls.items()}
+        print(f"[8 stiff] {tag} dt_exp {dt_exp!r} s, dt_imp {dt_imp!r} s; Simulation.run wall ms "
+              + ", ".join(f"{k} {w:.3f}" for k, w in walls.items())
+              + "; end to end grid-points/s " + ", ".join(f"{k} {r:.4e}" for k, r in rates.items())
+              + "; simulated s per wall s " + ", ".join(
+                  f"{k} {STIFF_STEPS * dt_imp / (w / 1e3):.4e}" for k, w in walls.items()) + f" on {smi}",
+              flush=True)
+        call, tables, wall, kernel = host_per_launch(ck, model, Y0, Ya, dt_imp, STIFF_STEPS,
+                                                     implicit("TRBDF2Soil", model, 2))
+        print(f"[8 stiff] {tag} TR-BDF2 (thomas) host per launch: call {call:.3f} ms, BC and profile "
+              f"tables alone {tables:.3f} ms; warm Simulation.run of 5 launches {wall:.3f} ms against "
+              f"{kernel:.3f} ms of kernel time", flush=True)
+        torch.cuda.empty_cache()
+
+    # ---- 9: the other new modes at full width ----
+    for dtype in (torch.float32, torch.float64):
+        model, Y0, Ya = build_heat_only(NZ, NCOL, dtype, device, seed=5)
+        for st, dt, n, spc in ((SSPRK33(), 10.0, N_STEPS, SPC), (implicit("TRBDF2Soil", model, 2), 600.0, 16, 8)):
+            _, launches, err, _ = drive_path(ck, model, Y0, Ya, dt, n, spc, "9 modes", ("rho_e_int",), stepper=st)
+            paths.append((model, Y0, dt, spc, launches, err, st))
+        model, Y0, Ya = build_bench_model(NZ, NCOL, dtype, device)
+        for name in ("TRBDF2Soil", "BackwardEulerSoil", "BackwardEulerRichards"):
+            st = implicit(name, model, 2)
+            _, launches, err, _ = drive_path(ck, model, Y0, Ya, 60.0, 16, 8, "9 modes",
+                                             ("vartheta_l", "rho_e_int"), stepper=st)
+            paths.append((model, Y0, 60.0, 8, launches, err, st))
+        model, Y0, Ya = build_stiff(NZ, NCOL, dtype, device)
+        dt_imp = STIFF_FACTOR * stiff_dt_explicit(model, Y0)
+        st = implicit("BackwardEulerRichards", model, 2)
+        _, launches, err, _ = drive_path(ck, model, Y0, Ya, dt_imp, STIFF_STEPS, STIFF_STEPS, "9 modes",
+                                         ("vartheta_l",), stepper=st)
+        paths.append((model, Y0, dt_imp, STIFF_STEPS, launches, err, st))
         torch.cuda.empty_cache()
 
     # ---- 6: times at the main-path shapes, in turns ----
     entries = []
-    for model, Y0, dt, spc, launches, err in paths:
+    for model, Y0, dt, spc, launches, err, stepper in paths:
         dtype = model.float_dtype
-        mode = ck.kernel_mode(model)
+        mode = ck.kernel_mode(model, stepper)
         name = ck.mode_name(mode)
-        (k1, k2), (p1, p2) = time_mode(ck, model, Y0, dt, spc)
+        iters = getattr(stepper, "iters", 2)
+        (k1, k2), (p1, p2) = time_mode(ck, model, Y0, dt, spc, stepper)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        nz, ncol = Y0["soil"]["vartheta_l"].shape
+        nz, ncol = next(iter(Y0["soil"].values())).shape
         n_iter = model.freeze_thaw.n_iter if isinstance(model.freeze_thaw, EquilibriumFreezeThaw) else 60
-        b_ms, b_by = bound_ms(ck, costs, mode, dtype, nz * ncol, spc, n_iter)
-        points = nz * ncol * spc
+        b_ms, b_by = bound_ms(ck, costs, mode, dtype, nz * ncol, spc, n_iter, iters)
+        cell_steps = nz * ncol * spc
+        traffic = ""
+        if mode & ck.MODE_IMPLICIT:
+            values = scratch_values_per_cell_step(ck, mode, iters)
+            nbytes = values * (torch.finfo(dtype).bits // 8)
+            traffic = (f"; scratch and state traffic {values} values = {nbytes} B per cell-step, "
+                       f"{1e3 * cell_steps * nbytes / HBM_BYTES_PER_S:.3f} ms at the HBM rate if none stayed in L2")
         print(f"[6 time] {str(dtype)[6:]} {name} {spc} steps nz={nz} ncol={ncol}: kernel {k1:.3f}/{k2:.3f} ms "
-              f"({points / (ms / 1e3):.4e} grid-points/s), plain {p1:.3f}/{p2:.3f} ms "
-              f"({points / (plain_ms / 1e3):.4e} grid-points/s), bound {b_ms:.3f} ms by {b_by} "
-              f"({b_ms / ms:.3f} of the kernel's time) on {smi}", flush=True)
+              f"({cell_steps / (ms / 1e3):.4e} grid-points/s), plain {p1:.3f}/{p2:.3f} ms "
+              f"({cell_steps / (plain_ms / 1e3):.4e} grid-points/s), bound {b_ms:.3f} ms by {b_by} "
+              f"({b_ms / ms:.3f} of the kernel's time){traffic} on {smi}", flush=True)
+        kernel, source = kernel_of(ck, mode, dtype)
         entries.append({
-            "name": f"ssprk33_column_kernel<{str(dtype)[6:].replace('float', 'f')}, {name}>",
+            "name": f"{kernel}<{str(dtype)[6:].replace('float', 'f')}, {name}>",
             "route": "cuda",
-            "source": "landhydrology_tpu_torch/csrc/column_kernel.cu",
+            "source": source,
             "replaces": REPLACES,
             "launches": launches,
             "max_abs_err": err,
@@ -775,6 +1257,7 @@ def main() -> int:
                 profile_main_path(dtype, device, smi, coefficient_update)
                 torch.cuda.empty_cache()
 
+    print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

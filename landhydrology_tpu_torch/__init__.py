@@ -4,8 +4,10 @@ A batched 1-D soil-column solver for coupled water (Richards equation) and
 energy (heat equation) transport.  State tensors are ``(nz, *batch)`` with
 the columns contiguous; the explicit SSPRK33 hot path runs in one
 hand-written CUDA kernel per ``steps_per_call`` steps
-(``ops/cuda/column_kernel.py``, engine ``"fused"``), and every function also
-runs eagerly on CPU or GPU tensors (engine ``"torch"``).
+(``ops/cuda/column_kernel.py``, engine ``"fused"``), and so do the implicit
+steppers of ``imex.py`` (TR-BDF2 and backward Euler with a tridiagonal solve
+in each column); every function also runs eagerly on CPU or GPU tensors
+(engine ``"torch"``).
 
 The public API mirrors ``landhydrology_tpu``'s, minus what is not ported yet
 (see ROADMAP.md).  This package imports neither JAX nor landhydrology_tpu.
@@ -13,6 +15,7 @@ The public API mirrors ``landhydrology_tpu``'s, minus what is not ported yet
 
 from landhydrology_tpu_torch.constants import EarthParameterSet, default_earth_param_set
 from landhydrology_tpu_torch.domains import Column, ColumnGrid, make_function_space
+from landhydrology_tpu_torch.imex import BackwardEulerRichards, BackwardEulerSoil, TRBDF2Soil
 from landhydrology_tpu_torch.models.soil import (
     BatchedBC,
     Dirichlet,
@@ -67,6 +70,9 @@ __all__ = [
     "initialize_prognostic",
     "initialize_auxiliary",
     "default_initial_conditions",
+    "BackwardEulerRichards",
+    "BackwardEulerSoil",
+    "TRBDF2Soil",
     "Simulation",
     "run",
     "step",

@@ -1,7 +1,8 @@
-"""Carry models and states over from the JAX package.
+"""Carry models, steppers and states over from the JAX package.
 
 ``model_from_reference`` builds this package's :class:`SoilModel` from a
-``landhydrology_tpu`` ``SoilModel``.  It reads the reference's frozen
+``landhydrology_tpu`` ``SoilModel``, and ``stepper_from_reference`` an
+implicit stepper from the JAX package's.  It reads the reference's frozen
 dataclasses by class name and ``dataclasses.fields``, and each array leaf
 through ``np.asarray``, so it needs no JAX import.  User callables (BC
 values, profiles) are carried over as they are and must accept tensors; the
@@ -16,7 +17,8 @@ import numpy as np
 import torch
 
 from landhydrology_tpu_torch.constants import EarthParameterSet
-from landhydrology_tpu_torch.domains import Column
+from landhydrology_tpu_torch.domains import Column, make_function_space
+from landhydrology_tpu_torch.imex import IMPLICIT_STEPPERS
 from landhydrology_tpu_torch.models.soil.freeze_thaw import (
     EquilibriumFreezeThaw,
     FreezeThaw,
@@ -95,6 +97,20 @@ def model_from_reference(ref_model, device="cuda", dtype=torch.float64) -> SoilM
     with its tensors in ``dtype`` on ``device`` (the card unless the caller
     asks for ``"cpu"``)."""
     return _convert(ref_model, device, dtype)
+
+
+def stepper_from_reference(ref_stepper, model: SoilModel, device=None):
+    """This package's implicit stepper of the JAX package's ``ref_stepper``
+    class name (``TRBDF2Soil``, ``BackwardEulerRichards``,
+    ``BackwardEulerSoil``), for ``model`` (this package's, e.g. from
+    :func:`model_from_reference`): ``iters`` and ``tridiag`` are carried
+    over, the grid is rebuilt on ``device``, by default the model's."""
+    cls = {c.__name__: c for c in IMPLICIT_STEPPERS}.get(type(ref_stepper).__name__)
+    if cls is None:
+        raise NotImplementedError(f"{type(ref_stepper).__name__} is not ported yet")
+    device = model.device if device is None else device
+    grid = make_function_space(model.domain, model.float_dtype, device)
+    return cls(model=model, grid=grid, iters=int(ref_stepper.iters), tridiag=ref_stepper.tridiag)
 
 
 def state_from_numpy(Y: dict, device="cuda", dtype=torch.float64) -> dict:

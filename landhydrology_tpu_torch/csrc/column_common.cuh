@@ -1,0 +1,548 @@
+// Device code shared by the two soil-column kernels (column_kernel.cu,
+// implicit_kernel.cu): the argument struct of the C interface, the pointwise
+// closures of models/soil/water.py, heat.py and freeze_thaw.py, the boundary
+// flux conversion of boundary.py and one rhs sweep of rhs.py over a column.
+//
+// Numerics follow the eager PyTorch port (landhydrology_tpu_torch) operation
+// for operation.  eps and tiny are numeric_limits<T>::epsilon() / min()
+// (jnp.finfo(dtype).eps / .tiny).  Clamps use fmin/fmax, which return the
+// non-NaN operand where jnp.minimum/maximum would propagate a NaN; the two
+// differ only for NaN inputs.  Built without --use_fast_math.  The
+// freeze-thaw residual and partition are written with the _rn intrinsics,
+// which nvcc never contracts into a fused multiply-add: the bisection
+// branches on the residual's sign, so it is evaluated as the eager version
+// evaluates it.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+#include <limits>
+
+// Types of the C interface: outside the unnamed namespace, so the extern "C"
+// entry points that take them keep external linkage.
+
+// Order fixed by PARAM_NAMES in ops/cuda/column_kernel.py.
+enum Param {
+  P_NU, P_S_S, P_RHO_C_DS, P_THETA_R, P_KSAT, P_M, P_INV_M, P_NEG_INV_M,
+  P_INV_N, P_ALPHA_POW_NEG_N, P_LN_KAPPA_SAT_UNFROZEN, P_LN_KAPPA_SAT_FROZEN,
+  P_KAPPA_DRY, P_NEG_B, P_KERSTEN_EXP_UNFROZEN, P_KERSTEN_EXP_BRACKET,
+  P_KERSTEN_EXP_FROZEN, P_VISC_GAMMA, P_VISC_T_REF, P_IMPEDANCE_COEF,
+  P_KAPPA_SAT_UNFROZEN, P_ALPHA, P_N, P_TAU, P_N_M,
+  kNumParams
+};
+
+// Order fixed by BC_SLOTS in ops/cuda/column_kernel.py.
+enum BCSlot { BC_BOTTOM_ENERGY, BC_BOTTOM_HYDROLOGY, BC_TOP_ENERGY,
+              BC_TOP_HYDROLOGY, kNumBC };
+// BC_NONE: the slot of a prescribed component, which has no flux.
+enum BCKind : int64_t { BC_NONE = 0, BC_FLUX = 1, BC_DIRICHLET = 2, BC_FREE_DRAINAGE = 3 };
+
+// Order fixed by PROFILE_NAMES in ops/cuda/column_kernel.py: the prescribed
+// T (water-only branch), vartheta_l and theta_i (heat-only branch).
+enum Profile { PROF_T, PROF_VARTHETA_L, PROF_THETA_I, kNumProfiles };
+
+// Bits of KernelArgs::mode; values fixed by MODE_* in ops/cuda/column_kernel.py.
+// Branch: MODE_WATER (Richards only) or MODE_HEAT (conduction only), coupled
+// without either.  Stepper: SSPRK33 (column_kernel.cu) without a stepper
+// bit, else one of the implicit steppers (implicit_kernel.cu).  MODE_PCR is
+// read at run time and selects no template instance.
+enum Mode : int64_t {
+  MODE_LAGGED = 1, MODE_FREEZE_RATE = 2, MODE_FREEZE_EQ = 4, MODE_NO_ICE = 8,
+  MODE_WATER = 16, MODE_HEAT = 32,
+  MODE_BE_RICHARDS = 64, MODE_BE_SOIL = 128, MODE_TRBDF2 = 256,
+  MODE_PCR = 512
+};
+
+// Every field is 8 bytes wide: mirrors _KernelArgs in ops/cuda/column_kernel.py.
+struct KernelArgs {
+  void* vartheta_l;  // (nz, ncol) in/out; null in the heat-only branch
+  void* theta_i;     // (nz, ncol) in/out; null in the heat-only branch
+  void* rho_e_int;   // (nz, ncol) in/out; null in the water-only branch
+  void* scratch;     // scratch_fields(mode) * nz * ncol values
+  const void* zc;    // (nz,) cell centers
+  const void* param_ptr[kNumParams];
+  int64_t param_stride[kNumParams];  // 0: one value for all columns
+  const void* bc_ptr[kNumBC];        // value tables, row = rows_per_step * step + stage
+  int64_t bc_kind[kNumBC];
+  int64_t bc_row_stride[kNumBC];
+  int64_t bc_col_stride[kNumBC];
+  int64_t nz, ncol, n_steps, viscosity, impedance, mode, n_iter;
+  double dt, dz;
+  double T_0, rho_cloud_ice, LH_f0, rho_cp_l, rho_cp_i, rho_cloud_liq, grav;
+  double T_lo, T_hi;  // EquilibriumFreezeThaw bracket
+  const void* profile[kNumProfiles];  // (rows, nz) tables, or null
+  int64_t rows_per_step;              // table rows per step: one per stage time
+  int64_t iters;                      // Newton sweeps per stage (implicit)
+  double half_g, a1, a2, b_bdf2;      // TR-BDF2 constants, in double
+};
+
+namespace {
+
+__device__ __forceinline__ float d_exp(float x) { return expf(x); }
+__device__ __forceinline__ double d_exp(double x) { return exp(x); }
+__device__ __forceinline__ float d_log(float x) { return logf(x); }
+__device__ __forceinline__ double d_log(double x) { return log(x); }
+__device__ __forceinline__ float d_pow(float x, float y) { return powf(x, y); }
+__device__ __forceinline__ double d_pow(double x, double y) { return pow(x, y); }
+__device__ __forceinline__ float d_sqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double d_sqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float d_abs(float x) { return fabsf(x); }
+__device__ __forceinline__ double d_abs(double x) { return fabs(x); }
+__device__ __forceinline__ float d_min(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double d_min(double a, double b) { return fmin(a, b); }
+__device__ __forceinline__ float d_max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ double d_max(double a, double b) { return fmax(a, b); }
+// rounded operations that are never contracted into a fused multiply-add
+__device__ __forceinline__ float rn_mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double rn_mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float rn_add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double rn_add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float rn_sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double rn_sub(double a, double b) { return __dsub_rn(a, b); }
+
+template <int M> struct Modes {
+  static constexpr bool lagged = (M & MODE_LAGGED) != 0;
+  static constexpr bool rate = (M & MODE_FREEZE_RATE) != 0;
+  static constexpr bool eq = (M & MODE_FREEZE_EQ) != 0;
+  static constexpr bool no_ice = (M & MODE_NO_ICE) != 0;
+  static constexpr bool water = (M & MODE_WATER) != 0;  // Richards only
+  static constexpr bool heat = (M & MODE_HEAT) != 0;    // conduction only
+  static constexpr bool coupled = !water && !heat;
+  static constexpr bool be_richards = (M & MODE_BE_RICHARDS) != 0;
+  static constexpr bool be_soil = (M & MODE_BE_SOIL) != 0;
+  static constexpr bool trbdf2 = (M & MODE_TRBDF2) != 0;
+};
+
+// Per-column constants and Earth constants, in the working type.
+template <typename T>
+struct Column {
+  T p[kNumParams];
+  T T_0, rho_ice, LH_f0, rho_cp_l, rho_cp_i;
+  // freeze-thaw: rho_i/rho_l, rho_l/rho_i and rho_i LH_f0 as the eager
+  // version rounds them (double, then the working type); g; the bracket
+  T rho_i_over_l, rho_l_over_i, rho_i_LH_f0, grav, T_lo, T_hi;
+  int64_t n_iter;
+  T eps, tiny;  // numeric_limits<T>::epsilon() and min(), set by launch()
+  bool viscosity, impedance;
+};
+
+// eps and tiny come from the host (std::numeric_limits is host code).
+template <typename T>
+__device__ Column<T> load_column(const KernelArgs& a, int64_t col, T eps, T tiny) {
+  Column<T> c;
+  for (int j = 0; j < kNumParams; ++j) {
+    c.p[j] = static_cast<const T*>(a.param_ptr[j])[col * a.param_stride[j]];
+  }
+  c.T_0 = T(a.T_0);
+  c.rho_ice = T(a.rho_cloud_ice);
+  c.LH_f0 = T(a.LH_f0);
+  c.rho_cp_l = T(a.rho_cp_l);
+  c.rho_cp_i = T(a.rho_cp_i);
+  c.rho_i_over_l = T(a.rho_cloud_ice / a.rho_cloud_liq);
+  c.rho_l_over_i = T(a.rho_cloud_liq / a.rho_cloud_ice);
+  c.rho_i_LH_f0 = T(a.rho_cloud_ice * a.LH_f0);
+  c.grav = T(a.grav);
+  c.T_lo = T(a.T_lo);
+  c.T_hi = T(a.T_hi);
+  c.n_iter = a.n_iter;
+  c.eps = eps;
+  c.tiny = tiny;
+  c.viscosity = a.viscosity != 0;
+  c.impedance = a.impedance != 0;
+  return c;
+}
+
+template <typename T>
+struct Center {
+  T vl, ti, re;     // stage state (heat-only: vl, ti from the profiles)
+  T temp, kappa;    // T and kappa
+  T rcs;            // rho_c_s (stage coefficients)
+  T K, psi, h;      // conductivity, pressure head, h = psi + z
+  T reK;            // rho_e_int_l * K
+  T src_l, src_i;   // phase-change sources (MODE_FREEZE_RATE)
+};
+
+// The lagged coefficients, (nz, ncol) each, in the scratch buffer.
+template <typename T>
+struct Coefs {
+  T* K;
+  T* kappa;
+  T* inv_rho_c_s;
+  T* KE;
+  T* rho_c_s;  // MODE_FREEZE_RATE only
+};
+
+// The prognostic fields of a column batch; a branch's absent fields are null.
+template <typename T>
+struct Fields {
+  T* vl;
+  T* ti;
+  T* re;
+};
+
+// The prescribed profiles at one table row, (nz,) each, or null.
+template <typename T>
+struct Profiles {
+  const T* temp;
+  const T* vl;
+  const T* ti;
+};
+
+template <typename T> __device__ __forceinline__ T clip_unit(const Column<T>& c, T S) {
+  return d_min(d_max(S, c.eps), T(1) - c.eps);
+}
+
+// ---- water.py ----
+
+template <typename T>
+__device__ T effective_saturation(const Column<T>& c, T porosity, T vl) {
+  T theta_r = c.p[P_THETA_R];
+  T safe = d_max(vl, theta_r + c.eps);
+  return (safe - theta_r) / (porosity - theta_r);
+}
+
+template <typename T>
+__device__ T matric_potential(const Column<T>& c, T S) {
+  T S_safe = clip_unit(c, S);
+  T u_inv = d_exp(d_log(S_safe) * c.p[P_NEG_INV_M]);
+  T base = (u_inv - T(1)) * c.p[P_ALPHA_POW_NEG_N];
+  T psi_unsat = -d_exp(d_log(d_max(base, c.tiny)) * c.p[P_INV_N]);
+  return S < T(1) ? psi_unsat : T(0);
+}
+
+template <typename T>
+__device__ T pressure_head(const Column<T>& c, T vl, T nu_eff) {
+  T S = effective_saturation(c, nu_eff, vl);
+  T psi_unsat = matric_potential(c, S);
+  T psi_sat = (vl - nu_eff) / c.p[P_S_S];
+  return S <= T(1) ? psi_unsat : psi_sat;
+}
+
+// d max(x, bound)/dx (above) or d min(x, bound)/dx as jax.grad gives it: 1
+// where x passes, 0 where the bound does, 1/2 at a tie.
+template <typename T> __device__ __forceinline__ T tie_gate(T x, T bound, bool above) {
+  bool passes = above ? x > bound : x < bound;
+  return passes ? T(1) : (x == bound ? T(0.5) : T(0));
+}
+
+// water.py::dpsi_dtheta: d psi / d vartheta_l of pressure_head in closed form.
+template <typename T>
+__device__ T dpsi_dtheta(const Column<T>& c, T vl, T nu_eff) {
+  T theta_r = c.p[P_THETA_R];
+  T floor = theta_r + c.eps;
+  T S = (d_max(vl, floor) - theta_r) / (nu_eff - theta_r);
+  T S_low = d_max(S, c.eps);
+  T S_safe = d_min(S_low, T(1) - c.eps);
+  T u_inv = d_exp(d_log(S_safe) * c.p[P_NEG_INV_M]);
+  T base = (u_inv - T(1)) * c.p[P_ALPHA_POW_NEG_N];
+  T psi = -d_exp(d_log(d_max(base, c.tiny)) * c.p[P_INV_N]);
+  T gate = tie_gate(vl, floor, true) * tie_gate(S, c.eps, true) *
+           tie_gate(S_low, T(1) - c.eps, false) * tie_gate(base, c.tiny, true);
+  T C_unsat = (-psi) * u_inv / (c.p[P_N_M] * S_safe * (u_inv - T(1)) * (nu_eff - theta_r));
+  T unsat = S < T(1) ? C_unsat * gate : T(0);
+  return S <= T(1) ? unsat : T(1) / c.p[P_S_S];
+}
+
+template <typename T>
+__device__ T hydraulic_conductivity(const Column<T>& c, T S, T visc, T imp) {
+  T S_safe = clip_unit(c, S);
+  T u = d_exp(d_log(S_safe) * c.p[P_INV_M]);
+  T f = T(1) - d_exp(d_log(d_max(T(1) - u, c.tiny)) * c.p[P_M]);
+  T K_unsat = d_sqrt(S_safe) * f * f;
+  T K = S < T(1) ? K_unsat : T(1);
+  return K * c.p[P_KSAT] * visc * imp;
+}
+
+template <typename T>
+__device__ T ice_fraction(const Column<T>& c, T theta_l, T ti) {
+  return ti * (T(1) / d_max(theta_l + ti, c.eps));
+}
+
+template <typename T>
+__device__ T viscosity_factor(const Column<T>& c, T temp) {
+  return c.viscosity ? d_exp(c.p[P_VISC_GAMMA] * (temp - c.p[P_VISC_T_REF])) : T(1);
+}
+
+template <typename T>
+__device__ T impedance_factor(const Column<T>& c, T f_i) {
+  return c.impedance ? d_exp(c.p[P_IMPEDANCE_COEF] * f_i) : T(1);
+}
+
+// K from (vartheta_l, theta_i, T): hydrology_center_fields / free drainage.
+template <typename T>
+__device__ T conductivity(const Column<T>& c, T vl, T ti, T temp) {
+  T theta_l = d_min(vl, c.p[P_NU] - ti);
+  T imp = impedance_factor(c, ice_fraction(c, theta_l, ti));
+  T visc = viscosity_factor(c, temp);
+  T S = effective_saturation(c, c.p[P_NU], vl);
+  return hydraulic_conductivity(c, S, visc, imp);
+}
+
+// The same with assume_no_ice: the impedance factor is one.
+template <typename T>
+__device__ T conductivity_no_ice(const Column<T>& c, T vl, T temp) {
+  T visc = viscosity_factor(c, temp);
+  T S = effective_saturation(c, c.p[P_NU], vl);
+  return hydraulic_conductivity(c, S, visc, T(1));
+}
+
+// ---- heat.py ----
+
+template <typename T>
+__device__ T kersten_number(const Column<T>& c, T ti, T S_r) {
+  T S_r_safe = d_max(S_r, T(0));
+  T half = (T(1) - S_r_safe) / T(2);
+  T t = T(1) + d_exp(c.p[P_NEG_B] * S_r_safe);
+  T bracket = T(1) / (t * t * t) - half * half * half;
+  T ln_S = d_log(d_max(S_r_safe, c.tiny));
+  T ln_bracket = d_log(d_max(bracket, c.tiny));
+  T unfrozen = d_exp(ln_S * c.p[P_KERSTEN_EXP_UNFROZEN] +
+                     ln_bracket * c.p[P_KERSTEN_EXP_BRACKET]);
+  if (ti < c.eps) return unfrozen;
+  return d_exp(ln_S * c.p[P_KERSTEN_EXP_FROZEN]);
+}
+
+template <typename T>
+__device__ T saturated_thermal_conductivity(const Column<T>& c, T theta_l, T ti) {
+  T theta_w = theta_l + ti;
+  T r_theta_w = T(1) / d_max(theta_w, c.eps);
+  T kappa = d_exp((theta_l * c.p[P_LN_KAPPA_SAT_UNFROZEN] +
+                   ti * c.p[P_LN_KAPPA_SAT_FROZEN]) * r_theta_w);
+  return theta_w < c.eps ? T(0) : kappa;
+}
+
+// kappa from (vartheta_l, theta_i): energy_center_fields / Dirichlet face.
+template <typename T>
+__device__ T thermal_conductivity(const Column<T>& c, T vl, T ti) {
+  T theta_l = d_min(vl, c.p[P_NU] - ti);
+  T S_r = (theta_l + ti) / c.p[P_NU];
+  T Ke = kersten_number(c, ti, S_r);
+  T kappa_sat = saturated_thermal_conductivity(c, theta_l, ti);
+  return Ke * kappa_sat + (T(1) - Ke) * c.p[P_KAPPA_DRY];
+}
+
+// The same with assume_no_ice: unfrozen Kersten branch, kappa_sat unfrozen.
+template <typename T>
+__device__ T thermal_conductivity_no_ice(const Column<T>& c, T theta_l) {
+  T S_r = theta_l / c.p[P_NU];
+  T Ke = kersten_number(c, T(0), S_r);
+  T kappa_sat = theta_l < c.eps ? T(0) : c.p[P_KAPPA_SAT_UNFROZEN];
+  return Ke * kappa_sat + (T(1) - Ke) * c.p[P_KAPPA_DRY];
+}
+
+// ---- freeze_thaw.py ----
+
+// theta_l_max(T): +inf at and above T_0.
+template <typename T>
+__device__ T equilibrium_unfrozen_liquid(const Column<T>& c, T temp) {
+  T T_safe = d_max(temp, T(200));
+  T psi_f = c.LH_f0 * (d_min(T_safe, c.T_0) - c.T_0) / (c.grav * T_safe);
+  T S_max = d_pow(T(1) + d_pow(c.p[P_ALPHA] * d_abs(psi_f), c.p[P_N]), -c.p[P_M]);
+  T theta_r = c.p[P_THETA_R];
+  T theta_l_max = rn_add(theta_r, rn_mul(c.p[P_NU] - theta_r, S_max));
+  return temp >= c.T_0 ? T(INFINITY) : theta_l_max;
+}
+
+template <typename T>
+__device__ void phase_change_sources(const Column<T>& c, T theta_l, T ti, T temp,
+                                     T rho_c_s, T* src_l, T* src_i) {
+  T theta_l_max = equilibrium_unfrozen_liquid(c, temp);
+  T excess = isinf(theta_l_max) ? T(0) : d_max(theta_l - theta_l_max, T(0));
+  T deficit_ice = d_max(rho_c_s * (c.T_0 - temp), T(0)) / c.rho_i_LH_f0;
+  T surplus_ice = d_max(rho_c_s * (temp - c.T_0), T(0)) / c.rho_i_LH_f0;
+  T freeze_ice = d_min(c.rho_l_over_i * excess, deficit_ice) / c.p[P_TAU];
+  T melt_ice = d_min(ti, surplus_ice) / c.p[P_TAU];
+  *src_i = freeze_ice - melt_ice;
+  *src_l = c.rho_i_over_l * (melt_ice - freeze_ice);
+}
+
+// ---- rhs.py: center fields ----
+
+// energy_center_fields: T, kappa and rho_c_s at a center, and K
+// (hydrology_center_fields), from the state.
+template <typename T, int M>
+__device__ void closures(const Column<T>& c, T vl, T ti, T re, T theta_l,
+                         T* temp, T* kappa, T* rho_c_s, T* K) {
+  if (Modes<M>::no_ice) {
+    *rho_c_s = c.p[P_RHO_C_DS] + theta_l * c.rho_cp_l;
+    *temp = c.T_0 + re / *rho_c_s;
+    *kappa = thermal_conductivity_no_ice(c, theta_l);
+    *K = conductivity_no_ice(c, vl, *temp);
+  } else {
+    *rho_c_s = c.p[P_RHO_C_DS] + theta_l * c.rho_cp_l + ti * c.rho_cp_i;
+    *temp = c.T_0 + (re + ti * c.rho_ice * c.LH_f0) / *rho_c_s;
+    *kappa = thermal_conductivity(c, vl, ti);
+    *K = conductivity(c, vl, ti, *temp);
+  }
+}
+
+// The center fields of one rhs evaluation.  Stage coefficients evaluate the
+// closures here; lagged ones read them from `coef` at index i and diagnose
+// T through the frozen reciprocal heat capacity.  The water-only branch
+// takes T from the profile (`temp_prescribed`) and needs no thermal field;
+// the heat-only branch gets vartheta_l and theta_i from the profiles and
+// needs no hydraulic field.
+template <typename T, int M>
+__device__ Center<T> center_fields(const Column<T>& c, const Coefs<T>& coef,
+                                   int64_t i, T vl, T ti, T re, T temp_prescribed, T z) {
+  Center<T> x;
+  x.vl = vl;
+  x.ti = ti;
+  x.re = re;
+  x.kappa = x.rcs = x.K = x.psi = x.h = x.reK = T(0);
+  x.src_l = x.src_i = T(0);
+  T nu_eff = Modes<M>::no_ice ? c.p[P_NU] : c.p[P_NU] - ti;
+  T theta_l = d_min(vl, nu_eff);
+  if (Modes<M>::water) {
+    x.temp = temp_prescribed;
+    x.K = conductivity(c, vl, ti, temp_prescribed);
+  } else if (Modes<M>::heat) {
+    x.rcs = c.p[P_RHO_C_DS] + theta_l * c.rho_cp_l + ti * c.rho_cp_i;
+    x.temp = c.T_0 + (re + ti * c.rho_ice * c.LH_f0) / x.rcs;
+    x.kappa = thermal_conductivity(c, vl, ti);
+    return x;
+  } else if (Modes<M>::lagged) {
+    T inv_rho_c_s = coef.inv_rho_c_s[i];
+    x.temp = Modes<M>::no_ice
+                 ? c.T_0 + re * inv_rho_c_s
+                 : c.T_0 + (re + ti * c.rho_ice * c.LH_f0) * inv_rho_c_s;
+    x.kappa = coef.kappa[i];
+    x.K = coef.K[i];
+    x.reK = coef.KE[i];
+    x.rcs = Modes<M>::rate ? coef.rho_c_s[i] : T(0);
+  } else {
+    closures<T, M>(c, vl, ti, re, theta_l, &x.temp, &x.kappa, &x.rcs, &x.K);
+    T rho_e_int_l = c.rho_cp_l * (x.temp - c.T_0);
+    x.reK = rho_e_int_l * x.K;
+  }
+  x.psi = pressure_head(c, vl, nu_eff);
+  x.h = x.psi + z;
+  if (Modes<M>::rate) {
+    phase_change_sources(c, theta_l, ti, x.temp, x.rcs, &x.src_l, &x.src_i);
+  }
+  return x;
+}
+
+// ---- boundary.py: boundary_fluxes at one face ----
+// The Dirichlet values of both components overwrite the face state before
+// either flux is computed.  The boundary fluxes are never lagged: free
+// drainage takes K of the stage state (`live_K`) in the lagged mode.  A
+// prescribed component (BC_NONE slot) has no flux, and the branch never
+// reads it; a dynamic component's slot is never BC_NONE (the host checks).
+template <typename T, int M>
+__device__ void face_fluxes(const Column<T>& c, const Center<T>& x,
+                            int64_t kind_e, T val_e, int64_t kind_w, T val_w,
+                            bool top, bool live_K, T dzb, T* f_e, T* f_w) {
+  T vl_f = kind_w == BC_DIRICHLET ? val_w : x.vl;
+  T temp_f = kind_e == BC_DIRICHLET ? val_e : x.temp;
+  T ti_f = x.ti;
+  *f_e = T(0);
+  *f_w = T(0);
+  if (!Modes<M>::water) {
+    if (kind_e == BC_FLUX) {
+      *f_e = val_e;
+    } else {  // Dirichlet
+      T kappa_f = thermal_conductivity(c, vl_f, ti_f);
+      T flux = (-kappa_f) * (temp_f - x.temp) / dzb;
+      *f_e = top ? flux : -flux;
+    }
+  }
+  if (!Modes<M>::heat) {
+    if (kind_w == BC_FLUX) {
+      *f_w = val_w;
+    } else if (kind_w == BC_FREE_DRAINAGE) {
+      *f_w = -(live_K ? conductivity(c, x.vl, x.ti, x.temp) : x.K);
+    } else {  // Dirichlet
+      T K_f = conductivity(c, vl_f, ti_f, temp_f);
+      T psi_f = pressure_head(c, vl_f, c.p[P_NU] - ti_f);
+      *f_w = top ? (-K_f) * (psi_f - x.psi + dzb) / dzb
+                 : (-K_f) * (x.psi - psi_f + dzb) / dzb;
+    }
+  }
+}
+
+// The BC values of table row `row` for column `col`.
+template <typename T>
+__device__ void load_bc(const KernelArgs& a, int64_t row, int64_t col, T bc_val[kNumBC]) {
+  for (int j = 0; j < kNumBC; ++j) {
+    bc_val[j] = a.bc_kind[j] == BC_FREE_DRAINAGE || a.bc_kind[j] == BC_NONE
+                    ? T(0)
+                    : static_cast<const T*>(a.bc_ptr[j])[row * a.bc_row_stride[j] +
+                                                         col * a.bc_col_stride[j]];
+  }
+}
+
+// The profile rows of table row `row`.
+template <typename T>
+__device__ Profiles<T> load_profiles(const KernelArgs& a, int64_t row) {
+  auto at = [&](int j) -> const T* {
+    return a.profile[j] ? static_cast<const T*>(a.profile[j]) + row * a.nz : nullptr;
+  };
+  return Profiles<T>{at(PROF_T), at(PROF_VARTHETA_L), at(PROF_THETA_I)};
+}
+
+// ---- rhs.py: one rhs evaluation over a column ----
+// The tendency of state `u` at the BC values and profile rows of one table
+// row, bottom to top with a sliding window over the levels: for each level
+// k, once its center fields x and both its face fluxes are known,
+// emit(k, x, d_vl, d_ti, d_re) receives its tendencies.  Level k-1 is
+// emitted after level k is read, so `emit` may overwrite level k-1 of `u`.
+template <typename T, int M, typename Emit>
+__device__ void rhs_sweep(const Column<T>& c, const KernelArgs& a, int64_t col,
+                          Fields<T> u, const T bc_val[kNumBC], Profiles<T> prof,
+                          const T* zc, T dz, const Coefs<T>& coef, Emit emit) {
+  const int64_t nz = a.nz, ncol = a.ncol;
+  const T dzb = dz / T(2);
+
+  auto tendencies = [&](int64_t k, const Center<T>& x, T dF_w, T dF_e) {
+    T d_vl = T(0), d_ti = T(0), d_re = T(0);
+    if (!Modes<M>::heat) d_vl = -(dF_w / dz);
+    if (Modes<M>::rate) {
+      d_vl = d_vl + x.src_l;
+      d_ti = d_ti + x.src_i;
+    }
+    if (!Modes<M>::water) d_re = -(dF_e / dz);
+    emit(k, x, d_vl, d_ti, d_re);
+  };
+
+  Center<T> prev;
+  T Fw_prev = T(0), Fe_prev = T(0);
+  for (int64_t k = 0; k < nz; ++k) {
+    const int64_t i = k * ncol + col;
+    T vl = Modes<M>::heat ? prof.vl[k] : u.vl[i];
+    T ti = Modes<M>::heat ? prof.ti[k] : u.ti[i];
+    T re = Modes<M>::water ? T(0) : u.re[i];
+    T temp = Modes<M>::water ? prof.temp[k] : T(0);
+    Center<T> x = center_fields<T, M>(c, coef, i, vl, ti, re, temp, zc[k]);
+    if (k == 0) {
+      face_fluxes<T, M>(c, x, a.bc_kind[BC_BOTTOM_ENERGY], bc_val[BC_BOTTOM_ENERGY],
+                        a.bc_kind[BC_BOTTOM_HYDROLOGY], bc_val[BC_BOTTOM_HYDROLOGY],
+                        false, Modes<M>::lagged, dzb, &Fe_prev, &Fw_prev);
+    } else {
+      // interior face between centers k-1 and k: -interp(coef) * grad
+      T Fw = T(0), Fe = T(0);
+      T grad_h = (x.h - prev.h) / dz;
+      if (!Modes<M>::heat) Fw = (-(T(0.5) * (prev.K + x.K))) * grad_h;
+      if (Modes<M>::coupled) {
+        Fe = (-(T(0.5) * (prev.kappa + x.kappa))) * ((x.temp - prev.temp) / dz) +
+             (-(T(0.5) * (prev.reK + x.reK))) * grad_h;
+      } else if (Modes<M>::heat) {
+        Fe = (-(T(0.5) * (prev.kappa + x.kappa))) * ((x.temp - prev.temp) / dz);
+      }
+      tendencies(k - 1, prev, Fw - Fw_prev, Fe - Fe_prev);
+      Fw_prev = Fw;
+      Fe_prev = Fe;
+    }
+    prev = x;
+  }
+  T Fe_top, Fw_top;
+  face_fluxes<T, M>(c, prev, a.bc_kind[BC_TOP_ENERGY], bc_val[BC_TOP_ENERGY],
+                    a.bc_kind[BC_TOP_HYDROLOGY], bc_val[BC_TOP_HYDROLOGY], true,
+                    Modes<M>::lagged, dzb, &Fe_top, &Fw_top);
+  tendencies(nz - 1, prev, Fw_top - Fw_prev, Fe_top - Fe_prev);
+}
+
+}  // namespace

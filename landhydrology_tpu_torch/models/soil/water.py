@@ -173,6 +173,48 @@ def pressure_head(hm: vanGenuchten, vartheta_l: Array, nu_eff: Array, S_s: Array
     return torch.where(S_l_eff <= 1.0, psi_unsat, psi_sat)
 
 
+def _tie_gate(x: Array, bound, above: bool) -> Array:
+    """The derivative of ``maximum(x, bound)`` (``above``) or
+    ``minimum(x, bound)`` in ``x`` as ``jax.grad`` gives it: 1 on the side
+    where x passes through, 0 on the other, and 1/2 where x ties with the
+    bound (``jnp.maximum``/``jnp.minimum``/``jnp.clip`` split the cotangent
+    evenly between the operands)."""
+    passes = x > bound if above else x < bound
+    return passes.to(x.dtype) + 0.5 * (x == bound).to(x.dtype)
+
+
+def dpsi_dtheta(hm: vanGenuchten, vartheta_l: Array, nu_eff: Array, S_s: Array) -> Array:
+    """``C = d psi / d vartheta_l`` of :func:`pressure_head`, in closed form.
+    In the plain unsaturated region, with ``u_inv = S^(-1/m)``,
+
+        C = -psi u_inv / (n m S (u_inv - 1) (nu_eff - theta_r));
+
+    ``1/S_s`` where S > 1; 0 at S == 1 exactly, where S is clamped to
+    [1 - eps, 1), below the dry clamp theta_r + eps and under the tiny guard;
+    and half the one-sided value where an operand ties with a clamp's bound,
+    the value ``jax.grad`` of the pressure head gives there (the JAX
+    package's ``imex._dpsi_dtheta``)."""
+    n, alpha, m, theta_r = hm.n, hm.alpha, hm.m, hm.theta_r
+    eps = _eps_of(vartheta_l)
+    tiny = _tiny_of(vartheta_l)
+    floor = theta_r + eps
+    S = (_maximum(vartheta_l, floor) - theta_r) / (nu_eff - theta_r)
+    S_low = _maximum(S, eps)
+    S_safe = _minimum(S_low, 1.0 - eps)
+    u_inv = torch.exp(torch.log(S_safe) * (-1.0 / m))
+    base = (u_inv - 1.0) * alpha ** (-n)
+    psi = -torch.exp(torch.log(_maximum(base, tiny)) * (1.0 / n))
+    gate = (
+        _tie_gate(vartheta_l, floor, True)
+        * _tie_gate(S, eps, True)
+        * _tie_gate(S_low, 1.0 - eps, False)
+        * _tie_gate(base, tiny, True)
+    )
+    C_unsat = (-psi) * u_inv / (n * m * S_safe * (u_inv - 1.0) * (nu_eff - theta_r))
+    unsat = torch.where(S < 1.0, C_unsat * gate, 0.0)
+    return torch.where(S <= 1.0, unsat, 1.0 / S_s)
+
+
 def hydraulic_conductivity(
     hm: vanGenuchten, S: Array, viscosity_f: Array, impedance_f: Array
 ) -> Array:

@@ -7,18 +7,24 @@ callbacks at the save points.  Two engines:
 
 - ``"torch"``: the eager loop of ``stepper.step`` calls (the analogue of
   the JAX package's XLA engine);
-- ``"fused"``: the CUDA column kernel (``ops/cuda/column_kernel.py``, the
+- ``"fused"``: the CUDA column kernels (``ops/cuda/column_kernel.py``, the
   analogue of the ``"pallas"`` engine), ``steps_per_call`` steps per
-  launch, with time carried in the model dtype.
+  launch, with time carried in the model dtype: SSPRK33 and the implicit
+  steppers of ``imex.py``, whose ``model`` must be the simulation's.
+
+An implicit stepper's grid is rebuilt on the model's device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import warnings
 from typing import Optional
 
 import torch
 
+from landhydrology_tpu_torch.domains import make_function_space
+from landhydrology_tpu_torch.imex import IMPLICIT_STEPPERS
 from landhydrology_tpu_torch.models.soil.freeze_thaw import wrap_stepper_with_projection
 from landhydrology_tpu_torch.models.soil.lagged import wrap_stepper_for_soil
 from landhydrology_tpu_torch.models.soil.rhs import make_rhs
@@ -73,7 +79,6 @@ class Simulation:
         if Y_init is None:
             Y_init, Ya_init = model.default_initial_conditions()
         elif Ya_init is None:
-            from landhydrology_tpu_torch.domains import make_function_space
             from landhydrology_tpu_torch.models.soil.initial_conditions import (
                 initialize_auxiliary,
             )
@@ -85,6 +90,11 @@ class Simulation:
         if engine not in ("torch", "fused"):
             raise ValueError(f"unknown engine {engine!r}")
         self.model = model
+        if isinstance(stepper, IMPLICIT_STEPPERS):
+            # the implicit steppers solve on their grid: the run's own
+            stepper = dataclasses.replace(
+                stepper, grid=make_function_space(model.domain, model.float_dtype, model.device)
+            )
         # step policies, as the JAX package applies them: the equilibrium
         # projection wraps the stepper and the lagged-coefficient policy is
         # outermost, so each step is coefficients, stages, projection; the

@@ -80,11 +80,16 @@ class SSPRK33(AbstractTimestepper):
     stages = 3
     order = 3
 
+    def stage_times(self, t, dt) -> tuple:
+        """The times of the three rhs evaluations."""
+        return (t, t + dt, t + 0.5 * dt)
+
     def step(self, rhs, Y, Ya, t, dt):
-        u1 = _axpy(dt, rhs(Y, Ya, t), Y)
-        u2_inner = _axpy(dt, rhs(u1, Ya, t + dt), u1)
+        t1, t2, t3 = self.stage_times(t, dt)
+        u1 = _axpy(dt, rhs(Y, Ya, t1), Y)
+        u2_inner = _axpy(dt, rhs(u1, Ya, t2), u1)
         u2 = _lincomb2(0.75, Y, 0.25, u2_inner)
-        u3_inner = _axpy(dt, rhs(u2, Ya, t + 0.5 * dt), u2)
+        u3_inner = _axpy(dt, rhs(u2, Ya, t3), u2)
         return _lincomb2(1.0 / 3.0, Y, 2.0 / 3.0, u3_inner)
 
 

@@ -147,3 +147,104 @@ def test_freeze_bars_follow_the_bisection_resolution():
         off = dict(plain, theta_i=plain["theta_i"] + 3 * water)
         with pytest.raises(AssertionError, match="theta_i"):
             cs._check_freeze(off, plain, eq, dtype, "eq")
+
+
+# ---- the stiff path's builders, the implicit modes' bounds and traffic ----
+
+
+def test_stiff_builder_matches_bench():
+    """``build_stiff`` rebuilds ``bench.py::build_stiff`` (state and rhs,
+    f64 rtol 1e-13), and ``stiff_dt_explicit`` is bench.py's ``dt_exp``."""
+    from landhydrology_tpu.diagnostics import explicit_dt_limit as jax_dt_limit
+
+    jmodel, jY, jYa = bench.build_stiff(16, NCOL, jnp.float64)
+    model, Y, Ya = cs.build_stiff(16, NCOL, torch.float64, "cpu")
+    for k, v in cs._np(Y).items():
+        np.testing.assert_allclose(v, np.asarray(jY["soil"][k]), rtol=1e-13, atol=0, err_msg=k)
+    ref = jax_make_rhs(jmodel)(jY, jYa, jnp.asarray(3.0, dtype=jnp.float64))["soil"]["vartheta_l"]
+    got = make_rhs(model)(Y, Ya, torch.tensor(3.0, dtype=torch.float64))["soil"]["vartheta_l"]
+    scale = float(np.max(np.abs(np.asarray(ref))))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-13, atol=1e-13 * scale)
+    # bench.py:579-590
+    front = jnp.where((jnp.arange(16) % 2)[:, None] == 0, 0.1, 0.267).astype(jnp.float64)
+    wet = {"soil": dict(jY["soil"], vartheta_l=jnp.broadcast_to(front, (16, NCOL)))}
+    want = 0.5 * float(jax_dt_limit(jmodel, wet))
+    assert cs.stiff_dt_explicit(model, Y) == pytest.approx(want, rel=1e-12)
+
+
+def test_heat_only_builder():
+    """The heat-only column: one contiguous prognostic field, prescribed
+    moisture and ice, a callable Dirichlet top and (with a seed) a
+    per-column bottom flux; the B1-heat plain run moves rho_e_int."""
+    model, Y, Ya = cs.build_heat_only(16, NCOL, torch.float64, "cpu", seed=3)
+    assert list(Y["soil"]) == ["rho_e_int"] and Y["soil"]["rho_e_int"].is_contiguous()
+    assert ck.mode_name(ck.kernel_mode(model)) == "B1-heat"
+    assert tuple(model.boundary_conditions.bottom.energy.flux.shape) == (NCOL,)
+    start = cs._np(Y)
+    end = cs._np(ck.fused_column_run_plain(model, SSPRK33(), 10.0, 4, Y, 0.0))
+    assert np.max(np.abs(end["rho_e_int"] - start["rho_e_int"])) > 1e3
+
+
+def test_implicit_bound_counts():
+    """The implicit modes' operation counts follow the stepper: TR-BDF2
+    evaluates the rhs 1 + 2 iters times per active component, a coupled
+    water sweep's rhs leaves out kappa, PCR adds its levels to each solve,
+    and the heat-only branch moves one state field."""
+    water = ck.MODE_TRBDF2 | ck.MODE_WATER
+    psi_hyd_exp = 4  # exp calls of pressure_head + conductivity per rhs
+    for iters in (1, 2, 3):
+        ops = cs.cell_step_ops(ck, water, iters=iters)
+        assert ops["exp"] == psi_hyd_exp * (1 + 2 * iters) + 2 * 2 * iters  # + dpsi per sweep
+    thomas, pcr = cs.cell_step_ops(ck, water), cs.cell_step_ops(ck, water | ck.MODE_PCR)
+    assert pcr["op"] > thomas["op"] and pcr["div"] > thomas["div"] and pcr["exp"] == thomas["exp"]
+    coupled = cs.cell_step_ops(ck, ck.MODE_TRBDF2)
+    assert coupled["exp"] > thomas["exp"] > cs.cell_step_ops(ck, ck.MODE_BE_RICHARDS | ck.MODE_WATER)["exp"]
+    # coupled: f(u^n) and the heat sweeps take the full closures (5 exp) and
+    # psi (2); a water sweep's rhs needs no kappa, so K and psi alone (4)
+    full, water_sweep, dpsi = 5 + 2, psi_hyd_exp, 2
+    assert coupled["exp"] == full * (1 + 2 * 2) + (water_sweep + dpsi) * 2 * 2
+    assert cs.cell_step_ops(ck, ck.MODE_BE_RICHARDS)["exp"] == (water_sweep + dpsi) * 2 + full
+    assert cs.cell_step_ops(ck, ck.MODE_BE_SOIL)["exp"] == (water_sweep + dpsi) * 2 + full * 2
+    assert (cs.cell_step_ops(ck, ck.MODE_BE_RICHARDS)["op"] - cs.cell_step_ops(ck, ck.MODE_BE_RICHARDS | ck.MODE_WATER)["op"]
+            == 2 * cs._TEMP["op"] + 51 + 13 + 21)  # T per water sweep, then the explicit full rhs
+    assert cs.cell_step_ops(ck, ck.MODE_BE_SOIL)["op"] > cs.cell_step_ops(ck, ck.MODE_BE_RICHARDS)["op"]
+    assert [cs.state_fields(ck, m) for m in (0, ck.MODE_WATER, ck.MODE_HEAT)] == [3, 2, 1]
+    costs = {torch.float64: {"exp": 10, "log": 10, "sqrt": 2, "div": 5, "pow": 20}}
+    ms, by = cs.bound_ms(ck, costs, ck.MODE_TRBDF2 | ck.MODE_HEAT, torch.float64, NZ * NCOL, 0)
+    assert by == "bytes" and ms == pytest.approx(1e3 * 2 * 8 * NZ * NCOL / cs.HBM_BYTES_PER_S)
+
+
+def test_scratch_traffic_counts():
+    """Values per cell-step through the implicit kernel's scratch: a Thomas
+    sweep moves 20 (water-only: 2 state loads, F/K/C stores, 11 in the
+    assembly and elimination, 4 in the back substitution), PCR adds 16 per
+    level, and TR-BDF2 runs 2 stages of ``iters`` sweeps."""
+    water = ck.MODE_TRBDF2 | ck.MODE_WATER
+    thomas = cs.scratch_values_per_cell_step(ck, water, iters=2)
+    assert thomas == 2 + 4 + 2 * 2 * (20 + 2) + 6 + 4
+    pcr = cs.scratch_values_per_cell_step(ck, water | ck.MODE_PCR, iters=2)
+    assert pcr - thomas == 2 * 2 * (4 + 16 * 6 + 4 - 4 - 2)
+    be = cs.scratch_values_per_cell_step(ck, ck.MODE_BE_RICHARDS | ck.MODE_WATER, iters=2)
+    assert be == 2 * 20 + 4
+    assert cs.scratch_values_per_cell_step(ck, ck.MODE_BE_SOIL) > cs.scratch_values_per_cell_step(
+        ck, ck.MODE_BE_RICHARDS)
+
+
+def test_registers_and_sources_of_both_kernels(tmp_path):
+    """The ptxas report parser names the instances of both kernels by mode,
+    and each mode's kernel record names the source that holds it."""
+    report = (
+        "ptxas info    : Compiling entry function '_ZN_ssprk33_column_kernelIfLi16EEEv10KernelArgs' for 'sm_90a'\n"
+        "ptxas info    : Used 90 registers, used 0 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN_implicit_column_kernelIdLi272EEEv10KernelArgs' for 'sm_90a'\n"
+        "ptxas info    : Used 218 registers, used 0 barriers\n"
+    )
+    libs = {}
+    for name in ck.SOURCES:
+        libs[name] = tmp_path / f"{name}.so"
+        (tmp_path / f"{name}.ptxas.txt").write_text(report if name == "implicit_kernel" else "")
+    assert cs.registers(ck, libs) == {"f32, B1-water": 90, "f64, B4-trbdf2-water": 218}
+    kernel, source = cs.kernel_of(ck, ck.MODE_TRBDF2 | ck.MODE_PCR, torch.float64)
+    assert kernel == "implicit_column_kernel" and source == "landhydrology_tpu_torch/csrc/implicit_kernel.cu"
+    kernel, source = cs.kernel_of(ck, ck.MODE_HEAT, torch.float32)
+    assert kernel == "ssprk33_column_kernel" and source == "landhydrology_tpu_torch/csrc/column_kernel.cu"

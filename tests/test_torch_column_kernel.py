@@ -1,11 +1,12 @@
-"""The fused column kernel of the PyTorch port (``ops/cuda/column_kernel.py``).
+"""The fused column kernels of the PyTorch port (``ops/cuda/column_kernel.py``).
 
 On the CPU the run takes the kernel's plain version; it is held against the
-JAX package's fused Pallas kernel (interpret mode) and against
-``golden_coupled_f64.npz`` at rtol 1e-12, the bar the Pallas kernel meets.
-The host-side pieces the CUDA kernel depends on (BC value tables, the
-argument struct, the checks) are tested here too.  Tests marked ``cuda``
-launch the CUDA kernel and skip without a GPU.
+JAX package's fused Pallas kernel (interpret mode), against the JAX
+package's implicit steppers and against ``golden_coupled_f64.npz`` at rtol
+1e-12, the bar the Pallas kernel meets.  The host-side pieces the CUDA
+kernels depend on (BC value and profile tables at the steppers' stage
+times, the argument struct, the modes, the checks) are tested here too.
+Tests marked ``cuda`` launch the CUDA kernels and skip without a GPU.
 """
 
 import ctypes
@@ -36,8 +37,11 @@ from landhydrology_tpu_torch import (
     VerticalFlux,
 )
 from landhydrology_tpu_torch.convert import model_from_reference, state_from_numpy, state_to_numpy
+from landhydrology_tpu_torch.domains import make_function_space
+from landhydrology_tpu_torch.imex import BackwardEulerRichards, BackwardEulerSoil, TRBDF2Soil
+from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw, FreezeThaw
 from landhydrology_tpu_torch.ops.cuda import column_kernel as ck
-from landhydrology_tpu_torch.timestepping import SSPRK22, SSPRK33, ForwardEuler
+from landhydrology_tpu_torch.timestepping import SSPRK22, SSPRK33, SSPRK104, ForwardEuler
 from tests.data import golden_config as gc
 from tests.data import golden_config_torch as gct
 from tests.test_pallas_kernel import _model, _state
@@ -53,8 +57,8 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _assert_close_f64(got, ref, rtol=1e-12):
-    for k in FIELDS:
+def _assert_close_f64(got, ref, rtol=1e-12, keys=FIELDS):
+    for k in keys:
         np.testing.assert_allclose(
             np.asarray(got[k], dtype=np.float64), np.asarray(ref[k]), rtol=rtol, atol=1e-16, err_msg=k
         )
@@ -207,19 +211,20 @@ class _LandLike:
 )
 def test_unported_modes_raise(mode):
     model = _golden_port()
-    if mode == "B2_lagged":  # ported: the water-only lagged branch is not
-        lagged_water_only = dataclasses.replace(
-            model, energy_model=PrescribedTemperatureModel(), coefficient_update="step"
-        )
-        with pytest.raises(NotImplementedError, match="branch"):
-            ck.make_fused_column_run(lagged_water_only)
+    if mode == "B2_lagged":  # ported: the water-only and heat-only lagged branches are not
+        for branch in _branch_models(model):
+            with pytest.raises(NotImplementedError, match="branch"):
+                ck.make_fused_column_run(dataclasses.replace(branch, coefficient_update="step"))
     elif mode == "B3_freeze_thaw":  # ported: an unknown scheme is refused
         with pytest.raises(TypeError, match="FreezeThaw"):
             dataclasses.replace(model, freeze_thaw=object())
-    elif mode == "B4_stepper":
-        for stepper in (ForwardEuler(), SSPRK22()):
-            with pytest.raises(NotImplementedError, match="B4"):
-                ck.make_fused_column_run(model, stepper)
+    elif mode == "B4_stepper":  # ported: not with the step policies or assume_no_ice
+        grid = make_function_space(model.domain, torch.float64, "cpu")
+        for kw in ({"coefficient_update": "step"}, {"freeze_thaw": FreezeThaw(tau=60.0)},
+                   {"freeze_thaw": EquilibriumFreezeThaw()}, {"assume_no_ice": True}):
+            m = dataclasses.replace(model, **kw)
+            with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+                ck.make_fused_column_run(m, TRBDF2Soil(model=m, grid=grid))
     elif mode == "B5_most":
         with pytest.raises(NotImplementedError, match="A11"):
             PrescribedAtmosForcing(u_atm=2.0, theta_atm=300.0, z_atm=2.0,
@@ -241,18 +246,238 @@ def test_unported_modes_raise(mode):
             ck.make_fused_column_run(model, differentiable=True)
 
 
+def _branch_models(model):
+    """The water-only and heat-only variants of ``model``; the prescribed
+    component's BC slots hold NoBC."""
+    from landhydrology_tpu_torch import NoBC
+
+    bcs = model.boundary_conditions
+    water_only = dataclasses.replace(
+        model, energy_model=PrescribedTemperatureModel(),
+        boundary_conditions=SoilColumnBC(top=SoilComponentBC(hydrology=bcs.top.hydrology),
+                                         bottom=SoilComponentBC(hydrology=bcs.bottom.hydrology, energy=NoBC())),
+    )
+    heat_only = dataclasses.replace(
+        model, hydrology_model=PrescribedHydrologyModel(),
+        boundary_conditions=SoilColumnBC(top=SoilComponentBC(energy=bcs.top.energy),
+                                         bottom=SoilComponentBC(energy=bcs.bottom.energy)),
+    )
+    return water_only, heat_only
+
+
 def test_unported_branches_and_options_raise():
-    """The water-only and heat-only branches still raise; assume_no_ice is
-    ported and builds a run of the no-ice kernel."""
+    """The water-only and heat-only branches build runs of kernels B1-water
+    and B1-heat (BC slots of the prescribed component hold NoBC, as in
+    bench.py::build_stiff); assume_no_ice builds B1-no-ice; ForwardEuler,
+    SSPRK22 and SSPRK104 still raise, on every branch."""
     model = _golden_port()
-    water_only = dataclasses.replace(model, energy_model=PrescribedTemperatureModel())
-    with pytest.raises(NotImplementedError, match="branch"):
-        ck.make_fused_column_run(water_only)
-    heat_only = dataclasses.replace(model, hydrology_model=PrescribedHydrologyModel())
-    with pytest.raises(NotImplementedError, match="branch"):
-        ck.make_fused_column_run(heat_only)
+    water_only, heat_only = _branch_models(model)
+    assert ck.mode_name(ck.make_fused_column_run(water_only).mode) == "B1-water"
+    assert ck.mode_name(ck.make_fused_column_run(heat_only).mode) == "B1-heat"
     run = ck.make_fused_column_run(dataclasses.replace(model, assume_no_ice=True))
     assert ck.mode_name(run.mode) == "B1-no-ice"
+    for m in (model, water_only, heat_only):
+        for stepper in (ForwardEuler(), SSPRK22(), SSPRK104()):
+            with pytest.raises(NotImplementedError, match="ROADMAP B1"):
+                ck.make_fused_column_run(m, stepper)
+    for m in (water_only, heat_only):
+        with pytest.raises(NotImplementedError, match="ROADMAP B1"):
+            ck.make_fused_column_run(dataclasses.replace(m, assume_no_ice=True))
+
+
+def test_mode_names_and_scratch():
+    """Every new mode's name, from the model and the stepper, and its
+    scratch: the implicit kernel keeps the iterate, the stage constants,
+    F, K, C and the solver's fields."""
+    model = _golden_port()
+    water_only, heat_only = _branch_models(model)
+    grid = make_function_space(model.domain, torch.float64, "cpu")
+    names = {}
+    for m in (model, water_only, heat_only):
+        for cls in (TRBDF2Soil, BackwardEulerRichards, BackwardEulerSoil):
+            for tridiag in ("thomas", "pcr"):
+                try:
+                    run = ck.make_fused_column_run(m, cls(model=m, grid=grid, tridiag=tridiag))
+                except TypeError:  # backward Euler needs the dynamic components it solves
+                    continue
+                names[ck.mode_name(run.mode)] = run.mode
+                assert ck.scratch_fields(run.mode) == (17 if tridiag == "pcr" else 11)
+    assert sorted(names) == sorted(
+        base + pcr for base in ("B4-trbdf2", "B4-trbdf2-water", "B4-trbdf2-heat", "B4-be-richards",
+                                "B4-be-richards-water", "B4-be-soil") for pcr in ("", "-pcr")
+    )
+    assert names["B4-trbdf2-water-pcr"] == ck.MODE_TRBDF2 | ck.MODE_WATER | ck.MODE_PCR
+    assert ck.kernel_mode(water_only) == ck.MODE_WATER and ck.kernel_mode(heat_only) == ck.MODE_HEAT
+    assert ck.scratch_fields(ck.MODE_WATER) == ck.scratch_fields(ck.MODE_HEAT) == 6
+
+
+def test_implicit_factory_checks():
+    model = _golden_port()
+    water_only, heat_only = _branch_models(model)
+    grid = make_function_space(model.domain, torch.float64, "cpu")
+    other = dataclasses.replace(model)
+    with pytest.raises(ValueError, match="run's model"):
+        ck.make_fused_column_run(model, TRBDF2Soil(model=other, grid=grid))
+    with pytest.raises(ValueError, match="tridiagonal"):
+        ck.make_fused_column_run(model, TRBDF2Soil(model=model, grid=grid, tridiag="lu"))
+    with pytest.raises(TypeError, match="hydrology"):
+        ck.make_fused_column_run(heat_only, BackwardEulerRichards(model=heat_only, grid=grid))
+    with pytest.raises(TypeError, match="BackwardEulerSoil"):
+        ck.make_fused_column_run(water_only, BackwardEulerSoil(model=water_only, grid=grid))
+    from landhydrology_tpu_torch.models.soil.water import TemperatureDependentViscosity
+
+    visc = dataclasses.replace(water_only, hydrology_model=dataclasses.replace(
+        water_only.hydrology_model, viscosity_factor=TemperatureDependentViscosity()))
+    ck.make_fused_column_run(visc)  # SSPRK33 reads T from the profile
+    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+        ck.make_fused_column_run(visc, TRBDF2Soil(model=visc, grid=grid))
+    # a prescribed component with a Dirichlet or free-drainage slot
+    bad = dataclasses.replace(water_only, boundary_conditions=dataclasses.replace(
+        water_only.boundary_conditions, top=SoilComponentBC(hydrology=Dirichlet(0.3), energy=Dirichlet(290.0))))
+    with pytest.raises(TypeError, match="prescribed energy"):
+        ck.make_fused_column_run(bad)
+
+
+def test_per_column_profiles_are_refused():
+    model = _golden_port()
+    water_only, _ = _branch_models(model)
+    per_column = dataclasses.replace(
+        water_only, energy_model=PrescribedTemperatureModel(lambda z, t: 280.0 + 0.0 * z * torch.ones(8)))
+    zc = make_function_space(per_column.domain, torch.float64, "cpu").zc
+    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
+        ck.profile_tables(per_column, zc, [torch.tensor(0.0, dtype=torch.float64)])
+    (table, vl, ti) = ck.profile_tables(water_only, zc, [torch.tensor(t, dtype=torch.float64) for t in (0.0, 1.0)])
+    assert vl is None and ti is None and table.shape == (2, 24) and torch.all(table == 288.0)
+
+
+def _recording(log, value):
+    def v(t):
+        log.append(float(t))
+        return value(t) if callable(value) else value
+    return v
+
+
+@pytest.mark.parametrize("stepper", ["SSPRK33", "TRBDF2Soil", "BackwardEulerRichards"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_tables_are_built_at_the_eager_stage_times(stepper, dtype):
+    """A recording BC callable and a recording T profile see the same times
+    from the plain fused run (the eager steps) and from the table builders,
+    and the tables hold each value at its row, on the water-only branch
+    (BackwardEulerSoil, which needs dynamic heat, evaluates at the times of
+    BackwardEulerRichards: tests/test_torch_imex.py)."""
+    from landhydrology_tpu_torch import NoBC
+
+    model = _golden_port()
+    water_only, _ = _branch_models(model)
+    eager_log, table_log, prof_eager, prof_table = [], [], [], []
+
+    def make(bc_log, prof_log):
+        top = SoilComponentBC(hydrology=Dirichlet(_recording(bc_log, lambda t: 0.31 + 1e-5 * t)), energy=NoBC())
+        profile = _recording(prof_log, lambda t: 285.0 + 1e-3 * t)
+        return dataclasses.replace(
+            water_only, dtype=dtype,
+            energy_model=PrescribedTemperatureModel(lambda z, t: profile(t) + 0.0 * z),
+            boundary_conditions=dataclasses.replace(water_only.boundary_conditions, top=top),
+            soil_param_set=dataclasses.replace(water_only.soil_param_set, nu=water_only.soil_param_set.nu.to(dtype)),
+            hydrology_model=dataclasses.replace(water_only.hydrology_model, hydraulic_model=dataclasses.replace(
+                water_only.hydrology_model.hydraulic_model,
+                **{f: getattr(water_only.hydrology_model.hydraulic_model, f).to(dtype) for f in ("n", "alpha", "Ksat", "theta_r")})),
+        )
+
+    m_eager, m_table = make(eager_log, prof_eager), make(table_log, prof_table)
+    grid = make_function_space(m_eager.domain, dtype, "cpu")
+    if stepper == "SSPRK33":
+        st_eager = st_table = SSPRK33()
+    else:
+        cls = {"TRBDF2Soil": TRBDF2Soil, "BackwardEulerRichards": BackwardEulerRichards}[stepper]
+        st_eager, st_table = cls(model=m_eager, grid=grid), cls(model=m_table, grid=grid)
+    _, Y, _, _ = gct.build_model_and_state(dtype, "cpu")
+    Y = {"soil": {k: Y["soil"][k] for k in ("vartheta_l", "theta_i")}}
+    t0, dt, n = 7.25, 3.3, 3
+    ck.fused_column_run_plain(m_eager, st_eager, dt, n, Y, t0)
+    times, rows = ck.table_times(st_table, t0, dt, n, dtype)
+    table = ck.bc_value_table(m_table.boundary_conditions.top.hydrology.state_value, t0, dt, n, 8, dtype,
+                              "cpu", stepper=st_table)
+    ck.profile_tables(m_table, grid.zc, times)
+    assert rows == {"SSPRK33": 3, "TRBDF2Soil": 3, "BackwardEulerRichards": 1}[stepper]
+    assert sorted(set(eager_log)) == sorted(set(table_log)) == sorted(set(float(t) for t in times))
+    assert sorted(set(prof_eager)) == sorted(set(prof_table)) == sorted(set(table_log))
+    assert table[1:] == (1, 0) and table[0].shape == (len(times),)
+    for r, t in enumerate(times):
+        assert table[0][r] == torch.as_tensor(0.31 + 1e-5 * t, dtype=dtype)
+
+
+def _implicit_jax_case(case):
+    """(JAX model, state, dt) of the implicit plain-run cases."""
+    import bench
+
+    if case == "golden":
+        jm, Y, _, _ = gc.build_model_and_state(jnp.float64)
+        return jm, Y, 120.0
+    if case == "stiff":
+        jm, Y, _ = bench.build_stiff(16, 6, jnp.float64)
+        return jm, Y, 5.0
+    base = _model(JVerticalFlux(0.0), JVerticalFlux(0.0))
+    return _heterogeneous_jax(base, base.domain.batch_shape[0]), _state(), 300.0
+
+
+@pytest.mark.parametrize(
+    "case,stepper,tridiag",
+    [("golden", "TRBDF2Soil", "thomas"), ("golden", "TRBDF2Soil", "pcr"),
+     ("golden", "BackwardEulerRichards", "thomas"), ("golden", "BackwardEulerSoil", "pcr"),
+     ("stiff", "TRBDF2Soil", "thomas"), ("stiff", "BackwardEulerRichards", "pcr"),
+     ("heterogeneous", "TRBDF2Soil", "thomas")],
+)
+def test_plain_implicit_run_matches_jax_steps(case, stepper, tridiag):
+    """The port's fused run with an implicit stepper (plain version on the
+    CPU) == the JAX package's stepper over the same steps, from t0 = 10;
+    rtol 1e-12.  (The JAX fused kernel runs these steppers in its body, and
+    its own tests hold it to them.)"""
+    import landhydrology_tpu.imex as jimex
+    from landhydrology_tpu.domains import make_function_space as jax_grid
+
+    jm, Y, dt = _implicit_jax_case(case)
+    jgrid = jax_grid(jm.domain, jnp.float64)
+    jst = getattr(jimex, stepper)(model=jm, grid=jgrid, iters=2, tridiag=tridiag)
+    rhs = jax_make_rhs(jm, jgrid)
+    Yt = state_from_numpy(Y, device="cpu")
+    Ya = {"zc": jgrid.zc, "soil": {}}
+    for i in range(3):
+        Y = jst.step(rhs, Y, Ya, jnp.asarray(10.0 + i * dt), jnp.asarray(dt))
+    model = model_from_reference(jm, device="cpu")
+    import landhydrology_tpu_torch.imex as imex
+
+    st = getattr(imex, stepper)(model=model, grid=make_function_space(model.domain, torch.float64, "cpu"),
+                                iters=2, tridiag=tridiag)
+    run = ck.make_fused_column_run(model, st, dt=dt, steps_per_call=3)
+    before = dict(ck.LAUNCHES)
+    run(Yt, 10.0)
+    assert ck.LAUNCHES == before
+    _assert_close_f64({k: v for k, v in state_to_numpy(Yt)["soil"].items()},
+                      {k: np.asarray(v) for k, v in Y["soil"].items()}, keys=tuple(Y["soil"]))
+
+
+def test_plain_heat_only_run_matches_eager_steps():
+    """Heat-only TR-BDF2 and SSPRK33 through the fused run (plain version)
+    == the port's eager steps (the JAX TR-BDF2 raises on a heat-only model;
+    tests/test_torch_imex.py holds the port's to the JAX sweeps)."""
+    from landhydrology_tpu_torch.models.soil.rhs import make_rhs
+
+    _, heat_only = _branch_models(_golden_port())
+    heat_only = dataclasses.replace(heat_only, hydrology_model=PrescribedHydrologyModel(
+        vartheta_l_profile=lambda z, t: 0.3 + 0.05 * z + 1e-5 * t, theta_i_profile=lambda z, t: 0.01 + 0.0 * z))
+    grid = make_function_space(heat_only.domain, torch.float64, "cpu")
+    _, Y0, _, dt = gct.build_model_and_state(torch.float64, "cpu")
+    Y0 = {"soil": {"rho_e_int": Y0["soil"]["rho_e_int"]}}
+    for st, dt in ((TRBDF2Soil(model=heat_only, grid=grid, iters=2), 300.0), (SSPRK33(), 10.0)):
+        Y = Y0
+        Ya = {"zc": grid.zc, "soil": {}}
+        for t in ck.step_times(4.0, dt, 3, torch.float64):
+            Y = st.step(make_rhs(heat_only, grid), Y, Ya, t, torch.tensor(dt, dtype=torch.float64))
+        Yt = {"soil": {"rho_e_int": Y0["soil"]["rho_e_int"].clone()}}
+        ck.make_fused_column_run(heat_only, st, dt=dt, steps_per_call=3)(Yt, 4.0)
+        assert torch.equal(Yt["soil"]["rho_e_int"], Y["soil"]["rho_e_int"])
+        assert not torch.equal(Y["soil"]["rho_e_int"], Y0["soil"]["rho_e_int"])
 
 
 def test_factory_rejects_bad_configuration():
@@ -280,9 +505,10 @@ def test_factory_rejects_bad_configuration():
 
 
 def test_argument_struct_mirrors_the_cuda_source():
-    """PARAM_NAMES, BC_SLOTS and _KernelArgs follow the enums and the struct
-    of csrc/column_kernel.cu, field by field, every field 8 bytes wide."""
-    src = ck.SOURCE.read_text()
+    """PARAM_NAMES, BC_SLOTS, PROFILE_NAMES, the MODE_* bits and _KernelArgs
+    follow the enums and the struct of csrc/column_common.cuh, field by
+    field, every field 8 bytes wide."""
+    src = ck.HEADER.read_text()
     params = re.search(r"enum Param \{(.*?)\};", src, re.S).group(1)
     names = [n.strip() for n in params.split(",") if n.strip()]
     assert names == ["P_" + n.upper() for n in ck.PARAM_NAMES] + ["kNumParams"]
@@ -290,6 +516,12 @@ def test_argument_struct_mirrors_the_cuda_source():
     assert [n.strip() for n in slots.split(",") if n.strip()] == [
         f"BC_{face.upper()}_{comp.upper()}" for face, comp in ck.BC_SLOTS
     ] + ["kNumBC"]
+    profiles = re.search(r"enum Profile \{(.*?)\};", src, re.S).group(1)
+    assert [n.strip() for n in profiles.split(",") if n.strip()] == [
+        "PROF_" + n.upper() for n in ck.PROFILE_NAMES
+    ] + ["kNumProfiles"]
+    modes = dict(re.findall(r"(MODE_\w+) = (\d+)", re.search(r"enum Mode[^{]*\{(.*?)\};", src, re.S).group(1)))
+    assert modes and all(getattr(ck, k) == int(v) for k, v in modes.items())
     body = re.search(r"struct KernelArgs \{(.*?)\};", src, re.S).group(1)
     body = re.sub(r"//[^\n]*", "", body)
     fields = []
@@ -313,6 +545,16 @@ def test_kernel_args_pack_the_golden_model():
     a = ck.kernel_args(model, fields, scratch, zc, dz, params, tables, 3, dt)
     assert (a.nz, a.ncol, a.n_steps, a.dt, a.dz) == (24, 8, 3, 10.0, 1.2 / 24)
     assert a.mode == 0 and a.rho_cloud_liq == 1.0e3 and a.grav == 9.81
+    assert (a.rows_per_step, a.iters) == (3, 0) and not any(a.profile)
+    grid = make_function_space(model.domain, torch.float64, "cpu")
+    b = ck.kernel_args(model, fields, scratch, zc, dz, params, tables, 3, dt,
+                       stepper=TRBDF2Soil(model=model, grid=grid, iters=3, tridiag="pcr"))
+    assert b.mode == ck.MODE_TRBDF2 | ck.MODE_PCR and (b.rows_per_step, b.iters) == (3, 3)
+    g = 2.0 - 2.0 ** 0.5
+    assert (b.half_g, b.b_bdf2) == (0.5 * g, (1.0 - g) / (2.0 - g))
+    c = ck.kernel_args(model, fields, scratch, zc, dz, params, tables, 3, dt,
+                       stepper=BackwardEulerSoil(model=model, grid=grid))
+    assert c.mode == ck.MODE_BE_SOIL and (c.rows_per_step, c.iters) == (1, 2)
     assert list(a.bc_kind) == [1, 3, 2, 2]  # flux, free drainage, Dirichlet x2
     nu = dict(zip(ck.PARAM_NAMES, params))["nu"]
     assert nu[1] == 1 and torch.equal(nu[0], model.soil_param_set.nu)
@@ -362,3 +604,49 @@ def test_cuda_kernel_rejects_bad_state(cuda_device):
     strided = {"soil": {k: torch.cat([v, v], dim=1)[:, ::2] for k, v in Y["soil"].items()}}
     with pytest.raises(ValueError, match="contiguous"):
         run(strided, 0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tridiag", ["thomas", "pcr"])
+def test_cuda_implicit_kernel_matches_golden_and_plain(cuda_device, tridiag):
+    """Golden #6 through kernel B4-trbdf2: rtol 1e-12 against
+    golden_implicit_f64.npz with Thomas, atol 1e-9 with PCR; rtol 1e-12
+    against the plain version on the card."""
+    golden = np.load("tests/data/golden_implicit_f64.npz")
+    model, Y, _, _ = gct.build_model_and_state(torch.float64, cuda_device)
+    st = TRBDF2Soil(model=model, grid=make_function_space(model.domain, torch.float64, cuda_device), iters=3,
+                    tridiag=tridiag)
+    plain = state_to_numpy(ck.fused_column_run_plain(model, st, 120.0, 16, Y, 0.0))["soil"]
+    run = ck.make_fused_column_run(model, st, dt=120.0, steps_per_call=16)
+    ck.LAUNCHES.clear()
+    run(Y, 0.0)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {"B4-trbdf2" + ("-pcr" if tridiag == "pcr" else ""): 1}
+    got = state_to_numpy(Y)["soil"]
+    _assert_close_f64(got, plain)
+    if tridiag == "thomas":
+        _assert_close_f64(got, golden)
+    else:
+        np.testing.assert_allclose(got["vartheta_l"], golden["vartheta_l"], rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stepper", ["SSPRK33", "TRBDF2Soil"])
+@pytest.mark.parametrize("branch", ["water", "heat"])
+def test_cuda_branch_kernels_match_plain(cuda_device, stepper, branch):
+    """B1-water, B1-heat, B4-trbdf2-water and B4-trbdf2-heat on golden #1's
+    column against the plain version on the card, f64 rtol 1e-12."""
+    model, Y, _, _ = gct.build_model_and_state(torch.float64, cuda_device)
+    water_only, heat_only = _branch_models(model)
+    m = water_only if branch == "water" else heat_only
+    keys = ("vartheta_l", "theta_i") if branch == "water" else ("rho_e_int",)
+    Y = {"soil": {k: Y["soil"][k] for k in keys}}
+    st = SSPRK33() if stepper == "SSPRK33" else TRBDF2Soil(
+        model=m, grid=make_function_space(m.domain, torch.float64, cuda_device), iters=2)
+    dt = 10.0 if stepper == "SSPRK33" else 120.0
+    plain = state_to_numpy(ck.fused_column_run_plain(m, st, dt, 8, Y, 3.0))["soil"]
+    ck.LAUNCHES.clear()
+    ck.make_fused_column_run(m, st, dt=dt, steps_per_call=8)(Y, 3.0)
+    torch.cuda.synchronize()
+    assert sum(ck.LAUNCHES.values()) == 1
+    _assert_close_f64(state_to_numpy(Y)["soil"], plain, keys=keys)

@@ -6,6 +6,8 @@
   (interpret mode): saved times, saved states, the ``rem`` tail and
   callbacks, at rtol 1e-13 (eager) and 1e-12 (fused);
 - golden #1 at rtol 1e-13 in float64 and at the loose float32 bar;
+- the implicit steppers through both engines, and the fused engine's
+  checks of them;
 - ``tests/data/golden_config_torch.py`` reproduces the JAX configuration's model
   and state without JAX, and the package imports no JAX.
 """
@@ -217,6 +219,9 @@ def test_package_imports_no_jax():
         "from tests.data import golden_config_torch as g\n"
         "m, Y, Ya, dt = g.build_model_and_state(torch.float64, 'cpu')\n"
         "landhydrology_tpu_torch.Simulation(m, Y_init=Y, Ya_init=Ya, dt=dt, tspan=(0, 2 * dt)).run()\n"
+        "grid = landhydrology_tpu_torch.make_function_space(m.domain, torch.float64, 'cpu')\n"
+        "st = landhydrology_tpu_torch.TRBDF2Soil(m, grid, 2, 'pcr')\n"
+        "landhydrology_tpu_torch.Simulation(m, st, Y_init=Y, Ya_init=Ya, dt=dt, tspan=(0, 2 * dt), engine='fused').run()\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'landhydrology_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -276,3 +281,56 @@ def test_entry_points_default_to_the_card():
         else:
             with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
                 attempt()
+
+
+def test_sources_name_no_jax():
+    """No source of the package, nor chip_smoke.py, imports JAX or the JAX
+    package (the port keeps its own copies)."""
+    import re
+
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|landhydrology_tpu)(\.|\s|$)", re.M)
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "landhydrology_tpu_torch")):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) > 20
+    for path in files:
+        with open(path) as f:
+            assert not pattern.search(f.read()), path
+
+
+@pytest.mark.parametrize("name", ["TRBDF2Soil", "BackwardEulerRichards", "BackwardEulerSoil"])
+def test_fused_engine_runs_implicit_steppers(name):
+    """The implicit steppers through engine "fused" (the kernel's plain
+    version on the CPU) == engine "torch", saved states at rtol 1e-12; the
+    stepper's grid is rebuilt (here from a float32 grid) on the run's."""
+    import landhydrology_tpu_torch.imex as imex
+    from landhydrology_tpu_torch import make_function_space
+
+    model, Y, Ya, _ = gct.build_model_and_state(torch.float64, "cpu")
+    grid32 = make_function_space(model.domain, torch.float32, "cpu")
+    st = getattr(imex, name)(model=model, grid=grid32, iters=2, tridiag="pcr")
+    kw = dict(Y_init=Y, Ya_init=Ya, dt=120.0, tspan=(0.0, 840.0), saveat=240.0)
+    eager = Simulation(model, st, **kw)
+    fused = Simulation(model, st, engine="fused", steps_per_call=2, **kw)
+    assert eager.stepper.grid.zc.dtype == torch.float64 and eager.stepper.grid is not grid32
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")  # no CFL warning: unconditionally stable
+        Simulation(model, st, **kw)
+    se, sf = eager.run(), fused.run()
+    assert sorted(fused._fused_runs) == [1, 2]
+    np.testing.assert_array_equal(sf.ts.numpy(), se.ts.numpy())
+    for k in FIELDS:
+        np.testing.assert_allclose(sf.us["soil"][k].numpy(), se.us["soil"][k].numpy(), rtol=1e-12, atol=1e-18)
+    assert float(np.max(np.abs(sf.us["soil"]["vartheta_l"][-1].numpy() - sf.us["soil"]["vartheta_l"][0].numpy()))) > 1e-3
+
+
+def test_fused_engine_requires_the_steppers_model():
+    import landhydrology_tpu_torch.imex as imex
+    from landhydrology_tpu_torch import make_function_space
+
+    model, Y, Ya, _ = gct.build_model_and_state(torch.float64, "cpu")
+    other = dataclasses.replace(model)
+    st = imex.TRBDF2Soil(model=other, grid=make_function_space(model.domain, torch.float64, "cpu"))
+    Simulation(model, st, Y_init=Y, Ya_init=Ya, dt=120.0, tspan=(0.0, 240.0))  # the eager engine takes it
+    with pytest.raises(ValueError, match="run's model"):
+        Simulation(model, st, Y_init=Y, Ya_init=Ya, dt=120.0, tspan=(0.0, 240.0), engine="fused")
