@@ -7,8 +7,9 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
 ``_check``):
 
 1. device: requires CUDA; prints the card's name and power limit;
-2. build: compiles ``landhydrology_tpu_torch/csrc/column_kernel.cu`` and
-   ``csrc/implicit_kernel.cu`` with nvcc, one process each, in parallel;
+2. build: compiles ``landhydrology_tpu_torch/csrc/column_kernel.cu``,
+   ``csrc/implicit_kernel.cu`` and ``csrc/land_kernel.cu`` with nvcc, one
+   process each, in parallel;
    prints the registers of every template instance; reads the instruction
    cost of exp, log, sqrt and a division from ``cuobjdump -sass`` of small
    kernels (``op_costs``), for the bounds;
@@ -48,9 +49,24 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    heat-only column, B4-trbdf2, B4-be-soil and B4-be-richards on the
    benchmark configuration, B4-be-richards-water on the stiff column, f32
    and f64, driven and checked as in phase 4;
-6. times of every mode's kernel and plain version at its phase-4/5/8/9
-   shape (CUDA events, in turns), beside the least time the card could take,
-   and the scratch traffic per cell and step of the implicit kernel.
+10. the land path (``bench.py``'s ``land`` path, kernel modes B5 and B6):
+   f64 checks at the JAX fused tests' sizes (``test_pallas_kernel.py:215``
+   in B5, ``:278`` in B6 with a pond forming, ``test_land_model.py:862`` in
+   B6-step, which must differ from B6), 1,000-column variants with
+   per-column atmosphere fields over both Businger branches in B5, B2+B5,
+   B6, B6-step, B2+B6-step and the four B6 names with ``-pond``, f64 and
+   f32; the eager engine against ``golden_land_f64.npz`` (routing included)
+   at rtol 1e-12; then ``bench.py::build_land`` at nz=64 x 65,536, 96 steps
+   of dt=1 in 3 launches, f32 and f64, in the reference setting (B6), the
+   production setting (B2+B6-step), B6-step, B2+B6, B6-pond, and its soil
+   alone in B5 and B2+B5, driven and checked as in phase 4 (the pond too),
+   with each land run's water budget, the host time per launch and the
+   largest deviation of B2+B6-step from B6;
+6. times of every mode's kernel and plain version at its phase-4/5/8/9/10
+   shape (CUDA events, in turns), beside the least time the card could take
+   (with the MOST solve's probes counted from the plain version's solves on
+   the same inputs), and the scratch traffic per cell and step of the
+   implicit kernel.
 
 With ``--profile`` a seventh phase follows for B1 and B2 at the phase-4
 shape: six timings each of the kernel and the plain version in turns, a
@@ -363,6 +379,140 @@ def build_kernel_test_model(top, bottom, nz, ncol, dtype, device, seed=0, hetero
                             "rho_e_int": volumetric_internal_energy(theta_i, rho_c_s, T, ps)}}
 
 
+def build_land_model(nz, ncol, dtype, device, surface_update="stage", coefficient_update="stage"):
+    """``bench.py::build_land``, built with the port's API: the benchmark
+    column under a MOST atmosphere (2 m/s, 297 K at 2 m, q 0.005), a rain
+    pulse of 8e-6 m/s that lasts the run and a pond of 1e-4 m (tau_pond 300
+    s), zero-flux bottom; ``surface_update="step"`` with
+    ``coefficient_update="step"`` is bench.py's production setting."""
+    from landhydrology_tpu_torch import PrescribedAtmosForcing, SoilColumnBC, SoilComponentBC, VerticalFlux
+    from landhydrology_tpu_torch.models.land import LandModel, PulsePrecipitation, SurfaceWaterModel
+
+    model, Y, Ya = build_bench_model(nz, ncol, dtype, device)
+    soil = dataclasses.replace(
+        model, assume_no_ice=False, coefficient_update=coefficient_update,
+        boundary_conditions=SoilColumnBC(
+            top=PrescribedAtmosForcing(u_atm=2.0, theta_atm=297.0, z_atm=2.0, theta_scale=297.0,
+                                       rho_a_sfc=1.2, q_atm=0.005),
+            bottom=SoilComponentBC(hydrology=VerticalFlux(0.0), energy=VerticalFlux(0.0)),
+        ),
+    )
+    land = LandModel(
+        soil=soil,
+        surface=SurfaceWaterModel(precipitation=PulsePrecipitation(rate=8e-6, t_start=0.0, t_stop=1e9),
+                                  tau_pond=300.0),
+        surface_update=surface_update,
+    )
+    Y = dict(Y, surface={"h_s": torch.full((ncol,), 1e-4, dtype=dtype, device=device)})
+    return land, Y, Ya
+
+
+def build_pallas_land(dtype, device, surface_update="stage"):
+    """The LandModel of the JAX package's fused test
+    (``tests/test_pallas_kernel.py:278``): its soil column (nz=16 x 256)
+    under a MOST atmosphere (2 m/s, 300 K), 6e-6 m/s of rain until t = 40,
+    tau_pond 120 s, columns 0.18-0.23 wet and 290-292 K, no pond."""
+    from landhydrology_tpu_torch import PrescribedAtmosForcing, SoilColumnBC, SoilComponentBC, VerticalFlux
+    from landhydrology_tpu_torch.constants import default_earth_param_set as ps
+    from landhydrology_tpu_torch.models.land import LandModel, PulsePrecipitation, SurfaceWaterModel
+    from landhydrology_tpu_torch.models.soil.heat import volumetric_heat_capacity, volumetric_internal_energy
+
+    nz, ncol = 16, 256
+    base, _ = build_kernel_test_model(VerticalFlux(0.0), VerticalFlux(0.0), nz, ncol, dtype, device)
+    soil = dataclasses.replace(base, boundary_conditions=SoilColumnBC(
+        top=PrescribedAtmosForcing(u_atm=2.0, theta_atm=300.0, z_atm=2.0, theta_scale=300.0,
+                                   rho_a_sfc=1.2, q_atm=0.005),
+        bottom=SoilComponentBC(hydrology=VerticalFlux(0.0), energy=VerticalFlux(0.0)),
+    ))
+    land = LandModel(soil=soil, surface=SurfaceWaterModel(
+        precipitation=PulsePrecipitation(rate=6e-6, t_start=0.0, t_stop=40.0), tau_pond=120.0,
+        h_evap_smoothing=1e-4), surface_update=surface_update)
+    col = torch.linspace(0.0, 1.0, ncol, dtype=dtype, device=device)[None, :]
+    theta = (0.18 + 0.05 * col).expand(nz, ncol).contiguous()
+    theta_i = torch.zeros_like(theta)
+    T = (290.0 + 2.0 * col).expand(nz, ncol)
+    rho_c_s = volumetric_heat_capacity(theta, theta_i, soil.soil_param_set.rho_c_ds, ps)
+    Y = {"soil": {"vartheta_l": theta, "theta_i": theta_i,
+                  "rho_e_int": volumetric_internal_energy(theta_i, rho_c_s, T, ps).contiguous()},
+         "surface": {"h_s": torch.zeros(ncol, dtype=dtype, device=device)}}
+    return land, Y
+
+
+def build_step_land(dtype, device, surface_update="step"):
+    """The LandModel of ``tests/test_land_model.py:862``: nz=16 x 64, the
+    golden land soil (vanGenuchten(2.0, 2.6, 2e-7, 0.05), nu 0.4), MOST
+    atmosphere 2 m/s / 300 K, 8e-6 m/s of rain until t = 60, tau_pond 120 s,
+    moisture 0.15-0.25 by column at 291 K, no pond."""
+    from landhydrology_tpu_torch import (
+        Column, PrescribedAtmosForcing, SoilColumnBC, SoilComponentBC, SoilEnergyModel,
+        SoilHydrologyModel, SoilModel, SoilParams, VerticalFlux,
+    )
+    from landhydrology_tpu_torch.constants import default_earth_param_set as ps
+    from landhydrology_tpu_torch.models.land import LandModel, PulsePrecipitation, SurfaceWaterModel
+    from landhydrology_tpu_torch.models.soil import vanGenuchten
+    from landhydrology_tpu_torch.models.soil.heat import volumetric_heat_capacity, volumetric_internal_energy
+
+    nz, ncol = 16, 64
+    soil = SoilModel(
+        domain=Column(zlim=(-1.5, 0.0), nelements=nz, batch_shape=(ncol,)),
+        energy_model=SoilEnergyModel(),
+        hydrology_model=SoilHydrologyModel(hydraulic_model=vanGenuchten(n=2.0, alpha=2.6, Ksat=2e-7, theta_r=0.05)),
+        boundary_conditions=SoilColumnBC(
+            top=PrescribedAtmosForcing(u_atm=2.0, theta_atm=300.0, z_atm=2.0, theta_scale=300.0,
+                                       rho_a_sfc=1.2, q_atm=0.005),
+            bottom=SoilComponentBC(hydrology=VerticalFlux(0.0), energy=VerticalFlux(0.0)),
+        ),
+        soil_param_set=SoilParams(nu=0.4, S_s=1e-3, rho_c_ds=1.3e6), dtype=dtype, device=device,
+    )
+    land = LandModel(soil=soil, surface=SurfaceWaterModel(
+        precipitation=PulsePrecipitation(rate=8e-6, t_start=0.0, t_stop=60.0), tau_pond=120.0),
+        surface_update=surface_update)
+    theta = (0.15 + 0.1 * torch.linspace(0.0, 1.0, ncol, dtype=dtype, device=device)[None, :]).expand(nz, ncol)
+    theta_i = torch.zeros((nz, ncol), dtype=dtype, device=device)
+    rho_c_s = volumetric_heat_capacity(theta, theta_i, 1.3e6, ps)
+    T = torch.full((nz, ncol), 291.0, dtype=dtype, device=device)
+    Y = {"soil": {"vartheta_l": theta.contiguous(), "theta_i": theta_i,
+                  "rho_e_int": volumetric_internal_energy(theta_i, rho_c_s, T, ps).contiguous()},
+         "surface": {"h_s": torch.zeros(ncol, dtype=dtype, device=device)}}
+    return land, Y
+
+
+def build_land_variant(ncol, dtype, device, seed, case):
+    """The JAX fused test's soil (nz=16) under per-column atmosphere fields:
+    wind 0.3-5 m/s, theta_atm within 8 K of each column's surface
+    temperature (both Businger branches and the decoupling edge), q_atm
+    0.002-0.012, and a callable theta_scale; a pond of 0-2e-4 m.  ``case``
+    is the mode to build: ``B5``, ``B2+B5``, a B6 name (``B6``, ``B6-step``,
+    ``B2+B6``, ``B2+B6-step``), or one of those with ``-pond`` (the soil's
+    zero-flux top)."""
+    from landhydrology_tpu_torch import PrescribedAtmosForcing, SoilColumnBC, VerticalFlux
+    from landhydrology_tpu_torch.models.land import LandModel, PulsePrecipitation, SurfaceWaterModel
+
+    rng = np.random.default_rng(seed)
+    tensor = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
+    base, Y = build_kernel_test_model(VerticalFlux(0.0), VerticalFlux(0.0), 16, ncol, dtype, device, seed=seed)
+    ps = base.earth_param_set
+    v, ti = Y["soil"]["vartheta_l"][-1], Y["soil"]["theta_i"][-1]
+    rho_c_s = base.soil_param_set.rho_c_ds + torch.minimum(v, base.soil_param_set.nu - ti) * ps.rho_cp_l
+    T_top = ps.T_0 + Y["soil"]["rho_e_int"][-1] / rho_c_s
+    atmos = PrescribedAtmosForcing(
+        u_atm=tensor(rng.uniform(0.3, 5.0, ncol)), theta_atm=T_top + tensor(rng.uniform(-8.0, 8.0, ncol)),
+        z_atm=2.0, theta_scale=lambda t: 290.0 + 1e-3 * t, rho_a_sfc=1.2,
+        q_atm=tensor(rng.uniform(0.002, 0.012, ncol)),
+    )
+    lagged = "step" if case.startswith("B2") else "stage"
+    soil = dataclasses.replace(base, coefficient_update=lagged, boundary_conditions=SoilColumnBC(
+        top=atmos, bottom=base.boundary_conditions.bottom))
+    if case in ("B5", "B2+B5"):
+        return soil, Y
+    if case.endswith("-pond"):
+        soil = dataclasses.replace(soil, boundary_conditions=base.boundary_conditions)
+    land = LandModel(soil=soil, surface=SurfaceWaterModel(
+        precipitation=PulsePrecipitation(rate=5e-6, t_start=0.0, t_stop=12.0), tau_pond=120.0),
+        surface_update="step" if "step" in case else "stage")
+    return land, dict(Y, surface={"h_s": tensor(rng.uniform(0.0, 2e-4, ncol))})
+
+
 def implicit(name, model, iters=2, tridiag="thomas"):
     """The port's implicit stepper ``name`` for ``model``, on its grid."""
     from landhydrology_tpu_torch import imex
@@ -440,7 +590,7 @@ def registers(ck, libs):
     for lib in libs.values():
         name = None
         for line in lib.with_suffix(".ptxas.txt").read_text().splitlines():
-            m = re.search(r"Compiling entry function '\w*?(ssprk33|implicit)_column_kernelI([fd])Li(\d+)E", line)
+            m = re.search(r"Compiling entry function '\w*?(ssprk33|implicit|land)_column_kernelI([fd])Li(\d+)E", line)
             if m:
                 name = f"{'f32' if m.group(2) == 'f' else 'f64'}, {ck.mode_name(int(m.group(3)))}"
             m = re.search(r"Used (\d+) registers", line)
@@ -550,6 +700,54 @@ def cell_step_ops(ck, mode, n_iter=60, iters=2, nz=NZ):
     return ops
 
 
+#: operations of one evaluation of the consistency equation h(1/L) of the
+#: MOST solve (csrc/surface_fluxes.cuh: psi_m_diff, psi_h_diff, the
+#: denominators and h)
+_MOST_H = dict(op=78, div=5, log=2, sqrt=8)
+
+
+def column_step_ops(ck, mode, dtype, probes=None):
+    """Operations per column and step of the surface exchange of a B5/B6
+    mode, counted from ``csrc/surface_fluxes.cuh`` and
+    ``csrc/land_kernel.cu`` (an empty count for other modes): per exchange
+    (three per step, one with ``MODE_SURFACE_STEP``) the MOST solve, with
+    ``probes`` evaluations of h in its rounds (20 rounds in float64, 4 in
+    float32, each stopping at its first probe past the sign change: the
+    mean per solve and column of this run's data, ``most_probes``), its
+    set-up, the end evaluations (and in float32 the polish) and the finish,
+    the humidity, the fluxes, and for B6 the potential infiltration (K and
+    psi at the face, psi and T at the center) and the pond update."""
+    ops = collections.Counter()
+    if not mode & (ck.MODE_MOST | ck.MODE_LAND):
+        return ops
+    if mode & ck.MODE_MOST and probes is None:
+        raise ValueError("a MOST mode's count needs the probes its solves evaluate")
+
+    def add(n, **counts):
+        for k, v in counts.items():
+            ops[k] += n * v
+
+    exchanges = 1 if mode & ck.MODE_SURFACE_STEP else 3
+    if mode & ck.MODE_MOST:
+        h_evals = probes + (3 if dtype == torch.float64 else 4)
+        add(exchanges * (h_evals + 1), **_MOST_H)  # + the finish's denominators
+        add(exchanges, op=3 * h_evals + 20 + 8 * (20 if dtype == torch.float64 else 4), div=5, log=2)
+        add(exchanges, op=25, div=6, exp=4, log=2, pow=1)  # q_sat, psi of the surface, q_soil
+        blended = bool(mode & ck.MODE_LAND)
+        add(exchanges * (2 if blended else 1), op=15, div=1)  # _assemble_fluxes
+        if blended:
+            add(exchanges, op=10, div=2)  # w, q_eff, r_s, the split
+    if mode & ck.MODE_LAND:
+        add(exchanges, **_HYDRAULIC)
+        add(exchanges * 2, **_PSI)
+        add(exchanges, **_TEMP)
+        add(exchanges, op=12, div=2)  # f_pot, the supply, the infiltration
+        add(3, op=4)  # the pond's stage update
+    elif not mode & ck.MODE_LAGGED:
+        add(exchanges, **_TEMP)
+    return ops
+
+
 def state_fields(ck, mode):
     """Prognostic fields of the mode's branch: 3 coupled, 2 water-only
     (vartheta_l, theta_i), 1 heat-only."""
@@ -586,21 +784,32 @@ def scratch_values_per_cell_step(ck, mode, iters=2):
     return n
 
 
-def bound_ms(ck, costs, mode, dtype, cells, steps, n_iter=60, iters=2):
+def bound_ms(ck, costs, mode, dtype, cells, steps, n_iter=60, iters=2, ncol=0, probes=None):
     """``(ms, "bytes" or "operations")``: the larger of the state's bytes
-    (the branch's fields read and written once per launch) over HBM
-    bandwidth and the floating-point instructions over the card's rate for
+    (the branch's fields, and a LandModel's pond, read and written once per
+    launch) over HBM bandwidth and the floating-point instructions (per
+    cell, and per column for the surface exchange of ``ncol`` columns, its
+    MOST solves with ``probes`` evaluations each) over the card's rate for
     the type (one fused multiply-add, two FLOPs, per lane and clock)."""
-    ops = cell_step_ops(ck, mode, n_iter, iters)
-    instructions = ops["op"] + sum(ops[k] * costs[dtype][k] for k in costs[dtype])
+    def instructions(ops):
+        return ops["op"] + sum(ops[k] * costs[dtype][k] for k in costs[dtype])
+
     itemsize = torch.finfo(dtype).bits // 8
-    t_bytes = 2 * state_fields(ck, mode) * itemsize * cells / HBM_BYTES_PER_S
-    t_ops = cells * steps * instructions / (PEAK_FLOPS[dtype] / 2)
+    pond = ncol if mode & ck.MODE_LAND else 0
+    t_bytes = 2 * (state_fields(ck, mode) * cells + pond) * itemsize / HBM_BYTES_PER_S
+    total = (cells * instructions(cell_step_ops(ck, mode, n_iter, iters))
+             + ncol * instructions(column_step_ops(ck, mode, dtype, probes)))
+    t_ops = steps * total / (PEAK_FLOPS[dtype] / 2)
     return (1e3 * t_ops, "operations") if t_ops >= t_bytes else (1e3 * t_bytes, "bytes")
 
 
 def _np(Y):
-    return {k: v.detach().double().cpu().numpy() for k, v in Y["soil"].items()}
+    """The soil fields of a state as float64 arrays, and a LandModel's pond
+    as ``h_s``."""
+    out = {k: v.detach().double().cpu().numpy().copy() for k, v in Y["soil"].items()}
+    if "surface" in Y:
+        out["h_s"] = Y["surface"]["h_s"].detach().double().cpu().numpy().copy()
+    return out
 
 
 def _max_abs(a, b):
@@ -608,13 +817,17 @@ def _max_abs(a, b):
 
 
 def _check(a, b, dtype, what):
-    """The repo's bars: f64 rtol 1e-12 (atol 1e-16); f32 atol 2e-4 on the
-    water contents and relative 5e-4 on rho_e_int (on the fields the branch
-    has)."""
+    """The repo's bars: f64 rtol 1e-12 (atol 1e-16, the pond 1e-18); f32
+    atol 2e-4 on the water contents, relative 5e-4 on rho_e_int and 1e-4 of
+    its largest value on the pond (on the fields the branch has)."""
     if dtype == torch.float64:
         for k in a:
-            np.testing.assert_allclose(a[k], b[k], rtol=1e-12, atol=1e-16, err_msg=f"{what}/{k}")
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-12, atol=1e-18 if k == "h_s" else 1e-16,
+                                       err_msg=f"{what}/{k}")
         return
+    if "h_s" in a:
+        np.testing.assert_allclose(a["h_s"], b["h_s"], rtol=0, atol=1e-4 * float(np.max(np.abs(b["h_s"]))),
+                                   err_msg=f"{what}/h_s")
     for k in ("vartheta_l", "theta_i"):
         if k in a:
             np.testing.assert_allclose(a[k], b[k], rtol=0, atol=2e-4, err_msg=f"{what}/{k}")
@@ -712,7 +925,7 @@ def _fmt(shares):
 
 
 def _clone(Y):
-    return {"soil": {k: v.clone() for k, v in Y["soil"].items()}}
+    return {group: {k: v.clone() for k, v in fields.items()} for group, fields in Y.items()}
 
 
 def _smi(query):
@@ -816,6 +1029,7 @@ def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving, stepper=None):
 
     stepper = SSPRK33() if stepper is None else stepper
     dtype = model.float_dtype
+    soil = getattr(model, "soil", model)
     name = ck.mode_name(ck.kernel_mode(model, stepper))
     sim = Simulation(
         model, stepper, Y_init=Y0, Ya_init=Ya, dt=dt, tspan=(0.0, n_steps * dt),
@@ -834,9 +1048,10 @@ def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving, stepper=None):
     expect_ts = torch.arange(saves, dtype=torch.float64) * (spc * torch.tensor(dt, dtype=dtype)).double()
     if not torch.allclose(sol.ts.double().cpu(), expect_ts, rtol=1e-6, atol=0):
         raise AssertionError(f"{what}: saved times {sol.ts.tolist()}")
-    for k, v in sol.us["soil"].items():
-        if tuple(v.shape) != (saves, *Y0["soil"][k].shape) or not bool(torch.isfinite(v).all()):
-            raise AssertionError(f"{what}: saved {k} has shape {tuple(v.shape)} or non-finite values")
+    for group, fields in sol.us.items():
+        for k, v in fields.items():
+            if tuple(v.shape) != (saves, *Y0[group][k].shape) or not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{what}: saved {k} has shape {tuple(v.shape)} or non-finite values")
     Yp, t = Y0, torch.as_tensor(0.0, dtype=dtype)
     for _ in range(n_steps // spc):
         Yp = ck.fused_column_run_plain(model, stepper, dt, spc, Yp, t)
@@ -844,7 +1059,7 @@ def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving, stepper=None):
     torch.cuda.synchronize()
     kern, plain = _np(sim.Y), _np(Yp)
     extra = ""
-    if model.freeze_thaw is None:
+    if soil.freeze_thaw is None:
         _check(kern, plain, dtype, what)
     else:
         water, energy = _check_freeze(kern, plain, model, dtype, what)
@@ -860,9 +1075,38 @@ def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving, stepper=None):
     return kern, launches[name], err, wall
 
 
+def most_probes(ck, model, stepper, dt, spc, Y0):
+    """``(solves, probes)`` of the MOST solves in the plain version's launch
+    of ``spc`` steps from ``Y0``: the solves per column, and the mean per
+    solve and column of the probes its rounds evaluate when each stops at
+    its first probe past the sign change, as the kernel's solve does
+    (``surface_conditions``' ``probes``, read through a wrapper of it for
+    the one call); ``(0, None)`` without a MOST top."""
+    from landhydrology_tpu_torch.models.soil import surface_fluxes as sf
+
+    solve, counts = sf.surface_conditions, []
+
+    def counted(*args, **kwargs):
+        out = solve(*args, **kwargs)
+        counts.append(out["probes"])
+        return out
+
+    sf.surface_conditions = counted
+    try:
+        ck.fused_column_run_plain(model, stepper, dt, spc, Y0, 0.0)
+    finally:
+        sf.surface_conditions = solve
+    if not counts:
+        return 0, None
+    total = sum(float(c.double().sum()) for c in counts)
+    return len(counts), total / (len(counts) * counts[0].numel())
+
+
 def time_mode(ck, model, Y0, dt, spc, stepper=None):
-    """``(kernel ms, plain ms)`` per launch of ``spc`` steps: CUDA events,
-    in turns (plain, kernel x5, kernel x5, plain), each pair averaged."""
+    """``(kernel ms, plain ms, MOST probes)`` per launch of ``spc`` steps:
+    CUDA events, in turns (plain, kernel x5, kernel x5, plain), each pair
+    averaged; the plain version's warm-up counts the MOST solve's probes
+    (``most_probes``, checked to be one solve per exchange)."""
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
     stepper = SSPRK33() if stepper is None else stepper
@@ -871,19 +1115,24 @@ def time_mode(ck, model, Y0, dt, spc, stepper=None):
     run(Yk, 0.0)  # warm-up
     fused_column = lambda: run(Yk, 0.0)  # noqa: E731
     plain_column = lambda: ck.fused_column_run_plain(model, stepper, dt, spc, Y0, 0.0)  # noqa: E731
-    plain_column()
+    solves, probes = most_probes(ck, model, stepper, dt, spc, Y0)
+    mode = ck.kernel_mode(model, stepper)
+    expect = (spc if mode & ck.MODE_SURFACE_STEP else 3 * spc) if mode & ck.MODE_MOST else 0
+    if solves != expect:
+        raise AssertionError(f"{ck.mode_name(mode)}: {solves} MOST solves in the plain launch, expected {expect}")
     p1 = _time_ms(plain_column, 1)
     k1 = _time_ms(fused_column, 5)
     k2 = _time_ms(fused_column, 5)
     p2 = _time_ms(plain_column, 1)
-    return (k1, k2), (p1, p2)
+    return (k1, k2), (p1, p2), probes
 
 
 def host_per_launch(ck, model, Y0, Ya, dt, spc, stepper, reps=5):
     """Where a launch's host time goes, in ms (host clock, medians of
     ``reps``): the whole call of a ``FusedColumnRun`` (it returns once the
-    kernel is queued), the BC and profile tables built alone the same way
-    (not waiting for their copies to the card), and a warm
+    kernel is queued), the tables it builds (BC, profile, surface and rain
+    tables, ``FusedColumnRun.tables``) built alone the same way (not
+    waiting for their copies to the card), and a warm
     ``Simulation.run`` of ``reps`` launches against the kernel time alone
     (CUDA events) of as many launches."""
     from landhydrology_tpu_torch import Simulation
@@ -891,7 +1140,7 @@ def host_per_launch(ck, model, Y0, Ya, dt, spc, stepper, reps=5):
     run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=spc)
     Y = _clone(Y0)
     run(Y, 0.0)
-    field = next(iter(Y["soil"].values()))
+    field = next(iter(Y[getattr(model, "soil", model).name].values()))
     ncol, device = field.shape[1], field.device
     calls, tables = [], []
     for i in range(reps):
@@ -901,11 +1150,8 @@ def host_per_launch(ck, model, Y0, Ya, dt, spc, stepper, reps=5):
         run(Y, t0)
         calls.append((time.perf_counter() - t) * 1e3)
         torch.cuda.synchronize()
-        _, zc, _, constant = run._inputs(ncol, device)
         t = time.perf_counter()
-        ck.bc_tables(model, t0, dt, spc, ncol, device, reuse=constant, stepper=run.stepper)
-        times, _ = ck.table_times(run.stepper, t0, dt, spc, model.float_dtype)
-        ck.profile_tables(model, zc, times)
+        run.tables(ncol, device, t0)
         tables.append((time.perf_counter() - t) * 1e3)
         torch.cuda.synchronize()
     sim = Simulation(model, stepper, Y_init=Y0, Ya_init=Ya, dt=dt, tspan=(0.0, reps * spc * dt),
@@ -969,8 +1215,158 @@ def kernel_of(ck, mode, dtype):
     """``(kernel name, source path in the repo)`` of the instance that runs
     ``mode``."""
     lib, _ = ck._entry(mode, dtype)
-    kernel = "implicit_column_kernel" if lib == "implicit_kernel" else "ssprk33_column_kernel"
+    kernel = {"implicit_kernel": "implicit_column_kernel", "land_kernel": "land_column_kernel"}.get(
+        lib, "ssprk33_column_kernel")
     return kernel, os.path.relpath(ck.SOURCES[lib], HERE)
+
+
+def water_in(Y, dz):
+    """Column water plus the pond, per column: sum(vartheta_l +
+    rho_i/rho_l theta_i) dz + h_s."""
+    from landhydrology_tpu_torch.constants import default_earth_param_set as ps
+
+    soil = {k: v.double() for k, v in Y["soil"].items()}
+    water = (soil["vartheta_l"] + (ps.rho_cloud_ice / ps.rho_cloud_liq) * soil["theta_i"]).sum(0) * dz
+    return water + Y["surface"]["h_s"].double()
+
+
+def evaporation(model, Y, t):
+    """The exchange's evaporation (evap_soil + evap_pond, m/s) per column
+    at the state (eager, float64)."""
+    from landhydrology_tpu_torch.domains import make_function_space
+    from landhydrology_tpu_torch.models.land import _exchange_from_state
+
+    soil = model.soil
+    grid = make_function_space(soil.domain, soil.float_dtype, soil.device)
+    ex = _exchange_from_state(model, grid, Y, {"zc": grid.zc, soil.name: {}}, torch.as_tensor(t, dtype=soil.float_dtype))
+    return (ex["evap_soil"] + ex["evap_pond"]).double()
+
+
+def land_phase(ck, gc, device, smi):
+    """Phase 10: the small checks of every B5/B6 mode in f64 (and the
+    1,000-column variants in f32 too), the land golden through the eager
+    engine on the card, then ``bench.py``'s ``land`` path at full width in
+    the reference (B6) and production (B2+B6-step) settings, with the water
+    budget and the host time per launch.  Returns the paths to time."""
+    from landhydrology_tpu_torch import Simulation
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    small = (
+        ("test_pallas_kernel.py:215 MOST column", "B5", 20.0, 4),
+        ("test_pallas_kernel.py:278 LandModel", "B6", 2.0, 24),
+        ("test_land_model.py:862", "B6-step", 2.0, 48),
+    )
+    finals = {}
+    for what, case, dt, n in small:
+        if case == "B5":
+            from landhydrology_tpu_torch import PrescribedAtmosForcing, SoilColumnBC, VerticalFlux
+
+            base, Y = build_kernel_test_model(VerticalFlux(0.0), VerticalFlux(0.0), 16, 256, torch.float64, device)
+            model = dataclasses.replace(base, boundary_conditions=SoilColumnBC(
+                top=PrescribedAtmosForcing(u_atm=0.34, theta_atm=299.0, z_atm=0.05, theta_scale=299.0,
+                                           rho_a_sfc=1.17, q_atm=0.015),
+                bottom=base.boundary_conditions.bottom))
+        elif case == "B6":
+            model, Y = build_pallas_land(torch.float64, device)
+        else:
+            model, Y = build_step_land(torch.float64, device)
+        runs = [(case, model)] if case != "B6-step" else [
+            ("B6-step", model), ("B6", dataclasses.replace(model, surface_update="stage"))]
+        for name, m in runs:
+            kern, plain, shares = check_variant(ck, m, _clone(Y), dt, n, 0.0, f"10 land {what}",
+                                                ("vartheta_l", "rho_e_int"))
+            if ck.mode_name(ck.kernel_mode(m)) != name:
+                raise AssertionError(f"{what}: mode {ck.mode_name(ck.kernel_mode(m))}, expected {name}")
+            finals[(what, name)] = kern
+            pond = f", max h_s {np.max(kern['h_s']):.4e}" if "h_s" in kern else ""
+            print(f"[10 land] f64 {name} {what}, {n} steps of dt={dt}: kernel vs plain max abs "
+                  f"{_max_abs(kern, plain):.3e}; change error / largest change {_fmt(shares)}{pond}", flush=True)
+        if case == "B6" and not float(np.max(kern["h_s"])) > 1e-6:
+            raise AssertionError(f"{what}: no pond formed")
+    step, stage = finals[("test_land_model.py:862", "B6-step")], finals[("test_land_model.py:862", "B6")]
+    dev = max(float(np.max(np.abs(step[k] - stage[k]))) for k in ("vartheta_l", "h_s"))
+    if not dev > 0.0:
+        raise AssertionError("B6-step equals B6: the frozen exchange was dropped")
+    print(f"[10 land] f64 B6-step vs B6 (test_land_model.py:862): max deviation {dev:.3e} (> 0: the flag "
+          "is honoured)", flush=True)
+
+    for dtype in (torch.float64, torch.float32):
+        for case in ("B5", "B2+B5", "B6", "B6-step", "B2+B6-step", "B6-pond", "B6-step-pond", "B2+B6-pond",
+                     "B2+B6-step-pond"):
+            model, Y = build_land_variant(1000, dtype, device, seed=13, case=case)
+            kern, plain, shares = check_variant(ck, model, Y, 2.0, 8, 5.0, f"10 land variant {dtype} {case}",
+                                                ("vartheta_l", "rho_e_int"))
+            if ck.mode_name(ck.kernel_mode(model)) != case:
+                raise AssertionError(f"variant: mode {ck.mode_name(ck.kernel_mode(model))}, expected {case}")
+            print(f"[10 land] {str(dtype)[6:]} {case} ncol=1000 per-column atmosphere (both Businger "
+                  f"branches), callable theta_scale: kernel vs plain max abs {_max_abs(kern, plain):.3e}; "
+                  f"change error / largest change {_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g})", flush=True)
+
+    # the land golden through the eager engine on the card: the routing's only check here
+    golden = np.load(os.path.join(HERE, "tests", "data", "golden_land_f64.npz"))
+    land, Y, Ya, dt = gc.build_land_model_and_state(torch.float64, device)
+    sim = Simulation(land, SSPRK33(), Y_init=Y, Ya_init=Ya, dt=dt, tspan=(0.0, gc.LAND_STEPS * dt))
+    sim.run()
+    final = _np(sim.Y)
+    for k in ("vartheta_l", "theta_i", "rho_e_int", "h_s"):
+        ref = golden["surface__h_s" if k == "h_s" else k]
+        np.testing.assert_allclose(final[k], ref, rtol=1e-12, atol=1e-18, err_msg=f"land golden/{k}")
+    rel = max(float(np.max(np.abs(final[k] - golden["surface__h_s" if k == "h_s" else k])
+                           / np.abs(golden["surface__h_s" if k == "h_s" else k]).clip(1e-300)))
+              for k in ("vartheta_l", "rho_e_int", "h_s"))
+    print(f"[10 land] f64 eager Simulation on the card (MOST, pond, kinematic-wave routing, 4 x 4) vs "
+          f"golden_land_f64.npz: max rel {rel:.3e} (bar 1e-12)", flush=True)
+
+    paths = []
+    settings = (  # (setting, build_land_model's keywords, what runs)
+        ("reference", {}, "land"),
+        ("production", {"surface_update": "step", "coefficient_update": "step"}, "land"),
+        ("frozen exchange", {"surface_update": "step"}, "land"),
+        ("lagged", {"coefficient_update": "step"}, "land"),
+        ("plain top", {}, "pond"),
+        ("MOST soil", {}, "soil"),
+        ("MOST soil, lagged", {"coefficient_update": "step"}, "soil"),
+    )
+    for dtype in (torch.float32, torch.float64):
+        ends = {}
+        for setting, kw, what in settings:
+            land, Y0, Ya = build_land_model(NZ, NCOL, dtype, device, **kw)
+            model = land
+            if what == "soil":
+                model, Y0 = land.soil, {"soil": Y0["soil"]}
+            elif what == "pond":
+                model = dataclasses.replace(land, soil=dataclasses.replace(land.soil, boundary_conditions=(
+                    dataclasses.replace(land.soil.boundary_conditions, top=build_bench_model(
+                        NZ, 32, dtype, device)[0].boundary_conditions.top))))
+            moving = ("vartheta_l", "rho_e_int", "h_s") if what != "soil" else ("vartheta_l", "rho_e_int")
+            kern, launches, err, wall = drive_path(ck, model, Y0, Ya, DT, N_STEPS, SPC, "10 land", moving)
+            paths.append((model, Y0, DT, SPC, launches, err, SSPRK33()))
+            ends[setting] = kern
+            name = ck.mode_name(ck.kernel_mode(model))
+            if what != "soil":
+                dz = land.soil.domain.height / NZ
+                end = {"soil": {k: torch.as_tensor(kern[k], device=device) for k in Y0["soil"]},
+                       "surface": {"h_s": torch.as_tensor(kern["h_s"], device=device)}}
+                change = water_in(end, dz) - water_in(Y0, dz)
+                rain = 8e-6 * N_STEPS * DT
+                end = {g: {k: v.to(dtype) for k, v in f.items()} for g, f in end.items()}
+                evap = 0.5 * (evaporation(model, Y0, 0.0) + evaporation(model, end, N_STEPS * DT)) * N_STEPS * DT
+                budget = change - (rain - evap)
+                print(f"[10 land] {str(dtype)[6:]} {name} water budget per column: change of column water + "
+                      f"h_s {float(change.mean()):.6e} m (mean), rain {rain:.6e} m, evaporation (trapezoid of "
+                      f"the exchange at the start and end) {float(evap.mean()):.6e} m; change - (rain - "
+                      f"evaporation) max abs {float(budget.abs().max()):.3e} m", flush=True)
+            if setting in ("reference", "production"):
+                call, tables, sim_wall, kernel = host_per_launch(ck, model, Y0, Ya, DT, SPC, SSPRK33())
+                print(f"[10 land] {str(dtype)[6:]} {name} host per launch: call {call:.3f} ms, tables alone "
+                      f"{tables:.3f} ms; warm Simulation.run of 5 launches {sim_wall:.3f} ms against "
+                      f"{kernel:.3f} ms of kernel time on {smi}", flush=True)
+        dev = float(np.max(np.abs(ends["production"]["vartheta_l"] - ends["reference"]["vartheta_l"])))
+        dev_h = float(np.max(np.abs(ends["production"]["h_s"] - ends["reference"]["h_s"])))
+        print(f"[10 land] {str(dtype)[6:]} B2+B6-step vs B6 at width: max |vartheta_l| deviation {dev:.3e}, "
+              f"max |h_s| deviation {dev_h:.3e}", flush=True)
+        torch.cuda.empty_cache()
+    return paths
 
 
 def main() -> int:
@@ -1211,6 +1607,9 @@ def main() -> int:
         paths.append((model, Y0, dt_imp, STIFF_STEPS, launches, err, st))
         torch.cuda.empty_cache()
 
+    # ---- 10: the land path (bench.py's `land` path), kernel modes B5 and B6 ----
+    paths += land_phase(ck, gc, device, smi)
+
     # ---- 6: times at the main-path shapes, in turns ----
     entries = []
     for model, Y0, dt, spc, launches, err, stepper in paths:
@@ -1218,13 +1617,17 @@ def main() -> int:
         mode = ck.kernel_mode(model, stepper)
         name = ck.mode_name(mode)
         iters = getattr(stepper, "iters", 2)
-        (k1, k2), (p1, p2) = time_mode(ck, model, Y0, dt, spc, stepper)
+        (k1, k2), (p1, p2), probes = time_mode(ck, model, Y0, dt, spc, stepper)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
         nz, ncol = next(iter(Y0["soil"].values())).shape
-        n_iter = model.freeze_thaw.n_iter if isinstance(model.freeze_thaw, EquilibriumFreezeThaw) else 60
-        b_ms, b_by = bound_ms(ck, costs, mode, dtype, nz * ncol, spc, n_iter, iters)
+        freeze = getattr(model, "soil", model).freeze_thaw
+        n_iter = freeze.n_iter if isinstance(freeze, EquilibriumFreezeThaw) else 60
+        b_ms, b_by = bound_ms(ck, costs, mode, dtype, nz * ncol, spc, n_iter, iters, ncol, probes)
         cell_steps = nz * ncol * spc
         traffic = ""
+        if probes is not None:
+            rounds = 20 if dtype == torch.float64 else 4
+            traffic = f"; MOST probes per solve {probes:.4f} of {rounds * 8} ({probes / rounds:.4f} per round)"
         if mode & ck.MODE_IMPLICIT:
             values = scratch_values_per_cell_step(ck, mode, iters)
             nbytes = values * (torch.finfo(dtype).bits // 8)

@@ -6,8 +6,9 @@ the columns contiguous; the explicit SSPRK33 hot path runs in one
 hand-written CUDA kernel per ``steps_per_call`` steps
 (``ops/cuda/column_kernel.py``, engine ``"fused"``), and so do the implicit
 steppers of ``imex.py`` (TR-BDF2 and backward Euler with a tridiagonal solve
-in each column); every function also runs eagerly on CPU or GPU tensors
-(engine ``"torch"``).
+in each column), and so do a MOST top face and the LandModel pond
+(``models/land.py``); every function also runs eagerly on CPU or GPU
+tensors (engine ``"torch"``).
 
 The public API mirrors ``landhydrology_tpu``'s, minus what is not ported yet
 (see ROADMAP.md).  This package imports neither JAX nor landhydrology_tpu.
@@ -32,6 +33,7 @@ from landhydrology_tpu_torch.models.soil import (
     SoilParams,
     VerticalFlux,
     boundary_fluxes,
+    compute_turbulent_surface_fluxes,
     default_initial_conditions,
     initialize_auxiliary,
     initialize_prognostic,
@@ -64,6 +66,7 @@ __all__ = [
     "SoilColumnBC",
     "PrescribedAtmosForcing",
     "boundary_fluxes",
+    "compute_turbulent_surface_fluxes",
     "make_rhs",
     "make_update_aux",
     "initialize_states",

@@ -1,7 +1,7 @@
 """Carry models, steppers and states over from the JAX package.
 
-``model_from_reference`` builds this package's :class:`SoilModel` from a
-``landhydrology_tpu`` ``SoilModel``, and ``stepper_from_reference`` an
+``model_from_reference`` builds this package's :class:`SoilModel` or
+:class:`LandModel` from the ``landhydrology_tpu`` one, and ``stepper_from_reference`` an
 implicit stepper from the JAX package's.  It reads the reference's frozen
 dataclasses by class name and ``dataclasses.fields``, and each array leaf
 through ``np.asarray``, so it needs no JAX import.  User callables (BC
@@ -19,6 +19,14 @@ import torch
 from landhydrology_tpu_torch.constants import EarthParameterSet
 from landhydrology_tpu_torch.domains import Column, make_function_space
 from landhydrology_tpu_torch.imex import IMPLICIT_STEPPERS
+from landhydrology_tpu_torch.models.land import (
+    ConstantPrecipitation,
+    KinematicWaveRouting,
+    LandModel,
+    PulsePrecipitation,
+    RunoffRouting,
+    SurfaceWaterModel,
+)
 from landhydrology_tpu_torch.models.soil.freeze_thaw import (
     EquilibriumFreezeThaw,
     FreezeThaw,
@@ -56,7 +64,9 @@ _PORTED = {
         SoilHydrologyModel, PrescribedTemperatureModel,
         PrescribedHydrologyModel, SoilModel, NoBC, VerticalFlux, Dirichlet,
         FreeDrainage, SoilComponentBC, SoilColumnBC, BatchedBC,
-        PrescribedAtmosForcing, FreezeThaw, EquilibriumFreezeThaw,
+        PrescribedAtmosForcing, FreezeThaw, EquilibriumFreezeThaw, LandModel,
+        SurfaceWaterModel, ConstantPrecipitation, PulsePrecipitation,
+        RunoffRouting, KinematicWaveRouting,
     )
 }
 _REFERENCE_PACKAGE = "landhydrology_tpu."
@@ -75,7 +85,9 @@ def _convert(obj, device, dtype):
             if cls is SoilModel and f.name == "dtype":
                 continue
             value = getattr(obj, f.name)
-            if callable(value) and getattr(value, "__module__", "").startswith(
+            if dataclasses.is_dataclass(value):
+                kwargs[f.name] = _convert(value, device, dtype)
+            elif callable(value) and getattr(value, "__module__", "").startswith(
                 _REFERENCE_PACKAGE
             ):
                 kwargs[f.name] = port_fields[f.name].default  # default profile
@@ -92,10 +104,10 @@ def _convert(obj, device, dtype):
     return torch.as_tensor(arr, dtype=dtype, device=device)
 
 
-def model_from_reference(ref_model, device="cuda", dtype=torch.float64) -> SoilModel:
-    """This package's model equivalent to the JAX package's ``ref_model``,
-    with its tensors in ``dtype`` on ``device`` (the card unless the caller
-    asks for ``"cpu"``)."""
+def model_from_reference(ref_model, device="cuda", dtype=torch.float64):
+    """This package's model equivalent to the JAX package's ``ref_model``
+    (a ``SoilModel`` or a ``LandModel``), with its tensors in ``dtype`` on
+    ``device`` (the card unless the caller asks for ``"cpu"``)."""
     return _convert(ref_model, device, dtype)
 
 

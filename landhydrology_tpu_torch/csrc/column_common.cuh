@@ -1,5 +1,5 @@
-// Device code shared by the two soil-column kernels (column_kernel.cu,
-// implicit_kernel.cu): the argument struct of the C interface, the pointwise
+// Device code shared by the soil-column kernels (column_kernel.cu,
+// implicit_kernel.cu, land_kernel.cu): the argument struct of the C interface, the pointwise
 // closures of models/soil/water.py, heat.py and freeze_thaw.py, the boundary
 // flux conversion of boundary.py and one rhs sweep of rhs.py over a column.
 //
@@ -44,16 +44,27 @@ enum BCKind : int64_t { BC_NONE = 0, BC_FLUX = 1, BC_DIRICHLET = 2, BC_FREE_DRAI
 // T (water-only branch), vartheta_l and theta_i (heat-only branch).
 enum Profile { PROF_T, PROF_VARTHETA_L, PROF_THETA_I, kNumProfiles };
 
+// Order fixed by SURFACE_NAMES in ops/cuda/column_kernel.py: the inputs of
+// the surface exchange (land_kernel.cu), each a value table like a BC's.
+enum Surface {
+  S_U_ATM, S_THETA_ATM, S_Z_ATM, S_THETA_SCALE, S_RHO_A_SFC, S_Q_ATM, S_Z_0M, S_Z_0S,
+  S_TAU_POND, S_H_EVAP_SMOOTHING,
+  kNumSurface
+};
+
 // Bits of KernelArgs::mode; values fixed by MODE_* in ops/cuda/column_kernel.py.
 // Branch: MODE_WATER (Richards only) or MODE_HEAT (conduction only), coupled
 // without either.  Stepper: SSPRK33 (column_kernel.cu) without a stepper
 // bit, else one of the implicit steppers (implicit_kernel.cu).  MODE_PCR is
-// read at run time and selects no template instance.
+// read at run time and selects no template instance.  Surface (land_kernel.cu):
+// MODE_MOST (a PrescribedAtmosForcing top), MODE_LAND (the LandModel pond),
+// MODE_SURFACE_STEP (its exchange frozen per step).
 enum Mode : int64_t {
   MODE_LAGGED = 1, MODE_FREEZE_RATE = 2, MODE_FREEZE_EQ = 4, MODE_NO_ICE = 8,
   MODE_WATER = 16, MODE_HEAT = 32,
   MODE_BE_RICHARDS = 64, MODE_BE_SOIL = 128, MODE_TRBDF2 = 256,
-  MODE_PCR = 512
+  MODE_PCR = 512,
+  MODE_MOST = 1024, MODE_LAND = 2048, MODE_SURFACE_STEP = 4096
 };
 
 // Every field is 8 bytes wide: mirrors _KernelArgs in ops/cuda/column_kernel.py.
@@ -77,6 +88,14 @@ struct KernelArgs {
   int64_t rows_per_step;              // table rows per step: one per stage time
   int64_t iters;                      // Newton sweeps per stage (implicit)
   double half_g, a1, a2, b_bdf2;      // TR-BDF2 constants, in double
+  // the surface exchange (land_kernel.cu): value tables, row = as bc_ptr's
+  const void* surface_ptr[kNumSurface];
+  int64_t surface_row_stride[kNumSurface];
+  int64_t surface_col_stride[kNumSurface];
+  const void* precip;  // (rows,) rain rate at each stage time
+  void* h_s;           // (ncol,) pond height, in/out
+  double von_karman_const, cp_d, cp_v, cp_l, R_d, R_v, LH_v0, press_triple, T_triple,
+      molmass_ratio;
 };
 
 namespace {
@@ -114,6 +133,9 @@ template <int M> struct Modes {
   static constexpr bool be_richards = (M & MODE_BE_RICHARDS) != 0;
   static constexpr bool be_soil = (M & MODE_BE_SOIL) != 0;
   static constexpr bool trbdf2 = (M & MODE_TRBDF2) != 0;
+  static constexpr bool most = (M & MODE_MOST) != 0;
+  static constexpr bool land = (M & MODE_LAND) != 0;
+  static constexpr bool surface_step = (M & MODE_SURFACE_STEP) != 0;
 };
 
 // Per-column constants and Earth constants, in the working type.

@@ -30,6 +30,9 @@ from landhydrology_tpu_torch.models.soil.model import (
 )
 from landhydrology_tpu_torch.models.soil.params import SoilParams
 from landhydrology_tpu_torch.models.soil.rhs import make_rhs, make_update_aux
+from landhydrology_tpu_torch.models.soil.surface_fluxes import (
+    compute_turbulent_surface_fluxes,
+)
 from landhydrology_tpu_torch.models.soil.water import (
     IceImpedance,
     NoEffect,
@@ -59,6 +62,7 @@ __all__ = [
     "SoilColumnBC",
     "PrescribedAtmosForcing",
     "boundary_fluxes",
+    "compute_turbulent_surface_fluxes",
     "make_rhs",
     "make_update_aux",
     "initialize_states",

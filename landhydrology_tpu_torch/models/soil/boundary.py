@@ -11,8 +11,9 @@ the gravitational contribution does not (the JAX package's deliberate
 deviation from the Julia reference); FreeDrainage is bottom-only and never
 negated.  The center-to-face distance at a boundary is the half cell dz/2.
 
-``BatchedBC`` and ``PrescribedAtmosForcing`` are not ported yet and raise
-``NotImplementedError`` when constructed.
+``PrescribedAtmosForcing`` at the top face converts the surface state into
+Monin-Obukhov turbulent fluxes (``surface_fluxes.py``).  ``BatchedBC`` is
+not ported yet and raises ``NotImplementedError`` when constructed.
 """
 
 from __future__ import annotations
@@ -96,20 +97,15 @@ class SoilComponentBC(AbstractFaceBC):
 @dataclasses.dataclass(frozen=True)
 class PrescribedAtmosForcing(AbstractFaceBC):
     """Atmospheric state driving Monin-Obukhov surface fluxes at the top
-    face (not ported yet)."""
+    face.  Each field is a scalar, a per-column ``(ncol,)`` tensor or a
+    callable of time."""
 
-    u_atm: Array = None
-    theta_atm: Array = None
-    z_atm: Array = None
-    theta_scale: Array = None
-    rho_a_sfc: Array = None
-    q_atm: Array = None
-
-    def __post_init__(self):
-        raise NotImplementedError(
-            "PrescribedAtmosForcing (MOST surface fluxes, kernel B5) is not "
-            "ported yet: ROADMAP A11"
-        )
+    u_atm: ValueLike  # wind speed at z_atm (m/s)
+    theta_atm: ValueLike  # potential temperature at z_atm (K)
+    z_atm: ValueLike  # measurement height (m)
+    theta_scale: ValueLike  # potential temperature scale (K)
+    rho_a_sfc: ValueLike  # moist air density at the surface (kg/m^3)
+    q_atm: ValueLike  # specific humidity at z_atm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +114,13 @@ class SoilColumnBC:
 
     top: AbstractFaceBC = dataclasses.field(default_factory=SoilComponentBC)
     bottom: SoilComponentBC = dataclasses.field(default_factory=SoilComponentBC)
+
+    def __post_init__(self):
+        if isinstance(self.bottom, PrescribedAtmosForcing):
+            raise ValueError(
+                "Prescribed atmosphere-driven boundary conditions are only "
+                "valid at the top of the soil column."
+            )
 
 
 # --------------------------------------------------------------------------
@@ -306,7 +309,24 @@ def boundary_fluxes(
     centers.  The face values of BOTH components are overwritten before
     either flux is computed, so a Dirichlet T enters the hydrology face K
     (viscosity) and a Dirichlet vartheta_l enters the energy face kappa.
+    A ``PrescribedAtmosForcing`` top gives the MOST turbulent fluxes of the
+    top cell's state.
     """
+    if isinstance(bc, PrescribedAtmosForcing):
+        if face != "top":
+            raise ValueError(
+                "Prescribed atmosphere-driven boundary conditions are only "
+                "valid at the top of the soil column."
+            )
+        from landhydrology_tpu_torch.models.soil.surface_fluxes import (
+            compute_turbulent_surface_fluxes,
+        )
+
+        vartheta_l, theta_i, T = interior_values(X, face)
+        f_rho_e_int, f_vartheta_l = compute_turbulent_surface_fluxes(
+            model.energy_model, model.hydrology_model, model, vartheta_l, theta_i, T, t
+        )
+        return {"f_rho_e_int": f_rho_e_int, "f_vartheta_l": f_vartheta_l}
     if not isinstance(bc, SoilComponentBC):
         raise TypeError(f"Unsupported face BC {bc!r}")
     energy = model.energy_model

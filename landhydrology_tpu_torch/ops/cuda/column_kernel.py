@@ -1,17 +1,20 @@
 """Fused multi-step column kernels (CUDA, Hopper) and their plain version.
 
 Replaces ``landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run``
-in its SSPRK33 modes and its implicit modes: ``steps_per_call`` steps of the
-soil tendency per launch, updating the state in place.  Two CUDA sources
-share ``csrc/column_common.cuh``:
+in its SSPRK33 modes, its implicit modes and its surface modes:
+``steps_per_call`` steps of the soil (or land) tendency per launch, updating
+the state in place.  Three CUDA sources share ``csrc/column_common.cuh``:
 
 - ``csrc/column_kernel.cu``: SSPRK33 (kernel modes B1, B2, B3), on the
   coupled, water-only or heat-only branch;
 - ``csrc/implicit_kernel.cu``: ``TRBDF2Soil``, ``BackwardEulerRichards`` and
-  ``BackwardEulerSoil`` (kernel mode B4), with Thomas or PCR solves.
+  ``BackwardEulerSoil`` (kernel mode B4), with Thomas or PCR solves;
+- ``csrc/land_kernel.cu``: SSPRK33 with a MOST top face (kernel mode B5,
+  ``PrescribedAtmosForcing``) or a ``LandModel`` pond (B6), the MOST solve
+  in ``csrc/surface_fluxes.cuh``.
 
 Each is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C interface at first use (the two in parallel) and bound with
+plain C interface at first use (all three in parallel) and bound with
 ``ctypes``.
 
 - One thread owns one column and sweeps its levels; the grid is
@@ -32,8 +35,11 @@ plain C interface at first use (the two in parallel) and bound with
   at the times the stepper's own ``stage_times`` gives (SSPRK33: ``t``,
   ``t + dt``, ``t + dt/2``; TR-BDF2: ``t``, ``t + g dt``, ``t + dt``;
   backward Euler: ``t + dt``) from the step times ``t0 + i*dt``, in the
-  model dtype.  Profiles are ``(nz,)`` rows: a profile with per-column
-  values is refused.
+  model dtype.  So are callable atmosphere fields and the rain rate.
+  Profiles are ``(nz,)`` rows: a profile with per-column values is refused.
+  Tables of values that do not depend on time (constants, the default
+  profiles) are built once per column count; the package's declarative
+  rain classes are tabulated in one vectorised call per launch.
 
 The plain version, :func:`fused_column_run_plain`, is the same number of
 eager ``stepper.step`` calls, with the model's step policies wrapped around
@@ -44,9 +50,11 @@ Combinations without a kernel raise ``NotImplementedError`` naming their
 ROADMAP item, on either device: ForwardEuler, SSPRK22 and SSPRK104 (B1),
 lagged coefficients or ``assume_no_ice`` on the water-only and heat-only
 branches, the implicit steppers with lagged coefficients, freeze-thaw or
-``assume_no_ice`` (B4), MOST (B5, at BC construction), the LandModel pond
-(B6), streamed forcing (B7), streamed geometry (B8) and
-``differentiable=True`` (B9).
+``assume_no_ice`` (B4), MOST or the LandModel with freeze-thaw,
+``assume_no_ice``, an implicit stepper or one component prescribed (B5, B6),
+streamed forcing (B7), streamed geometry (B8) and ``differentiable=True``
+(B9).  Pond routing, per-column rain and a 2-D column batch raise
+``ValueError``, as the JAX kernel's factory does.
 """
 
 from __future__ import annotations
@@ -65,6 +73,15 @@ from pathlib import Path
 import torch
 
 from landhydrology_tpu_torch.domains import make_function_space
+from landhydrology_tpu_torch.models.land import (
+    ConstantPrecipitation,
+    FrozenExchangeStepper,
+    LandModel,
+    PulsePrecipitation,
+    check_rain,
+    make_rhs as make_land_rhs,
+    wrap_stepper_for_land,
+)
 from landhydrology_tpu_torch.imex import (
     BackwardEulerRichards,
     BackwardEulerSoil,
@@ -76,6 +93,7 @@ from landhydrology_tpu_torch.models.soil.boundary import (
     Dirichlet,
     FreeDrainage,
     NoBC,
+    PrescribedAtmosForcing,
     SoilComponentBC,
     VerticalFlux,
 )
@@ -97,6 +115,8 @@ from landhydrology_tpu_torch.models.soil.model import (
     SoilEnergyModel,
     SoilHydrologyModel,
     SoilModel,
+    _default_T_profile,
+    _default_zero_profile,
 )
 from landhydrology_tpu_torch.models.soil.rhs import make_rhs
 from landhydrology_tpu_torch.models.soil.water import (
@@ -113,9 +133,11 @@ HEADER = CSRC / "column_common.cuh"
 SOURCES = {
     "column_kernel": CSRC / "column_kernel.cu",
     "implicit_kernel": CSRC / "implicit_kernel.cu",
+    "land_kernel": CSRC / "land_kernel.cu",
 }
 #: each library's C entry points are ``<prefix>_f32`` and ``<prefix>_f64``
-_ENTRY_PREFIX = {"column_kernel": "column_kernel_ssprk33", "implicit_kernel": "implicit_kernel"}
+_ENTRY_PREFIX = {"column_kernel": "column_kernel_ssprk33", "implicit_kernel": "implicit_kernel",
+                 "land_kernel": "land_kernel"}
 BUILD_DIR = _PACKAGE / "_build"
 #: ``-split-compile=0`` optimizes the template instances of a source in
 #: parallel on all host cores
@@ -139,6 +161,12 @@ BC_SLOTS = (
 )
 #: prescribed profiles, in the order of ``enum Profile``
 PROFILE_NAMES = ("T", "vartheta_l", "theta_i")
+#: inputs of the surface exchange, in the order of ``enum Surface``: the
+#: atmosphere's fields, the roughness lengths, the pond's parameters
+SURFACE_NAMES = (
+    "u_atm", "theta_atm", "z_atm", "theta_scale", "rho_a_sfc", "q_atm", "z_0m", "z_0s",
+    "tau_pond", "h_evap_smoothing",
+)
 _BC_KIND = {VerticalFlux: 1, Dirichlet: 2, FreeDrainage: 3}  # 0: no flux (BC_NONE)
 
 #: bits of the kernel's mode word, as ``enum Mode`` in the header
@@ -146,6 +174,7 @@ MODE_LAGGED, MODE_FREEZE_RATE, MODE_FREEZE_EQ, MODE_NO_ICE = 1, 2, 4, 8
 MODE_WATER, MODE_HEAT = 16, 32
 MODE_BE_RICHARDS, MODE_BE_SOIL, MODE_TRBDF2 = 64, 128, 256
 MODE_PCR = 512
+MODE_MOST, MODE_LAND, MODE_SURFACE_STEP = 1024, 2048, 4096
 MODE_IMPLICIT = MODE_BE_RICHARDS | MODE_BE_SOIL | MODE_TRBDF2
 _STEPPER_BITS = {TRBDF2Soil: MODE_TRBDF2, BackwardEulerRichards: MODE_BE_RICHARDS,
                  BackwardEulerSoil: MODE_BE_SOIL}
@@ -155,6 +184,7 @@ _STEPPER_NAMES = {MODE_TRBDF2: "B4-trbdf2", MODE_BE_RICHARDS: "B4-be-richards",
 _P = len(PARAM_NAMES)
 _B = len(BC_SLOTS)
 _R = len(PROFILE_NAMES)
+_S = len(SURFACE_NAMES)
 
 
 class _KernelArgs(ctypes.Structure):
@@ -197,6 +227,14 @@ class _KernelArgs(ctypes.Structure):
         ("a1", ctypes.c_double),
         ("a2", ctypes.c_double),
         ("b_bdf2", ctypes.c_double),
+        ("surface_ptr", ctypes.c_void_p * _S),
+        ("surface_row_stride", ctypes.c_int64 * _S),
+        ("surface_col_stride", ctypes.c_int64 * _S),
+        ("precip", ctypes.c_void_p),
+        ("h_s", ctypes.c_void_p),
+        *((name, ctypes.c_double) for name in (
+            "von_karman_const", "cp_d", "cp_v", "cp_l", "R_d", "R_v", "LH_v0",
+            "press_triple", "T_triple", "molmass_ratio")),
     ]
 
 
@@ -219,8 +257,8 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    """Hash of every file under ``csrc/`` and the flags: a change to the
-    header or to either source rebuilds both libraries."""
+    """Hash of every file under ``csrc/`` and the flags: a change to a
+    header or to any source rebuilds every library."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in sorted(CSRC.iterdir()):
         h.update(path.name.encode() + b"\0" + path.read_bytes())
@@ -289,7 +327,10 @@ def load_library(name: str = "column_kernel") -> ctypes.CDLL:
 
 def _entry(mode: int, dtype) -> tuple:
     """``(library name, C function)`` that launches ``mode`` in ``dtype``."""
-    name = "implicit_kernel" if mode & MODE_IMPLICIT else "column_kernel"
+    if mode & MODE_IMPLICIT:
+        name = "implicit_kernel"
+    else:
+        name = "land_kernel" if mode & (MODE_MOST | MODE_LAND) else "column_kernel"
     return name, f"{_ENTRY_PREFIX[name]}_{'f32' if dtype == torch.float32 else 'f64'}"
 
 
@@ -303,7 +344,7 @@ LAUNCHES: collections.Counter = collections.Counter()
 # --------------------------------------------------------------------------
 
 
-_POLICY_STEPPERS = (LaggedCoefficientStepper, PhaseEquilibriumStepper)
+_POLICY_STEPPERS = (LaggedCoefficientStepper, PhaseEquilibriumStepper, FrozenExchangeStepper)
 
 
 def _base_stepper(stepper):
@@ -313,10 +354,22 @@ def _base_stepper(stepper):
     return stepper
 
 
-def kernel_mode(model: SoilModel, stepper: AbstractTimestepper = SSPRK33()) -> int:
-    """The kernel's mode word for ``model`` stepped by ``stepper``:
-    ``MODE_*`` bits."""
-    mode = MODE_LAGGED if model.coefficient_update == "step" else 0
+def _soil_of(model) -> SoilModel:
+    """The soil column of a ``SoilModel`` or a ``LandModel``."""
+    return model.soil if isinstance(model, LandModel) else model
+
+
+def kernel_mode(model, stepper: AbstractTimestepper = SSPRK33()) -> int:
+    """The kernel's mode word for ``model`` (a ``SoilModel`` or a
+    ``LandModel``) stepped by ``stepper``: ``MODE_*`` bits."""
+    mode = 0
+    if isinstance(model, LandModel):
+        mode |= MODE_LAND | (MODE_SURFACE_STEP if model.surface_update == "step" else 0)
+        model = model.soil
+    if isinstance(model.boundary_conditions.top, PrescribedAtmosForcing):
+        mode |= MODE_MOST
+    if model.coefficient_update == "step":
+        mode |= MODE_LAGGED
     if isinstance(model.freeze_thaw, FreezeThaw):
         mode |= MODE_FREEZE_RATE
     elif isinstance(model.freeze_thaw, EquilibriumFreezeThaw):
@@ -341,7 +394,16 @@ def mode_name(mode: int) -> str:
     coefficients), ``B1-water`` / ``B1-heat`` for the water-only and
     heat-only branches; ``B4-trbdf2``, ``B4-be-richards`` and
     ``B4-be-soil`` for the implicit steppers, with ``-water`` / ``-heat``
-    for the branch and ``-pcr`` for PCR solves."""
+    for the branch and ``-pcr`` for PCR solves; ``B5`` for a MOST top
+    (``B2+B5`` lagged), ``B6`` for the LandModel with a MOST top, ``-step``
+    with its exchange frozen per step, ``B2+`` lagged and ``-pond`` with a
+    plain top BC (``B2+B6-step-pond``)."""
+    if mode & MODE_LAND:
+        name = "B6" + ("-step" if mode & MODE_SURFACE_STEP else "")
+        name += "" if mode & MODE_MOST else "-pond"
+        return "B2+" + name if mode & MODE_LAGGED else name
+    if mode & MODE_MOST:
+        return "B2+B5" if mode & MODE_LAGGED else "B5"
     branch = {MODE_WATER: "-water", MODE_HEAT: "-heat"}.get(mode & (MODE_WATER | MODE_HEAT), "")
     if mode & MODE_IMPLICIT:
         return _STEPPER_NAMES[mode & MODE_IMPLICIT] + branch + ("-pcr" if mode & MODE_PCR else "")
@@ -482,18 +544,38 @@ def _dynamic(model: SoilModel, component: str) -> bool:
     return isinstance(model.hydrology_model, SoilHydrologyModel)
 
 
+def _most_top(soil: SoilModel) -> bool:
+    return isinstance(soil.boundary_conditions.top, PrescribedAtmosForcing)
+
+
+def exchanged_components(model) -> tuple:
+    """The top face's components whose flux values the kernel's surface
+    exchange supplies: both under MOST, the water flux of a LandModel."""
+    soil = _soil_of(model)
+    if _most_top(soil):
+        return ("energy", "hydrology")
+    return ("hydrology",) if isinstance(model, LandModel) else ()
+
+
 def bc_tables(
-    model: SoilModel, t0, dt, n_steps: int, ncol: int, device, reuse=None,
+    model, t0, dt, n_steps: int, ncol: int, device, reuse=None,
     stepper: AbstractTimestepper = SSPRK33(),
 ) -> list:
-    """:func:`bc_value_table` of each BC slot (``None`` for free drainage,
-    which has no value, and for a prescribed component's slot).  Where
+    """:func:`bc_value_table` of each BC slot of the soil (``None`` for free
+    drainage, which has no value, and for a prescribed component's slot; a
+    one-value zero table for a slot the surface exchange supplies).  Where
     ``reuse`` is given, the tables of values that do not depend on time are
     taken from it and only the callable values are evaluated."""
+    soil = _soil_of(model)
+    exchanged = exchanged_components(model)
     tables = []
     for j, (face, comp) in enumerate(BC_SLOTS):
-        bc = _bc_of(model, face, comp)
-        if isinstance(bc, (FreeDrainage, NoBC)) or not _dynamic(model, comp):
+        if face == "top" and comp in exchanged:
+            tables.append(reuse[j] if reuse is not None else (
+                torch.zeros(1, dtype=soil.float_dtype, device=device), 0, 0))
+            continue
+        bc = _bc_of(soil, face, comp)
+        if isinstance(bc, (FreeDrainage, NoBC)) or not _dynamic(soil, comp):
             tables.append(None)
             continue
         value = bc.flux if isinstance(bc, VerticalFlux) else bc.state_value
@@ -501,16 +583,73 @@ def bc_tables(
             tables.append(reuse[j])
         else:
             tables.append(bc_value_table(
-                value, t0, dt, n_steps, ncol, model.float_dtype, device, stepper
+                value, t0, dt, n_steps, ncol, soil.float_dtype, device, stepper
             ))
     return tables
 
 
-def profile_tables(model: SoilModel, zc, times) -> list:
+def _surface_values(model) -> list:
+    """The value of each :data:`SURFACE_NAMES` input the model's mode reads,
+    else ``None``."""
+    soil = _soil_of(model)
+    values = [None] * _S
+    if _most_top(soil):
+        atmos = soil.boundary_conditions.top
+        for j, name in enumerate(SURFACE_NAMES[:6]):
+            values[j] = getattr(atmos, name)
+        values[6], values[7] = soil.soil_param_set.z_0m, soil.soil_param_set.z_0s
+    if isinstance(model, LandModel):
+        values[8], values[9] = model.surface.tau_pond, model.surface.h_evap_smoothing
+    return values
+
+
+def surface_tables(model, t0, dt, n_steps: int, ncol: int, device, reuse=None,
+                   stepper: AbstractTimestepper = SSPRK33()) -> list:
+    """:func:`bc_value_table` of each :data:`SURFACE_NAMES` input (``None``
+    where the mode reads none): callable atmosphere fields at every stage
+    time, the others once; with ``reuse``, the tables of values that do not
+    depend on time are taken from it."""
+    dtype = _soil_of(model).float_dtype
+    tables = []
+    for j, value in enumerate(_surface_values(model)):
+        if value is None:
+            tables.append(None)
+        elif reuse is not None and not callable(value):
+            tables.append(reuse[j])
+        else:
+            tables.append(bc_value_table(value, t0, dt, n_steps, ncol, dtype, device, stepper))
+    return tables
+
+
+def precipitation_table(precipitation, times, dtype, device):
+    """The rain rate at each of ``times`` as a ``(len(times),)`` table on
+    ``device``, checked non-negative (on the host) and floored at zero as the
+    land rhs floors it.  The package's declarative rain classes are
+    evaluated in one call over all the times; another callable once per
+    time.  A per-column rate raises ``ValueError``."""
+    if isinstance(precipitation, (ConstantPrecipitation, PulsePrecipitation)):
+        table = torch.as_tensor(precipitation(torch.stack(times)), dtype=dtype).cpu()
+        if table.dim() == 0:
+            table = table.expand(len(times))
+    else:
+        table = torch.stack([torch.as_tensor(precipitation(t), dtype=dtype).cpu() for t in times])
+    if tuple(table.shape) != (len(times),):
+        raise ValueError(
+            "the fused kernel advances time internally, so per-column "
+            "precipitation arrays cannot be tabulated: use a scalar-returning "
+            "precipitation(t), or the eager engine"
+        )
+    check_rain(table)
+    return torch.clamp(table, min=0.0).contiguous().to(device)
+
+
+def profile_tables(model: SoilModel, zc, times, reuse=None) -> list:
     """The prescribed profiles at ``times`` as ``(len(times), nz)`` tables
     on ``zc``'s device, in the order of :data:`PROFILE_NAMES` (``None`` for
     a profile the branch does not prescribe): T for the water-only branch,
-    vartheta_l and theta_i for the heat-only branch."""
+    vartheta_l and theta_i for the heat-only branch.  The package's default
+    profiles, which do not depend on time, are evaluated once, and taken
+    from ``reuse`` where given."""
     fns = [None] * _R
     if isinstance(model.energy_model, PrescribedTemperatureModel):
         fns[0] = model.energy_model.T_profile
@@ -519,12 +658,16 @@ def profile_tables(model: SoilModel, zc, times) -> list:
         fns[2] = model.hydrology_model.theta_i_profile
     nz = zc.shape[0]
     tables = []
-    for name, fn in zip(PROFILE_NAMES, fns):
+    for j, (name, fn) in enumerate(zip(PROFILE_NAMES, fns)):
         if fn is None:
             tables.append(None)
             continue
+        constant = fn in (_default_T_profile, _default_zero_profile)
+        if constant and reuse is not None and reuse[j] is not None:
+            tables.append(reuse[j])
+            continue
         rows = []
-        for t in times:
+        for t in times[:1] if constant else times:
             r = torch.as_tensor(fn(zc, t), dtype=model.float_dtype, device=zc.device)
             if torch.broadcast_shapes(r.shape, (nz, 1)) != (nz, 1):
                 raise NotImplementedError(
@@ -532,7 +675,8 @@ def profile_tables(model: SoilModel, zc, times) -> list:
                     "prescribed profiles are not ported to the kernel yet (ROADMAP B8)"
                 )
             rows.append(r.expand(nz, 1).reshape(nz))
-        tables.append(torch.stack(rows).contiguous())
+        table = torch.stack(rows)
+        tables.append((table.expand(len(times), nz) if constant else table).contiguous())
     return tables
 
 
@@ -546,22 +690,26 @@ def _on_grid(stepper, grid):
     return dataclasses.replace(stepper, grid=grid) if hasattr(stepper, "grid") else stepper
 
 
-def fused_column_run_plain(
-    model: SoilModel, stepper: AbstractTimestepper, dt, steps_per_call: int, Y: dict, t0
-) -> dict:
+def fused_column_run_plain(model, stepper: AbstractTimestepper, dt, steps_per_call: int, Y: dict,
+                           t0) -> dict:
     """The plain PyTorch version of one kernel launch: ``steps_per_call``
-    eager ``stepper.step(make_rhs(model))`` calls from ``t0``, with the
+    eager ``stepper.step`` calls of the model's rhs from ``t0``, with the
     model's step policies wrapped around ``stepper`` as ``Simulation`` wraps
-    them (projection inside, lagged coefficients outside) and an implicit
-    stepper's grid rebuilt on the state's device.  Returns a new state and
-    leaves ``Y`` as it was."""
-    dtype = model.float_dtype
-    device = Y[model.name][prognostic_vars(model)[0]].device
-    grid = make_function_space(model.domain, dtype, device)
-    rhs = make_rhs(model, grid)
-    stepper = wrap_stepper_with_projection(_on_grid(_base_stepper(stepper), grid), model)
-    stepper = wrap_stepper_for_soil(stepper, model, grid)
-    Ya = {"zc": grid.zc, model.name: {}}
+    them (projection inside, lagged coefficients or the LandModel's frozen
+    exchange outside) and an implicit stepper's grid rebuilt on the state's
+    device.  Returns a new state and leaves ``Y`` as it was."""
+    soil = _soil_of(model)
+    dtype = soil.float_dtype
+    device = Y[soil.name][prognostic_vars(soil)[0]].device
+    grid = make_function_space(soil.domain, dtype, device)
+    stepper = wrap_stepper_with_projection(_on_grid(_base_stepper(stepper), grid), soil)
+    if isinstance(model, LandModel):
+        rhs = make_land_rhs(model, grid)
+        stepper = wrap_stepper_for_land(stepper, model, grid)
+    else:
+        rhs = make_rhs(model, grid)
+        stepper = wrap_stepper_for_soil(stepper, model, grid)
+    Ya = {"zc": grid.zc, soil.name: {}}
     dt_t = torch.as_tensor(dt, dtype=dtype)
     for t in step_times(t0, dt, steps_per_call, dtype):
         Y = stepper.step(rhs, Y, Ya, t, dt_t)
@@ -570,92 +718,115 @@ def fused_column_run_plain(
 
 class FusedColumnRun:
     """``run(Y, t0) -> Y``: advance ``steps_per_call`` steps of ``stepper``
-    from ``t0``, **in place**: the tensors of ``Y`` are overwritten and
-    ``Y`` is returned.  CUDA tensors go through a kernel (or the call
-    raises); CPU tensors through :func:`fused_column_run_plain` with the
-    same stepper.  Each launch adds one to the module's ``LAUNCHES`` under
-    the name of its mode."""
+    from ``t0``, **in place**: the tensors of ``Y`` (a LandModel's pond
+    ``h_s`` too) are overwritten and ``Y`` is returned.  CUDA tensors go
+    through a kernel (or the call raises); CPU tensors through
+    :func:`fused_column_run_plain` with the same stepper.  Each launch adds
+    one to the module's ``LAUNCHES`` under the name of its mode."""
 
-    def __init__(self, model: SoilModel, stepper, dt: float, steps_per_call: int, tile_cols: int):
+    def __init__(self, model, stepper, dt: float, steps_per_call: int, tile_cols: int):
         self.model = model
+        self.soil = _soil_of(model)
         self.stepper = _base_stepper(stepper)
         self.dt = float(dt)
         self.steps_per_call = int(steps_per_call)
         self.tile_cols = int(tile_cols)
         self.mode = kernel_mode(model, self.stepper)
-        self.fields = prognostic_vars(model)
-        self._device_inputs = {}  # (device, ncol) -> (params, zc, dz, BC tables)
+        self.fields = prognostic_vars(self.soil)
+        self._device_inputs = {}  # (device, ncol) -> _inputs()
+
+    def _pond(self, Y: dict):
+        return Y[self.model.surface.name]["h_s"] if self.mode & MODE_LAND else None
 
     def __call__(self, Y: dict, t0) -> dict:
-        model = self.model
-        fields = [Y[model.name][k] for k in self.fields]
+        name = self.soil.name
+        fields = [Y[name][k] for k in self.fields]
         device = fields[0].device
         if device.type == "cpu":
             Yn = fused_column_run_plain(
-                model, self.stepper, self.dt, self.steps_per_call, Y, t0
+                self.model, self.stepper, self.dt, self.steps_per_call, Y, t0
             )
-            for k, v in Y[model.name].items():
-                v.copy_(Yn[model.name][k])
+            for group in Yn:
+                for k, v in Y[group].items():
+                    v.copy_(Yn[group][k])
             return Y
         if device.type != "cuda":
             raise ValueError(f"unsupported device {device}")
-        self._check_state(fields, device)
-        self._launch(fields, t0, device)
+        self._check_state(fields, self._pond(Y), device)
+        self._launch(fields, self._pond(Y), t0, device)
         return Y
 
-    def _check_state(self, fields, device):
-        nz = self.model.domain.nelements
-        for f in fields:
-            if f.device != device or f.dtype != self.model.float_dtype:
+    def _check_state(self, fields, h_s, device):
+        dtype = self.soil.float_dtype
+        nz = self.soil.domain.nelements
+        for f in fields + ([h_s] if h_s is not None else []):
+            if f.device != device or f.dtype != dtype:
                 raise ValueError(
-                    f"state tensors must all be {self.model.float_dtype} on "
-                    f"{device}; got {f.dtype} on {f.device}"
+                    f"state tensors must all be {dtype} on {device}; got {f.dtype} on {f.device}"
                 )
+            if not f.is_contiguous():
+                raise ValueError("state tensors must be contiguous")
+        for f in fields:
             if f.dim() != 2 or f.shape[0] != nz or f.shape != fields[0].shape:
                 raise ValueError(
                     f"state tensors must share the shape (nz={nz}, ncol); got "
                     f"{[tuple(g.shape) for g in fields]}"
                 )
-            if not f.is_contiguous():
-                raise ValueError("state tensors must be contiguous")
+        if h_s is not None and tuple(h_s.shape) != (fields[0].shape[1],):
+            raise ValueError(
+                f"pond state h_s of shape {tuple(h_s.shape)} does not match the flat "
+                f"column batch ({fields[0].shape[1]},)"
+            )
 
     def _inputs(self, ncol: int, device):
-        """``(params, zc, dz, BC tables)`` on ``device``, built once per
-        column count; the tables of callable BC values and the profile
-        tables are rebuilt per launch."""
+        """``(params, zc, dz, BC tables, surface tables, profile tables)`` on
+        ``device``, built once per column count; a launch rebuilds the tables
+        of values that depend on time and reuses the others."""
         key = (str(device), ncol)
         if key not in self._device_inputs:
-            model = self.model
-            dtype = model.float_dtype
-            values = column_params(model)
+            soil = self.soil
+            dtype = soil.float_dtype
+            values = column_params(soil)
             params = [
                 _column_tensor(values[n], ncol, dtype, device, f"parameter {n}")
                 for n in PARAM_NAMES
             ]
-            grid = make_function_space(model.domain, dtype, device)
-            tables = bc_tables(
-                model, 0.0, self.dt, self.steps_per_call, ncol, device, stepper=self.stepper
-            )
+            grid = make_function_space(soil.domain, dtype, device)
+            zc = grid.zc.reshape(-1, 1).contiguous()
+            args = (self.model, 0.0, self.dt, self.steps_per_call, ncol, device)
+            times, _ = table_times(self.stepper, 0.0, self.dt, self.steps_per_call, dtype)
             self._device_inputs[key] = (
-                params, grid.zc.reshape(-1, 1).contiguous(), grid.dz, tables
+                params, zc, grid.dz, bc_tables(*args, stepper=self.stepper),
+                surface_tables(*args, stepper=self.stepper), profile_tables(soil, zc, times),
             )
         return self._device_inputs[key]
 
-    def _launch(self, fields, t0, device):
-        model = self.model
-        dtype = model.float_dtype
-        nz, ncol = fields[0].shape
-        params, zc, dz, constant_tables = self._inputs(ncol, device)
-        tables = bc_tables(
-            model, t0, self.dt, self.steps_per_call, ncol, device, reuse=constant_tables,
-            stepper=self.stepper,
-        )
+    def tables(self, ncol: int, device, t0) -> tuple:
+        """``(BC, profile, surface, precipitation)`` tables of a launch from
+        ``t0`` (``None`` for those the mode does not read): the host work of
+        a launch besides the argument struct."""
+        dtype = self.soil.float_dtype
+        _, zc, _, constant_bc, constant_surface, constant_profiles = self._inputs(ncol, device)
+        args = (self.model, t0, self.dt, self.steps_per_call, ncol, device)
+        bc = bc_tables(*args, reuse=constant_bc, stepper=self.stepper)
         times, _ = table_times(self.stepper, t0, self.dt, self.steps_per_call, dtype)
-        profiles = profile_tables(model, zc, times)
+        profiles = profile_tables(self.soil, zc, times, reuse=constant_profiles)
+        surface = precip = None
+        if self.mode & (MODE_MOST | MODE_LAND):
+            surface = surface_tables(*args, reuse=constant_surface, stepper=self.stepper)
+        if self.mode & MODE_LAND:
+            precip = precipitation_table(self.model.surface.precipitation, times, dtype, device)
+        return bc, profiles, surface, precip
+
+    def _launch(self, fields, h_s, t0, device):
+        dtype = self.soil.float_dtype
+        nz, ncol = fields[0].shape
+        params, zc, dz = self._inputs(ncol, device)[:3]
+        tables, profiles, surface, precip = self.tables(ncol, device, t0)
         scratch = torch.empty(scratch_fields(self.mode) * nz * ncol, dtype=dtype, device=device)
         args = kernel_args(
-            model, fields, scratch, zc, dz, params, tables, self.steps_per_call, self.dt,
-            stepper=self.stepper, profiles=profiles,
+            self.model, fields, scratch, zc, dz, params, tables, self.steps_per_call, self.dt,
+            stepper=self.stepper, profiles=profiles, surface=surface, precip=precip, h_s=h_s,
         )
         lib_name, fn_name = _entry(self.mode, dtype)
         lib = load_library(lib_name)
@@ -670,15 +841,19 @@ class FusedColumnRun:
 
 
 def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt,
-                stepper: AbstractTimestepper = SSPRK33(), profiles=None) -> _KernelArgs:
+                stepper: AbstractTimestepper = SSPRK33(), profiles=None, surface=None,
+                precip=None, h_s=None) -> _KernelArgs:
     """Pack the kernel's argument struct.  ``fields`` are the state tensors
-    in the order of ``prognostic_vars(model)``.  The caller keeps every
-    tensor alive until the launch has been queued."""
+    in the order of ``prognostic_vars`` of the soil; ``surface``,
+    ``precip`` and ``h_s`` are the surface modes' tables and pond.  The
+    caller keeps every tensor alive until the launch has been queued."""
+    soil = _soil_of(model)
     nz, ncol = fields[0].shape
-    ps = model.earth_param_set
-    hydrology = model.hydrology_model
-    state = dict(zip(prognostic_vars(model), fields))
+    ps = soil.earth_param_set
+    hydrology = soil.hydrology_model
+    state = dict(zip(prognostic_vars(soil), fields))
     base = _base_stepper(stepper)
+    exchanged = exchanged_components(model)
     a = _KernelArgs()
     for name in ("vartheta_l", "theta_i", "rho_e_int"):
         if name in state:
@@ -689,8 +864,10 @@ def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt,
         a.param_ptr[j] = t.data_ptr()
         a.param_stride[j] = stride
     for j, ((face, comp), table) in enumerate(zip(BC_SLOTS, tables)):
-        bc = _bc_of(model, face, comp)
-        a.bc_kind[j] = _BC_KIND.get(type(bc), 0) if _dynamic(model, comp) else 0
+        if face == "top" and comp in exchanged:
+            a.bc_kind[j] = _BC_KIND[VerticalFlux]
+        elif _dynamic(soil, comp):
+            a.bc_kind[j] = _BC_KIND.get(type(_bc_of(soil, face, comp)), 0)
         if table is not None:
             a.bc_ptr[j] = table[0].data_ptr()
             a.bc_row_stride[j] = table[1]
@@ -698,11 +875,20 @@ def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt,
     for j, table in enumerate(profiles or ()):
         if table is not None:
             a.profile[j] = table.data_ptr()
+    for j, table in enumerate(surface or ()):
+        if table is not None:
+            a.surface_ptr[j] = table[0].data_ptr()
+            a.surface_row_stride[j] = table[1]
+            a.surface_col_stride[j] = table[2]
+    if precip is not None:
+        a.precip = precip.data_ptr()
+    if h_s is not None:
+        a.h_s = h_s.data_ptr()
     a.nz, a.ncol, a.n_steps = nz, ncol, n_steps
     a.viscosity = int(isinstance(getattr(hydrology, "viscosity_factor", None), TemperatureDependentViscosity))
     a.impedance = int(isinstance(getattr(hydrology, "impedance_factor", None), IceImpedance))
     a.mode = kernel_mode(model, base)
-    ft = model.freeze_thaw
+    ft = soil.freeze_thaw
     if isinstance(ft, EquilibriumFreezeThaw):
         a.n_iter, a.T_lo, a.T_hi = int(ft.n_iter), float(ft.T_lo), float(ft.T_hi)
     a.rows_per_step = len(base.stage_times(0.0, dt))
@@ -711,13 +897,10 @@ def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt,
     a.half_g, a.a1, a.a2, a.b_bdf2 = k["half_g"], k["a1"], k["a2"], k["b"]
     a.dt = dt
     a.dz = dz
-    a.T_0 = ps.T_0
-    a.rho_cloud_ice = ps.rho_cloud_ice
-    a.LH_f0 = ps.LH_f0
-    a.rho_cp_l = ps.rho_cp_l
-    a.rho_cp_i = ps.rho_cp_i
-    a.rho_cloud_liq = ps.rho_cloud_liq
-    a.grav = ps.grav
+    for name in ("T_0", "rho_cloud_ice", "LH_f0", "rho_cp_l", "rho_cp_i", "rho_cloud_liq", "grav",
+                 "von_karman_const", "cp_d", "cp_v", "cp_l", "R_d", "R_v", "LH_v0",
+                 "press_triple", "T_triple", "molmass_ratio"):
+        setattr(a, name, getattr(ps, name))
     return a
 
 
@@ -726,28 +909,60 @@ def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt,
 # --------------------------------------------------------------------------
 
 
-def _check_model(model) -> None:
-    if hasattr(model, "surface"):
-        raise NotImplementedError(
-            "LandModel composition (kernel B6) is not ported yet: ROADMAP A12"
+def _check_surface(model) -> None:
+    """Refuse the surface configurations no kernel runs: those the JAX
+    kernel's factory refuses (``ValueError``) and those not ported yet."""
+    soil = _soil_of(model)
+    land = isinstance(model, LandModel)
+    if land and model.surface.runoff is not None:
+        raise ValueError(
+            "pond runoff routing is a cross-column stencil and cannot run inside "
+            "the column kernel: use the eager engine"
         )
-    if not isinstance(model, SoilModel):
-        raise TypeError(f"expected a SoilModel; got {type(model).__name__}")
-    if not (_dynamic(model, "energy") or _dynamic(model, "hydrology")):
-        raise ValueError("the fused kernel needs at least one dynamic component")
-    if len(model.domain.batch_shape) != 1:
+    if land:  # a per-column rain rate raises here, as in the JAX factory
+        t0 = torch.zeros((), dtype=soil.float_dtype)
+        precipitation_table(model.surface.precipitation, [t0], soil.float_dtype, "cpu")
+    if _most_top(soil) and not (_dynamic(soil, "energy") and _dynamic(soil, "hydrology")):
+        raise TypeError(
+            "Turbulent surface fluxes require dynamic SoilEnergyModel and "
+            "SoilHydrologyModel components."
+        )
+    item = "B6" if land else "B5"
+    if not (_dynamic(soil, "energy") and _dynamic(soil, "hydrology")):
+        raise NotImplementedError(
+            f"the LandModel on a water-only soil is not ported to the kernel yet (ROADMAP {item})"
+        )
+    if soil.freeze_thaw is not None or soil.assume_no_ice:
+        raise NotImplementedError(
+            "freeze-thaw or assume_no_ice with a MOST top or a LandModel is not "
+            f"ported to the kernel yet (ROADMAP {item})"
+        )
+
+
+def _check_model(model) -> None:
+    if not isinstance(model, (SoilModel, LandModel)):
+        raise TypeError(f"expected a SoilModel or a LandModel; got {type(model).__name__}")
+    soil = _soil_of(model)
+    if len(soil.domain.batch_shape) != 1:
         raise ValueError(
             "the fused column kernel expects a 1-D column batch (nz, ncol); "
-            f"got batch_shape={model.domain.batch_shape}"
+            f"got batch_shape={soil.domain.batch_shape}"
         )
+    exchanged = exchanged_components(model)
+    if exchanged:
+        _check_surface(model)
+    if not (_dynamic(soil, "energy") or _dynamic(soil, "hydrology")):
+        raise ValueError("the fused kernel needs at least one dynamic component")
     for face, comp in BC_SLOTS:
-        face_bc = getattr(model.boundary_conditions, face)
+        if face == "top" and comp in exchanged:
+            continue
+        face_bc = getattr(soil.boundary_conditions, face)
         if not isinstance(face_bc, SoilComponentBC):
             raise TypeError(f"unsupported {face} face BC {face_bc!r}")
         bc = getattr(face_bc, comp)
         if isinstance(bc, FreeDrainage) and comp == "energy":
             raise TypeError("FreeDrainage applies to the hydrology component only.")
-        if not _dynamic(model, comp):
+        if not _dynamic(soil, comp):
             # a prescribed component has no flux: a flux value is ignored,
             # a Dirichlet value has no state to set (boundary.py raises)
             if isinstance(bc, (Dirichlet, FreeDrainage)):
@@ -762,26 +977,37 @@ def _check_model(model) -> None:
             raise NotImplementedError(f"{type(bc).__name__} is not ported yet")
 
 
-def _check_stepper(model: SoilModel, stepper) -> None:
+def _implied_policies(model, base):
+    """The step-policy wrappers ``Simulation`` puts around ``base``."""
+    soil = _soil_of(model)
+    st = wrap_stepper_with_projection(base, soil)
+    if isinstance(model, LandModel):
+        return wrap_stepper_for_land(st, model)
+    return wrap_stepper_for_soil(st, model)
+
+
+def _check_stepper(model, stepper) -> None:
     """Refuse a stepper, or a combination with the model, that no kernel
     runs."""
+    soil = _soil_of(model)
     base = _base_stepper(stepper)
-    branch_only = not (_dynamic(model, "energy") and _dynamic(model, "hydrology"))
+    branch_only = not (_dynamic(soil, "energy") and _dynamic(soil, "hydrology"))
+    surface = bool(kernel_mode(model) & (MODE_MOST | MODE_LAND))
     if type(base) is SSPRK33:
-        if branch_only and (model.coefficient_update == "step" or model.assume_no_ice):
+        if branch_only and (soil.coefficient_update == "step" or soil.assume_no_ice):
             raise NotImplementedError(
                 "lagged coefficients and assume_no_ice on the water-only and "
                 "heat-only branches are not ported to the kernel yet (ROADMAP B1)"
             )
         # the kernel's step policies come from the model: a policy wrapper
         # the model does not call for would otherwise be dropped silently
-        implied = wrap_stepper_for_soil(wrap_stepper_with_projection(base, model), model)
+        implied = _implied_policies(model, base)
         st = stepper
         while isinstance(st, _POLICY_STEPPERS):
             if not _chain_contains(implied, type(st)):
                 raise ValueError(
                     f"{type(st).__name__} in the stepper, but the model's "
-                    "coefficient_update / freeze_thaw do not call for it"
+                    "coefficient_update / freeze_thaw / surface_update do not call for it"
                 )
             st = st.inner
         return
@@ -789,6 +1015,11 @@ def _check_stepper(model: SoilModel, stepper) -> None:
         raise NotImplementedError(
             f"the fused kernels step with SSPRK33 and the implicit steppers; the "
             f"in-kernel {type(base).__name__} is not ported yet (ROADMAP B1)"
+        )
+    if surface:
+        raise NotImplementedError(
+            "the implicit steppers with a MOST top or a LandModel are not ported "
+            "to the kernel yet (ROADMAP B4)"
         )
     if base.model is not model:
         raise ValueError(
@@ -829,13 +1060,14 @@ def make_fused_column_run(
     differentiable: bool = False,
 ) -> FusedColumnRun:
     """Build ``run(Y, t0) -> Y`` advancing ``steps_per_call`` steps per call
-    **in place** (see :class:`FusedColumnRun`).  ``stepper`` is SSPRK33,
-    bare or in the step-policy wrappers ``Simulation`` puts around it, or
-    one of the implicit steppers built with this ``model``; the kernel's
-    mode follows the model and the stepper (:func:`kernel_mode`).
-    ``tile_cols`` is the number of columns (threads) per CUDA block, a
-    multiple of 32 up to 1024; ``ncol`` need not be a multiple of it.  Time
-    advances ``steps_per_call * dt`` per call."""
+    **in place** (see :class:`FusedColumnRun`).  ``model`` is a
+    ``SoilModel`` or a ``LandModel``; ``stepper`` is SSPRK33, bare or in the
+    step-policy wrappers ``Simulation`` puts around it, or one of the
+    implicit steppers built with this ``model``; the kernel's mode follows
+    the model and the stepper (:func:`kernel_mode`).  ``tile_cols`` is the
+    number of columns (threads) per CUDA block, a multiple of 32 up to 1024;
+    ``ncol`` need not be a multiple of it.  Time advances
+    ``steps_per_call * dt`` per call."""
     _check_model(model)
     _check_stepper(model, stepper)
     if streamed_geometry is not None:

@@ -12,7 +12,11 @@ callbacks at the save points.  Two engines:
   launch, with time carried in the model dtype: SSPRK33 and the implicit
   steppers of ``imex.py``, whose ``model`` must be the simulation's.
 
-An implicit stepper's grid is rebuilt on the model's device.
+An implicit stepper's grid is rebuilt on the model's device.  A
+``LandModel`` (soil + pond, ``models/land.py``) runs on both engines: its
+soil component owns the freeze-thaw projection, and its step-level
+policies (frozen surface exchange, lagged coefficients) wrap the stepper
+as ``wrap_stepper_for_land`` does.
 """
 
 from __future__ import annotations
@@ -25,6 +29,7 @@ import torch
 
 from landhydrology_tpu_torch.domains import make_function_space
 from landhydrology_tpu_torch.imex import IMPLICIT_STEPPERS
+from landhydrology_tpu_torch.models.land import wrap_stepper_for_land
 from landhydrology_tpu_torch.models.soil.freeze_thaw import wrap_stepper_with_projection
 from landhydrology_tpu_torch.models.soil.lagged import wrap_stepper_for_soil
 from landhydrology_tpu_torch.models.soil.rhs import make_rhs
@@ -76,6 +81,7 @@ class Simulation:
         steps_per_call: int = 48,
         tile_cols: int = 128,
     ):
+        soil = getattr(model, "soil", model)
         if Y_init is None:
             Y_init, Ya_init = model.default_initial_conditions()
         elif Ya_init is None:
@@ -83,9 +89,9 @@ class Simulation:
                 initialize_auxiliary,
             )
 
-            grid0 = make_function_space(model.domain, model.float_dtype, model.device)
+            grid0 = make_function_space(soil.domain, soil.float_dtype, soil.device)
             Ya_init = initialize_auxiliary(
-                model, torch.as_tensor(tspan[0], dtype=model.float_dtype), grid0.zc
+                soil, torch.as_tensor(tspan[0], dtype=soil.float_dtype), grid0.zc
             )
         if engine not in ("torch", "fused"):
             raise ValueError(f"unknown engine {engine!r}")
@@ -96,11 +102,15 @@ class Simulation:
                 stepper, grid=make_function_space(model.domain, model.float_dtype, model.device)
             )
         # step policies, as the JAX package applies them: the equilibrium
-        # projection wraps the stepper and the lagged-coefficient policy is
-        # outermost, so each step is coefficients, stages, projection; the
-        # fused engine runs the same order inside the kernel
-        stepper = wrap_stepper_with_projection(stepper, model)
-        stepper = wrap_stepper_for_soil(stepper, model)
+        # projection (owned by the soil) wraps the stepper and the lagged
+        # coefficients / frozen surface exchange are outermost, so each step
+        # is coefficients, stages, projection; the fused engine runs the
+        # same order inside the kernel
+        stepper = wrap_stepper_with_projection(stepper, soil)
+        if soil is model:
+            stepper = wrap_stepper_for_soil(stepper, model)
+        else:
+            stepper = wrap_stepper_for_land(stepper, model)
         self.stepper = stepper
         self.dt = float(dt)
         self.tspan = (float(tspan[0]), float(tspan[1]))
@@ -134,12 +144,14 @@ class Simulation:
 
     def _warn_if_cfl_unstable(self, model) -> None:
         """Warn when the explicit dt exceeds ~4x the estimated Richards CFL
-        limit of the initial state (see diagnostics.explicit_dt_limit)."""
+        limit of the initial state (see diagnostics.explicit_dt_limit); a
+        LandModel's soil is read."""
         from landhydrology_tpu_torch.models.soil.model import (
             SoilHydrologyModel,
             SoilModel,
         )
 
+        model = getattr(model, "soil", model)
         if not isinstance(model, SoilModel):
             return
         if not isinstance(model.hydrology_model, SoilHydrologyModel):

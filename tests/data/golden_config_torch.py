@@ -6,6 +6,10 @@
   and with ``coefficient_update="step"`` ``golden_lagged_f64.npz``.
 - ``build_freeze_model_and_state``: the freeze-thaw golden
   (``golden_config.build_freeze_model_and_state``), ``golden_freeze_f64.npz``.
+- ``build_land_model_and_state``: the LandModel golden
+  (``golden_config.build_land_model_and_state``: MOST atmosphere, rain
+  pulse, pond, kinematic-wave routing on a 4 x 4 grid),
+  ``golden_land_f64.npz``.
 
 The builders put their tensors on ``device``, the card unless the caller
 asks for ``"cpu"``."""
@@ -163,3 +167,82 @@ def build_freeze_model_and_state(dtype, device="cuda", nz=16, ncol=4, freeze_tha
 
     Y, Ya = initialize_states(model, ic, 0.0)
     return model, Y, Ya, FREEZE_DT
+
+
+LAND_STEPS = 48
+LAND_DT = 2.0
+LAND_NZ, LAND_NX, LAND_NY = 12, 4, 4
+
+
+def build_land_model_and_state(dtype, device="cuda"):
+    """LandModel golden: coupled soil + MOST atmosphere + rain pulse + pond
+    + kinematic-wave routing over a terrain hill."""
+    import torch
+
+    from landhydrology_tpu_torch import (
+        Column,
+        PrescribedAtmosForcing,
+        SoilColumnBC,
+        SoilComponentBC,
+        SoilEnergyModel,
+        SoilHydrologyModel,
+        SoilModel,
+        SoilParams,
+        VerticalFlux,
+    )
+    from landhydrology_tpu_torch.constants import default_earth_param_set as ps
+    from landhydrology_tpu_torch.models.land import (
+        KinematicWaveRouting,
+        LandModel,
+        PulsePrecipitation,
+        SurfaceWaterModel,
+        initialize_states as land_init,
+    )
+    from landhydrology_tpu_torch.models.soil import vanGenuchten
+    from landhydrology_tpu_torch.models.soil.heat import (
+        volumetric_heat_capacity,
+        volumetric_internal_energy,
+    )
+
+    x = np.arange(LAND_NX)[:, None] - (LAND_NX - 1) / 2.0
+    y = np.arange(LAND_NY)[None, :] - (LAND_NY - 1) / 2.0
+    terrain = 0.2 * np.exp(-(x**2 + y**2) / 4.0)
+    soil = SoilModel(
+        domain=Column(zlim=(-1.5, 0.0), nelements=LAND_NZ, batch_shape=(LAND_NX, LAND_NY)),
+        energy_model=SoilEnergyModel(),
+        hydrology_model=SoilHydrologyModel(
+            hydraulic_model=vanGenuchten(n=2.0, alpha=2.6, Ksat=2e-7, theta_r=0.05)
+        ),
+        boundary_conditions=SoilColumnBC(
+            top=PrescribedAtmosForcing(
+                u_atm=2.0, theta_atm=300.0, z_atm=2.0, theta_scale=300.0,
+                rho_a_sfc=1.2, q_atm=0.005,
+            ),
+            bottom=SoilComponentBC(hydrology=VerticalFlux(0.0), energy=VerticalFlux(0.0)),
+        ),
+        soil_param_set=SoilParams(nu=0.4, S_s=1e-3, rho_c_ds=1.3e6),
+        dtype=dtype,
+        device=device,
+    )
+    land = LandModel(
+        soil=soil,
+        surface=SurfaceWaterModel(
+            precipitation=PulsePrecipitation(rate=8e-6, t_start=0.0, t_stop=60.0),
+            tau_pond=120.0,
+            runoff=KinematicWaveRouting(
+                elevation=torch.as_tensor(terrain, dtype=dtype, device=device),
+                manning_n=0.05, dx=1.0,
+            ),
+        ),
+    )
+
+    def ic(z, m):
+        shape = (LAND_NZ, LAND_NX, LAND_NY)
+        th = torch.full(shape, 0.22, dtype=dtype, device=device)
+        ti = torch.zeros(shape, dtype=dtype, device=device)
+        rcs = volumetric_heat_capacity(th, ti, 1.3e6, ps)
+        T = torch.full(shape, 292.0, dtype=dtype, device=device)
+        return {"vartheta_l": th, "theta_i": ti, "rho_e_int": volumetric_internal_energy(ti, rcs, T, ps)}
+
+    Y, Ya = land_init(land, ic, 0.0, h_s0=2e-3)
+    return land, Y, Ya, LAND_DT

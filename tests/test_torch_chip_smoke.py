@@ -248,3 +248,97 @@ def test_registers_and_sources_of_both_kernels(tmp_path):
     assert kernel == "implicit_column_kernel" and source == "landhydrology_tpu_torch/csrc/implicit_kernel.cu"
     kernel, source = cs.kernel_of(ck, ck.MODE_HEAT, torch.float32)
     assert kernel == "ssprk33_column_kernel" and source == "landhydrology_tpu_torch/csrc/column_kernel.cu"
+
+
+# ---- the land path's builders and the surface modes' bounds ----
+
+
+@pytest.mark.parametrize("setting", ["reference", "production"])
+def test_land_builder_matches_bench(setting):
+    """``build_land_model`` rebuilds ``bench.py::build_land`` (state, pond
+    and land rhs, f64 rtol 1e-13) in the reference (B6) and production
+    (B2+B6-step) settings."""
+    from landhydrology_tpu.models.land import make_rhs as jax_land_rhs
+    from landhydrology_tpu_torch.models.land import make_rhs as land_rhs
+
+    kw = {} if setting == "reference" else {"surface_update": "step", "coefficient_update": "step"}
+    jland, jY, jYa = bench.build_land(16, NCOL, jnp.float64, **kw)
+    land, Y, Ya = cs.build_land_model(16, NCOL, torch.float64, "cpu", **kw)
+    assert ck.mode_name(ck.kernel_mode(land)) == ("B6" if setting == "reference" else "B2+B6-step")
+    for k, v in cs._np(Y).items():
+        ref = jY["surface"]["h_s"] if k == "h_s" else jY["soil"][k]
+        np.testing.assert_allclose(v, np.asarray(ref), rtol=1e-13, atol=0, err_msg=k)
+    ref = jax_land_rhs(jland)(jY, jYa, jnp.asarray(3.0, dtype=jnp.float64))
+    got = cs._np(land_rhs(land)(Y, Ya, torch.tensor(3.0, dtype=torch.float64)))
+    for k, v in got.items():
+        r = np.asarray(ref["surface"]["h_s"] if k == "h_s" else ref["soil"][k])
+        np.testing.assert_allclose(v, r, rtol=1e-13, atol=1e-13 * float(np.max(np.abs(r))), err_msg=k)
+
+
+def test_land_variant_and_small_builders():
+    """The variants carry per-column atmosphere fields over both Businger
+    branches (theta_atm on both sides of the surface temperature) and build
+    the mode they name; the JAX fused tests' land configurations build
+    B6 and B6-step."""
+    for case in ("B5", "B2+B5", "B6", "B6-step", "B2+B6-step", "B6-pond", "B6-step-pond", "B2+B6-pond",
+                 "B2+B6-step-pond"):
+        model, Y = cs.build_land_variant(64, torch.float64, "cpu", seed=13, case=case)
+        assert ck.mode_name(ck.kernel_mode(model)) == case
+        assert ("h_s" in cs._np(Y)) == ("B6" in case)
+    model, Y = cs.build_land_variant(64, torch.float64, "cpu", seed=13, case="B6")
+    atmos = model.soil.boundary_conditions.top
+    assert atmos.u_atm.shape == (64,) and callable(atmos.theta_scale)
+    from landhydrology_tpu_torch.models.land import _diagnose_state_T
+
+    T = _diagnose_state_T(model.soil, {k: v[-1:] for k, v in Y["soil"].items()}, {})[0]
+    d = (atmos.theta_atm - T).numpy()
+    assert d.min() < -1.0 and d.max() > 1.0
+    land, Y = cs.build_pallas_land(torch.float64, "cpu")
+    assert ck.mode_name(ck.kernel_mode(land)) == "B6" and tuple(Y["surface"]["h_s"].shape) == (256,)
+    land, Y = cs.build_step_land(torch.float64, "cpu")
+    assert ck.mode_name(ck.kernel_mode(land)) == "B6-step" and Y["soil"]["vartheta_l"].is_contiguous()
+
+
+def test_surface_bound_counts():
+    """The surface modes' counts per column and step: the MOST solve counts
+    the probes its rounds evaluate (the run's mean, given) with 3 end
+    evaluations in f64 and 4 in f32 and one more h for the finish, three
+    exchanges per step or one with the frozen exchange; the pond's bytes
+    enter the bound; a MOST mode's count needs its probes."""
+    most, land = ck.MODE_MOST, ck.MODE_LAND | ck.MODE_MOST
+    f64 = cs.column_step_ops(ck, most, torch.float64, probes=97.5)
+    f32 = cs.column_step_ops(ck, most, torch.float32, probes=17.0)
+    assert f64["sqrt"] == 3 * 8 * (97.5 + 3 + 1) and f32["sqrt"] == 3 * 8 * (17 + 4 + 1)
+    full = cs.column_step_ops(ck, most, torch.float64, probes=20 * 8)
+    assert full["sqrt"] == 3 * 8 * (20 * 8 + 3 + 1) and full["op"] > f64["op"]
+    step = cs.column_step_ops(ck, land | ck.MODE_SURFACE_STEP, torch.float64, probes=100.0)
+    stage = cs.column_step_ops(ck, land, torch.float64, probes=100.0)
+    assert 3 * step["log"] == stage["log"] and step["pow"] == 1 and stage["pow"] == 3
+    assert cs.column_step_ops(ck, ck.MODE_LAND, torch.float64)["sqrt"] == 3 * 1  # the face K alone
+    assert not cs.column_step_ops(ck, 0, torch.float64)
+    with pytest.raises(ValueError, match="probes"):
+        cs.column_step_ops(ck, land, torch.float64)
+    costs = {torch.float64: {"exp": 10, "log": 10, "sqrt": 2, "div": 5, "pow": 20}}
+    ms0, _ = cs.bound_ms(ck, costs, 0, torch.float64, NZ * NCOL, 32, ncol=NCOL)
+    ms1, by = cs.bound_ms(ck, costs, land, torch.float64, NZ * NCOL, 32, ncol=NCOL, probes=100.0)
+    ms2, _ = cs.bound_ms(ck, costs, land, torch.float64, NZ * NCOL, 32, ncol=NCOL, probes=160.0)
+    assert by == "operations" and ms0 < ms1 < ms2
+    ms, by = cs.bound_ms(ck, costs, land, torch.float64, NZ * NCOL, 0, ncol=NCOL, probes=100.0)
+    assert by == "bytes" and ms == pytest.approx(1e3 * 2 * 8 * (3 * NZ + 1) * NCOL / cs.HBM_BYTES_PER_S)
+    assert cs.kernel_of(ck, land, torch.float32) == ("land_column_kernel", "landhydrology_tpu_torch/csrc/land_kernel.cu")
+
+
+@pytest.mark.parametrize("case", ["B5", "B2+B5", "B6-step", "B2+B6", "B6-pond"])
+def test_most_probes_count_one_solve_per_exchange(case):
+    """``most_probes`` reads one MOST solve per column and exchange of the
+    plain launch (three per step, one with the frozen exchange, none under
+    a plain top) and a mean of 1-8 probes per round, below the full 8."""
+    model, Y = cs.build_land_variant(32, torch.float64, "cpu", seed=13, case=case)
+    solves, probes = cs.most_probes(ck, model, SSPRK33(), 2.0, 2, Y)
+    if case == "B6-pond":
+        assert (solves, probes) == (0, None)
+        return
+    assert solves == (2 if "step" in case else 6)
+    assert 20 <= probes < 20 * 8
+    model32, Y32 = cs.build_land_variant(32, torch.float32, "cpu", seed=13, case=case)
+    assert 4 <= cs.most_probes(ck, model32, SSPRK33(), 2.0, 2, Y32)[1] < 4 * 8

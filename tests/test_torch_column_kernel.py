@@ -199,11 +199,6 @@ def _golden_port():
     return gct.build_model_and_state(torch.float64, "cpu")[0]
 
 
-class _LandLike:
-    soil = None
-    surface = None
-
-
 @pytest.mark.parametrize(
     "mode",
     ["B2_lagged", "B3_freeze_thaw", "B4_stepper", "B5_most", "B6_land",
@@ -225,13 +220,19 @@ def test_unported_modes_raise(mode):
             m = dataclasses.replace(model, **kw)
             with pytest.raises(NotImplementedError, match="ROADMAP B4"):
                 ck.make_fused_column_run(m, TRBDF2Soil(model=m, grid=grid))
-    elif mode == "B5_most":
-        with pytest.raises(NotImplementedError, match="A11"):
-            PrescribedAtmosForcing(u_atm=2.0, theta_atm=300.0, z_atm=2.0,
-                                   theta_scale=300.0, rho_a_sfc=1.2, q_atm=0.005)
-    elif mode == "B6_land":
-        with pytest.raises(NotImplementedError, match="A12"):
-            ck.make_fused_column_run(_LandLike())
+    elif mode in ("B5_most", "B6_land"):  # ported: not with freeze-thaw or assume_no_ice
+        from landhydrology_tpu_torch.models.land import LandModel
+
+        most = dataclasses.replace(model, boundary_conditions=SoilColumnBC(
+            top=PrescribedAtmosForcing(u_atm=2.0, theta_atm=300.0, z_atm=2.0,
+                                       theta_scale=300.0, rho_a_sfc=1.2, q_atm=0.005),
+            bottom=model.boundary_conditions.bottom))
+        assert ck.mode_name(ck.make_fused_column_run(most).mode) == "B5"
+        for kw in ({"freeze_thaw": FreezeThaw(tau=60.0)}, {"assume_no_ice": True}):
+            m = dataclasses.replace(most, **kw)
+            item = "B5" if mode == "B5_most" else "B6"
+            with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+                ck.make_fused_column_run(m if mode == "B5_most" else LandModel(soil=m))
     elif mode == "B7_forcing":
         with pytest.raises(NotImplementedError, match="A14"):
             ck.make_fused_column_run(model, forcing_fields=("u_atm",))
@@ -520,6 +521,10 @@ def test_argument_struct_mirrors_the_cuda_source():
     assert [n.strip() for n in profiles.split(",") if n.strip()] == [
         "PROF_" + n.upper() for n in ck.PROFILE_NAMES
     ] + ["kNumProfiles"]
+    surface = re.search(r"enum Surface \{(.*?)\};", src, re.S).group(1)
+    assert [n.strip() for n in surface.split(",") if n.strip()] == [
+        "S_" + n.upper() for n in ck.SURFACE_NAMES
+    ] + ["kNumSurface"]
     modes = dict(re.findall(r"(MODE_\w+) = (\d+)", re.search(r"enum Mode[^{]*\{(.*?)\};", src, re.S).group(1)))
     assert modes and all(getattr(ck, k) == int(v) for k, v in modes.items())
     body = re.search(r"struct KernelArgs \{(.*?)\};", src, re.S).group(1)
@@ -539,7 +544,7 @@ def test_kernel_args_pack_the_golden_model():
     model, Y, _, dt = gct.build_model_and_state(torch.float64, "cpu")
     run = ck.make_fused_column_run(model, SSPRK33(), dt=dt, steps_per_call=3)
     fields = [Y["soil"][k] for k in FIELDS]
-    params, zc, dz, constant_tables = run._inputs(8, torch.device("cpu"))
+    params, zc, dz, constant_tables = run._inputs(8, torch.device("cpu"))[:4]
     tables = ck.bc_tables(model, 0.0, dt, 3, 8, "cpu", reuse=constant_tables)
     scratch = torch.empty(6 * 24 * 8, dtype=torch.float64)
     a = ck.kernel_args(model, fields, scratch, zc, dz, params, tables, 3, dt)
@@ -650,3 +655,41 @@ def test_cuda_branch_kernels_match_plain(cuda_device, stepper, branch):
     torch.cuda.synchronize()
     assert sum(ck.LAUNCHES.values()) == 1
     _assert_close_f64(state_to_numpy(Y)["soil"], plain, keys=keys)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["B5", "B2+B5", "B6", "B6-step", "B2+B6", "B2+B6-step", "B6-pond",
+                                  "B6-step-pond", "B2+B6-pond", "B2+B6-step-pond"])
+def test_cuda_land_kernels_match_plain(cuda_device, case):
+    """Every B5/B6 mode on the LandModel of tests/test_pallas_kernel.py:278
+    (its soil alone for B5) against the plain version on the card, f64 rtol
+    1e-12 (h_s atol 1e-18); one launch each."""
+    from tests.test_torch_land import _jax_land, _jax_land_state
+
+    jm = _jax_land(most="pond" not in case, surface_update="step" if "step" in case else "stage",
+                   coefficient_update="step" if case.startswith("B2") else "stage")
+    Y, _ = _jax_land_state(jm, 2e-5)
+    model = model_from_reference(jm, device=cuda_device)
+    Y = state_from_numpy(Y, device=cuda_device)
+    if "B5" in case:
+        model, Y = model.soil, {"soil": Y["soil"]}
+    plain = state_to_numpy(ck.fused_column_run_plain(model, SSPRK33(), 2.0, 8, Y, 3.0))
+    ck.LAUNCHES.clear()
+    ck.make_fused_column_run(model, SSPRK33(), dt=2.0, steps_per_call=8)(Y, 3.0)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {case: 1}
+    got = state_to_numpy(Y)
+    _assert_close_f64(got["soil"], plain["soil"])
+    if "surface" in plain:
+        np.testing.assert_allclose(got["surface"]["h_s"], plain["surface"]["h_s"], rtol=1e-12, atol=1e-18)
+
+
+@pytest.mark.cuda
+def test_cuda_negative_rain_rate_on_the_card_raises(cuda_device):
+    """A rain rate held on the card is checked once, where it is declared."""
+    from landhydrology_tpu_torch.models.land import ConstantPrecipitation, PulsePrecipitation
+
+    for cls in (ConstantPrecipitation, PulsePrecipitation):
+        with pytest.raises(ValueError, match="non-negative"):
+            cls(rate=torch.tensor(-1e-6, dtype=torch.float64, device=cuda_device))
+        assert float(cls(rate=torch.tensor(1e-6, device=cuda_device)).rate) == pytest.approx(1e-6)

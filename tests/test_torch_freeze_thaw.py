@@ -292,7 +292,7 @@ def test_kernel_args_pack_the_freeze_schemes():
         model, Y, _, dt = gct.build_freeze_model_and_state(torch.float64, "cpu", freeze_thaw=scheme)
         run = ck.make_fused_column_run(model, SSPRK33(), dt=dt, steps_per_call=2)
         fields = [Y["soil"][k] for k in FIELDS]
-        params, zc, dz, tables = run._inputs(NCOL, torch.device("cpu"))
+        params, zc, dz, tables = run._inputs(NCOL, torch.device("cpu"))[:4]
         a = ck.kernel_args(model, fields, torch.empty(1, dtype=torch.float64), zc, dz, params, tables, 2, dt)
         assert a.mode == mode and ck.scratch_fields(mode) == 6
         tau = dict(zip(ck.PARAM_NAMES, params))["tau"]

@@ -222,6 +222,8 @@ def test_package_imports_no_jax():
         "grid = landhydrology_tpu_torch.make_function_space(m.domain, torch.float64, 'cpu')\n"
         "st = landhydrology_tpu_torch.TRBDF2Soil(m, grid, 2, 'pcr')\n"
         "landhydrology_tpu_torch.Simulation(m, st, Y_init=Y, Ya_init=Ya, dt=dt, tspan=(0, 2 * dt), engine='fused').run()\n"
+        "land, Y, Ya, dt = g.build_land_model_and_state(torch.float64, 'cpu')\n"
+        "landhydrology_tpu_torch.Simulation(land, Y_init=Y, Ya_init=Ya, dt=dt, tspan=(0, dt)).run()\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'landhydrology_tpu'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -266,7 +268,7 @@ def test_entry_points_default_to_the_card():
     model = SoilModel(domain=Column(zlim=(-1.0, 0.0), nelements=4, batch_shape=(2,)))
     assert model.device == "cuda"
     for fn in (make_function_space, model_from_reference, state_from_numpy,
-               gct.build_model_and_state, gct.build_freeze_model_and_state):
+               gct.build_model_and_state, gct.build_freeze_model_and_state, gct.build_land_model_and_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
     jm = gc.build_model_and_state(jnp.float64)[0]
     attempts = (
@@ -334,3 +336,26 @@ def test_fused_engine_requires_the_steppers_model():
     Simulation(model, st, Y_init=Y, Ya_init=Ya, dt=120.0, tspan=(0.0, 240.0))  # the eager engine takes it
     with pytest.raises(ValueError, match="run's model"):
         Simulation(model, st, Y_init=Y, Ya_init=Ya, dt=120.0, tspan=(0.0, 240.0), engine="fused")
+
+
+def test_land_simulation_matches_jax_and_warns_on_the_soil():
+    """A LandModel through the eager engine == the JAX ``Simulation`` (xla
+    engine) with the frozen exchange and lagged coefficients, saved states
+    and pond at rtol 1e-13; the CFL warning reads the soil."""
+    from tests.test_torch_land import _jax_land, _jax_land_state
+
+    jm = _jax_land(surface_update="step", coefficient_update="step")
+    Y, Ya = _jax_land_state(jm, 1e-5)
+    kw = dict(dt=2.0, tspan=(0.0, 8.0), saveat=4.0)
+    jsol = JSimulation(jm, JSSPRK33(), Y_init=Y, Ya_init=Ya, **kw).run()
+    model = model_from_reference(jm, device="cpu")
+    sim = Simulation(model, SSPRK33(), Y_init=state_from_numpy(Y, device="cpu"),
+                     Ya_init=state_from_numpy(Ya, device="cpu"), **kw)
+    sol = sim.run()
+    np.testing.assert_array_equal(sol.ts.numpy(), np.asarray(jsol.ts))
+    for group in ("soil", "surface"):
+        for k, v in jsol.us[group].items():
+            np.testing.assert_allclose(sol.us[group][k].numpy(), np.asarray(v), rtol=1e-13, atol=1e-18,
+                                       err_msg=f"{group}/{k}")
+    with pytest.warns(RuntimeWarning, match="CFL"):
+        Simulation(model, SSPRK33(), Y_init=state_from_numpy(Y, device="cpu"), dt=1e8, tspan=(0.0, 1e8))
