@@ -59,16 +59,41 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    at rtol 1e-12; then ``bench.py::build_land`` at nz=64 x 65,536, 96 steps
    of dt=1 in 3 launches, f32 and f64, in the reference setting (B6), the
    production setting (B2+B6-step), B6-step, B2+B6, B6-pond, and its soil
-   alone in B5 and B2+B5, driven and checked as in phase 4 (the pond too),
-   with each land run's water budget, the host time per launch and the
-   largest deviation of B2+B6-step from B6;
+   alone in B5 and B2+B5, and its plain top under the pond in B6-pond,
+   B6-step-pond, B2+B6-pond and B2+B6-step-pond, driven and checked as in
+   phase 4 (the pond too), with each land run's water budget, the host
+   time per launch and the largest deviation of B2+B6-step from B6;
+11. the forced-reanalysis path (kernel mode B7, streamed forcing rows):
+   f64 checks at the JAX tests' sizes (``golden_forced_f64.npz`` at rtol
+   1e-12 through B5+B7; ``test_forcing_driver.py:191`` with a scalar row
+   and a remainder launch, ``:225`` with per-column rain ponding a
+   LandModel, ``:544`` with time-indexed rows clamped at both table ends,
+   equal bit for bit to the step-indexed rows), 1,000-column variants of
+   every B5/B6 mode with forcing rows (both Businger branches, step- and
+   time-indexed), f64 and f32; then ``experiments/soil/forced_reanalysis.py``'s
+   LandModel at nz=24 x 131,072 (``build_reanalysis``), 480 steps of dt=120
+   of its forcing (``reanalysis_forcing``, written to a temporary file)
+   through ``run_forced`` (windows of 240, 24 steps per launch, pinned
+   staging), f32 and f64, with and without overlap: (a) equal bit for bit
+   to the in-memory fused segment, (b) every 128th column equal to the
+   plain version on those columns' rows over the first two launches, (c)
+   the water budget within 1% of the largest column's rain, (d) prefetch
+   hits and the native reader; prints grid-points/s end to end with the
+   IO, kernel ms per launch, the host's ms per window (reader, pinned
+   copy, H2D copy), the device busy share and the bound of B6+B7; then
+   three more paths over the first window, each with its own launch
+   count, checked against the plain version on the strided columns and
+   timed: the production setting (B2+B6-step+B7), the soil alone under
+   the atmosphere rows (B5+B7) and time-indexed rows on a grid of 2 dt
+   (B6+B7-time);
 6. times of every mode's kernel and plain version at its phase-4/5/8/9/10
    shape (CUDA events, in turns), beside the least time the card could take
    (with the MOST solve's probes counted from the plain version's solves on
    the same inputs), and the scratch traffic per cell and step of the
    implicit kernel.
 
-With ``--profile`` a seventh phase follows for B1 and B2 at the phase-4
+``--forced-only`` runs phases 1, 2 and 11 alone (a quick check of kernel
+B7).  With ``--profile`` a seventh phase follows for B1 and B2 at the phase-4
 shape: six timings each of the kernel and the plain version in turns, a
 ``tile_cols`` sweep, the SM clock and power draw under load, and
 ``Simulation.run`` end to end, unprofiled and under ``torch.profiler``
@@ -784,10 +809,11 @@ def scratch_values_per_cell_step(ck, mode, iters=2):
     return n
 
 
-def bound_ms(ck, costs, mode, dtype, cells, steps, n_iter=60, iters=2, ncol=0, probes=None):
+def bound_ms(ck, costs, mode, dtype, cells, steps, n_iter=60, iters=2, ncol=0, probes=None, read_values=0):
     """``(ms, "bytes" or "operations")``: the larger of the state's bytes
     (the branch's fields, and a LandModel's pond, read and written once per
-    launch) over HBM bandwidth and the floating-point instructions (per
+    launch, and ``read_values`` more values read once: streamed forcing
+    rows) over HBM bandwidth and the floating-point instructions (per
     cell, and per column for the surface exchange of ``ncol`` columns, its
     MOST solves with ``probes`` evaluations each) over the card's rate for
     the type (one fused multiply-add, two FLOPs, per lane and clock)."""
@@ -796,7 +822,7 @@ def bound_ms(ck, costs, mode, dtype, cells, steps, n_iter=60, iters=2, ncol=0, p
 
     itemsize = torch.finfo(dtype).bits // 8
     pond = ncol if mode & ck.MODE_LAND else 0
-    t_bytes = 2 * (state_fields(ck, mode) * cells + pond) * itemsize / HBM_BYTES_PER_S
+    t_bytes = (2 * (state_fields(ck, mode) * cells + pond) + read_values) * itemsize / HBM_BYTES_PER_S
     total = (cells * instructions(cell_step_ops(ck, mode, n_iter, iters))
              + ncol * instructions(column_step_ops(ck, mode, dtype, probes)))
     t_ops = steps * total / (PEAK_FLOPS[dtype] / 2)
@@ -1075,9 +1101,10 @@ def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving, stepper=None):
     return kern, launches[name], err, wall
 
 
-def most_probes(ck, model, stepper, dt, spc, Y0):
+def most_probes(ck, model, stepper, dt, spc, Y0, forcing=None, forcing_time_grid=None):
     """``(solves, probes)`` of the MOST solves in the plain version's launch
-    of ``spc`` steps from ``Y0``: the solves per column, and the mean per
+    of ``spc`` steps from ``Y0`` (with ``forcing``, its rows): the solves
+    per column, and the mean per
     solve and column of the probes its rounds evaluate when each stops at
     its first probe past the sign change, as the kernel's solve does
     (``surface_conditions``' ``probes``, read through a wrapper of it for
@@ -1093,7 +1120,8 @@ def most_probes(ck, model, stepper, dt, spc, Y0):
 
     sf.surface_conditions = counted
     try:
-        ck.fused_column_run_plain(model, stepper, dt, spc, Y0, 0.0)
+        ck.fused_column_run_plain(model, stepper, dt, spc, Y0, 0.0, forcing=forcing,
+                                  forcing_time_grid=forcing_time_grid)
     finally:
         sf.surface_conditions = solve
     if not counts:
@@ -1324,6 +1352,9 @@ def land_phase(ck, gc, device, smi):
         ("frozen exchange", {"surface_update": "step"}, "land"),
         ("lagged", {"coefficient_update": "step"}, "land"),
         ("plain top", {}, "pond"),
+        ("plain top, frozen exchange", {"surface_update": "step"}, "pond"),
+        ("plain top, lagged", {"coefficient_update": "step"}, "pond"),
+        ("plain top, production", {"surface_update": "step", "coefficient_update": "step"}, "pond"),
         ("MOST soil", {}, "soil"),
         ("MOST soil, lagged", {"coefficient_update": "step"}, "soil"),
     )
@@ -1369,10 +1400,534 @@ def land_phase(ck, gc, device, smi):
     return paths
 
 
+# ---- phase 11: the forced-reanalysis path, kernel mode B7 ----
+
+#: ``experiments/soil/forced_reanalysis.py``'s run (nz, ncol, dt, window,
+#: steps per launch), cut from its 2-day horizon (1,440 steps) to two windows
+FORCED_NZ, FORCED_NCOL, FORCED_DT, FORCED_WINDOW, FORCED_SPC, FORCED_STEPS = 24, 131072, 120.0, 240, 24, 480
+#: the experiment's horizon (``--days``), which sets the rain band's speed
+FORCED_DAYS = 2.0
+#: the plain version's check at width takes every 128th column (1,024)
+FORCED_STRIDE = 128
+#: the forced water budget's bar, a share of the largest column's rain
+BUDGET_SHARE = 1e-2
+
+
+def build_reanalysis(nz, ncol, dtype, device):
+    """``experiments/soil/forced_reanalysis.py:123-150`` built with the
+    port's API: the flagship LandModel (2 m of loam-like soil,
+    vanGenuchten(2.0, 2.6, 3e-7, 0.05), nu 0.4) under a MOST atmosphere
+    (2 m/s, 294 K at 2 m, q 0.004; the forcing rows replace the wind, air
+    temperature, humidity and rain), tau_pond 600 s, zero-flux bottom;
+    moisture 0.18 at 290 K, no pond."""
+    from landhydrology_tpu_torch import (
+        Column, PrescribedAtmosForcing, SoilColumnBC, SoilComponentBC, SoilEnergyModel,
+        SoilHydrologyModel, SoilModel, SoilParams, VerticalFlux,
+    )
+    from landhydrology_tpu_torch.constants import default_earth_param_set as ps
+    from landhydrology_tpu_torch.models.land import LandModel, SurfaceWaterModel, initialize_states
+    from landhydrology_tpu_torch.models.soil import vanGenuchten
+    from landhydrology_tpu_torch.models.soil.heat import volumetric_heat_capacity, volumetric_internal_energy
+
+    soil = SoilModel(
+        domain=Column(zlim=(-2.0, 0.0), nelements=nz, batch_shape=(ncol,)),
+        energy_model=SoilEnergyModel(),
+        hydrology_model=SoilHydrologyModel(hydraulic_model=vanGenuchten(n=2.0, alpha=2.6, Ksat=3e-7, theta_r=0.05)),
+        boundary_conditions=SoilColumnBC(
+            top=PrescribedAtmosForcing(u_atm=2.0, theta_atm=294.0, z_atm=2.0, theta_scale=294.0, rho_a_sfc=1.2,
+                                       q_atm=0.004),
+            bottom=SoilComponentBC(hydrology=VerticalFlux(0.0), energy=VerticalFlux(0.0)),
+        ),
+        soil_param_set=SoilParams(nu=0.4, S_s=1e-3, rho_c_ds=1.3e6), dtype=dtype, device=device,
+    )
+    land = LandModel(soil=soil, surface=SurfaceWaterModel(tau_pond=600.0))
+
+    def ic(z, m):
+        th = torch.full((nz, ncol), 0.18, dtype=dtype, device=device)
+        ti = torch.zeros_like(th)
+        rcs = volumetric_heat_capacity(th, ti, 1.3e6, ps)
+        return {"vartheta_l": th, "theta_i": ti,
+                "rho_e_int": volumetric_internal_energy(ti, rcs, torch.full_like(th, 290.0), ps)}
+
+    Y, Ya = initialize_states(land, ic, 0.0, h_s0=0.0)
+    return land, Y, Ya
+
+
+def reanalysis_forcing(n_steps, ncol, dt, days=FORCED_DAYS):
+    """``(times, rows)`` of ``experiments/soil/forced_reanalysis.py:97-116``,
+    float32: per-column diurnal wind, air temperature and humidity with a
+    random phase per column (``default_rng(0)``), and a rain band of 6e-6
+    m/s, a tenth of the columns wide, sweeping across them over ``days``."""
+    rng = np.random.default_rng(0)
+    t = (np.arange(n_steps) * dt).astype(np.float64)
+    phase = rng.uniform(0.0, 2 * np.pi, ncol).astype(np.float32)
+    day = (2 * np.pi * t[:, None] / 86400.0).astype(np.float32) + phase
+    band = (np.arange(ncol, dtype=np.float32) / ncol)[None, :]
+    front = (t[:, None] / (days * 86400.0)).astype(np.float32)
+    rain = np.where(np.abs(band - front) < 0.05, np.float32(6e-6), np.float32(0.0))
+    fields = {
+        "u_atm": 2.0 + 1.5 * np.sin(day),
+        "theta_atm": 294.0 + 8.0 * np.sin(day - 0.5),
+        "q_atm": 0.004 + 0.002 * np.cos(day),
+        "precipitation": rain,
+    }
+    return t, {k: v.astype(np.float32) for k, v in fields.items()}
+
+
+def diurnal_rows(n_steps, ncol, dt, rng):
+    """``tests/test_forcing_driver.py::_diurnal_forcing``: per-column wind,
+    air temperature and humidity cycles with a random phase per column."""
+    t = np.arange(n_steps) * dt
+    phase = rng.uniform(0.0, 2 * np.pi, ncol)
+    day = 2 * np.pi * t[:, None] / 86400.0 + phase[None, :]
+    return {"u_atm": 2.0 + 1.5 * np.sin(day), "theta_atm": 295.0 + 8.0 * np.sin(day - 0.5),
+            "q_atm": 0.004 + 0.002 * np.cos(day)}
+
+
+def forced_plain(ck, model, dt, spc, Y, t0, rows):
+    """The plain version of a forced fused segment: launches of ``spc`` rows
+    and a remainder, as ``make_forced_segment_run(engine="fused")`` runs
+    them."""
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    n = next(iter(rows.values())).shape[0]
+    t = torch.as_tensor(t0, dtype=model.float_dtype)
+    for c0 in range(0, n, spc):
+        m = min(spc, n - c0)
+        Y = ck.fused_column_run_plain(model, SSPRK33(), dt, m, Y, t, forcing={k: v[c0:c0 + m] for k, v in rows.items()})
+        t = t + m * dt
+    return Y
+
+
+def check_forced(kern, plain, start, dtype, what):
+    """The forced path's state bars: ``_check`` and ``_check_increment`` on
+    the fields that move (a LandModel's pond too)."""
+    _check(kern, plain, dtype, what)
+    moving = [k for k in ("vartheta_l", "rho_e_int", "h_s") if k in kern]
+    return _check_increment(kern, plain, start, dtype, what, moving)
+
+
+def forced_evaporation(model, Y, rows, i, t):
+    """``evaporation`` of the model with row ``i`` of the forcing installed."""
+    from landhydrology_tpu_torch.runtime.forcing_driver import _install_forcing_rows, _split_routing
+
+    atmos, precip = _split_routing(model, tuple(rows))
+    return evaporation(_install_forcing_rows(model, {k: v[i] for k, v in rows.items()}, atmos, precip), Y, t)
+
+
+def launch_by_launch(advance, model, Y0, rows, dt, spc, keep=()):
+    """Advance ``Y0`` over ``rows`` one launch of ``spc`` rows at a time
+    (``advance(Y, t, chunk) -> (Y, t)``), sampling the exchange's
+    evaporation at each launch boundary under the row that starts there (the
+    last row at the end).  Returns the end state, the states after the
+    launches numbered in ``keep``, and the evaporation per column (m,
+    trapezoid over the boundaries)."""
+    n = next(iter(rows.values())).shape[0]
+    Y, t, kept = Y0, torch.as_tensor(0.0, dtype=model.float_dtype), {}
+    rates = [forced_evaporation(model, Y0, rows, 0, t)]
+    for c in range(n // spc):
+        Y, t = advance(Y, t, {k: v[c * spc:(c + 1) * spc] for k, v in rows.items()})
+        if c in keep:
+            kept[c] = _clone(Y)
+        rates.append(forced_evaporation(model, Y, rows, min((c + 1) * spc, n - 1), t))
+    evap = sum(0.5 * (a + b) for a, b in zip(rates, rates[1:])) * spc * dt
+    return Y, kept, evap
+
+
+def check_budget(model, start, end, rows, dt, evap, what):
+    """Water budget of a forced land run per column: the change of column
+    water plus pond against the rows' rain (floored at zero, as land.py
+    floors it) less the evaporation ``evap`` (``launch_by_launch``), within
+    ``BUDGET_SHARE`` of the largest column's rain, which must be positive.
+    Returns ``(mean change, largest rain, mean evaporation, largest
+    residual)`` in m."""
+    dz = model.soil.domain.height / model.soil.domain.nelements
+    rain = torch.clamp(rows["precipitation"].double(), min=0.0).sum(0) * dt
+    change = water_in(end, dz) - water_in(start, dz)
+    residual = float((change - (rain - evap)).abs().max())
+    rain_max = float(rain.max())
+    if not (rain_max > 0.0 and residual <= BUDGET_SHARE * rain_max):
+        raise AssertionError(
+            f"{what}: water budget residual {residual:.3e} m over {BUDGET_SHARE:g} of the largest column's "
+            f"rain {rain_max:.3e} m"
+        )
+    return float(change.mean()), rain_max, float(evap.mean()), residual
+
+
+class TimedReader:
+    """A ForcingReader that records the host time of each window read."""
+
+    def __init__(self, reader):
+        self.reader, self.read_ms = reader, []
+
+    def __getattr__(self, name):
+        return getattr(self.reader, name)
+
+    def read_into(self, i0, nt, out):
+        t = time.perf_counter()
+        self.reader.read_into(i0, nt, out)
+        self.read_ms.append((time.perf_counter() - t) * 1e3)
+
+
+def time_forced(ck, run, model, Y0, rows, dt, spc, forcing_time_grid=None):
+    """``(kernel ms, plain ms, MOST probes)`` per forced launch of ``spc``
+    steps from ``Y0`` with ``rows``: CUDA events, in turns (plain, kernel
+    x5, kernel x5, plain), each pair averaged; the probes from the plain
+    version's launch (``most_probes``)."""
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    Yk = _clone(Y0)
+    run(Yk, 0.0, forcing=rows)  # warm-up
+    kernel = lambda: run(Yk, 0.0, forcing=rows)  # noqa: E731
+    plain = lambda: ck.fused_column_run_plain(  # noqa: E731
+        model, SSPRK33(), dt, spc, Y0, 0.0, forcing=rows, forcing_time_grid=forcing_time_grid)
+    _, probes = most_probes(ck, model, SSPRK33(), dt, spc, Y0, forcing=rows, forcing_time_grid=forcing_time_grid)
+    p1 = _time_ms(plain, 1)
+    k1, k2 = _time_ms(kernel, 5), _time_ms(kernel, 5)
+    p2 = _time_ms(plain, 1)
+    return (k1 + k2) / 2, (p1 + p2) / 2, probes
+
+
+def forced_small(ck, gc, device):
+    """Phase 11's checks at the JAX tests' sizes, each through the kernel and
+    the plain version on the card: the forced golden, the JAX fused
+    engine's forced cases (a scalar row and a remainder launch; per-column
+    rain ponding a LandModel; time-indexed rows clamped at both table ends)
+    and 1,000-column variants of every B5/B6 mode with forcing rows."""
+    from landhydrology_tpu_torch.models.land import LandModel, SurfaceWaterModel, initialize_states
+    from landhydrology_tpu_torch.models.soil import SoilHydrologyModel, vanGenuchten
+    from landhydrology_tpu_torch.runtime import make_forced_segment_run
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    f64 = torch.float64
+    golden = np.load(os.path.join(HERE, "tests", "data", "golden_forced_f64.npz"))
+    model, Y, Ya, rows, dt = gc.build_forced_model_state_and_rows(f64, device)
+
+    def segment(m, Y0, Ya0, r, spc, what, expect):
+        plain = _np(forced_plain(ck, m, dt, spc, Y0, 0.0, r))
+        ck.LAUNCHES.clear()
+        Yk, _ = make_forced_segment_run(m, SSPRK33(), dt=dt, field_names=sorted(r), engine="fused",
+                                        steps_per_call=spc)(Y0, Ya0, 0.0, r)
+        torch.cuda.synchronize()
+        if dict(ck.LAUNCHES) != expect:
+            raise AssertionError(f"{what}: launches {dict(ck.LAUNCHES)}, expected {expect}")
+        kern = _np(Yk)
+        shares = check_forced(kern, plain, _np(Y0), f64, what)
+        return kern, plain, shares
+
+    kern, plain, shares = segment(model, Y, Ya, rows, 8, "forced golden", {"B5+B7": 5})
+    for k in kern:
+        np.testing.assert_allclose(kern[k], golden[k], rtol=1e-12, atol=1e-16, err_msg=f"forced golden/{k}")
+    rel = max(float(np.max(np.abs(kern[k] - golden[k]) / (np.abs(golden[k]) + 1e-300))) for k in kern)
+    print(f"[11 forced] f64 B5+B7 golden (40 steps in 5 launches, scalar u_atm and per-column rows) vs "
+          f"golden_forced_f64.npz: max rel {rel:.3e} (bar 1e-12); vs plain max abs {_max_abs(kern, plain):.3e}",
+          flush=True)
+
+    r29 = {k: torch.as_tensor(v, dtype=f64, device=device)
+           for k, v in diurnal_rows(29, 16, dt, np.random.default_rng(7)).items()}
+    r29["theta_atm"] = r29["theta_atm"][:, 0].contiguous()
+    kern, plain, shares = segment(model, Y, Ya, r29, 8, "test_forcing_driver.py:191", {"B5+B7": 4})
+    print(f"[11 forced] f64 B5+B7 test_forcing_driver.py:191 (29 steps, 8 per launch and a remainder of 5, "
+          f"scalar theta_atm row): kernel vs plain max abs {_max_abs(kern, plain):.3e}; change error / largest "
+          f"change {_fmt(shares)}", flush=True)
+
+    soil = dataclasses.replace(model, hydrology_model=SoilHydrologyModel(
+        hydraulic_model=vanGenuchten(n=2.0, alpha=2.6, Ksat=2e-7, theta_r=0.05)))
+    land = LandModel(soil=soil, surface=SurfaceWaterModel(tau_pond=240.0))
+    Yl, Yal = initialize_states(land, lambda z, m: {k: v.clone() for k, v in Y["soil"].items()}, 0.0, h_s0=0.0)
+    rain = np.zeros((24, 16))
+    rain[4:12] = 8e-6
+    rl = {k: torch.as_tensor(v, dtype=f64, device=device)
+          for k, v in dict(precipitation=rain, **diurnal_rows(24, 16, dt, np.random.default_rng(3))).items()}
+    kern, plain, shares = segment(land, Yl, Yal, rl, 8, "test_forcing_driver.py:225", {"B6+B7": 3})
+    if not float(np.max(kern["h_s"])) > 1e-5:
+        raise AssertionError("forced land: the rain rows did not pond")
+    print(f"[11 forced] f64 B6+B7 test_forcing_driver.py:225 (per-column rain rows pond a LandModel, max h_s "
+          f"{np.max(kern['h_s']):.4e} m): kernel vs plain max abs {_max_abs(kern, plain):.3e}; change error / "
+          f"largest change {_fmt(shares)}", flush=True)
+
+    tables = {"u_atm": torch.tensor([1.0, 2.0, 3.0, 4.0], dtype=f64, device=device),
+              "q_atm": torch.as_tensor(0.003 + 0.001 * np.arange(4)[:, None] + np.zeros((4, 16)), device=device)}
+    grid = (200.0, 100.0, 4)
+    plain = _np(ck.fused_column_run_plain(model, SSPRK33(), 100.0, 9, Y, 0.0, forcing=tables, forcing_time_grid=grid))
+    ck.LAUNCHES.clear()
+    Yt = ck.make_fused_column_run(model, SSPRK33(), dt=100.0, steps_per_call=9, forcing_fields=("q_atm", "u_atm"),
+                                  forcing_time_grid=grid)(_clone(Y), 0.0, forcing=tables)
+    seq = [0, 0, 0, 1, 2, 3, 3, 3, 3]
+    Ys = ck.make_fused_column_run(model, SSPRK33(), dt=100.0, steps_per_call=9, forcing_fields=("q_atm", "u_atm"))(
+        _clone(Y), 0.0, forcing={k: v[seq] for k, v in tables.items()})
+    torch.cuda.synchronize()
+    if dict(ck.LAUNCHES) != {"B5+B7-time": 1, "B5+B7": 1}:
+        raise AssertionError(f"clamped rows: launches {dict(ck.LAUNCHES)}")
+    kern = _np(Yt)
+    shares = check_forced(kern, plain, _np(Y), f64, "test_forcing_driver.py:544")
+    same = all(np.array_equal(kern[k], v) for k, v in _np(Ys).items())
+    if not same:
+        raise AssertionError("time-indexed rows differ from the step-indexed rows 0, 0, 0, 1, 2, 3, 3, 3, 3")
+    print(f"[11 forced] f64 B5+B7-time test_forcing_driver.py:544 (4-row table from t=200, 9 steps of dt=100 from "
+          f"t=0: clamped at both ends, a step on a row boundary): kernel vs plain max abs "
+          f"{_max_abs(kern, plain):.3e}; equal bit for bit to the step-indexed rows {seq}", flush=True)
+
+    for dtype in (f64, torch.float32):
+        for case in ("B5", "B2+B5", "B6", "B6-step", "B2+B6", "B2+B6-step", "B6-pond", "B6-step-pond",
+                     "B2+B6-pond", "B2+B6-step-pond"):
+            m, Yv = build_land_variant(1000, dtype, device, seed=13, case=case)
+            rng = np.random.default_rng(17)
+            n, time_indexed = 4, case in ("B2+B5", "B6-step", "B2+B6-step-pond")
+            n_rows = 5 if time_indexed else n
+            tensor = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
+            rv = {}
+            if "pond" not in case:
+                theta = m.soil.boundary_conditions.top.theta_atm if "B6" in case else m.boundary_conditions.top.theta_atm
+                rv["u_atm"] = tensor(rng.uniform(0.3, 5.0, (n_rows, 1000)))
+                rv["theta_atm"] = theta[None, :] + tensor(rng.uniform(-1.0, 1.0, (n_rows, 1000)))
+                rv["q_atm"] = tensor(rng.uniform(0.002, 0.012, n_rows))
+            if "B6" in case:
+                rv["precipitation"] = tensor(rng.uniform(0.0, 2e-5, (n_rows, 1000)) * (rng.random((n_rows, 1000)) < 0.5))
+            tg = (6.0, 1.5, n_rows) if time_indexed else None
+            plain = _np(ck.fused_column_run_plain(m, SSPRK33(), 2.0, n, Yv, 5.0, forcing=rv, forcing_time_grid=tg))
+            run = ck.make_fused_column_run(m, SSPRK33(), dt=2.0, steps_per_call=n, forcing_fields=tuple(rv),
+                                           forcing_time_grid=tg)
+            start = _np(Yv)
+            kern = _np(run(Yv, 5.0, forcing=rv))
+            torch.cuda.synchronize()
+            shares = check_forced(kern, plain, start, dtype, f"11 forced variant {dtype} {run.name}")
+            print(f"[11 forced] {str(dtype)[6:]} {run.name} ncol=1000 per-column rows ({', '.join(rv)}; both "
+                  f"Businger branches): kernel vs plain max abs {_max_abs(kern, plain):.3e}; change error / "
+                  f"largest change {_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g})", flush=True)
+
+
+def forced_phase(ck, gc, device, smi, costs):
+    """Phase 11: ``forced_small``, then the forced-reanalysis path at full
+    width (``build_reanalysis``, ``FORCED_STEPS`` steps of the experiment's
+    forcing written to a file and read back through ``run_forced``, with and
+    without overlap), its checks and times.  Returns the kernel records of
+    its launches."""
+    import tempfile
+
+    from landhydrology_tpu_torch.runtime import ForcingReader, make_forced_segment_run, run_forced, write_forcing
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    forced_small(ck, gc, device)
+    entries = []
+    nz, ncol, dt, spc, n = FORCED_NZ, FORCED_NCOL, FORCED_DT, FORCED_SPC, FORCED_STEPS
+    points = nz * ncol * n
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "forcing.bin")
+        t = time.perf_counter()
+        times, rows_np = reanalysis_forcing(n, ncol, dt)
+        write_forcing(path, times, rows_np)
+        print(f"[11 forced] forcing file: {n} steps x {ncol} columns x {len(rows_np)} fields float32 = "
+              f"{os.path.getsize(path) / 1e9:.3f} GB, made and written in {time.perf_counter() - t:.3f} s", flush=True)
+        fields = sorted(rows_np)
+        cols = torch.arange(0, ncol, FORCED_STRIDE, device=device)
+        for dtype in (torch.float32, torch.float64):
+            tag = str(dtype)[6:]
+            land, Y0, Ya = build_reanalysis(nz, ncol, dtype, device)
+            rows = {k: torch.from_numpy(v).to(device).to(dtype) for k, v in rows_np.items()}
+            seg = make_forced_segment_run(land, SSPRK33(), dt=dt, field_names=fields, engine="fused",
+                                          steps_per_call=spc)
+            Yref, tref = seg(Y0, Ya, 0.0, rows)  # (a)'s reference: the rows in memory
+            torch.cuda.synchronize()
+            walls, reads = {True: [], False: []}, {True: [], False: []}
+            for overlap in (False, True, True, False):  # in turns: the first run also pins the buffers
+                torch.cuda.synchronize()
+                ck.LAUNCHES.clear()
+                t = time.perf_counter()
+                with ForcingReader(path) as base:
+                    reader = TimedReader(base)
+                    Yf, tf = run_forced(land, Y0, Ya, reader, SSPRK33(), dt=dt, window=FORCED_WINDOW,
+                                        engine="fused", steps_per_call=spc, overlap=overlap)
+                    torch.cuda.synchronize()
+                    walls[overlap].append((time.perf_counter() - t) * 1e3)
+                    hits, native = base.prefetch_hits, base.is_native
+                reads[overlap] += reader.read_ms
+                launches = dict(ck.LAUNCHES)
+                if launches != {"B6+B7": n // spc}:
+                    raise AssertionError(f"run_forced: launches {launches}, expected {n // spc} of B6+B7")
+                if not (hits > 0 and native):  # (d)
+                    raise AssertionError(f"run_forced: prefetch hits {hits}, native reader {native}")
+                for g, f in Yref.items():  # (a): the same kernel on the same rows
+                    for k, v in f.items():
+                        if not torch.equal(Yf[g][k], v):
+                            raise AssertionError(f"run_forced (overlap={overlap}) differs from the in-memory "
+                                                 f"segment in {k}")
+                if float(tf) != float(tref):
+                    raise AssertionError(f"run_forced ends at t={float(tf)}, the segment at {float(tref)}")
+                if overlap:
+                    main_launches = launches["B6+B7"]
+            end = _np(Yf)
+            if not all(np.isfinite(v).all() for v in end.values()):
+                raise AssertionError("forced run: non-finite state")
+            # the in-memory segment again, launch by launch: the evaporation at
+            # each launch boundary for (c), the state after two launches for (b)
+            Yc, kept, evap = launch_by_launch(lambda Y, t, r: seg(Y, Ya, t, r), land, Y0, rows, dt, spc, keep=(1,))
+            for g, f in Yref.items():
+                for k, v in f.items():
+                    if not torch.equal(Yc[g][k], v):
+                        raise AssertionError(f"the segment launch by launch differs from one call in {k}")
+            # (b): 1,024 columns through the plain version for the first two launches
+            m = 2 * spc
+            small, Ys, _ = build_reanalysis(nz, cols.numel(), dtype, device)
+            r_cols = {k: v[:m, cols].contiguous() for k, v in rows.items()}
+            plain = _np(forced_plain(ck, small, dt, spc, Ys, 0.0, r_cols))
+            kern = {k: v[..., cols.cpu().numpy()] for k, v in _np(kept[1]).items()}
+            shares = check_forced(kern, plain, _np(Ys), dtype, f"11 forced {tag} columns")
+            print(f"[11 forced] {tag} B6+B7 nz={nz} x {ncol}, {m} steps: every {FORCED_STRIDE}th column against "
+                  f"the plain version on those columns' rows: max abs {_max_abs(kern, plain):.3e}; change error / "
+                  f"largest change {_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g})", flush=True)
+            # (c): the water budget of the whole run
+            change, rain_max, evap, residual = check_budget(land, Y0, Yf, rows, dt, evap, f"forced {tag}")
+            print(f"[11 forced] {tag} B6+B7 water budget per column over {n} steps: change of column water + h_s "
+                  f"{change:.6e} m (mean), largest column rain {rain_max:.6e} m, evaporation (trapezoid over the "
+                  f"{n // spc} launches) {evap:.6e} "
+                  f"m (mean); largest residual {residual:.3e} m (bar {BUDGET_SHARE:g} of the largest rain); max h_s "
+                  f"{np.max(end['h_s']):.4e} m", flush=True)
+            # times: the kernel per launch, the window's host legs, the bound
+            run = ck.make_fused_column_run(land, SSPRK33(), dt=dt, steps_per_call=spc, forcing_fields=fields)
+            chunk = {k: v[:spc] for k, v in rows.items()}
+            k_ms, p_ms, probes = time_forced(ck, run, land, Y0, chunk, dt, spc)
+            mode = run.mode
+            b_ms, b_by = bound_ms(ck, costs, mode, dtype, nz * ncol, spc, ncol=ncol, probes=probes,
+                                  read_values=len(fields) * spc * ncol)
+            with ForcingReader(path) as reader:
+                pinned = torch.empty((FORCED_WINDOW, len(fields), ncol), dtype=torch.float32, pin_memory=True)
+                reader.prefetch(0, FORCED_WINDOW)
+                reader.read_into(0, FORCED_WINDOW, pinned)
+                t = time.perf_counter()
+                reader.read_into(0, FORCED_WINDOW, pinned)  # served from the staged window: the copy alone
+                copy_ms = (time.perf_counter() - t) * 1e3
+            side = torch.cuda.Stream(device)
+            h2d = []
+            for _ in range(3):
+                with torch.cuda.stream(side):
+                    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                    e0.record(side)
+                    block = pinned.to(device, non_blocking=True).to(dtype)
+                    e1.record(side)
+                side.synchronize()
+                h2d.append(e0.elapsed_time(e1))
+            del block, pinned
+            h2d_ms = float(np.median(h2d))
+            n_win = n // FORCED_WINDOW
+            rates = {o: _fmt_rates(points, w) for o, w in walls.items()}
+            busy = {o: "/".join(f"{main_launches * k_ms / x:.3f}" for x in w) for o, w in walls.items()}
+            print(f"[11 forced] {tag} B6+B7 nz={nz} x {ncol}, {n} steps of dt={dt:g} ({n_win} windows of "
+                  f"{FORCED_WINDOW}, {spc} steps per launch), run_forced end to end incl. IO, two runs each in "
+                  f"turns: overlap {_fmt_ms(walls[True])} = {rates[True]} grid-points/s, no overlap "
+                  f"{_fmt_ms(walls[False])} = {rates[False]} grid-points/s; kernel {k_ms:.3f} ms per launch "
+                  f"(plain {p_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by}, MOST probes per solve {probes:.4f}); device "
+                  f"busy share overlap {busy[True]}, no overlap {busy[False]}; host per window: reader (read into the pinned "
+                  f"buffer, prefetch wait included) overlap {_fmt_ms(reads[True])}, no overlap "
+                  f"{_fmt_ms(reads[False])}; of it the copy of a staged window into pinned memory {copy_ms:.3f} ms; "
+                  f"H2D copy (and cast) of a window {h2d_ms:.3f} ms ({4 * FORCED_WINDOW * len(fields) * ncol / h2d_ms / 1e6:.3f} "
+                  f"GB/s) on {smi}", flush=True)
+            entries.append(forced_entry(ck, run, dtype, main_launches, _max_abs(kern, plain), k_ms, p_ms, b_ms, b_by))
+            del Yref, Yf, Yc, kept, seg, run
+            for setting in ("production", "MOST soil", "time-indexed"):
+                entries.append(forced_setting(ck, costs, setting, land, Y0, rows, cols, smi))
+            del rows
+            torch.cuda.empty_cache()
+    return entries
+
+
+def forced_entry(ck, run, dtype, launches, err, k_ms, p_ms, b_ms, b_by):
+    """The kernel record of a forced run's mode."""
+    kernel, source = kernel_of(ck, run.mode, dtype)
+    return {
+        "name": f"{kernel}<{str(dtype)[6:].replace('float', 'f')}, {run.name}>",
+        "route": "cuda",
+        "source": source,
+        "replaces": REPLACES,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,  # no single PyTorch call computes these steps
+    }
+
+
+def forced_setting(ck, costs, setting, land, Y0, rows, cols, smi):
+    """One more forced path at the reanalysis width, over the first window
+    (10 launches of ``FORCED_SPC`` steps) with the launch counts set to 0
+    just before it and read just after: ``"production"`` (the frozen
+    exchange and lagged coefficients, B2+B6-step+B7), ``"MOST soil"`` (its
+    soil alone under the atmosphere rows, B5+B7) or ``"time-indexed"`` (B6
+    with a table of every second row on a grid of 2 dt, B6+B7-time).
+    Checked on the strided columns against the plain version over the
+    first launch, and timed.  Returns its kernel record."""
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    dt, spc, nz = FORCED_DT, FORCED_SPC, FORCED_NZ
+    n_launches = FORCED_WINDOW // spc
+    dtype = land.float_dtype
+    grid = (0.0, 2 * dt, FORCED_WINDOW // 2) if setting == "time-indexed" else None
+    rows = {k: v[:FORCED_WINDOW:2] if grid else v[:FORCED_WINDOW] for k, v in rows.items()
+            if not (setting == "MOST soil" and k == "precipitation")}
+
+    def configure(land, Y0):
+        if setting == "production":
+            return dataclasses.replace(land, surface_update="step", soil=dataclasses.replace(
+                land.soil, coefficient_update="step")), Y0
+        if setting == "MOST soil":
+            return land.soil, {"soil": Y0["soil"]}
+        return land, Y0
+
+    model, Y0 = configure(land, Y0)
+    run = ck.make_fused_column_run(model, SSPRK33(), dt=dt, steps_per_call=spc, forcing_fields=tuple(rows),
+                                   forcing_time_grid=grid)
+
+    def rows_of(c):
+        return rows if grid else {k: v[c * spc:(c + 1) * spc] for k, v in rows.items()}
+
+    idx = cols.cpu().numpy()
+    Y, t = _clone(Y0), torch.as_tensor(0.0, dtype=dtype)
+    torch.cuda.synchronize()
+    ck.LAUNCHES.clear()
+    for c in range(n_launches):
+        run(Y, t, forcing=rows_of(c))
+        t = t + spc * dt
+        if c == 0:
+            first = {k: v[..., idx] for k, v in _np(Y).items()}
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    if launches != {run.name: n_launches}:
+        raise AssertionError(f"forced {setting}: launches {launches}, expected {n_launches} of {run.name}")
+    if not all(np.isfinite(v).all() for v in _np(Y).values()):
+        raise AssertionError(f"forced {setting}: non-finite state")
+    small, Ys, _ = build_reanalysis(nz, cols.numel(), dtype, cols.device)  # the start state is uniform
+    m_small, Ys = configure(small, Ys)
+    r0 = {k: v[:, cols] for k, v in rows_of(0).items()}
+    plain = _np(ck.fused_column_run_plain(m_small, SSPRK33(), dt, spc, Ys, 0.0, forcing=r0, forcing_time_grid=grid))
+    shares = check_forced(first, plain, _np(Ys), dtype, f"11 forced {setting}")
+    k_ms, p_ms, probes = time_forced(ck, run, model, Y0, rows_of(0), dt, spc, grid)
+    n_rows = next(iter(rows_of(0).values())).shape[0]
+    b_ms, b_by = bound_ms(ck, costs, run.mode, dtype, nz * FORCED_NCOL, spc, ncol=FORCED_NCOL, probes=probes,
+                          read_values=len(rows) * n_rows * FORCED_NCOL)
+    print(f"[11 forced] {str(dtype)[6:]} {run.name} ({setting}) nz={nz} x {FORCED_NCOL}, {n_launches} launches "
+          f"of {spc} steps: every {FORCED_STRIDE}th column against the plain version over the first launch: max abs "
+          f"{_max_abs(first, plain):.3e}; change error / largest change {_fmt(shares)}; kernel {k_ms:.3f} ms per "
+          f"launch (plain {p_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by}, MOST probes per solve {probes:.4f}) on {smi}",
+          flush=True)
+    return forced_entry(ck, run, dtype, launches[run.name], _max_abs(first, plain), k_ms, p_ms, b_ms, b_by)
+
+
+def _fmt_ms(values):
+    return "/".join(f"{v:.3f}" for v in values) + " ms"
+
+
+def _fmt_rates(points, walls_ms):
+    return "/".join(f"{points / (w / 1e3):.4e}" for w in walls_ms)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", action="store_true",
                         help="add phase 7: repeated timings, tile sweep, clock, profiler")
+    parser.add_argument("--forced-only", action="store_true",
+                        help="run phases 1, 2 and 11 only (the forced path, kernel mode B7)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1407,8 +1962,11 @@ def main() -> int:
               f"{str(d)[6:]} " + ", ".join(f"{k} {v}" for k, v in c.items()) for d, c in costs.items()),
           flush=True)
 
-    # ---- 3: goldens in f64 through the kernels, and variants ----
     gc = _load_golden_config()
+    if args.forced_only:
+        return finish(forced_phase(ck, gc, device, smi, costs), smi, t_start)
+
+    # ---- 3: goldens in f64 through the kernels, and variants ----
     data = os.path.join(HERE, "tests", "data")
     golden = {name: np.load(os.path.join(data, f"golden_{name}_f64.npz"))
               for name in ("coupled", "lagged", "freeze", "implicit")}
@@ -1610,6 +2168,9 @@ def main() -> int:
     # ---- 10: the land path (bench.py's `land` path), kernel modes B5 and B6 ----
     paths += land_phase(ck, gc, device, smi)
 
+    # ---- 11: the forced-reanalysis path, kernel mode B7 ----
+    forced_entries = forced_phase(ck, gc, device, smi, costs)
+
     # ---- 6: times at the main-path shapes, in turns ----
     entries = []
     for model, Y0, dt, spc, launches, err, stepper in paths:
@@ -1652,6 +2213,7 @@ def main() -> int:
             "library_ms": None,  # no single PyTorch call computes these steps
         })
     del paths
+    entries += forced_entries
     torch.cuda.empty_cache()
 
     if args.profile:
@@ -1659,7 +2221,11 @@ def main() -> int:
             for dtype in (torch.float32, torch.float64):
                 profile_main_path(dtype, device, smi, coefficient_update)
                 torch.cuda.empty_cache()
+    return finish(entries, smi, t_start)
 
+
+def finish(entries, smi, t_start) -> int:
+    """Print the run's time, the kernel records, the card and the result."""
     print(f"[total] {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -10,6 +10,12 @@ in each column), and so do a MOST top face and the LandModel pond
 (``models/land.py``); every function also runs eagerly on CPU or GPU
 tensors (engine ``"torch"``).
 
+Forced runs (``runtime/``): per-column atmosphere and rain rows written with
+``write_forcing`` stream from the native reader through ``run_forced`` into
+``make_forced_segment_run`` (engine ``"torch"``, or ``"fused"``: the rows
+read per step inside the land kernel); ``convert.forcing_from_numpy``
+carries forcing tables over as ``convert.state_from_numpy`` carries states.
+
 The public API mirrors ``landhydrology_tpu``'s, minus what is not ported yet
 (see ROADMAP.md).  This package imports neither JAX nor landhydrology_tpu.
 """

@@ -2,7 +2,8 @@
 
 ``model_from_reference`` builds this package's :class:`SoilModel` or
 :class:`LandModel` from the ``landhydrology_tpu`` one, and ``stepper_from_reference`` an
-implicit stepper from the JAX package's.  It reads the reference's frozen
+implicit stepper from the JAX package's; ``state_from_numpy`` and
+``forcing_from_numpy`` carry states and forcing tables.  It reads the reference's frozen
 dataclasses by class name and ``dataclasses.fields``, and each array leaf
 through ``np.asarray``, so it needs no JAX import.  User callables (BC
 values, profiles) are carried over as they are and must accept tensors; the
@@ -131,6 +132,14 @@ def state_from_numpy(Y: dict, device="cuda", dtype=torch.float64) -> dict:
     if isinstance(Y, dict):
         return {k: state_from_numpy(v, device, dtype) for k, v in Y.items()}
     return torch.as_tensor(np.array(Y), dtype=dtype, device=device).contiguous()
+
+
+def forcing_from_numpy(rows: dict, device="cuda", dtype=torch.float64) -> dict:
+    """A dict of forcing rows (``(n_steps,)`` or ``(n_steps, ncol)``
+    array-likes, e.g. the JAX package's forcing tables) as contiguous
+    tensors in ``dtype`` on ``device`` (the card unless the caller asks for
+    ``"cpu"``), ready for ``make_forced_segment_run`` and the fused run."""
+    return {k: torch.as_tensor(np.array(v), dtype=dtype, device=device).contiguous() for k, v in rows.items()}
 
 
 def state_to_numpy(Y: dict) -> dict:

@@ -92,11 +92,24 @@ struct KernelArgs {
   const void* surface_ptr[kNumSurface];
   int64_t surface_row_stride[kNumSurface];
   int64_t surface_col_stride[kNumSurface];
-  const void* precip;  // (rows,) rain rate at each stage time
+  const void* precip;  // rain rate: row = as bc_ptr's, or the forcing row
   void* h_s;           // (ncol,) pond height, in/out
   double von_karman_const, cp_d, cp_v, cp_l, R_d, R_v, LH_v0, press_triple, T_triple,
       molmass_ratio;
+  // streamed forcing rows (land_kernel.cu, kernel B7): bit j of `forced` set
+  // reads surface input j, and bit kNumSurface the rain rate, at the step's
+  // forcing row (for all three stages) instead of the stage row
+  int64_t forced;
+  int64_t frow_mode;  // FROW_NONE, FROW_STEP (row = step) or FROW_TIME
+  int64_t n_frows;    // rows of a time-indexed table
+  int64_t precip_row_stride, precip_col_stride;
+  // the launch's start time and the time grid of FROW_TIME, each a value of
+  // the model dtype held in a double
+  double t0, t_forcing0, inv_dt_forcing;
 };
+
+// Values of KernelArgs::frow_mode.
+enum ForcingRows : int64_t { FROW_NONE = 0, FROW_STEP = 1, FROW_TIME = 2 };
 
 namespace {
 
@@ -121,6 +134,9 @@ __device__ __forceinline__ float rn_add(float a, float b) { return __fadd_rn(a, 
 __device__ __forceinline__ double rn_add(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ float rn_sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ double rn_sub(double a, double b) { return __dsub_rn(a, b); }
+// truncation toward zero to int, saturating outside its range (NaN gives 0)
+__device__ __forceinline__ int trunc_int(float x) { return __float2int_rz(x); }
+__device__ __forceinline__ int trunc_int(double x) { return __double2int_rz(x); }
 
 template <int M> struct Modes {
   static constexpr bool lagged = (M & MODE_LAGGED) != 0;

@@ -1,5 +1,6 @@
 // Fused multi-step column kernel with a surface exchange at the top face:
-// SSPRK33 steps, one thread per column (kernel modes B5 and B6).
+// SSPRK33 steps, one thread per column (kernel modes B5 and B6, and B7, their
+// streamed forcing rows).
 //
 // Replaces landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run
 // where its body traces a MOST top face (B5: PrescribedAtmosForcing, the
@@ -16,6 +17,13 @@
 //                      evaluated once per step from the step's start state
 //                      and held across the stages (FrozenExchangeStepper);
 //   MODE_LAGGED        coefficient_update="step" (kernel B2).
+// B7 (column_kernel.py:413-475, :512-575, forcing_fields and
+// forcing_time_grid) is a row source, not a mode: the forced atmosphere
+// fields and the rain rate are read at the step's forcing row (the step, or
+// the time-indexed row of the step's start time) for all three stages and
+// for a frozen exchange; the others keep their stage rows.  The rows stay in
+// global memory (no copy per launch: the pointers carry the launch's chunk
+// offset), read once per column and exchange.
 // B5 reads T of the top cell as the soil rhs has it (through the lagged
 // heat capacity in B2+B5); B6's exchange diagnoses T of the top slab in
 // full, as land.py does.  The exchange reads only the top cell, and its
@@ -59,12 +67,14 @@ __global__ void land_column_kernel(const KernelArgs a, T eps, T tiny) {
   const T tau_pond = land ? surface_value<T>(a, S_TAU_POND, 0, col) : T(1);
   const T h_evap = land ? surface_value<T>(a, S_H_EVAP_SMOOTHING, 0, col) : T(1);
 
+  const T t0 = T(a.t0), t_f0 = T(a.t_forcing0), inv_dt_f = T(a.inv_dt_forcing);
   for (int64_t step = 0; step < a.n_steps; ++step) {
     if (Modes<M>::lagged) coefficients<T, M>(c, a, col, Y.vl, Y.ti, Y.re, coef);
     const int64_t row0 = a.rows_per_step * step;
+    const int64_t frow = forcing_row<T>(a.frow_mode, step, t0, dt, t_f0, inv_dt_f, a.n_frows);
     Exchange<T> frozen{};
     if (land && Modes<M>::surface_step) {
-      frozen = surface_exchange<T, M>(c, a, row0, col, Y.vl[top], Y.ti[top], Y.re[top], h, dzb,
+      frozen = surface_exchange<T, M>(c, a, row0, frow, col, Y.vl[top], Y.ti[top], Y.re[top], h, dzb,
                                       tau_pond, h_evap);
     }
     T h_a = T(0), h_b = T(0);  // the pond after stages 0 and 1
@@ -79,8 +89,8 @@ __global__ void land_column_kernel(const KernelArgs a, T eps, T tiny) {
         const T h_u = s == 0 ? h : (s == 1 ? h_a : h_b);
         const Exchange<T> ex = Modes<M>::surface_step
                                    ? frozen
-                                   : surface_exchange<T, M>(c, a, row, col, vl, ti, re, h_u, dzb,
-                                                            tau_pond, h_evap);
+                                   : surface_exchange<T, M>(c, a, row, frow, col, vl, ti, re, h_u,
+                                                            dzb, tau_pond, h_evap);
         bc_val[BC_TOP_HYDROLOGY] = -ex.infiltration + ex.evap_soil;
         if (Modes<M>::most) bc_val[BC_TOP_ENERGY] = ex.heat_flux;
         const T n_h = h_u + dt * (ex.P - ex.infiltration - ex.evap_pond);
@@ -96,7 +106,7 @@ __global__ void land_column_kernel(const KernelArgs a, T eps, T tiny) {
           T rho_c_s = c.p[P_RHO_C_DS] + theta_l * c.rho_cp_l + ti * c.rho_cp_i;
           temp = c.T_0 + (re + ti * c.rho_ice * c.LH_f0) / rho_c_s;
         }
-        turbulent_fluxes(c, a, load_atmos<T>(a, row, col), vl, ti, temp,
+        turbulent_fluxes(c, a, load_atmos<T>(a, row, frow, col), vl, ti, temp,
                          &bc_val[BC_TOP_ENERGY], &bc_val[BC_TOP_HYDROLOGY]);
       }
       const Profiles<T> prof = load_profiles<T>(a, row);

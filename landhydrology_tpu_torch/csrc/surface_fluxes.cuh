@@ -6,7 +6,9 @@
 // models/soil/surface_fluxes.py (the humidity helpers, the Businger psi
 // differences with their polynomial arctan, the multisection solve of the
 // Obukhov length, _assemble_fluxes, the blended pond/bare-soil split) and
-// models/land.py::surface_exchange (potential infiltration, the pond supply).
+// models/land.py::surface_exchange (potential infiltration, the pond supply),
+// and, for kernel mode B7, the lookup of a step's streamed forcing row
+// (column_kernel.py:426-446).
 //
 // The eager port (landhydrology_tpu_torch/models/soil/surface_fluxes.py) is
 // followed operation for operation; Python-level constants are folded in
@@ -49,11 +51,41 @@ __device__ __forceinline__ T surface_value(const KernelArgs& a, int j, int64_t r
                                                  col * a.surface_col_stride[j]];
 }
 
+// ---- streamed forcing rows (kernel B7) ----
+
+// The forcing row of step `step`: the step itself, or for a time-indexed
+// table (FROW_TIME) clip(trunc((t - t_F0) inv_dt_F), 0, n - 1) at the step's
+// start time t = t0 + step dt, each operation rounded in T as the host
+// rounds it (no fused multiply-add: a step that lands on a row boundary
+// must read the row the plain version reads).
 template <typename T>
-__device__ Atmos<T> load_atmos(const KernelArgs& a, int64_t row, int64_t col) {
-  return Atmos<T>{surface_value<T>(a, S_U_ATM, row, col), surface_value<T>(a, S_THETA_ATM, row, col),
-                  surface_value<T>(a, S_Z_ATM, row, col), surface_value<T>(a, S_THETA_SCALE, row, col),
-                  surface_value<T>(a, S_RHO_A_SFC, row, col), surface_value<T>(a, S_Q_ATM, row, col),
+__device__ __forceinline__ int64_t forcing_row(int64_t mode, int64_t step, T t0, T dt, T t_f0, T inv_dt_f,
+                                               int64_t n) {
+  if (mode != FROW_TIME) return step;
+  const T t = rn_add(t0, rn_mul(T(step), dt));
+  const int64_t j = trunc_int(rn_mul(rn_sub(t, t_f0), inv_dt_f));
+  return j < 0 ? 0 : (j > n - 1 ? n - 1 : j);
+}
+
+// Surface input j at the stage row, or at the forcing row where it is forced.
+template <typename T>
+__device__ __forceinline__ T surface_at(const KernelArgs& a, int j, int64_t row, int64_t frow, int64_t col) {
+  return surface_value<T>(a, j, (a.forced >> j) & 1 ? frow : row, col);
+}
+
+// The rain rate at the stage row (a table) or at the forcing row (streamed
+// per step, scalar or per column), floored at zero as land.py floors it.
+template <typename T>
+__device__ __forceinline__ T rain_rate(const KernelArgs& a, int64_t row, int64_t frow, int64_t col) {
+  const int64_t r = (a.forced >> kNumSurface) & 1 ? frow : row;
+  return d_max(static_cast<const T*>(a.precip)[r * a.precip_row_stride + col * a.precip_col_stride], T(0));
+}
+
+template <typename T>
+__device__ Atmos<T> load_atmos(const KernelArgs& a, int64_t row, int64_t frow, int64_t col) {
+  return Atmos<T>{surface_at<T>(a, S_U_ATM, row, frow, col), surface_at<T>(a, S_THETA_ATM, row, frow, col),
+                  surface_at<T>(a, S_Z_ATM, row, frow, col), surface_at<T>(a, S_THETA_SCALE, row, frow, col),
+                  surface_at<T>(a, S_RHO_A_SFC, row, frow, col), surface_at<T>(a, S_Q_ATM, row, frow, col),
                   surface_value<T>(a, S_Z_0M, row, col), surface_value<T>(a, S_Z_0S, row, col)};
 }
 
@@ -258,13 +290,13 @@ struct Exchange {
 };
 
 // The exchange rates for the top cell (vl, ti, re) and the pond height h_s
-// at table row `row`: T diagnosed on the top slab; the potential
-// infiltration is the Dirichlet branch of face_fluxes with the face at nu;
-// with MOST, one solve over the blended pond/bare-soil humidity.
+// at table row `row` and forcing row `frow`: T diagnosed on the top slab;
+// the potential infiltration is the Dirichlet branch of face_fluxes with the
+// face at nu; with MOST, one solve over the blended pond/bare-soil humidity.
 template <typename T, int M>
 __device__ Exchange<T> surface_exchange(const Column<T>& c, const KernelArgs& a, int64_t row,
-                                        int64_t col, T vl, T ti, T re, T h_s, T dzb, T tau_pond,
-                                        T h_evap_smoothing) {
+                                        int64_t frow, int64_t col, T vl, T ti, T re, T h_s, T dzb,
+                                        T tau_pond, T h_evap_smoothing) {
   Exchange<T> ex;
   T theta_l = d_min(vl, c.p[P_NU] - ti);
   T rho_c_s = c.p[P_RHO_C_DS] + theta_l * c.rho_cp_l + ti * c.rho_cp_i;
@@ -279,12 +311,12 @@ __device__ Exchange<T> surface_exchange(const Column<T>& c, const KernelArgs& a,
   face_fluxes<T, M>(c, x, BC_FLUX, T(0), BC_DIRICHLET, c.p[P_NU], true, false, dzb, &f_e, &f_w);
   T f_pot = d_max(-f_w, T(0));
 
-  ex.P = static_cast<const T*>(a.precip)[row];
+  ex.P = rain_rate<T>(a, row, frow, col);
   T h_pos = d_max(h_s, T(0));
   ex.infiltration = d_min(ex.P + h_pos / tau_pond, f_pot);
   ex.evap_soil = ex.evap_pond = ex.heat_flux = T(0);
   if (Modes<M>::most) {
-    const Atmos<T> at = load_atmos<T>(a, row, col);
+    const Atmos<T> at = load_atmos<T>(a, row, frow, col);
     T w = clip(h_pos / h_evap_smoothing, T(0), T(1));
     T q_sat, q_soil;
     soil_surface_humidity(c, a, vl, ti, temp, at.rho_a, &q_sat, &q_soil);

@@ -11,7 +11,9 @@ the state in place.  Three CUDA sources share ``csrc/column_common.cuh``:
   ``BackwardEulerSoil`` (kernel mode B4), with Thomas or PCR solves;
 - ``csrc/land_kernel.cu``: SSPRK33 with a MOST top face (kernel mode B5,
   ``PrescribedAtmosForcing``) or a ``LandModel`` pond (B6), the MOST solve
-  in ``csrc/surface_fluxes.cuh``.
+  in ``csrc/surface_fluxes.cuh``; each with streamed forcing rows (B7): the
+  atmosphere fields and the rain rate read per step from rows on the card,
+  step-indexed or time-indexed.
 
 Each is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C interface at first use (all three in parallel) and bound with
@@ -51,10 +53,11 @@ ROADMAP item, on either device: ForwardEuler, SSPRK22 and SSPRK104 (B1),
 lagged coefficients or ``assume_no_ice`` on the water-only and heat-only
 branches, the implicit steppers with lagged coefficients, freeze-thaw or
 ``assume_no_ice`` (B4), MOST or the LandModel with freeze-thaw,
-``assume_no_ice``, an implicit stepper or one component prescribed (B5, B6),
-streamed forcing (B7), streamed geometry (B8) and ``differentiable=True``
-(B9).  Pond routing, per-column rain and a 2-D column batch raise
-``ValueError``, as the JAX kernel's factory does.
+``assume_no_ice``, an implicit stepper or one component prescribed (B5, B6;
+so also their forcing rows), streamed geometry (B8), ``differentiable=True``
+(B9) and a run-time ``dt_run`` (A15).  Pond routing, a per-column rain
+callable and a 2-D column batch raise ``ValueError``, as the JAX kernel's
+factory does.
 """
 
 from __future__ import annotations
@@ -123,6 +126,12 @@ from landhydrology_tpu_torch.models.soil.water import (
     IceImpedance,
     TemperatureDependentViscosity,
 )
+from landhydrology_tpu_torch.runtime.forcing_driver import (
+    _install_forcing_rows,
+    _row_local_step,
+    _split_routing,
+    time_row,
+)
 from landhydrology_tpu_torch.timestepping import SSPRK33, AbstractTimestepper
 
 _PACKAGE = Path(__file__).resolve().parents[2]
@@ -168,6 +177,8 @@ SURFACE_NAMES = (
     "tau_pond", "h_evap_smoothing",
 )
 _BC_KIND = {VerticalFlux: 1, Dirichlet: 2, FreeDrainage: 3}  # 0: no flux (BC_NONE)
+#: ``KernelArgs::frow_mode`` of step-indexed and time-indexed forcing rows (0: none)
+FROW_STEP, FROW_TIME = 1, 2
 
 #: bits of the kernel's mode word, as ``enum Mode`` in the header
 MODE_LAGGED, MODE_FREEZE_RATE, MODE_FREEZE_EQ, MODE_NO_ICE = 1, 2, 4, 8
@@ -235,6 +246,14 @@ class _KernelArgs(ctypes.Structure):
         *((name, ctypes.c_double) for name in (
             "von_karman_const", "cp_d", "cp_v", "cp_l", "R_d", "R_v", "LH_v0",
             "press_triple", "T_triple", "molmass_ratio")),
+        ("forced", ctypes.c_int64),
+        ("frow_mode", ctypes.c_int64),
+        ("n_frows", ctypes.c_int64),
+        ("precip_row_stride", ctypes.c_int64),
+        ("precip_col_stride", ctypes.c_int64),
+        ("t0", ctypes.c_double),
+        ("t_forcing0", ctypes.c_double),
+        ("inv_dt_forcing", ctypes.c_double),
     ]
 
 
@@ -604,15 +623,16 @@ def _surface_values(model) -> list:
 
 
 def surface_tables(model, t0, dt, n_steps: int, ncol: int, device, reuse=None,
-                   stepper: AbstractTimestepper = SSPRK33()) -> list:
+                   stepper: AbstractTimestepper = SSPRK33(), forced=()) -> list:
     """:func:`bc_value_table` of each :data:`SURFACE_NAMES` input (``None``
-    where the mode reads none): callable atmosphere fields at every stage
+    where the mode reads none, and for the inputs named in ``forced``, which
+    streamed forcing rows supply): callable atmosphere fields at every stage
     time, the others once; with ``reuse``, the tables of values that do not
     depend on time are taken from it."""
     dtype = _soil_of(model).float_dtype
     tables = []
     for j, value in enumerate(_surface_values(model)):
-        if value is None:
+        if value is None or SURFACE_NAMES[j] in forced:
             tables.append(None)
         elif reuse is not None and not callable(value):
             tables.append(reuse[j])
@@ -691,40 +711,58 @@ def _on_grid(stepper, grid):
 
 
 def fused_column_run_plain(model, stepper: AbstractTimestepper, dt, steps_per_call: int, Y: dict,
-                           t0) -> dict:
+                           t0, forcing=None, forcing_time_grid=None) -> dict:
     """The plain PyTorch version of one kernel launch: ``steps_per_call``
     eager ``stepper.step`` calls of the model's rhs from ``t0``, with the
     model's step policies wrapped around ``stepper`` as ``Simulation`` wraps
     them (projection inside, lagged coefficients or the LandModel's frozen
     exchange outside) and an implicit stepper's grid rebuilt on the state's
-    device.  Returns a new state and leaves ``Y`` as it was."""
+    device.  With ``forcing`` (kernel B7), step ``i`` installs its row of
+    each field in the model (``_install_forcing_rows``) and wraps the step
+    policies around that row-local model: row ``i``, or with
+    ``forcing_time_grid = (t_start, dt_forcing, n_rows)`` the row of the
+    step's start time (``time_row``).  Returns a new state and leaves ``Y``
+    as it was."""
     soil = _soil_of(model)
     dtype = soil.float_dtype
     device = Y[soil.name][prognostic_vars(soil)[0]].device
     grid = make_function_space(soil.domain, dtype, device)
     stepper = wrap_stepper_with_projection(_on_grid(_base_stepper(stepper), grid), soil)
+    Ya = {"zc": grid.zc, soil.name: {}}
+    dt_t = torch.as_tensor(dt, dtype=dtype)
+    if forcing is not None:
+        atmos, precip = _split_routing(model, tuple(forcing))
+        rows = {k: torch.as_tensor(v, dtype=dtype, device=device) for k, v in forcing.items()}
+        for i, t in enumerate(step_times(t0, dt, steps_per_call, dtype)):
+            j = i if forcing_time_grid is None else time_row(t, *forcing_time_grid)
+            m = _install_forcing_rows(model, {k: v[j] for k, v in rows.items()}, atmos, precip)
+            rhs, st = _row_local_step(stepper, m, grid)
+            Y = st.step(rhs, Y, Ya, t, dt_t)
+        return Y
     if isinstance(model, LandModel):
         rhs = make_land_rhs(model, grid)
         stepper = wrap_stepper_for_land(stepper, model, grid)
     else:
         rhs = make_rhs(model, grid)
         stepper = wrap_stepper_for_soil(stepper, model, grid)
-    Ya = {"zc": grid.zc, soil.name: {}}
-    dt_t = torch.as_tensor(dt, dtype=dtype)
     for t in step_times(t0, dt, steps_per_call, dtype):
         Y = stepper.step(rhs, Y, Ya, t, dt_t)
     return Y
 
 
 class FusedColumnRun:
-    """``run(Y, t0) -> Y``: advance ``steps_per_call`` steps of ``stepper``
-    from ``t0``, **in place**: the tensors of ``Y`` (a LandModel's pond
-    ``h_s`` too) are overwritten and ``Y`` is returned.  CUDA tensors go
-    through a kernel (or the call raises); CPU tensors through
-    :func:`fused_column_run_plain` with the same stepper.  Each launch adds
-    one to the module's ``LAUNCHES`` under the name of its mode."""
+    """``run(Y, t0, forcing=None) -> Y``: advance ``steps_per_call`` steps
+    of ``stepper`` from ``t0``, **in place**: the tensors of ``Y`` (a
+    LandModel's pond ``h_s`` too) are overwritten and ``Y`` is returned.
+    CUDA tensors go through a kernel (or the call raises); CPU tensors
+    through :func:`fused_column_run_plain` with the same stepper.  A run
+    built with ``forcing_fields`` takes their rows (kernel B7; see
+    :func:`make_fused_column_run`).  Each launch adds one to the module's
+    ``LAUNCHES`` under :attr:`name`: the name of its mode, with ``+B7`` for
+    streamed rows (``+B7-time`` time-indexed)."""
 
-    def __init__(self, model, stepper, dt: float, steps_per_call: int, tile_cols: int):
+    def __init__(self, model, stepper, dt: float, steps_per_call: int, tile_cols: int,
+                 forcing_fields=(), forcing_time_grid=None):
         self.model = model
         self.soil = _soil_of(model)
         self.stepper = _base_stepper(stepper)
@@ -733,18 +771,32 @@ class FusedColumnRun:
         self.tile_cols = int(tile_cols)
         self.mode = kernel_mode(model, self.stepper)
         self.fields = prognostic_vars(self.soil)
+        self.forcing_fields = tuple(forcing_fields)
+        self.forcing_time_grid = forcing_time_grid
+        #: rows of each forcing field per launch: one per step, or the table
+        self.n_frows = int(forcing_time_grid[2]) if forcing_time_grid else self.steps_per_call
+        self.name = mode_name(self.mode)
+        if self.forcing_fields:
+            self.name += "+B7-time" if forcing_time_grid else "+B7"
         self._device_inputs = {}  # (device, ncol) -> _inputs()
 
     def _pond(self, Y: dict):
         return Y[self.model.surface.name]["h_s"] if self.mode & MODE_LAND else None
 
-    def __call__(self, Y: dict, t0) -> dict:
+    def __call__(self, Y: dict, t0, forcing=None, dt_run=None) -> dict:
+        if dt_run is not None:
+            raise NotImplementedError(
+                "a run-time dt override (the adaptive driver's dt_run) is not ported yet: ROADMAP A15"
+            )
         name = self.soil.name
         fields = [Y[name][k] for k in self.fields]
         device = fields[0].device
+        rows = self._forcing_rows(forcing, fields[0].shape[-1], device)
         if device.type == "cpu":
             Yn = fused_column_run_plain(
-                self.model, self.stepper, self.dt, self.steps_per_call, Y, t0
+                self.model, self.stepper, self.dt, self.steps_per_call, Y, t0,
+                forcing=None if rows is None else {k: v[0] for k, v in rows.items()},
+                forcing_time_grid=self.forcing_time_grid,
             )
             for group in Yn:
                 for k, v in Y[group].items():
@@ -753,8 +805,41 @@ class FusedColumnRun:
         if device.type != "cuda":
             raise ValueError(f"unsupported device {device}")
         self._check_state(fields, self._pond(Y), device)
-        self._launch(fields, self._pond(Y), t0, device)
+        self._launch(fields, self._pond(Y), t0, device, rows)
         return Y
+
+    def _forcing_rows(self, forcing, ncol: int, device):
+        """``{field: (rows, row stride, column stride)}`` of the forcing
+        passed to a run built with ``forcing_fields``, each in the model
+        dtype on ``device`` (rows already there are used in place, views
+        included): ``(n_frows,)`` scalar rows (column stride 0) or
+        ``(n_frows, ncol)`` per-column rows; ``None`` without forcing."""
+        if self.forcing_fields and forcing is None:
+            raise ValueError(
+                f"this fused run streams forcing fields {self.forcing_fields}; pass "
+                f"run(Y, t0, forcing=...) with ({self.n_frows},) or ({self.n_frows}, ncol) rows"
+            )
+        if forcing is None:
+            return None
+        if not self.forcing_fields:
+            raise ValueError("forcing passed but the run was built without forcing_fields")
+        if set(forcing) != set(self.forcing_fields):
+            raise KeyError(
+                f"forcing keys {sorted(forcing)} != declared forcing_fields {sorted(self.forcing_fields)}"
+            )
+        rows = {}
+        for k in self.forcing_fields:
+            v = torch.as_tensor(forcing[k], dtype=self.soil.float_dtype, device=device)
+            if tuple(v.shape) == (self.n_frows,):
+                rows[k] = (v, v.stride(0), 0)
+            elif tuple(v.shape) == (self.n_frows, ncol):
+                rows[k] = (v, v.stride(0), v.stride(1))
+            else:
+                raise ValueError(
+                    f"forcing field {k!r} has shape {tuple(v.shape)}; expected "
+                    f"({self.n_frows},) or ({self.n_frows}, {ncol})"
+                )
+        return rows
 
     def _check_state(self, fields, h_s, device):
         dtype = self.soil.float_dtype
@@ -803,8 +888,9 @@ class FusedColumnRun:
 
     def tables(self, ncol: int, device, t0) -> tuple:
         """``(BC, profile, surface, precipitation)`` tables of a launch from
-        ``t0`` (``None`` for those the mode does not read): the host work of
-        a launch besides the argument struct."""
+        ``t0`` (``None`` for those the mode does not read and for the fields
+        streamed as forcing rows): the host work of a launch besides the
+        argument struct."""
         dtype = self.soil.float_dtype
         _, zc, _, constant_bc, constant_surface, constant_profiles = self._inputs(ncol, device)
         args = (self.model, t0, self.dt, self.steps_per_call, ncol, device)
@@ -813,12 +899,13 @@ class FusedColumnRun:
         profiles = profile_tables(self.soil, zc, times, reuse=constant_profiles)
         surface = precip = None
         if self.mode & (MODE_MOST | MODE_LAND):
-            surface = surface_tables(*args, reuse=constant_surface, stepper=self.stepper)
-        if self.mode & MODE_LAND:
+            surface = surface_tables(*args, reuse=constant_surface, stepper=self.stepper,
+                                     forced=self.forcing_fields)
+        if self.mode & MODE_LAND and "precipitation" not in self.forcing_fields:
             precip = precipitation_table(self.model.surface.precipitation, times, dtype, device)
         return bc, profiles, surface, precip
 
-    def _launch(self, fields, h_s, t0, device):
+    def _launch(self, fields, h_s, t0, device, rows=None):
         dtype = self.soil.float_dtype
         nz, ncol = fields[0].shape
         params, zc, dz = self._inputs(ncol, device)[:3]
@@ -827,6 +914,7 @@ class FusedColumnRun:
         args = kernel_args(
             self.model, fields, scratch, zc, dz, params, tables, self.steps_per_call, self.dt,
             stepper=self.stepper, profiles=profiles, surface=surface, precip=precip, h_s=h_s,
+            forcing=rows, forcing_time_grid=self.forcing_time_grid, t0=t0,
         )
         lib_name, fn_name = _entry(self.mode, dtype)
         lib = load_library(lib_name)
@@ -837,16 +925,20 @@ class FusedColumnRun:
             )
         if rc != 0:
             raise RuntimeError(f"column kernel launch failed: cudaError {rc}")
-        LAUNCHES[mode_name(self.mode)] += 1
+        LAUNCHES[self.name] += 1
 
 
 def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt,
                 stepper: AbstractTimestepper = SSPRK33(), profiles=None, surface=None,
-                precip=None, h_s=None) -> _KernelArgs:
+                precip=None, h_s=None, forcing=None, forcing_time_grid=None, t0=0.0) -> _KernelArgs:
     """Pack the kernel's argument struct.  ``fields`` are the state tensors
     in the order of ``prognostic_vars`` of the soil; ``surface``,
-    ``precip`` and ``h_s`` are the surface modes' tables and pond.  The
-    caller keeps every tensor alive until the launch has been queued."""
+    ``precip`` and ``h_s`` are the surface modes' tables and pond;
+    ``forcing`` maps streamed fields to ``(rows, row stride, column
+    stride)`` (kernel B7), step-indexed, or time-indexed on
+    ``forcing_time_grid = (t_start, dt_forcing, n_rows)`` from the launch's
+    start time ``t0``.  The caller keeps every tensor alive until the launch
+    has been queued."""
     soil = _soil_of(model)
     nz, ncol = fields[0].shape
     ps = soil.earth_param_set
@@ -882,6 +974,25 @@ def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt,
             a.surface_col_stride[j] = table[2]
     if precip is not None:
         a.precip = precip.data_ptr()
+        a.precip_row_stride, a.precip_col_stride = 1, 0
+    dtype = soil.float_dtype
+    a.t0 = float(torch.as_tensor(t0, dtype=dtype))
+    if forcing:
+        a.frow_mode = FROW_TIME if forcing_time_grid is not None else FROW_STEP
+        for name, (rows, row_stride, col_stride) in forcing.items():
+            if name == "precipitation":
+                a.forced |= 1 << _S
+                a.precip = rows.data_ptr()
+                a.precip_row_stride, a.precip_col_stride = row_stride, col_stride
+            else:
+                j = SURFACE_NAMES.index(name)
+                a.forced |= 1 << j
+                a.surface_ptr[j] = rows.data_ptr()
+                a.surface_row_stride[j], a.surface_col_stride[j] = row_stride, col_stride
+        if forcing_time_grid is not None:
+            t_start, dt_forcing, a.n_frows = forcing_time_grid
+            a.t_forcing0 = float(torch.tensor(float(t_start), dtype=dtype))
+            a.inv_dt_forcing = float(torch.tensor(1.0 / float(dt_forcing), dtype=dtype))
     if h_s is not None:
         a.h_s = h_s.data_ptr()
     a.nz, a.ncol, a.n_steps = nz, ncol, n_steps
@@ -909,9 +1020,10 @@ def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt,
 # --------------------------------------------------------------------------
 
 
-def _check_surface(model) -> None:
+def _check_surface(model, rain_forced: bool = False) -> None:
     """Refuse the surface configurations no kernel runs: those the JAX
-    kernel's factory refuses (``ValueError``) and those not ported yet."""
+    kernel's factory refuses (``ValueError``) and those not ported yet.  A
+    rain rate streamed as forcing rows may be per column."""
     soil = _soil_of(model)
     land = isinstance(model, LandModel)
     if land and model.surface.runoff is not None:
@@ -919,7 +1031,7 @@ def _check_surface(model) -> None:
             "pond runoff routing is a cross-column stencil and cannot run inside "
             "the column kernel: use the eager engine"
         )
-    if land:  # a per-column rain rate raises here, as in the JAX factory
+    if land and not rain_forced:  # a per-column rain rate raises here, as in the JAX factory
         t0 = torch.zeros((), dtype=soil.float_dtype)
         precipitation_table(model.surface.precipitation, [t0], soil.float_dtype, "cpu")
     if _most_top(soil) and not (_dynamic(soil, "energy") and _dynamic(soil, "hydrology")):
@@ -939,7 +1051,7 @@ def _check_surface(model) -> None:
         )
 
 
-def _check_model(model) -> None:
+def _check_model(model, rain_forced: bool = False) -> None:
     if not isinstance(model, (SoilModel, LandModel)):
         raise TypeError(f"expected a SoilModel or a LandModel; got {type(model).__name__}")
     soil = _soil_of(model)
@@ -950,7 +1062,7 @@ def _check_model(model) -> None:
         )
     exchanged = exchanged_components(model)
     if exchanged:
-        _check_surface(model)
+        _check_surface(model, rain_forced)
     if not (_dynamic(soil, "energy") or _dynamic(soil, "hydrology")):
         raise ValueError("the fused kernel needs at least one dynamic component")
     for face, comp in BC_SLOTS:
@@ -1067,16 +1179,37 @@ def make_fused_column_run(
     the model and the stepper (:func:`kernel_mode`).  ``tile_cols`` is the
     number of columns (threads) per CUDA block, a multiple of 32 up to 1024;
     ``ncol`` need not be a multiple of it.  Time advances
-    ``steps_per_call * dt`` per call."""
-    _check_model(model)
+    ``steps_per_call * dt`` per call.
+
+    ``forcing_fields``: names of forcing fields streamed through the kernel
+    (kernel B7; the routing of ``runtime/forcing_driver.py``: the
+    ``PrescribedAtmosForcing`` fields and/or ``"precipitation"``):
+    ``run(Y, t0, forcing)`` then takes a dict of ``(steps_per_call,)`` (one
+    value per step) or ``(steps_per_call, ncol)`` (per column) rows, row
+    ``i`` replacing the field for all stages of in-kernel step ``i``.  With
+    ``forcing_time_grid = (t_start, dt_forcing, n_rows)`` the rows are a
+    table of ``n_rows`` and each step reads the row of its start time ``t``,
+    ``clip(trunc((t - t_start) * (1 / dt_forcing)), 0, n_rows - 1)``.  The
+    rows stay where they are (no copy per launch on the card); the fields
+    not streamed keep their stage tables."""
+    forcing_fields = tuple(forcing_fields)
+    rain_forced = False
+    if forcing_fields:
+        rain_forced = _split_routing(model, forcing_fields)[1]
+    if forcing_time_grid is not None:
+        if not forcing_fields:
+            raise ValueError("forcing_time_grid requires forcing_fields to stream")
+        t_start, dt_forcing, n_rows = forcing_time_grid
+        if int(n_rows) < 1 or float(dt_forcing) <= 0.0:
+            raise ValueError(
+                f"forcing_time_grid needs n_rows >= 1 and dt_forcing > 0; got {forcing_time_grid}"
+            )
+        forcing_time_grid = (float(t_start), float(dt_forcing), int(n_rows))
+    _check_model(model, rain_forced)
     _check_stepper(model, stepper)
     if streamed_geometry is not None:
         raise NotImplementedError(
             "streamed geometry (kernel B8) is not ported yet: ROADMAP A13"
-        )
-    if tuple(forcing_fields) or forcing_time_grid is not None:
-        raise NotImplementedError(
-            "streamed forcing rows (kernel B7) are not ported yet: ROADMAP A14"
         )
     if differentiable:
         raise NotImplementedError(
@@ -1088,4 +1221,4 @@ def make_fused_column_run(
         raise ValueError(
             f"tile_cols must be a multiple of 32 in [32, 1024]; got {tile_cols}"
         )
-    return FusedColumnRun(model, stepper, dt, steps_per_call, tile_cols)
+    return FusedColumnRun(model, stepper, dt, steps_per_call, tile_cols, forcing_fields, forcing_time_grid)

@@ -10,6 +10,10 @@
   (``golden_config.build_land_model_and_state``: MOST atmosphere, rain
   pulse, pond, kinematic-wave routing on a 4 x 4 grid),
   ``golden_land_f64.npz``.
+- ``build_forced_model_state_and_rows``: the forced golden
+  (``golden_config.build_forced_model_state_and_rows``: MOST top driven by
+  a per-step table with a scalar and per-column fields),
+  ``golden_forced_f64.npz``.
 
 The builders put their tensors on ``device``, the card unless the caller
 asks for ``"cpu"``."""
@@ -246,3 +250,81 @@ def build_land_model_and_state(dtype, device="cuda"):
 
     Y, Ya = land_init(land, ic, 0.0, h_s0=2e-3)
     return land, Y, Ya, LAND_DT
+
+
+FORCED_STEPS = 40
+FORCED_DT = 60.0
+FORCED_NZ, FORCED_NCOL = 12, 16
+
+
+def build_forced_model_state_and_rows(dtype, device="cuda"):
+    """Forced golden: a MOST-topped coupled column batch driven by a
+    deterministic (trig-generated, RNG-free) per-step forcing table with a
+    scalar ``u_atm`` row and per-column ``theta_atm`` / ``q_atm`` rows;
+    ``golden_forced_f64.npz``."""
+    import torch
+
+    from landhydrology_tpu_torch import (
+        Column,
+        PrescribedAtmosForcing,
+        SoilColumnBC,
+        SoilComponentBC,
+        SoilEnergyModel,
+        SoilHydrologyModel,
+        SoilModel,
+        SoilParams,
+        VerticalFlux,
+        initialize_states,
+    )
+    from landhydrology_tpu_torch.constants import default_earth_param_set as ps
+    from landhydrology_tpu_torch.models.soil import vanGenuchten
+    from landhydrology_tpu_torch.models.soil.heat import (
+        volumetric_heat_capacity,
+        volumetric_internal_energy,
+    )
+
+    def tensor(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    model = SoilModel(
+        domain=Column(zlim=(-1.5, 0.0), nelements=FORCED_NZ, batch_shape=(FORCED_NCOL,)),
+        energy_model=SoilEnergyModel(),
+        hydrology_model=SoilHydrologyModel(
+            hydraulic_model=vanGenuchten(n=2.0, alpha=2.6, Ksat=1e-6, theta_r=0.05)
+        ),
+        boundary_conditions=SoilColumnBC(
+            top=PrescribedAtmosForcing(
+                u_atm=2.0, theta_atm=300.0, z_atm=2.0, theta_scale=300.0,
+                rho_a_sfc=1.2, q_atm=0.005,
+            ),
+            bottom=SoilComponentBC(hydrology=VerticalFlux(0.0), energy=VerticalFlux(0.0)),
+        ),
+        soil_param_set=SoilParams(nu=0.4, S_s=1e-3, rho_c_ds=1.3e6),
+        dtype=dtype,
+        device=device,
+    )
+
+    t = np.arange(FORCED_STEPS) * FORCED_DT
+    phase = 2.0 * np.pi * np.arange(FORCED_NCOL) / FORCED_NCOL
+    day = 2.0 * np.pi * t[:, None] / 86400.0 + phase[None, :]
+    rows = {
+        "u_atm": tensor(2.0 + 1.5 * np.sin(2e-4 * t)),
+        "theta_atm": tensor(295.0 + 8.0 * np.sin(day - 0.5)),
+        "q_atm": tensor(0.004 + 0.002 * np.cos(day)),
+    }
+
+    def ic(z, m):
+        shape = (FORCED_NZ, FORCED_NCOL)
+        th = tensor(np.broadcast_to(0.15 + 0.1 * np.linspace(0.0, 1.0, FORCED_NCOL)[None, :], shape).copy())
+        ti = torch.zeros(shape, dtype=dtype, device=device)
+        rcs = volumetric_heat_capacity(th, ti, 1.3e6, ps)
+        return {
+            "vartheta_l": th,
+            "theta_i": ti,
+            "rho_e_int": volumetric_internal_energy(
+                ti, rcs, torch.full(shape, 290.0, dtype=dtype, device=device), ps
+            ),
+        }
+
+    Y, Ya = initialize_states(model, ic, 0.0)
+    return model, Y, Ya, rows, FORCED_DT

@@ -342,3 +342,123 @@ def test_most_probes_count_one_solve_per_exchange(case):
     assert 20 <= probes < 20 * 8
     model32, Y32 = cs.build_land_variant(32, torch.float32, "cpu", seed=13, case=case)
     assert 4 <= cs.most_probes(ck, model32, SSPRK33(), 2.0, 2, Y32)[1] < 4 * 8
+
+
+# ---- phase 11: the forced-reanalysis path (kernel mode B7) ----
+
+
+def test_reanalysis_builders_match_the_experiment(tmp_path):
+    """``build_reanalysis`` and ``reanalysis_forcing`` rebuild
+    ``experiments/soil/forced_reanalysis.py``'s run: at a small size the
+    experiment's forcing file (run as a script, JAX on the CPU) is byte for
+    byte the port's, and the port's ``run_forced`` on it ends where the
+    experiment's float32 run ends (pond, water gain, energy)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from landhydrology_tpu_torch.diagnostics import energy_total, water_mass
+    from landhydrology_tpu_torch.runtime import ForcingReader, run_forced, write_forcing
+
+    nz, ncol, days, window = 8, 64, 0.02, 8
+    env = dict(os.environ, LANDHYDROLOGY_COMPCACHE="", JAX_PLATFORMS="cpu")
+    out = subprocess.run(
+        [sys.executable, os.path.join(cs.HERE, "experiments", "soil", "forced_reanalysis.py"), "--platform",
+         "cpu", "--ncol", str(ncol),
+         "--nz", str(nz), "--days", str(days), "--window", str(window), "--workdir", str(tmp_path),
+         "--engine", "xla"],
+        capture_output=True, text=True, env=env, timeout=600, check=True,
+    )
+    detail = json.loads(out.stdout.strip().splitlines()[-1])["detail"]
+    n = detail["steps"]
+    times, rows = cs.reanalysis_forcing(n, ncol, cs.FORCED_DT, days=days)
+    mine = tmp_path / "port.bin"
+    write_forcing(str(mine), times, rows)
+    assert (tmp_path / f"forcing_{n}x{ncol}.bin").read_bytes() == mine.read_bytes()
+
+    land, Y0, Ya = cs.build_reanalysis(nz, ncol, torch.float32, "cpu")
+    with ForcingReader(str(mine)) as reader:
+        Yf, _ = run_forced(land, Y0, Ya, reader, SSPRK33(), dt=cs.FORCED_DT, window=window, engine="fused",
+                           steps_per_call=4)
+    dz = 2.0 / nz
+    mass = lambda Y: float(water_mass(Y, dz)) + float(torch.sum(Y["surface"]["h_s"]))  # noqa: E731
+    assert float(torch.mean(Yf["surface"]["h_s"])) == pytest.approx(detail["pond_mean_m"], rel=1e-4)
+    assert (mass(Yf) - mass(Y0)) / ncol == pytest.approx(detail["water_gain_m"], rel=1e-3)
+    assert float(energy_total(Yf, dz)) == pytest.approx(detail["energy_total"], rel=1e-5)
+
+
+def test_diurnal_rows_are_the_jax_tests():
+    from tests import test_forcing_driver as jt
+
+    got = cs.diurnal_rows(29, jt.NCOL, jt.DT, np.random.default_rng(7))
+    want = jt._diurnal_forcing(29, np.random.default_rng(7))
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+_F_NZ, _F_NCOL, _F_STEPS, _F_SPC, _F_DAYS = 8, 64, 12, 4, 0.02
+
+
+@functools.lru_cache(maxsize=None)
+def _forced_plain_runs(dtype, doctoring):
+    """``(start, end, evaporation, rows)`` of the forced path's plain version
+    at a small size (the rain band sweeping most of the columns), or of a
+    doctored kernel: one that ignores the rows (the model's own atmosphere
+    and rain), one that reads row ``step + 1``, one that drops the rain row."""
+    land, Y0, _ = cs.build_reanalysis(_F_NZ, _F_NCOL, dtype, "cpu")
+    _, rows_np = cs.reanalysis_forcing(_F_STEPS, _F_NCOL, cs.FORCED_DT, days=_F_DAYS)
+    rows = {k: torch.as_tensor(v, dtype=dtype) for k, v in rows_np.items()}
+    fed = rows
+    if doctoring == "row_step_plus_one":
+        fed = {k: torch.cat([v[1:], v[-1:]]) for k, v in rows.items()}
+    elif doctoring == "no_rain":
+        fed = dict(rows, precipitation=torch.zeros_like(rows["precipitation"]))
+
+    def advance(Y, t, chunk):
+        if doctoring == "static_atmosphere":
+            return ck.fused_column_run_plain(land, SSPRK33(), cs.FORCED_DT, _F_SPC, Y, t), t + _F_SPC * cs.FORCED_DT
+        i = int(round(float(t) / cs.FORCED_DT))
+        Yn = ck.fused_column_run_plain(land, SSPRK33(), cs.FORCED_DT, _F_SPC, Y, t,
+                                       forcing={k: v[i:i + _F_SPC] for k, v in fed.items()})
+        return Yn, t + _F_SPC * cs.FORCED_DT
+
+    end, _, evap = cs.launch_by_launch(advance, land, Y0, rows, cs.FORCED_DT, _F_SPC)
+    return land, Y0, end, evap, rows
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_forced_checks_accept_the_plain_version(dtype):
+    land, Y0, end, evap, rows = _forced_plain_runs(dtype, None)
+    seg = cs.forced_plain(ck, land, cs.FORCED_DT, _F_SPC, Y0, 0.0, rows)
+    assert cs._max_abs(cs._np(seg), cs._np(end)) == 0.0  # launch by launch == the segment
+    shares = cs.check_forced(cs._np(end), cs._np(end), cs._np(Y0), dtype, "plain")
+    assert set(shares) == {"vartheta_l", "rho_e_int", "h_s"}
+    change, rain_max, evap_mean, residual = cs.check_budget(land, Y0, end, rows, cs.FORCED_DT, evap, "plain")
+    assert rain_max > 1e-3 and residual < 0.1 * cs.BUDGET_SHARE * rain_max and evap_mean > 0
+
+
+@pytest.mark.parametrize("doctoring", ["static_atmosphere", "row_step_plus_one", "no_rain"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_forced_checks_fail_doctored_kernels(dtype, doctoring):
+    """Phase 11's state check (against the plain version on the same rows)
+    fails a kernel that ignores the rows, reads the next row or drops the
+    rain; the water budget fails the ones that lose the rain."""
+    land, Y0, plain, evap, rows = _forced_plain_runs(dtype, None)
+    _, _, kern, _, _ = _forced_plain_runs(dtype, doctoring)
+    with pytest.raises(AssertionError):
+        cs.check_forced(cs._np(kern), cs._np(plain), cs._np(Y0), dtype, doctoring)
+    if doctoring != "row_step_plus_one":
+        with pytest.raises(AssertionError, match="water budget"):
+            cs.check_budget(land, Y0, kern, rows, cs.FORCED_DT, evap, doctoring)
+
+
+def test_forced_bound_counts_the_rows():
+    """The forced path's bound reads each streamed row once beside the
+    state's bytes."""
+    costs = {torch.float32: {"exp": 10, "log": 10, "sqrt": 2, "div": 5, "pow": 20}}
+    land = ck.MODE_LAND | ck.MODE_MOST
+    ms, by = cs.bound_ms(ck, costs, land, torch.float32, NZ * NCOL, 0, ncol=NCOL, probes=17.0,
+                         read_values=4 * 24 * NCOL)
+    assert by == "bytes"
+    assert ms == pytest.approx(1e3 * (2 * (3 * NZ + 1) * NCOL + 4 * 24 * NCOL) * 4 / cs.HBM_BYTES_PER_S)

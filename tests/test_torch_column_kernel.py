@@ -233,12 +233,26 @@ def test_unported_modes_raise(mode):
             item = "B5" if mode == "B5_most" else "B6"
             with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
                 ck.make_fused_column_run(m if mode == "B5_most" else LandModel(soil=m))
-    elif mode == "B7_forcing":
-        with pytest.raises(NotImplementedError, match="A14"):
+    elif mode == "B7_forcing":  # ported: not onto a top without an atmosphere, nor under freeze-thaw
+        with pytest.raises(TypeError, match="PrescribedAtmosForcing"):
             ck.make_fused_column_run(model, forcing_fields=("u_atm",))
-    elif mode == "B7_time_grid":
-        with pytest.raises(NotImplementedError, match="A14"):
+        most = dataclasses.replace(model, freeze_thaw=FreezeThaw(tau=60.0), boundary_conditions=SoilColumnBC(
+            top=PrescribedAtmosForcing(u_atm=2.0, theta_atm=300.0, z_atm=2.0,
+                                       theta_scale=300.0, rho_a_sfc=1.2, q_atm=0.005),
+            bottom=model.boundary_conditions.bottom))
+        with pytest.raises(NotImplementedError, match="ROADMAP B5"):
+            ck.make_fused_column_run(most, forcing_fields=("u_atm",))
+    elif mode == "B7_time_grid":  # ported: a grid needs rows, and not with an implicit stepper
+        with pytest.raises(ValueError, match="requires forcing_fields"):
             ck.make_fused_column_run(model, forcing_time_grid=(0.0, 60.0, 10))
+        most = dataclasses.replace(model, boundary_conditions=SoilColumnBC(
+            top=PrescribedAtmosForcing(u_atm=2.0, theta_atm=300.0, z_atm=2.0,
+                                       theta_scale=300.0, rho_a_sfc=1.2, q_atm=0.005),
+            bottom=model.boundary_conditions.bottom))
+        grid = make_function_space(model.domain, torch.float64, "cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+            ck.make_fused_column_run(most, TRBDF2Soil(model=most, grid=grid), forcing_fields=("u_atm",),
+                                     forcing_time_grid=(0.0, 60.0, 10))
     elif mode == "B8_geometry":
         with pytest.raises(NotImplementedError, match="A13"):
             ck.make_fused_column_run(model, streamed_geometry=(None, None))
