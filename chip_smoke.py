@@ -85,15 +85,41 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    count, checked against the plain version on the strided columns and
    timed: the production setting (B2+B6-step+B7), the soil alone under
    the atmosphere rows (B5+B7) and time-indexed rows on a grid of 2 dt
-   (B6+B7-time);
-6. times of every mode's kernel and plain version at its phase-4/5/8/9/10
+   (B6+B7-time); then one launch each of the other B5/B6 modes with rows
+   (B2+B5, B6-step, B2+B6 and the four ``-pond`` modes) at nz=24 x 32,768,
+   checked against the plain version and timed;
+12. the regional-grid path (kernel modes B1-batched and B8): f64 checks at
+   the JAX tests' sizes (``test_batched_heterogeneous.py:59``'s three
+   bottom kinds, ``test_variable_depth.py:237``'s 8 variable-depth columns
+   and ``:272``'s BackwardEulerRichards on three depths; ``streamed_geometry``
+   of the model's own grid equal bit for bit to the model-grid run), then
+   1,000-column variants, f64 and f32, of every mode that takes per-column
+   BC kinds or depths (``GRID_VARIANTS``: kinds drawn at both faces for
+   both components, depths from U(0.8, 3.0) m, and the two cross-component
+   Dirichlet cases); then ``experiments/soil/regional_grid.py``'s hour at
+   nz=48 x 131,072 (``build_regional``: per-column soils and BC kinds, 720
+   steps of dt=5 in 15 launches) and its variable-depth twin, f32 and f64,
+   each through the script's loop of ``make_fused_column_run`` calls and
+   ``Simulation(engine="fused")`` (equal bit for bit, launch counts set to 0
+   just before each and read just after), the first launch at full width,
+   and every 64th column and every column that leaves the finite numbers
+   over the hour, against the plain version (dt=5 s is past the explicit
+   limit of a few columns that saturate, in the JAX package too: the kernel
+   and the plain version must diverge in the same columns), with the
+   script's summary on the other columns (vartheta_l within [0, nu],
+   Dirichlet columns wetter, the water-mass change) and grid-points/s,
+   kernel ms per launch and the bound; and the lateral surface coupling on the eager engine
+   (``tests/parallel/test_sharding.py``'s 8 x 8 batch): water conserved to
+   1e-12, the surface bump flattening;
+6. times of every mode's kernel and plain version at its phase-4/5/8/9/10/12
    shape (CUDA events, in turns), beside the least time the card could take
    (with the MOST solve's probes counted from the plain version's solves on
    the same inputs), and the scratch traffic per cell and step of the
    implicit kernel.
 
 ``--forced-only`` runs phases 1, 2 and 11 alone (a quick check of kernel
-B7).  With ``--profile`` a seventh phase follows for B1 and B2 at the phase-4
+B7), ``--grid-only`` phases 1, 2 and 12 with phase 6's times of phase 12's
+paths.  With ``--profile`` a seventh phase follows for B1 and B2 at the phase-4
 shape: six timings each of the kernel and the plain version in turns, a
 ``tile_cols`` sweep, the SM clock and power draw under load, and
 ``Simulation.run`` end to end, unprofiled and under ``torch.profiler``
@@ -954,6 +980,11 @@ def _clone(Y):
     return {group: {k: v.clone() for k, v in fields.items()} for group, fields in Y.items()}
 
 
+def _mark(t_start, what):
+    """One line with the script's time so far, at the end of a phase."""
+    print(f"[clock] {what} done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
 def _smi(query):
     return subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -972,8 +1003,8 @@ def profile_main_path(dtype, device, smi, coefficient_update):
     points = NZ * NCOL * SPC
     model, Y0, Ya = build_bench_model(NZ, NCOL, dtype, device)
     model = dataclasses.replace(model, coefficient_update=coefficient_update)
-    name = f"{str(dtype)[6:]} {ck.mode_name(ck.kernel_mode(model))}"
     run = ck.make_fused_column_run(model, SSPRK33(), dt=DT, steps_per_call=SPC)
+    name = f"{str(dtype)[6:]} {run.name}"
     Yk = _clone(Y0)
     run(Yk, 0.0)
     ck.fused_column_run_plain(model, SSPRK33(), DT, SPC, Y0, 0.0)
@@ -1056,7 +1087,7 @@ def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving, stepper=None):
     stepper = SSPRK33() if stepper is None else stepper
     dtype = model.float_dtype
     soil = getattr(model, "soil", model)
-    name = ck.mode_name(ck.kernel_mode(model, stepper))
+    name = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=spc).name
     sim = Simulation(
         model, stepper, Y_init=Y0, Ya_init=Ya, dt=dt, tspan=(0.0, n_steps * dt),
         saveat=spc * dt, engine="fused", steps_per_call=spc,
@@ -1143,11 +1174,11 @@ def time_mode(ck, model, Y0, dt, spc, stepper=None):
     run(Yk, 0.0)  # warm-up
     fused_column = lambda: run(Yk, 0.0)  # noqa: E731
     plain_column = lambda: ck.fused_column_run_plain(model, stepper, dt, spc, Y0, 0.0)  # noqa: E731
-    solves, probes = most_probes(ck, model, stepper, dt, spc, Y0)
     mode = ck.kernel_mode(model, stepper)
+    solves, probes = most_probes(ck, model, stepper, dt, spc, Y0) if mode & ck.MODE_MOST else (0, None)
     expect = (spc if mode & ck.MODE_SURFACE_STEP else 3 * spc) if mode & ck.MODE_MOST else 0
     if solves != expect:
-        raise AssertionError(f"{ck.mode_name(mode)}: {solves} MOST solves in the plain launch, expected {expect}")
+        raise AssertionError(f"{run.name}: {solves} MOST solves in the plain launch, expected {expect}")
     p1 = _time_ms(plain_column, 1)
     k1 = _time_ms(fused_column, 5)
     k2 = _time_ms(fused_column, 5)
@@ -1201,10 +1232,11 @@ def check_golden(ck, model, Y, dt, n_steps, golden, what, stepper=None, atol=Non
 
     stepper = SSPRK33() if stepper is None else stepper
     plain = _np(ck.fused_column_run_plain(model, stepper, dt, n_steps, Y, 0.0))
-    ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=n_steps)(Y, 0.0)
+    run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=n_steps)
+    run(Y, 0.0)
     torch.cuda.synchronize()
     kern = _np(Y)
-    name = ck.mode_name(ck.kernel_mode(model, stepper))
+    name = run.name
     line = f"[3 golden] f64 {name} {what}:"
     if golden is not None and atol is not None:
         dev = float(np.max(np.abs(kern["vartheta_l"] - golden["vartheta_l"])))
@@ -1221,17 +1253,23 @@ def check_golden(ck, model, Y, dt, n_steps, golden, what, stepper=None, atol=Non
     return kern
 
 
-def check_variant(ck, model, Y, dt, n_steps, t0, what, moving, stepper=None):
-    """One launch of ``n_steps`` from ``t0`` against the plain version:
-    ``_check`` and ``_check_increment``."""
+def check_variant(ck, model, Y, dt, n_steps, t0, what, moving, stepper=None, geometry=None):
+    """One launch of ``n_steps`` from ``t0`` (on ``streamed_geometry`` where
+    given), with the launch counts set to 0 just before it and read just
+    after, against the plain version: ``_check`` and ``_check_increment``."""
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
     stepper = SSPRK33() if stepper is None else stepper
     dtype = model.float_dtype
     start = _np(Y)
-    plain = _np(ck.fused_column_run_plain(model, stepper, dt, n_steps, Y, t0))
-    ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=n_steps)(Y, t0)
+    plain = _np(ck.fused_column_run_plain(model, stepper, dt, n_steps, Y, t0, geometry=geometry))
+    run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=n_steps, streamed_geometry=geometry)
     torch.cuda.synchronize()
+    ck.LAUNCHES.clear()
+    run(Y, t0)
+    torch.cuda.synchronize()
+    if dict(ck.LAUNCHES) != {run.name: 1}:
+        raise AssertionError(f"{what}: launches {dict(ck.LAUNCHES)}, expected one of {run.name}")
     kern = _np(Y)
     _check(kern, plain, dtype, what)
     shares = _check_increment(kern, plain, start, dtype, what, moving)
@@ -1303,8 +1341,8 @@ def land_phase(ck, gc, device, smi):
         for name, m in runs:
             kern, plain, shares = check_variant(ck, m, _clone(Y), dt, n, 0.0, f"10 land {what}",
                                                 ("vartheta_l", "rho_e_int"))
-            if ck.mode_name(ck.kernel_mode(m)) != name:
-                raise AssertionError(f"{what}: mode {ck.mode_name(ck.kernel_mode(m))}, expected {name}")
+            if ck.make_fused_column_run(m).name != name:
+                raise AssertionError(f"{what}: mode {ck.make_fused_column_run(m).name}, expected {name}")
             finals[(what, name)] = kern
             pond = f", max h_s {np.max(kern['h_s']):.4e}" if "h_s" in kern else ""
             print(f"[10 land] f64 {name} {what}, {n} steps of dt={dt}: kernel vs plain max abs "
@@ -1324,8 +1362,8 @@ def land_phase(ck, gc, device, smi):
             model, Y = build_land_variant(1000, dtype, device, seed=13, case=case)
             kern, plain, shares = check_variant(ck, model, Y, 2.0, 8, 5.0, f"10 land variant {dtype} {case}",
                                                 ("vartheta_l", "rho_e_int"))
-            if ck.mode_name(ck.kernel_mode(model)) != case:
-                raise AssertionError(f"variant: mode {ck.mode_name(ck.kernel_mode(model))}, expected {case}")
+            if ck.make_fused_column_run(model).name != case:
+                raise AssertionError(f"variant: mode {ck.make_fused_column_run(model).name}, expected {case}")
             print(f"[10 land] {str(dtype)[6:]} {case} ncol=1000 per-column atmosphere (both Businger "
                   f"branches), callable theta_scale: kernel vs plain max abs {_max_abs(kern, plain):.3e}; "
                   f"change error / largest change {_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g})", flush=True)
@@ -1373,7 +1411,7 @@ def land_phase(ck, gc, device, smi):
             kern, launches, err, wall = drive_path(ck, model, Y0, Ya, DT, N_STEPS, SPC, "10 land", moving)
             paths.append((model, Y0, DT, SPC, launches, err, SSPRK33()))
             ends[setting] = kern
-            name = ck.mode_name(ck.kernel_mode(model))
+            name = ck.make_fused_column_run(model).name
             if what != "soil":
                 dz = land.soil.domain.height / NZ
                 end = {"soil": {k: torch.as_tensor(kern[k], device=device) for k in Y0["soil"]},
@@ -1826,9 +1864,70 @@ def forced_phase(ck, gc, device, smi, costs):
             del Yref, Yf, Yc, kept, seg, run
             for setting in ("production", "MOST soil", "time-indexed"):
                 entries.append(forced_setting(ck, costs, setting, land, Y0, rows, cols, smi))
-            del rows
+            del rows, land, Y0
+            torch.cuda.empty_cache()
+            for case in FORCED_COMBOS:
+                entries.append(forced_combination(ck, costs, smi, case, dtype, device))
             torch.cuda.empty_cache()
     return entries
+
+
+#: phase 11's timed B7 combinations: their width (a quarter of the
+#: reanalysis run's) and modes
+FORCED_COMBO_NCOL = 32768
+FORCED_COMBOS = ("B2+B5", "B6-step", "B2+B6", "B6-pond", "B6-step-pond", "B2+B6-pond", "B2+B6-step-pond")
+
+
+def forced_combination(ck, costs, smi, case, dtype, device, ncol=FORCED_COMBO_NCOL):
+    """One more B5/B6 mode with streamed rows on the reanalysis model, at
+    nz=24 x ``ncol``: ``case`` is ``B2+B5`` (the soil alone, lagged, under
+    the atmosphere rows) or a B6 name (``-step`` the frozen exchange, ``B2+``
+    lagged coefficients, ``-pond`` the soil's zero-flux top under the rain
+    rows alone).  One launch of ``FORCED_SPC`` rows, with the launch counts
+    set to 0 just before it and read just after, checked against the plain
+    version, then timed (``time_forced``).  Returns its kernel record."""
+    from landhydrology_tpu_torch import SoilColumnBC, SoilComponentBC, VerticalFlux
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    nz, dt, spc = FORCED_NZ, FORCED_DT, FORCED_SPC
+    land, Y0, _ = build_reanalysis(nz, ncol, dtype, device)
+    _, rows_np = reanalysis_forcing(spc, ncol, dt)
+    rows = {k: torch.as_tensor(v, device=device).to(dtype) for k, v in rows_np.items()}
+    soil = dataclasses.replace(land.soil, coefficient_update="step" if case.startswith("B2+") else "stage")
+    if case.endswith("-pond"):
+        soil = dataclasses.replace(soil, boundary_conditions=SoilColumnBC(
+            top=SoilComponentBC(hydrology=VerticalFlux(0.0), energy=VerticalFlux(0.0)),
+            bottom=soil.boundary_conditions.bottom))
+        rows = {"precipitation": rows["precipitation"]}
+    if case == "B2+B5":
+        model, Y0 = soil, {"soil": Y0["soil"]}
+        rows.pop("precipitation")
+    else:
+        model = dataclasses.replace(land, soil=soil, surface_update="step" if "-step" in case else "stage")
+    run = ck.make_fused_column_run(model, SSPRK33(), dt=dt, steps_per_call=spc, forcing_fields=tuple(rows))
+    if run.name != f"{case}+B7":
+        raise AssertionError(f"forced combination {case}: built {run.name}")
+    Yk = _clone(Y0)
+    torch.cuda.synchronize()
+    ck.LAUNCHES.clear()
+    run(Yk, 0.0, forcing=rows)
+    torch.cuda.synchronize()
+    launches = dict(ck.LAUNCHES)
+    if launches != {run.name: 1}:
+        raise AssertionError(f"forced combination {case}: launches {launches}")
+    kern, plain = _np(Yk), _np(forced_plain(ck, model, dt, spc, Y0, 0.0, rows))
+    moving = [k for k in ("vartheta_l", "rho_e_int", "h_s") if k in kern and not (k == "rho_e_int" and "pond" in case)]
+    _check(kern, plain, dtype, f"11 forced {case}")
+    shares = _check_increment(kern, plain, _np(Y0), dtype, f"11 forced {case}", moving)
+    k_ms, p_ms, probes = time_forced(ck, run, model, Y0, rows, dt, spc)
+    b_ms, b_by = bound_ms(ck, costs, run.mode, dtype, nz * ncol, spc, ncol=ncol, probes=probes,
+                          read_values=len(rows) * spc * ncol)
+    most = f", MOST probes per solve {probes:.4f}" if probes is not None else ""
+    print(f"[11 forced] {str(dtype)[6:]} {run.name} nz={nz} x {ncol}, one launch of {spc} rows (launch counts "
+          f"{launches}): kernel vs plain max abs {_max_abs(kern, plain):.3e}; change error / largest change "
+          f"{_fmt(shares)}; kernel {k_ms:.3f} ms per launch (plain {p_ms:.3f} ms, bound {b_ms:.3f} ms by "
+          f"{b_by}{most}) on {smi}", flush=True)
+    return forced_entry(ck, run, dtype, launches[run.name], _max_abs(kern, plain), k_ms, p_ms, b_ms, b_by)
 
 
 def forced_entry(ck, run, dtype, launches, err, k_ms, p_ms, b_ms, b_by):
@@ -1914,6 +2013,533 @@ def forced_setting(ck, costs, setting, land, Y0, rows, cols, smi):
     return forced_entry(ck, run, dtype, launches[run.name], _max_abs(first, plain), k_ms, p_ms, b_ms, b_by)
 
 
+# ---- phase 12: the regional-grid path, kernel modes B1-batched and B8 ----
+
+#: ``experiments/soil/regional_grid.py``'s run: nz, ncol, dt, steps per
+#: launch, steps (one hour)
+GRID_NZ, GRID_NCOL, GRID_DT, GRID_SPC, GRID_STEPS = 48, 131072, 5.0, 48, 720
+#: the plain version's check of the whole hour takes every 64th column (2,048)
+GRID_STRIDE = 64
+#: the seed of the variable-depth twin's depths, drawn apart from the script's
+GRID_DEPTH_SEED = 11
+
+
+def build_regional(nz, ncol, dtype, device, variable_depth=False, columns=None):
+    """``experiments/soil/regional_grid.py:66-133`` built with the port's API,
+    its draws in its order from ``default_rng(7)``: per-column porosity and
+    van Genuchten parameters (loam to sand), a top of rain-flux or ponded
+    Dirichlet columns and a bottom of free-drainage or zero-flux columns
+    (``BatchedBC``), zero energy flux at both faces, 2 m of soil; moisture
+    0.3-0.7 of the porosity by column at 288 K.  With ``variable_depth`` the
+    columns reach down to -U(0.8, 3.0) m (``default_rng(GRID_DEPTH_SEED)``),
+    the rest unchanged.  ``columns`` (indices) keeps those columns of the
+    ``ncol`` drawn.  Returns ``(model, Y, Ya, top kinds)``."""
+    from landhydrology_tpu_torch import (
+        BatchedBC, BCKind, Column, SoilColumnBC, SoilComponentBC, SoilEnergyModel,
+        SoilHydrologyModel, SoilModel, SoilParams, VariableDepthColumn, VerticalFlux,
+        initialize_states,
+    )
+    from landhydrology_tpu_torch.constants import default_earth_param_set as ps
+    from landhydrology_tpu_torch.models.soil import vanGenuchten
+    from landhydrology_tpu_torch.models.soil.heat import (
+        k_solid, ksat_frozen, ksat_unfrozen, volumetric_heat_capacity, volumetric_internal_energy,
+    )
+
+    rng = np.random.default_rng(7)
+    keep = np.arange(ncol) if columns is None else np.asarray(columns)
+    n = keep.size
+    tensor = lambda x: torch.as_tensor(x[keep], dtype=dtype, device=device)  # noqa: E731
+    nu = tensor(rng.uniform(0.35, 0.52, ncol))
+    hm = vanGenuchten(
+        n=tensor(rng.uniform(1.4, 3.5, ncol)),
+        alpha=tensor(rng.uniform(1.5, 4.5, ncol)),
+        Ksat=tensor(10 ** rng.uniform(-7.0, -4.5, ncol)),
+        theta_r=tensor(rng.uniform(0.0, 0.08, ncol)),
+    )
+    ks = k_solid(0.0, 0.6, 7.7, 2.5, 0.25)
+    msp = SoilParams(nu=nu, S_s=1e-3, nu_ss_quartz=0.6, rho_c_ds=1.2e6, kappa_solid=ks,
+                     kappa_sat_unfrozen=ksat_unfrozen(ks, 0.45, 0.57), kappa_sat_frozen=ksat_frozen(ks, 0.45, 2.29))
+    kinds_top = torch.as_tensor(rng.integers(0, 2, ncol)[keep], dtype=torch.int32, device=device)
+    rain = tensor(-10 ** rng.uniform(-8.0, -6.5, ncol))
+    top_vals = torch.where(kinds_top == BCKind.DIRICHLET, 0.9 * nu, rain)
+    kinds_bot = torch.as_tensor(np.where(rng.random(ncol) < 0.5, BCKind.FREE_DRAINAGE, BCKind.FLUX)[keep],
+                                dtype=torch.int32, device=device)
+    domain = Column(zlim=(-2.0, 0.0), nelements=nz, batch_shape=(n,))
+    if variable_depth:
+        depths = np.random.default_rng(GRID_DEPTH_SEED).uniform(0.8, 3.0, ncol)[keep]
+        domain = VariableDepthColumn(z_bottom=-depths, nelements=nz, batch_shape=(n,))
+    model = SoilModel(
+        domain=domain,
+        energy_model=SoilEnergyModel(),
+        hydrology_model=SoilHydrologyModel(hydraulic_model=hm),
+        boundary_conditions=SoilColumnBC(
+            top=SoilComponentBC(hydrology=BatchedBC(kind=kinds_top, value=top_vals), energy=VerticalFlux(0.0)),
+            bottom=SoilComponentBC(hydrology=BatchedBC(kind=kinds_bot, value=torch.zeros(n, dtype=dtype,
+                                                                                          device=device)),
+                                   energy=VerticalFlux(0.0)),
+        ),
+        soil_param_set=msp, dtype=dtype, device=device,
+    )
+
+    def ic(z, m):
+        theta = ((0.3 + 0.4 * tensor(rng.random(ncol))) * nu).expand(nz, n)
+        ti = torch.zeros((nz, n), dtype=dtype, device=device)
+        T = torch.full((nz, n), 288.0, dtype=dtype, device=device)
+        rcs = volumetric_heat_capacity(theta, ti, 1.2e6, ps)
+        return {"vartheta_l": theta, "theta_i": ti, "rho_e_int": volumetric_internal_energy(ti, rcs, T, ps)}
+
+    Y, Ya = initialize_states(model, ic, 0.0)
+    return model, Y, Ya, kinds_top
+
+
+def column_slice(model, Y, idx):
+    """The sub-model and state of the columns ``idx`` of a flat column
+    batch: every per-column tensor leaf of the model (parameters, BC values
+    and kinds) and a variable depth sliced the same way."""
+    from landhydrology_tpu_torch.domains import VariableDepthColumn
+
+    ncol = model.domain.batch_shape[0]
+    cpu_idx = idx.cpu()
+
+    def cut(obj):
+        if torch.is_tensor(obj):
+            return obj[idx.to(obj.device)] if obj.dim() == 1 and obj.shape[0] == ncol else obj
+        if isinstance(obj, VariableDepthColumn):
+            zb = np.broadcast_to(obj.z_bottom, obj.batch_shape)[cpu_idx.numpy()]
+            zt = np.broadcast_to(obj.z_top, obj.batch_shape)[cpu_idx.numpy()]
+            return dataclasses.replace(obj, z_bottom=zb, z_top=zt, batch_shape=(len(idx),))
+        if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+            if hasattr(obj, "batch_shape"):
+                return dataclasses.replace(obj, batch_shape=(len(idx),))
+            return dataclasses.replace(obj, **{f.name: cut(getattr(obj, f.name)) for f in dataclasses.fields(obj)
+                                               if f.init})
+        return obj
+
+    sub = {g: {k: v[..., idx].contiguous() for k, v in f.items()} for g, f in Y.items()}
+    return cut(model), sub
+
+
+#: the modes of the 1,000-column variants, with what each draws per column
+GRID_VARIANTS = ("B1", "B2", "B3-rate", "B1-water", "B4-be-richards", "B4-be-richards-water", "B4-trbdf2",
+                 "B4-trbdf2-water", "B5", "B6", "cross-energy", "cross-water")
+
+
+def build_grid_variant(ncol, dtype, device, seed, case):
+    """A heterogeneous column (the JAX fused tests' soil, nz=16) with the
+    per-column features its mode takes (``ck.KINDS_MODES``,
+    ``ck.GEOMETRY_MODES``): BC kinds drawn per column at both faces
+    (hydrology FLUX or DIRICHLET on top, any of the three below; energy
+    FLUX or DIRICHLET, a callable per-column Dirichlet temperature on top),
+    and depths from U(0.8, 3.0) m.  ``case`` is a mode of
+    ``GRID_VARIANTS``: the coupled SSPRK33 modes, ``B1-water`` (a time- and
+    depth-dependent T profile), the implicit modes (returned with their
+    stepper), ``B5`` / ``B6`` (a MOST top over a batched bottom), or a
+    cross-component case (B1, with temperature-dependent viscosity):
+    ``cross-energy``, a plain energy Dirichlet top over hydrology kinds with
+    DIRICHLET columns, and ``cross-water``, energy kinds with DIRICHLET
+    columns under a plain hydrology Dirichlet.
+    Returns ``(model, Y, stepper, dt, steps)``."""
+    from landhydrology_tpu_torch import (
+        BatchedBC, BCKind, Dirichlet, NoBC, PrescribedAtmosForcing, PrescribedTemperatureModel, SoilColumnBC,
+        SoilComponentBC, VariableDepthColumn, VerticalFlux,
+    )
+    from landhydrology_tpu_torch.models.land import LandModel, PulsePrecipitation, SurfaceWaterModel
+    from landhydrology_tpu_torch.models.soil import TemperatureDependentViscosity
+    from landhydrology_tpu_torch.models.soil.freeze_thaw import FreezeThaw
+    from landhydrology_tpu_torch.ops.cuda import column_kernel as ck
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    nz = 16
+    base, Y = build_kernel_test_model(VerticalFlux(0.0), VerticalFlux(0.0), nz, ncol, dtype, device, seed=seed,
+                                      heterogeneous=True)
+    rng = np.random.default_rng(seed + 1)
+    tensor = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
+    kinds = lambda n: torch.as_tensor(rng.integers(0, n, ncol), dtype=torch.int32, device=device)  # noqa: E731
+    mode = {"cross-energy": "B1", "cross-water": "B1"}.get(case, case)
+    use_kinds, use_depths = mode in ck.KINDS_MODES, mode in ck.GEOMETRY_MODES
+    k_top, k_bot, e_top, e_bot = kinds(2), kinds(3), kinds(2), kinds(2)
+    T_top = tensor(rng.uniform(281.0, 293.0, ncol))
+    hyd_top = BatchedBC(kind=k_top, value=torch.where(k_top == BCKind.DIRICHLET, tensor(rng.uniform(0.38, 0.44, ncol)),
+                                                      tensor(-rng.uniform(1e-7, 1e-5, ncol))))
+    hyd_bot = BatchedBC(kind=k_bot, value=torch.where(k_bot == BCKind.DIRICHLET, tensor(rng.uniform(0.3, 0.4, ncol)),
+                                                      tensor(rng.uniform(-1e-6, 1e-6, ncol))))
+    en_top = BatchedBC(kind=e_top, value=lambda t: T_top + 1e-3 * t)
+    en_bot = BatchedBC(kind=e_bot, value=torch.where(e_bot == BCKind.DIRICHLET, tensor(rng.uniform(283.0, 290.0, ncol)),
+                                                     tensor(rng.uniform(-3.0, 3.0, ncol))))
+    if not use_kinds:
+        hyd_top, hyd_bot = Dirichlet(lambda t: 0.42 + 0.0 * t), VerticalFlux(0.0)
+        en_top, en_bot = Dirichlet(290.0), VerticalFlux(0.0)
+    if case == "cross-energy":
+        en_top = Dirichlet(lambda t: 292.0 + 1e-3 * t)
+    elif case == "cross-water":
+        hyd_top = Dirichlet(0.43)
+    bottom = SoilComponentBC(hydrology=hyd_bot, energy=en_bot)
+    model = dataclasses.replace(base, boundary_conditions=SoilColumnBC(
+        top=SoilComponentBC(hydrology=hyd_top, energy=en_top), bottom=bottom))
+    if case.startswith("cross"):  # the face temperature enters K through the viscosity
+        model = dataclasses.replace(model, hydrology_model=dataclasses.replace(
+            model.hydrology_model, viscosity_factor=TemperatureDependentViscosity()))
+    if use_depths:
+        model = dataclasses.replace(model, domain=VariableDepthColumn(
+            z_bottom=-rng.uniform(0.8, 3.0, ncol), nelements=nz, batch_shape=(ncol,)))
+    stepper, dt, steps = SSPRK33(), 0.25, 8
+    if mode == "B2":
+        model = dataclasses.replace(model, coefficient_update="step")
+    elif mode == "B3-rate":
+        model = dataclasses.replace(model, freeze_thaw=FreezeThaw(tau=60.0), boundary_conditions=SoilColumnBC(
+            top=SoilComponentBC(hydrology=hyd_top, energy=BatchedBC(kind=e_top, value=lambda t: T_top - 20.0)),
+            bottom=bottom))
+        dt = 2.0
+    elif mode.endswith("-water"):
+        model = dataclasses.replace(
+            model, energy_model=PrescribedTemperatureModel(T_profile=lambda z, t: 285.0 + 3.0 * z + 1e-3 * t),
+            boundary_conditions=SoilColumnBC(top=SoilComponentBC(hydrology=hyd_top, energy=NoBC()),
+                                             bottom=SoilComponentBC(hydrology=hyd_bot, energy=NoBC())))
+        Y = {"soil": {k: Y["soil"][k] for k in ("vartheta_l", "theta_i")}}
+    if mode.startswith("B4"):
+        stepper = implicit("BackwardEulerRichards" if "be-richards" in mode else "TRBDF2Soil", model, 2)
+        dt, steps = 60.0, 4
+    if mode in ("B5", "B6"):
+        v, ti = Y["soil"]["vartheta_l"][-1], Y["soil"]["theta_i"][-1]
+        ps = model.earth_param_set
+        T_surface = ps.T_0 + Y["soil"]["rho_e_int"][-1] / (
+            model.soil_param_set.rho_c_ds + torch.minimum(v, model.soil_param_set.nu - ti) * ps.rho_cp_l)
+        atmos = PrescribedAtmosForcing(
+            u_atm=tensor(rng.uniform(0.3, 5.0, ncol)), theta_atm=T_surface + tensor(rng.uniform(-8.0, 8.0, ncol)),
+            z_atm=2.0, theta_scale=lambda t: 290.0 + 1e-3 * t, rho_a_sfc=1.2,
+            q_atm=tensor(rng.uniform(0.002, 0.012, ncol)))
+        model = dataclasses.replace(model, boundary_conditions=SoilColumnBC(top=atmos, bottom=bottom))
+        dt = 2.0
+        if mode == "B6":
+            model = LandModel(soil=model, surface=SurfaceWaterModel(
+                precipitation=PulsePrecipitation(rate=5e-6, t_start=0.0, t_stop=12.0), tau_pond=120.0))
+            Y = dict(Y, surface={"h_s": tensor(rng.uniform(0.0, 2e-4, ncol))})
+    return model, Y, stepper, dt, steps
+
+
+def per_column_values(run, nz, ncol, dtype):
+    """Values the run reads once per launch beyond the state: a per-column
+    grid (the centers and the spacing, B8) and per-column kinds (int32,
+    counted in values of ``dtype``)."""
+    values = nz * ncol + ncol if run.variable else 0
+    if run.batched:
+        slots = sum(1 for k in run._kinds(ncol, torch.device("cpu")) if k is not None and k[1])
+        values += slots * ncol * 4 // (torch.finfo(dtype).bits // 8)
+    return values
+
+
+def build_water_test(depths, bottom, nz, device, dtype=torch.float64):
+    """The water-only column of the JAX package's heterogeneity and
+    variable-depth tests (``tests/soil/test_batched_heterogeneous.py:36``,
+    ``tests/test_variable_depth.py:45``): vanGenuchten(3.0, 2.7, 1e-5,
+    0.075), nu 0.3, a Dirichlet top at 0.24 (a callable), ``bottom`` below,
+    moisture 0.12; 1.5 m deep, or ``depths`` per column."""
+    from landhydrology_tpu_torch import (
+        Column, Dirichlet, PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC, SoilHydrologyModel,
+        SoilModel, SoilParams, VariableDepthColumn,
+    )
+    from landhydrology_tpu_torch.models.soil import vanGenuchten
+
+    ncol = len(depths)
+    domain = VariableDepthColumn(z_bottom=-np.asarray(depths), nelements=nz, batch_shape=(ncol,))
+    if len(set(depths)) == 1:
+        domain = Column(zlim=(-depths[0], 0.0), nelements=nz, batch_shape=(ncol,))
+    model = SoilModel(
+        domain=domain, energy_model=PrescribedTemperatureModel(),
+        hydrology_model=SoilHydrologyModel(hydraulic_model=vanGenuchten(n=3.0, alpha=2.7, Ksat=1e-5, theta_r=0.075)),
+        boundary_conditions=SoilColumnBC(top=SoilComponentBC(hydrology=Dirichlet(lambda t: 0.24)),
+                                         bottom=SoilComponentBC(hydrology=bottom)),
+        soil_param_set=SoilParams(nu=0.3, S_s=1e-3), dtype=dtype, device=device,
+    )
+    Y = {"soil": {"vartheta_l": torch.full((nz, ncol), 0.12, dtype=dtype, device=device),
+                  "theta_i": torch.zeros((nz, ncol), dtype=dtype, device=device)}}
+    return model, Y
+
+
+def grid_small(ck, device):
+    """Phase 12's checks at the JAX tests' sizes in f64 and the 1,000-column
+    variants of every mode that takes per-column kinds or geometry."""
+    from landhydrology_tpu_torch import BatchedBC, Column, FreeDrainage
+    from landhydrology_tpu_torch.domains import make_function_space
+
+    f64 = torch.float64
+
+    def check(model, Y, dt, n, what, stepper=None, geometry=None):
+        kern, plain, shares = check_variant(ck, model, _clone(Y), dt, n, 0.0, f"12 grid {what}", ("vartheta_l",),
+                                            stepper=stepper, geometry=geometry)
+        name = ck.make_fused_column_run(model, stepper or SSPRK33(), dt=dt, streamed_geometry=geometry).name
+        return kern, f"kernel vs plain max abs {_max_abs(kern, plain):.3e}; change error / largest change " \
+                     f"{_fmt(shares)}", name
+
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    bottom = BatchedBC(kind=torch.tensor([0, 1, 2], dtype=torch.int32, device=device),
+                       value=torch.tensor([-1e-7, 0.15, 0.0], dtype=f64, device=device))
+    model, Y = build_water_test([1.5] * 3, bottom, 30, device)
+    _, line, name = check(model, Y, 0.25, 120, "batched")
+    print(f"[12 grid] f64 {name} test_batched_heterogeneous.py:59 (bottom kinds FLUX, DIRICHLET, FREE_DRAINAGE; "
+          f"120 steps of dt=0.25 in one launch): {line}", flush=True)
+    depths = list(np.random.default_rng(1).uniform(0.8, 3.0, 8))
+    model, Y = build_water_test(depths, FreeDrainage(), 24, device)
+    kern, line, name = check(model, Y, 0.25, 6, "depth")
+    print(f"[12 grid] f64 {name} test_variable_depth.py:237 (8 columns of U(0.8, 3.0) m, 6 steps of dt=0.25): "
+          f"{line}", flush=True)
+    grid = make_function_space(model.domain, f64, device)
+    flat = dataclasses.replace(model, domain=Column(zlim=(-1.0, 0.0), nelements=24, batch_shape=(8,)))
+    for m in (flat, model):
+        streamed, _, _ = check(m, Y, 0.25, 6, "streamed", geometry=(grid.dz, grid.zc))
+        if not all(np.array_equal(streamed[k], kern[k]) for k in kern):
+            raise AssertionError("streamed_geometry of the model's own grid differs from the model-grid run")
+    print("[12 grid] f64 B1-water+B8 streamed_geometry=(dz, zc) of the model's own grid, on the variable-depth "
+          "model and on a uniform-column model: equal bit for bit to the model-grid run", flush=True)
+    model, Y = build_water_test([0.8, 1.5, 3.0], FreeDrainage(), 24, device)
+    _, line, name = check(model, Y, 15.0, 40, "implicit", stepper=implicit("BackwardEulerRichards", model, 3))
+    print(f"[12 grid] f64 {name} test_variable_depth.py:272 (BackwardEulerRichards(iters=3), 40 steps of dt=15 on "
+          f"depths 0.8, 1.5, 3.0 m): {line}", flush=True)
+    for dtype in (f64, torch.float32):
+        for case in GRID_VARIANTS:
+            model, Y, stepper, dt, n = build_grid_variant(1000, dtype, device, 7, case)
+            moving = ("vartheta_l", "rho_e_int") if "rho_e_int" in Y["soil"] else ("vartheta_l",)
+            kern, plain, shares = check_variant(ck, model, Y, dt, n, 2.0, f"12 grid variant {dtype} {case}", moving,
+                                                stepper=stepper)
+            run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=n)
+            nbytes = sum(p.numel() * p.element_size() for p in run.tables(1000, torch.device(device), 2.0)[1]
+                         if p is not None)
+            tables = f", profile tables {nbytes} B per launch" if nbytes else ""
+            print(f"[12 grid] {str(dtype)[6:]} {run.name} ({case}) ncol=1000, {n} steps of dt={dt:g}{tables}: kernel "
+                  f"vs plain max abs {_max_abs(kern, plain):.3e}; change error / largest change {_fmt(shares)} (bar "
+                  f"{INCREMENT_RTOL[dtype]:g})", flush=True)
+
+
+def grid_mass(model, Y):
+    """Total water (liquid + ice as liquid) over the batch, each column's
+    cells times its own spacing, in float64."""
+    from landhydrology_tpu_torch.constants import default_earth_param_set as ps
+    from landhydrology_tpu_torch.domains import make_function_space
+
+    dz = make_function_space(model.domain, torch.float64, "cpu").dz
+    soil = {k: v.double().cpu() for k, v in Y["soil"].items()}
+    per_column = (soil["vartheta_l"] + (ps.rho_cloud_ice / ps.rho_cloud_liq) * soil["theta_i"]).sum(0)
+    return float((per_column * torch.as_tensor(dz)).sum())
+
+
+def _sound_columns(state):
+    """Columns (of ``(nz, ncol)`` arrays) whose every value is finite, with
+    vartheta_l within [0, 1]: a column past its explicit limit leaves that
+    range on its way to the non-finite numbers, and two correct
+    implementations can reach them a few steps apart
+    (``tests/test_torch_regional_divergence.py``)."""
+    with np.errstate(invalid="ignore"):
+        sound = np.all([np.isfinite(v).all(0) for v in state.values()], axis=0)
+        return sound & (state["vartheta_l"] >= 0).all(0) & (state["vartheta_l"] <= 1).all(0)
+
+
+def check_diverged(kern, plain, start, dtype, what, moving):
+    """The kernel and the plain version must leave the range
+    (``_sound_columns``) in the same columns (an explicit step past a
+    column's stability limit diverges in both); on the other columns
+    ``_check`` and ``_check_increment``.  Returns ``(shares, max abs error,
+    diverged columns)``."""
+    fk, fp = _sound_columns(kern), _sound_columns(plain)
+    if not np.array_equal(fk, fp):
+        raise AssertionError(f"{what}: the kernel diverges in columns {np.flatnonzero(~fk)[:8]}, the plain version "
+                             f"in {np.flatnonzero(~fp)[:8]}")
+    kern, plain, start = ({k: v[:, fk] for k, v in x.items()} for x in (kern, plain, start))
+    _check(kern, plain, dtype, what)
+    return _check_increment(kern, plain, start, dtype, what, moving), _max_abs(kern, plain), int((~fk).sum())
+
+
+def _equal_nan(a, b):
+    """Bit for bit, a NaN where the other has one."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def regional_path(ck, costs, smi, dtype, device, variable_depth):
+    """Phase 12 (c) and (d): ``regional_grid.py``'s hour at nz=48 x 131,072
+    (``build_regional``, or its variable-depth twin): the first launch at
+    full width against the plain version; the script's loop of
+    ``make_fused_column_run`` calls and ``Simulation(engine="fused")``, each
+    with the launch counts set to 0 just before and read just after, equal
+    bit for bit; every 64th column and every column the kernel takes out of
+    the range (``_sound_columns``) over the hour against the plain version
+    on those columns (``check_diverged``: dt=5 s is past the explicit limit
+    of a few columns that saturate or pond over thin cells, and they blow up
+    in the JAX package too: ``tests/test_torch_regional_divergence.py``);
+    the script's summary, on the other columns.  Returns the path to
+    time."""
+    from landhydrology_tpu_torch import Simulation
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    nz, ncol, dt, spc, n = GRID_NZ, GRID_NCOL, GRID_DT, GRID_SPC, GRID_STEPS
+    tag = str(dtype)[6:]
+    moving = ("vartheta_l", "rho_e_int")
+    model, Y0, Ya, kinds_top = build_regional(nz, ncol, dtype, device, variable_depth)
+    run = ck.make_fused_column_run(model, SSPRK33(), dt=dt, steps_per_call=spc)
+    name = run.name
+    what = f"12 grid regional {tag} {name}"
+    clock = time.perf_counter()
+    plain = _np(ck.fused_column_run_plain(model, SSPRK33(), dt, spc, Y0, 0.0))
+    plain_first_s = time.perf_counter() - clock
+    Yk = _clone(Y0)
+    torch.cuda.synchronize()
+    ck.LAUNCHES.clear()
+    run(Yk, 0.0)
+    torch.cuda.synchronize()
+    if dict(ck.LAUNCHES) != {name: 1}:
+        raise AssertionError(f"{what}: launches {dict(ck.LAUNCHES)}, expected one of {name}")
+    shares1, err1, div1 = check_diverged(_np(Yk), plain, _np(Y0), dtype, f"{what} first launch", moving)
+    del plain, Yk
+
+    def advance(model, Y, launch):
+        t = torch.as_tensor(0.0, dtype=dtype)
+        for _ in range(n // spc):
+            Y = launch(model, Y, t)
+            t = t + spc * torch.as_tensor(dt, dtype=dtype)
+        return Y
+
+    Y = _clone(Y0)
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    ck.LAUNCHES.clear()
+    wall = time.perf_counter()
+    e0.record()
+    advance(model, Y, lambda m, Y, t: run(Y, t))  # the script's loop
+    e1.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - wall) * 1e3
+    kernel_ms = e0.elapsed_time(e1) / (n // spc)
+    loop_launches = dict(ck.LAUNCHES)
+    sim = Simulation(model, SSPRK33(), Y_init=Y0, Ya_init=Ya, dt=dt, tspan=(0.0, n * dt), engine="fused",
+                     steps_per_call=spc)
+    torch.cuda.synchronize()
+    ck.LAUNCHES.clear()
+    sim_wall = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    sim_wall = (time.perf_counter() - sim_wall) * 1e3
+    sim_launches = dict(ck.LAUNCHES)
+    for launches in (loop_launches, sim_launches):
+        if launches != {name: n // spc}:
+            raise AssertionError(f"{what}: launches {launches}, expected {n // spc} of {name}")
+    if not all(_equal_nan(sim.Y["soil"][k], Y["soil"][k]) for k in Y["soil"]):
+        raise AssertionError(f"{what}: Simulation(engine='fused') differs from the script's loop")
+    del sim
+
+    # the plain version over the hour on every 64th column and on every
+    # column the kernel takes out of the range, in one batch
+    end = _np(Y)
+    sound = _sound_columns(end)
+    diverged = np.flatnonzero(~sound)
+    if diverged.size > 4096:
+        raise AssertionError(f"{what}: {diverged.size} columns diverge")
+    cols = np.union1d(np.arange(0, ncol, GRID_STRIDE), diverged)
+    sub, Ys = column_slice(model, Y0, torch.as_tensor(cols, device=device))
+    clock = time.perf_counter()
+    plain = _np(advance(sub, Ys, lambda m, Y, t: ck.fused_column_run_plain(m, SSPRK33(), dt, spc, Y, t)))
+    plain_hour_s = time.perf_counter() - clock
+    shares, err, _ = check_diverged({k: v[:, cols] for k, v in end.items()}, plain, _np(Ys), dtype,
+                                    f"{what} columns", moving)
+
+    v = end["vartheta_l"][:, sound]
+    nu = np.broadcast_to(model.soil_param_set.nu.double().cpu().numpy(), (ncol,))[sound]
+    kinds = kinds_top.cpu().numpy()[sound]
+    within = bool((v >= 0).all() and (v <= nu).all())
+    wetter = bool(v[-1][kinds == 1].mean() > v[-1][kinds == 0].mean())
+    if not (within and wetter):
+        raise AssertionError(f"{what}: on the other columns vartheta_l within [0, nu] {within}, "
+                             f"dirichlet_cols_wetter {wetter}")
+    keep = torch.as_tensor(np.flatnonzero(sound), device=device)
+    m0, mf = (grid_mass(*column_slice(model, x, keep)) for x in (Y0, Y))
+    b_ms, b_by = bound_ms(ck, costs, run.mode, dtype, nz * ncol, spc,
+                          read_values=per_column_values(run, nz, ncol, dtype))
+    points = nz * ncol * n
+    summary = {"ncol": ncol, "nz": nz, "steps": n, "finite": bool(np.isfinite(end["vartheta_l"]).all()),
+               "theta_min": float(v.min()), "theta_max": float(v.max()),
+               "water_mass_change_frac": (mf - m0) / m0, "dirichlet_cols_wetter": wetter}
+    print(f"[12 grid] {tag} {name} regional_grid.py{' (variable-depth twin)' if variable_depth else ''} nz={nz} x "
+          f"{ncol}, {n} steps of dt={dt:g} ({n // spc} launches of {spc}): first launch vs plain max abs {err1:.3e}, "
+          f"change error / largest change {_fmt(shares1)} ({div1} columns diverged in both); every {GRID_STRIDE}th "
+          f"column and the diverged ones over the hour vs plain max abs {err:.3e}, change error / largest change "
+          f"{_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g}); {diverged.size} of {ncol} columns leave the range over "
+          f"the hour, in the plain version too (dt past their explicit limit): {diverged.tolist()[:100]}, summary "
+          f"on the {int(sound.sum())} others; plain version {plain_first_s:.1f} s for the first launch, "
+          f"{plain_hour_s:.1f} s for the hour on {cols.size} columns; "
+          f"Simulation(engine='fused') equal bit for bit to the script's loop; launches loop {loop_launches}, "
+          f"Simulation {sim_launches}; end to end: loop {wall:.3f} ms = {points / (wall / 1e3):.4e} grid-points/s, "
+          f"Simulation {sim_wall:.3f} ms = {points / (sim_wall / 1e3):.4e} grid-points/s; kernel {kernel_ms:.3f} ms "
+          f"per launch (CUDA events over the loop), bound {b_ms:.3f} ms by {b_by}; summary {json.dumps(summary)} on "
+          f"{smi}", flush=True)
+    return (model, Y0, dt, spc, loop_launches[name], max(err1, err), SSPRK33())
+
+
+def lateral_eager(device):
+    """Phase 12 (e): ``tests/parallel/test_sharding.py``'s lateral case on
+    the eager engine on the card: an 8 x 8 batch of coupled 12-cell columns
+    with ``LateralSurfaceCoupling(5e-4, 1.0)``, 200 steps of dt=10; the
+    total water is conserved to 1e-12 and the surface bump flattens."""
+    from landhydrology_tpu_torch import (
+        Column, LateralSurfaceCoupling, Simulation, SoilColumnBC, SoilComponentBC, SoilEnergyModel,
+        SoilHydrologyModel, SoilModel, SoilParams, VerticalFlux, initialize_states,
+    )
+    from landhydrology_tpu_torch.constants import default_earth_param_set as ps
+    from landhydrology_tpu_torch.models.soil import vanGenuchten
+    from landhydrology_tpu_torch.models.soil.heat import volumetric_heat_capacity, volumetric_internal_energy
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    nz, nx, ny, f64 = 12, 8, 8, torch.float64
+    zero = SoilComponentBC(hydrology=VerticalFlux(0.0), energy=VerticalFlux(0.0))
+    model = SoilModel(
+        domain=Column(zlim=(-1.0, 0.0), nelements=nz, batch_shape=(nx, ny)), energy_model=SoilEnergyModel(),
+        hydrology_model=SoilHydrologyModel(hydraulic_model=vanGenuchten(n=2.0, alpha=2.6, Ksat=1e-5, theta_r=0.0)),
+        boundary_conditions=SoilColumnBC(top=zero, bottom=zero),
+        soil_param_set=SoilParams(nu=0.4, S_s=1e-3, rho_c_ds=1.3e6),
+        lateral_coupling=LateralSurfaceCoupling(conductance=5e-4, dx=1.0), device=device,
+    )
+    x = np.arange(nx)[None, :, None]
+    y = np.arange(ny)[None, None, :]
+    bump = torch.as_tensor(0.05 * np.sin(2 * np.pi * x / nx) * np.cos(2 * np.pi * y / ny), device=device)
+
+    def ic(z, m):
+        theta = (0.2 + bump + 0.0 * z).expand(nz, nx, ny)
+        ti = torch.zeros_like(theta)
+        T = 288.0 + 5.0 * z + 0.0 * theta
+        return {"vartheta_l": theta, "theta_i": ti,
+                "rho_e_int": volumetric_internal_energy(ti, volumetric_heat_capacity(theta, ti, 1.3e6, ps), T, ps)}
+
+    Y, Ya = initialize_states(model, ic, 0.0)
+    sim = Simulation(model, SSPRK33(), Y_init=Y, Ya_init=Ya, dt=10.0, tspan=(0.0, 2000.0))
+    sim.run()
+    v0, vf = Y["soil"]["vartheta_l"].to(f64), sim.Y["soil"]["vartheta_l"].to(f64)
+    drift = float(abs(vf.sum() - v0.sum()) / v0.sum())
+    s0, sf = float(v0[-1].std()), float(vf[-1].std())
+    if not (drift < 1e-12 and sf < s0 and bool(torch.isfinite(vf).all())):
+        raise AssertionError(f"lateral coupling: water drift {drift:.3e}, surface std {s0:.4e} -> {sf:.4e}")
+    print(f"[12 grid] f64 eager LateralSurfaceCoupling(5e-4, 1.0) on the card (test_sharding.py's 8 x 8 batch, 200 "
+          f"steps of dt=10): total water drift {drift:.3e} (bar 1e-12), surface std {s0:.4e} -> {sf:.4e}", flush=True)
+
+
+def grid_phase(ck, costs, smi, device, t_start):
+    """Phase 12: ``grid_small``, the regional grid and its variable-depth
+    twin at width in f32 and f64 (``regional_path``) and the lateral case
+    (``lateral_eager``).  Returns the paths to time."""
+    grid_small(ck, device)
+    _mark(t_start, "phase 12's small checks")
+    paths, failures = [], []
+    for dtype in (torch.float32, torch.float64):
+        for variable_depth in (False, True):
+            try:  # every path runs, so one run shows each path's failure
+                paths.append(regional_path(ck, costs, smi, dtype, device, variable_depth))
+            except AssertionError as e:
+                print(f"[12 grid] FAILED: {e}", flush=True)
+                failures.append(str(e))
+            torch.cuda.empty_cache()
+    _mark(t_start, "phase 12's regional paths")
+    lateral_eager(device)
+    if failures:
+        raise AssertionError("phase 12 regional paths failed: " + " | ".join(failures))
+    return paths
+
+
 def _fmt_ms(values):
     return "/".join(f"{v:.3f}" for v in values) + " ms"
 
@@ -1928,6 +2554,9 @@ def main() -> int:
                         help="add phase 7: repeated timings, tile sweep, clock, profiler")
     parser.add_argument("--forced-only", action="store_true",
                         help="run phases 1, 2 and 11 only (the forced path, kernel mode B7)")
+    parser.add_argument("--grid-only", action="store_true",
+                        help="run phases 1, 2 and 12 only (the regional grid, kernel modes B1-batched and B8), "
+                             "with phase 6's times of its paths")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -1965,6 +2594,8 @@ def main() -> int:
     gc = _load_golden_config()
     if args.forced_only:
         return finish(forced_phase(ck, gc, device, smi, costs), smi, t_start)
+    if args.grid_only:
+        return finish(time_paths(ck, costs, smi, grid_phase(ck, costs, smi, device, t_start)), smi, t_start)
 
     # ---- 3: goldens in f64 through the kernels, and variants ----
     data = os.path.join(HERE, "tests", "data")
@@ -2033,7 +2664,7 @@ def main() -> int:
             model = dataclasses.replace(model, **kw)
             kern, plain, shares = check_variant(ck, model, Y, 5.0, 8, 2.0, f"variant {dtype} {kw}",
                                                 ("vartheta_l", "rho_e_int"))
-            print(f"[3 variant] {str(dtype)[6:]} {ck.mode_name(ck.kernel_mode(model))} ncol=1000 "
+            print(f"[3 variant] {str(dtype)[6:]} {ck.make_fused_column_run(model).name} ncol=1000 "
                   f"Dirichlet/flux/callable BCs, per-column params, viscosity+impedance, ice: kernel vs "
                   f"plain max abs {_max_abs(kern, plain):.3e}; change error / largest change "
                   f"{_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g})", flush=True)
@@ -2057,12 +2688,14 @@ def main() -> int:
              "callable Dirichlet top, per-column flux, profiles", ("rho_e_int",)),
         )
         for model, Y0, stepper, dt, n, what, moving in cases:
-            name = ck.mode_name(ck.kernel_mode(model, stepper))
+            name = ck.make_fused_column_run(model, stepper).name
             kern, plain, shares = check_variant(ck, model, _clone(Y0), dt, n, 2.0,
                                                 f"variant {dtype} {name}", moving, stepper=stepper)
             print(f"[3 variant] {str(dtype)[6:]} {name} ncol=1000 {what}: kernel vs plain max abs "
                   f"{_max_abs(kern, plain):.3e}; change error / largest change {_fmt(shares)} "
                   f"(bar {INCREMENT_RTOL[dtype]:g})", flush=True)
+
+    _mark(t_start, "phase 3")
 
     # ---- 4 and 5: the main paths at full width ----
     paths = []  # (model, start state, dt, steps per launch, launches, error, stepper)
@@ -2087,7 +2720,7 @@ def main() -> int:
                     raise AssertionError(f"lagged run deviates from the stage run by {dev}")
                 if dtype == torch.float64 and not share > 5 * INCREMENT_RTOL[dtype]:
                     raise AssertionError(f"lagged run is the stage run to {share:.3e} of the change")
-                print(f"[4 main] {str(dtype)[6:]} {ck.mode_name(ck.kernel_mode(model))} max_dev_lagged "
+                print(f"[4 main] {str(dtype)[6:]} {ck.make_fused_column_run(model).name} max_dev_lagged "
                       f"(max |vartheta_l| deviation from the stage run) {dev:.3e} (bench.py bar 1e-2), "
                       f"{share:.3e} of the largest change", flush=True)
             paths.append((model, Y0, DT, SPC, launches, err, SSPRK33()))
@@ -2098,10 +2731,12 @@ def main() -> int:
             ice = float(np.max(kern["theta_i"]))
             if not ice > 1e-4:
                 raise AssertionError(f"freeze at width: no ice formed (max theta_i {ice})")
-            print(f"[5 freeze] {str(dtype)[6:]} {ck.mode_name(ck.kernel_mode(model))} max theta_i "
+            print(f"[5 freeze] {str(dtype)[6:]} {ck.make_fused_column_run(model).name} max theta_i "
                   f"{ice:.4e} (> 1e-4: ice formed)", flush=True)
             paths.append((model, Y0, dt, FREEZE_STEPS // 2, launches, err, SSPRK33()))
         torch.cuda.empty_cache()
+
+    _mark(t_start, "phases 4 and 5")
 
     # ---- 8: the stiff path at full width (bench.py's implicit path) ----
     points = NZ * NCOL
@@ -2145,6 +2780,8 @@ def main() -> int:
               f"{kernel:.3f} ms of kernel time", flush=True)
         torch.cuda.empty_cache()
 
+    _mark(t_start, "phase 8")
+
     # ---- 9: the other new modes at full width ----
     for dtype in (torch.float32, torch.float64):
         model, Y0, Ya = build_heat_only(NZ, NCOL, dtype, device, seed=5)
@@ -2165,25 +2802,54 @@ def main() -> int:
         paths.append((model, Y0, dt_imp, STIFF_STEPS, launches, err, st))
         torch.cuda.empty_cache()
 
+    _mark(t_start, "phase 9")
+
     # ---- 10: the land path (bench.py's `land` path), kernel modes B5 and B6 ----
     paths += land_phase(ck, gc, device, smi)
+    _mark(t_start, "phase 10")
 
     # ---- 11: the forced-reanalysis path, kernel mode B7 ----
     forced_entries = forced_phase(ck, gc, device, smi, costs)
+    _mark(t_start, "phase 11")
+
+    # ---- 12: the regional grid, kernel modes B1-batched and B8 ----
+    paths += grid_phase(ck, costs, smi, device, t_start)
+    _mark(t_start, "phase 12")
 
     # ---- 6: times at the main-path shapes, in turns ----
+    entries = time_paths(ck, costs, smi, paths)
+    _mark(t_start, "phase 6")
+    del paths
+    entries += forced_entries
+    torch.cuda.empty_cache()
+
+    if args.profile:
+        for coefficient_update in ("stage", "step"):
+            for dtype in (torch.float32, torch.float64):
+                profile_main_path(dtype, device, smi, coefficient_update)
+                torch.cuda.empty_cache()
+    return finish(entries, smi, t_start)
+
+
+def time_paths(ck, costs, smi, paths):
+    """Phase 6: each path's kernel and plain version timed at its shape, in
+    turns, beside its bound; returns the kernel records."""
+    from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw
+
     entries = []
     for model, Y0, dt, spc, launches, err, stepper in paths:
         dtype = model.float_dtype
         mode = ck.kernel_mode(model, stepper)
-        name = ck.mode_name(mode)
+        run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=spc)
+        name = run.name
         iters = getattr(stepper, "iters", 2)
         (k1, k2), (p1, p2), probes = time_mode(ck, model, Y0, dt, spc, stepper)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
         nz, ncol = next(iter(Y0["soil"].values())).shape
         freeze = getattr(model, "soil", model).freeze_thaw
         n_iter = freeze.n_iter if isinstance(freeze, EquilibriumFreezeThaw) else 60
-        b_ms, b_by = bound_ms(ck, costs, mode, dtype, nz * ncol, spc, n_iter, iters, ncol, probes)
+        b_ms, b_by = bound_ms(ck, costs, mode, dtype, nz * ncol, spc, n_iter, iters, ncol, probes,
+                              read_values=per_column_values(run, nz, ncol, dtype))
         cell_steps = nz * ncol * spc
         traffic = ""
         if probes is not None:
@@ -2212,16 +2878,7 @@ def main() -> int:
             "bound_by": b_by,
             "library_ms": None,  # no single PyTorch call computes these steps
         })
-    del paths
-    entries += forced_entries
-    torch.cuda.empty_cache()
-
-    if args.profile:
-        for coefficient_update in ("stage", "step"):
-            for dtype in (torch.float32, torch.float64):
-                profile_main_path(dtype, device, smi, coefficient_update)
-                torch.cuda.empty_cache()
-    return finish(entries, smi, t_start)
+    return entries
 
 
 def finish(entries, smi, t_start) -> int:

@@ -16,17 +16,29 @@ Forced runs (``runtime/``): per-column atmosphere and rain rows written with
 read per step inside the land kernel); ``convert.forcing_from_numpy``
 carries forcing tables over as ``convert.state_from_numpy`` carries states.
 
+Heterogeneous grids: per-column BC kinds (``BatchedBC``, ``BCKind``) and
+depths (``VariableDepthColumn``) run on both engines (kernel modes
+B1-batched and B8); ``LateralSurfaceCoupling`` on an ``(nx, ny)`` batch on
+the eager engine.
+
 The public API mirrors ``landhydrology_tpu``'s, minus what is not ported yet
 (see ROADMAP.md).  This package imports neither JAX nor landhydrology_tpu.
 """
 
 from landhydrology_tpu_torch.constants import EarthParameterSet, default_earth_param_set
-from landhydrology_tpu_torch.domains import Column, ColumnGrid, make_function_space
+from landhydrology_tpu_torch.domains import (
+    Column,
+    ColumnGrid,
+    VariableDepthColumn,
+    make_function_space,
+)
 from landhydrology_tpu_torch.imex import BackwardEulerRichards, BackwardEulerSoil, TRBDF2Soil
 from landhydrology_tpu_torch.models.soil import (
     BatchedBC,
+    BCKind,
     Dirichlet,
     FreeDrainage,
+    LateralSurfaceCoupling,
     NoBC,
     PrescribedAtmosForcing,
     PrescribedHydrologyModel,
@@ -56,6 +68,7 @@ __all__ = [
     "default_earth_param_set",
     "Column",
     "ColumnGrid",
+    "VariableDepthColumn",
     "make_function_space",
     "SoilParams",
     "SoilModel",
@@ -65,6 +78,8 @@ __all__ = [
     "PrescribedHydrologyModel",
     "NoBC",
     "BatchedBC",
+    "BCKind",
+    "LateralSurfaceCoupling",
     "VerticalFlux",
     "Dirichlet",
     "FreeDrainage",

@@ -5,9 +5,12 @@
 implicit stepper from the JAX package's; ``state_from_numpy`` and
 ``forcing_from_numpy`` carry states and forcing tables.  It reads the reference's frozen
 dataclasses by class name and ``dataclasses.fields``, and each array leaf
-through ``np.asarray``, so it needs no JAX import.  User callables (BC
-values, profiles) are carried over as they are and must accept tensors; the
-reference's own default profiles are replaced by this package's.
+through ``np.asarray``, so it needs no JAX import.  Array leaves become
+tensors of the model's dtype, but for ``BatchedBC.kind``, which stays an
+integer tensor, and a ``VariableDepthColumn``'s depths, which stay float64
+host arrays.  User callables (BC values, profiles) are carried over as they
+are and must accept tensors; the reference's own default profiles are
+replaced by this package's.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import numpy as np
 import torch
 
 from landhydrology_tpu_torch.constants import EarthParameterSet
-from landhydrology_tpu_torch.domains import Column, make_function_space
+from landhydrology_tpu_torch.domains import Column, VariableDepthColumn, make_function_space
 from landhydrology_tpu_torch.imex import IMPLICIT_STEPPERS
 from landhydrology_tpu_torch.models.land import (
     ConstantPrecipitation,
@@ -43,6 +46,7 @@ from landhydrology_tpu_torch.models.soil.boundary import (
     VerticalFlux,
 )
 from landhydrology_tpu_torch.models.soil.model import (
+    LateralSurfaceCoupling,
     PrescribedHydrologyModel,
     PrescribedTemperatureModel,
     SoilEnergyModel,
@@ -60,10 +64,10 @@ from landhydrology_tpu_torch.models.soil.water import (
 _PORTED = {
     cls.__name__: cls
     for cls in (
-        EarthParameterSet, Column, SoilParams, vanGenuchten, NoEffect,
-        TemperatureDependentViscosity, IceImpedance, SoilEnergyModel,
+        EarthParameterSet, Column, VariableDepthColumn, SoilParams,
+        vanGenuchten, NoEffect, TemperatureDependentViscosity, IceImpedance, SoilEnergyModel,
         SoilHydrologyModel, PrescribedTemperatureModel,
-        PrescribedHydrologyModel, SoilModel, NoBC, VerticalFlux, Dirichlet,
+        PrescribedHydrologyModel, SoilModel, LateralSurfaceCoupling, NoBC, VerticalFlux, Dirichlet,
         FreeDrainage, SoilComponentBC, SoilColumnBC, BatchedBC,
         PrescribedAtmosForcing, FreezeThaw, EquilibriumFreezeThaw, LandModel,
         SurfaceWaterModel, ConstantPrecipitation, PulsePrecipitation,
@@ -86,7 +90,11 @@ def _convert(obj, device, dtype):
             if cls is SoilModel and f.name == "dtype":
                 continue
             value = getattr(obj, f.name)
-            if dataclasses.is_dataclass(value):
+            if cls is VariableDepthColumn and f.name in ("z_bottom", "z_top"):
+                kwargs[f.name] = np.array(value, dtype=np.float64)  # never the model dtype
+            elif cls is BatchedBC and f.name == "kind":
+                kwargs[f.name] = _integer_leaf(value, device)
+            elif dataclasses.is_dataclass(value):
                 kwargs[f.name] = _convert(value, device, dtype)
             elif callable(value) and getattr(value, "__module__", "").startswith(
                 _REFERENCE_PACKAGE
@@ -103,6 +111,15 @@ def _convert(obj, device, dtype):
     if arr.ndim == 0:
         return arr.item()
     return torch.as_tensor(arr, dtype=dtype, device=device)
+
+
+def _integer_leaf(value, device):
+    """An integer array leaf (``BatchedBC`` kind codes) as an integer tensor
+    of the same dtype on ``device``, or a Python int."""
+    arr = np.array(value)
+    if not np.issubdtype(arr.dtype, np.integer):
+        raise TypeError(f"BatchedBC.kind must hold integer codes; got dtype {arr.dtype}")
+    return int(arr) if arr.ndim == 0 else torch.as_tensor(arr, device=device)
 
 
 def model_from_reference(ref_model, device="cuda", dtype=torch.float64):

@@ -38,7 +38,12 @@ enum Param {
 enum BCSlot { BC_BOTTOM_ENERGY, BC_BOTTOM_HYDROLOGY, BC_TOP_ENERGY,
               BC_TOP_HYDROLOGY, kNumBC };
 // BC_NONE: the slot of a prescribed component, which has no flux.
-enum BCKind : int64_t { BC_NONE = 0, BC_FLUX = 1, BC_DIRICHLET = 2, BC_FREE_DRAINAGE = 3 };
+// BC_BATCHED: a BatchedBC slot (kernel mode B1-batched), whose columns each
+// name one of the first three kinds in KernelArgs::bc_kind_col.  The host
+// maps the package's BCKind codes (FLUX 0, DIRICHLET 1, FREE_DRAINAGE 2)
+// onto these once, per column (cuda_kind_codes in ops/cuda/column_kernel.py).
+enum BCKind : int64_t { BC_NONE = 0, BC_FLUX = 1, BC_DIRICHLET = 2, BC_FREE_DRAINAGE = 3,
+                        BC_BATCHED = 4 };
 
 // Order fixed by PROFILE_NAMES in ops/cuda/column_kernel.py: the prescribed
 // T (water-only branch), vartheta_l and theta_i (heat-only branch).
@@ -58,13 +63,18 @@ enum Surface {
 // bit, else one of the implicit steppers (implicit_kernel.cu).  MODE_PCR is
 // read at run time and selects no template instance.  Surface (land_kernel.cu):
 // MODE_MOST (a PrescribedAtmosForcing top), MODE_LAND (the LandModel pond),
-// MODE_SURFACE_STEP (its exchange frozen per step).
+// MODE_SURFACE_STEP (its exchange frozen per step).  MODE_COLUMNS: the run
+// reads per-column BC kinds (kernel mode B1-batched) and/or a per-column
+// grid and profile tables (B8) at run time; without it an instance reads
+// one kind per slot, one spacing and (nz,) centers and profile rows, as
+// before those modes existed, in as few registers.
 enum Mode : int64_t {
   MODE_LAGGED = 1, MODE_FREEZE_RATE = 2, MODE_FREEZE_EQ = 4, MODE_NO_ICE = 8,
   MODE_WATER = 16, MODE_HEAT = 32,
   MODE_BE_RICHARDS = 64, MODE_BE_SOIL = 128, MODE_TRBDF2 = 256,
   MODE_PCR = 512,
-  MODE_MOST = 1024, MODE_LAND = 2048, MODE_SURFACE_STEP = 4096
+  MODE_MOST = 1024, MODE_LAND = 2048, MODE_SURFACE_STEP = 4096,
+  MODE_COLUMNS = 8192
 };
 
 // Every field is 8 bytes wide: mirrors _KernelArgs in ops/cuda/column_kernel.py.
@@ -73,7 +83,7 @@ struct KernelArgs {
   void* theta_i;     // (nz, ncol) in/out; null in the heat-only branch
   void* rho_e_int;   // (nz, ncol) in/out; null in the water-only branch
   void* scratch;     // scratch_fields(mode) * nz * ncol values
-  const void* zc;    // (nz,) cell centers
+  const void* zc;    // cell centers: level k of column col at zc_level_stride k + zc_col_stride col
   const void* param_ptr[kNumParams];
   int64_t param_stride[kNumParams];  // 0: one value for all columns
   const void* bc_ptr[kNumBC];        // value tables, row = rows_per_step * step + stage
@@ -81,10 +91,10 @@ struct KernelArgs {
   int64_t bc_row_stride[kNumBC];
   int64_t bc_col_stride[kNumBC];
   int64_t nz, ncol, n_steps, viscosity, impedance, mode, n_iter;
-  double dt, dz;
+  double dt, dz;  // dz: the spacing of every column unless dz_col is set
   double T_0, rho_cloud_ice, LH_f0, rho_cp_l, rho_cp_i, rho_cloud_liq, grav;
   double T_lo, T_hi;  // EquilibriumFreezeThaw bracket
-  const void* profile[kNumProfiles];  // (rows, nz) tables, or null
+  const void* profile[kNumProfiles];  // value tables (strides below), or null
   int64_t rows_per_step;              // table rows per step: one per stage time
   int64_t iters;                      // Newton sweeps per stage (implicit)
   double half_g, a1, a2, b_bdf2;      // TR-BDF2 constants, in double
@@ -106,6 +116,21 @@ struct KernelArgs {
   // the launch's start time and the time grid of FROW_TIME, each a value of
   // the model dtype held in a double
   double t0, t_forcing0, inv_dt_forcing;
+  // per-column BC kinds (kernel mode B1-batched): a BC_BATCHED slot j reads
+  // the kind of column col at bc_kind_col[j][col * bc_kind_col_stride[j]],
+  // int32 codes of enum BCKind
+  const void* bc_kind_col[kNumBC];
+  int64_t bc_kind_col_stride[kNumBC];
+  // per-column geometry (kernel mode B8): the spacing of column col is
+  // dz_col[col * dz_col_stride] where dz_col is set; see zc for the centers
+  const void* dz_col;
+  int64_t dz_col_stride, zc_level_stride, zc_col_stride;
+  // profile j's value at table row r, level k, column col is
+  // profile[j][r * row + k * level + col * col_stride] (row 0 for a profile
+  // that does not depend on time; col_stride 0 for one value per level)
+  int64_t profile_row_stride[kNumProfiles];
+  int64_t profile_level_stride[kNumProfiles];
+  int64_t profile_col_stride[kNumProfiles];
 };
 
 // Values of KernelArgs::frow_mode.
@@ -152,6 +177,7 @@ template <int M> struct Modes {
   static constexpr bool most = (M & MODE_MOST) != 0;
   static constexpr bool land = (M & MODE_LAND) != 0;
   static constexpr bool surface_step = (M & MODE_SURFACE_STEP) != 0;
+  static constexpr bool columns = (M & MODE_COLUMNS) != 0;  // B1-batched, B8
 };
 
 // Per-column constants and Earth constants, in the working type.
@@ -221,13 +247,47 @@ struct Fields {
   T* re;
 };
 
-// The prescribed profiles at one table row, (nz,) each, or null.
-template <typename T>
+// The prescribed profiles of one column at one table row, or null: level k
+// of profile j at p[j][k * level[j]] (level 1 without MODE_COLUMNS).
+template <typename T, int M>
 struct Profiles {
-  const T* temp;
-  const T* vl;
-  const T* ti;
+  const T* p[kNumProfiles];
+  int64_t level[kNumProfiles];
+  __device__ T at(int j, int64_t k) const { return p[j][Modes<M>::columns ? k * level[j] : k]; }
 };
+
+// The grid of one column: its spacing, and level k's center (zc_stride 1
+// without MODE_COLUMNS).
+template <typename T, int M>
+struct Grid {
+  const T* zc;
+  int64_t zc_stride;
+  T dz;
+  __device__ T z(int64_t k) const { return zc[Modes<M>::columns ? k * zc_stride : k]; }
+};
+
+template <typename T, int M>
+__device__ Grid<T, M> load_grid(const KernelArgs& a, int64_t col) {
+  Grid<T, M> g;
+  g.zc = static_cast<const T*>(a.zc);
+  g.zc_stride = 1;
+  g.dz = T(a.dz);
+  if (Modes<M>::columns) {
+    g.zc += col * a.zc_col_stride;
+    g.zc_stride = a.zc_level_stride;
+    if (a.dz_col) g.dz = static_cast<const T*>(a.dz_col)[col * a.dz_col_stride];
+  }
+  return g;
+}
+
+// The kind of BC slot j at column col: the slot's own, or for a BatchedBC
+// slot the column's.
+template <int M>
+__device__ __forceinline__ int64_t column_kind(const KernelArgs& a, int j, int64_t col) {
+  return Modes<M>::columns && a.bc_kind[j] == BC_BATCHED
+             ? int64_t(static_cast<const int32_t*>(a.bc_kind_col[j])[col * a.bc_kind_col_stride[j]])
+             : a.bc_kind[j];
+}
 
 template <typename T> __device__ __forceinline__ T clip_unit(const Column<T>& c, T S) {
   return d_min(d_max(S, c.eps), T(1) - c.eps);
@@ -465,26 +525,32 @@ __device__ Center<T> center_fields(const Column<T>& c, const Coefs<T>& coef,
 }
 
 // ---- boundary.py: boundary_fluxes at one face ----
-// The Dirichlet values of both components overwrite the face state before
-// either flux is computed.  The boundary fluxes are never lagged: free
-// drainage takes K of the stage state (`live_K`) in the lagged mode.  A
-// prescribed component (BC_NONE slot) has no flux, and the branch never
-// reads it; a dynamic component's slot is never BC_NONE (the host checks).
+// `slot_*` is the slot's kind and `kind_*` the column's (they differ only in
+// a BC_BATCHED slot).  A plain Dirichlet slot's value overwrites the face
+// state before either flux is computed, so it enters the other component's
+// flux too; a BatchedBC column's Dirichlet value enters only its own flux
+// (boundary.py: set_boundary_values overwrites the face for a Dirichlet
+// alone, a BatchedBC candidate inside its own flux).  The boundary fluxes
+// are never lagged: free drainage takes K of the stage state (`live_K`) in
+// the lagged mode.  A prescribed component (BC_NONE slot) has no flux, and
+// the branch never reads it; a dynamic component's slot is never BC_NONE
+// (the host checks).  An energy column of kind FREE_DRAINAGE (a code the
+// host refuses) has no flux, as the eager select gives it.
 template <typename T, int M>
 __device__ void face_fluxes(const Column<T>& c, const Center<T>& x,
-                            int64_t kind_e, T val_e, int64_t kind_w, T val_w,
+                            int64_t slot_e, int64_t kind_e, T val_e,
+                            int64_t slot_w, int64_t kind_w, T val_w,
                             bool top, bool live_K, T dzb, T* f_e, T* f_w) {
-  T vl_f = kind_w == BC_DIRICHLET ? val_w : x.vl;
-  T temp_f = kind_e == BC_DIRICHLET ? val_e : x.temp;
-  T ti_f = x.ti;
+  const T vl_shared = slot_w == BC_DIRICHLET ? val_w : x.vl;
+  const T temp_shared = slot_e == BC_DIRICHLET ? val_e : x.temp;
   *f_e = T(0);
   *f_w = T(0);
   if (!Modes<M>::water) {
     if (kind_e == BC_FLUX) {
       *f_e = val_e;
-    } else {  // Dirichlet
-      T kappa_f = thermal_conductivity(c, vl_f, ti_f);
-      T flux = (-kappa_f) * (temp_f - x.temp) / dzb;
+    } else if (kind_e == BC_DIRICHLET) {
+      T kappa_f = thermal_conductivity(c, vl_shared, x.ti);
+      T flux = (-kappa_f) * (val_e - x.temp) / dzb;
       *f_e = top ? flux : -flux;
     }
   }
@@ -494,8 +560,8 @@ __device__ void face_fluxes(const Column<T>& c, const Center<T>& x,
     } else if (kind_w == BC_FREE_DRAINAGE) {
       *f_w = -(live_K ? conductivity(c, x.vl, x.ti, x.temp) : x.K);
     } else {  // Dirichlet
-      T K_f = conductivity(c, vl_f, ti_f, temp_f);
-      T psi_f = pressure_head(c, vl_f, c.p[P_NU] - ti_f);
+      T K_f = conductivity(c, val_w, x.ti, temp_shared);
+      T psi_f = pressure_head(c, val_w, c.p[P_NU] - x.ti);
       *f_w = top ? (-K_f) * (psi_f - x.psi + dzb) / dzb
                  : (-K_f) * (x.psi - psi_f + dzb) / dzb;
     }
@@ -513,13 +579,19 @@ __device__ void load_bc(const KernelArgs& a, int64_t row, int64_t col, T bc_val[
   }
 }
 
-// The profile rows of table row `row`.
-template <typename T>
-__device__ Profiles<T> load_profiles(const KernelArgs& a, int64_t row) {
-  auto at = [&](int j) -> const T* {
-    return a.profile[j] ? static_cast<const T*>(a.profile[j]) + row * a.nz : nullptr;
-  };
-  return Profiles<T>{at(PROF_T), at(PROF_VARTHETA_L), at(PROF_THETA_I)};
+// Column `col`'s profiles at table row `row`: without MODE_COLUMNS (nz,)
+// rows, row r at r * nz.
+template <typename T, int M>
+__device__ Profiles<T, M> load_profiles(const KernelArgs& a, int64_t row, int64_t col) {
+  Profiles<T, M> prof;
+  for (int j = 0; j < kNumProfiles; ++j) {
+    const T* base = static_cast<const T*>(a.profile[j]);
+    prof.p[j] = !base ? nullptr
+                      : Modes<M>::columns ? base + row * a.profile_row_stride[j] + col * a.profile_col_stride[j]
+                                          : base + row * a.nz;
+    prof.level[j] = a.profile_level_stride[j];
+  }
+  return prof;
 }
 
 // ---- rhs.py: one rhs evaluation over a column ----
@@ -530,10 +602,17 @@ __device__ Profiles<T> load_profiles(const KernelArgs& a, int64_t row) {
 // emitted after level k is read, so `emit` may overwrite level k-1 of `u`.
 template <typename T, int M, typename Emit>
 __device__ void rhs_sweep(const Column<T>& c, const KernelArgs& a, int64_t col,
-                          Fields<T> u, const T bc_val[kNumBC], Profiles<T> prof,
-                          const T* zc, T dz, const Coefs<T>& coef, Emit emit) {
+                          Fields<T> u, const T bc_val[kNumBC], const Profiles<T, M>& prof,
+                          const Grid<T, M>& g, const Coefs<T>& coef, Emit emit) {
   const int64_t nz = a.nz, ncol = a.ncol;
+  const T dz = g.dz;
   const T dzb = dz / T(2);
+  auto face = [&](bool top, const Center<T>& x, T* f_e, T* f_w) {
+    const int je = top ? BC_TOP_ENERGY : BC_BOTTOM_ENERGY;
+    const int jw = top ? BC_TOP_HYDROLOGY : BC_BOTTOM_HYDROLOGY;
+    face_fluxes<T, M>(c, x, a.bc_kind[je], column_kind<M>(a, je, col), bc_val[je], a.bc_kind[jw],
+                      column_kind<M>(a, jw, col), bc_val[jw], top, Modes<M>::lagged, dzb, f_e, f_w);
+  };
 
   auto tendencies = [&](int64_t k, const Center<T>& x, T dF_w, T dF_e) {
     T d_vl = T(0), d_ti = T(0), d_re = T(0);
@@ -550,15 +629,13 @@ __device__ void rhs_sweep(const Column<T>& c, const KernelArgs& a, int64_t col,
   T Fw_prev = T(0), Fe_prev = T(0);
   for (int64_t k = 0; k < nz; ++k) {
     const int64_t i = k * ncol + col;
-    T vl = Modes<M>::heat ? prof.vl[k] : u.vl[i];
-    T ti = Modes<M>::heat ? prof.ti[k] : u.ti[i];
+    T vl = Modes<M>::heat ? prof.at(PROF_VARTHETA_L, k) : u.vl[i];
+    T ti = Modes<M>::heat ? prof.at(PROF_THETA_I, k) : u.ti[i];
     T re = Modes<M>::water ? T(0) : u.re[i];
-    T temp = Modes<M>::water ? prof.temp[k] : T(0);
-    Center<T> x = center_fields<T, M>(c, coef, i, vl, ti, re, temp, zc[k]);
+    T temp = Modes<M>::water ? prof.at(PROF_T, k) : T(0);
+    Center<T> x = center_fields<T, M>(c, coef, i, vl, ti, re, temp, g.z(k));
     if (k == 0) {
-      face_fluxes<T, M>(c, x, a.bc_kind[BC_BOTTOM_ENERGY], bc_val[BC_BOTTOM_ENERGY],
-                        a.bc_kind[BC_BOTTOM_HYDROLOGY], bc_val[BC_BOTTOM_HYDROLOGY],
-                        false, Modes<M>::lagged, dzb, &Fe_prev, &Fw_prev);
+      face(false, x, &Fe_prev, &Fw_prev);
     } else {
       // interior face between centers k-1 and k: -interp(coef) * grad
       T Fw = T(0), Fe = T(0);
@@ -577,9 +654,7 @@ __device__ void rhs_sweep(const Column<T>& c, const KernelArgs& a, int64_t col,
     prev = x;
   }
   T Fe_top, Fw_top;
-  face_fluxes<T, M>(c, prev, a.bc_kind[BC_TOP_ENERGY], bc_val[BC_TOP_ENERGY],
-                    a.bc_kind[BC_TOP_HYDROLOGY], bc_val[BC_TOP_HYDROLOGY], true,
-                    Modes<M>::lagged, dzb, &Fe_top, &Fw_top);
+  face(true, prev, &Fe_top, &Fw_top);
   tendencies(nz - 1, prev, Fw_top - Fw_prev, Fe_top - Fe_prev);
 }
 

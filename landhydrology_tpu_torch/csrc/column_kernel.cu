@@ -20,7 +20,9 @@
 //   MODE_FREEZE_EQ    kernel B3, freeze_thaw.py::equilibrium_phase_projection
 //                     of every cell after the third stage;
 //   MODE_NO_ICE       SoilModel(assume_no_ice=True): the ice branches of the
-//                     closures drop out.
+//                     closures drop out;
+//   MODE_COLUMNS      per-column BC kinds (B1-batched) and per-column
+//                     geometry and profiles (B8), read at run time.
 // Per step the order is: coefficients, three stages, projection.
 //
 // Bound: transcendental throughput.  Each cell evaluates about ten exp/log
@@ -46,8 +48,8 @@ __global__ void ssprk33_column_kernel(const KernelArgs a, T eps, T tiny) {
   if (col >= a.ncol) return;  // ragged last block
 
   const Column<T> c = load_column<T>(a, col, eps, tiny);
-  const T dt = T(a.dt), dz = T(a.dz);
-  const T* zc = static_cast<const T*>(a.zc);
+  const T dt = T(a.dt);
+  const Grid<T, M> g = load_grid<T, M>(a, col);
 
   const int64_t n = a.nz * a.ncol;
   T* scratch = static_cast<T*>(a.scratch);
@@ -64,10 +66,10 @@ __global__ void ssprk33_column_kernel(const KernelArgs a, T eps, T tiny) {
       const int64_t row = a.rows_per_step * step + s;
       T bc_val[kNumBC];
       load_bc(a, row, col, bc_val);
-      const Profiles<T> prof = load_profiles<T>(a, row);
-      if (s == 0) stage<T, M>(c, a, col, Y, Y, A, 0, bc_val, prof, zc, dt, dz, coef);
-      if (s == 1) stage<T, M>(c, a, col, A, Y, B, 1, bc_val, prof, zc, dt, dz, coef);
-      if (s == 2) stage<T, M>(c, a, col, B, Y, Y, 2, bc_val, prof, zc, dt, dz, coef);
+      const Profiles<T, M> prof = load_profiles<T, M>(a, row, col);
+      if (s == 0) stage<T, M>(c, a, col, Y, Y, A, 0, bc_val, prof, g, dt, coef);
+      if (s == 1) stage<T, M>(c, a, col, A, Y, B, 1, bc_val, prof, g, dt, coef);
+      if (s == 2) stage<T, M>(c, a, col, B, Y, Y, 2, bc_val, prof, g, dt, coef);
     }
   }
 }
@@ -84,6 +86,8 @@ int launch(const KernelArgs* args, int block, void* stream) {
 // The mode word selects a template instance; assume_no_ice excludes
 // freeze-thaw, the two freeze-thaw schemes exclude each other, and the
 // water-only and heat-only branches run with stage coefficients alone.
+// MODE_COLUMNS joins B1, B2, B3-rate and B1-water (KINDS_MODES and
+// GEOMETRY_MODES in ops/cuda/column_kernel.py).
 template <typename T>
 int dispatch(const KernelArgs* args, int block, void* stream) {
   switch (args->mode) {
@@ -100,6 +104,11 @@ int dispatch(const KernelArgs* args, int block, void* stream) {
       return launch<T, MODE_LAGGED | MODE_FREEZE_EQ>(args, block, stream);
     case MODE_WATER: return launch<T, MODE_WATER>(args, block, stream);
     case MODE_HEAT: return launch<T, MODE_HEAT>(args, block, stream);
+    case MODE_COLUMNS: return launch<T, MODE_COLUMNS>(args, block, stream);
+    case MODE_LAGGED | MODE_COLUMNS: return launch<T, MODE_LAGGED | MODE_COLUMNS>(args, block, stream);
+    case MODE_FREEZE_RATE | MODE_COLUMNS:
+      return launch<T, MODE_FREEZE_RATE | MODE_COLUMNS>(args, block, stream);
+    case MODE_WATER | MODE_COLUMNS: return launch<T, MODE_WATER | MODE_COLUMNS>(args, block, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

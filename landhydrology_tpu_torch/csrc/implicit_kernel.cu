@@ -70,14 +70,15 @@ __device__ T k_at_value(const Column<T>& c, T v_dir) {
 template <typename T, int M, bool kWater>
 __device__ void newton_sweep(const Column<T>& c, const KernelArgs& a, int64_t col,
                              Fields<T> st, const T* c_const, T w, int64_t row,
-                             const T* zc, T dz, const Work<T>& wk) {
+                             const Grid<T, M>& g, const Work<T>& wk) {
   const int64_t nz = a.nz, ncol = a.ncol;
+  const T dz = g.dz;
   T bc_val[kNumBC];
   load_bc(a, row, col, bc_val);
   const Coefs<T> no_coefs{};
 
   // 1. the rhs at the iterate, and the frozen coefficients
-  rhs_sweep<T, M>(c, a, col, st, bc_val, load_profiles<T>(a, row), zc, dz, no_coefs,
+  rhs_sweep<T, M>(c, a, col, st, bc_val, load_profiles<T, M>(a, row, col), g, no_coefs,
                   [&](int64_t k, const Center<T>& x, T d_vl, T d_ti, T d_re) {
                     const int64_t i = k * ncol + col;
                     if (kWater) {
@@ -92,7 +93,9 @@ __device__ void newton_sweep(const Column<T>& c, const KernelArgs& a, int64_t co
                   });
 
   // Dirichlet faces: -K_face C_i / (dz_half dz) on the diagonal, with
-  // K_face at the Dirichlet value for water and the center kappa for heat
+  // K_face at the Dirichlet value for water and the center kappa for heat;
+  // keyed on the slot's kind, so a BatchedBC column of kind Dirichlet gets
+  // none (imex.py boosts a plain Dirichlet alone)
   const T dzb = dz / T(2);
   const int64_t bot = col, top = (nz - 1) * ncol + col;
   const int slot_bot = kWater ? BC_BOTTOM_HYDROLOGY : BC_BOTTOM_ENERGY;
@@ -213,8 +216,8 @@ __global__ void implicit_column_kernel(const KernelArgs a, T eps, T tiny) {
 
   constexpr bool has_water = !Modes<M>::heat, has_heat = !Modes<M>::water;
   const Column<T> c = load_column<T>(a, col, eps, tiny);
-  const T dt = T(a.dt), dz = T(a.dz);
-  const T* zc = static_cast<const T*>(a.zc);
+  const T dt = T(a.dt);
+  const Grid<T, M> g = load_grid<T, M>(a, col);
   const int64_t nz = a.nz, ncol = a.ncol, n = nz * ncol;
   T* scratch = static_cast<T*>(a.scratch);
   Fields<T> Y{static_cast<T*>(a.vartheta_l), static_cast<T*>(a.theta_i),
@@ -231,8 +234,8 @@ __global__ void implicit_column_kernel(const KernelArgs a, T eps, T tiny) {
   // TRBDF2Soil._solve_stage: u = Cs + w f(u) by Gauss-Seidel sweeps of S
   auto solve_stage = [&](T w, int64_t row) {
     for (int64_t it = 0; it < a.iters; ++it) {
-      if constexpr (has_water) newton_sweep<T, M, true>(c, a, col, S, Cs.vl, w, row, zc, dz, wk);
-      if constexpr (has_heat) newton_sweep<T, M, false>(c, a, col, S, Cs.re, w, row, zc, dz, wk);
+      if constexpr (has_water) newton_sweep<T, M, true>(c, a, col, S, Cs.vl, w, row, g, wk);
+      if constexpr (has_heat) newton_sweep<T, M, false>(c, a, col, S, Cs.re, w, row, g, wk);
       if constexpr (has_water) copy(Cs.ti, S.ti);  // zero tendency: theta_i = c
     }
   };
@@ -245,7 +248,7 @@ __global__ void implicit_column_kernel(const KernelArgs a, T eps, T tiny) {
       // f(u^n) at t: c1 = u^n + w1 f(u^n), and the TR stage starts at u^n
       T bc_val[kNumBC];
       load_bc(a, row0, col, bc_val);
-      rhs_sweep<T, M>(c, a, col, Y, bc_val, load_profiles<T>(a, row0), zc, dz, no_coefs,
+      rhs_sweep<T, M>(c, a, col, Y, bc_val, load_profiles<T, M>(a, row0, col), g, no_coefs,
                       [&](int64_t k, const Center<T>& x, T d_vl, T d_ti, T d_re) {
                         const int64_t i = k * ncol + col;
                         if (has_water) {
@@ -280,20 +283,20 @@ __global__ void implicit_column_kernel(const KernelArgs a, T eps, T tiny) {
       copy(Y.vl, S.vl);
       const Fields<T> st{S.vl, Y.ti, Y.re};
       for (int64_t it = 0; it < a.iters; ++it) {
-        newton_sweep<T, M, true>(c, a, col, st, Y.vl, dt, row0, zc, dz, wk);
+        newton_sweep<T, M, true>(c, a, col, st, Y.vl, dt, row0, g, wk);
       }
       if constexpr (Modes<M>::be_soil) {
         copy(Y.re, S.re);
         const Fields<T> sh{S.vl, Y.ti, S.re};
         for (int64_t it = 0; it < a.iters; ++it) {
-          newton_sweep<T, M, false>(c, a, col, sh, Y.re, dt, row0, zc, dz, wk);
+          newton_sweep<T, M, false>(c, a, col, sh, Y.re, dt, row0, g, wk);
         }
         copy(S.re, Y.re);
       } else if constexpr (Modes<M>::coupled) {
         // theta_i and rho_e_int explicit at the new water state, in place
         T bc_val[kNumBC];
         load_bc(a, row0, col, bc_val);
-        rhs_sweep<T, M>(c, a, col, st, bc_val, load_profiles<T>(a, row0), zc, dz, no_coefs,
+        rhs_sweep<T, M>(c, a, col, st, bc_val, load_profiles<T, M>(a, row0, col), g, no_coefs,
                         [&](int64_t k, const Center<T>& x, T d_vl, T d_ti, T d_re) {
                           const int64_t i = k * ncol + col;
                           Y.ti[i] = x.ti + dt * d_ti;
@@ -316,7 +319,9 @@ int launch(const KernelArgs* args, int block, void* stream) {
 
 // The stepper and branch bits select a template instance; MODE_PCR is read
 // at run time.  BackwardEulerRichards needs dynamic water, and
-// BackwardEulerSoil dynamic water and heat.
+// BackwardEulerSoil dynamic water and heat.  MODE_COLUMNS (per-column kinds
+// and geometry) joins TR-BDF2 and BackwardEulerRichards on the coupled and
+// water-only branches.
 template <typename T>
 int dispatch(const KernelArgs* args, int block, void* stream) {
   switch (args->mode & ~int64_t(MODE_PCR)) {
@@ -327,6 +332,13 @@ int dispatch(const KernelArgs* args, int block, void* stream) {
     case MODE_BE_RICHARDS | MODE_WATER:
       return launch<T, MODE_BE_RICHARDS | MODE_WATER>(args, block, stream);
     case MODE_BE_SOIL: return launch<T, MODE_BE_SOIL>(args, block, stream);
+    case MODE_TRBDF2 | MODE_COLUMNS: return launch<T, MODE_TRBDF2 | MODE_COLUMNS>(args, block, stream);
+    case MODE_TRBDF2 | MODE_WATER | MODE_COLUMNS:
+      return launch<T, MODE_TRBDF2 | MODE_WATER | MODE_COLUMNS>(args, block, stream);
+    case MODE_BE_RICHARDS | MODE_COLUMNS:
+      return launch<T, MODE_BE_RICHARDS | MODE_COLUMNS>(args, block, stream);
+    case MODE_BE_RICHARDS | MODE_WATER | MODE_COLUMNS:
+      return launch<T, MODE_BE_RICHARDS | MODE_WATER | MODE_COLUMNS>(args, block, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -49,8 +49,9 @@ __global__ void land_column_kernel(const KernelArgs a, T eps, T tiny) {
   if (col >= a.ncol) return;  // ragged last block
 
   const Column<T> c = load_column<T>(a, col, eps, tiny);
-  const T dt = T(a.dt), dz = T(a.dz), dzb = T(a.dz) / T(2);
-  const T* zc = static_cast<const T*>(a.zc);
+  const T dt = T(a.dt);
+  const Grid<T, M> g = load_grid<T, M>(a, col);
+  const T dzb = g.dz / T(2);
 
   const int64_t n = a.nz * a.ncol;
   const int64_t top = (a.nz - 1) * a.ncol + col;
@@ -109,8 +110,8 @@ __global__ void land_column_kernel(const KernelArgs a, T eps, T tiny) {
         turbulent_fluxes(c, a, load_atmos<T>(a, row, frow, col), vl, ti, temp,
                          &bc_val[BC_TOP_ENERGY], &bc_val[BC_TOP_HYDROLOGY]);
       }
-      const Profiles<T> prof = load_profiles<T>(a, row);
-      stage<T, M>(c, a, col, u, Y, out, s, bc_val, prof, zc, dt, dz, coef);
+      const Profiles<T, M> prof = load_profiles<T, M>(a, row, col);
+      stage<T, M>(c, a, col, u, Y, out, s, bc_val, prof, g, dt, coef);
     }
   }
   if (land) h_s[col] = h;
@@ -126,10 +127,11 @@ int launch(const KernelArgs* args, int block, void* stream) {
 }
 
 // B5 and B2+B5 on a soil column; B6 (with MOST) and B6-pond (a plain top
-// BC), each with or without the frozen exchange and lagged coefficients.
+// BC), each with or without the frozen exchange and lagged coefficients;
+// B5 and B6 with per-column kinds and geometry (MODE_COLUMNS).
 template <typename T>
 int dispatch(const KernelArgs* args, int block, void* stream) {
-  constexpr int64_t L = MODE_LAND, S = MODE_SURFACE_STEP, G = MODE_LAGGED, W = MODE_MOST;
+  constexpr int64_t L = MODE_LAND, S = MODE_SURFACE_STEP, G = MODE_LAGGED, W = MODE_MOST, C = MODE_COLUMNS;
   switch (args->mode) {
     case W: return launch<T, W>(args, block, stream);
     case W | G: return launch<T, W | G>(args, block, stream);
@@ -141,6 +143,8 @@ int dispatch(const KernelArgs* args, int block, void* stream) {
     case L | S: return launch<T, L | S>(args, block, stream);
     case L | G: return launch<T, L | G>(args, block, stream);
     case L | G | S: return launch<T, L | G | S>(args, block, stream);
+    case W | C: return launch<T, W | C>(args, block, stream);
+    case L | W | C: return launch<T, L | W | C>(args, block, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

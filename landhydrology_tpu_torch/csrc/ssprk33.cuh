@@ -75,8 +75,8 @@ __device__ void coefficients(const Column<T>& c, const KernelArgs& a, int64_t co
 template <typename T, int M>
 __device__ void stage(const Column<T>& c, const KernelArgs& a, int64_t col,
                       Fields<T> u, Fields<T> y, Fields<T> out, int s,
-                      const T bc_val[kNumBC], Profiles<T> prof, const T* zc, T dt,
-                      T dz, const Coefs<T>& coef) {
+                      const T bc_val[kNumBC], const Profiles<T, M>& prof, const Grid<T, M>& g,
+                      T dt, const Coefs<T>& coef) {
   const int64_t ncol = a.ncol;
   T a_y = s == 1 ? T(0.75) : T(1.0 / 3.0);
   T a_u = s == 1 ? T(0.25) : T(2.0 / 3.0);
@@ -107,7 +107,7 @@ __device__ void stage(const Column<T>& c, const KernelArgs& a, int64_t col,
     }
     if (has_heat) out.re[i] = n_re;
   };
-  rhs_sweep<T, M>(c, a, col, u, bc_val, prof, zc, dz, coef, write);
+  rhs_sweep<T, M>(c, a, col, u, bc_val, prof, g, coef, write);
 }
 
 }  // namespace

@@ -308,7 +308,8 @@ __device__ Exchange<T> surface_exchange(const Column<T>& c, const KernelArgs& a,
   x.temp = temp;
   x.psi = pressure_head(c, vl, c.p[P_NU] - ti);
   T f_e, f_w;
-  face_fluxes<T, M>(c, x, BC_FLUX, T(0), BC_DIRICHLET, c.p[P_NU], true, false, dzb, &f_e, &f_w);
+  face_fluxes<T, M>(c, x, BC_FLUX, BC_FLUX, T(0), BC_DIRICHLET, BC_DIRICHLET, c.p[P_NU], true, false, dzb,
+                    &f_e, &f_w);
   T f_pot = d_max(-f_w, T(0));
 
   ex.P = rain_rate<T>(a, row, frow, col);

@@ -42,7 +42,8 @@ def explicit_dt_limit(model, Y: dict, safety: float = 1.0) -> Array:
         dt <= safety * 2.5 / max_i lambda_i
 
     with C = |d psi / d vartheta_l| from ``torch.autograd.grad`` of the
-    pressure head (2.5 ~ SSPRK33's real-axis stability extent)."""
+    pressure head (2.5 ~ SSPRK33's real-axis stability extent); on a
+    ``VariableDepthColumn`` each column's own dz."""
     from landhydrology_tpu_torch.domains import make_function_space
     from landhydrology_tpu_torch.models.soil import water as sw
     from landhydrology_tpu_torch.ops.stencil import interp_c2f_interior

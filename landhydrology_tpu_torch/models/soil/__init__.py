@@ -5,6 +5,7 @@ from landhydrology_tpu_torch.models.soil import heat as SoilHeatParameterization
 from landhydrology_tpu_torch.models.soil import water as SoilWaterParameterizations
 from landhydrology_tpu_torch.models.soil.boundary import (
     BatchedBC,
+    BCKind,
     Dirichlet,
     FreeDrainage,
     NoBC,
@@ -22,6 +23,7 @@ from landhydrology_tpu_torch.models.soil.initial_conditions import (
     prognostic_vars,
 )
 from landhydrology_tpu_torch.models.soil.model import (
+    LateralSurfaceCoupling,
     PrescribedHydrologyModel,
     PrescribedTemperatureModel,
     SoilEnergyModel,
@@ -55,6 +57,8 @@ __all__ = [
     "IceImpedance",
     "NoBC",
     "BatchedBC",
+    "BCKind",
+    "LateralSurfaceCoupling",
     "VerticalFlux",
     "Dirichlet",
     "FreeDrainage",

@@ -12,8 +12,9 @@ deviation from the Julia reference); FreeDrainage is bottom-only and never
 negated.  The center-to-face distance at a boundary is the half cell dz/2.
 
 ``PrescribedAtmosForcing`` at the top face converts the surface state into
-Monin-Obukhov turbulent fluxes (``surface_fluxes.py``).  ``BatchedBC`` is
-not ported yet and raises ``NotImplementedError`` when constructed.
+Monin-Obukhov turbulent fluxes (``surface_fluxes.py``).  ``BatchedBC``
+gives every column its own BC type (``BCKind``): the conversion evaluates
+each formula and selects per column.
 """
 
 from __future__ import annotations
@@ -71,15 +72,24 @@ class FreeDrainage(AbstractBC):
     """Free drainage at the bottom: grad(h) = 1, flux = -K(theta_center)."""
 
 
+class BCKind:
+    """Integer codes of the per-column BC types of :class:`BatchedBC`."""
+
+    FLUX = 0
+    DIRICHLET = 1
+    FREE_DRAINAGE = 2
+
+
 @dataclasses.dataclass(frozen=True)
 class BatchedBC(AbstractBC):
-    """Per-column mixed boundary-condition types (not ported yet)."""
+    """Per-column mixed BC types: ``kind`` is an integer tensor of
+    :class:`BCKind` codes broadcastable to the column batch; ``value`` is the
+    prescribed flux of a FLUX column and the boundary state of a DIRICHLET
+    column (ignored for FREE_DRAINAGE), a constant, a per-column tensor or a
+    callable of time."""
 
-    kind: Array = None
-    value: Array = 0.0
-
-    def __post_init__(self):
-        raise NotImplementedError("BatchedBC is not ported yet: ROADMAP A13")
+    kind: Array
+    value: ValueLike = 0.0
 
 
 class AbstractFaceBC:
@@ -92,6 +102,15 @@ class SoilComponentBC(AbstractFaceBC):
 
     energy: AbstractBC = dataclasses.field(default_factory=NoBC)
     hydrology: AbstractBC = dataclasses.field(default_factory=NoBC)
+
+    def __post_init__(self):
+        if isinstance(self.energy, BatchedBC) and bool(
+            torch.any(torch.as_tensor(self.energy.kind) == BCKind.FREE_DRAINAGE)
+        ):
+            raise ValueError(
+                "BatchedBC kind FREE_DRAINAGE is not defined for the energy "
+                "component (it is a hydrology-only BC)"
+            )
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,15 +181,22 @@ def initialize_boundary_values(X: dict, face: str) -> dict:
 
 def set_boundary_values(X_cf: dict, bc: AbstractBC, component, t: Array) -> dict:
     """Overwrite the face entry of the pair for Dirichlet BCs; no-op
-    otherwise."""
+    otherwise (a ``BatchedBC`` DIRICHLET column sets its face only inside
+    its own flux)."""
     if isinstance(bc, Dirichlet) and isinstance(
         component, (SoilEnergyModel, SoilHydrologyModel)
     ):
         key = "T" if isinstance(component, SoilEnergyModel) else "vartheta_l"
-        center = X_cf[key][0]
-        value = _value_at(bc.state_value, t, center)
-        return dict(X_cf, **{key: [center, value.expand(center.shape)]})
+        return _with_face_value(X_cf, component, _value_at(bc.state_value, t, X_cf[key][0]))
     return X_cf
+
+
+def _with_face_value(X_cf: dict, component, value: Array) -> dict:
+    """A copy of the (center, face) pairs with the component's Dirichlet
+    state at the face."""
+    key = "T" if isinstance(component, SoilEnergyModel) else "vartheta_l"
+    center = X_cf[key][0]
+    return dict(X_cf, **{key: [center, value.expand(center.shape)]})
 
 
 def _pairwise(fn, pair_args):
@@ -290,6 +316,30 @@ def vertical_flux(
             return _dirichlet_hydrology_flux(component, model, X_cf, dz, face)
         if isinstance(component, SoilEnergyModel):
             return _dirichlet_energy_flux(model, X_cf, dz, face)
+
+    if isinstance(bc, BatchedBC):
+        # every formula the kinds can name, selected per column with nested
+        # torch.where: a product with a mask would carry the NaN of a flux
+        # column's Dirichlet candidate
+        like = X_cf["vartheta_l"][0]
+        value = _value_at(bc.value, t, like)
+        kind = torch.as_tensor(bc.kind, device=like.device)
+        X_dir = _with_face_value(X_cf, component, value)
+        candidates = [value]  # FLUX: the prescribed value itself
+        if isinstance(component, SoilHydrologyModel):
+            candidates.append(_dirichlet_hydrology_flux(component, model, X_dir, dz, face))
+            candidates.append(_free_drainage_flux(component, model, X_cf))
+        elif isinstance(component, SoilEnergyModel):
+            candidates.append(_dirichlet_energy_flux(model, X_dir, dz, face))
+            candidates.append(torch.zeros_like(candidates[0]))  # no energy free drainage
+        else:
+            raise TypeError("BatchedBC requires a dynamic component model.")
+        shape = torch.broadcast_shapes(*(c.shape for c in candidates), kind.shape)
+        c = [x.expand(shape) for x in candidates]
+        kind = kind.expand(shape)
+        return torch.where(
+            kind == BCKind.FLUX, c[0], torch.where(kind == BCKind.DIRICHLET, c[1], c[2])
+        )
 
     raise TypeError(f"Unsupported BC {bc!r} for component {component!r}")
 

@@ -8,7 +8,8 @@ state, and held fixed across the RK stages.  Each stage recomputes only the
 pressure head, the temperature through the frozen heat capacity, the
 stencils and the boundary fluxes.  The deviation from stage-level semantics
 is first order in dt; the rhs stays in flux form, so mass and energy totals
-close identically.
+close identically.  A lateral surface coupling stays live per stage, as
+in the stage rhs.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from landhydrology_tpu_torch.models.soil.model import (
     SoilModel,
 )
 from landhydrology_tpu_torch.models.soil.rhs import (
+    _add_lateral,
     _face_fluxes,
     energy_center_fields,
     hydrology_center_fields,
@@ -150,12 +152,13 @@ def make_coefficient_fns(model: SoilModel, grid: ColumnGrid | None = None):
             psi = sw.pressure_head(hydrology.hydraulic_model, vartheta_l, nu_eff, sp.S_s)
             h = psi + zc
             water_flux = diffusive_flux_faces(C["K"], h, dz)
-            out["vartheta_l"] = -div_f2c(
+            d_vartheta_l = -div_f2c(
                 water_flux,
                 fluxes["bottom"]["f_vartheta_l"],
                 fluxes["top"]["f_vartheta_l"],
                 dz,
             )
+            out["vartheta_l"] = _add_lateral(model, d_vartheta_l, h, dz)
             out["theta_i"] = torch.zeros_like(theta_i)
 
         if dyn_energy:

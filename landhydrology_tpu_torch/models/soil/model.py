@@ -15,7 +15,6 @@ from typing import Any, Callable, Optional
 import torch
 
 from landhydrology_tpu_torch.constants import EarthParameterSet, default_earth_param_set
-from landhydrology_tpu_torch.domains import Column
 from landhydrology_tpu_torch.models.base import AbstractModel
 from landhydrology_tpu_torch.models.soil.freeze_thaw import (
     EquilibriumFreezeThaw,
@@ -79,6 +78,23 @@ class PrescribedHydrologyModel(AbstractSoilComponentModel):
 
 
 @dataclasses.dataclass(frozen=True)
+class LateralSurfaceCoupling:
+    """Lateral surface-water coupling between neighbouring columns on a 2-D
+    ``(nx, ny)`` column batch: the top cell of each column exchanges water
+    with its four neighbours by linear diffusion of the surface hydraulic
+    head,
+
+        d vartheta_l[top] / dt  +=  (c / dz) * lap_xy(h[top]),
+
+    with ``lap_xy`` the 5-point Laplacian on the periodic column grid and
+    ``c`` a surface conductance (m^2/s).  Eager engine only: the column
+    kernels do not couple columns."""
+
+    conductance: Array = 1e-6  # m^2/s
+    dx: Array = 1.0  # lateral grid spacing (m)
+
+
+@dataclasses.dataclass(frozen=True)
 class SoilModel(AbstractModel):
     """The soil column model aggregate: a configuration object that
     ``make_rhs(model)`` turns into the tendency function and
@@ -87,12 +103,12 @@ class SoilModel(AbstractModel):
     ``freeze_thaw`` is ``None``, a :class:`FreezeThaw` (rate sources in the
     rhs) or an :class:`EquilibriumFreezeThaw` (a projection after each
     step); ``coefficient_update="step"`` evaluates the nonlinear
-    coefficients once per step (``lagged.py``).  Lateral coupling is not
-    ported yet: a non-default ``lateral_coupling`` raises
-    ``NotImplementedError``.
+    coefficients once per step (``lagged.py``).  ``domain`` is a ``Column``
+    or a ``VariableDepthColumn``; ``lateral_coupling`` a
+    :class:`LateralSurfaceCoupling` on a 2-D column batch.
     """
 
-    domain: Column
+    domain: Any
     energy_model: AbstractSoilComponentModel = dataclasses.field(
         default_factory=SoilEnergyModel
     )
@@ -105,7 +121,8 @@ class SoilModel(AbstractModel):
     name: str = "soil"
     dtype: torch.dtype = torch.float64
     device: Any = "cuda"
-    lateral_coupling: Optional[Any] = None
+    #: optional cross-column surface coupling (a 2-D column batch)
+    lateral_coupling: Optional[LateralSurfaceCoupling] = None
     #: optional phase change, coupled combination only
     freeze_thaw: Optional[Any] = None
     #: static promise that theta_i is identically zero: drops the frozen
@@ -144,10 +161,6 @@ class SoilModel(AbstractModel):
                     "equilibrium liquid fraction comes from its retention "
                     f"curve); got {type(self.hydrology_model).__name__}"
                 )
-        if self.lateral_coupling is not None:
-            raise NotImplementedError(
-                "lateral_coupling is not ported yet: ROADMAP A13"
-            )
 
     @property
     def float_dtype(self) -> torch.dtype:

@@ -13,6 +13,9 @@ and returns ``rhs(Y, Ya, t) -> dY`` over dicts of ``(nz, *batch)`` tensors:
   phase-change rate sources (``EquilibriumFreezeThaw`` adds nothing here:
   its projection runs after each step)
 
+With a ``LateralSurfaceCoupling`` the water-only and coupled branches add
+the lateral surface tendency to the top cell.
+
 This is the eager path; ``ops/cuda/column_kernel.py`` runs the coupled
 branch inside one CUDA kernel.
 """
@@ -140,6 +143,37 @@ def energy_center_fields(model: SoilModel, theta_l, theta_i, rho_e_int=None, T=N
     return T, kappa, rho_c_s
 
 
+def lateral_surface_tendency(model: SoilModel, h_top: Array, dz: Array) -> Array:
+    """``(c / dz) * lap_xy(h_top)`` on the periodic 2-D column grid of
+    ``h_top`` ``(nx, ny)``: the top cell's lateral surface coupling."""
+    lc = model.lateral_coupling
+    if h_top.dim() < 2:
+        raise ValueError(
+            "LateralSurfaceCoupling requires a 2-D (nx, ny) column batch; "
+            f"got surface field of shape {tuple(h_top.shape)}"
+        )
+    lap = (
+        torch.roll(h_top, 1, 0)
+        + torch.roll(h_top, -1, 0)
+        + torch.roll(h_top, 1, 1)
+        + torch.roll(h_top, -1, 1)
+        - 4.0 * h_top
+    ) / (lc.dx * lc.dx)
+    # c / dz rounds in the field's dtype, as the JAX package's does
+    dz = torch.as_tensor(dz, dtype=h_top.dtype, device=h_top.device)
+    return lc.conductance / dz * lap
+
+
+def _add_lateral(model: SoilModel, d_vartheta_l: Array, h: Array, dz: Array) -> Array:
+    """``d_vartheta_l`` with the lateral surface tendency added to the top
+    cell (unchanged without lateral coupling)."""
+    if model.lateral_coupling is None:
+        return d_vartheta_l
+    top = h.shape[0] - 1
+    lateral = lateral_surface_tendency(model, h[top], dz)
+    return torch.cat([d_vartheta_l[:top], (d_vartheta_l[top] + lateral)[None]], dim=0)
+
+
 def _face_fluxes(model, grid, X, t, required=()):
     """Boundary fluxes at both faces; a ``required`` flux key missing
     (NoBC) at either face raises with the face and key."""
@@ -218,6 +252,7 @@ def _make_rhs_soil(energy, hydrology, model: SoilModel, grid: ColumnGrid):
                 fluxes["top"]["f_vartheta_l"],
                 dz,
             )
+            d_vartheta_l = _add_lateral(model, d_vartheta_l, h, dz)
             return {
                 name: {
                     "vartheta_l": d_vartheta_l,
@@ -288,6 +323,7 @@ def _make_rhs_soil(energy, hydrology, model: SoilModel, grid: ColumnGrid):
                 fluxes["top"]["f_vartheta_l"],
                 dz,
             )
+            d_vartheta_l = _add_lateral(model, d_vartheta_l, h, dz)
             # energy flux: -kappa grad T - rho_e_int_l K grad h
             energy_flux = diffusive_flux_faces(kappa, T, dz) + diffusive_flux_faces(
                 rho_e_int_l * K, h, dz

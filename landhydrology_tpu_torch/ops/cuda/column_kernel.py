@@ -38,10 +38,20 @@ plain C interface at first use (all three in parallel) and bound with
   ``t + dt``, ``t + dt/2``; TR-BDF2: ``t``, ``t + g dt``, ``t + dt``;
   backward Euler: ``t + dt``) from the step times ``t0 + i*dt``, in the
   model dtype.  So are callable atmosphere fields and the rain rate.
-  Profiles are ``(nz,)`` rows: a profile with per-column values is refused.
+  Profiles are ``(nz,)`` rows, or ``(nz, ncol)`` rows where they vary by
+  column (kernel mode B8), up to ``PROFILE_TABLE_BYTES`` per launch.
   Tables of values that do not depend on time (constants, the default
   profiles) are built once per column count; the package's declarative
   rain classes are tabulated in one vectorised call per launch.
+- Per-column BC kinds (``BatchedBC``, kernel mode B1-batched) arrive as an
+  int32 column of the kernel's kind codes per slot, mapped once on the host
+  (:func:`cuda_kind_codes`); per-column geometry (a ``VariableDepthColumn``
+  or ``streamed_geometry``, kernel mode B8) as a ``(ncol,)`` spacing and
+  ``(nz, ncol)`` centers read in place.  Both are read at run time by the
+  template instances with ``MODE_COLUMNS``, one beside each mode of
+  :data:`KINDS_MODES` and :data:`GEOMETRY_MODES` (the modes
+  ``chip_smoke.py`` holds them in; the others refuse them); the instances
+  without it read what they read before those modes, in fewer registers.
 
 The plain version, :func:`fused_column_run_plain`, is the same number of
 eager ``stepper.step`` calls, with the model's step policies wrapped around
@@ -54,10 +64,11 @@ lagged coefficients or ``assume_no_ice`` on the water-only and heat-only
 branches, the implicit steppers with lagged coefficients, freeze-thaw or
 ``assume_no_ice`` (B4), MOST or the LandModel with freeze-thaw,
 ``assume_no_ice``, an implicit stepper or one component prescribed (B5, B6;
-so also their forcing rows), streamed geometry (B8), ``differentiable=True``
-(B9) and a run-time ``dt_run`` (A15).  Pond routing, a per-column rain
-callable and a 2-D column batch raise ``ValueError``, as the JAX kernel's
-factory does.
+so also their forcing rows), per-column kinds or geometry outside the modes
+that hold them or with forcing rows (B1-batched, B8), ``differentiable=True``
+(B9) and a run-time ``dt_run`` (A15).  Lateral coupling, pond routing, a
+per-column rain callable and a 2-D column batch raise ``ValueError``, as the
+JAX kernel's factory does.
 """
 
 from __future__ import annotations
@@ -75,7 +86,7 @@ from pathlib import Path
 
 import torch
 
-from landhydrology_tpu_torch.domains import make_function_space
+from landhydrology_tpu_torch.domains import ColumnGrid, VariableDepthColumn, make_function_space
 from landhydrology_tpu_torch.models.land import (
     ConstantPrecipitation,
     FrozenExchangeStepper,
@@ -93,6 +104,8 @@ from landhydrology_tpu_torch.imex import (
 )
 from landhydrology_tpu_torch.models.soil import heat as sh
 from landhydrology_tpu_torch.models.soil.boundary import (
+    BatchedBC,
+    BCKind,
     Dirichlet,
     FreeDrainage,
     NoBC,
@@ -176,7 +189,20 @@ SURFACE_NAMES = (
     "u_atm", "theta_atm", "z_atm", "theta_scale", "rho_a_sfc", "q_atm", "z_0m", "z_0s",
     "tau_pond", "h_evap_smoothing",
 )
-_BC_KIND = {VerticalFlux: 1, Dirichlet: 2, FreeDrainage: 3}  # 0: no flux (BC_NONE)
+#: ``enum BCKind`` of the header: 0 is a prescribed component's slot (no
+#: flux); a ``BatchedBC`` slot (BC_BATCHED) reads each column's kind
+BC_FLUX, BC_DIRICHLET, BC_FREE_DRAINAGE, BC_BATCHED = 1, 2, 3, 4
+_BC_KIND = {VerticalFlux: BC_FLUX, Dirichlet: BC_DIRICHLET, FreeDrainage: BC_FREE_DRAINAGE,
+            BatchedBC: BC_BATCHED}
+#: the modes (:func:`mode_name`) that take per-column BC kinds (B1-batched)
+#: and per-column geometry (B8): those ``chip_smoke.py`` holds against the
+#: plain version
+KINDS_MODES = frozenset({"B1", "B1-water", "B2", "B3-rate", "B4-be-richards", "B4-be-richards-water",
+                         "B4-trbdf2", "B4-trbdf2-water", "B5", "B6"})
+GEOMETRY_MODES = frozenset({"B1", "B1-water", "B2", "B4-be-richards", "B4-be-richards-water", "B4-trbdf2",
+                            "B4-trbdf2-water", "B6"})
+#: the most bytes of time-dependent per-column profile tables a launch builds
+PROFILE_TABLE_BYTES = 1 << 30
 #: ``KernelArgs::frow_mode`` of step-indexed and time-indexed forcing rows (0: none)
 FROW_STEP, FROW_TIME = 1, 2
 
@@ -186,6 +212,8 @@ MODE_WATER, MODE_HEAT = 16, 32
 MODE_BE_RICHARDS, MODE_BE_SOIL, MODE_TRBDF2 = 64, 128, 256
 MODE_PCR = 512
 MODE_MOST, MODE_LAND, MODE_SURFACE_STEP = 1024, 2048, 4096
+#: the instance reads per-column BC kinds, grid and profiles (B1-batched, B8)
+MODE_COLUMNS = 8192
 MODE_IMPLICIT = MODE_BE_RICHARDS | MODE_BE_SOIL | MODE_TRBDF2
 _STEPPER_BITS = {TRBDF2Soil: MODE_TRBDF2, BackwardEulerRichards: MODE_BE_RICHARDS,
                  BackwardEulerSoil: MODE_BE_SOIL}
@@ -254,6 +282,15 @@ class _KernelArgs(ctypes.Structure):
         ("t0", ctypes.c_double),
         ("t_forcing0", ctypes.c_double),
         ("inv_dt_forcing", ctypes.c_double),
+        ("bc_kind_col", ctypes.c_void_p * _B),
+        ("bc_kind_col_stride", ctypes.c_int64 * _B),
+        ("dz_col", ctypes.c_void_p),
+        ("dz_col_stride", ctypes.c_int64),
+        ("zc_level_stride", ctypes.c_int64),
+        ("zc_col_stride", ctypes.c_int64),
+        ("profile_row_stride", ctypes.c_int64 * _R),
+        ("profile_level_stride", ctypes.c_int64 * _R),
+        ("profile_col_stride", ctypes.c_int64 * _R),
     ]
 
 
@@ -378,10 +415,12 @@ def _soil_of(model) -> SoilModel:
     return model.soil if isinstance(model, LandModel) else model
 
 
-def kernel_mode(model, stepper: AbstractTimestepper = SSPRK33()) -> int:
+def kernel_mode(model, stepper: AbstractTimestepper = SSPRK33(), streamed_geometry=None) -> int:
     """The kernel's mode word for ``model`` (a ``SoilModel`` or a
-    ``LandModel``) stepped by ``stepper``: ``MODE_*`` bits."""
-    mode = 0
+    ``LandModel``) stepped by ``stepper``: ``MODE_*`` bits, with
+    ``MODE_COLUMNS`` where the run reads per-column kinds or geometry
+    (:func:`per_column_features`)."""
+    mode = MODE_COLUMNS if any(per_column_features(model, streamed_geometry)) else 0
     if isinstance(model, LandModel):
         mode |= MODE_LAND | (MODE_SURFACE_STEP if model.surface_update == "step" else 0)
         model = model.soil
@@ -406,7 +445,7 @@ def kernel_mode(model, stepper: AbstractTimestepper = SSPRK33()) -> int:
     return mode
 
 
-def mode_name(mode: int) -> str:
+def mode_name(mode: int, features: tuple = (True, True)) -> str:
     """The kernel table's name of a mode: ``B1`` (SSPRK33, stage
     coefficients) or ``B2`` (lagged), ``-no-ice`` for ``assume_no_ice``,
     ``B3-rate`` / ``B3-eq`` for freeze-thaw (``B2+B3-rate`` with lagged
@@ -416,7 +455,14 @@ def mode_name(mode: int) -> str:
     for the branch and ``-pcr`` for PCR solves; ``B5`` for a MOST top
     (``B2+B5`` lagged), ``B6`` for the LandModel with a MOST top, ``-step``
     with its exchange frozen per step, ``B2+`` lagged and ``-pond`` with a
-    plain top BC (``B2+B6-step-pond``)."""
+    plain top BC (``B2+B6-step-pond``).  The ``MODE_COLUMNS`` instance adds
+    ``+kinds`` where it reads per-column BC kinds (B1-batched) and ``+B8``
+    where it reads per-column geometry: ``features`` is ``(kinds,
+    geometry)`` of a run (:func:`per_column_features`), both by default,
+    as the instance reads them."""
+    if mode & MODE_COLUMNS:
+        kinds, geometry = features
+        return mode_name(mode & ~MODE_COLUMNS) + ("+kinds" if kinds else "") + ("+B8" if geometry else "")
     if mode & MODE_LAND:
         name = "B6" + ("-step" if mode & MODE_SURFACE_STEP else "")
         name += "" if mode & MODE_MOST else "-pond"
@@ -597,7 +643,7 @@ def bc_tables(
         if isinstance(bc, (FreeDrainage, NoBC)) or not _dynamic(soil, comp):
             tables.append(None)
             continue
-        value = bc.flux if isinstance(bc, VerticalFlux) else bc.state_value
+        value = getattr(bc, {VerticalFlux: "flux", Dirichlet: "state_value", BatchedBC: "value"}[type(bc)])
         if reuse is not None and not callable(value):
             tables.append(reuse[j])
         else:
@@ -605,6 +651,39 @@ def bc_tables(
                 value, t0, dt, n_steps, ncol, soil.float_dtype, device, stepper
             ))
     return tables
+
+
+def cuda_kind_codes(kind):
+    """The kernel's kind codes (``enum BCKind``) of ``BatchedBC`` codes, as
+    int32: FLUX (0) -> BC_FLUX, DIRICHLET (1) -> BC_DIRICHLET, any other ->
+    BC_FREE_DRAINAGE, the last branch of the eager select."""
+    kind = torch.as_tensor(kind)
+    return torch.where(kind == BCKind.FLUX, BC_FLUX,
+                       torch.where(kind == BCKind.DIRICHLET, BC_DIRICHLET, BC_FREE_DRAINAGE)).to(torch.int32)
+
+
+def bc_kind_columns(model, ncol: int, device) -> list:
+    """Per BC slot, ``None`` or, for a ``BatchedBC`` slot, ``(codes, column
+    stride)``: the kernel's kind codes (:func:`cuda_kind_codes`), one per
+    column (stride 1) or one for all (stride 0), on ``device``."""
+    soil = _soil_of(model)
+    out = []
+    for face, comp in BC_SLOTS:
+        bc = getattr(getattr(soil.boundary_conditions, face), comp, None)
+        if not isinstance(bc, BatchedBC):
+            out.append(None)
+            continue
+        codes = cuda_kind_codes(bc.kind)
+        if codes.numel() == 1:
+            out.append((codes.reshape(1).to(device), 0))
+        elif tuple(codes.shape) == (ncol,):
+            out.append((codes.contiguous().to(device), 1))
+        else:
+            raise ValueError(
+                f"BatchedBC kinds of the {face} {comp} slot have shape {tuple(codes.shape)}; "
+                f"expected a scalar or ({ncol},)"
+            )
+    return out
 
 
 def _surface_values(model) -> list:
@@ -664,12 +743,17 @@ def precipitation_table(precipitation, times, dtype, device):
 
 
 def profile_tables(model: SoilModel, zc, times, reuse=None) -> list:
-    """The prescribed profiles at ``times`` as ``(len(times), nz)`` tables
-    on ``zc``'s device, in the order of :data:`PROFILE_NAMES` (``None`` for
-    a profile the branch does not prescribe): T for the water-only branch,
-    vartheta_l and theta_i for the heat-only branch.  The package's default
-    profiles, which do not depend on time, are evaluated once, and taken
-    from ``reuse`` where given."""
+    """The prescribed profiles at ``times`` on ``zc``'s device, in the order
+    of :data:`PROFILE_NAMES` (``None`` for a profile the branch does not
+    prescribe): T for the water-only branch, vartheta_l and theta_i for the
+    heat-only branch.  A profile with one value per level is a
+    ``(len(times), nz)`` table.  One that varies by column (on ``zc`` of
+    ``(nz, ncol)``, kernel mode B8, or by its own values) is a
+    ``(len(times), nz, ncol)`` table, or ``(1, nz, ncol)`` if it does not
+    depend on time; past :data:`PROFILE_TABLE_BYTES` it raises
+    ``ValueError`` naming its size.  The package's default profiles, which
+    do not depend on time, are evaluated once, and taken from ``reuse``
+    where given."""
     fns = [None] * _R
     if isinstance(model.energy_model, PrescribedTemperatureModel):
         fns[0] = model.energy_model.T_profile
@@ -686,17 +770,26 @@ def profile_tables(model: SoilModel, zc, times, reuse=None) -> list:
         if constant and reuse is not None and reuse[j] is not None:
             tables.append(reuse[j])
             continue
-        rows = []
-        for t in times[:1] if constant else times:
-            r = torch.as_tensor(fn(zc, t), dtype=model.float_dtype, device=zc.device)
-            if torch.broadcast_shapes(r.shape, (nz, 1)) != (nz, 1):
-                raise NotImplementedError(
-                    f"the {name} profile returned shape {tuple(r.shape)}: per-column "
-                    "prescribed profiles are not ported to the kernel yet (ROADMAP B8)"
-                )
-            rows.append(r.expand(nz, 1).reshape(nz))
-        table = torch.stack(rows)
-        tables.append((table.expand(len(times), nz) if constant else table).contiguous())
+        rows = [torch.as_tensor(fn(zc, t), dtype=model.float_dtype, device=zc.device)
+                for t in (times[:1] if constant else times)]
+        shape = torch.broadcast_shapes((nz, 1), *(r.shape for r in rows))
+        if shape == (nz, 1):
+            table = torch.stack([r.expand(nz, 1).reshape(nz) for r in rows])
+            tables.append((table.expand(len(times), nz) if constant else table).contiguous())
+            continue
+        if len(shape) != 2 or shape[0] != nz:
+            raise ValueError(
+                f"the {name} profile returned shape {tuple(shape)}; expected (nz, 1) or (nz, ncol) "
+                f"with nz={nz}"
+            )
+        nbytes = len(rows) * shape[0] * shape[1] * (torch.finfo(model.float_dtype).bits // 8)
+        if nbytes > PROFILE_TABLE_BYTES:
+            raise ValueError(
+                f"the {name} profile varies by column: its table of {len(rows)} rows x {shape[0]} x "
+                f"{shape[1]} takes {nbytes} B per launch, past the budget of {PROFILE_TABLE_BYTES} B "
+                "(PROFILE_TABLE_BYTES); take fewer steps per call"
+            )
+        tables.append(torch.stack([r.expand(shape) for r in rows]).contiguous())
     return tables
 
 
@@ -710,8 +803,18 @@ def _on_grid(stepper, grid):
     return dataclasses.replace(stepper, grid=grid) if hasattr(stepper, "grid") else stepper
 
 
+def geometry_grid(soil: SoilModel, geometry, dtype, device) -> ColumnGrid:
+    """The grid of a run: the model's, or with ``geometry = (dz, zc)``
+    (``streamed_geometry``) a grid of those rows, in ``dtype`` on
+    ``device``."""
+    if geometry is None:
+        return make_function_space(soil.domain, dtype, device)
+    dz, zc = (torch.as_tensor(x, dtype=dtype, device=device) for x in geometry)
+    return ColumnGrid(zc=zc, zf=None, dz=dz, nz=zc.shape[0], batch_shape=tuple(dz.shape))
+
+
 def fused_column_run_plain(model, stepper: AbstractTimestepper, dt, steps_per_call: int, Y: dict,
-                           t0, forcing=None, forcing_time_grid=None) -> dict:
+                           t0, forcing=None, forcing_time_grid=None, geometry=None) -> dict:
     """The plain PyTorch version of one kernel launch: ``steps_per_call``
     eager ``stepper.step`` calls of the model's rhs from ``t0``, with the
     model's step policies wrapped around ``stepper`` as ``Simulation`` wraps
@@ -721,12 +824,13 @@ def fused_column_run_plain(model, stepper: AbstractTimestepper, dt, steps_per_ca
     each field in the model (``_install_forcing_rows``) and wraps the step
     policies around that row-local model: row ``i``, or with
     ``forcing_time_grid = (t_start, dt_forcing, n_rows)`` the row of the
-    step's start time (``time_row``).  Returns a new state and leaves ``Y``
-    as it was."""
+    step's start time (``time_row``).  ``geometry = (dz, zc)`` replaces the
+    model's grid (``streamed_geometry``).  Returns a new state and leaves
+    ``Y`` as it was."""
     soil = _soil_of(model)
     dtype = soil.float_dtype
     device = Y[soil.name][prognostic_vars(soil)[0]].device
-    grid = make_function_space(soil.domain, dtype, device)
+    grid = geometry_grid(soil, geometry, dtype, device)
     stepper = wrap_stepper_with_projection(_on_grid(_base_stepper(stepper), grid), soil)
     Ya = {"zc": grid.zc, soil.name: {}}
     dt_t = torch.as_tensor(dt, dtype=dtype)
@@ -759,26 +863,31 @@ class FusedColumnRun:
     built with ``forcing_fields`` takes their rows (kernel B7; see
     :func:`make_fused_column_run`).  Each launch adds one to the module's
     ``LAUNCHES`` under :attr:`name`: the name of its mode, with ``+B7`` for
-    streamed rows (``+B7-time`` time-indexed)."""
+    streamed rows (``+B7-time`` time-indexed), ``+kinds`` for per-column BC
+    kinds (B1-batched) and ``+B8`` for per-column geometry."""
 
     def __init__(self, model, stepper, dt: float, steps_per_call: int, tile_cols: int,
-                 forcing_fields=(), forcing_time_grid=None):
+                 forcing_fields=(), forcing_time_grid=None, streamed_geometry=None):
         self.model = model
         self.soil = _soil_of(model)
         self.stepper = _base_stepper(stepper)
         self.dt = float(dt)
         self.steps_per_call = int(steps_per_call)
         self.tile_cols = int(tile_cols)
-        self.mode = kernel_mode(model, self.stepper)
+        self.mode = kernel_mode(model, self.stepper, streamed_geometry)
         self.fields = prognostic_vars(self.soil)
         self.forcing_fields = tuple(forcing_fields)
         self.forcing_time_grid = forcing_time_grid
         #: rows of each forcing field per launch: one per step, or the table
         self.n_frows = int(forcing_time_grid[2]) if forcing_time_grid else self.steps_per_call
-        self.name = mode_name(self.mode)
+        self.geometry = streamed_geometry
+        #: per-column BC kinds (B1-batched) and per-column geometry (B8)
+        self.batched, self.variable = per_column_features(model, streamed_geometry)
+        self.name = mode_name(self.mode, (self.batched, self.variable))
         if self.forcing_fields:
             self.name += "+B7-time" if forcing_time_grid else "+B7"
         self._device_inputs = {}  # (device, ncol) -> _inputs()
+        self._device_kinds = {}  # (device, ncol) -> bc_kind_columns()
 
     def _pond(self, Y: dict):
         return Y[self.model.surface.name]["h_s"] if self.mode & MODE_LAND else None
@@ -796,7 +905,7 @@ class FusedColumnRun:
             Yn = fused_column_run_plain(
                 self.model, self.stepper, self.dt, self.steps_per_call, Y, t0,
                 forcing=None if rows is None else {k: v[0] for k, v in rows.items()},
-                forcing_time_grid=self.forcing_time_grid,
+                forcing_time_grid=self.forcing_time_grid, geometry=self.geometry,
             )
             for group in Yn:
                 for k, v in Y[group].items():
@@ -876,15 +985,32 @@ class FusedColumnRun:
                 _column_tensor(values[n], ncol, dtype, device, f"parameter {n}")
                 for n in PARAM_NAMES
             ]
-            grid = make_function_space(soil.domain, dtype, device)
-            zc = grid.zc.reshape(-1, 1).contiguous()
+            grid = geometry_grid(soil, self.geometry, dtype, device)
+            zc = grid.zc.reshape(grid.nz, -1)
+            dz = grid.dz
+            if torch.is_tensor(dz):  # per column (B8)
+                dz = dz.reshape(-1)
+                if tuple(dz.shape) != (ncol,) or tuple(zc.shape) != (grid.nz, ncol):
+                    raise ValueError(
+                        f"per-column geometry of shapes dz {tuple(dz.shape)}, zc {tuple(zc.shape)} "
+                        f"does not match the state's (nz={grid.nz}, ncol={ncol})"
+                    )
+            else:
+                zc = zc.contiguous()
             args = (self.model, 0.0, self.dt, self.steps_per_call, ncol, device)
             times, _ = table_times(self.stepper, 0.0, self.dt, self.steps_per_call, dtype)
             self._device_inputs[key] = (
-                params, zc, grid.dz, bc_tables(*args, stepper=self.stepper),
+                params, zc, dz, bc_tables(*args, stepper=self.stepper),
                 surface_tables(*args, stepper=self.stepper), profile_tables(soil, zc, times),
             )
         return self._device_inputs[key]
+
+    def _kinds(self, ncol: int, device) -> list:
+        """:func:`bc_kind_columns` on ``device``, built once per column count."""
+        key = (str(device), ncol)
+        if key not in self._device_kinds:
+            self._device_kinds[key] = bc_kind_columns(self.model, ncol, device)
+        return self._device_kinds[key]
 
     def tables(self, ncol: int, device, t0) -> tuple:
         """``(BC, profile, surface, precipitation)`` tables of a launch from
@@ -905,17 +1031,28 @@ class FusedColumnRun:
             precip = precipitation_table(self.model.surface.precipitation, times, dtype, device)
         return bc, profiles, surface, precip
 
-    def _launch(self, fields, h_s, t0, device, rows=None):
+    def launch_args(self, fields, h_s, t0, device, rows=None) -> tuple:
+        """``(argument struct, tensors it points to)`` of a launch from
+        ``t0``; the caller keeps the tensors alive until it is queued."""
         dtype = self.soil.float_dtype
         nz, ncol = fields[0].shape
         params, zc, dz = self._inputs(ncol, device)[:3]
         tables, profiles, surface, precip = self.tables(ncol, device, t0)
+        kinds = self._kinds(ncol, device)
+        if not self.mode & MODE_COLUMNS and any(p is not None and p.dim() == 3 for p in profiles):
+            raise ValueError("a prescribed profile varies by column after t = 0 but not at t = 0: "
+                             "per-column profiles must vary by column from the start")
         scratch = torch.empty(scratch_fields(self.mode) * nz * ncol, dtype=dtype, device=device)
         args = kernel_args(
             self.model, fields, scratch, zc, dz, params, tables, self.steps_per_call, self.dt,
             stepper=self.stepper, profiles=profiles, surface=surface, precip=precip, h_s=h_s,
-            forcing=rows, forcing_time_grid=self.forcing_time_grid, t0=t0,
+            forcing=rows, forcing_time_grid=self.forcing_time_grid, t0=t0, kinds=kinds, mode=self.mode,
         )
+        return args, (scratch, tables, profiles, surface, precip, rows)
+
+    def _launch(self, fields, h_s, t0, device, rows=None):
+        dtype = self.soil.float_dtype
+        args, keep = self.launch_args(fields, h_s, t0, device, rows)
         lib_name, fn_name = _entry(self.mode, dtype)
         lib = load_library(lib_name)
         with torch.cuda.device(device):
@@ -923,6 +1060,7 @@ class FusedColumnRun:
             rc = getattr(lib, fn_name)(
                 ctypes.byref(args), self.tile_cols, ctypes.c_void_p(stream)
             )
+        del keep
         if rc != 0:
             raise RuntimeError(f"column kernel launch failed: cudaError {rc}")
         LAUNCHES[self.name] += 1
@@ -930,10 +1068,15 @@ class FusedColumnRun:
 
 def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt,
                 stepper: AbstractTimestepper = SSPRK33(), profiles=None, surface=None,
-                precip=None, h_s=None, forcing=None, forcing_time_grid=None, t0=0.0) -> _KernelArgs:
+                precip=None, h_s=None, forcing=None, forcing_time_grid=None, t0=0.0,
+                kinds=None, mode=None) -> _KernelArgs:
     """Pack the kernel's argument struct.  ``fields`` are the state tensors
-    in the order of ``prognostic_vars`` of the soil; ``surface``,
-    ``precip`` and ``h_s`` are the surface modes' tables and pond;
+    in the order of ``prognostic_vars`` of the soil; ``zc`` is ``(nz, 1)``
+    or ``(nz, ncol)`` (any strides) and ``dz`` a number or, per column, a
+    ``(ncol,)`` tensor (B8); ``kinds`` is :func:`bc_kind_columns`
+    (B1-batched); ``mode`` the run's mode word (by default
+    :func:`kernel_mode` of the model); ``surface``, ``precip`` and ``h_s``
+    are the surface modes' tables and pond;
     ``forcing`` maps streamed fields to ``(rows, row stride, column
     stride)`` (kernel B7), step-indexed, or time-indexed on
     ``forcing_time_grid = (t_start, dt_forcing, n_rows)`` from the launch's
@@ -952,6 +1095,8 @@ def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt,
             setattr(a, name, state[name].data_ptr())
     a.scratch = scratch.data_ptr()
     a.zc = zc.data_ptr()
+    a.zc_level_stride = zc.stride(0)
+    a.zc_col_stride = zc.stride(1) if zc.shape[1] > 1 else 0
     for j, (t, stride) in enumerate(params):
         a.param_ptr[j] = t.data_ptr()
         a.param_stride[j] = stride
@@ -964,9 +1109,17 @@ def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt,
             a.bc_ptr[j] = table[0].data_ptr()
             a.bc_row_stride[j] = table[1]
             a.bc_col_stride[j] = table[2]
+    for j, column in enumerate(kinds or ()):
+        if column is not None:
+            a.bc_kind_col[j] = column[0].data_ptr()
+            a.bc_kind_col_stride[j] = column[1]
     for j, table in enumerate(profiles or ()):
         if table is not None:
             a.profile[j] = table.data_ptr()
+            a.profile_row_stride[j] = table.stride(0) if table.shape[0] > 1 else 0
+            per_column = table.dim() == 3
+            a.profile_level_stride[j] = table.stride(1) if per_column else 1
+            a.profile_col_stride[j] = table.stride(2) if per_column and table.shape[2] > 1 else 0
     for j, table in enumerate(surface or ()):
         if table is not None:
             a.surface_ptr[j] = table[0].data_ptr()
@@ -998,7 +1151,7 @@ def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt,
     a.nz, a.ncol, a.n_steps = nz, ncol, n_steps
     a.viscosity = int(isinstance(getattr(hydrology, "viscosity_factor", None), TemperatureDependentViscosity))
     a.impedance = int(isinstance(getattr(hydrology, "impedance_factor", None), IceImpedance))
-    a.mode = kernel_mode(model, base)
+    a.mode = kernel_mode(model, base) if mode is None else mode
     ft = soil.freeze_thaw
     if isinstance(ft, EquilibriumFreezeThaw):
         a.n_iter, a.T_lo, a.T_hi = int(ft.n_iter), float(ft.T_lo), float(ft.T_hi)
@@ -1007,7 +1160,11 @@ def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt,
     k = trbdf2_coefficients()
     a.half_g, a.a1, a.a2, a.b_bdf2 = k["half_g"], k["a1"], k["a2"], k["b"]
     a.dt = dt
-    a.dz = dz
+    if torch.is_tensor(dz):
+        a.dz_col = dz.data_ptr()
+        a.dz_col_stride = dz.stride(0) if dz.numel() > 1 else 0
+    else:
+        a.dz = dz
     for name in ("T_0", "rho_cloud_ice", "LH_f0", "rho_cp_l", "rho_cp_i", "rho_cloud_liq", "grav",
                  "von_karman_const", "cp_d", "cp_v", "cp_l", "R_d", "R_v", "LH_v0",
                  "press_triple", "T_triple", "molmass_ratio"):
@@ -1051,18 +1208,65 @@ def _check_surface(model, rain_forced: bool = False) -> None:
         )
 
 
+def per_column_features(model, streamed_geometry=None) -> tuple:
+    """``(kinds, geometry)``: whether the run reads per-column BC kinds (a
+    ``BatchedBC`` slot, kernel mode B1-batched) and per-column geometry (a
+    ``VariableDepthColumn``, ``streamed_geometry``, or a prescribed profile
+    that varies by column at t = 0 on the model's grid; B8)."""
+    soil = _soil_of(model)
+    kinds = any(isinstance(getattr(getattr(soil.boundary_conditions, face), comp, None), BatchedBC)
+                for face, comp in BC_SLOTS)
+    geometry = streamed_geometry is not None or isinstance(soil.domain, VariableDepthColumn)
+    return kinds, geometry or _per_column_profiles(soil)
+
+
+def _per_column_profiles(soil: SoilModel) -> bool:
+    fns = []
+    if isinstance(soil.energy_model, PrescribedTemperatureModel):
+        fns.append(soil.energy_model.T_profile)
+    if isinstance(soil.hydrology_model, PrescribedHydrologyModel):
+        fns += [soil.hydrology_model.vartheta_l_profile, soil.hydrology_model.theta_i_profile]
+    fns = [f for f in fns if f not in (_default_T_profile, _default_zero_profile)]
+    if not fns:
+        return False
+    zc = make_function_space(soil.domain, soil.float_dtype, soil.device).zc
+    t0 = torch.zeros((), dtype=soil.float_dtype)
+    return any(len(s) == 2 and s[1] > 1 for s in (
+        torch.broadcast_shapes((zc.shape[0], 1), torch.as_tensor(f(zc, t0)).shape) for f in fns))
+
+
+def _check_per_column(model, stepper, streamed_geometry, forcing_fields) -> None:
+    """Refuse per-column kinds or geometry in a mode ``chip_smoke.py`` does
+    not hold them in, and with streamed forcing rows."""
+    kinds, geometry = per_column_features(model, streamed_geometry)
+    name = mode_name(kernel_mode(model, stepper) & ~MODE_COLUMNS)
+    for used, modes, item, what in ((kinds, KINDS_MODES, "B1-batched", "per-column BC kinds (BatchedBC)"),
+                                    (geometry, GEOMETRY_MODES, "B8", "per-column geometry")):
+        if used and (name not in modes or forcing_fields):
+            where = "with streamed forcing rows" if name in modes else f"in mode {name}"
+            raise NotImplementedError(
+                f"{what} {where} are not ported to the kernel yet (ROADMAP {item}); "
+                f"the kernel takes them in {', '.join(sorted(modes))}"
+            )
+
+
 def _check_model(model, rain_forced: bool = False) -> None:
     if not isinstance(model, (SoilModel, LandModel)):
         raise TypeError(f"expected a SoilModel or a LandModel; got {type(model).__name__}")
     soil = _soil_of(model)
+    if soil.lateral_coupling is not None:
+        raise ValueError(
+            "the fused column kernel runs each column alone, so cross-column lateral "
+            "coupling cannot run inside it: use the eager engine"
+        )
+    exchanged = exchanged_components(model)
+    if exchanged:
+        _check_surface(model, rain_forced)
     if len(soil.domain.batch_shape) != 1:
         raise ValueError(
             "the fused column kernel expects a 1-D column batch (nz, ncol); "
             f"got batch_shape={soil.domain.batch_shape}"
         )
-    exchanged = exchanged_components(model)
-    if exchanged:
-        _check_surface(model, rain_forced)
     if not (_dynamic(soil, "energy") or _dynamic(soil, "hydrology")):
         raise ValueError("the fused kernel needs at least one dynamic component")
     for face, comp in BC_SLOTS:
@@ -1077,7 +1281,7 @@ def _check_model(model, rain_forced: bool = False) -> None:
         if not _dynamic(soil, comp):
             # a prescribed component has no flux: a flux value is ignored,
             # a Dirichlet value has no state to set (boundary.py raises)
-            if isinstance(bc, (Dirichlet, FreeDrainage)):
+            if isinstance(bc, (Dirichlet, FreeDrainage, BatchedBC)):
                 raise TypeError(f"Unsupported BC {bc!r} for the prescribed {comp} component")
             continue
         if isinstance(bc, NoBC):
@@ -1181,6 +1385,11 @@ def make_fused_column_run(
     ``ncol`` need not be a multiple of it.  Time advances
     ``steps_per_call * dt`` per call.
 
+    ``streamed_geometry``: an optional ``(dz, zc)`` pair of ``(ncol,)`` and
+    ``(nz, ncol)`` tensors, a per-column grid that replaces the model's
+    (kernel mode B8; the model's domain gives ``nz`` and the flat batch).
+    The kernel reads them where they are, on the launch's device.
+
     ``forcing_fields``: names of forcing fields streamed through the kernel
     (kernel B7; the routing of ``runtime/forcing_driver.py``: the
     ``PrescribedAtmosForcing`` fields and/or ``"precipitation"``):
@@ -1207,10 +1416,9 @@ def make_fused_column_run(
         forcing_time_grid = (float(t_start), float(dt_forcing), int(n_rows))
     _check_model(model, rain_forced)
     _check_stepper(model, stepper)
+    _check_per_column(model, stepper, streamed_geometry, forcing_fields)
     if streamed_geometry is not None:
-        raise NotImplementedError(
-            "streamed geometry (kernel B8) is not ported yet: ROADMAP A13"
-        )
+        streamed_geometry = _check_geometry(model, streamed_geometry)
     if differentiable:
         raise NotImplementedError(
             "differentiable=True (kernel B9) is not ported yet: ROADMAP A17"
@@ -1221,4 +1429,23 @@ def make_fused_column_run(
         raise ValueError(
             f"tile_cols must be a multiple of 32 in [32, 1024]; got {tile_cols}"
         )
-    return FusedColumnRun(model, stepper, dt, steps_per_call, tile_cols, forcing_fields, forcing_time_grid)
+    return FusedColumnRun(model, stepper, dt, steps_per_call, tile_cols, forcing_fields, forcing_time_grid,
+                          streamed_geometry)
+
+
+def _check_geometry(model, geometry) -> tuple:
+    """``streamed_geometry`` as ``(dz, zc)`` tensors of the model dtype:
+    ``(ncol,)`` and ``(nz, ncol)`` for the model's ``nz`` and flat batch."""
+    soil = _soil_of(model)
+    dz, zc = geometry
+    if not (torch.is_tensor(dz) and torch.is_tensor(zc)):
+        raise TypeError("streamed_geometry must be a (dz, zc) pair of tensors")
+    ncol = soil.domain.batch_shape[0]
+    nz = soil.domain.nelements
+    if tuple(dz.shape) != (ncol,) or tuple(zc.shape) != (nz, ncol):
+        raise ValueError(
+            f"streamed_geometry has shapes dz {tuple(dz.shape)}, zc {tuple(zc.shape)}; expected "
+            f"({ncol},) and ({nz}, {ncol})"
+        )
+    dtype = soil.float_dtype
+    return dz.to(dtype), zc.to(dtype)

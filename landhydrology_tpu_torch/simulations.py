@@ -16,7 +16,9 @@ An implicit stepper's grid is rebuilt on the model's device.  A
 ``LandModel`` (soil + pond, ``models/land.py``) runs on both engines: its
 soil component owns the freeze-thaw projection, and its step-level
 policies (frozen surface exchange, lagged coefficients) wrap the stepper
-as ``wrap_stepper_for_land`` does.
+as ``wrap_stepper_for_land`` does.  Per-column BC kinds and depths run on
+both engines; a ``LateralSurfaceCoupling`` couples columns and runs on the
+eager engine only (the fused engine raises ``ValueError``).
 """
 
 from __future__ import annotations

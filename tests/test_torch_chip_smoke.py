@@ -462,3 +462,168 @@ def test_forced_bound_counts_the_rows():
                          read_values=4 * 24 * NCOL)
     assert by == "bytes"
     assert ms == pytest.approx(1e3 * (2 * (3 * NZ + 1) * NCOL + 4 * 24 * NCOL) * 4 / cs.HBM_BYTES_PER_S)
+
+
+# ---- phase 12: the regional-grid path (kernel modes B1-batched and B8) ----
+
+
+class _Captured(Exception):
+    pass
+
+
+def _regional_script_model(monkeypatch, ncol):
+    """``experiments/soil/regional_grid.py``'s model and initial state at
+    ``ncol`` columns: its ``main`` run up to the kernel's factory, which
+    records the model and stops the run."""
+    import importlib.util
+    import sys
+
+    import landhydrology_tpu
+    import landhydrology_tpu.ops.pallas as pallas
+
+    seen = {}
+    init = landhydrology_tpu.initialize_states
+
+    def initialize_states(model, ic, t0):
+        seen["Y"], seen["Ya"] = init(model, ic, t0)
+        return seen["Y"], seen["Ya"]
+
+    def factory(model, *args, **kwargs):
+        seen["model"] = model
+        raise _Captured
+
+    monkeypatch.setattr(landhydrology_tpu, "initialize_states", initialize_states)
+    monkeypatch.setattr(pallas, "make_fused_column_run", factory)
+    monkeypatch.setattr(sys, "argv", ["regional_grid.py", "--ncol", str(ncol)])
+    spec = importlib.util.spec_from_file_location(
+        "regional_grid", f"{cs.HERE}/experiments/soil/regional_grid.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    with pytest.raises(_Captured):
+        module.main()
+    return seen["model"], seen["Y"]
+
+
+def test_regional_builder_matches_the_experiment(monkeypatch):
+    """``build_regional`` at ncol=256 is ``regional_grid.py``'s float32 model
+    and initial state, leaf by leaf, bit for bit: the per-column soils, both
+    faces' kinds and values, the grid and the three state fields."""
+    from landhydrology_tpu_torch.convert import model_from_reference
+
+    jm, jY = _regional_script_model(monkeypatch, 256)
+    model, Y, _, kinds_top = cs.build_regional(48, 256, torch.float32, "cpu")
+    ref = model_from_reference(jm, device="cpu", dtype=torch.float32)
+
+    def leaves(obj, path=""):
+        if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+            for f in dataclasses.fields(obj):
+                yield from leaves(getattr(obj, f.name), f"{path}.{f.name}")
+        elif not callable(obj) and not isinstance(obj, (str, torch.dtype)):
+            yield path, obj
+
+    got = dict(leaves(dataclasses.replace(model, device="cpu")))
+    want = dict(leaves(dataclasses.replace(ref, device="cpu")))
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        if torch.is_tensor(v):
+            assert torch.is_tensor(got[k]) and got[k].dtype == v.dtype and torch.equal(got[k], v), k
+        else:
+            assert got[k] == v, k
+    assert got[".boundary_conditions.top.hydrology.kind"].dtype == torch.int32
+    assert torch.equal(kinds_top, got[".boundary_conditions.top.hydrology.kind"])
+    for k, v in cs._np(Y).items():
+        np.testing.assert_array_equal(v, np.asarray(jY["soil"][k], dtype=np.float64), err_msg=k)
+
+
+def test_regional_variable_depth_twin_and_column_slice():
+    """The variable-depth twin keeps every draw of the regional model and
+    varies the depth alone; ``column_slice`` cuts a sub-model whose plain
+    run equals the same columns of the whole batch's."""
+    from landhydrology_tpu_torch.domains import VariableDepthColumn
+
+    model, Y, _, _ = cs.build_regional(8, 64, torch.float64, "cpu")
+    twin, Yt, _, _ = cs.build_regional(8, 64, torch.float64, "cpu", variable_depth=True)
+    assert isinstance(twin.domain, VariableDepthColumn)
+    assert 0.8 <= float(twin.domain.height.min()) and float(twin.domain.height.max()) <= 3.0
+    assert torch.equal(twin.soil_param_set.nu, model.soil_param_set.nu)
+    assert all(torch.equal(Yt["soil"][k], Y["soil"][k]) for k in Y["soil"])
+    idx = torch.arange(0, 64, 8)
+    for m, Y0 in ((model, Y), (twin, Yt)):
+        sub, Ys = cs.column_slice(m, Y0, idx)
+        assert sub.domain.batch_shape == (8,) and Ys["soil"]["vartheta_l"].shape == (8, 8)
+        whole = cs._np(ck.fused_column_run_plain(m, SSPRK33(), 5.0, 3, Y0, 0.0))
+        part = cs._np(ck.fused_column_run_plain(sub, SSPRK33(), 5.0, 3, Ys, 0.0))
+        for k in part:
+            np.testing.assert_array_equal(part[k], whole[k][:, idx.numpy()], err_msg=k)
+
+
+def test_grid_variants_cover_every_opened_mode():
+    """Phase 12's variants hold every mode that takes per-column kinds or
+    geometry (``KINDS_MODES``, ``GEOMETRY_MODES``) against its plain version,
+    and the cross-component cases ride on B1."""
+    modes = {c for c in cs.GRID_VARIANTS if not c.startswith("cross")}
+    assert modes == set(ck.KINDS_MODES) | set(ck.GEOMETRY_MODES)
+    assert {"cross-energy", "cross-water"} <= set(cs.GRID_VARIANTS)
+
+
+@pytest.mark.parametrize("case", cs.GRID_VARIANTS)
+def test_grid_variant_builds_its_mode(case):
+    """Each variant builds the mode it names with the per-column features
+    that mode takes, and its plain launch moves the state and stays finite."""
+    model, Y, stepper, dt, n = cs.build_grid_variant(32, torch.float64, "cpu", 7, case)
+    mode = "B1" if case.startswith("cross") else case
+    run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=n)
+    assert run.name == mode + ("+kinds" if mode in ck.KINDS_MODES else "") + ("+B8" if mode in ck.GEOMETRY_MODES else "")
+    assert run.name == ck.mode_name(run.mode, ck.per_column_features(model))
+    if mode in ck.KINDS_MODES and mode in ck.GEOMETRY_MODES:
+        assert ck.mode_name(run.mode) == mode + "+kinds+B8"  # the instance reads both
+    start = cs._np(Y)
+    end = cs._np(ck.fused_column_run_plain(model, stepper, dt, n, Y, 2.0))
+    assert all(np.isfinite(v).all() for v in end.values())
+    assert np.max(np.abs(end["vartheta_l"] - start["vartheta_l"])) > 1e-6
+    if case.startswith("cross"):
+        top = model.boundary_conditions.top
+        plain, batched = (top.energy, top.hydrology) if case == "cross-energy" else (top.hydrology, top.energy)
+        assert type(plain).__name__ == "Dirichlet" and type(batched).__name__ == "BatchedBC"
+        assert bool((batched.kind == 1).any()) and bool((batched.kind == 0).any())
+
+
+def test_per_column_values_count_the_grid_and_the_kinds():
+    """The bound reads a per-column grid once (centers and spacing) and the
+    kind columns as int32."""
+    model, _, _, _ = cs.build_regional(8, 64, torch.float64, "cpu")
+    twin, _, _, _ = cs.build_regional(8, 64, torch.float32, "cpu", variable_depth=True)
+    run = ck.make_fused_column_run(model, dt=5.0, steps_per_call=2)
+    assert cs.per_column_values(run, 8, 64, torch.float64) == 2 * 64 // 2
+    run = ck.make_fused_column_run(twin, dt=5.0, steps_per_call=2)
+    assert cs.per_column_values(run, 8, 64, torch.float32) == 8 * 64 + 64 + 2 * 64
+
+
+def test_check_diverged_holds_the_columns_that_leave_the_finite_numbers():
+    """A column past its explicit limit leaves the range (non-finite, or
+    vartheta_l outside [0, 1]) in the kernel and in the plain version alike:
+    the check accepts that, holds the other columns to the bars, and fails
+    a kernel that diverges alone or that is off on a sound column."""
+    rng = np.random.default_rng(0)
+    start = {"vartheta_l": rng.uniform(0.2, 0.3, (8, 6)), "rho_e_int": rng.uniform(1e7, 2e7, (8, 6))}
+    plain = {k: v * (1.0 + 1e-3 * rng.random(v.shape)) for k, v in start.items()}
+    plain["vartheta_l"][:, 4] = np.nan
+    plain["rho_e_int"][3, 4] = np.inf
+    kern = {k: v.copy() for k, v in plain.items()}
+    shares, err, diverged = cs.check_diverged(kern, plain, start, torch.float64, "same", MOVING)
+    assert diverged == 1 and err == 0.0 and set(shares) == set(MOVING)
+    alone = {k: v.copy() for k, v in kern.items()}
+    alone["vartheta_l"][0, 1] = np.nan
+    with pytest.raises(AssertionError, match="diverges in columns"):
+        cs.check_diverged(alone, plain, start, torch.float64, "alone", MOVING)
+    wild = {k: v.copy() for k, v in kern.items()}  # finite, but out of the range in both
+    wild["vartheta_l"][:, 2] = 1.5
+    plain_wild = {k: v.copy() for k, v in plain.items()}
+    plain_wild["vartheta_l"][:, 2] = -0.5
+    assert cs.check_diverged(wild, plain_wild, start, torch.float64, "wild", MOVING)[2] == 2
+    off = {k: v.copy() for k, v in kern.items()}
+    off["rho_e_int"][2, 0] *= 1.0 + 1e-9
+    with pytest.raises(AssertionError):
+        cs.check_diverged(off, plain, start, torch.float64, "off", MOVING)
+    a = torch.tensor([1.0, float("nan"), 3.0])
+    assert cs._equal_nan(a, a.clone()) and not cs._equal_nan(a, torch.tensor([1.0, 2.0, 3.0]))

@@ -253,8 +253,16 @@ def test_unported_modes_raise(mode):
         with pytest.raises(NotImplementedError, match="ROADMAP B4"):
             ck.make_fused_column_run(most, TRBDF2Soil(model=most, grid=grid), forcing_fields=("u_atm",),
                                      forcing_time_grid=(0.0, 60.0, 10))
-    elif mode == "B8_geometry":
-        with pytest.raises(NotImplementedError, match="A13"):
+    elif mode == "B8_geometry":  # ported: in the modes chip_smoke.py holds it in, of the model's shape
+        grid = make_function_space(model.domain, torch.float64, "cpu")
+        geometry = (torch.full((8,), 0.05, dtype=torch.float64), grid.zc.expand(24, 8).contiguous())
+        assert ck.make_fused_column_run(model, streamed_geometry=geometry).name == "B1+B8"
+        with pytest.raises(NotImplementedError, match="ROADMAP B8"):
+            ck.make_fused_column_run(dataclasses.replace(model, freeze_thaw=EquilibriumFreezeThaw()),
+                                     streamed_geometry=geometry)
+        with pytest.raises(ValueError, match="streamed_geometry has shapes"):
+            ck.make_fused_column_run(model, streamed_geometry=(geometry[0][:4], geometry[1]))
+        with pytest.raises(TypeError, match="pair of tensors"):
             ck.make_fused_column_run(model, streamed_geometry=(None, None))
     else:
         with pytest.raises(NotImplementedError, match="A17"):
@@ -353,14 +361,22 @@ def test_implicit_factory_checks():
         ck.make_fused_column_run(bad)
 
 
-def test_per_column_profiles_are_refused():
+def test_per_column_profiles_are_refused(monkeypatch):
+    """Per-column profiles (kernel mode B8) are tabulated per column, one
+    (nz, ncol) row per stage time, and refused past the table budget with
+    the table's size in the message."""
     model = _golden_port()
     water_only, _ = _branch_models(model)
     per_column = dataclasses.replace(
-        water_only, energy_model=PrescribedTemperatureModel(lambda z, t: 280.0 + 0.0 * z * torch.ones(8)))
+        water_only, energy_model=PrescribedTemperatureModel(lambda z, t: 280.0 + t + z * torch.arange(8.0)))
     zc = make_function_space(per_column.domain, torch.float64, "cpu").zc
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        ck.profile_tables(per_column, zc, [torch.tensor(0.0, dtype=torch.float64)])
+    times = [torch.tensor(t, dtype=torch.float64) for t in (0.0, 1.0, 2.5)]
+    table = ck.profile_tables(per_column, zc, times)[0]
+    assert table.shape == (3, 24, 8) and table.is_contiguous()
+    assert torch.equal(table[2], 282.5 + zc * torch.arange(8.0))
+    monkeypatch.setattr(ck, "PROFILE_TABLE_BYTES", 3 * 24 * 8 * 8 - 1)
+    with pytest.raises(ValueError, match="takes 4608 B per launch"):
+        ck.profile_tables(per_column, zc, times)
     (table, vl, ti) = ck.profile_tables(water_only, zc, [torch.tensor(t, dtype=torch.float64) for t in (0.0, 1.0)])
     assert vl is None and ti is None and table.shape == (2, 24) and torch.all(table == 288.0)
 

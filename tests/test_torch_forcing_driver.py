@@ -363,7 +363,7 @@ def test_unported_forced_combinations_raise_naming_their_item():
     no_ice = dataclasses.replace(land, soil=dataclasses.replace(land.soil, assume_no_ice=True))
     with pytest.raises(NotImplementedError, match="ROADMAP B6"):
         make_forced_segment_run(no_ice, field_names=("precipitation",), engine="fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
         ck.make_fused_column_run(model, forcing_fields=("u_atm",), streamed_geometry=(1.0, 1.0))
 
 
