@@ -111,6 +111,35 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    kernel ms per launch and the bound; and the lateral surface coupling on the eager engine
    (``tests/parallel/test_sharding.py``'s 8 x 8 batch): water conserved to
    1e-12, the surface bump flattening;
+13. adaptive stepping (``landhydrology_tpu_torch/adaptive.py``, kernel
+   modes B1-dt and B4+B5, B4+B5+B7): (a) f64 at the JAX tests' sizes, the
+   adaptive golden (``golden_adaptive_f64.npz``) through the kernels: case
+   a (golden #1 under ``run_adaptive_fused``) with JAX's counts, its dt
+   after every iteration within the reference's one-ulp spread and the
+   state at rtol 1e-10; case b (TR-BDF2 under a MOST top with time-indexed
+   rows, ``run_adaptive_forced(engine="fused")``) free within the
+   reference's one-ulp spread and replaying the golden's iteration records
+   (error norms within the noise bar, the final state at rtol 1e-10); every
+   JAX adaptive test of ``ADAPTIVE_TESTS`` replaying its records and free
+   with JAX's counts; the first 8 iterations of each kernel-driven run
+   replayed through the plain version on the card (``_check``'s bars, the
+   error norms); (b) one launch
+   at ``dt_run`` = 0.37 x the factory dt in every mode of the kernel table
+   (52 names, the B4+B5 instances included) on 1,000 columns, f64 and f32,
+   equal bit for bit to a run built at that dt and within the plain
+   version's bars; (c) at full width, f32 and f64: ``bench.py::build`` under
+   ``run_adaptive_fused(SSPRK33(), steps_per_call=32)`` for an hour from dt0
+   = 1 s (B1), ``build_stiff`` over phase 8's horizon under TR-BDF2 and
+   SSPRK33 (8 steps per segment; RMSE against SSPRK33 at dt_exp below
+   1e-2), the reanalysis LandModel under the first 12 rows of its forcing
+   as a time-indexed table (B6+B7-time) and its soil under TR-BDF2
+   (B4-trbdf2+B5+B7-time), dt_max 120 s; each with its launch counts set
+   to 0 just before the run and read just after, counts, rates, kernel ms
+   per launch, busy share and host time per iteration, the first
+   iteration's three launches against the plain version on every 64th
+   column, and the final state against a fixed-dt kernel run at the
+   largest accepted dt / 8 (within the tolerance the controller accepted);
+   then the B4+B5 modes timed at nz=24 x 32,768;
 6. times of every mode's kernel and plain version at its phase-4/5/8/9/10/12
    shape (CUDA events, in turns), beside the least time the card could take
    (with the MOST solve's probes counted from the plain version's solves on
@@ -119,7 +148,7 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
 
 ``--forced-only`` runs phases 1, 2 and 11 alone (a quick check of kernel
 B7), ``--grid-only`` phases 1, 2 and 12 with phase 6's times of phase 12's
-paths.  With ``--profile`` a seventh phase follows for B1 and B2 at the phase-4
+paths, ``--adaptive-only`` phases 1, 2 and 13.  With ``--profile`` a seventh phase follows for B1 and B2 at the phase-4
 shape: six timings each of the kernel and the plain version in turns, a
 ``tile_cols`` sweep, the SM clock and power draw under load, and
 ``Simulation.run`` end to end, unprofiled and under ``torch.profiler``
@@ -277,6 +306,36 @@ def build_variant_model(ncol, dtype, device, seed):
         "rho_e_int": volumetric_internal_energy(theta_i, rho_c_s, T, ps),
     }}
     return model, Y
+
+
+def branch_variants(dtype, device, ncol=1000):
+    """``(model, state, stepper, dt, steps, what, moving fields)`` of phase
+    3's water-only and heat-only variants on ``ncol`` columns: SSPRK33 and
+    TR-BDF2 on each branch."""
+    from landhydrology_tpu_torch import (
+        Dirichlet, FreeDrainage, PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC,
+    )
+    from landhydrology_tpu_torch.models.soil import TemperatureDependentViscosity
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    stiff, Y, _ = build_stiff(16, ncol, dtype, device)
+    water = dataclasses.replace(
+        stiff,
+        energy_model=PrescribedTemperatureModel(T_profile=lambda z, t: 285.0 + 3.0 * z + 1e-3 * t),
+        hydrology_model=dataclasses.replace(stiff.hydrology_model,
+                                            viscosity_factor=TemperatureDependentViscosity()),
+        boundary_conditions=SoilColumnBC(top=SoilComponentBC(hydrology=Dirichlet(lambda t: 0.25 + 1e-3 * t)),
+                                         bottom=SoilComponentBC(hydrology=FreeDrainage())),
+    )
+    heat, Yh, _ = build_heat_only(16, ncol, dtype, device, seed=3)
+    return (
+        (water, Y, SSPRK33(), 0.05, 10, "callable Dirichlet top, T profile, viscosity", ("vartheta_l",)),
+        (stiff, Y, implicit("TRBDF2Soil", stiff, 2), 5.0, 4, "stiff infiltration, callable Dirichlet top",
+         ("vartheta_l",)),
+        (heat, Yh, SSPRK33(), 10.0, 10, "callable Dirichlet top, per-column flux, profiles", ("rho_e_int",)),
+        (heat, Yh, implicit("TRBDF2Soil", heat, 2), 600.0, 4,
+         "callable Dirichlet top, per-column flux, profiles", ("rho_e_int",)),
+    )
 
 
 def build_freeze_wide(gc, dtype, device, freeze_thaw):
@@ -757,11 +816,28 @@ def cell_step_ops(ck, mode, n_iter=60, iters=2, nz=NZ):
 _MOST_H = dict(op=78, div=5, log=2, sqrt=8)
 
 
-def column_step_ops(ck, mode, dtype, probes=None):
+def most_exchanges(ck, mode, iters=2):
+    """Surface exchanges (MOST solves under a MOST top) per column and step:
+    one per rhs evaluation, so three for SSPRK33, one with
+    ``MODE_SURFACE_STEP``; under the implicit steppers (B4+B5) f(u^n) and a
+    water and a heat sweep per iteration of each TR-BDF2 stage (1 + 4
+    iters), ``iters`` water and ``iters`` heat sweeps (BackwardEulerSoil)
+    or ``iters`` water sweeps and the explicit update
+    (BackwardEulerRichards)."""
+    if mode & ck.MODE_TRBDF2:
+        return 1 + 4 * iters
+    if mode & ck.MODE_BE_SOIL:
+        return 2 * iters
+    if mode & ck.MODE_BE_RICHARDS:
+        return iters + 1
+    return 1 if mode & ck.MODE_SURFACE_STEP else 3
+
+
+def column_step_ops(ck, mode, dtype, probes=None, iters=2):
     """Operations per column and step of the surface exchange of a B5/B6
-    mode, counted from ``csrc/surface_fluxes.cuh`` and
-    ``csrc/land_kernel.cu`` (an empty count for other modes): per exchange
-    (three per step, one with ``MODE_SURFACE_STEP``) the MOST solve, with
+    mode, counted from ``csrc/surface_fluxes.cuh``, ``csrc/land_kernel.cu``
+    and ``csrc/implicit_kernel.cu`` (an empty count for other modes): per
+    exchange (``most_exchanges``) the MOST solve, with
     ``probes`` evaluations of h in its rounds (20 rounds in float64, 4 in
     float32, each stopping at its first probe past the sign change: the
     mean per solve and column of this run's data, ``most_probes``), its
@@ -778,7 +854,7 @@ def column_step_ops(ck, mode, dtype, probes=None):
         for k, v in counts.items():
             ops[k] += n * v
 
-    exchanges = 1 if mode & ck.MODE_SURFACE_STEP else 3
+    exchanges = most_exchanges(ck, mode, iters)
     if mode & ck.MODE_MOST:
         h_evals = probes + (3 if dtype == torch.float64 else 4)
         add(exchanges * (h_evals + 1), **_MOST_H)  # + the finish's denominators
@@ -850,7 +926,7 @@ def bound_ms(ck, costs, mode, dtype, cells, steps, n_iter=60, iters=2, ncol=0, p
     pond = ncol if mode & ck.MODE_LAND else 0
     t_bytes = (2 * (state_fields(ck, mode) * cells + pond) + read_values) * itemsize / HBM_BYTES_PER_S
     total = (cells * instructions(cell_step_ops(ck, mode, n_iter, iters))
-             + ncol * instructions(column_step_ops(ck, mode, dtype, probes)))
+             + ncol * instructions(column_step_ops(ck, mode, dtype, probes, iters)))
     t_ops = steps * total / (PEAK_FLOPS[dtype] / 2)
     return (1e3 * t_ops, "operations") if t_ops >= t_bytes else (1e3 * t_bytes, "bytes")
 
@@ -1176,7 +1252,7 @@ def time_mode(ck, model, Y0, dt, spc, stepper=None):
     plain_column = lambda: ck.fused_column_run_plain(model, stepper, dt, spc, Y0, 0.0)  # noqa: E731
     mode = ck.kernel_mode(model, stepper)
     solves, probes = most_probes(ck, model, stepper, dt, spc, Y0) if mode & ck.MODE_MOST else (0, None)
-    expect = (spc if mode & ck.MODE_SURFACE_STEP else 3 * spc) if mode & ck.MODE_MOST else 0
+    expect = spc * most_exchanges(ck, mode, getattr(stepper, "iters", 2)) if mode & ck.MODE_MOST else 0
     if solves != expect:
         raise AssertionError(f"{run.name}: {solves} MOST solves in the plain launch, expected {expect}")
     p1 = _time_ms(plain_column, 1)
@@ -1607,19 +1683,20 @@ class TimedReader:
         self.read_ms.append((time.perf_counter() - t) * 1e3)
 
 
-def time_forced(ck, run, model, Y0, rows, dt, spc, forcing_time_grid=None):
+def time_forced(ck, run, model, Y0, rows, dt, spc, forcing_time_grid=None, stepper=None):
     """``(kernel ms, plain ms, MOST probes)`` per forced launch of ``spc``
-    steps from ``Y0`` with ``rows``: CUDA events, in turns (plain, kernel
-    x5, kernel x5, plain), each pair averaged; the probes from the plain
-    version's launch (``most_probes``)."""
+    steps of ``stepper`` (SSPRK33 by default) from ``Y0`` with ``rows``:
+    CUDA events, in turns (plain, kernel x5, kernel x5, plain), each pair
+    averaged; the probes from the plain version's launch (``most_probes``)."""
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
+    stepper = SSPRK33() if stepper is None else stepper
     Yk = _clone(Y0)
     run(Yk, 0.0, forcing=rows)  # warm-up
     kernel = lambda: run(Yk, 0.0, forcing=rows)  # noqa: E731
     plain = lambda: ck.fused_column_run_plain(  # noqa: E731
-        model, SSPRK33(), dt, spc, Y0, 0.0, forcing=rows, forcing_time_grid=forcing_time_grid)
-    _, probes = most_probes(ck, model, SSPRK33(), dt, spc, Y0, forcing=rows, forcing_time_grid=forcing_time_grid)
+        model, stepper, dt, spc, Y0, 0.0, forcing=rows, forcing_time_grid=forcing_time_grid)
+    _, probes = most_probes(ck, model, stepper, dt, spc, Y0, forcing=rows, forcing_time_grid=forcing_time_grid)
     p1 = _time_ms(plain, 1)
     k1, k2 = _time_ms(kernel, 5), _time_ms(kernel, 5)
     p2 = _time_ms(plain, 1)
@@ -1710,18 +1787,9 @@ def forced_small(ck, gc, device):
         for case in ("B5", "B2+B5", "B6", "B6-step", "B2+B6", "B2+B6-step", "B6-pond", "B6-step-pond",
                      "B2+B6-pond", "B2+B6-step-pond"):
             m, Yv = build_land_variant(1000, dtype, device, seed=13, case=case)
-            rng = np.random.default_rng(17)
             n, time_indexed = 4, case in ("B2+B5", "B6-step", "B2+B6-step-pond")
             n_rows = 5 if time_indexed else n
-            tensor = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
-            rv = {}
-            if "pond" not in case:
-                theta = m.soil.boundary_conditions.top.theta_atm if "B6" in case else m.boundary_conditions.top.theta_atm
-                rv["u_atm"] = tensor(rng.uniform(0.3, 5.0, (n_rows, 1000)))
-                rv["theta_atm"] = theta[None, :] + tensor(rng.uniform(-1.0, 1.0, (n_rows, 1000)))
-                rv["q_atm"] = tensor(rng.uniform(0.002, 0.012, n_rows))
-            if "B6" in case:
-                rv["precipitation"] = tensor(rng.uniform(0.0, 2e-5, (n_rows, 1000)) * (rng.random((n_rows, 1000)) < 0.5))
+            rv = variant_rows(m, case, n_rows)
             tg = (6.0, 1.5, n_rows) if time_indexed else None
             plain = _np(ck.fused_column_run_plain(m, SSPRK33(), 2.0, n, Yv, 5.0, forcing=rv, forcing_time_grid=tg))
             run = ck.make_fused_column_run(m, SSPRK33(), dt=2.0, steps_per_call=n, forcing_fields=tuple(rv),
@@ -1928,6 +1996,27 @@ def forced_combination(ck, costs, smi, case, dtype, device, ncol=FORCED_COMBO_NC
           f"{_fmt(shares)}; kernel {k_ms:.3f} ms per launch (plain {p_ms:.3f} ms, bound {b_ms:.3f} ms by "
           f"{b_by}{most}) on {smi}", flush=True)
     return forced_entry(ck, run, dtype, launches[run.name], _max_abs(kern, plain), k_ms, p_ms, b_ms, b_by)
+
+
+def variant_rows(model, case, n_rows, seed=17):
+    """Forcing rows of a ``build_land_variant`` model of mode ``case``:
+    per-column wind and air temperature within 1 K of the model's, a scalar
+    humidity row (not under a plain top) and, for a LandModel, per-column
+    rain on half the columns, ``n_rows`` of each."""
+    soil = getattr(model, "soil", model)
+    ncol = soil.domain.batch_shape[0]
+    dtype, device = soil.float_dtype, soil.device
+    rng = np.random.default_rng(seed)
+    tensor = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
+    rows = {}
+    if "pond" not in case:
+        rows["u_atm"] = tensor(rng.uniform(0.3, 5.0, (n_rows, ncol)))
+        rows["theta_atm"] = soil.boundary_conditions.top.theta_atm[None, :] + tensor(
+            rng.uniform(-1.0, 1.0, (n_rows, ncol)))
+        rows["q_atm"] = tensor(rng.uniform(0.002, 0.012, n_rows))
+    if "B6" in case:
+        rows["precipitation"] = tensor(rng.uniform(0.0, 2e-5, (n_rows, ncol)) * (rng.random((n_rows, ncol)) < 0.5))
+    return rows
 
 
 def forced_entry(ck, run, dtype, launches, err, k_ms, p_ms, b_ms, b_by):
@@ -2540,6 +2629,543 @@ def grid_phase(ck, costs, smi, device, t_start):
     return paths
 
 
+# ---- phase 13: adaptive stepping (ROADMAP A15), kernel modes B1-dt and B4+B5(+B7) ----
+
+#: phase 13a replays this many iterations of each kernel-driven run through
+#: the plain version on the card (the eager closures take most of the phase)
+ADAPTIVE_PLAIN_ITERS = 8
+#: phase 13b launches every mode at this share of its factory dt, on this many columns
+DT_RUN_SHARE, DT_RUN_NCOL = 0.37, 1000
+#: the plain version's check of the full-width adaptive runs takes every 64th column
+ADAPTIVE_STRIDE = 64
+#: the fixed-dt reference of a full-width adaptive run steps at the largest
+#: accepted dt over this
+FINE_DIVISOR = 8
+#: phase 13c's forced runs take the first rows of the reanalysis window as
+#: their time-indexed table: under the default tolerances the LandModel's
+#: pond and rain front hold dt at 1-9 s, 987 segments (361 s in f64 on one
+#: H100) over the window's 240 rows
+ADAPTIVE_FORCED_ROWS = 12
+#: phase 13's timings of the B4+B5 modes: the reanalysis soil at a quarter
+#: width (the plain version's launches take seconds there), this many steps per launch
+B4_B5_TIMED_NCOL, B4_B5_TIMED_STEPS = 32768, 4
+
+
+def adaptive_replay_plain(ck, model, Y0, stepper, spc, records, config, forcing=None, forcing_dt=None):
+    """The plain version on the card replaying a kernel-driven run's
+    iteration ``records`` (the same steps and decisions) under ``config``:
+    ``(state, log)``."""
+    from landhydrology_tpu_torch import adaptive
+
+    grid = None
+    if forcing is not None:
+        grid = (0.0, float(forcing_dt), next(iter(forcing.values())).shape[0])
+    segment = lambda Y, t, dt: ck.fused_column_run_plain(  # noqa: E731
+        model, stepper, float(dt), spc, Y, t, forcing=forcing, forcing_time_grid=grid)
+    log = []
+    Y, _ = adaptive._drive(segment, Y0, 0.0, records[-1][0] + spc * records[-1][1], records[0][1],
+                           adaptive._with_exponents(config, stepper), model.float_dtype, spc, log=log,
+                           replay=records)
+    return Y, log
+
+
+def adaptive_small(ck, gc, device):
+    """Phase 13a, f64 at the JAX tests' sizes through the kernels: the
+    adaptive golden's case a (run_adaptive_fused, B1) and case b
+    (run_adaptive_forced(engine="fused"), TR-BDF2 under a MOST top with
+    time-indexed rows, B4-trbdf2+B5+B7-time), each free and against the
+    golden's bars (``check_adaptive_run``), case b also replaying the
+    golden's iteration records (``check_adaptive_replay``); then every JAX
+    test of ``ADAPTIVE_TESTS`` replaying its records (error norms, decisions,
+    final state at rtol 1e-10, TR-BDF2 1e-9) and free (the counts of JAX's
+    run); the first ``ADAPTIVE_PLAIN_ITERS`` iterations of each kernel-driven
+    free run replayed through the kernel and the plain version on the card
+    (the states at ``_check``'s bars, the error norms within the noise
+    bar)."""
+    from landhydrology_tpu_torch.adaptive import run_adaptive_forced, run_adaptive_fused
+
+    f64 = torch.float64
+    golden = np.load(os.path.join(HERE, "tests", "data", "golden_adaptive_f64.npz"))
+
+    def kernel_run(driver, model, Y, Ya, stepper, kw, what, replay=None):
+        log = []
+        torch.cuda.synchronize()
+        ck.LAUNCHES.clear()
+        Yf, stats = driver(model, Y, Ya, 0.0, stepper=stepper, log=log, replay=replay, **kw)
+        torch.cuda.synchronize()
+        launches = dict(ck.LAUNCHES)
+        if sum(launches.values()) != 3 * len(log) or len(launches) != 1:
+            raise AssertionError(f"13 adaptive {what}: launches {launches} for {len(log)} iterations")
+        return Yf, stats, log, launches
+
+    def against_plain(driver, model, Y, Ya, stepper, kw, log, what):
+        """The kernel-driven run's first ``ADAPTIVE_PLAIN_ITERS`` iterations
+        replayed through the kernel and through the plain version on the
+        card: the states at ``_check``'s bars, the error norms within the
+        noise bar."""
+        records = log[:ADAPTIVE_PLAIN_ITERS]
+        Yk, _, klog, _ = kernel_run(driver, model, Y, Ya, stepper, kw, f"{what} prefix", replay=records)
+        forcing = kw.get("forcing")
+        if forcing is not None:
+            forcing = {k: torch.as_tensor(v, dtype=f64, device=device) for k, v in forcing.items()}
+        Yp, plog = adaptive_replay_plain(ck, model, Y, stepper, kw.get("steps_per_call", 1), records, kw["config"],
+                                         forcing, kw.get("forcing_dt"))
+        kern, plain = _np(Yk), _np(Yp)
+        _check(kern, plain, f64, f"13 adaptive {what} vs plain")
+        ratio = gc.check_replay_errors(klog, plog, kw["config"].rtol, f"13 adaptive {what} plain replay")
+        return f"kernel vs plain over its first {len(records)} iterations (the same steps): max abs " \
+               f"{_max_abs(kern, plain):.3e}, error norms within {ratio:.3f} of the noise bar"
+
+    def fmt(held):
+        return "; ".join(f"{k} {v[0]:.3e} (bar {v[1]:.3e})" for k, v in held.items())
+
+    t_case = time.perf_counter()
+    model, Y, Ya, st, kw = gc.build_adaptive_case("a", f64, device)
+    Yf, stats, log, launches = kernel_run(run_adaptive_fused, model, Y, Ya, st, kw, "golden a")
+    kern = _np(Yf)
+    held = gc.check_adaptive_run(golden, "a", stats, kern, log)
+    line = against_plain(run_adaptive_fused, model, Y, Ya, st, kw, log, "golden a")
+    print(f"[13 adaptive] f64 {launches} golden case a (run_adaptive_fused, SSPRK33, 4 steps per segment, "
+          f"{int(stats['n_accepted'])} accepted, {int(stats['n_rejected'])} rejected, dt_final "
+          f"{float(stats['dt_final'])!r}) vs golden_adaptive_f64.npz: {fmt(held)}; {line}; "
+          f"{time.perf_counter() - t_case:.1f} s", flush=True)
+
+    t_case = time.perf_counter()
+    model, Y, Ya, st, kw = gc.build_adaptive_case("b", f64, device)
+    kw = dict(kw, engine="fused", steps_per_call=1)
+    Yf, stats, log, launches = kernel_run(run_adaptive_forced, model, Y, Ya, st, kw, "golden b")
+    kern = _np(Yf)
+    held = gc.check_adaptive_run(golden, "b", stats, kern, log)
+    line = against_plain(run_adaptive_forced, model, Y, Ya, st, kw, log, "golden b")
+    Yr, _, rlog, _ = kernel_run(run_adaptive_forced, model, Y, Ya, st, kw, "golden b replay",
+                                replay=gc.golden_records(golden, "b"))
+    ratio, dev = gc.check_adaptive_replay(golden, rlog, _np(Yr))
+    print(f"[13 adaptive] f64 {launches} golden case b (run_adaptive_forced(engine='fused'), TRBDF2Soil(iters=2), "
+          f"time-indexed rows; {int(stats['n_accepted'])} accepted, {int(stats['n_rejected'])} rejected, "
+          f"dt_final {float(stats['dt_final'])!r}; the golden {int(golden['b_n_accepted'])}, "
+          f"{int(golden['b_n_rejected'])}) vs golden_adaptive_f64.npz: {fmt(held)}; replaying the golden's "
+          f"{len(rlog)} iterations: error norms within {ratio:.3f} of the noise bar, final state {dev:.3e} "
+          f"(bar 1e-10); {line}; {time.perf_counter() - t_case:.1f} s", flush=True)
+
+    for name in gc.ADAPTIVE_TESTS:
+        t_case = time.perf_counter()
+        model, Y, Ya, st, kw = gc.build_adaptive_test(name, f64, device)
+        rtol = 1e-9 if gc.ADAPTIVE_TESTS[name].get("trbdf2") else 1e-10
+        ref = gc.golden_state(golden, name, "replay")
+        Yr, _, rlog, launches = kernel_run(run_adaptive_fused, model, Y, Ya, st, kw, f"{name} replay",
+                                           replay=gc.golden_records(golden, name))
+        ratio = gc.check_replay_errors(gc.golden_records(golden, name), rlog, kw["config"].rtol,
+                                       f"13 adaptive {name} replay")
+        for group, fields in ref.items():
+            for k, v in fields.items():
+                np.testing.assert_allclose(Yr[group][k].cpu().numpy(), v, rtol=rtol, atol=1e-16,
+                                           err_msg=f"13 adaptive {name} replay/{group}/{k}")
+        _, stats, log, _ = kernel_run(run_adaptive_fused, model, Y, Ya, st, kw, name)
+        counts = (int(stats["n_accepted"]), int(stats["n_rejected"]))
+        ref_counts = (int(golden[f"{name}__n_accepted"]), int(golden[f"{name}__n_rejected"]))
+        if counts != ref_counts:
+            raise AssertionError(f"13 adaptive {name}: counts {counts}, JAX's {ref_counts}")
+        line = against_plain(run_adaptive_fused, model, Y, Ya, st, kw, log, name)
+        print(f"[13 adaptive] f64 {launches} {name} (steps_per_call={kw['steps_per_call']}): replaying JAX's "
+              f"{len(rlog)} iterations, error norms within {ratio:.3f} of the noise bar, final state at rtol "
+              f"{rtol:g}; free: {counts[0]} accepted, {counts[1]} rejected (JAX's), dt_final "
+              f"{float(stats['dt_final'])!r} (JAX {float(golden[f'{name}__dt_final'])!r}); {line}; "
+              f"{time.perf_counter() - t_case:.1f} s", flush=True)
+
+
+def dt_run_cases(dtype, device):
+    """Phase 13b's launches, one per mode of the kernel table on
+    ``DT_RUN_NCOL`` columns: ``(model, state, stepper, dt_run, steps, t0,
+    rows, time grid, moving fields)``, at the step sizes of phases 3, 10,
+    11 and 12.  Each has a time-dependent input (a callable
+    BC value, a prescribed profile T(z, t), a callable atmosphere field, a
+    rain pulse or time-indexed rows), so a launch at the wrong step size
+    reads other values."""
+    from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw, FreezeThaw
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    coupled = ("vartheta_l", "rho_e_int")
+    cases = []
+    for kw in ({}, {"assume_no_ice": True}, {"coefficient_update": "step"},
+               {"coefficient_update": "step", "assume_no_ice": True}, {"freeze_thaw": FreezeThaw(tau=60.0)},
+               {"freeze_thaw": EquilibriumFreezeThaw()},
+               {"coefficient_update": "step", "freeze_thaw": FreezeThaw(tau=60.0)},
+               {"coefficient_update": "step", "freeze_thaw": EquilibriumFreezeThaw()}):
+        model, Y = build_variant_model(DT_RUN_NCOL, dtype, device, seed=7)
+        cases.append((dataclasses.replace(model, **kw), Y, SSPRK33(), 5.0, 8, 2.0, None, None, coupled))
+    for model, Y, stepper, dt, n, _, moving in branch_variants(dtype, device, DT_RUN_NCOL):
+        cases.append((model, Y, stepper, dt, n, 2.0, None, None, moving))
+    model, Y = build_variant_model(DT_RUN_NCOL, dtype, device, seed=7)
+    for name, tridiag in (("TRBDF2Soil", "thomas"), ("TRBDF2Soil", "pcr"), ("BackwardEulerSoil", "thomas"),
+                          ("BackwardEulerRichards", "thomas")):
+        cases.append((model, Y, implicit(name, model, 2, tridiag), 60.0, 4, 2.0, None, None, coupled))
+    stiff, Ys, _ = build_stiff(16, DT_RUN_NCOL, dtype, device)
+    cases.append((stiff, Ys, implicit("BackwardEulerRichards", stiff, 2), 5.0, 4, 2.0, None, None, ("vartheta_l",)))
+    land_moving = ("vartheta_l", "rho_e_int", "h_s")
+    for case in ("B5", "B2+B5", "B6", "B6-step", "B2+B6", "B2+B6-step", "B6-pond", "B6-step-pond", "B2+B6-pond",
+                 "B2+B6-step-pond"):
+        m, Yv = build_land_variant(DT_RUN_NCOL, dtype, device, seed=13, case=case)
+        cases.append((m, Yv, SSPRK33(), 2.0, 4, 5.0, None, None, land_moving))
+    # B7: step-indexed rows, and time-indexed rows on a grid where the
+    # factory dt and dt_run read different rows
+    for case, time_indexed in (("B5", False), ("B2+B5", True), ("B6", False), ("B6-step", True),
+                               ("B2+B6-step-pond", True)):
+        m, Yv = build_land_variant(DT_RUN_NCOL, dtype, device, seed=13, case=case)
+        n_rows = 5 if time_indexed else 4
+        cases.append((m, Yv, SSPRK33(), 2.0, 4, 5.0, variant_rows(m, case, n_rows),
+                      (5.5, 1.5, n_rows) if time_indexed else None, land_moving))
+    for case in GRID_VARIANTS:
+        model, Y, stepper, dt, n = build_grid_variant(DT_RUN_NCOL, dtype, device, 7, case)
+        moving = coupled if "rho_e_int" in Y["soil"] else ("vartheta_l",)
+        cases.append((model, Y, stepper, dt, n, 2.0, None, None, moving))
+    # the implicit steppers under a MOST top (B4+B5), alone and with rows
+    soil, Yv = build_land_variant(DT_RUN_NCOL, dtype, device, seed=13, case="B5")
+    for name, tridiag in (("TRBDF2Soil", "thomas"), ("TRBDF2Soil", "pcr"), ("BackwardEulerSoil", "thomas"),
+                          ("BackwardEulerRichards", "thomas")):
+        cases.append((soil, Yv, implicit(name, soil, 2, tridiag), 30.0, 4, 5.0, None, None, coupled))
+    for name, time_indexed in (("TRBDF2Soil", False), ("TRBDF2Soil", True), ("BackwardEulerSoil", True),
+                               ("BackwardEulerRichards", False)):
+        n_rows = 5 if time_indexed else 4
+        cases.append((soil, Yv, implicit(name, soil, 2), 30.0, 4, 5.0, variant_rows(soil, "B5", n_rows),
+                      (5.5, 20.0, n_rows) if time_indexed else None, coupled))
+    return cases
+
+
+def check_dt_run(ck, model, Y, stepper, dt, n, t0, rows, grid, moving):
+    """One launch at ``dt_run = dt`` (rounded to the model dtype) of a run
+    built at ``dt / DT_RUN_SHARE``, with the launch counts set to 0 just
+    before it and read just after: equal bit for bit to a launch of a run
+    built at that step size, and held to the plain version at that step
+    (``_check``, ``_check_increment``).  Returns ``(name, max abs error,
+    shares)``."""
+    dtype = model.float_dtype
+    h = float(torch.tensor(dt, dtype=dtype))
+    kw = dict(steps_per_call=n, forcing_fields=tuple(rows or ()), forcing_time_grid=grid)
+    run = ck.make_fused_column_run(model, stepper, dt=dt / DT_RUN_SHARE, **kw)
+    built = ck.make_fused_column_run(model, stepper, dt=h, **kw)
+    start = _np(Y)
+    plain = _np(ck.fused_column_run_plain(model, stepper, h, n, Y, t0, forcing=rows, forcing_time_grid=grid))
+    torch.cuda.synchronize()
+    ck.LAUNCHES.clear()
+    kern = _np(run(_clone(Y), t0, forcing=rows, dt_run=h))
+    torch.cuda.synchronize()
+    if dict(ck.LAUNCHES) != {run.name: 1}:
+        raise AssertionError(f"13 dt_run {run.name}: launches {dict(ck.LAUNCHES)}")
+    ref = _np(built(_clone(Y), t0, forcing=rows))
+    if not all(np.array_equal(kern[k], ref[k], equal_nan=True) for k in ref):
+        raise AssertionError(f"13 dt_run {run.name} {str(dtype)[6:]}: the launch at dt_run={h!r} differs from a "
+                             f"run built with dt={h!r}")
+    what = f"13 dt_run {str(dtype)[6:]} {run.name}"
+    _check(kern, plain, dtype, what)
+    shares = _check_increment(kern, plain, start, dtype, what, [k for k in moving if k in kern])
+    return run.name, _max_abs(kern, plain), shares
+
+
+def dt_run_phase(ck, device):
+    """Phase 13b: ``check_dt_run`` in every mode of ``dt_run_cases``, f64
+    and f32.  Returns the B4+B5 modes' records ``{(dtype, name): (launches,
+    max abs error)}``."""
+    out = {}
+    for dtype in (torch.float64, torch.float32):
+        names = []
+        for case in dt_run_cases(dtype, device):
+            name, err, shares = check_dt_run(ck, *case)
+            names.append(name)
+            if "+B5" in name and name.startswith("B4"):
+                out[(dtype, name)] = (1, err)
+            print(f"[13 dt_run] {str(dtype)[6:]} {name} ncol={DT_RUN_NCOL}: one launch at dt_run = {DT_RUN_SHARE} x "
+                  f"the factory dt, "
+                  f"equal bit for bit to a run built with that dt; vs plain max abs {err:.3e}; change error / "
+                  f"largest change {_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g})", flush=True)
+        print(f"[13 dt_run] {str(dtype)[6:]}: {len(names)} modes at dt_run: {', '.join(names)}", flush=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moving_share(final, ref, start, moving):
+    """Per moving field, the largest deviation of ``final`` from ``ref`` over
+    the largest change of ``ref`` from ``start``."""
+    return {k: float(np.max(np.abs(final[k] - ref[k]))) / (float(np.max(np.abs(ref[k] - start[k]))) or 1.0)
+            for k in moving if k in ref}
+
+
+def fixed_run(ck, model, Y0, stepper, dt, n, spc, forcing=None, grid=None):
+    """``n`` steps of ``dt`` through the kernel from ``Y0``, ``spc`` per
+    launch (``n`` a multiple of it): the fixed-dt reference of phase 13c."""
+    run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=spc,
+                                   forcing_fields=tuple(forcing or ()), forcing_time_grid=grid)
+    Y = _clone(Y0)
+    dtype = model.float_dtype
+    t = torch.as_tensor(0.0, dtype=dtype)
+    for _ in range(n // spc):
+        run(Y, t, forcing=forcing)
+        t = t + spc * torch.as_tensor(dt, dtype=dtype)
+    torch.cuda.synchronize()
+    return _np(Y)
+
+
+def adaptive_path(ck, smi, what, model, Y0, Ya, stepper, spc, tf, dt0, config, moving, forcing=None,
+                  forcing_dt=None):
+    """One adaptive run at full width (``run_adaptive_fused``, or with
+    ``forcing`` ``run_adaptive_forced(engine="fused")``), with the launch
+    counts set to 0 just before it and read just after; prints its counts,
+    rates, kernel ms per launch (CUDA events recorded around each kernel
+    call of the run, after its host tables), busy share (their sum over the
+    wall time) and host time per iteration; holds the first iteration's three launches to the plain
+    version on every ``ADAPTIVE_STRIDE``-th column.
+    Returns ``(final state, log, run, launches, first-iteration max abs
+    error)``."""
+    from landhydrology_tpu_torch.adaptive import run_adaptive_forced, run_adaptive_fused
+
+    dtype = model.float_dtype
+    soil = getattr(model, "soil", model)
+    nz, ncol = next(iter(Y0["soil"].values())).shape
+    device = next(iter(Y0["soil"].values())).device
+    grid = None
+    if forcing is not None:
+        grid = (0.0, float(forcing_dt), next(iter(forcing.values())).shape[0])
+    run = ck.make_fused_column_run(model, stepper, dt=dt0, steps_per_call=spc, forcing_fields=tuple(forcing or ()),
+                                   forcing_time_grid=grid)
+    # CUDA events around each kernel call of the run, after its host tables: the device time
+    log, starts, events = [], [], []
+    launch_args, launch = ck.FusedColumnRun.launch_args, ck.FusedColumnRun._launch
+
+    def args_then_start(self, *args, **kwargs):
+        out = launch_args(self, *args, **kwargs)
+        starts.append(torch.cuda.Event(enable_timing=True))
+        starts[-1].record()
+        return out
+
+    def launch_then_end(self, *args, **kwargs):
+        launch(self, *args, **kwargs)
+        events.append((starts[-1], torch.cuda.Event(enable_timing=True)))
+        events[-1][1].record()
+
+    torch.cuda.synchronize()
+    ck.LAUNCHES.clear()
+    ck.FusedColumnRun.launch_args, ck.FusedColumnRun._launch = args_then_start, launch_then_end
+    try:
+        t_wall = time.perf_counter()
+        if forcing is None:
+            Yf, stats = run_adaptive_fused(model, Y0, Ya, 0.0, tf, dt0, stepper=stepper, config=config,
+                                           steps_per_call=spc, log=log)
+        else:
+            Yf, stats = run_adaptive_forced(model, Y0, Ya, 0.0, tf, dt0, forcing=forcing, forcing_dt=forcing_dt,
+                                            stepper=stepper, config=config, engine="fused", steps_per_call=spc,
+                                            log=log)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_wall) * 1e3
+    finally:
+        ck.FusedColumnRun.launch_args, ck.FusedColumnRun._launch = launch_args, launch
+    launches = dict(ck.LAUNCHES)
+    device_ms = sum(a.elapsed_time(b) for a, b in events)
+    n_iter = len(log)
+    if launches != {run.name: 3 * n_iter}:
+        raise AssertionError(f"13 {what}: launches {launches}, expected {3 * n_iter} of {run.name}")
+    final = _np(Yf)
+    if not (bool(stats["converged"]) and all(np.isfinite(v).all() for v in final.values())):
+        raise AssertionError(f"13 {what}: not converged ({stats}) or non-finite")
+    k_ms = device_ms / len(events) if events else float("nan")
+    # the first iteration's three launches against the plain version on every ADAPTIVE_STRIDE-th column
+    t, dt = log[0][0], run.step_size(log[0][1])
+    half = run.step_size(0.5 * torch.tensor(log[0][1], dtype=dtype))
+    t_half = float(torch.tensor(t, dtype=dtype) + 0.5 * spc * torch.tensor(dt, dtype=dtype))
+    idx = torch.arange(0, ncol, ADAPTIVE_STRIDE, device=device)
+    sub, Ys = column_slice(soil, {"soil": Y0["soil"]}, idx)
+    sub_model = sub if model is soil else dataclasses.replace(model, soil=sub)
+    if "surface" in Y0:
+        Ys["surface"] = {"h_s": Y0["surface"]["h_s"][idx].contiguous()}
+    sub_stepper = dataclasses.replace(stepper, model=sub) if hasattr(stepper, "model") else stepper
+    rows = None if forcing is None else {k: v[:, idx].contiguous() if v.dim() == 2 else v for k, v in forcing.items()}
+
+    def plain(Y, t0, h):
+        return ck.fused_column_run_plain(sub_model, sub_stepper, h, spc, Y, t0, forcing=rows, forcing_time_grid=grid)
+
+    cols = idx.cpu().numpy()
+    start = {k: v[..., cols] for k, v in _np(Y0).items()}
+    k1 = {k: v[..., cols] for k, v in _np(run(_clone(Y0), t, forcing=forcing, dt_run=dt)).items()}
+    Yh = run(_clone(Y0), t, forcing=forcing, dt_run=half)
+    kh = {k: v[..., cols] for k, v in _np(Yh).items()}
+    k2 = {k: v[..., cols] for k, v in _np(run(Yh, t_half, forcing=forcing, dt_run=half)).items()}
+    p1 = plain(Ys, t, dt)
+    ph = plain(Ys, t, half)
+    p2 = plain(ph, t_half, half)
+    torch.cuda.synchronize()
+    err = 0.0
+    shares = {}
+    # in f32 the first segment can move a field by less than the f32 bar
+    # (bench.py's first 32 s), so only f64 requires the fields to move
+    must_move = moving if dtype == torch.float64 else ()
+    for kern, ref, label in ((k1, p1, "full"), (kh, ph, "first half"), (k2, p2, "second half")):
+        ref = _np(ref)
+        _check(kern, ref, dtype, f"13 {what} {label}")
+        shares[label] = _check_increment(kern, ref, start, dtype, f"13 {what} {label}", must_move)
+        err = max(err, _max_abs(kern, ref))
+    n_acc, n_rej = int(stats["n_accepted"]), int(stats["n_rejected"])
+    busy = device_ms / wall_ms
+    print(f"[13 {what}] {str(dtype)[6:]} {run.name} nz={nz} x {ncol}, {spc} steps per segment, {tf!r} s from dt0 "
+          f"{dt0!r}: {n_acc} accepted, {n_rej} rejected, dt_final {float(stats['dt_final'])!r}, launches {launches}; "
+          f"wall {wall_ms:.3f} ms: {tf / (wall_ms / 1e3):.4e} simulated s per wall s, "
+          f"{nz * ncol * spc * n_acc / (wall_ms / 1e3):.4e} accepted grid-point steps per s "
+          f"({nz * ncol * spc * 3 * n_iter / (wall_ms / 1e3):.4e} launched); kernel {k_ms:.3f} ms per launch "
+          f"(CUDA events around each), busy {busy:.3f}, host {(wall_ms - device_ms) / n_iter:.3f} ms per "
+          f"iteration; "
+          f"first iteration vs plain on every {ADAPTIVE_STRIDE}th column: max abs {err:.3e}, change error / largest "
+          f"change " + "; ".join(f"{k} {_fmt(v)}" for k, v in shares.items()) + f" on {smi}", flush=True)
+    return final, log, run, launches[run.name], err, k_ms
+
+
+def adaptive_phase(ck, gc, costs, smi, device):
+    """Phase 13c: the adaptive runs at full width, f32 and f64: bench.py's
+    configuration under SSPRK33 (B1 at dt_run), the stiff path under
+    TR-BDF2 and SSPRK33 (B4-trbdf2-water, B1-water), the reanalysis
+    LandModel with the first ``ADAPTIVE_FORCED_ROWS`` rows of its forcing as
+    a time-indexed table (B6+B7-time) and its soil alone under TR-BDF2
+    (B4-trbdf2+B5+B7-time), each against a finer fixed-dt kernel run
+    (the stiff path: phase 8's SSPRK33 at dt_exp, RMSE below 1e-2).  Then
+    the B4+B5 modes timed at the reanalysis width.  Returns the kernel
+    records of the B4+B5 modes."""
+    from landhydrology_tpu_torch.adaptive import AdaptiveConfig
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    entries = []
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype)[6:]
+        config = AdaptiveConfig()
+        # bench.py::build, an hour from dt0 = 1 s
+        model, Y0, Ya = build_bench_model(NZ, NCOL, dtype, device)
+        final, log, run, _, _, _ = adaptive_path(ck, smi, "adaptive bench", model, Y0, Ya, SSPRK33(), SPC, 3600.0,
+                                                 1.0, config, ("vartheta_l", "rho_e_int"))
+        fine_check(ck, "adaptive bench", model, Y0, SSPRK33(), SPC, 3600.0, log, final, config)
+        del Y0, Ya, final
+        torch.cuda.empty_cache()
+        # the stiff path over phase 8's horizon, TR-BDF2 and SSPRK33, 8 steps per segment
+        model, Y0, Ya = build_stiff(NZ, NCOL, dtype, device)
+        dt_exp = stiff_dt_explicit(model, Y0)
+        horizon = STIFF_STEPS * STIFF_FACTOR * dt_exp
+        ref = fixed_run(ck, model, Y0, SSPRK33(), dt_exp, STIFF_STEPS * STIFF_FACTOR, STIFF_FACTOR)
+        counts = {}
+        for label, st in (("TR-BDF2", implicit("TRBDF2Soil", model, 2)), ("SSPRK33", SSPRK33())):
+            final, log, run, _, _, _ = adaptive_path(ck, smi, f"adaptive stiff {label}", model, Y0, Ya, st,
+                                                     STIFF_STEPS, horizon, dt_exp, config, ("vartheta_l",))
+            rmse = float(np.sqrt(np.mean((final["vartheta_l"] - ref["vartheta_l"]) ** 2)))
+            if not rmse < 1e-2:
+                raise AssertionError(f"13 adaptive stiff {label} {tag}: RMSE {rmse} against SSPRK33 at dt_exp")
+            counts[label] = (sum(r[3] for r in log), sum(not r[3] for r in log))
+            print(f"[13 adaptive stiff] {tag} {run.name} ({label}) vs SSPRK33 at dt_exp {dt_exp!r} s over "
+                  f"{horizon!r} s: RMSE {rmse:.4e} (bench.py bar 1e-2), max deviation "
+                  f"{float(np.max(np.abs(final['vartheta_l'] - ref['vartheta_l']))):.4e}", flush=True)
+        print(f"[13 adaptive stiff] {tag} segments of {STIFF_STEPS} steps (accepted, rejected): "
+              + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
+        del Y0, Ya, ref, final
+        torch.cuda.empty_cache()
+        # the reanalysis LandModel under its first rows as a time-indexed table, and its soil under TR-BDF2
+        land, Y0, Ya = build_reanalysis(FORCED_NZ, FORCED_NCOL, dtype, device)
+        _, fields = reanalysis_forcing(ADAPTIVE_FORCED_ROWS, FORCED_NCOL, FORCED_DT)
+        rows = {k: torch.as_tensor(v, device=device).to(dtype) for k, v in fields.items()}
+        del fields
+        tf = ADAPTIVE_FORCED_ROWS * FORCED_DT
+        forced_config = AdaptiveConfig(dt_max=FORCED_DT)
+        soil_rows = {k: v for k, v in rows.items() if k != "precipitation"}
+        for label, model, Ys, st, r, moving in (
+                ("LandModel", land, Y0, SSPRK33(), rows, ("vartheta_l", "rho_e_int", "h_s")),
+                ("soil TR-BDF2", land.soil, {"soil": Y0["soil"]}, implicit("TRBDF2Soil", land.soil, 2), soil_rows,
+                 ("vartheta_l", "rho_e_int"))):
+            final, log, run, launches, err, k_ms = adaptive_path(
+                ck, smi, f"adaptive forced {label}", model, Ys, Ya, st, FORCED_SPC, tf, FORCED_DT / 4, forced_config,
+                moving, forcing=r, forcing_dt=FORCED_DT)
+            fine_check(ck, f"adaptive forced {label}", model, Ys, st, FORCED_SPC, tf, log, final, forced_config,
+                       forcing=r, grid=(0.0, FORCED_DT, ADAPTIVE_FORCED_ROWS))
+            if run.mode & ck.MODE_IMPLICIT:
+                entries.append(time_b4_b5(ck, costs, smi, dtype, device, "TRBDF2Soil", True, launches, err))
+        del land, Y0, Ya, rows, soil_rows
+        torch.cuda.empty_cache()
+        for name in ("TRBDF2Soil", "BackwardEulerSoil", "BackwardEulerRichards"):
+            entries.append(time_b4_b5(ck, costs, smi, dtype, device, name, False, None, None))
+        torch.cuda.empty_cache()
+    return entries
+
+
+def fine_check(ck, what, model, Y0, stepper, spc, tf, log, final, config, forcing=None, grid=None):
+    """Hold an adaptive run's final state to a fixed-dt kernel run over the
+    same horizon at the largest accepted dt over ``FINE_DIVISOR`` (rounded
+    to a whole number of launches of ``spc`` steps): every field within the
+    tolerance the controller accepted, summed over the accepted segments
+    (``n_accepted * (atol + rtol * max |field|)``).  Prints the deviation
+    of each field, that bar, and the deviation over the field's largest
+    change."""
+    dt_big = max(r[1] for r in log if r[3])
+    n = spc * math.ceil(tf * FINE_DIVISOR / (dt_big * spc))
+    ref = fixed_run(ck, model, Y0, stepper, tf / n, n, spc, forcing, grid)
+    n_acc = sum(1 for r in log if r[3])
+    held = {}
+    for k, v in ref.items():
+        dev = float(np.max(np.abs(final[k] - v)))
+        bar = n_acc * (config.atol + config.rtol * float(np.max(np.abs(v))))
+        if not dev <= bar:
+            raise AssertionError(f"13 {what}/{k}: {dev!r} from {n} fixed steps of {tf / n!r} s, past {bar!r}")
+        held[k] = (dev, bar)
+    shares = _moving_share(final, ref, _np(Y0), list(ref))
+    print(f"[13 {what}] {str(model.float_dtype)[6:]} against {n} fixed steps of {tf / n!r} s (the largest accepted "
+          f"dt {dt_big!r} s / {FINE_DIVISOR}): max abs deviation (bar: {n_acc} accepted segments x (atol + rtol "
+          f"max |field|)) " + ", ".join(f"{k} {d:.3e} ({b:.3e})" for k, (d, b) in held.items())
+          + f"; deviation / largest change {_fmt(shares)}", flush=True)
+
+
+def time_b4_b5(ck, costs, smi, dtype, device, name, forced, launches, err):
+    """The timing of a B4+B5 mode (implicit stepper ``name`` with two
+    iterations; with ``forced``, under the reanalysis rows as a
+    time-indexed table) on the reanalysis soil at ``B4_B5_TIMED_NCOL``
+    columns: kernel and plain version per launch (``time_forced``, CUDA
+    events, in turns) of ``B4_B5_TIMED_STEPS`` steps of dt=120, beside its
+    bound (the MOST solves' probes counted from the plain version's).
+    ``launches`` and ``err`` come from the run that drove the mode, or (as
+    ``None``) from phase 13b's launch."""
+    spc, ncol = B4_B5_TIMED_STEPS, B4_B5_TIMED_NCOL
+    land, Y0, _ = build_reanalysis(FORCED_NZ, ncol, dtype, device)
+    model, Y0 = land.soil, {"soil": Y0["soil"]}
+    stepper = implicit(name, model, 2)
+    nz = FORCED_NZ
+    rows = grid = None
+    if forced:
+        _, fields = reanalysis_forcing(ADAPTIVE_FORCED_ROWS, ncol, FORCED_DT)
+        rows = {k: torch.as_tensor(v, device=device).to(dtype) for k, v in fields.items() if k != "precipitation"}
+        grid = (0.0, FORCED_DT, ADAPTIVE_FORCED_ROWS)
+    timed = ck.make_fused_column_run(model, stepper, dt=FORCED_DT, steps_per_call=spc,
+                                     forcing_fields=tuple(rows or ()), forcing_time_grid=grid)
+    k_ms, p_ms, probes = time_forced(ck, timed, model, Y0, rows, FORCED_DT, spc, grid, stepper=stepper)
+    read = len(rows) * next(iter(rows.values())).numel() if rows else 0
+    b_ms, b_by = bound_ms(ck, costs, timed.mode, dtype, nz * ncol, spc, iters=stepper.iters, ncol=ncol,
+                          probes=probes, read_values=read)
+    print(f"[13 time] {str(dtype)[6:]} {timed.name} {spc} steps of dt={FORCED_DT:g} nz={nz} x {ncol}: kernel "
+          f"{k_ms:.3f} ms ({nz * ncol * spc / (k_ms / 1e3):.4e} grid-points/s), plain {p_ms:.3f} ms, bound "
+          f"{b_ms:.3f} ms by {b_by} ({b_ms / k_ms:.3f} of the kernel's time), MOST probes per solve {probes:.4f}, "
+          f"{most_exchanges(ck, timed.mode, stepper.iters)} solves per step on {smi}", flush=True)
+    return (dtype, timed.name, launches, err, k_ms, p_ms, b_ms, b_by, timed)
+
+
+def adaptive_entries(ck, timed, dt_run_records):
+    """The kernel records of phase 13's B4+B5 modes: launches and error from
+    the run that drove each (13c), or from its launch in 13b."""
+    entries = []
+    for dtype, name, launches, err, k_ms, p_ms, b_ms, b_by, run in timed:
+        if launches is None:
+            launches, err = dt_run_records[(dtype, name)]
+        entries.append(forced_entry(ck, run, dtype, launches, err, k_ms, p_ms, b_ms, b_by))
+    return entries
+
+
+def adaptive_main(ck, gc, costs, smi, device, t_start):
+    """Phase 13: 13a (``adaptive_small``), 13b (``dt_run_phase``), 13c
+    (``adaptive_phase``).  Returns the kernel records of the B4+B5 modes."""
+    adaptive_small(ck, gc, device)
+    _mark(t_start, "phase 13a")
+    dt_run_records = dt_run_phase(ck, device)
+    _mark(t_start, "phase 13b")
+    timed = adaptive_phase(ck, gc, costs, smi, device)
+    return adaptive_entries(ck, timed, dt_run_records)
+
+
 def _fmt_ms(values):
     return "/".join(f"{v:.3f}" for v in values) + " ms"
 
@@ -2557,17 +3183,15 @@ def main() -> int:
     parser.add_argument("--grid-only", action="store_true",
                         help="run phases 1, 2 and 12 only (the regional grid, kernel modes B1-batched and B8), "
                              "with phase 6's times of its paths")
+    parser.add_argument("--adaptive-only", action="store_true",
+                        help="run phases 1, 2 and 13 only (adaptive stepping, kernel modes B1-dt and B4+B5)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
     t_start = time.perf_counter()
     sys.path.insert(0, HERE)
-    from landhydrology_tpu_torch import (
-        Dirichlet, FreeDrainage, PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC,
-        VerticalFlux,
-    )
-    from landhydrology_tpu_torch.models.soil import TemperatureDependentViscosity
+    from landhydrology_tpu_torch import VerticalFlux
     from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw, FreezeThaw
     from landhydrology_tpu_torch.ops.cuda import column_kernel as ck
     from landhydrology_tpu_torch.timestepping import SSPRK33
@@ -2596,6 +3220,8 @@ def main() -> int:
         return finish(forced_phase(ck, gc, device, smi, costs), smi, t_start)
     if args.grid_only:
         return finish(time_paths(ck, costs, smi, grid_phase(ck, costs, smi, device, t_start)), smi, t_start)
+    if args.adaptive_only:
+        return finish(adaptive_main(ck, gc, costs, smi, device, t_start), smi, t_start)
 
     # ---- 3: goldens in f64 through the kernels, and variants ----
     data = os.path.join(HERE, "tests", "data")
@@ -2669,25 +3295,7 @@ def main() -> int:
                   f"plain max abs {_max_abs(kern, plain):.3e}; change error / largest change "
                   f"{_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g})", flush=True)
         # the water-only and heat-only branches and TR-BDF2 on them
-        stiff, Y, _ = build_stiff(16, 1000, dtype, device)
-        water = dataclasses.replace(
-            stiff,
-            energy_model=PrescribedTemperatureModel(T_profile=lambda z, t: 285.0 + 3.0 * z + 1e-3 * t),
-            hydrology_model=dataclasses.replace(stiff.hydrology_model,
-                                                viscosity_factor=TemperatureDependentViscosity()),
-            boundary_conditions=SoilColumnBC(top=SoilComponentBC(hydrology=Dirichlet(lambda t: 0.25 + 1e-3 * t)),
-                                             bottom=SoilComponentBC(hydrology=FreeDrainage())),
-        )
-        heat, Yh, _ = build_heat_only(16, 1000, dtype, device, seed=3)
-        cases = (
-            (water, Y, SSPRK33(), 0.05, 10, "callable Dirichlet top, T profile, viscosity", ("vartheta_l",)),
-            (stiff, Y, implicit("TRBDF2Soil", stiff, 2), 5.0, 4, "stiff infiltration, callable Dirichlet top",
-             ("vartheta_l",)),
-            (heat, Yh, SSPRK33(), 10.0, 10, "callable Dirichlet top, per-column flux, profiles", ("rho_e_int",)),
-            (heat, Yh, implicit("TRBDF2Soil", heat, 2), 600.0, 4,
-             "callable Dirichlet top, per-column flux, profiles", ("rho_e_int",)),
-        )
-        for model, Y0, stepper, dt, n, what, moving in cases:
+        for model, Y0, stepper, dt, n, what, moving in branch_variants(dtype, device):
             name = ck.make_fused_column_run(model, stepper).name
             kern, plain, shares = check_variant(ck, model, _clone(Y0), dt, n, 2.0,
                                                 f"variant {dtype} {name}", moving, stepper=stepper)
@@ -2815,6 +3423,10 @@ def main() -> int:
     # ---- 12: the regional grid, kernel modes B1-batched and B8 ----
     paths += grid_phase(ck, costs, smi, device, t_start)
     _mark(t_start, "phase 12")
+
+    # ---- 13: adaptive stepping, kernel modes B1-dt and B4+B5(+B7) ----
+    forced_entries += adaptive_main(ck, gc, costs, smi, device, t_start)
+    _mark(t_start, "phase 13")
 
     # ---- 6: times at the main-path shapes, in turns ----
     entries = time_paths(ck, costs, smi, paths)

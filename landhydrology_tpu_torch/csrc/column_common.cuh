@@ -532,7 +532,9 @@ __device__ Center<T> center_fields(const Column<T>& c, const Coefs<T>& coef,
 // (boundary.py: set_boundary_values overwrites the face for a Dirichlet
 // alone, a BatchedBC candidate inside its own flux).  The boundary fluxes
 // are never lagged: free drainage takes K of the stage state (`live_K`) in
-// the lagged mode.  A prescribed component (BC_NONE slot) has no flux, and
+// the lagged mode.  Nor do they assume no ice: under MODE_NO_ICE the faces
+// read the state's theta_i, as boundary.py does (the center's K and psi
+// assume none).  A prescribed component (BC_NONE slot) has no flux, and
 // the branch never reads it; a dynamic component's slot is never BC_NONE
 // (the host checks).  An energy column of kind FREE_DRAINAGE (a code the
 // host refuses) has no flux, as the eager select gives it.
@@ -558,12 +560,13 @@ __device__ void face_fluxes(const Column<T>& c, const Center<T>& x,
     if (kind_w == BC_FLUX) {
       *f_w = val_w;
     } else if (kind_w == BC_FREE_DRAINAGE) {
-      *f_w = -(live_K ? conductivity(c, x.vl, x.ti, x.temp) : x.K);
+      *f_w = -(live_K || Modes<M>::no_ice ? conductivity(c, x.vl, x.ti, x.temp) : x.K);
     } else {  // Dirichlet
       T K_f = conductivity(c, val_w, x.ti, temp_shared);
       T psi_f = pressure_head(c, val_w, c.p[P_NU] - x.ti);
-      *f_w = top ? (-K_f) * (psi_f - x.psi + dzb) / dzb
-                 : (-K_f) * (x.psi - psi_f + dzb) / dzb;
+      const T psi_c = Modes<M>::no_ice ? pressure_head(c, x.vl, c.p[P_NU] - x.ti) : x.psi;
+      *f_w = top ? (-K_f) * (psi_f - psi_c + dzb) / dzb
+                 : (-K_f) * (psi_c - psi_f + dzb) / dzb;
     }
   }
 }

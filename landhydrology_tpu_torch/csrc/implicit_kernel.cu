@@ -9,7 +9,13 @@
 // ops/tridiag.py (thomas_solve, pcr_solve).  The template parameter M is the
 // mode word (column_common.cuh): one stepper bit and the branch (coupled,
 // MODE_WATER, MODE_HEAT).  MODE_PCR selects the tridiagonal solver at run
-// time.  Per step, as imex.py orders it:
+// time.  MODE_MOST (a PrescribedAtmosForcing top, kernel mode B5, coupled
+// branch only) takes the top face's heat and water fluxes of every rhs
+// evaluation from a MOST solve at that evaluation's own top cell
+// (surface_fluxes.cuh), at the stage row's atmosphere or, with streamed
+// forcing rows (B7), at the step's forcing row for all stages and sweeps; it
+// adds no Jacobian term (imex.py boosts a Dirichlet slot alone).  Per step,
+// as imex.py orders it:
 //   TR-BDF2   f(u^n) at t -> c1 = u^n + w1 f(u^n); the TR stage at t + g dt
 //             from u^n; c2 = a1 u* + a2 u^n; the BDF2 stage at t + dt from
 //             u*.  Each stage is `iters` Gauss-Seidel sweeps: water, heat,
@@ -42,7 +48,7 @@
 // stay in the 50 MB L2.  Keeping a column block's F, K, C and cp, dp in
 // shared memory or registers is the obvious next step.
 
-#include "column_common.cuh"
+#include "surface_fluxes.cuh"
 
 namespace {
 
@@ -65,16 +71,21 @@ __device__ T k_at_value(const Column<T>& c, T v_dir) {
 
 // _water_newton_sweep (kWater) or _heat_newton_sweep: one frozen-coefficient
 // Newton update of the stage equation u = c_const + w f(u) for the iterate
-// `st` of one column, at the BC values and profiles of table row `row`;
-// updates st.vl (water) or st.re (heat) in place.
+// `st` of one column, at the BC values and profiles of table row `row` (and
+// under a MOST top the forcing row `frow`); updates st.vl (water) or st.re
+// (heat) in place.
 template <typename T, int M, bool kWater>
 __device__ void newton_sweep(const Column<T>& c, const KernelArgs& a, int64_t col,
-                             Fields<T> st, const T* c_const, T w, int64_t row,
+                             Fields<T> st, const T* c_const, T w, int64_t row, int64_t frow,
                              const Grid<T, M>& g, const Work<T>& wk) {
   const int64_t nz = a.nz, ncol = a.ncol;
   const T dz = g.dz;
   T bc_val[kNumBC];
   load_bc(a, row, col, bc_val);
+  if constexpr (Modes<M>::most) {  // the MOST fluxes at the iterate's top cell
+    const int64_t i = (nz - 1) * ncol + col;
+    most_top_bc(c, a, row, frow, col, st.vl[i], st.ti[i], st.re[i], bc_val);
+  }
   const Coefs<T> no_coefs{};
 
   // 1. the rhs at the iterate, and the frozen coefficients
@@ -232,22 +243,29 @@ __global__ void implicit_column_kernel(const KernelArgs a, T eps, T tiny) {
     for (int64_t k = 0; k < nz; ++k) to[k * ncol + col] = from[k * ncol + col];
   };
   // TRBDF2Soil._solve_stage: u = Cs + w f(u) by Gauss-Seidel sweeps of S
-  auto solve_stage = [&](T w, int64_t row) {
+  auto solve_stage = [&](T w, int64_t row, int64_t frow) {
     for (int64_t it = 0; it < a.iters; ++it) {
-      if constexpr (has_water) newton_sweep<T, M, true>(c, a, col, S, Cs.vl, w, row, g, wk);
-      if constexpr (has_heat) newton_sweep<T, M, false>(c, a, col, S, Cs.re, w, row, g, wk);
+      if constexpr (has_water) newton_sweep<T, M, true>(c, a, col, S, Cs.vl, w, row, frow, g, wk);
+      if constexpr (has_heat) newton_sweep<T, M, false>(c, a, col, S, Cs.re, w, row, frow, g, wk);
       if constexpr (has_water) copy(Cs.ti, S.ti);  // zero tendency: theta_i = c
     }
   };
 
+  [[maybe_unused]] const int64_t top = (nz - 1) * ncol + col;  // read under MODE_MOST
   for (int64_t step = 0; step < a.n_steps; ++step) {
     const int64_t row0 = a.rows_per_step * step;
+    // the step's forcing row (B7), one for all stages and sweeps
+    int64_t frow = 0;
+    if constexpr (Modes<M>::most) {
+      frow = forcing_row<T>(a.frow_mode, step, T(a.t0), dt, T(a.t_forcing0), T(a.inv_dt_forcing), a.n_frows);
+    }
     if constexpr (Modes<M>::trbdf2) {
       const T w1 = T(a.half_g) * dt, w2 = T(a.b_bdf2) * dt;
       const T a1 = T(a.a1), a2 = T(a.a2);
       // f(u^n) at t: c1 = u^n + w1 f(u^n), and the TR stage starts at u^n
       T bc_val[kNumBC];
       load_bc(a, row0, col, bc_val);
+      if constexpr (Modes<M>::most) most_top_bc(c, a, row0, frow, col, Y.vl[top], Y.ti[top], Y.re[top], bc_val);
       rhs_sweep<T, M>(c, a, col, Y, bc_val, load_profiles<T, M>(a, row0, col), g, no_coefs,
                       [&](int64_t k, const Center<T>& x, T d_vl, T d_ti, T d_re) {
                         const int64_t i = k * ncol + col;
@@ -262,7 +280,7 @@ __global__ void implicit_column_kernel(const KernelArgs a, T eps, T tiny) {
                           S.re[i] = x.re;
                         }
                       });
-      solve_stage(w1, row0 + 1);  // at t + g dt
+      solve_stage(w1, row0 + 1, frow);  // at t + g dt
       // c2 = a1 u* + a2 u^n; the BDF2 stage starts at u*
       for (int64_t k = 0; k < nz; ++k) {
         const int64_t i = k * ncol + col;
@@ -272,7 +290,7 @@ __global__ void implicit_column_kernel(const KernelArgs a, T eps, T tiny) {
         }
         if (has_heat) Cs.re[i] = a1 * S.re[i] + a2 * Y.re[i];
       }
-      solve_stage(w2, row0 + 2);  // at t + dt
+      solve_stage(w2, row0 + 2, frow);  // at t + dt
       if (has_water) {
         copy(S.vl, Y.vl);
         copy(S.ti, Y.ti);
@@ -283,19 +301,20 @@ __global__ void implicit_column_kernel(const KernelArgs a, T eps, T tiny) {
       copy(Y.vl, S.vl);
       const Fields<T> st{S.vl, Y.ti, Y.re};
       for (int64_t it = 0; it < a.iters; ++it) {
-        newton_sweep<T, M, true>(c, a, col, st, Y.vl, dt, row0, g, wk);
+        newton_sweep<T, M, true>(c, a, col, st, Y.vl, dt, row0, frow, g, wk);
       }
       if constexpr (Modes<M>::be_soil) {
         copy(Y.re, S.re);
         const Fields<T> sh{S.vl, Y.ti, S.re};
         for (int64_t it = 0; it < a.iters; ++it) {
-          newton_sweep<T, M, false>(c, a, col, sh, Y.re, dt, row0, g, wk);
+          newton_sweep<T, M, false>(c, a, col, sh, Y.re, dt, row0, frow, g, wk);
         }
         copy(S.re, Y.re);
       } else if constexpr (Modes<M>::coupled) {
         // theta_i and rho_e_int explicit at the new water state, in place
         T bc_val[kNumBC];
         load_bc(a, row0, col, bc_val);
+        if constexpr (Modes<M>::most) most_top_bc(c, a, row0, frow, col, S.vl[top], Y.ti[top], Y.re[top], bc_val);
         rhs_sweep<T, M>(c, a, col, st, bc_val, load_profiles<T, M>(a, row0, col), g, no_coefs,
                         [&](int64_t k, const Center<T>& x, T d_vl, T d_ti, T d_re) {
                           const int64_t i = k * ncol + col;
@@ -321,7 +340,7 @@ int launch(const KernelArgs* args, int block, void* stream) {
 // at run time.  BackwardEulerRichards needs dynamic water, and
 // BackwardEulerSoil dynamic water and heat.  MODE_COLUMNS (per-column kinds
 // and geometry) joins TR-BDF2 and BackwardEulerRichards on the coupled and
-// water-only branches.
+// water-only branches; MODE_MOST each stepper on the coupled branch.
 template <typename T>
 int dispatch(const KernelArgs* args, int block, void* stream) {
   switch (args->mode & ~int64_t(MODE_PCR)) {
@@ -332,6 +351,9 @@ int dispatch(const KernelArgs* args, int block, void* stream) {
     case MODE_BE_RICHARDS | MODE_WATER:
       return launch<T, MODE_BE_RICHARDS | MODE_WATER>(args, block, stream);
     case MODE_BE_SOIL: return launch<T, MODE_BE_SOIL>(args, block, stream);
+    case MODE_TRBDF2 | MODE_MOST: return launch<T, MODE_TRBDF2 | MODE_MOST>(args, block, stream);
+    case MODE_BE_RICHARDS | MODE_MOST: return launch<T, MODE_BE_RICHARDS | MODE_MOST>(args, block, stream);
+    case MODE_BE_SOIL | MODE_MOST: return launch<T, MODE_BE_SOIL | MODE_MOST>(args, block, stream);
     case MODE_TRBDF2 | MODE_COLUMNS: return launch<T, MODE_TRBDF2 | MODE_COLUMNS>(args, block, stream);
     case MODE_TRBDF2 | MODE_WATER | MODE_COLUMNS:
       return launch<T, MODE_TRBDF2 | MODE_WATER | MODE_COLUMNS>(args, block, stream);

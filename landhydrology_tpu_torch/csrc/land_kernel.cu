@@ -103,9 +103,7 @@ __global__ void land_column_kernel(const KernelArgs a, T eps, T tiny) {
         if (Modes<M>::lagged) {
           temp = c.T_0 + (re + ti * c.rho_ice * c.LH_f0) * coef.inv_rho_c_s[top];
         } else {
-          T theta_l = d_min(vl, c.p[P_NU] - ti);
-          T rho_c_s = c.p[P_RHO_C_DS] + theta_l * c.rho_cp_l + ti * c.rho_cp_i;
-          temp = c.T_0 + (re + ti * c.rho_ice * c.LH_f0) / rho_c_s;
+          temp = cell_temperature(c, vl, ti, re);
         }
         turbulent_fluxes(c, a, load_atmos<T>(a, row, frow, col), vl, ti, temp,
                          &bc_val[BC_TOP_ENERGY], &bc_val[BC_TOP_HYDROLOGY]);

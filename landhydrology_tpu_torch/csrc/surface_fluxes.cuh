@@ -282,6 +282,26 @@ __device__ void turbulent_fluxes(const Column<T>& c, const KernelArgs& a, const 
   assemble_fluxes(a, at.rho_a, temp, q_soil, u_star, t_star, q_star, heat, E_vol);
 }
 
+// T of a cell (vl, ti, re) as the soil rhs diagnoses it with its stage
+// coefficients (and land.py on the top slab).
+template <typename T>
+__device__ __forceinline__ T cell_temperature(const Column<T>& c, T vl, T ti, T re) {
+  T theta_l = d_min(vl, c.p[P_NU] - ti);
+  T rho_c_s = c.p[P_RHO_C_DS] + theta_l * c.rho_cp_l + ti * c.rho_cp_i;
+  return c.T_0 + (re + ti * c.rho_ice * c.LH_f0) / rho_c_s;
+}
+
+// The MOST top face of one rhs evaluation (kernel mode B5 under the
+// implicit steppers): the turbulent heat and water fluxes of the top cell
+// (vl, ti, re) at table row `row` and forcing row `frow` replace the top
+// slots' BC values, which the host sets to BC_FLUX.
+template <typename T>
+__device__ __forceinline__ void most_top_bc(const Column<T>& c, const KernelArgs& a, int64_t row,
+                                            int64_t frow, int64_t col, T vl, T ti, T re, T* bc_val) {
+  turbulent_fluxes(c, a, load_atmos<T>(a, row, frow, col), vl, ti, cell_temperature(c, vl, ti, re),
+                   &bc_val[BC_TOP_ENERGY], &bc_val[BC_TOP_HYDROLOGY]);
+}
+
 // ---- land.py::surface_exchange ----
 
 template <typename T>
@@ -298,9 +318,7 @@ __device__ Exchange<T> surface_exchange(const Column<T>& c, const KernelArgs& a,
                                         int64_t frow, int64_t col, T vl, T ti, T re, T h_s, T dzb,
                                         T tau_pond, T h_evap_smoothing) {
   Exchange<T> ex;
-  T theta_l = d_min(vl, c.p[P_NU] - ti);
-  T rho_c_s = c.p[P_RHO_C_DS] + theta_l * c.rho_cp_l + ti * c.rho_cp_i;
-  T temp = c.T_0 + (re + ti * c.rho_ice * c.LH_f0) / rho_c_s;
+  T temp = cell_temperature(c, vl, ti, re);
 
   Center<T> x{};
   x.vl = vl;

@@ -8,7 +8,8 @@ the state in place.  Three CUDA sources share ``csrc/column_common.cuh``:
 - ``csrc/column_kernel.cu``: SSPRK33 (kernel modes B1, B2, B3), on the
   coupled, water-only or heat-only branch;
 - ``csrc/implicit_kernel.cu``: ``TRBDF2Soil``, ``BackwardEulerRichards`` and
-  ``BackwardEulerSoil`` (kernel mode B4), with Thomas or PCR solves;
+  ``BackwardEulerSoil`` (kernel mode B4), with Thomas or PCR solves, and
+  under a MOST top (B4+B5) with its forcing rows;
 - ``csrc/land_kernel.cu``: SSPRK33 with a MOST top face (kernel mode B5,
   ``PrescribedAtmosForcing``) or a ``LandModel`` pond (B6), the MOST solve
   in ``csrc/surface_fluxes.cuh``; each with streamed forcing rows (B7): the
@@ -58,17 +59,25 @@ eager ``stepper.step`` calls, with the model's step policies wrapped around
 the stepper as ``Simulation`` wraps them.  A run on CPU tensors uses it; a
 run on CUDA tensors launches a kernel or raises.
 
+Every mode takes its step size at run time (kernel mode B1-dt):
+``run(Y, t0, dt_run=h)`` launches at ``h`` rounded to the model dtype, its
+tables built at the stage times of ``h``, and equals a run built with
+``dt=h`` bit for bit.  The implicit steppers also run under a MOST top
+(``B4-trbdf2+B5``, ``B4-be-soil+B5``, ``B4-be-richards+B5``), with its
+forcing rows (B7): every rhs evaluation of the implicit kernel takes its top
+fluxes from a MOST solve at its own top cell.
+
 Combinations without a kernel raise ``NotImplementedError`` naming their
 ROADMAP item, on either device: ForwardEuler, SSPRK22 and SSPRK104 (B1),
 lagged coefficients or ``assume_no_ice`` on the water-only and heat-only
-branches, the implicit steppers with lagged coefficients, freeze-thaw or
-``assume_no_ice`` (B4), MOST or the LandModel with freeze-thaw,
-``assume_no_ice``, an implicit stepper or one component prescribed (B5, B6;
-so also their forcing rows), per-column kinds or geometry outside the modes
-that hold them or with forcing rows (B1-batched, B8), ``differentiable=True``
-(B9) and a run-time ``dt_run`` (A15).  Lateral coupling, pond routing, a
-per-column rain callable and a 2-D column batch raise ``ValueError``, as the
-JAX kernel's factory does.
+branches, the implicit steppers with lagged coefficients, freeze-thaw,
+``assume_no_ice`` or a LandModel (B4), MOST or the LandModel with
+freeze-thaw, ``assume_no_ice`` or one component prescribed (B5, B6; so also
+their forcing rows), per-column kinds or geometry outside the modes that
+hold them or with forcing rows (B1-batched, B8) and ``differentiable=True``
+(B9, ROADMAP A17).  Lateral coupling, pond routing, a per-column rain
+callable and a 2-D column batch raise ``ValueError``, as the JAX kernel's
+factory does.
 """
 
 from __future__ import annotations
@@ -452,7 +461,8 @@ def mode_name(mode: int, features: tuple = (True, True)) -> str:
     coefficients), ``B1-water`` / ``B1-heat`` for the water-only and
     heat-only branches; ``B4-trbdf2``, ``B4-be-richards`` and
     ``B4-be-soil`` for the implicit steppers, with ``-water`` / ``-heat``
-    for the branch and ``-pcr`` for PCR solves; ``B5`` for a MOST top
+    for the branch, ``-pcr`` for PCR solves and ``+B5`` under a MOST top
+    (``B4-trbdf2-pcr+B5``); ``B5`` for a MOST top
     (``B2+B5`` lagged), ``B6`` for the LandModel with a MOST top, ``-step``
     with its exchange frozen per step, ``B2+`` lagged and ``-pond`` with a
     plain top BC (``B2+B6-step-pond``).  The ``MODE_COLUMNS`` instance adds
@@ -467,11 +477,12 @@ def mode_name(mode: int, features: tuple = (True, True)) -> str:
         name = "B6" + ("-step" if mode & MODE_SURFACE_STEP else "")
         name += "" if mode & MODE_MOST else "-pond"
         return "B2+" + name if mode & MODE_LAGGED else name
-    if mode & MODE_MOST:
-        return "B2+B5" if mode & MODE_LAGGED else "B5"
     branch = {MODE_WATER: "-water", MODE_HEAT: "-heat"}.get(mode & (MODE_WATER | MODE_HEAT), "")
     if mode & MODE_IMPLICIT:
-        return _STEPPER_NAMES[mode & MODE_IMPLICIT] + branch + ("-pcr" if mode & MODE_PCR else "")
+        name = _STEPPER_NAMES[mode & MODE_IMPLICIT] + branch + ("-pcr" if mode & MODE_PCR else "")
+        return name + ("+B5" if mode & MODE_MOST else "")
+    if mode & MODE_MOST:
+        return "B2+B5" if mode & MODE_LAGGED else "B5"
     if branch:
         return "B1" + branch
     name = "B2" if mode & MODE_LAGGED else "B1"
@@ -855,8 +866,9 @@ def fused_column_run_plain(model, stepper: AbstractTimestepper, dt, steps_per_ca
 
 
 class FusedColumnRun:
-    """``run(Y, t0, forcing=None) -> Y``: advance ``steps_per_call`` steps
-    of ``stepper`` from ``t0``, **in place**: the tensors of ``Y`` (a
+    """``run(Y, t0, forcing=None, dt_run=None) -> Y``: advance
+    ``steps_per_call`` steps of ``stepper`` from ``t0`` at the factory's
+    ``dt``, or at ``dt_run`` (:meth:`step_size`), **in place**: the tensors of ``Y`` (a
     LandModel's pond ``h_s`` too) are overwritten and ``Y`` is returned.
     CUDA tensors go through a kernel (or the call raises); CPU tensors
     through :func:`fused_column_run_plain` with the same stepper.  A run
@@ -892,18 +904,23 @@ class FusedColumnRun:
     def _pond(self, Y: dict):
         return Y[self.model.surface.name]["h_s"] if self.mode & MODE_LAND else None
 
+    def step_size(self, dt_run=None) -> float:
+        """The step size of a launch: ``dt_run`` rounded to the model dtype
+        (kernel mode B1-dt, as the JAX kernel's ``jnp.asarray(dt_run,
+        dtype)``), or the factory's ``dt``."""
+        if dt_run is None:
+            return self.dt
+        return float(torch.as_tensor(dt_run, dtype=self.soil.float_dtype, device="cpu"))
+
     def __call__(self, Y: dict, t0, forcing=None, dt_run=None) -> dict:
-        if dt_run is not None:
-            raise NotImplementedError(
-                "a run-time dt override (the adaptive driver's dt_run) is not ported yet: ROADMAP A15"
-            )
+        dt = self.step_size(dt_run)
         name = self.soil.name
         fields = [Y[name][k] for k in self.fields]
         device = fields[0].device
         rows = self._forcing_rows(forcing, fields[0].shape[-1], device)
         if device.type == "cpu":
             Yn = fused_column_run_plain(
-                self.model, self.stepper, self.dt, self.steps_per_call, Y, t0,
+                self.model, self.stepper, dt, self.steps_per_call, Y, t0,
                 forcing=None if rows is None else {k: v[0] for k, v in rows.items()},
                 forcing_time_grid=self.forcing_time_grid, geometry=self.geometry,
             )
@@ -914,7 +931,7 @@ class FusedColumnRun:
         if device.type != "cuda":
             raise ValueError(f"unsupported device {device}")
         self._check_state(fields, self._pond(Y), device)
-        self._launch(fields, self._pond(Y), t0, device, rows)
+        self._launch(fields, self._pond(Y), t0, device, rows, dt)
         return Y
 
     def _forcing_rows(self, forcing, ncol: int, device):
@@ -1012,16 +1029,19 @@ class FusedColumnRun:
             self._device_kinds[key] = bc_kind_columns(self.model, ncol, device)
         return self._device_kinds[key]
 
-    def tables(self, ncol: int, device, t0) -> tuple:
+    def tables(self, ncol: int, device, t0, dt=None) -> tuple:
         """``(BC, profile, surface, precipitation)`` tables of a launch from
-        ``t0`` (``None`` for those the mode does not read and for the fields
-        streamed as forcing rows): the host work of a launch besides the
-        argument struct."""
+        ``t0`` at step size ``dt`` (the factory's by default; ``None`` for
+        the tables the mode does not read and for the fields streamed as
+        forcing rows): the host work of a launch besides the argument
+        struct.  The tables :meth:`_inputs` keeps per column count hold only
+        values that do not depend on time, so they serve every ``dt``."""
         dtype = self.soil.float_dtype
+        dt = self.dt if dt is None else dt
         _, zc, _, constant_bc, constant_surface, constant_profiles = self._inputs(ncol, device)
-        args = (self.model, t0, self.dt, self.steps_per_call, ncol, device)
+        args = (self.model, t0, dt, self.steps_per_call, ncol, device)
         bc = bc_tables(*args, reuse=constant_bc, stepper=self.stepper)
-        times, _ = table_times(self.stepper, t0, self.dt, self.steps_per_call, dtype)
+        times, _ = table_times(self.stepper, t0, dt, self.steps_per_call, dtype)
         profiles = profile_tables(self.soil, zc, times, reuse=constant_profiles)
         surface = precip = None
         if self.mode & (MODE_MOST | MODE_LAND):
@@ -1031,28 +1051,30 @@ class FusedColumnRun:
             precip = precipitation_table(self.model.surface.precipitation, times, dtype, device)
         return bc, profiles, surface, precip
 
-    def launch_args(self, fields, h_s, t0, device, rows=None) -> tuple:
+    def launch_args(self, fields, h_s, t0, device, rows=None, dt=None) -> tuple:
         """``(argument struct, tensors it points to)`` of a launch from
-        ``t0``; the caller keeps the tensors alive until it is queued."""
+        ``t0`` at step size ``dt`` (the factory's by default); the caller
+        keeps the tensors alive until it is queued."""
         dtype = self.soil.float_dtype
+        dt = self.dt if dt is None else dt
         nz, ncol = fields[0].shape
         params, zc, dz = self._inputs(ncol, device)[:3]
-        tables, profiles, surface, precip = self.tables(ncol, device, t0)
+        tables, profiles, surface, precip = self.tables(ncol, device, t0, dt)
         kinds = self._kinds(ncol, device)
         if not self.mode & MODE_COLUMNS and any(p is not None and p.dim() == 3 for p in profiles):
             raise ValueError("a prescribed profile varies by column after t = 0 but not at t = 0: "
                              "per-column profiles must vary by column from the start")
         scratch = torch.empty(scratch_fields(self.mode) * nz * ncol, dtype=dtype, device=device)
         args = kernel_args(
-            self.model, fields, scratch, zc, dz, params, tables, self.steps_per_call, self.dt,
+            self.model, fields, scratch, zc, dz, params, tables, self.steps_per_call, dt,
             stepper=self.stepper, profiles=profiles, surface=surface, precip=precip, h_s=h_s,
             forcing=rows, forcing_time_grid=self.forcing_time_grid, t0=t0, kinds=kinds, mode=self.mode,
         )
         return args, (scratch, tables, profiles, surface, precip, rows)
 
-    def _launch(self, fields, h_s, t0, device, rows=None):
+    def _launch(self, fields, h_s, t0, device, rows=None, dt=None):
         dtype = self.soil.float_dtype
-        args, keep = self.launch_args(fields, h_s, t0, device, rows)
+        args, keep = self.launch_args(fields, h_s, t0, device, rows, dt)
         lib_name, fn_name = _entry(self.mode, dtype)
         lib = load_library(lib_name)
         with torch.cuda.device(device):
@@ -1308,7 +1330,6 @@ def _check_stepper(model, stepper) -> None:
     soil = _soil_of(model)
     base = _base_stepper(stepper)
     branch_only = not (_dynamic(soil, "energy") and _dynamic(soil, "hydrology"))
-    surface = bool(kernel_mode(model) & (MODE_MOST | MODE_LAND))
     if type(base) is SSPRK33:
         if branch_only and (soil.coefficient_update == "step" or soil.assume_no_ice):
             raise NotImplementedError(
@@ -1332,10 +1353,9 @@ def _check_stepper(model, stepper) -> None:
             f"the fused kernels step with SSPRK33 and the implicit steppers; the "
             f"in-kernel {type(base).__name__} is not ported yet (ROADMAP B1)"
         )
-    if surface:
+    if isinstance(model, LandModel):
         raise NotImplementedError(
-            "the implicit steppers with a MOST top or a LandModel are not ported "
-            "to the kernel yet (ROADMAP B4)"
+            "the implicit steppers with a LandModel are not ported to the kernel yet (ROADMAP B4)"
         )
     if base.model is not model:
         raise ValueError(

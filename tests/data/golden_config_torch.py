@@ -14,6 +14,9 @@
   (``golden_config.build_forced_model_state_and_rows``: MOST top driven by
   a per-step table with a scalar and per-column fields),
   ``golden_forced_f64.npz``.
+- ``build_adaptive_case``: the two cases of the adaptive golden
+  (``make_golden_adaptive.py``, ``golden_adaptive_f64.npz``), their models,
+  states and driver arguments.
 
 The builders put their tensors on ``device``, the card unless the caller
 asks for ``"cpu"``."""
@@ -328,3 +331,311 @@ def build_forced_model_state_and_rows(dtype, device="cuda"):
 
     Y, Ya = initialize_states(model, ic, 0.0)
     return model, Y, Ya, rows, FORCED_DT
+
+
+#: the adaptive golden (``golden_adaptive_f64.npz``, written by
+#: ``make_golden_adaptive.py`` with the JAX package).  Case (a): golden #1
+#: under ``run_adaptive_fused(SSPRK33(), steps_per_call=4)`` from 0 to
+#: ``ADAPTIVE_A["tf"]``; case (b): the forced golden's soil and rows as a
+#: time-indexed table under ``run_adaptive_forced(stepper=TRBDF2Soil(iters=2))``.
+ADAPTIVE_A = dict(tf=3600.0, dt0=100.0, steps_per_call=4, rtol=1e-8, atol=1e-12)
+ADAPTIVE_B = dict(tf=2400.0, dt0=120.0, forcing_dt=60.0, iters=2, rtol=1e-6, atol=1e-10)
+
+
+def build_adaptive_case(case, dtype, device="cuda"):
+    """``(model, Y, Ya, stepper, kwargs)`` of the adaptive golden's case
+    ``"a"`` or ``"b"``: the driver is ``run_adaptive_fused(model, Y, Ya, 0.0,
+    **kwargs)`` for case (a) and ``run_adaptive_forced(model, Y, Ya, 0.0,
+    **kwargs)`` for case (b), each with ``stepper=stepper``."""
+    from landhydrology_tpu_torch.adaptive import AdaptiveConfig
+    from landhydrology_tpu_torch.domains import make_function_space
+    from landhydrology_tpu_torch.imex import TRBDF2Soil
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    if case == "a":
+        p = ADAPTIVE_A
+        model, Y, Ya, _ = build_model_and_state(dtype, device)
+        return model, Y, Ya, SSPRK33(), dict(
+            tf=p["tf"], dt0=p["dt0"], steps_per_call=p["steps_per_call"],
+            config=AdaptiveConfig(rtol=p["rtol"], atol=p["atol"]))
+    if case != "b":
+        raise ValueError(f"unknown adaptive golden case {case!r}")
+    p = ADAPTIVE_B
+    model, Y, Ya, rows, _ = build_forced_model_state_and_rows(dtype, device)
+    stepper = TRBDF2Soil(model=model, grid=make_function_space(model.domain, dtype, device), iters=p["iters"])
+    return model, Y, Ya, stepper, dict(
+        tf=p["tf"], dt0=p["dt0"], forcing=rows, forcing_dt=p["forcing_dt"],
+        config=AdaptiveConfig(rtol=p["rtol"], atol=p["atol"]))
+
+
+#: two implementations' error norms at the same step may differ by this many
+#: units of rounding of the state over ``rtol`` (the norm divides a
+#: difference of two states by ``rtol`` times the state), plus as many of
+#: the norm itself
+ERR_NOISE_ULPS = 64
+#: a free run may stray from the adaptive golden by this multiple of the
+#: farthest the reference strays when one field of its initial state moves
+#: by one ulp (``*_ulp_*`` of the golden)
+ULP_SPREAD = 2.0
+
+
+def _field_deviation(state, ref):
+    """The largest deviation of any field relative to that field's largest value."""
+    return max(float(np.max(np.abs(state[k] - ref[k]))) / (float(np.max(np.abs(ref[k]))) or 1.0) for k in ref)
+
+
+def _fields(golden, prefix):
+    return {k: golden[f"{prefix}{k}"] for k in ("vartheta_l", "theta_i", "rho_e_int")}
+
+
+def check_adaptive_run(golden, case, stats, state, log=None):
+    """Hold a free run of the adaptive golden's case ``"a"`` or ``"b"``
+    (``stats`` as the drivers return them, ``state`` the final soil fields
+    as float64 arrays, ``log`` the run's iteration records) against the
+    golden; returns ``{what: (deviation, bar)}`` and raises
+    ``AssertionError`` past a bar.
+
+    The error norm subtracts two solutions that agree to about ``rtol``,
+    so rounding moves each run's dt, and the PI controller carries that
+    forward: two correct implementations that differ in the last bit of a
+    step cannot agree on dt to 1e-12.  The bars are therefore the
+    reference's own: ``ULP_SPREAD`` times the farthest its reruns from
+    one-ulp moves of the initial state land.  Case a: equal counts, the
+    accepted count after every iteration equal, every iteration's next dt
+    (``a_dt_seq``) and ``dt_final`` within that spread of ``dt_final``
+    (relative), the state at rtol 1e-10.  Case b (where the reference's own
+    reruns change the counts): counts, ``dt_final`` and the state within
+    that spread."""
+    ref_state = _fields(golden, f"{case}_")
+    n_acc, n_rej = int(stats["n_accepted"]), int(stats["n_rejected"])
+    ref_acc, ref_rej = int(golden[f"{case}_n_accepted"]), int(golden[f"{case}_n_rejected"])
+    dt_f, ref_dt = float(stats["dt_final"]), float(golden[f"{case}_dt_final"])
+    ulp_dt = np.abs(golden[f"{case}_ulp_dt_final"] - ref_dt)
+    out = {}
+
+    def hold(what, value, bar):
+        out[what] = (value, bar)
+        if not value <= bar:
+            raise AssertionError(f"adaptive golden case {case}: {what} {value!r} past the bar {bar!r}")
+
+    if case == "a":
+        hold("accepted", abs(n_acc - ref_acc), 0)
+        hold("rejected", abs(n_rej - ref_rej), 0)
+        bar = ULP_SPREAD * float(np.max(ulp_dt)) / ref_dt
+        hold("dt_final (relative)", abs(dt_f / ref_dt - 1.0), bar)
+        if log is not None:
+            seq = np.asarray([r[4] for r in log])
+            acc = np.cumsum([bool(r[3]) for r in log])
+            if len(seq) != len(golden["a_dt_seq"]):
+                raise AssertionError(f"adaptive golden case a: {len(seq)} iterations, the golden "
+                                     f"{len(golden['a_dt_seq'])}")
+            hold("accepted count after each iteration", int(np.max(np.abs(acc - golden["a_acc_seq"]))), 0)
+            hold("dt after each iteration (relative)", float(np.max(np.abs(seq / golden["a_dt_seq"] - 1.0))), bar)
+        for k, v in ref_state.items():
+            np.testing.assert_allclose(state[k], v, rtol=1e-10, atol=1e-16, err_msg=f"adaptive golden a/{k}")
+        out["state (relative to each field's largest value)"] = (_field_deviation(state, ref_state), 1e-10)
+        return out
+    for what, n, ref, ulp in (("accepted", n_acc, ref_acc, golden["b_ulp_n_accepted"]),
+                              ("rejected", n_rej, ref_rej, golden["b_ulp_n_rejected"])):
+        hold(what, abs(n - ref), ULP_SPREAD * int(np.max(np.abs(ulp - ref))))
+    hold("dt_final (relative)", abs(dt_f / ref_dt - 1.0), ULP_SPREAD * float(np.max(ulp_dt)) / ref_dt)
+    hold("state (relative to each field's largest value)", _field_deviation(state, ref_state),
+         ULP_SPREAD * float(np.max(golden["b_ulp_state_dev"])))
+    return out
+
+
+def check_replay_errors(records, log, rtol, what, eps=float(np.finfo(np.float64).eps), rel=0.0):
+    """Hold the error norms of a replay (``log``) to those of the run it
+    replays (``records``): each within ``ERR_NOISE_ULPS`` units of rounding
+    (``eps / rtol`` plus ``eps`` times the norm), and the same decision
+    where the recorded norm is farther than that from 1.  A step the
+    recorded run rejected needs only a norm past 1 as well: a rejected step
+    can be unstable (the saturated column of ``test_adaptive.py:83`` from
+    40x its explicit limit), which amplifies each implementation's rounding
+    within it, and a replay takes the recorded next step all the same.
+    ``rel`` adds that share of the recorded norm to the bar, for a run that
+    steps at its stability limit throughout.  Returns the largest
+    difference over its bar."""
+    if len(log) != len(records):
+        raise AssertionError(f"{what}: {len(log)} iterations replayed of {len(records)}")
+    err = np.asarray([r[2] for r in log])
+    ref = np.asarray([r[2] for r in records])
+    bar = ERR_NOISE_ULPS * eps * (1.0 / rtol + ref) + rel * ref
+    rejected = ~np.asarray([bool(r[3]) for r in records])
+    ratio = np.where(rejected & (ref > 1.0 + bar) & (err > 1.0), 0.0, np.abs(err - ref) / bar)
+    if not np.all(ratio <= 1.0):  # NaN fails too
+        i = int(np.argmax(np.where(np.isnan(ratio), np.inf, ratio)))
+        raise AssertionError(f"{what}: iteration {i} error norm {err[i]!r}, the replayed run's {ref[i]!r}")
+    decided = np.abs(ref - 1.0) > bar
+    mine = np.asarray([bool(r[3]) for r in log])
+    if np.any(decided & (mine != np.asarray([bool(r[3]) for r in records]))):
+        raise AssertionError(f"{what}: a decision differs where the error norm is clear of 1")
+    return float(np.max(ratio))
+
+
+def check_adaptive_replay(golden, log, state, rtol=ADAPTIVE_B["rtol"]):
+    """Hold a replay of case b's iteration records (``b_seq_*``: the same
+    start times, steps and decisions) against the golden: every error norm
+    in ``log`` within ``ERR_NOISE_ULPS`` units of rounding (``eps / rtol``
+    plus ``eps`` times the norm) of the golden's, the same decision where
+    the golden's norm is farther than that from 1, and ``state`` after the
+    replay at rtol 1e-10 of the golden's: its final state after all
+    iterations, or ``b_k_*`` after ``b_k``.  Returns ``(largest norm
+    difference over its bar, largest state deviation)``."""
+    n = len(log)
+    if n not in (len(golden["b_seq_t"]), int(golden["b_k"])):
+        raise AssertionError(f"a replay of {n} iterations: the golden holds {len(golden['b_seq_t'])} and "
+                             f"a state after {int(golden['b_k'])}")
+    worst = check_replay_errors(golden_records(golden, "b")[:n], log, rtol, "replay of case b")
+    ref_state = _fields(golden, "b_" if n == len(golden["b_seq_t"]) else "b_k_")
+    for k, v in ref_state.items():
+        np.testing.assert_allclose(state[k], v, rtol=1e-10, atol=1e-16, err_msg=f"replay of case b/{k}")
+    return worst, _field_deviation(state, ref_state)
+
+
+def golden_records(golden, name):
+    """The iteration records ``(t, dt, err, accept)`` of a case of the
+    adaptive golden (``name`` ``"b"`` or a key of ``ADAPTIVE_TESTS``), as a
+    list for the drivers' ``replay``."""
+    p = "b_seq_" if name == "b" else f"{name}__seq_"
+    return list(zip((float(x) for x in golden[p + "t"]), (float(x) for x in golden[p + "dt"]),
+                    (float(x) for x in golden[p + "err"]), (bool(x) for x in golden[p + "accept"])))
+
+
+def golden_state(golden, name, kind=""):
+    """A case's frozen final state as ``{group: {field: array}}``: the
+    driver's, or with ``kind`` ``"fine"`` its fixed-dt reference, with
+    ``"replay"`` the end of the iteration loop its records come from."""
+    prefix = f"{name}__{kind}__" if kind else f"{name}__"
+    out = {}
+    for key in golden.files:
+        if key.startswith(prefix) and key.count("__") == prefix.count("__") + 1:
+            group, field = key[len(prefix):].split("__")
+            out.setdefault(group, {})[field] = golden[key]
+    return out
+
+
+def pulse_tables(n_rows, seed, ncol=FORCED_NCOL):
+    """``tests/test_forcing_driver.py::_pulse_tables`` with
+    ``default_rng(seed)``: a scalar wind row, per-column humidity and a warm
+    pulse of theta_atm over the middle third."""
+    rng = np.random.default_rng(seed)
+    u = 2.0 + 1.5 * rng.random(n_rows)
+    th = 296.0 + np.zeros(n_rows)
+    th[n_rows // 3:n_rows // 2] = 305.0
+    q = 0.004 + 0.002 * rng.random((n_rows, ncol))
+    return {"u_atm": u, "theta_atm": th, "q_atm": q}
+
+
+def build_batched_infiltration(dtype, device="cuda", ncol=8, nz=40):
+    """``tests/test_adaptive.py::_batched_infiltration`` and ``_batched_ic``:
+    sand infiltration on 8 columns of nz=40, moisture 0.10-0.12 by column."""
+    import torch
+
+    from landhydrology_tpu_torch import (
+        Column, Dirichlet, FreeDrainage, PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC,
+        SoilHydrologyModel, SoilModel, SoilParams, initialize_states,
+    )
+    from landhydrology_tpu_torch.models.soil import vanGenuchten
+
+    model = SoilModel(
+        domain=Column(zlim=(-1.5, 0.0), nelements=nz, batch_shape=(ncol,)),
+        energy_model=PrescribedTemperatureModel(),
+        hydrology_model=SoilHydrologyModel(
+            hydraulic_model=vanGenuchten(n=3.96, alpha=2.7, Ksat=34.0 / 3600.0 / 100.0, theta_r=0.075)),
+        boundary_conditions=SoilColumnBC(top=SoilComponentBC(hydrology=Dirichlet(lambda t: 0.267)),
+                                         bottom=SoilComponentBC(hydrology=FreeDrainage())),
+        soil_param_set=SoilParams(nu=0.287, S_s=1e-3), dtype=dtype, device=device,
+    )
+    v = np.full((nz, ncol), 0.1) + 0.02 * np.linspace(0.0, 1.0, ncol)[None, :]
+    Y, Ya = initialize_states(model, lambda z, m: {
+        "vartheta_l": torch.as_tensor(v, dtype=dtype, device=device),
+        "theta_i": torch.zeros((nz, ncol), dtype=dtype, device=device)}, 0.0)
+    return model, Y, Ya
+
+
+def build_tiny_land(dtype, device="cuda"):
+    """``tests/test_adaptive.py::_tiny_land``: a LandModel on 8 columns of
+    nz=8 under a MOST atmosphere, 1e-3 m/s of rain, tau_pond 300 s, its
+    exchange frozen per step."""
+    import torch
+
+    from landhydrology_tpu_torch import (
+        Column, PrescribedAtmosForcing, SoilColumnBC, SoilComponentBC, SoilEnergyModel, SoilHydrologyModel,
+        SoilModel, SoilParams, VerticalFlux,
+    )
+    from landhydrology_tpu_torch.constants import default_earth_param_set as ps
+    from landhydrology_tpu_torch.models.land import (
+        LandModel, PulsePrecipitation, SurfaceWaterModel, initialize_states,
+    )
+    from landhydrology_tpu_torch.models.soil import vanGenuchten
+    from landhydrology_tpu_torch.models.soil.heat import volumetric_heat_capacity, volumetric_internal_energy
+
+    nz, ncol = 8, 8
+    soil = SoilModel(
+        domain=Column(zlim=(-1.0, 0.0), nelements=nz, batch_shape=(ncol,)),
+        energy_model=SoilEnergyModel(),
+        hydrology_model=SoilHydrologyModel(hydraulic_model=vanGenuchten(n=2.0, alpha=2.0, Ksat=1e-5, theta_r=0.05)),
+        boundary_conditions=SoilColumnBC(
+            top=PrescribedAtmosForcing(u_atm=2.0, theta_atm=297.0, z_atm=2.0, theta_scale=297.0, rho_a_sfc=1.2,
+                                       q_atm=0.005),
+            bottom=SoilComponentBC(hydrology=VerticalFlux(0.0), energy=VerticalFlux(0.0))),
+        soil_param_set=SoilParams(nu=0.4, S_s=1e-3), dtype=dtype, device=device,
+    )
+    land = LandModel(soil=soil, surface=SurfaceWaterModel(
+        precipitation=PulsePrecipitation(rate=1e-3, t_start=0.0, t_stop=1e9), tau_pond=300.0),
+        surface_update="step")
+
+    def ic(z, m):
+        th = torch.full((nz, 1), 0.2, dtype=dtype, device=device).expand(nz, ncol)
+        ti = torch.zeros_like(th)
+        rcs = volumetric_heat_capacity(th, ti, 1.3e6, ps)
+        return {"vartheta_l": th, "theta_i": ti,
+                "rho_e_int": volumetric_internal_energy(ti, rcs, torch.full_like(th, 290.0), ps)}
+
+    Y, Ya = initialize_states(land, ic, 0.0)
+    return land, Y, Ya
+
+
+#: the JAX package's adaptive tests that run the fused engine, as the port
+#: runs them: the builder, the driver's arguments and, for the tests whose
+#: JAX reference is the XLA engine, ``steps_per_call=1`` (the fused run
+#: equals it there); the golden keys ``<name>__*`` hold JAX's run
+ADAPTIVE_TESTS = {
+    "batched": dict(build="batched", tf=30.0, dt0=0.05, rtol=1e-5, atol=1e-8, steps_per_call=1),
+    "segments": dict(build="batched", tf=60.0, dt0=0.02, rtol=1e-6, atol=1e-9, steps_per_call=6),
+    "land7": dict(build="land", tf=30.0, dt0=2.0, rtol=1e-5, atol=1e-8, steps_per_call=1),
+    "forced_fused": dict(build="forced", n_rows=8, seed=9, forcing_dt=240.0, tf=1920.0, dt0=60.0, rtol=1e-5,
+                         atol=1e-10, dt_max=240.0, steps_per_call=1),
+    "forced_segments": dict(build="forced", n_rows=8, seed=11, forcing_dt=240.0, tf=1920.0, dt0=30.0, rtol=1e-7,
+                            atol=1e-12, dt_max=60.0, steps_per_call=4),
+    "forced_trbdf2": dict(build="forced", n_rows=6, seed=13, forcing_dt=600.0, tf=3600.0, dt0=120.0, rtol=1e-6,
+                          atol=1e-10, dt_max=300.0, steps_per_call=1, trbdf2="pcr"),
+}
+
+
+def build_adaptive_test(name, dtype, device="cuda"):
+    """``(model, Y, Ya, stepper, kwargs)`` of ``ADAPTIVE_TESTS[name]``: the
+    run is ``run_adaptive_fused(model, Y, Ya, 0.0, stepper=stepper,
+    **kwargs)``."""
+    from landhydrology_tpu_torch.adaptive import AdaptiveConfig
+    from landhydrology_tpu_torch.domains import make_function_space
+    from landhydrology_tpu_torch.imex import TRBDF2Soil
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    p = ADAPTIVE_TESTS[name]
+    if p["build"] == "batched":
+        model, Y, Ya = build_batched_infiltration(dtype, device)
+    elif p["build"] == "land":
+        model, Y, Ya = build_tiny_land(dtype, device)
+    else:
+        model, Y, Ya, _, _ = build_forced_model_state_and_rows(dtype, device)
+    stepper = SSPRK33()
+    if p.get("trbdf2"):
+        stepper = TRBDF2Soil(model=model, grid=make_function_space(model.domain, dtype, device), iters=2,
+                             tridiag=p["trbdf2"])
+    config = AdaptiveConfig(rtol=p["rtol"], atol=p["atol"], **({"dt_max": p["dt_max"]} if "dt_max" in p else {}))
+    kwargs = dict(tf=p["tf"], dt0=p["dt0"], config=config, steps_per_call=p["steps_per_call"])
+    if p["build"] == "forced":
+        kwargs.update(forcing=pulse_tables(p["n_rows"], p["seed"]), forcing_dt=p["forcing_dt"])
+    return model, Y, Ya, stepper, kwargs

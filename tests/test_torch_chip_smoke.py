@@ -627,3 +627,139 @@ def test_check_diverged_holds_the_columns_that_leave_the_finite_numbers():
         cs.check_diverged(off, plain, start, torch.float64, "off", MOVING)
     a = torch.tensor([1.0, float("nan"), 3.0])
     assert cs._equal_nan(a, a.clone()) and not cs._equal_nan(a, torch.tensor([1.0, 2.0, 3.0]))
+
+
+# ---- phase 13: adaptive stepping (kernel modes B1-dt and B4+B5) ----
+
+
+@pytest.fixture
+def plain_card(monkeypatch):
+    """Phase 13's functions on the CPU: the fused run's plain version stands
+    in for the kernel and counts its launches as the kernel does; no
+    synchronization, and CUDA-event times of 1 ms."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    monkeypatch.setattr(cs, "_time_ms", lambda fn, reps: (fn(), 1.0)[1])
+
+    class Event:
+        def __init__(self, enable_timing=False):
+            pass
+
+        def record(self, stream=None):
+            pass
+
+        def elapsed_time(self, other):
+            return 1.0
+
+    monkeypatch.setattr(torch.cuda, "Event", Event)
+    call = ck.FusedColumnRun.__call__
+
+    def counted(self, Y, t0, forcing=None, dt_run=None):
+        out = call(self, Y, t0, forcing=forcing, dt_run=dt_run)
+        ck.LAUNCHES[self.name] += 1
+        return out
+
+    monkeypatch.setattr(ck.FusedColumnRun, "__call__", counted)
+    return call
+
+
+def test_b4_b5_bound_counts_a_most_solve_per_rhs_evaluation():
+    """Under a MOST top the implicit steppers solve MOST once per rhs
+    evaluation: 1 + 4 iters per TR-BDF2 step, 2 iters for BackwardEulerSoil,
+    iters + 1 for BackwardEulerRichards; the bound grows with them."""
+    most = ck.MODE_MOST
+    assert [cs.most_exchanges(ck, most | m, 2) for m in (ck.MODE_TRBDF2, ck.MODE_BE_SOIL, ck.MODE_BE_RICHARDS)] \
+        == [9, 4, 3]
+    assert cs.most_exchanges(ck, most | ck.MODE_TRBDF2, 3) == 13
+    assert (cs.most_exchanges(ck, most), cs.most_exchanges(ck, ck.MODE_LAND | ck.MODE_SURFACE_STEP)) == (3, 1)
+    per = cs.column_step_ops(ck, most | ck.MODE_TRBDF2, torch.float64, probes=96.0)
+    ssp = cs.column_step_ops(ck, most, torch.float64, probes=96.0)
+    assert per["log"] == 3 * ssp["log"] and per["sqrt"] == 3 * ssp["sqrt"]
+    costs = {torch.float64: {"exp": 10, "log": 10, "sqrt": 2, "div": 5, "pow": 20}}
+    b_tr, _ = cs.bound_ms(ck, costs, most | ck.MODE_TRBDF2, torch.float64, 24 * 1024, 4, ncol=1024, probes=96.0)
+    b_plain, _ = cs.bound_ms(ck, costs, ck.MODE_TRBDF2, torch.float64, 24 * 1024, 4)
+    assert b_tr > b_plain
+
+
+def test_dt_run_cases_cover_every_mode_of_the_kernel_table(monkeypatch):
+    """Phase 13b launches every mode the kernels run at dt_run: the SSPRK33,
+    implicit, land and forced modes, the kinds and geometry instances and
+    the B4+B5 instances with and without rows."""
+    monkeypatch.setattr(cs, "DT_RUN_NCOL", 8)
+    names = {ck.make_fused_column_run(m, st, forcing_fields=tuple(rows or ()), forcing_time_grid=grid,
+                                      steps_per_call=n).name
+             for m, _, st, _, n, _, rows, grid, _ in cs.dt_run_cases(torch.float64, "cpu")}
+    expected = {"B1", "B1-no-ice", "B2", "B2-no-ice", "B3-rate", "B3-eq", "B2+B3-rate", "B2+B3-eq", "B1-water",
+                "B1-heat", "B4-trbdf2", "B4-trbdf2-pcr", "B4-trbdf2-water", "B4-trbdf2-heat", "B4-be-soil",
+                "B4-be-richards", "B4-be-richards-water", "B5", "B2+B5", "B6", "B6-step", "B2+B6", "B2+B6-step",
+                "B6-pond", "B6-step-pond", "B2+B6-pond", "B2+B6-step-pond", "B5+B7", "B2+B5+B7-time", "B6+B7",
+                "B6-step+B7-time", "B2+B6-step-pond+B7-time", "B1+kinds+B8", "B2+kinds+B8", "B3-rate+kinds",
+                "B1-water+kinds+B8", "B4-be-richards+kinds+B8", "B4-be-richards-water+kinds+B8",
+                "B4-trbdf2+kinds+B8", "B4-trbdf2-water+kinds+B8", "B5+kinds", "B6+kinds+B8", "B4-trbdf2+B5",
+                "B4-trbdf2-pcr+B5", "B4-be-soil+B5", "B4-be-richards+B5", "B4-trbdf2+B5+B7",
+                "B4-trbdf2+B5+B7-time", "B4-be-soil+B5+B7-time", "B4-be-richards+B5+B7"}
+    assert names == expected
+
+
+def test_dt_run_check_fails_a_launch_that_ignores_dt_run(plain_card, monkeypatch):
+    """Phase 13b's check passes the plain version standing in for the kernel
+    and fails a kernel that launches at the factory dt instead of dt_run."""
+    monkeypatch.setattr(cs, "DT_RUN_NCOL", 8)
+    cases = cs.dt_run_cases(torch.float64, "cpu")
+    for case in (cases[0], cases[-3]):  # B1 (callable BC values) and B4-trbdf2+B5+B7-time
+        name, err, _ = cs.check_dt_run(ck, *case)
+        assert err == 0.0
+    call = ck.FusedColumnRun.__call__
+
+    def factory_dt(self, Y, t0, forcing=None, dt_run=None):
+        return call(self, Y, t0, forcing=forcing)
+
+    monkeypatch.setattr(ck.FusedColumnRun, "__call__", factory_dt)
+    for case in (cases[0], cases[-3]):
+        with pytest.raises(AssertionError, match="differs from a run built"):
+            cs.check_dt_run(ck, *case)
+
+
+def test_adaptive_golden_check_fails_a_driver_that_mutates_the_state(plain_card, monkeypatch):
+    """Phase 13a's check of golden case a passes the port's fused driver
+    and fails one whose segments step the state in place, so that a
+    rejected iteration leaves it changed."""
+    from landhydrology_tpu_torch import adaptive
+
+    gc = cs._load_golden_config()
+    golden = np.load("tests/data/golden_adaptive_f64.npz")
+    model, Y, Ya, st, kw = gc.build_adaptive_case("a", torch.float64, "cpu")
+    log = []
+    Yf, stats = adaptive.run_adaptive_fused(model, Y, Ya, 0.0, stepper=st, log=log, **kw)
+    gc.check_adaptive_run(golden, "a", stats, cs._np(Yf), log)
+    monkeypatch.setattr(adaptive, "_clone", lambda Y: Y)
+    model, Y, Ya, st, kw = gc.build_adaptive_case("a", torch.float64, "cpu")
+    log = []
+    Yf, stats = adaptive.run_adaptive_fused(model, Y, Ya, 0.0, stepper=st, log=log, **kw)
+    with pytest.raises(AssertionError):
+        gc.check_adaptive_run(golden, "a", stats, cs._np(Yf), log)
+
+
+def test_adaptive_path_checks_the_first_iteration_and_the_fine_run(plain_card, monkeypatch):
+    """Phase 13c's driver of one full-width run, at nz=8 x 64 with the
+    plain version as the kernel: three launches per iteration counted, the
+    first iteration's launches against the plain version on the strided
+    columns, the final state within the accepted tolerance of the fixed-dt
+    run; a kernel that ignores dt_run fails the first-iteration check."""
+    from landhydrology_tpu_torch.adaptive import AdaptiveConfig
+    from landhydrology_tpu_torch.timestepping import SSPRK33 as PortSSPRK33
+
+    monkeypatch.setattr(cs, "ADAPTIVE_STRIDE", 16)
+    model, Y0, Ya = cs.build_bench_model(8, 64, torch.float64, "cpu")
+    config = AdaptiveConfig()
+    final, log, run, launches, err, _ = cs.adaptive_path(ck, "smi", "adaptive bench", model, Y0, Ya,
+                                                         PortSSPRK33(), 8, 600.0, 1.0, config,
+                                                         ("vartheta_l", "rho_e_int"))
+    assert launches == 3 * len(log) and err == 0.0 and run.name == "B1"
+    cs.fine_check(ck, "adaptive bench", model, Y0, PortSSPRK33(), 8, 600.0, log, final, config)
+    call = ck.FusedColumnRun.__call__
+    monkeypatch.setattr(ck.FusedColumnRun, "__call__",
+                        lambda self, Y, t0, forcing=None, dt_run=None: call(self, Y, t0, forcing=forcing))
+    with pytest.raises(AssertionError):
+        cs.adaptive_path(ck, "smi", "adaptive bench", model, Y0, Ya, PortSSPRK33(), 8, 600.0, 1.0, config,
+                         ("vartheta_l", "rho_e_int"))

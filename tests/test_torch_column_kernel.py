@@ -242,7 +242,7 @@ def test_unported_modes_raise(mode):
             bottom=model.boundary_conditions.bottom))
         with pytest.raises(NotImplementedError, match="ROADMAP B5"):
             ck.make_fused_column_run(most, forcing_fields=("u_atm",))
-    elif mode == "B7_time_grid":  # ported: a grid needs rows, and not with an implicit stepper
+    elif mode == "B7_time_grid":  # ported, with the implicit steppers too; a grid needs rows
         with pytest.raises(ValueError, match="requires forcing_fields"):
             ck.make_fused_column_run(model, forcing_time_grid=(0.0, 60.0, 10))
         most = dataclasses.replace(model, boundary_conditions=SoilColumnBC(
@@ -250,8 +250,20 @@ def test_unported_modes_raise(mode):
                                        theta_scale=300.0, rho_a_sfc=1.2, q_atm=0.005),
             bottom=model.boundary_conditions.bottom))
         grid = make_function_space(model.domain, torch.float64, "cpu")
+        run = ck.make_fused_column_run(most, TRBDF2Soil(model=most, grid=grid), forcing_fields=("u_atm",),
+                                       forcing_time_grid=(0.0, 60.0, 10))
+        assert run.name == "B4-trbdf2+B5+B7-time"
+        # still refused: B4 with a LandModel, B4+B5 with lagged coefficients (ROADMAP B4) or freeze-thaw (B5)
+        from landhydrology_tpu_torch.models.land import LandModel
+
         with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-            ck.make_fused_column_run(most, TRBDF2Soil(model=most, grid=grid), forcing_fields=("u_atm",),
+            ck.make_fused_column_run(LandModel(soil=most), TRBDF2Soil(model=most, grid=grid))
+        lagged = dataclasses.replace(most, coefficient_update="step")
+        with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+            ck.make_fused_column_run(lagged, TRBDF2Soil(model=lagged, grid=grid), forcing_fields=("u_atm",))
+        frozen = dataclasses.replace(most, freeze_thaw=FreezeThaw(tau=60.0))
+        with pytest.raises(NotImplementedError, match="ROADMAP B5"):
+            ck.make_fused_column_run(frozen, TRBDF2Soil(model=frozen, grid=grid), forcing_fields=("u_atm",),
                                      forcing_time_grid=(0.0, 60.0, 10))
     elif mode == "B8_geometry":  # ported: in the modes chip_smoke.py holds it in, of the model's shape
         grid = make_function_space(model.domain, torch.float64, "cpu")

@@ -166,8 +166,10 @@ def test_segment_matches_jax_xla(case):
 
 def test_eager_forced_trbdf2_matches_jax():
     """``test_forcing_driver.py:514``'s forced TR-BDF2 (12 steps of dt=300)
-    through the eager engine against JAX's XLA engine; the fused engine
-    refuses it (the implicit steppers with a MOST top are ROADMAP B4)."""
+    through the eager engine against JAX's XLA engine, and through the fused
+    engine (kernel mode B4-trbdf2+B5+B7, on the CPU its plain version; 3
+    launches of 4 steps) at JAX's own bar between its engines (rtol
+    1e-11)."""
     jm, jY, jYa = _soil_case()
     rows = jt._diurnal_forcing(12, np.random.default_rng(17))
     jst = JTRBDF2(model=jm, grid=jax_grid(jm.domain, jnp.float64), iters=2)
@@ -177,8 +179,10 @@ def test_eager_forced_trbdf2_matches_jax():
     st = TRBDF2Soil(model=model, grid=make_function_space(model.domain, F64, "cpu"), iters=2)
     Yp, _ = make_forced_segment_run(model, st, dt=300.0, field_names=sorted(rows))(Y, Ya, 0.0, rows)
     _close(state_to_numpy(Yp), _np_state(Yx), rtol=1e-12)
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        make_forced_segment_run(model, st, dt=300.0, field_names=sorted(rows), engine="fused")
+    assert ck.make_fused_column_run(model, st, forcing_fields=sorted(rows)).name == "B4-trbdf2+B5+B7"
+    seg = make_forced_segment_run(model, st, dt=300.0, field_names=sorted(rows), engine="fused", steps_per_call=4)
+    Yf, _ = seg(Y, Ya, 0.0, rows)
+    _close(state_to_numpy(Yf), _np_state(Yx), rtol=1e-11, atol=1e-15)
 
 
 # ---- run_forced over file windows ----
@@ -334,8 +338,11 @@ def test_fused_forcing_validation():
         run(Y, 0.0, forcing=dict(rows, u_atm=np.full(4, 2.0)))
     with pytest.raises(ValueError, match="without forcing_fields"):
         ck.make_fused_column_run(model, steps_per_call=3)(Y, 0.0, forcing=rows)
-    with pytest.raises(NotImplementedError, match="ROADMAP A15"):
-        run(Y, 0.0, forcing=rows, dt_run=0.5)
+    # a run-time step size (kernel mode B1-dt) is a run built with that dt, bit for bit
+    at_dt_run = run({g: {k: v.clone() for k, v in f.items()} for g, f in Y.items()}, 0.0, forcing=rows, dt_run=0.5)
+    built = ck.make_fused_column_run(model, dt=0.5, steps_per_call=3, forcing_fields=("u_atm", "q_atm"))(
+        {g: {k: v.clone() for k, v in f.items()} for g, f in Y.items()}, 0.0, forcing=rows)
+    _close(state_to_numpy(at_dt_run), state_to_numpy(built), rtol=0, atol=0)
     with pytest.raises(ValueError, match=r"expects \(5,\) or \(5, 16\)"):
         make_forced_segment_run(model, field_names=("u_atm",), engine="fused")(
             Y, None, 0.0, {"u_atm": np.ones((5, 3))})

@@ -242,9 +242,11 @@ def test_fused_run_refusals():
             ck.make_fused_column_run(soil)
     from landhydrology_tpu_torch.domains import make_function_space
 
+    # the implicit steppers run under the soil's MOST top (B4+B5), not with the LandModel (ROADMAP B4)
     st = TRBDF2Soil(model=model.soil, grid=make_function_space(model.soil.domain, torch.float64, "cpu"))
+    assert ck.make_fused_column_run(model.soil, st).name == "B4-trbdf2+B5"
     with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        ck.make_fused_column_run(model.soil, st)
+        ck.make_fused_column_run(model, st)
     with pytest.raises(ValueError, match="negative"):
         land.PulsePrecipitation(rate=-1e-6)
     with pytest.raises(ValueError, match="negative"):
