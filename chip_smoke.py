@@ -140,7 +140,33 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    column, and the final state against a fixed-dt kernel run at the
    largest accepted dt / 8 (within the tolerance the controller accepted);
    then the B4+B5 modes timed at nz=24 x 32,768;
-6. times of every mode's kernel and plain version at its phase-4/5/8/9/10/12
+14. the gradient path (ROADMAP A17, kernel modes B9 and B4 with step
+   policies): (a) f64, ``golden_grad_f64.npz`` through
+   ``make_fused_column_run(differentiable=True)`` (the kernel's forward, one
+   launch each): the loss at rtol 1e-12 and the gradients in the start
+   state, t0 and dt_run within 1e-10 of their scale; on the land golden's
+   soil (MOST) under SSPRK33, lagged and TR-BDF2, AD within rtol 1e-7 of
+   the JAX package's forward differenced; on
+   ``test_differentiability.py``'s column, AD against central differences on
+   three random directions (rtol 5e-5) and d/d dt not zero and within 1e-5
+   of its difference; (b) every plain-soil mode of the kernel table (the
+   SSPRK33 modes, each implicit stepper alone and with each step policy,
+   the branches, kinds and depths, a MOST top under SSPRK33, lagged and
+   TR-BDF2) as a B9 forward on 1,000 columns, f64 and
+   f32: equal bit for bit to the non-differentiable run, the gradient finite
+   and within the repo's bars of autograd through the whole launch's plain
+   version; then each B4 + policy instance (and each implicit stepper
+   without one) at nz=64 x 16,384, 4 steps of 60 s on the freeze column,
+   against the plain version (``_check_freeze``, ``_check_increment``) and
+   timed in the same pass as phase 6 times its paths; (c) at full width, f32 and f64, ``bench.py::build`` under
+   SSPRK33 (32 steps, B9:B1) and ``build_freeze_wide`` under
+   ``TRBDF2Soil(iters=2)`` with rate freeze-thaw (8 steps of 60 s,
+   B9:B4-trbdf2+B3-rate), with the launch count set to 0 just before and
+   read just after: the forward against the plain version, the forward's
+   and the backward's ms, the backward's peak memory, each field's
+   gradient norm and, in f64, one directional central difference (rtol
+   1e-4);
+6. times of every mode's kernel and plain version at its phase-4/5/8/9/10/12/14
    shape (CUDA events, in turns), beside the least time the card could take
    (with the MOST solve's probes counted from the plain version's solves on
    the same inputs), and the scratch traffic per cell and step of the
@@ -148,7 +174,8 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
 
 ``--forced-only`` runs phases 1, 2 and 11 alone (a quick check of kernel
 B7), ``--grid-only`` phases 1, 2 and 12 with phase 6's times of phase 12's
-paths, ``--adaptive-only`` phases 1, 2 and 13.  With ``--profile`` a seventh phase follows for B1 and B2 at the phase-4
+paths, ``--adaptive-only`` phases 1, 2 and 13, ``--grad-only`` phases 1, 2
+and 14 (14b times its policy paths).  With ``--profile`` a seventh phase follows for B1 and B2 at the phase-4
 shape: six timings each of the kernel and the plain version in turns, a
 ``tile_cols`` sweep, the SM clock and power draw under load, and
 ``Simulation.run`` end to end, unprofiled and under ``torch.profiler``
@@ -338,23 +365,24 @@ def branch_variants(dtype, device, ncol=1000):
     )
 
 
-def build_freeze_wide(gc, dtype, device, freeze_thaw):
+def build_freeze_wide(gc, dtype, device, freeze_thaw, ncol=None):
     """The freeze golden's column (``golden_config_torch.build_freeze_model_and_state``)
-    at the main path's width, nz=64 x 65,536, with initial water content
-    0.22-0.34 and temperature 273.4-275.4 K varied by column under the
-    -10 C surface."""
+    at the main path's width, nz=64 x 65,536 (or ``ncol`` columns), with
+    initial water content 0.22-0.34 and temperature 273.4-275.4 K varied by
+    column under the -10 C surface."""
     from landhydrology_tpu_torch.constants import default_earth_param_set as ps
     from landhydrology_tpu_torch.models.soil.heat import (
         volumetric_heat_capacity, volumetric_internal_energy,
     )
 
+    ncol = NCOL if ncol is None else ncol
     model, _, Ya, dt = gc.build_freeze_model_and_state(
-        dtype, device, nz=NZ, ncol=NCOL, freeze_thaw=freeze_thaw
+        dtype, device, nz=NZ, ncol=ncol, freeze_thaw=freeze_thaw
     )
-    col = torch.arange(NCOL, dtype=dtype, device=device)[None, :] / NCOL
-    theta = (0.22 + 0.12 * col).expand(NZ, NCOL).contiguous()
+    col = torch.arange(ncol, dtype=dtype, device=device)[None, :] / ncol
+    theta = (0.22 + 0.12 * col).expand(NZ, ncol).contiguous()
     theta_i = torch.zeros_like(theta)
-    T = (273.4 + 2.0 * col).expand(NZ, NCOL)
+    T = (273.4 + 2.0 * col).expand(NZ, ncol)
     rho_c_s = volumetric_heat_capacity(theta, theta_i, model.soil_param_set.rho_c_ds, ps)
     Y = {"soil": {
         "vartheta_l": theta, "theta_i": theta_i,
@@ -730,7 +758,12 @@ def cell_step_ops(ck, mode, n_iter=60, iters=2, nz=NZ):
     ceil(log2 nz) PCR levels).  A water sweep reads only the vartheta_l
     tendency, which needs no kappa: in the coupled branch its rhs counts K
     at the T of the coupled state, and no thermal conductivity or energy
-    flux (the kernel computes them there all the same)."""
+    flux (the kernel computes them there all the same).  The step policies
+    of the implicit modes: lagged coefficients count one coefficient pass
+    per step, the other rhs evaluations without their closures and the heat
+    sweeps' live kappa; rate freeze-thaw the sources of every rhs
+    evaluation and of theta_i's fixed points; the equilibrium projection
+    its bisection once per step."""
     no_ice = bool(mode & ck.MODE_NO_ICE)
     water = not mode & ck.MODE_HEAT
     heat = not mode & ck.MODE_WATER
@@ -790,23 +823,44 @@ def cell_step_ops(ck, mode, n_iter=60, iters=2, nz=NZ):
             add(n, op=7, div=1)  # elimination and back substitution
         add(n, op=3 if water_sweep else 1)  # clamp, update
 
+    lagged = bool(mode & ck.MODE_LAGGED)
+
+    def coupled_rhs(n):  # a coupled rhs that is not a water sweep's: lagged, psi and T alone
+        if lagged:
+            add(n, **_PSI)
+            add(n, op=21 + 7, div=4)
+        else:
+            rhs(n)
+
     if mode & ck.MODE_TRBDF2:
-        rhs(1)  # f(u^n)
+        coupled_rhs(1)  # f(u^n)
         if water:
             rhs(2 * iters, water_sweep=True)
             sweeps(2 * iters, True)
         if heat:
-            rhs(2 * iters)
+            coupled_rhs(2 * iters)
             sweeps(2 * iters, False)
         add(1, op=5 * fields)  # c1 = u + w1 f, c2 = a1 u* + a2 u
+        evaluations, fixed_points, heat_sweeps = 1 + 4 * iters, 2 * iters, 2 * iters
     else:
         rhs(iters, water_sweep=True)
         sweeps(iters, True)
+        evaluations, fixed_points, heat_sweeps = iters, 0, 0
         if mode & ck.MODE_BE_SOIL:
-            rhs(iters)
+            coupled_rhs(iters)
             sweeps(iters, False)
+            evaluations, fixed_points, heat_sweeps = 2 * iters, 1, iters
         elif heat:  # BackwardEulerRichards' explicit update of theta_i, rho_e_int
-            rhs(1)
+            coupled_rhs(1)
+            evaluations += 1
+    if lagged:  # the coefficients once per step; the heat sweeps' kappa stays live
+        add(1, **closures)
+        add(1, op=5, div=1)
+        add(heat_sweeps, **_THERMAL)
+    if mode & ck.MODE_FREEZE_RATE:  # the sources in every rhs and in theta_i's fixed points
+        add(evaluations + fixed_points, op=26, div=5, pow=2)
+    if mode & ck.MODE_FREEZE_EQ:  # the projection after the step
+        add(1, op=28 * n_iter + 41, div=n_iter + 2, pow=2 * n_iter + 4)
     return ops
 
 
@@ -1329,16 +1383,20 @@ def check_golden(ck, model, Y, dt, n_steps, golden, what, stepper=None, atol=Non
     return kern
 
 
-def check_variant(ck, model, Y, dt, n_steps, t0, what, moving, stepper=None, geometry=None):
+def check_variant(ck, model, Y, dt, n_steps, t0, what, moving, stepper=None, geometry=None, check=_check,
+                  plain=None):
     """One launch of ``n_steps`` from ``t0`` (on ``streamed_geometry`` where
     given), with the launch counts set to 0 just before it and read just
-    after, against the plain version: ``_check`` and ``_check_increment``."""
+    after, against the plain version (its state ``plain`` where the caller
+    ran it): ``check`` (``_check`` by default) and ``_check_increment``."""
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
     stepper = SSPRK33() if stepper is None else stepper
     dtype = model.float_dtype
     start = _np(Y)
-    plain = _np(ck.fused_column_run_plain(model, stepper, dt, n_steps, Y, t0, geometry=geometry))
+    if plain is None:
+        plain = ck.fused_column_run_plain(model, stepper, dt, n_steps, Y, t0, geometry=geometry)
+    plain = _np(plain)
     run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=n_steps, streamed_geometry=geometry)
     torch.cuda.synchronize()
     ck.LAUNCHES.clear()
@@ -1347,7 +1405,7 @@ def check_variant(ck, model, Y, dt, n_steps, t0, what, moving, stepper=None, geo
     if dict(ck.LAUNCHES) != {run.name: 1}:
         raise AssertionError(f"{what}: launches {dict(ck.LAUNCHES)}, expected one of {run.name}")
     kern = _np(Y)
-    _check(kern, plain, dtype, what)
+    check(kern, plain, dtype, what)
     shares = _check_increment(kern, plain, start, dtype, what, moving)
     return kern, plain, shares
 
@@ -3166,6 +3224,393 @@ def adaptive_main(ck, gc, costs, smi, device, t_start):
     return adaptive_entries(ck, timed, dt_run_records)
 
 
+# ---- phase 14: the gradient path (ROADMAP A17), kernel modes B9 and B4 + step policies ----
+
+#: 14b: every plain-soil mode as a B9 forward on this many columns, steps per launch
+GRAD_NCOL, GRAD_STEPS = 1000, 2
+#: 14b: the B4 + policy instances timed at nz=64 x this many columns, steps per launch
+POLICY_NCOL, POLICY_STEPS, POLICY_DT = 16384, 4, 60.0
+#: the step policies the implicit kernel takes on the coupled soil, as model options
+B4_POLICIES = (
+    {"coefficient_update": "step"}, {"freeze_thaw": "rate"}, {"freeze_thaw": "eq"}, {"assume_no_ice": True},
+    {"coefficient_update": "step", "freeze_thaw": "rate"}, {"coefficient_update": "step", "freeze_thaw": "eq"},
+)
+#: 14c: the full-width gradient runs: (configuration, stepper, steps per launch, dt)
+GRAD_WIDE = (("bench", "SSPRK33", SPC, DT), ("freeze", "TRBDF2Soil", 8, 60.0))
+
+
+def _policy(model, options):
+    """``model`` with the step policies ``options`` (freeze-thaw named
+    ``"rate"``, tau = 60 s, or ``"eq"``)."""
+    from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw, FreezeThaw
+
+    options = dict(options)
+    if "freeze_thaw" in options:
+        options["freeze_thaw"] = FreezeThaw(tau=60.0) if options["freeze_thaw"] == "rate" else EquilibriumFreezeThaw()
+    return dataclasses.replace(model, **options)
+
+
+def _weights(gc, Y):
+    """The loss weights of the gradient sweep (``sweep_weights``) of the
+    soil state ``Y``, on its device in its dtype."""
+    W = gc.sweep_weights({"soil": {k: v.detach().cpu().numpy() for k, v in Y["soil"].items()}})["soil"]
+    return {k: torch.as_tensor(w).to(Y["soil"][k].device, Y["soil"][k].dtype) for k, w in W.items()}
+
+
+def _weighted(W, out):
+    return sum(torch.sum(W[k] * out[k]) for k in out)
+
+
+def grad_small(ck, gc, device):
+    """14a: ``golden_grad_f64.npz`` through B9 on the card (the kernel's
+    forward, one launch each), loss at rtol 1e-12, gradients within 1e-10
+    of their scale; on the MOST soils (``MOST_CASES``), AD along the
+    golden's directions and in dt within rtol 1e-7 of the JAX package's
+    forward differenced; on the JAX fused test's column, the gradient in
+    vartheta_l against central differences along three random directions
+    (rtol 5e-5) and d/d dt not zero and within rtol 1e-5 of its central
+    difference."""
+    golden = np.load(os.path.join(HERE, "tests", "data", "golden_grad_f64.npz"))
+    f64 = torch.float64
+    for name, case in gc.GRAD_CASES.items():
+        model, Y, stepper, _ = gc.build_grad_case(name, f64, device)
+        run = ck.make_fused_column_run(model, stepper, dt=case["dt"], steps_per_call=case["steps"],
+                                       differentiable=True)
+        start = {k: v.clone().requires_grad_(True) for k, v in Y["soil"].items()}
+        t0 = torch.tensor(case["t0"], dtype=f64, requires_grad=True)
+        dt = torch.tensor(case["dt"], dtype=f64, requires_grad=True)
+        ck.LAUNCHES.clear()
+        out = run({"soil": start}, t0, dt_run=dt)["soil"]
+        torch.cuda.synchronize()
+        if dict(ck.LAUNCHES) != {run.name: 1}:
+            raise AssertionError(f"golden grad {name}: launches {dict(ck.LAUNCHES)}, expected one of {run.name}")
+        loss = gc.grad_loss(out, {k: v.detach() for k, v in start.items()})
+        grads = torch.autograd.grad(loss, list(start.values()) + [t0, dt], allow_unused=True)
+        np.testing.assert_allclose(float(loss), float(golden[f"{name}__loss"]), rtol=1e-12, err_msg=name)
+        devs = {}
+        for k, d in zip(start, grads):
+            ref = golden[f"{name}__g_{k}"]
+            scale = float(np.max(np.abs(ref))) or 1.0
+            devs[k] = float(np.max(np.abs(d.cpu().numpy() - ref))) / scale
+            if not devs[k] <= 1e-10:
+                raise AssertionError(f"golden grad {name} d/d{k}: {devs[k]:.3e} of its scale > 1e-10")
+        for what, d in (("t0", grads[-2]), ("dt", grads[-1])):
+            got, ref = 0.0 if d is None else float(d), float(golden[f"{name}__g_{what}"])
+            np.testing.assert_allclose(got, ref, rtol=1e-10, atol=1e-300, err_msg=f"{name} d/d{what}")
+        print(f"[14a grad golden] f64 {run.name} {name} {tuple(next(iter(start.values())).shape)} "
+              f"{case['steps']} steps: loss {float(loss)!r} (golden rel {abs(float(loss) / float(golden[f'{name}__loss']) - 1):.3e}, "
+              f"bar 1e-12); gradient deviation / scale {_fmt(devs)} (bar 1e-10); d/dt0 "
+              f"{0.0 if grads[-2] is None else float(grads[-2])!r}, d/ddt {float(grads[-1])!r}", flush=True)
+    # the MOST soils: AD against the JAX package's forward differenced (most__)
+    for name, case in gc.MOST_CASES.items():
+        if case["model"] != "soil":
+            continue
+        model, Y, _, stepper, _ = gc.build_most_case(name, f64, device)
+        run = ck.make_fused_column_run(model, stepper, dt=case["dt"], steps_per_call=case["steps"],
+                                       differentiable=True)
+        W = _weights(gc, Y)
+        start = {k: v.clone().requires_grad_(True) for k, v in Y["soil"].items()}
+        dt = torch.tensor(case["dt"], dtype=f64, requires_grad=True)
+        ck.LAUNCHES.clear()
+        out = run({"soil": start}, 0.0, dt_run=dt)["soil"]
+        torch.cuda.synchronize()
+        if dict(ck.LAUNCHES) != {run.name: 1}:
+            raise AssertionError(f"MOST grad {name}: launches {dict(ck.LAUNCHES)}, expected one of {run.name}")
+        loss = _weighted(W, out)
+        grads = torch.autograd.grad(loss, list(start.values()) + [dt])
+        ad = [sum(float(torch.sum(d.cpu() * torch.as_tensor(dr["soil"][k]))) for k, d in zip(start, grads))
+              for dr in gc.most_fd_directions(golden, name)]
+        fd, fd_dt = golden[f"most__{name}__fd"], float(golden[f"most__{name}__fd_dt"])
+        np.testing.assert_allclose(float(loss), float(golden[f"most__{name}__loss"]), rtol=1e-12, err_msg=name)
+        np.testing.assert_allclose(ad, fd, rtol=1e-7, err_msg=f"MOST grad {name} directions")
+        np.testing.assert_allclose(float(grads[-1]), fd_dt, rtol=1e-7, err_msg=f"MOST grad {name} d/d dt")
+        print(f"[14a grad golden] f64 {run.name} {name} {tuple(start['vartheta_l'].shape)} {case['steps']} steps: "
+              f"AD vs the JAX package's forward differenced along three directions rel "
+              f"{float(np.max(np.abs(np.array(ad) - fd) / np.abs(fd))):.3e}, in dt rel "
+              f"{abs(float(grads[-1]) / fd_dt - 1):.3e} (bar 1e-7)", flush=True)
+    # test_differentiability.py's column: FD along three directions, and d/d dt
+    model, Y = gc.build_grad_column(f64, device)
+    run = ck.make_fused_column_run(model, dt=20.0, steps_per_call=6, differentiable=True)
+
+    def loss_of(v0, dt=20.0):
+        return torch.mean((run({"soil": dict(Y["soil"], vartheta_l=v0)}, 0.0, dt_run=dt)["soil"]["vartheta_l"]
+                           - 0.25) ** 2)
+
+    v0 = Y["soil"]["vartheta_l"].clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(loss_of(v0), v0)
+    gen = torch.Generator().manual_seed(0)
+    rel = []
+    with torch.no_grad():
+        for _ in range(3):
+            d = torch.randn(tuple(v0.shape), generator=gen, dtype=f64).to(device)
+            d = d / torch.linalg.norm(d)
+            fd = (float(loss_of(v0 + 1e-6 * d)) - float(loss_of(v0 - 1e-6 * d))) / 2e-6
+            ad = float(torch.sum(g * d))
+            np.testing.assert_allclose(ad, fd, rtol=5e-5, atol=1e-12, err_msg="column FD")
+            rel.append(abs(ad - fd) / abs(fd))
+    dt = torch.tensor(20.0, dtype=f64, requires_grad=True)
+    (g_dt,) = torch.autograd.grad(loss_of(Y["soil"]["vartheta_l"], dt), dt)
+    with torch.no_grad():
+        fd_dt = (float(loss_of(Y["soil"]["vartheta_l"], 20.0 + 1e-3))
+                 - float(loss_of(Y["soil"]["vartheta_l"], 20.0 - 1e-3))) / 2e-3
+    if not float(g_dt) != 0.0:
+        raise AssertionError("d loss / d dt is zero")
+    np.testing.assert_allclose(float(g_dt), fd_dt, rtol=1e-5, err_msg="d/d dt")
+    print(f"[14a grad golden] f64 {run.name} test_differentiability column: AD vs central differences on three "
+          f"directions rel {', '.join(f'{r:.3e}' for r in rel)} (bar 5e-5); d/d dt {float(g_dt)!r} vs FD "
+          f"{fd_dt!r} (bar 1e-5)", flush=True)
+
+
+def b9_modes(gc, dtype, device):
+    """``(model, Y, stepper, dt)`` of every plain-soil mode of the kernel
+    table on ``GRAD_NCOL`` columns: the coupled SSPRK33 modes and the
+    implicit steppers on ``build_variant_model``'s column (Thomas, and PCR
+    under TR-BDF2), each with the step policies it takes; the water-only and
+    heat-only branches under SSPRK33 and TR-BDF2, backward Euler for
+    Richards on the stiff water-only column; per-column kinds and depths
+    (``build_grid_variant``) under SSPRK33 and TR-BDF2; a MOST top
+    (``build_land_variant``'s soil) under SSPRK33, with lagged coefficients,
+    and under TR-BDF2."""
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    out = []
+    for options in ({}, {"assume_no_ice": True}, *B4_POLICIES[:3], *B4_POLICIES[4:],
+                    {"coefficient_update": "step", "assume_no_ice": True}):
+        model, Y = build_variant_model(GRAD_NCOL, dtype, device, seed=7)
+        out.append((_policy(model, options), Y, SSPRK33(), 5.0))
+    for name in ("TRBDF2Soil", "BackwardEulerSoil", "BackwardEulerRichards"):
+        for options in ({}, *B4_POLICIES):
+            model, Y = build_variant_model(GRAD_NCOL, dtype, device, seed=7)
+            model = _policy(model, options)
+            out.append((model, Y, implicit(name, model, 2), 60.0))
+        if name == "TRBDF2Soil":
+            for options in ({}, B4_POLICIES[5]):
+                model, Y = build_variant_model(GRAD_NCOL, dtype, device, seed=7)
+                model = _policy(model, options)
+                out.append((model, Y, implicit(name, model, 2, "pcr"), 60.0))
+    for model, Y0, stepper, dt, _, _, _ in branch_variants(dtype, device, GRAD_NCOL):
+        out.append((model, Y0, stepper, dt))
+    model, Y, _ = build_stiff(16, GRAD_NCOL, dtype, device)
+    out.append((model, Y, implicit("BackwardEulerRichards", model, 2), 5.0))
+    for case in ("B1", "B4-trbdf2"):
+        model, Y, stepper, dt, _ = build_grid_variant(GRAD_NCOL, dtype, device, 11, case)
+        out.append((model, Y, stepper, dt))
+    for case, name, dt in (("B5", None, 2.0), ("B2+B5", None, 2.0), ("B5", "TRBDF2Soil", 60.0)):
+        model, Y = build_land_variant(GRAD_NCOL, dtype, device, 13, case)
+        out.append((model, Y, SSPRK33() if name is None else implicit(name, model, 2), dt))
+    return out
+
+
+def b9_forward(ck, gc, model, Y, stepper, dt, n):
+    """One B9 launch of ``n`` steps from t0 = 2 s: the launch count, the
+    forward equal bit for bit to the non-differentiable run's, and the
+    gradient of a weighted sum of the state in the start state, t0 and dt,
+    finite and within the repo's bars (f64 1e-12 of each gradient's scale,
+    f32 1e-4) of autograd through the whole launch's plain version.
+    Returns ``(name, largest gradient deviation / scale)``."""
+    dtype = model.float_dtype
+    run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=n, differentiable=True)
+    start = {k: v.clone().requires_grad_(True) for k, v in Y["soil"].items()}
+    t0 = torch.tensor(2.0, dtype=dtype, requires_grad=True)
+    dt_t = torch.tensor(dt, dtype=dtype, requires_grad=True)
+    W = _weights(gc, Y)
+    torch.cuda.synchronize()
+    ck.LAUNCHES.clear()
+    out = run({"soil": start}, t0, dt_run=dt_t)["soil"]
+    torch.cuda.synchronize()
+    if dict(ck.LAUNCHES) != {run.name: 1}:
+        raise AssertionError(f"{run.name}: launches {dict(ck.LAUNCHES)}")
+    plain_run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=n)
+    ref = _clone(Y)
+    with torch.no_grad():
+        plain_run(ref, 2.0)
+    for k, v in out.items():
+        if not torch.equal(v.detach(), ref["soil"][k]):
+            raise AssertionError(f"{run.name}: the B9 forward differs from the non-differentiable run in {k}")
+    inputs = list(start.values()) + [t0, dt_t]
+    got = torch.autograd.grad(_weighted(W, out), inputs, allow_unused=True)
+    whole = ck.fused_column_run_plain(model, stepper, dt_t, n, {"soil": start}, t0)["soil"]
+    want = torch.autograd.grad(_weighted(W, whole), inputs, allow_unused=True)
+    bar = 1e-12 if dtype == torch.float64 else 1e-4
+    worst = 0.0
+    for what, a, b in zip(list(start) + ["t0", "dt"], got, want):
+        a = torch.zeros(()) if a is None else a.detach().double().cpu()
+        b = torch.zeros(()) if b is None else b.detach().double().cpu()
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{run.name}: d/d{what} not finite")
+        scale = float(b.abs().max()) or 1.0
+        dev = float((a - b).abs().max()) / scale
+        if not dev <= bar:
+            raise AssertionError(f"{run.name}: d/d{what} deviates by {dev:.3e} of its scale (bar {bar:g})")
+        worst = max(worst, dev)
+    return run.name, worst
+
+
+def time_policy(ck, costs, smi, model, Y0, stepper, what):
+    """A 14b policy path (``POLICY_STEPS`` steps of ``POLICY_DT`` from
+    ``Y0``), checked and timed in turns as phase 6 times its paths: the plain
+    version (timed; its state is the check's reference), the kernel's launch
+    against it (``check_variant`` with the freeze bars: rho_e_int crosses
+    zero where the column cools through T_0), the kernel x5 twice, the
+    plain version again.  Returns ``(kernel record, error, shares)``."""
+    plain = []
+    plain_fn = lambda: plain.append(ck.fused_column_run_plain(  # noqa: E731
+        model, stepper, POLICY_DT, POLICY_STEPS, Y0, 0.0))
+    p1 = _time_ms(plain_fn, 1)
+    Yk = _clone(Y0)
+    kern, ref, shares = check_variant(
+        ck, model, Yk, POLICY_DT, POLICY_STEPS, 0.0, what, ("vartheta_l", "rho_e_int"), stepper=stepper,
+        check=lambda a, b, dt_, w: _check_freeze(a, b, model, dt_, w), plain=plain.pop())
+    err = _max_abs(kern, ref)
+    del kern, ref
+    run = ck.make_fused_column_run(model, stepper, dt=POLICY_DT, steps_per_call=POLICY_STEPS)
+    k1 = _time_ms(lambda: run(Yk, 0.0), 5)
+    k2 = _time_ms(lambda: run(Yk, 0.0), 5)
+    p2 = _time_ms(plain_fn, 1)
+    plain.clear()
+    entry = time_record(ck, costs, smi, model, Y0, POLICY_DT, POLICY_STEPS, stepper, 1, err, (k1, k2), (p1, p2),
+                        None)
+    return entry, err, shares
+
+
+def grad_modes(ck, gc, costs, smi, device, t_start):
+    """14b: ``b9_forward`` of every plain-soil mode (``b9_modes``), f64 and
+    f32; then each B4 + policy instance, and each implicit stepper without
+    a policy for comparison, checked against its plain version and timed
+    (``time_policy``) at nz=64 x ``POLICY_NCOL`` (``build_freeze_wide``'s
+    column, ``POLICY_STEPS`` steps of ``POLICY_DT``).  Returns the kernel
+    records of the policy paths."""
+    entries = []
+    for dtype in (torch.float64, torch.float32):
+        results = [b9_forward(ck, gc, model, Y, stepper, dt, GRAD_STEPS)
+                   for model, Y, stepper, dt in b9_modes(gc, dtype, device)]
+        print(f"[14b B9 modes] {str(dtype)[6:]} {len(results)} modes on {GRAD_NCOL} columns, {GRAD_STEPS} steps: "
+              "B9 forward = the kernel's run bit for bit; gradient deviation / scale from the whole launch's "
+              "plain version: " + ", ".join(f"{n} {d:.1e}" for n, d in results), flush=True)
+        _mark(t_start, f"phase 14b's {str(dtype)[6:]} B9 modes")
+        base, Y0, _, _ = build_freeze_wide(gc, dtype, device, None, ncol=POLICY_NCOL)
+        base = dataclasses.replace(base, freeze_thaw=None)
+        for name in ("TRBDF2Soil", "BackwardEulerSoil", "BackwardEulerRichards"):
+            for options in ({}, *B4_POLICIES):
+                for tridiag in ("thomas", "pcr") if name == "TRBDF2Soil" and options == B4_POLICIES[1] else ("thomas",):
+                    wide = _policy(base, options)
+                    st = implicit(name, wide, 2, tridiag)
+                    entry, err, shares = time_policy(ck, costs, smi, wide, Y0, st, f"14b {name} {options}")
+                    print(f"[14b policy] {str(dtype)[6:]} {ck.make_fused_column_run(wide, st).name} nz={NZ} "
+                          f"ncol={POLICY_NCOL} {POLICY_STEPS} steps of {POLICY_DT}: kernel vs plain max abs "
+                          f"{err:.3e}; change error / largest change {_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g})",
+                          flush=True)
+                    entries.append(entry)
+        del base, Y0
+        torch.cuda.empty_cache()
+    return entries
+
+
+def grad_wide(ck, gc, costs, smi, device):
+    """14c: the gradient path at full width (``GRAD_WIDE``), f32 and f64:
+    one B9 launch (its launch count set to 0 just before and read just
+    after) against the plain version, the vjp of a weighted sum of the state
+    in the start state, t0 and dt, with the forward's and the backward's ms
+    (CUDA events), the backward's peak memory
+    (``torch.cuda.max_memory_allocated`` after a reset), each field's
+    gradient norm and, in f64, one directional central difference (rtol
+    1e-4).  Returns the B9 kernel records."""
+    from landhydrology_tpu_torch.models.soil.freeze_thaw import FreezeThaw
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    entries = []
+    for config, stepper_name, spc, dt in GRAD_WIDE:
+        for dtype in (torch.float32, torch.float64):
+            if config == "bench":
+                model, Y0, _ = build_bench_model(NZ, NCOL, dtype, device)
+                stepper = SSPRK33()
+            else:
+                model, Y0, _, _ = build_freeze_wide(gc, dtype, device, FreezeThaw(tau=60.0))
+                stepper = implicit(stepper_name, model, 2)
+            run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=spc, differentiable=True)
+            W = _weights(gc, Y0)
+            start = {k: v.clone().requires_grad_(True) for k, v in Y0["soil"].items()}
+            t0 = torch.tensor(0.0, dtype=dtype, requires_grad=True)
+            dt_t = torch.tensor(dt, dtype=dtype, requires_grad=True)
+            torch.cuda.synchronize()
+            ck.LAUNCHES.clear()
+            out = run({"soil": start}, t0, dt_run=dt_t)["soil"]
+            torch.cuda.synchronize()
+            launches = dict(ck.LAUNCHES)
+            if launches != {run.name: 1}:
+                raise AssertionError(f"14c {run.name}: launches {launches}")
+            with torch.no_grad():
+                fwd = [_time_ms(lambda: run({"soil": start}, t0, dt_run=dt_t), 3) for _ in range(2)]
+                plain_ms = _time_ms(lambda: ck.fused_column_run_plain(model, stepper, dt, spc, Y0, 0.0), 1)
+                plain = _np(ck.fused_column_run_plain(model, stepper, dt, spc, Y0, 0.0))
+            kern = _np({"soil": out})
+            if model.freeze_thaw is None:
+                _check(kern, plain, dtype, run.name)
+            else:
+                _check_freeze(kern, plain, model, dtype, run.name)
+            err = _max_abs(kern, plain)
+            loss = _weighted(W, out)
+            del kern, plain
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            grads = torch.autograd.grad(loss, list(start.values()) + [t0, dt_t], allow_unused=True)
+            e1.record()
+            torch.cuda.synchronize()
+            bwd_ms = e0.elapsed_time(e1)
+            peak = torch.cuda.max_memory_allocated()
+            norms = {k: float(torch.linalg.norm(d.double())) for k, d in zip(start, grads)}
+            if not all(np.isfinite(v) for v in norms.values()):
+                raise AssertionError(f"14c {run.name}: gradient not finite: {norms}")
+            fd_line = ""
+            if dtype == torch.float64:
+                gen = torch.Generator().manual_seed(1)
+                d = {k: (torch.randn(tuple(v.shape), generator=gen, dtype=torch.float64) * float(v.abs().max())
+                         * (k != "theta_i")).to(device) for k, v in Y0["soil"].items()}
+                ad = sum(float(torch.sum(g * d[k])) for k, g in zip(start, grads))
+                # small: the freeze-thaw sources have kinks (at T_0, where freezing meets its
+                # cap), and a difference across one is no derivative
+                eps = 1e-8
+                with torch.no_grad():
+                    lp = float(_weighted(W, run({"soil": {k: v + eps * d[k] for k, v in Y0["soil"].items()}}, 0.0)["soil"]))
+                    lm = float(_weighted(W, run({"soil": {k: v - eps * d[k] for k, v in Y0["soil"].items()}}, 0.0)["soil"]))
+                fd = (lp - lm) / (2 * eps)
+                np.testing.assert_allclose(ad, fd, rtol=1e-4, err_msg=f"14c {run.name} directional FD")
+                fd_line = f"; directional AD {ad!r} vs central difference {fd!r} (rel {abs(ad - fd) / abs(fd):.3e}, bar 1e-4)"
+            mode = run.inner.mode
+            b_ms, b_by = bound_ms(ck, costs, mode, dtype, NZ * NCOL, spc, iters=2)
+            ms = sum(fwd) / 2
+            print(f"[14c grad wide] {str(dtype)[6:]} {run.name} {config} nz={NZ} ncol={NCOL} {spc} steps of {dt}: "
+                  f"{launches[run.name]} launch, forward {fwd[0]:.3f}/{fwd[1]:.3f} ms (plain {plain_ms:.3f} ms, bound "
+                  f"{b_ms:.3f} ms by {b_by}), kernel vs plain max abs {err:.3e}; backward {bwd_ms:.3f} ms, peak memory "
+                  f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB over the {base / 2**30:.3f} GiB before it); "
+                  f"gradient norms {_fmt(norms)}, d/dt0 {0.0 if grads[-2] is None else float(grads[-2])!r}, "
+                  f"d/ddt {float(grads[-1])!r}{fd_line} on {smi}", flush=True)
+            kernel, source = kernel_of(ck, mode, dtype)
+            entries.append({
+                "name": f"{kernel}<{str(dtype)[6:].replace('float', 'f')}, {run.name}>",
+                "route": "cuda", "source": source, "replaces": REPLACES,
+                "launches": launches[run.name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            })
+            del out, grads, loss, start
+            torch.cuda.empty_cache()
+    return entries
+
+
+def grad_main(ck, gc, costs, smi, device, t_start):
+    """Phase 14: 14a (``grad_small``), 14b (``grad_modes``), 14c
+    (``grad_wide``).  Returns the kernel records of the B4 + policy paths
+    and of the B9 runs."""
+    grad_small(ck, gc, device)
+    _mark(t_start, "phase 14a")
+    entries = grad_modes(ck, gc, costs, smi, device, t_start)
+    _mark(t_start, "phase 14b")
+    return entries + grad_wide(ck, gc, costs, smi, device)
+
+
 def _fmt_ms(values):
     return "/".join(f"{v:.3f}" for v in values) + " ms"
 
@@ -3185,6 +3630,9 @@ def main() -> int:
                              "with phase 6's times of its paths")
     parser.add_argument("--adaptive-only", action="store_true",
                         help="run phases 1, 2 and 13 only (adaptive stepping, kernel modes B1-dt and B4+B5)")
+    parser.add_argument("--grad-only", action="store_true",
+                        help="run phases 1, 2 and 14 only (the gradient path, kernel modes B9 and B4 + step "
+                             "policies, with the times of its B4 + policy instances)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3205,12 +3653,14 @@ def main() -> int:
 
     t = time.perf_counter()
     libs = ck.build_library()
-    for name in ck.SOURCES:
-        ck.load_library(name)
+    for key in libs:
+        ck.load_library(key)
     build_s = time.perf_counter() - t
     costs = op_costs(ck)
     print(f"[2 build] {', '.join(p.name for p in ck.SOURCES.values())} -> sm_90a in {build_s:.3f} s "
-          f"(one nvcc each, in parallel); registers per thread (ptxas): {registers(ck, libs)}; "
+          f"(one nvcc per source and float type, in parallel; "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in ck.BUILD_SECONDS.items())}); "
+          f"registers per thread (ptxas): {registers(ck, libs)}; "
           f"FP instructions per call (cuobjdump -sass, fast path): " + "; ".join(
               f"{str(d)[6:]} " + ", ".join(f"{k} {v}" for k, v in c.items()) for d, c in costs.items()),
           flush=True)
@@ -3222,6 +3672,10 @@ def main() -> int:
         return finish(time_paths(ck, costs, smi, grid_phase(ck, costs, smi, device, t_start)), smi, t_start)
     if args.adaptive_only:
         return finish(adaptive_main(ck, gc, costs, smi, device, t_start), smi, t_start)
+    if args.grad_only:
+        grad_entries = grad_main(ck, gc, costs, smi, device, t_start)
+        _mark(t_start, "phase 14")
+        return finish(grad_entries, smi, t_start)
 
     # ---- 3: goldens in f64 through the kernels, and variants ----
     data = os.path.join(HERE, "tests", "data")
@@ -3428,6 +3882,10 @@ def main() -> int:
     forced_entries += adaptive_main(ck, gc, costs, smi, device, t_start)
     _mark(t_start, "phase 13")
 
+    # ---- 14: the gradient path, kernel modes B9 and B4 + step policies ----
+    forced_entries += grad_main(ck, gc, costs, smi, device, t_start)
+    _mark(t_start, "phase 14")
+
     # ---- 6: times at the main-path shapes, in turns ----
     entries = time_paths(ck, costs, smi, paths)
     _mark(t_start, "phase 6")
@@ -3446,51 +3904,59 @@ def main() -> int:
 def time_paths(ck, costs, smi, paths):
     """Phase 6: each path's kernel and plain version timed at its shape, in
     turns, beside its bound; returns the kernel records."""
-    from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw
-
     entries = []
     for model, Y0, dt, spc, launches, err, stepper in paths:
-        dtype = model.float_dtype
-        mode = ck.kernel_mode(model, stepper)
-        run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=spc)
-        name = run.name
-        iters = getattr(stepper, "iters", 2)
-        (k1, k2), (p1, p2), probes = time_mode(ck, model, Y0, dt, spc, stepper)
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
-        nz, ncol = next(iter(Y0["soil"].values())).shape
-        freeze = getattr(model, "soil", model).freeze_thaw
-        n_iter = freeze.n_iter if isinstance(freeze, EquilibriumFreezeThaw) else 60
-        b_ms, b_by = bound_ms(ck, costs, mode, dtype, nz * ncol, spc, n_iter, iters, ncol, probes,
-                              read_values=per_column_values(run, nz, ncol, dtype))
-        cell_steps = nz * ncol * spc
-        traffic = ""
-        if probes is not None:
-            rounds = 20 if dtype == torch.float64 else 4
-            traffic = f"; MOST probes per solve {probes:.4f} of {rounds * 8} ({probes / rounds:.4f} per round)"
-        if mode & ck.MODE_IMPLICIT:
-            values = scratch_values_per_cell_step(ck, mode, iters)
-            nbytes = values * (torch.finfo(dtype).bits // 8)
-            traffic = (f"; scratch and state traffic {values} values = {nbytes} B per cell-step, "
-                       f"{1e3 * cell_steps * nbytes / HBM_BYTES_PER_S:.3f} ms at the HBM rate if none stayed in L2")
-        print(f"[6 time] {str(dtype)[6:]} {name} {spc} steps nz={nz} ncol={ncol}: kernel {k1:.3f}/{k2:.3f} ms "
-              f"({cell_steps / (ms / 1e3):.4e} grid-points/s), plain {p1:.3f}/{p2:.3f} ms "
-              f"({cell_steps / (plain_ms / 1e3):.4e} grid-points/s), bound {b_ms:.3f} ms by {b_by} "
-              f"({b_ms / ms:.3f} of the kernel's time){traffic} on {smi}", flush=True)
-        kernel, source = kernel_of(ck, mode, dtype)
-        entries.append({
-            "name": f"{kernel}<{str(dtype)[6:].replace('float', 'f')}, {name}>",
-            "route": "cuda",
-            "source": source,
-            "replaces": REPLACES,
-            "launches": launches,
-            "max_abs_err": err,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": b_ms,
-            "bound_by": b_by,
-            "library_ms": None,  # no single PyTorch call computes these steps
-        })
+        kernel_ms, plain_ms, probes = time_mode(ck, model, Y0, dt, spc, stepper)
+        entries.append(time_record(ck, costs, smi, model, Y0, dt, spc, stepper, launches, err, kernel_ms,
+                                   plain_ms, probes))
     return entries
+
+
+def time_record(ck, costs, smi, model, Y0, dt, spc, stepper, launches, err, kernel_ms, plain_ms, probes):
+    """Print a path's times ``kernel_ms`` and ``plain_ms`` (two samples
+    each) beside its bound; returns its kernel record."""
+    from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw
+
+    (k1, k2), (p1, p2) = kernel_ms, plain_ms
+    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    dtype = model.float_dtype
+    mode = ck.kernel_mode(model, stepper)
+    run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=spc)
+    name = run.name
+    iters = getattr(stepper, "iters", 2)
+    nz, ncol = next(iter(Y0["soil"].values())).shape
+    freeze = getattr(model, "soil", model).freeze_thaw
+    n_iter = freeze.n_iter if isinstance(freeze, EquilibriumFreezeThaw) else 60
+    b_ms, b_by = bound_ms(ck, costs, mode, dtype, nz * ncol, spc, n_iter, iters, ncol, probes,
+                          read_values=per_column_values(run, nz, ncol, dtype))
+    cell_steps = nz * ncol * spc
+    traffic = ""
+    if probes is not None:
+        rounds = 20 if dtype == torch.float64 else 4
+        traffic = f"; MOST probes per solve {probes:.4f} of {rounds * 8} ({probes / rounds:.4f} per round)"
+    if mode & ck.MODE_IMPLICIT:
+        values = scratch_values_per_cell_step(ck, mode, iters)
+        nbytes = values * (torch.finfo(dtype).bits // 8)
+        traffic = (f"; scratch and state traffic {values} values = {nbytes} B per cell-step, "
+                   f"{1e3 * cell_steps * nbytes / HBM_BYTES_PER_S:.3f} ms at the HBM rate if none stayed in L2")
+    print(f"[6 time] {str(dtype)[6:]} {name} {spc} steps nz={nz} ncol={ncol}: kernel {k1:.3f}/{k2:.3f} ms "
+          f"({cell_steps / (ms / 1e3):.4e} grid-points/s), plain {p1:.3f}/{p2:.3f} ms "
+          f"({cell_steps / (plain_ms / 1e3):.4e} grid-points/s), bound {b_ms:.3f} ms by {b_by} "
+          f"({b_ms / ms:.3f} of the kernel's time){traffic} on {smi}", flush=True)
+    kernel, source = kernel_of(ck, mode, dtype)
+    return {
+        "name": f"{kernel}<{str(dtype)[6:].replace('float', 'f')}, {name}>",
+        "route": "cuda",
+        "source": source,
+        "replaces": REPLACES,
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "library_ms": None,  # no single PyTorch call computes these steps
+    }
 
 
 def finish(entries, smi, t_start) -> int:

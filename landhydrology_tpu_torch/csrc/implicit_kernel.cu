@@ -14,12 +14,27 @@
 // evaluation from a MOST solve at that evaluation's own top cell
 // (surface_fluxes.cuh), at the stage row's atmosphere or, with streamed
 // forcing rows (B7), at the step's forcing row for all stages and sweeps; it
-// adds no Jacobian term (imex.py boosts a Dirichlet slot alone).  Per step,
-// as imex.py orders it:
+// adds no Jacobian term (imex.py boosts a Dirichlet slot alone).
+//
+// The step policies of the coupled plain soil (kernel B4 with B2, B3 and
+// no ice), as the eager stepper's wrappers order them:
+//   MODE_LAGGED       the coefficients of lagged.py at the step's start
+//                     state (column_common.cuh::coefficients) in every rhs
+//                     evaluation of the step; the Newton sweeps' Jacobian
+//                     stays live at the iterate (imex.py computes it there);
+//   MODE_FREEZE_RATE  the rate sources in every rhs; TR-BDF2's stages end
+//                     with theta_i = c + w f_i(u), BackwardEulerSoil's step
+//                     with theta_i += dt f_i at its new state, and
+//                     BackwardEulerRichards updates theta_i explicitly;
+//   MODE_FREEZE_EQ    the equilibrium projection of every cell after each
+//                     step (column_common.cuh::phase_projection);
+//   MODE_NO_ICE       the no-ice closures in the rhs; the sweeps' Jacobian
+//                     keeps the state's ice, as imex.py's sweeps do.
+// Per step, as imex.py orders it:
 //   TR-BDF2   f(u^n) at t -> c1 = u^n + w1 f(u^n); the TR stage at t + g dt
 //             from u^n; c2 = a1 u* + a2 u^n; the BDF2 stage at t + dt from
 //             u*.  Each stage is `iters` Gauss-Seidel sweeps: water, heat,
-//             then theta_i = c (no phase change in this kernel);
+//             then theta_i = c (or its rate fixed point);
 //   BE        `iters` water sweeps at t + dt; then BackwardEulerSoil's
 //             `iters` heat sweeps, or BackwardEulerRichards' explicit update
 //             of theta_i and rho_e_int at the new water state (coupled; in
@@ -69,15 +84,41 @@ __device__ T k_at_value(const Column<T>& c, T v_dir) {
   return hydraulic_conductivity(c, S_f, T(1), T(1));
 }
 
+// The water sweep's K at the iterate (_water_newton_sweep): the stage
+// closures with the state's ice, whatever the rhs lags or assumes.
+template <typename T>
+__device__ T sweep_conductivity(const Column<T>& c, T vl, T ti, T re) {
+  T theta_l = d_min(vl, c.p[P_NU] - ti);
+  T rcs = c.p[P_RHO_C_DS] + theta_l * c.rho_cp_l + ti * c.rho_cp_i;
+  T temp = c.T_0 + (re + ti * c.rho_ice * c.LH_f0) / rcs;
+  return conductivity(c, vl, ti, temp);
+}
+
+// The heat sweep's kappa and rho_c_s at the iterate (_heat_newton_sweep):
+// energy_center_fields of theta_l = min(vartheta_l, nu - theta_i), without
+// the frozen branches under MODE_NO_ICE.
+template <typename T, int M>
+__device__ void sweep_thermal(const Column<T>& c, T vl, T ti, T* kappa, T* rcs) {
+  T theta_l = d_min(vl, c.p[P_NU] - ti);
+  if (Modes<M>::no_ice) {
+    *rcs = c.p[P_RHO_C_DS] + theta_l * c.rho_cp_l;
+    *kappa = thermal_conductivity_no_ice(c, theta_l);
+  } else {
+    *rcs = c.p[P_RHO_C_DS] + theta_l * c.rho_cp_l + ti * c.rho_cp_i;
+    *kappa = thermal_conductivity(c, vl, ti);
+  }
+}
+
 // _water_newton_sweep (kWater) or _heat_newton_sweep: one frozen-coefficient
 // Newton update of the stage equation u = c_const + w f(u) for the iterate
 // `st` of one column, at the BC values and profiles of table row `row` (and
-// under a MOST top the forcing row `frow`); updates st.vl (water) or st.re
+// under a MOST top the forcing row `frow`), with the step's lagged
+// coefficients `coef` under MODE_LAGGED; updates st.vl (water) or st.re
 // (heat) in place.
 template <typename T, int M, bool kWater>
 __device__ void newton_sweep(const Column<T>& c, const KernelArgs& a, int64_t col,
                              Fields<T> st, const T* c_const, T w, int64_t row, int64_t frow,
-                             const Grid<T, M>& g, const Work<T>& wk) {
+                             const Grid<T, M>& g, const Work<T>& wk, const Coefs<T>& coef) {
   const int64_t nz = a.nz, ncol = a.ncol;
   const T dz = g.dz;
   T bc_val[kNumBC];
@@ -86,20 +127,24 @@ __device__ void newton_sweep(const Column<T>& c, const KernelArgs& a, int64_t co
     const int64_t i = (nz - 1) * ncol + col;
     most_top_bc(c, a, row, frow, col, st.vl[i], st.ti[i], st.re[i], bc_val);
   }
-  const Coefs<T> no_coefs{};
+  // the center's K, kappa and rho_c_s are the rhs's: lagged or without ice
+  // they are not the sweep's
+  constexpr bool live = Modes<M>::lagged || Modes<M>::no_ice;
 
   // 1. the rhs at the iterate, and the frozen coefficients
-  rhs_sweep<T, M>(c, a, col, st, bc_val, load_profiles<T, M>(a, row, col), g, no_coefs,
+  rhs_sweep<T, M>(c, a, col, st, bc_val, load_profiles<T, M>(a, row, col), g, coef,
                   [&](int64_t k, const Center<T>& x, T d_vl, T d_ti, T d_re) {
                     const int64_t i = k * ncol + col;
                     if (kWater) {
                       wk.F[i] = d_vl;
-                      wk.K[i] = x.K;
+                      wk.K[i] = live ? sweep_conductivity(c, x.vl, x.ti, x.re) : x.K;
                       wk.C[i] = dpsi_dtheta(c, x.vl, c.p[P_NU] - x.ti);
                     } else {
+                      T kappa = x.kappa, rcs = x.rcs;
+                      if constexpr (live) sweep_thermal<T, M>(c, x.vl, x.ti, &kappa, &rcs);
                       wk.F[i] = d_re;
-                      wk.K[i] = x.kappa;
-                      wk.C[i] = T(1) / x.rcs;
+                      wk.K[i] = kappa;
+                      wk.C[i] = T(1) / rcs;
                     }
                   });
 
@@ -237,23 +282,40 @@ __global__ void implicit_column_kernel(const KernelArgs a, T eps, T tiny) {
   Fields<T> Cs{scratch + 3 * n, scratch + 4 * n, scratch + 5 * n};  // stage constants
   Work<T> wk{scratch + 6 * n, scratch + 7 * n, scratch + 8 * n, {}};
   for (int j = 0; j < 8; ++j) wk.sol[j] = scratch + (9 + j) * n;
-  const Coefs<T> no_coefs{};
+  // the lagged coefficients, after the solver's fields
+  Coefs<T> coef{};
+  if constexpr (Modes<M>::lagged) {
+    T* base = scratch + (9 + ((a.mode & MODE_PCR) ? 8 : 2)) * n;
+    coef = Coefs<T>{base, base + n, base + 2 * n, base + 3 * n, base + 4 * n};
+  }
 
   auto copy = [&](const T* from, T* to) {
     for (int64_t k = 0; k < nz; ++k) to[k * ncol + col] = from[k * ncol + col];
   };
+  // theta_i's rate source at each cell of u: the rhs's tendency of theta_i
+  auto ice_source = [&](Fields<T> u, auto update) {
+    for (int64_t k = 0; k < nz; ++k) {
+      const int64_t i = k * ncol + col;
+      update(i, center_fields<T, M>(c, coef, i, u.vl[i], u.ti[i], u.re[i], T(0), g.z(k)).src_i);
+    }
+  };
   // TRBDF2Soil._solve_stage: u = Cs + w f(u) by Gauss-Seidel sweeps of S
   auto solve_stage = [&](T w, int64_t row, int64_t frow) {
     for (int64_t it = 0; it < a.iters; ++it) {
-      if constexpr (has_water) newton_sweep<T, M, true>(c, a, col, S, Cs.vl, w, row, frow, g, wk);
-      if constexpr (has_heat) newton_sweep<T, M, false>(c, a, col, S, Cs.re, w, row, frow, g, wk);
-      if constexpr (has_water) copy(Cs.ti, S.ti);  // zero tendency: theta_i = c
+      if constexpr (has_water) newton_sweep<T, M, true>(c, a, col, S, Cs.vl, w, row, frow, g, wk, coef);
+      if constexpr (has_heat) newton_sweep<T, M, false>(c, a, col, S, Cs.re, w, row, frow, g, wk, coef);
+      if constexpr (Modes<M>::rate) {  // the phase change's fixed point
+        ice_source(S, [&](int64_t i, T src) { S.ti[i] = Cs.ti[i] + w * (T(0) + src); });
+      } else if constexpr (has_water) {
+        copy(Cs.ti, S.ti);  // zero tendency: theta_i = c
+      }
     }
   };
 
   [[maybe_unused]] const int64_t top = (nz - 1) * ncol + col;  // read under MODE_MOST
   for (int64_t step = 0; step < a.n_steps; ++step) {
     const int64_t row0 = a.rows_per_step * step;
+    if constexpr (Modes<M>::lagged) coefficients<T, M>(c, a, col, Y.vl, Y.ti, Y.re, coef);
     // the step's forcing row (B7), one for all stages and sweeps
     int64_t frow = 0;
     if constexpr (Modes<M>::most) {
@@ -266,7 +328,7 @@ __global__ void implicit_column_kernel(const KernelArgs a, T eps, T tiny) {
       T bc_val[kNumBC];
       load_bc(a, row0, col, bc_val);
       if constexpr (Modes<M>::most) most_top_bc(c, a, row0, frow, col, Y.vl[top], Y.ti[top], Y.re[top], bc_val);
-      rhs_sweep<T, M>(c, a, col, Y, bc_val, load_profiles<T, M>(a, row0, col), g, no_coefs,
+      rhs_sweep<T, M>(c, a, col, Y, bc_val, load_profiles<T, M>(a, row0, col), g, coef,
                       [&](int64_t k, const Center<T>& x, T d_vl, T d_ti, T d_re) {
                         const int64_t i = k * ncol + col;
                         if (has_water) {
@@ -301,13 +363,16 @@ __global__ void implicit_column_kernel(const KernelArgs a, T eps, T tiny) {
       copy(Y.vl, S.vl);
       const Fields<T> st{S.vl, Y.ti, Y.re};
       for (int64_t it = 0; it < a.iters; ++it) {
-        newton_sweep<T, M, true>(c, a, col, st, Y.vl, dt, row0, frow, g, wk);
+        newton_sweep<T, M, true>(c, a, col, st, Y.vl, dt, row0, frow, g, wk, coef);
       }
       if constexpr (Modes<M>::be_soil) {
         copy(Y.re, S.re);
         const Fields<T> sh{S.vl, Y.ti, S.re};
         for (int64_t it = 0; it < a.iters; ++it) {
-          newton_sweep<T, M, false>(c, a, col, sh, Y.re, dt, row0, frow, g, wk);
+          newton_sweep<T, M, false>(c, a, col, sh, Y.re, dt, row0, frow, g, wk, coef);
+        }
+        if constexpr (Modes<M>::rate) {  // the phase change, explicit at the new state
+          ice_source(sh, [&](int64_t i, T src) { Y.ti[i] = Y.ti[i] + dt * (T(0) + src); });
         }
         copy(S.re, Y.re);
       } else if constexpr (Modes<M>::coupled) {
@@ -315,7 +380,7 @@ __global__ void implicit_column_kernel(const KernelArgs a, T eps, T tiny) {
         T bc_val[kNumBC];
         load_bc(a, row0, col, bc_val);
         if constexpr (Modes<M>::most) most_top_bc(c, a, row0, frow, col, S.vl[top], Y.ti[top], Y.re[top], bc_val);
-        rhs_sweep<T, M>(c, a, col, st, bc_val, load_profiles<T, M>(a, row0, col), g, no_coefs,
+        rhs_sweep<T, M>(c, a, col, st, bc_val, load_profiles<T, M>(a, row0, col), g, coef,
                         [&](int64_t k, const Center<T>& x, T d_vl, T d_ti, T d_re) {
                           const int64_t i = k * ncol + col;
                           Y.ti[i] = x.ti + dt * d_ti;
@@ -323,6 +388,12 @@ __global__ void implicit_column_kernel(const KernelArgs a, T eps, T tiny) {
                         });
       }
       copy(S.vl, Y.vl);
+    }
+    if constexpr (Modes<M>::eq) {
+      for (int64_t k = 0; k < nz; ++k) {
+        const int64_t i = k * ncol + col;
+        phase_projection(c, &Y.vl[i], &Y.ti[i], Y.re[i]);
+      }
     }
   }
 }
@@ -340,10 +411,24 @@ int launch(const KernelArgs* args, int block, void* stream) {
 // at run time.  BackwardEulerRichards needs dynamic water, and
 // BackwardEulerSoil dynamic water and heat.  MODE_COLUMNS (per-column kinds
 // and geometry) joins TR-BDF2 and BackwardEulerRichards on the coupled and
-// water-only branches; MODE_MOST each stepper on the coupled branch.
+// water-only branches; MODE_MOST each stepper on the coupled branch; the
+// step policies each stepper on the coupled branch, lagged coefficients
+// alone or with either freeze-thaw scheme, and either scheme or no ice
+// alone.
+#define POLICY_CASES(S)                                                                              \
+  case S | MODE_LAGGED: return launch<T, S | MODE_LAGGED>(args, block, stream);                     \
+  case S | MODE_FREEZE_RATE: return launch<T, S | MODE_FREEZE_RATE>(args, block, stream);           \
+  case S | MODE_FREEZE_EQ: return launch<T, S | MODE_FREEZE_EQ>(args, block, stream);               \
+  case S | MODE_NO_ICE: return launch<T, S | MODE_NO_ICE>(args, block, stream);                     \
+  case S | MODE_LAGGED | MODE_FREEZE_RATE:                                                          \
+    return launch<T, S | MODE_LAGGED | MODE_FREEZE_RATE>(args, block, stream);                      \
+  case S | MODE_LAGGED | MODE_FREEZE_EQ: return launch<T, S | MODE_LAGGED | MODE_FREEZE_EQ>(args, block, stream);
 template <typename T>
 int dispatch(const KernelArgs* args, int block, void* stream) {
   switch (args->mode & ~int64_t(MODE_PCR)) {
+    POLICY_CASES(MODE_TRBDF2)
+    POLICY_CASES(MODE_BE_RICHARDS)
+    POLICY_CASES(MODE_BE_SOIL)
     case MODE_TRBDF2: return launch<T, MODE_TRBDF2>(args, block, stream);
     case MODE_TRBDF2 | MODE_WATER: return launch<T, MODE_TRBDF2 | MODE_WATER>(args, block, stream);
     case MODE_TRBDF2 | MODE_HEAT: return launch<T, MODE_TRBDF2 | MODE_HEAT>(args, block, stream);
@@ -367,16 +452,22 @@ int dispatch(const KernelArgs* args, int block, void* stream) {
 
 }  // namespace
 
+// Built once per float type: -DKERNEL_F32_ONLY or -DKERNEL_F64_ONLY keeps
+// one entry point, and with it that type's template instances alone.
 extern "C" {
 
 int implicit_kernel_args_size() { return static_cast<int>(sizeof(KernelArgs)); }
 
+#ifndef KERNEL_F64_ONLY
 int implicit_kernel_f32(const KernelArgs* args, int block, void* stream) {
   return dispatch<float>(args, block, stream);
 }
+#endif
 
+#ifndef KERNEL_F32_ONLY
 int implicit_kernel_f64(const KernelArgs* args, int block, void* stream) {
   return dispatch<double>(args, block, stream);
 }
+#endif
 
 }  // extern "C"

@@ -149,16 +149,22 @@ int dispatch(const KernelArgs* args, int block, void* stream) {
 
 }  // namespace
 
+// Built once per float type: -DKERNEL_F32_ONLY or -DKERNEL_F64_ONLY keeps
+// one entry point, and with it that type's template instances alone.
 extern "C" {
 
 int land_kernel_args_size() { return static_cast<int>(sizeof(KernelArgs)); }
 
+#ifndef KERNEL_F64_ONLY
 int land_kernel_f32(const KernelArgs* args, int block, void* stream) {
   return dispatch<float>(args, block, stream);
 }
+#endif
 
+#ifndef KERNEL_F32_ONLY
 int land_kernel_f64(const KernelArgs* args, int block, void* stream) {
   return dispatch<double>(args, block, stream);
 }
+#endif
 
 }  // extern "C"

@@ -174,7 +174,7 @@ def _water_newton_sweep(
     delta = _backward_euler_delta(K, C, b, w, grid, boost_bot, boost_top, solver=solver)
     # trust region: at most half the column's porosity per update
     lim = 0.5 * sp.nu
-    delta = torch.clamp(delta, -lim, lim)
+    delta = sw._clip(delta, -lim, lim)
     return v_m + delta
 
 

@@ -139,7 +139,7 @@ def _manning_face_flux(s: Array, h_up: Array, manning_n) -> Array:
 
 
 def _surface_heights(ro, h_s):
-    h_eff = torch.clamp(h_s - ro.h_detention, min=0.0)
+    h_eff = sw._maximum(h_s - ro.h_detention, 0.0)
     z = torch.as_tensor(ro.elevation, dtype=h_s.dtype, device=h_s.device).expand(h_s.shape)
     return h_eff, (z + h_eff if ro.water_surface_slope else z)
 
@@ -159,7 +159,7 @@ def _kinematic_wave_tendency(ro: KinematicWaveRouting, h_s: Array) -> Array:
 
 def _diffusive_routing_tendency(ro: RunoffRouting, h_s: Array) -> Array:
     """dh_s/dt from head diffusion of the pond excess (5-point Laplacian)."""
-    h_eff = torch.clamp(h_s - ro.h_detention, min=0.0)
+    h_eff = sw._maximum(h_s - ro.h_detention, 0.0)
     lap = (
         torch.roll(h_eff, 1, dims=0)
         + torch.roll(h_eff, -1, dims=0)
@@ -180,7 +180,7 @@ def kinematic_wave_dt_limit(ro: KinematicWaveRouting, h_s: Array) -> Array:
         h_face = torch.maximum(h_eff, torch.roll(h_eff, -1, dims=axis))
         c = (5.0 / 3.0) * h_face ** (2.0 / 3.0) * torch.sqrt(s) / ro.manning_n
         c_max = torch.maximum(c_max, torch.max(c))
-    return ro.dx / torch.clamp(c_max, min=1e-30)
+    return ro.dx / sw._maximum(c_max, 1e-30)
 
 
 def routing_tendency(ro, h_s: Array) -> Array:
@@ -273,7 +273,7 @@ def potential_infiltration(soil: SoilModel, grid: ColumnGrid, X: dict, t) -> Arr
     face = torch.as_tensor(soil.soil_param_set.nu, dtype=center.dtype, device=center.device)
     X_cf = dict(X_cf, vartheta_l=[center, face.expand(center.shape)])
     flux_up = _dirichlet_hydrology_flux(soil.hydrology_model, soil, X_cf, grid.dz_boundary, "top")
-    return torch.clamp(-flux_up, min=0.0)
+    return sw._maximum(-flux_up, 0.0)
 
 
 def _diagnose_state_T(soil: SoilModel, Y_soil: dict, Ya: dict) -> Array:
@@ -301,10 +301,10 @@ def surface_exchange(land: LandModel, grid: ColumnGrid, X: dict, h_s, t) -> dict
     soil = land.soil
     P = land.surface.precipitation(t)
     check_rain(P)
-    P = torch.clamp(torch.as_tensor(P, dtype=soil.float_dtype, device=h_s.device), min=0.0)
+    P = sw._maximum(torch.as_tensor(P, dtype=soil.float_dtype, device=h_s.device), 0.0)
 
     f_pot = potential_infiltration(soil, grid, X, t)
-    supply = P + torch.clamp(h_s, min=0.0) / land.surface.tau_pond
+    supply = P + sw._maximum(h_s, 0.0) / land.surface.tau_pond
     infiltration = torch.minimum(supply, f_pot)
 
     zero = torch.zeros_like(infiltration)
@@ -316,7 +316,7 @@ def surface_exchange(land: LandModel, grid: ColumnGrid, X: dict, h_s, t) -> dict
         )
 
         top = X["vartheta_l"].shape[0] - 1
-        w = torch.clamp(torch.clamp(h_s, min=0.0) / land.surface.h_evap_smoothing, 0.0, 1.0)
+        w = sw._clip(sw._maximum(h_s, 0.0) / land.surface.h_evap_smoothing, 0.0, 1.0)
         fluxes = compute_blended_surface_fluxes(
             soil.energy_model, soil.hydrology_model, soil,
             X["vartheta_l"][top], X["theta_i"][top], X["T"][top], w, t,

@@ -57,8 +57,8 @@ def equilibrium_unfrozen_liquid(
     depression (Clapeyron ``psi_f = LH_f0 (T - T_0) / (g T)`` through the
     inverse retention curve); +inf at and above T_0 (no constraint)."""
     T_0 = param_set.T_0
-    T_safe = torch.clamp(T, min=200.0)  # keeps the Clapeyron ratio finite
-    psi_f = param_set.LH_f0 * (torch.clamp(T_safe, max=T_0) - T_0) / (
+    T_safe = sw._maximum(T, 200.0)  # keeps the Clapeyron ratio finite
+    psi_f = param_set.LH_f0 * (sw._minimum(T_safe, T_0) - T_0) / (
         param_set.grav * T_safe
     )
     S_max = sw.inverse_matric_potential(hm, psi_f)
@@ -86,11 +86,11 @@ def phase_change_sources(
 
     theta_l_max = equilibrium_unfrozen_liquid(hm, T, nu, param_set)
     excess = torch.where(
-        torch.isinf(theta_l_max), 0.0, torch.clamp(theta_l - theta_l_max, min=0.0)
+        torch.isinf(theta_l_max), 0.0, sw._maximum(theta_l - theta_l_max, 0.0)
     )
     # energy headroom to T_0, expressed as an ice-volume equivalent
-    deficit_ice = torch.clamp(rho_c_s * (T_0 - T), min=0.0) / (rho_i * L)
-    surplus_ice = torch.clamp(rho_c_s * (T - T_0), min=0.0) / (rho_i * L)
+    deficit_ice = sw._maximum(rho_c_s * (T_0 - T), 0.0) / (rho_i * L)
+    surplus_ice = sw._maximum(rho_c_s * (T - T_0), 0.0) / (rho_i * L)
 
     freeze_ice = torch.minimum((rho_l / rho_i) * excess, deficit_ice) / ft.tau
     melt_ice = torch.minimum(theta_i, surplus_ice) / ft.tau
@@ -156,7 +156,7 @@ def equilibrium_phase_projection(model, Y: dict) -> dict:
         name: {
             **Y[name],
             "vartheta_l": theta_l_new,
-            "theta_i": torch.clamp(theta_i_new, min=0.0),
+            "theta_i": sw._maximum(theta_i_new, 0.0),
         },
     }
 

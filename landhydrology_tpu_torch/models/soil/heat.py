@@ -92,13 +92,13 @@ def kersten_number(theta_i: Array, S_r: Array, soil_params) -> Array:
     is clamped before its log, and both branches share one log(S_r)."""
     b = soil_params.b
     e_unf, e_bracket, e_fr = kersten_exponents(soil_params)
-    S_r_safe = torch.clamp(S_r, min=0.0)
+    S_r_safe = _maximum(S_r, 0.0)
     half = (1.0 - S_r_safe) / 2.0
     t = 1.0 + torch.exp(-b * S_r_safe)
     bracket = 1.0 / (t * t * t) - half * half * half
     tiny = _tiny_of(S_r)
-    ln_S = torch.log(torch.clamp(S_r_safe, min=tiny))
-    ln_bracket = torch.log(torch.clamp(bracket, min=tiny))
+    ln_S = torch.log(_maximum(S_r_safe, tiny))
+    ln_bracket = torch.log(_maximum(bracket, tiny))
     K_e_unfrozen = torch.exp(ln_S * e_unf + ln_bracket * e_bracket)
     K_e_frozen = torch.exp(ln_S * e_fr)
     unfrozen = theta_i < _eps_of(S_r)

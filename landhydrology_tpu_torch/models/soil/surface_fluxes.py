@@ -12,6 +12,11 @@ JAX package to rounding.
   ``|zeta| <= 50``: 20 rounds in float64; 4 rounds and a two-step
   regula-falsi polish in float32, chosen by the dtype.  The JAX package's
   Illinois alternative was measured slower there and is not ported.
+- The clamps are ``jnp.maximum`` / ``jnp.minimum`` / ``jnp.clip``'s
+  (``water._maximum``, ``water._minimum``, ``water._clip``), which split
+  the gradient evenly at a tie: the final false-position step ties with its
+  bracket's edge, so ``torch.clamp`` there gave another gradient than
+  ``jax.grad``.
 - ``ops/cuda/column_kernel.py`` runs the same solve inside the column
   kernel (``csrc/surface_fluxes.cuh``, kernel modes B5 and B6).
 """
@@ -26,6 +31,7 @@ import torch
 
 from landhydrology_tpu_torch.constants import EarthParameterSet
 from landhydrology_tpu_torch.models.soil import water as sw
+from landhydrology_tpu_torch.models.soil.water import _clip, _maximum, _minimum
 from landhydrology_tpu_torch.models.soil.model import (
     SoilEnergyModel,
     SoilHydrologyModel,
@@ -123,8 +129,8 @@ def _arctan_reduced(r: Array) -> Array:
 
 def psi_m(zeta: Array) -> Array:
     """Integrated momentum stability function (Businger 1971)."""
-    zeta = torch.clamp(zeta, _ZETA_MIN, _ZETA_MAX)
-    zeta_un = torch.clamp(zeta, max=0.0)
+    zeta = _clip(zeta, _ZETA_MIN, _ZETA_MAX)
+    zeta_un = _minimum(zeta, 0.0)
     x = torch.sqrt(torch.sqrt(1.0 - 15.0 * zeta_un))
     one_px = 1.0 + x
     unstable = (
@@ -132,47 +138,47 @@ def psi_m(zeta: Array) -> Array:
         - 2.0 * arctan_kernel_safe(x)
         + math.pi / 2.0
     )
-    stable = -_BUSINGER_A * torch.clamp(zeta, min=0.0)
+    stable = -_BUSINGER_A * _maximum(zeta, 0.0)
     return torch.where(zeta < 0.0, unstable, stable)
 
 
 def psi_h(zeta: Array) -> Array:
     """Integrated scalar (heat/moisture) stability function."""
-    zeta = torch.clamp(zeta, _ZETA_MIN, _ZETA_MAX)
-    zeta_un = torch.clamp(zeta, max=0.0)
+    zeta = _clip(zeta, _ZETA_MIN, _ZETA_MAX)
+    zeta_un = _minimum(zeta, 0.0)
     y = torch.sqrt(1.0 - 9.0 * zeta_un)
     unstable = 2.0 * torch.log((1.0 + y) / 2.0)
-    stable = -_BUSINGER_A / _PRANDTL_0 * torch.clamp(zeta, min=0.0)
+    stable = -_BUSINGER_A / _PRANDTL_0 * _maximum(zeta, 0.0)
     return torch.where(zeta < 0.0, unstable, stable)
 
 
 def psi_m_diff(zeta: Array, zeta_0: Array) -> Array:
     """``psi_m(zeta) - psi_m(zeta_0)`` for same-sign pairs: one log of a
     ratio and one arctan of ``(x - x0) / (1 + x x0)``."""
-    zeta = torch.clamp(zeta, _ZETA_MIN, _ZETA_MAX)
-    zeta_0 = torch.clamp(zeta_0, _ZETA_MIN, _ZETA_MAX)
-    x = torch.sqrt(torch.sqrt(1.0 - 15.0 * torch.clamp(zeta, max=0.0)))
-    x0 = torch.sqrt(torch.sqrt(1.0 - 15.0 * torch.clamp(zeta_0, max=0.0)))
+    zeta = _clip(zeta, _ZETA_MIN, _ZETA_MAX)
+    zeta_0 = _clip(zeta_0, _ZETA_MIN, _ZETA_MAX)
+    x = torch.sqrt(torch.sqrt(1.0 - 15.0 * _minimum(zeta, 0.0)))
+    x0 = torch.sqrt(torch.sqrt(1.0 - 15.0 * _minimum(zeta_0, 0.0)))
     one_px = 1.0 + x
     one_px0 = 1.0 + x0
     ratio = (one_px * one_px * (1.0 + x * x)) / (one_px0 * one_px0 * (1.0 + x0 * x0))
     atan_arg = (x - x0) / (1.0 + x * x0)
     unstable = torch.log(ratio) - 2.0 * _arctan_reduced(atan_arg)
-    stable = -_BUSINGER_A * (torch.clamp(zeta, min=0.0) - torch.clamp(zeta_0, min=0.0))
+    stable = -_BUSINGER_A * (_maximum(zeta, 0.0) - _maximum(zeta_0, 0.0))
     return torch.where(zeta < 0.0, unstable, stable)
 
 
 def psi_h_diff(zeta: Array, zeta_0: Array) -> Array:
     """``psi_h(zeta) - psi_h(zeta_0)`` for same-sign pairs."""
-    zeta = torch.clamp(zeta, _ZETA_MIN, _ZETA_MAX)
-    zeta_0 = torch.clamp(zeta_0, _ZETA_MIN, _ZETA_MAX)
-    y = torch.sqrt(1.0 - 9.0 * torch.clamp(zeta, max=0.0))
-    y0 = torch.sqrt(1.0 - 9.0 * torch.clamp(zeta_0, max=0.0))
+    zeta = _clip(zeta, _ZETA_MIN, _ZETA_MAX)
+    zeta_0 = _clip(zeta_0, _ZETA_MIN, _ZETA_MAX)
+    y = torch.sqrt(1.0 - 9.0 * _minimum(zeta, 0.0))
+    y0 = torch.sqrt(1.0 - 9.0 * _minimum(zeta_0, 0.0))
     unstable = 2.0 * torch.log((1.0 + y) / (1.0 + y0))
     stable = (
         -_BUSINGER_A
         / _PRANDTL_0
-        * (torch.clamp(zeta, min=0.0) - torch.clamp(zeta_0, min=0.0))
+        * (_maximum(zeta, 0.0) - _maximum(zeta_0, 0.0))
     )
     return torch.where(zeta < 0.0, unstable, stable)
 
@@ -237,8 +243,8 @@ def surface_conditions(
         zeta_0s = z_0s * Linv
         denom_m = log_m - psi_m_diff(zeta, zeta_0m)
         denom_s = _PRANDTL_0 * (log_s - psi_h_diff(zeta, zeta_0s))
-        denom_m = torch.clamp(denom_m, min=1e-3)
-        denom_s = torch.clamp(denom_s, min=1e-3)
+        denom_m = _maximum(denom_m, 1e-3)
+        denom_s = _maximum(denom_s, 1e-3)
         return denom_m, denom_s
 
     eps_vi = param_set.molmass_ratio - 1.0
@@ -252,7 +258,7 @@ def surface_conditions(
         theta_star = kappa * dtheta / denom_s
         q_star = kappa * dq / denom_s
         theta_v_star = theta_star * (1.0 + eps_vi * q_atm) + eps_vi * theta_scale * q_star
-        u_star_safe = torch.clamp(u_star, min=1e-6)
+        u_star_safe = _maximum(u_star, 1e-6)
         return Linv - kappa * g * theta_v_star / (u_star_safe * u_star_safe * theta_scale)
 
     def h(Linv):
@@ -264,8 +270,8 @@ def surface_conditions(
 
     B = _ZETA_BRACKET / z_atm + zero
     sgn = torch.sign(c0 + zero)
-    lo = torch.clamp(sgn, max=0.0) * B
-    hi = torch.clamp(sgn, min=0.0) * B
+    lo = _minimum(sgn, 0.0) * B
+    hi = _maximum(sgn, 0.0) * B
     s_lo = torch.sign(h(lo))
     s_lo = torch.where(s_lo == 0.0, 1.0, s_lo)
     is_f64 = zero.dtype == torch.float64
@@ -291,7 +297,7 @@ def surface_conditions(
         den1 = h_hi2 - h_lo2
         ok1 = (h_lo2 * h_hi2 <= 0.0) & (torch.abs(den1) > 0.0)
         x1 = (lo * h_hi2 - hi * h_lo2) / torch.where(ok1, den1, 1.0)
-        x1 = torch.clamp(x1, lo, hi)
+        x1 = _clip(x1, lo, hi)
         h1 = h(x1)
         left = h_lo2 * h1 <= 0.0
         lo, hi, h_lo2, h_hi2 = (
@@ -303,9 +309,11 @@ def surface_conditions(
     den = h_hi2 - h_lo2
     use_falsi = (h_lo2 * h_hi2 <= 0.0) & (torch.abs(den) > 0.0)
     Linv_falsi = (lo * h_hi2 - hi * h_lo2) / torch.where(use_falsi, den, 1.0)
-    Linv_falsi = torch.clamp(Linv_falsi, lo, hi)
+    Linv_falsi = _clip(Linv_falsi, lo, hi)
     Linv = torch.where(use_falsi, Linv_falsi, 0.5 * (lo + hi))
     delta = 0.5 * (hi - lo)
+    if zero.requires_grad:
+        Linv = _with_root_derivative(Linv, use_falsi, h)
 
     denom_m, denom_s = denoms(Linv)
     u_star = kappa * du / denom_m
@@ -319,6 +327,28 @@ def surface_conditions(
         "denoms": (denom_m, denom_s),
         "probes": probes,
     }
+
+
+def _with_root_derivative(Linv, solved, h):
+    """``Linv`` with, where the solve bracketed a root (``solved``), the
+    derivative of that root by the implicit-function theorem,
+    ``d Linv = -(dh/d inputs) / (dh/d Linv)``, in place of the derivative of
+    the solve's operations; the values are unchanged.
+
+    The solve ends on a bracket one or two ulps wide, where ``h`` is at its
+    rounding level, so the derivative of its last false-position step is
+    the quotient of two rounding errors: ``torch.autograd`` and ``jax.grad``
+    of it miss the finite-difference derivative of the root by factors of
+    2 to 40, and differ from each other with the last bits of the forward.
+    Elsewhere (no sign change, or the neutral root ``c0 == 0``) the
+    derivative stays that of the solve's operations."""
+    root = Linv.detach()
+    with torch.enable_grad():
+        probe = root.clone().requires_grad_(True)
+        h_root = h(probe)
+        (slope,) = torch.autograd.grad(h_root, probe, torch.ones_like(h_root), retain_graph=True)
+    step = -h(root) / torch.where(solved, slope, 1.0)
+    return torch.where(solved, root + (step - step.detach()), Linv)
 
 
 # --------------------------------------------------------------------------
@@ -346,7 +376,7 @@ def _soil_surface_humidity(model, hydrology, vartheta_l, theta_i, T, rho_a):
     q_sat = q_vap_saturation_liquid(param_set, T, rho_a)
     nu_eff = sp.nu - theta_i
     theta_l = sw.volumetric_liquid_fraction(vartheta_l, nu_eff)
-    S_l_eff = torch.clamp(sw.effective_saturation(nu_eff, theta_l, hm.theta_r), max=1.0)
+    S_l_eff = _minimum(sw.effective_saturation(nu_eff, theta_l, hm.theta_r), 1.0)
     psi = sw.matric_potential(hm, S_l_eff)
     correction = torch.exp(param_set.grav * psi / param_set.R_v / T)
     return q_sat, q_sat * correction

@@ -5,8 +5,10 @@ is a branch-free tensor function over ``(nz, *batch)`` fields; branches
 are ``torch.where`` selects whose untaken operand is first clamped into its
 valid domain, so no NaN leaks out of the select.  The clamps keep the
 reference's exact forms and order of operations.  ``torch.minimum`` /
-``torch.maximum`` / ``torch.clamp`` propagate NaN, as ``jnp.minimum`` /
-``jnp.maximum`` / ``jnp.clip`` do.
+``torch.maximum`` propagate NaN, as ``jnp.minimum`` / ``jnp.maximum`` /
+``jnp.clip`` do, and split the gradient evenly at a tie as they do
+(:func:`_maximum`, :func:`_minimum`, :func:`_clip`; ``torch.clamp`` would
+pass it whole), so ``torch.autograd`` gives ``jax.grad``'s values.
 
 Every hydraulics parameter may be a Python scalar or a ``(ncol,)`` tensor.
 """
@@ -14,6 +16,7 @@ Every hydraulics parameter may be a Python scalar or a ``(ncol,)`` tensor.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -33,26 +36,48 @@ def _tiny_of(x) -> float:
     return torch.finfo(x.dtype if torch.is_tensor(x) else torch.float64).tiny
 
 
+def _bound(b, like):
+    """A Python bound as a 0-dim CPU tensor of ``like``'s dtype: an operand
+    of ``torch.maximum`` / ``torch.minimum``, which (unlike ``torch.clamp``)
+    split the gradient evenly where the operands tie, as ``jax.grad`` of
+    ``jnp.maximum`` / ``jnp.minimum`` / ``jnp.clip`` does.  The values are
+    those of ``torch.clamp``."""
+    return _cpu_scalar(float(b), like.dtype)
+
+
+@functools.lru_cache(maxsize=256)
+def _cpu_scalar(b: float, dtype: torch.dtype):
+    """One 0-dim CPU tensor per bound and dtype, made once."""
+    return torch.tensor(b, dtype=dtype)
+
+
 def _maximum(a, b):
-    """Elementwise max of tensors and/or scalars (``jnp.maximum``)."""
+    """Elementwise max of tensors and/or scalars (``jnp.maximum``, tie
+    gradient split evenly)."""
     if torch.is_tensor(a) and torch.is_tensor(b):
         return torch.maximum(a, b)
     if torch.is_tensor(a):
-        return torch.clamp(a, min=b)
+        return torch.maximum(a, _bound(b, a))
     if torch.is_tensor(b):
-        return torch.clamp(b, min=a)
+        return torch.maximum(_bound(a, b), b)
     return max(a, b)
 
 
 def _minimum(a, b):
-    """Elementwise min of tensors and/or scalars (``jnp.minimum``)."""
+    """Elementwise min of tensors and/or scalars (``jnp.minimum``, tie
+    gradient split evenly)."""
     if torch.is_tensor(a) and torch.is_tensor(b):
         return torch.minimum(a, b)
     if torch.is_tensor(a):
-        return torch.clamp(a, max=b)
+        return torch.minimum(a, _bound(b, a))
     if torch.is_tensor(b):
-        return torch.clamp(b, max=a)
+        return torch.minimum(_bound(a, b), b)
     return min(a, b)
+
+
+def _clip(x, lo, hi):
+    """``jnp.clip(x, lo, hi)``: ``minimum(maximum(x, lo), hi)``."""
+    return _minimum(_maximum(x, lo), hi)
 
 
 # --------------------------------------------------------------------------
@@ -148,7 +173,7 @@ def matric_potential(hm: vanGenuchten, S: Array) -> Array:
     zero."""
     n, alpha, m = hm.n, hm.alpha, hm.m
     eps = _eps_of(S)
-    S_safe = torch.clamp(S, eps, 1.0 - eps)
+    S_safe = _clip(S, eps, 1.0 - eps)
     u_inv = torch.exp(torch.log(S_safe) * (-1.0 / m))
     base = (u_inv - 1.0) * alpha ** (-n)
     psi_unsat = -torch.exp(torch.log(_maximum(base, _tiny_of(S))) * (1.0 / n))
@@ -223,7 +248,7 @@ def hydraulic_conductivity(
     [eps, 1 - eps] before the log-domain power laws."""
     m, Ksat = hm.m, hm.Ksat
     eps = _eps_of(S)
-    S_safe = torch.clamp(S, eps, 1.0 - eps)
+    S_safe = _clip(S, eps, 1.0 - eps)
     u = torch.exp(torch.log(S_safe) * (1.0 / m))  # S^(1/m) in (0, 1)
     f = 1.0 - torch.exp(torch.log(_maximum(1.0 - u, _tiny_of(S))) * m)
     K_unsat = torch.sqrt(S_safe) * f * f
@@ -238,7 +263,7 @@ def hydrostatic_profile(
     the water table at ``z_interface``: S(z) (nu - theta_r) + theta_r above
     it, the linear storage profile -S_s (z - z_nabla) + nu below."""
     alpha, m, n, theta_r = hm.alpha, hm.m, hm.n, hm.theta_r
-    dz = torch.clamp(z - z_interface, min=0.0)  # untaken branch stays real
+    dz = _maximum(z - z_interface, 0.0)  # untaken branch stays real
     S = (1.0 + (alpha * dz) ** n) ** (-m)
     unsat = S * (nu - theta_r) + theta_r
     sat = -S_s * (z - z_interface) + nu

@@ -8,8 +8,10 @@ the state in place.  Three CUDA sources share ``csrc/column_common.cuh``:
 - ``csrc/column_kernel.cu``: SSPRK33 (kernel modes B1, B2, B3), on the
   coupled, water-only or heat-only branch;
 - ``csrc/implicit_kernel.cu``: ``TRBDF2Soil``, ``BackwardEulerRichards`` and
-  ``BackwardEulerSoil`` (kernel mode B4), with Thomas or PCR solves, and
-  under a MOST top (B4+B5) with its forcing rows;
+  ``BackwardEulerSoil`` (kernel mode B4), with Thomas or PCR solves, with
+  the step policies on the coupled plain soil (lagged coefficients,
+  freeze-thaw, ``assume_no_ice``), and under a MOST top (B4+B5) with its
+  forcing rows;
 - ``csrc/land_kernel.cu``: SSPRK33 with a MOST top face (kernel mode B5,
   ``PrescribedAtmosForcing``) or a ``LandModel`` pond (B6), the MOST solve
   in ``csrc/surface_fluxes.cuh``; each with streamed forcing rows (B7): the
@@ -67,17 +69,23 @@ tables built at the stage times of ``h``, and equals a run built with
 forcing rows (B7): every rhs evaluation of the implicit kernel takes its top
 fluxes from a MOST solve at its own top cell.
 
+``differentiable=True`` (kernel mode B9, ``ops/cuda/differentiable.py``)
+returns a run that ``torch.autograd`` differentiates in the state, t0 and
+dt_run: the forward is the kernel, the backward the plain version's vjp,
+replayed one step at a time.
+
 Combinations without a kernel raise ``NotImplementedError`` naming their
 ROADMAP item, on either device: ForwardEuler, SSPRK22 and SSPRK104 (B1),
 lagged coefficients or ``assume_no_ice`` on the water-only and heat-only
-branches, the implicit steppers with lagged coefficients, freeze-thaw,
-``assume_no_ice`` or a LandModel (B4), MOST or the LandModel with
-freeze-thaw, ``assume_no_ice`` or one component prescribed (B5, B6; so also
-their forcing rows), per-column kinds or geometry outside the modes that
-hold them or with forcing rows (B1-batched, B8) and ``differentiable=True``
-(B9, ROADMAP A17).  Lateral coupling, pond routing, a per-column rain
-callable and a 2-D column batch raise ``ValueError``, as the JAX kernel's
-factory does.
+branches, the implicit steppers with step policies under a MOST top, on the
+branches or lagged with ``assume_no_ice``, or with a LandModel (B4), MOST or
+the LandModel with freeze-thaw, ``assume_no_ice`` or one component
+prescribed (B5, B6; so also their forcing rows), per-column kinds or
+geometry outside the modes that hold them or with forcing rows (B1-batched,
+B8).  Lateral coupling, pond routing, a per-column rain callable and a 2-D
+column batch raise ``ValueError``, as the JAX kernel's factory does; so does
+a non-differentiable run on CUDA state tensors that require grad in grad
+mode (the kernel writes them where autograd cannot see).
 """
 
 from __future__ import annotations
@@ -91,6 +99,7 @@ import math
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -160,13 +169,16 @@ _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
 #: the header both kernel sources include
 HEADER = CSRC / "column_common.cuh"
-#: the kernel sources, one shared library each
+#: the kernel sources, one shared library per source and float type
 SOURCES = {
     "column_kernel": CSRC / "column_kernel.cu",
     "implicit_kernel": CSRC / "implicit_kernel.cu",
     "land_kernel": CSRC / "land_kernel.cu",
 }
-#: each library's C entry points are ``<prefix>_f32`` and ``<prefix>_f64``
+#: a source's C entry points are ``<prefix>_f32`` and ``<prefix>_f64``; the
+#: library of each float type is compiled with ``-DKERNEL_<TAG>_ONLY`` and
+#: holds that type's template instances alone, so the halves build in parallel
+_TAGS = ("f32", "f64")
 _ENTRY_PREFIX = {"column_kernel": "column_kernel_ssprk33", "implicit_kernel": "implicit_kernel",
                  "land_kernel": "land_kernel"}
 BUILD_DIR = _PACKAGE / "_build"
@@ -332,46 +344,64 @@ def _digest() -> str:
 
 def build_library() -> dict:
     """Compile each kernel source into ``_build/`` (once per content of
-    ``csrc/`` and flag set), one ``nvcc`` per source, all started together;
-    concurrent processes serialize on a lock file and publish each library by
-    atomic rename.  ptxas's report (registers and spills of each template
-    instance) is kept beside each library as ``<library>.ptxas.txt``.
-    Returns ``{name: library path}``."""
+    ``csrc/`` and flag set), one ``nvcc`` per source and float type, all
+    started together; concurrent processes serialize on a lock file and
+    publish each library by atomic rename.  ptxas's report (registers and
+    spills of each template instance) is kept beside each library as
+    ``<library>.ptxas.txt``, and each compile's seconds in
+    :data:`BUILD_SECONDS`.  Returns ``{library key: path}``, keyed
+    ``<source>_<tag>``."""
     digest = _digest()
-    libs = {name: BUILD_DIR / f"{name}_{digest}.so" for name in SOURCES}
+    libs = {f"{name}_{tag}": BUILD_DIR / f"{name}_{tag}_{digest}.so" for name in SOURCES for tag in _TAGS}
     if all(lib.exists() for lib in libs.values()):
         return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         jobs = {}
-        for name, lib in libs.items():
+        start = time.perf_counter()
+        for key, lib in libs.items():
             if lib.exists():
                 continue
+            name, tag = key.rsplit("_", 1)
             tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            jobs[name] = (cmd, tmp, proc)
+            cmd = [_nvcc(), *NVCC_FLAGS, f"-DKERNEL_{tag.upper()}_ONLY", "-o", str(tmp), str(SOURCES[name])]
+            report = open(tmp.with_suffix(".log"), "w+")
+            proc = subprocess.Popen(cmd, stdout=report, stderr=subprocess.STDOUT, text=True)
+            jobs[key] = (cmd, tmp, proc, report)
+        while any(proc.poll() is None for _, _, proc, _ in jobs.values()):
+            for key, (_, _, proc, _) in jobs.items():
+                if proc.poll() is not None and key not in BUILD_SECONDS:
+                    BUILD_SECONDS[key] = time.perf_counter() - start
+            time.sleep(0.1)
         failures = []
-        for name, (cmd, tmp, proc) in jobs.items():
-            out, _ = proc.communicate()
+        for key, (cmd, tmp, proc, report) in jobs.items():
+            BUILD_SECONDS.setdefault(key, time.perf_counter() - start)
+            report.seek(0)
+            out = report.read()
+            report.close()
+            os.remove(report.name)
             if proc.returncode != 0:
                 failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}")
                 continue
-            libs[name].with_suffix(".ptxas.txt").write_text(out)
-            os.replace(tmp, libs[name])
+            libs[key].with_suffix(".ptxas.txt").write_text(out)
+            os.replace(tmp, libs[key])
         if failures:
             raise RuntimeError("\n".join(failures))
     return libs
 
 
+#: seconds from the start of the build to each compile's end, per library
+BUILD_SECONDS: dict = {}
 _libraries: dict = {}
 
 
-def load_library(name: str = "column_kernel") -> ctypes.CDLL:
-    """Build (if needed) and load one kernel library; cached per process."""
-    if name not in _libraries:
-        path = build_library()[name]
+def load_library(key: str) -> ctypes.CDLL:
+    """Build (if needed) and load library ``key``, ``<source>_<tag>``;
+    cached per process."""
+    if key not in _libraries:
+        name, tag = key.rsplit("_", 1)
+        path = build_library()[key]
         lib = ctypes.CDLL(str(path))
         size_fn = getattr(lib, f"{name}_args_size")
         size_fn.restype = ctypes.c_int
@@ -382,12 +412,11 @@ def load_library(name: str = "column_kernel") -> ctypes.CDLL:
                 f"KernelArgs is {size} bytes in {path.name} but "
                 f"{ctypes.sizeof(_KernelArgs)} in Python"
             )
-        for tag in ("f32", "f64"):
-            fn = getattr(lib, f"{_ENTRY_PREFIX[name]}_{tag}")
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.POINTER(_KernelArgs), ctypes.c_int, ctypes.c_void_p]
-        _libraries[name] = lib
-    return _libraries[name]
+        fn = getattr(lib, f"{_ENTRY_PREFIX[name]}_{tag}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(_KernelArgs), ctypes.c_int, ctypes.c_void_p]
+        _libraries[key] = lib
+    return _libraries[key]
 
 
 def _entry(mode: int, dtype) -> tuple:
@@ -461,8 +490,10 @@ def mode_name(mode: int, features: tuple = (True, True)) -> str:
     coefficients), ``B1-water`` / ``B1-heat`` for the water-only and
     heat-only branches; ``B4-trbdf2``, ``B4-be-richards`` and
     ``B4-be-soil`` for the implicit steppers, with ``-water`` / ``-heat``
-    for the branch, ``-pcr`` for PCR solves and ``+B5`` under a MOST top
-    (``B4-trbdf2-pcr+B5``); ``B5`` for a MOST top
+    for the branch, ``-no-ice``, ``-pcr`` for PCR solves, ``+B2`` for
+    lagged coefficients, ``+B3-rate`` / ``+B3-eq`` for freeze-thaw and
+    ``+B5`` under a MOST top (``B4-trbdf2-pcr+B2+B3-eq``,
+    ``B4-trbdf2-pcr+B5``); ``B5`` for a MOST top
     (``B2+B5`` lagged), ``B6`` for the LandModel with a MOST top, ``-step``
     with its exchange frozen per step, ``B2+`` lagged and ``-pond`` with a
     plain top BC (``B2+B6-step-pond``).  The ``MODE_COLUMNS`` instance adds
@@ -479,7 +510,10 @@ def mode_name(mode: int, features: tuple = (True, True)) -> str:
         return "B2+" + name if mode & MODE_LAGGED else name
     branch = {MODE_WATER: "-water", MODE_HEAT: "-heat"}.get(mode & (MODE_WATER | MODE_HEAT), "")
     if mode & MODE_IMPLICIT:
-        name = _STEPPER_NAMES[mode & MODE_IMPLICIT] + branch + ("-pcr" if mode & MODE_PCR else "")
+        name = _STEPPER_NAMES[mode & MODE_IMPLICIT] + branch + ("-no-ice" if mode & MODE_NO_ICE else "")
+        name += ("-pcr" if mode & MODE_PCR else "") + ("+B2" if mode & MODE_LAGGED else "")
+        name += {MODE_FREEZE_RATE: "+B3-rate", MODE_FREEZE_EQ: "+B3-eq"}.get(
+            mode & (MODE_FREEZE_RATE | MODE_FREEZE_EQ), "")
         return name + ("+B5" if mode & MODE_MOST else "")
     if mode & MODE_MOST:
         return "B2+B5" if mode & MODE_LAGGED else "B5"
@@ -500,10 +534,11 @@ def scratch_fields(mode: int) -> int:
     """Scratch values per cell.  SSPRK33: the two stage states, and with
     lagged coefficients K, kappa, 1/rho_c_s, rho_e_int_l K (and rho_c_s for
     the rate sources).  Implicit: the iterate and the stage constants (three
-    fields each), the sweep's F, K and C, and the solver's cp and dp
-    (Thomas) or two sets of (a, c, d, b) (PCR)."""
+    fields each), the sweep's F, K and C, the solver's cp and dp (Thomas)
+    or two sets of (a, c, d, b) (PCR), then the lagged coefficients."""
     if mode & MODE_IMPLICIT:
-        return 9 + (8 if mode & MODE_PCR else 2)
+        lagged = (5 if mode & MODE_FREEZE_RATE else 4) if mode & MODE_LAGGED else 0
+        return 9 + (8 if mode & MODE_PCR else 2) + lagged
     if not mode & MODE_LAGGED:
         return 6
     return 11 if mode & MODE_FREEZE_RATE else 10
@@ -841,11 +876,11 @@ def fused_column_run_plain(model, stepper: AbstractTimestepper, dt, steps_per_ca
     soil = _soil_of(model)
     dtype = soil.float_dtype
     device = Y[soil.name][prognostic_vars(soil)[0]].device
-    grid = geometry_grid(soil, geometry, dtype, device)
-    stepper = wrap_stepper_with_projection(_on_grid(_base_stepper(stepper), grid), soil)
-    Ya = {"zc": grid.zc, soil.name: {}}
     dt_t = torch.as_tensor(dt, dtype=dtype)
     if forcing is not None:
+        grid = geometry_grid(soil, geometry, dtype, device)
+        stepper = wrap_stepper_with_projection(_on_grid(_base_stepper(stepper), grid), soil)
+        Ya = {"zc": grid.zc, soil.name: {}}
         atmos, precip = _split_routing(model, tuple(forcing))
         rows = {k: torch.as_tensor(v, dtype=dtype, device=device) for k, v in forcing.items()}
         for i, t in enumerate(step_times(t0, dt, steps_per_call, dtype)):
@@ -854,15 +889,27 @@ def fused_column_run_plain(model, stepper: AbstractTimestepper, dt, steps_per_ca
             rhs, st = _row_local_step(stepper, m, grid)
             Y = st.step(rhs, Y, Ya, t, dt_t)
         return Y
-    if isinstance(model, LandModel):
-        rhs = make_land_rhs(model, grid)
-        stepper = wrap_stepper_for_land(stepper, model, grid)
-    else:
-        rhs = make_rhs(model, grid)
-        stepper = wrap_stepper_for_soil(stepper, model, grid)
+    step = plain_step(model, stepper, device, geometry)
     for t in step_times(t0, dt, steps_per_call, dtype):
-        Y = stepper.step(rhs, Y, Ya, t, dt_t)
+        Y = step(Y, t, dt_t)
     return Y
+
+
+def plain_step(model, stepper: AbstractTimestepper, device, geometry=None):
+    """``step(Y, t, dt) -> Y``: one step of :func:`fused_column_run_plain`
+    without forcing rows: the model's rhs on the run's grid (on ``device``,
+    or ``geometry``), ``stepper`` with the projection inside and lagged
+    coefficients or the LandModel's frozen exchange outside, and ``Ya =
+    {"zc": ..., soil: {}}``."""
+    soil = _soil_of(model)
+    grid = geometry_grid(soil, geometry, soil.float_dtype, device)
+    stepper = wrap_stepper_with_projection(_on_grid(_base_stepper(stepper), grid), soil)
+    if isinstance(model, LandModel):
+        stepper, rhs = wrap_stepper_for_land(stepper, model, grid), make_land_rhs(model, grid)
+    else:
+        stepper, rhs = wrap_stepper_for_soil(stepper, model, grid), make_rhs(model, grid)
+    Ya = {"zc": grid.zc, soil.name: {}}
+    return lambda Y, t, dt: stepper.step(rhs, Y, Ya, t, dt)
 
 
 class FusedColumnRun:
@@ -931,6 +978,12 @@ class FusedColumnRun:
         if device.type != "cuda":
             raise ValueError(f"unsupported device {device}")
         self._check_state(fields, self._pond(Y), device)
+        if torch.is_grad_enabled() and any(
+                f.requires_grad for f in fields + [self._pond(Y)] if f is not None):
+            raise ValueError(
+                "the state requires grad, but the kernel writes it in place where autograd cannot "
+                "see: build the run with differentiable=True (kernel B9), or run under torch.no_grad()"
+            )
         self._launch(fields, self._pond(Y), t0, device, rows, dt)
         return Y
 
@@ -1076,7 +1129,7 @@ class FusedColumnRun:
         dtype = self.soil.float_dtype
         args, keep = self.launch_args(fields, h_s, t0, device, rows, dt)
         lib_name, fn_name = _entry(self.mode, dtype)
-        lib = load_library(lib_name)
+        lib = load_library(f"{lib_name}_{'f32' if dtype == torch.float32 else 'f64'}")
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             rc = getattr(lib, fn_name)(
@@ -1324,29 +1377,39 @@ def _implied_policies(model, base):
     return wrap_stepper_for_soil(st, model)
 
 
+#: the step-policy bits of the mode word
+_POLICY_BITS = MODE_LAGGED | MODE_FREEZE_RATE | MODE_FREEZE_EQ | MODE_NO_ICE
+#: the policies the implicit kernel takes on the coupled plain soil (B4 with
+#: B2, B3-rate, B3-eq, no ice, B2+B3-rate and B2+B3-eq)
+_IMPLICIT_POLICIES = frozenset({
+    0, MODE_LAGGED, MODE_FREEZE_RATE, MODE_FREEZE_EQ, MODE_NO_ICE,
+    MODE_LAGGED | MODE_FREEZE_RATE, MODE_LAGGED | MODE_FREEZE_EQ,
+})
+
+
 def _check_stepper(model, stepper) -> None:
     """Refuse a stepper, or a combination with the model, that no kernel
     runs."""
     soil = _soil_of(model)
     base = _base_stepper(stepper)
     branch_only = not (_dynamic(soil, "energy") and _dynamic(soil, "hydrology"))
+    # the kernel's step policies come from the model: a policy wrapper the
+    # model does not call for would otherwise be dropped silently
+    implied = _implied_policies(model, base)
+    st = stepper
+    while isinstance(st, _POLICY_STEPPERS):
+        if not _chain_contains(implied, type(st)):
+            raise ValueError(
+                f"{type(st).__name__} in the stepper, but the model's "
+                "coefficient_update / freeze_thaw / surface_update do not call for it"
+            )
+        st = st.inner
     if type(base) is SSPRK33:
         if branch_only and (soil.coefficient_update == "step" or soil.assume_no_ice):
             raise NotImplementedError(
                 "lagged coefficients and assume_no_ice on the water-only and "
                 "heat-only branches are not ported to the kernel yet (ROADMAP B1)"
             )
-        # the kernel's step policies come from the model: a policy wrapper
-        # the model does not call for would otherwise be dropped silently
-        implied = _implied_policies(model, base)
-        st = stepper
-        while isinstance(st, _POLICY_STEPPERS):
-            if not _chain_contains(implied, type(st)):
-                raise ValueError(
-                    f"{type(st).__name__} in the stepper, but the model's "
-                    "coefficient_update / freeze_thaw / surface_update do not call for it"
-                )
-            st = st.inner
         return
     if type(base) not in _STEPPER_BITS:
         raise NotImplementedError(
@@ -1368,10 +1431,17 @@ def _check_stepper(model, stepper) -> None:
         raise TypeError("BackwardEulerRichards needs a dynamic hydrology model")
     if isinstance(base, BackwardEulerSoil) and branch_only:
         raise TypeError("BackwardEulerSoil needs dynamic hydrology and energy models")
-    if model.coefficient_update == "step" or model.freeze_thaw is not None or model.assume_no_ice:
+    policies = kernel_mode(model, base) & _POLICY_BITS
+    if policies and (branch_only or _most_top(model)):
         raise NotImplementedError(
-            "the implicit steppers with lagged coefficients, freeze-thaw or "
-            "assume_no_ice are not ported to the kernel yet (ROADMAP B4)"
+            "the implicit steppers with lagged coefficients, freeze-thaw or assume_no_ice under a MOST "
+            "top or on the water-only and heat-only branches are not ported to the kernel yet (ROADMAP B4)"
+        )
+    if policies not in _IMPLICIT_POLICIES:
+        raise NotImplementedError(
+            f"the implicit kernel mode {mode_name(kernel_mode(model, base))} is not ported yet (ROADMAP B4): "
+            "the kernel takes lagged coefficients alone or "
+            "with either freeze-thaw scheme, and either scheme or assume_no_ice alone"
         )
     if not _dynamic(model, "energy") and isinstance(
         model.hydrology_model.viscosity_factor, TemperatureDependentViscosity
@@ -1420,8 +1490,18 @@ def make_fused_column_run(
     table of ``n_rows`` and each step reads the row of its start time ``t``,
     ``clip(trunc((t - t_start) * (1 / dt_forcing)), 0, n_rows - 1)``.  The
     rows stay where they are (no copy per launch on the card); the fields
-    not streamed keep their stage tables."""
+    not streamed keep their stage tables.
+
+    ``differentiable=True`` returns a :class:`DifferentiableFusedRun`
+    (kernel mode B9) of the plain soil column: ``run(Y, t0, dt_run=None)``
+    returns a new state that ``torch.autograd`` differentiates in ``Y``,
+    ``t0`` and ``dt_run``; a LandModel, ``forcing_fields`` and
+    ``streamed_geometry`` raise ``NotImplementedError``, as in JAX."""
     forcing_fields = tuple(forcing_fields)
+    if differentiable:
+        from landhydrology_tpu_torch.ops.cuda.differentiable import check_scope
+
+        check_scope(model, forcing_fields, streamed_geometry)
     rain_forced = False
     if forcing_fields:
         rain_forced = _split_routing(model, forcing_fields)[1]
@@ -1439,18 +1519,19 @@ def make_fused_column_run(
     _check_per_column(model, stepper, streamed_geometry, forcing_fields)
     if streamed_geometry is not None:
         streamed_geometry = _check_geometry(model, streamed_geometry)
-    if differentiable:
-        raise NotImplementedError(
-            "differentiable=True (kernel B9) is not ported yet: ROADMAP A17"
-        )
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1; got {steps_per_call}")
     if tile_cols < 32 or tile_cols > 1024 or tile_cols % 32:
         raise ValueError(
             f"tile_cols must be a multiple of 32 in [32, 1024]; got {tile_cols}"
         )
-    return FusedColumnRun(model, stepper, dt, steps_per_call, tile_cols, forcing_fields, forcing_time_grid,
-                          streamed_geometry)
+    run = FusedColumnRun(model, stepper, dt, steps_per_call, tile_cols, forcing_fields, forcing_time_grid,
+                         streamed_geometry)
+    if differentiable:
+        from landhydrology_tpu_torch.ops.cuda.differentiable import DifferentiableFusedRun
+
+        return DifferentiableFusedRun(run)
+    return run
 
 
 def _check_geometry(model, geometry) -> tuple:

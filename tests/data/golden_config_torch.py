@@ -639,3 +639,168 @@ def build_adaptive_test(name, dtype, device="cuda"):
     if p["build"] == "forced":
         kwargs.update(forcing=pulse_tables(p["n_rows"], p["seed"]), forcing_dt=p["forcing_dt"])
     return model, Y, Ya, stepper, kwargs
+
+
+#: the gradient golden (``make_golden_grad.py``, ``golden_grad_f64.npz``):
+#: the loss ``mean((vartheta_l - GRAD_TARGET)^2) + mean(((rho_e_int -
+#: rho_e_int0) / GRAD_SCALE)^2)`` (the second term where the state has
+#: rho_e_int; ``rho_e_int0`` the start state's, a constant) of one launch of
+#: ``make_fused_column_run(..., differentiable=True)`` from each case's state
+#: at ``t0``, and its gradients in the start state, ``t0`` and ``dt_run``
+GRAD_TARGET = 0.25
+GRAD_SCALE = 1e5
+GRAD_CASES = {
+    # test_differentiability.py:115's column: nz=8 x 16, water only
+    "column": dict(build="column", stepper="SSPRK33", steps=6, dt=20.0, t0=0.0),
+    # golden #1, nz=24 x 8
+    "golden1": dict(build="golden1", stepper="SSPRK33", steps=6, dt=10.0, t0=0.0),
+    # the freeze golden, nz=16 x 4, under TRBDF2Soil(iters=2)
+    "freeze_rate": dict(build="freeze", stepper="TRBDF2Soil", freeze="rate", lagged=False, steps=4, dt=60.0,
+                        t0=0.0),
+    "freeze_eq_lagged": dict(build="freeze", stepper="TRBDF2Soil", freeze="eq", lagged=True, steps=4, dt=60.0,
+                             t0=0.0),
+}
+GRAD_FIELDS = ("vartheta_l", "theta_i", "rho_e_int")
+
+
+def build_grad_column(dtype, device="cuda"):
+    """``(model, Y)`` of ``test_differentiability.py:115``: a water-only
+    column of nz=8 x 16 under a flux top and free drainage."""
+    import torch
+
+    from landhydrology_tpu_torch import (
+        Column, FreeDrainage, PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC,
+        SoilHydrologyModel, SoilModel, SoilParams, VerticalFlux, initialize_states,
+    )
+    from landhydrology_tpu_torch.models.soil import vanGenuchten
+
+    model = SoilModel(
+        domain=Column(zlim=(-1.0, 0.0), nelements=8, batch_shape=(16,)),
+        energy_model=PrescribedTemperatureModel(),
+        hydrology_model=SoilHydrologyModel(
+            hydraulic_model=vanGenuchten(n=2.0, alpha=2.6, Ksat=1e-6, theta_r=0.05)),
+        boundary_conditions=SoilColumnBC(
+            top=SoilComponentBC(hydrology=VerticalFlux(-1e-7)),
+            bottom=SoilComponentBC(hydrology=FreeDrainage())),
+        soil_param_set=SoilParams(nu=0.4, S_s=1e-3),
+        dtype=dtype, device=device,
+    )
+    Y, _ = initialize_states(model, lambda z, m: {
+        "vartheta_l": 0.2 + 0.03 * torch.sin(3.0 * z) + 0 * z, "theta_i": torch.zeros_like(z)}, 0.0)
+    return model, Y
+
+
+def build_grad_case(name, dtype, device="cuda"):
+    """``(model, Y, stepper, case)`` of gradient case ``name``
+    (:data:`GRAD_CASES`), without JAX."""
+    import dataclasses
+
+    from landhydrology_tpu_torch.domains import make_function_space
+    from landhydrology_tpu_torch.imex import TRBDF2Soil
+    from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw, FreezeThaw
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    case = GRAD_CASES[name]
+    if case["build"] == "column":
+        model, Y = build_grad_column(dtype, device)
+    elif case["build"] == "golden1":
+        model, Y, _, _ = build_model_and_state(dtype, device)
+    else:
+        freeze = FreezeThaw(tau=60.0) if case["freeze"] == "rate" else EquilibriumFreezeThaw()
+        model, Y, _, _ = build_freeze_model_and_state(dtype, device, freeze_thaw=freeze)
+        model = dataclasses.replace(model, coefficient_update="step" if case["lagged"] else "stage")
+    if case["stepper"] == "SSPRK33":
+        stepper = SSPRK33()
+    else:
+        stepper = TRBDF2Soil(model=model, grid=make_function_space(model.domain, dtype, device), iters=2)
+    return model, Y, stepper, case
+
+
+def grad_loss(fields, start):
+    """The gradient golden's loss of the final ``fields`` (a dict of the
+    soil's tensors or arrays, torch or JAX) from the start fields
+    ``start``."""
+    v = fields["vartheta_l"]
+    loss = ((v - GRAD_TARGET) ** 2).mean()
+    if "rho_e_int" in fields:
+        loss = loss + (((fields["rho_e_int"] - start["rho_e_int"]) / GRAD_SCALE) ** 2).mean()
+    return loss
+
+
+def sweep_weights(Y, seed=5):
+    """The gradient sweep's loss weights (``make_golden_grad.py``): for each
+    field of the nested state ``Y`` of numpy arrays, standard normal draws
+    of its shape over its largest magnitude (1 for an all-zero field), drawn
+    in the sorted order of the groups and fields (a JAX pytree's order)."""
+    rng = np.random.default_rng(seed)
+    W = {}
+    for g in sorted(Y):
+        W[g] = {}
+        for k in sorted(Y[g]):
+            v = np.asarray(Y[g][k])
+            W[g][k] = rng.standard_normal(v.shape) / (float(np.max(np.abs(v))) or 1.0)
+    return W
+
+
+#: the MOST top face's gradient golden (``make_golden_grad.py``, keys
+#: ``most__<case>__``): the land golden's soil alone (MOST top, its columns
+#: in one row) under a stepper, or its LandModel without the kinematic-wave routing (whose
+#: Manning flux sqrt(|slope|) has no derivative at the golden's level
+#: pond), ``steps`` steps of ``dt`` from t0 = 0; the loss is the sweep's
+#: weighted sum of the final state (``sweep_weights``)
+MOST_CASES = {
+    "most_soil": dict(model="soil", stepper="SSPRK33", lagged=False, steps=4, dt=LAND_DT),
+    "most_lagged": dict(model="soil", stepper="SSPRK33", lagged=True, steps=4, dt=LAND_DT),
+    "most_trbdf2": dict(model="soil", stepper="TRBDF2Soil", lagged=False, steps=2, dt=60.0),
+    "land": dict(model="land", stepper="SSPRK33", lagged=False, steps=4, dt=LAND_DT),
+}
+#: the golden's directional differences: directions per field of standard
+#: normal draws times the field's largest magnitude (theta_i held: at
+#: theta_i = 0 the closures switch branches), steps of MOST_FD_STEP along
+#: them, and MOST_FD_DT_STEP of dt along dt (the loss moves little with
+#: dt, so a smaller step would difference its rounding)
+MOST_FD_DIRS, MOST_FD_STEP, MOST_FD_DT_STEP = 3, 1e-5, 1e-2
+
+
+def build_most_case(name, dtype, device="cuda"):
+    """``(model, Y, Ya, stepper, case)`` of MOST case ``name``
+    (:data:`MOST_CASES`), without JAX: the land golden's soil alone, its
+    4 x 4 columns in one row of 16 (the fused kernel's batch; without the
+    routing the columns do not meet), or its LandModel without routing."""
+    import dataclasses
+
+    from landhydrology_tpu_torch.domains import make_function_space
+    from landhydrology_tpu_torch.imex import TRBDF2Soil
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    from landhydrology_tpu_torch import Column, initialize_states
+
+    case = MOST_CASES[name]
+    land, Y, Ya, _ = build_land_model_and_state(dtype, device)
+    if case["model"] == "land":
+        model = dataclasses.replace(land, surface=dataclasses.replace(land.surface, runoff=None))
+        return model, Y, Ya, SSPRK33(), case
+    model = dataclasses.replace(
+        land.soil, domain=Column(zlim=(-1.5, 0.0), nelements=LAND_NZ, batch_shape=(LAND_NX * LAND_NY,)),
+        coefficient_update="step" if case["lagged"] else "stage")
+    Y, Ya = initialize_states(model, lambda z, m: {k: v.reshape(LAND_NZ, -1) for k, v in Y["soil"].items()}, 0.0)
+    if case["stepper"] == "SSPRK33":
+        stepper = SSPRK33()
+    else:
+        stepper = TRBDF2Soil(model=model, grid=make_function_space(model.domain, dtype, device), iters=2)
+    return model, Y, Ya, stepper, case
+
+
+def most_fd_directions(golden, name):
+    """The stored directions of MOST case ``name``: a list of nested dicts
+    of numpy arrays."""
+    prefix = f"most__{name}__dir"
+    out = []
+    for i in range(MOST_FD_DIRS):
+        d = {}
+        for key in golden.files:
+            if key.startswith(f"{prefix}{i}_"):
+                g, k = key[len(f"{prefix}{i}_"):].split("__")
+                d.setdefault(g, {})[k] = golden[key]
+        out.append(d)
+    return out

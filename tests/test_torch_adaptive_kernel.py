@@ -200,8 +200,15 @@ def test_dt_run_is_rounded_to_the_model_dtype():
     assert run.step_size(0.1) == float(np.float32(0.1)) != 0.1
     assert run.step_size(torch.tensor(0.1, dtype=F64)) == float(np.float32(0.1))
     assert run.step_size() == 1.0
-    with pytest.raises(NotImplementedError, match="A17"):
-        ck.make_fused_column_run(model, differentiable=True)
+    # the differentiable run (B9) casts dt_run the same way: its launch at
+    # dt_run = 0.1 is the plain run's, bit for bit
+    Y = gct.build_model_and_state(torch.float32, "cpu")[1]
+    b9 = ck.make_fused_column_run(model, dt=1.0, steps_per_call=2, differentiable=True)
+    plain = ck.make_fused_column_run(model, dt=1.0, steps_per_call=2)
+    got = b9(Y, 0.0, dt_run=torch.tensor(0.1, dtype=F64))["soil"]
+    ref = plain({"soil": {k: v.clone() for k, v in Y["soil"].items()}}, 0.0, dt_run=0.1)["soil"]
+    for k, v in ref.items():
+        assert torch.equal(got[k], v), k
 
 
 def _b4_b5_case(stepper_cls, rows, time_indexed):

@@ -763,3 +763,108 @@ def test_adaptive_path_checks_the_first_iteration_and_the_fine_run(plain_card, m
     with pytest.raises(AssertionError):
         cs.adaptive_path(ck, "smi", "adaptive bench", model, Y0, Ya, PortSSPRK33(), 8, 600.0, 1.0, config,
                          ("vartheta_l", "rho_e_int"))
+
+
+def test_implicit_bound_counts_the_step_policies():
+    """The B4 + policy bounds: lagged coefficients add one coefficient pass
+    per step and the heat sweeps' live kappa, and drop the closures of the
+    rhs that are not water sweeps; rate freeze-thaw adds the sources of
+    every rhs evaluation and of theta_i's fixed points (2 pow each);
+    the equilibrium projection adds its bisection once per step."""
+    iters = 2
+    for stepper, evaluations, fixed in ((ck.MODE_TRBDF2, 1 + 4 * iters, 2 * iters),
+                                        (ck.MODE_BE_SOIL, 2 * iters, 1), (ck.MODE_BE_RICHARDS, iters + 1, 0)):
+        base = cs.cell_step_ops(ck, stepper)
+        rate = cs.cell_step_ops(ck, stepper | ck.MODE_FREEZE_RATE)
+        assert rate["pow"] - base["pow"] == 2 * (evaluations + fixed)
+        eq = cs.cell_step_ops(ck, stepper | ck.MODE_FREEZE_EQ, n_iter=60)
+        assert eq["pow"] - base["pow"] == 2 * 60 + 4
+        lagged = cs.cell_step_ops(ck, stepper | ck.MODE_LAGGED)
+        heat_sweeps = {ck.MODE_TRBDF2: 2 * iters, ck.MODE_BE_SOIL: iters, ck.MODE_BE_RICHARDS: 0}[stepper]
+        water_sweeps = 2 * iters if stepper == ck.MODE_TRBDF2 else iters
+        coupled_rhs = evaluations - water_sweeps
+        closures_exp = 5
+        assert lagged["exp"] - base["exp"] == (closures_exp + cs._THERMAL["exp"] * heat_sweeps
+                                               - closures_exp * coupled_rhs)
+    no_ice = cs.cell_step_ops(ck, ck.MODE_TRBDF2 | ck.MODE_NO_ICE)
+    assert no_ice["exp"] < cs.cell_step_ops(ck, ck.MODE_TRBDF2)["exp"]
+
+
+def test_b9_modes_cover_every_plain_soil_mode(monkeypatch):
+    """Phase 14b launches every plain-soil mode of the kernel table as a B9
+    forward: the SSPRK33 modes, each implicit stepper alone and with each
+    step policy (TR-BDF2 with PCR too), the water-only and heat-only
+    branches, the per-column kinds and depths, and a MOST top under
+    SSPRK33, lagged and TR-BDF2 (B5, B2+B5, B4-trbdf2+B5); its policy paths time
+    each new instance beside its stepper without a policy."""
+    monkeypatch.setattr(cs, "GRAD_NCOL", 8)
+    gc = cs._load_golden_config()
+    names = [ck.make_fused_column_run(m, st, differentiable=True).name
+             for m, _, st, _ in cs.b9_modes(gc, torch.float64, "cpu")]
+    policies = ("", "+B2", "+B3-rate", "+B3-eq", "-no-ice", "+B2+B3-rate", "+B2+B3-eq")
+    expected = {"B1", "B1-no-ice", "B2", "B2-no-ice", "B3-rate", "B3-eq", "B2+B3-rate", "B2+B3-eq",
+                "B1-water", "B1-heat", "B4-trbdf2-water", "B4-trbdf2-heat", "B4-be-richards-water",
+                "B4-trbdf2-pcr", "B4-trbdf2-pcr+B2+B3-eq", "B1+kinds+B8", "B4-trbdf2+kinds+B8",
+                "B5", "B2+B5", "B4-trbdf2+B5"}
+    expected |= {f"B4-{s}{p}" for s in ("trbdf2", "be-soil", "be-richards") for p in policies}
+    assert len(names) == len(set(names)) and set(names) == {f"B9:{n}" for n in expected}
+
+
+def test_b9_forward_check_passes_the_plain_version_and_fails_a_zero_gradient(plain_card, monkeypatch):
+    """``b9_forward`` on the CPU (the plain version standing in for the
+    kernel): it passes, and it fails a backward that returns zeros for the
+    state."""
+    from landhydrology_tpu_torch.ops.cuda import differentiable
+
+    gc = cs._load_golden_config()
+    model, Y, _, _ = gc.build_model_and_state(torch.float64, "cpu")
+    name, dev = cs.b9_forward(ck, gc, model, Y, SSPRK33(), 10.0, 2)
+    assert name == "B9:B1" and dev <= 1e-12
+    real = differentiable.DifferentiableFusedRun.vjp
+
+    def zeros(self, fields, t0, dt, grads, need_t0=True, need_dt=True):
+        g_t0, g_dt, g = real(self, fields, t0, dt, grads, need_t0, need_dt)
+        return g_t0, g_dt, [torch.zeros_like(x) for x in g]
+
+    monkeypatch.setattr(differentiable.DifferentiableFusedRun, "vjp", zeros)
+    with pytest.raises(AssertionError, match="deviates"):
+        cs.b9_forward(ck, gc, model, Y, SSPRK33(), 10.0, 2)
+
+
+def test_time_policy_checks_and_times_a_policy_path(plain_card):
+    """``time_policy`` (14b) on the CPU, the plain version standing in for
+    the kernel: one launch counted, the check passes against the timed
+    plain run's state, and the record has every key of the kernels line
+    with two plain samples averaged; a kernel that leaves the state as it
+    was fails the check."""
+    gc = cs._load_golden_config()
+    model, Y, _, _ = gc.build_freeze_model_and_state(torch.float64, "cpu")
+    model = cs._policy(dataclasses.replace(model, freeze_thaw=None), cs.B4_POLICIES[4])
+    st = cs.implicit("TRBDF2Soil", model, 2)
+    costs = {torch.float64: {"exp": 10, "log": 10, "sqrt": 2, "div": 5, "pow": 20}}
+    entry, err, shares = cs.time_policy(ck, costs, "smi", model, Y, st, "policy")
+    assert entry["name"].endswith("B4-trbdf2+B2+B3-rate>") and entry["launches"] == 1
+    assert entry["ms"] == 1.0 and entry["plain_ms"] == 1.0 and err == 0.0 and set(shares) == {"vartheta_l",
+                                                                                               "rho_e_int"}
+    assert set(entry) == {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+                          "bound_ms", "bound_by", "library_ms"}
+
+    def idle(self, Y, t0, forcing=None, dt_run=None):
+        ck.LAUNCHES[self.name] += 1
+        return Y
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ck.FusedColumnRun, "__call__", idle)
+        with pytest.raises(AssertionError):
+            cs.time_policy(ck, costs, "smi", model, Y, st, "policy")
+
+
+def test_grad_small_passes_on_the_plain_version(plain_card, capsys):
+    """14a on the CPU, the plain version standing in for the kernel: the
+    gradient golden, the MOST soils against the JAX package's forward
+    differenced, and the JAX fused test's column all pass, one launch
+    counted each."""
+    cs.grad_small(ck, cs._load_golden_config(), "cpu")
+    out = capsys.readouterr().out
+    assert out.count("[14a grad golden]") == len(cs._load_golden_config().GRAD_CASES) + 3 + 1
+    assert "B9:B4-trbdf2+B5 most_trbdf2" in out

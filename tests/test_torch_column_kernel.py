@@ -213,13 +213,18 @@ def test_unported_modes_raise(mode):
     elif mode == "B3_freeze_thaw":  # ported: an unknown scheme is refused
         with pytest.raises(TypeError, match="FreezeThaw"):
             dataclasses.replace(model, freeze_thaw=object())
-    elif mode == "B4_stepper":  # ported: not with the step policies or assume_no_ice
+    elif mode == "B4_stepper":  # ported, with the step policies and assume_no_ice on the coupled soil
         grid = make_function_space(model.domain, torch.float64, "cpu")
-        for kw in ({"coefficient_update": "step"}, {"freeze_thaw": FreezeThaw(tau=60.0)},
-                   {"freeze_thaw": EquilibriumFreezeThaw()}, {"assume_no_ice": True}):
+        for kw, name in (({"coefficient_update": "step"}, "B4-trbdf2+B2"),
+                         ({"freeze_thaw": FreezeThaw(tau=60.0)}, "B4-trbdf2+B3-rate"),
+                         ({"freeze_thaw": EquilibriumFreezeThaw()}, "B4-trbdf2+B3-eq"),
+                         ({"assume_no_ice": True}, "B4-trbdf2-no-ice")):
             m = dataclasses.replace(model, **kw)
-            with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-                ck.make_fused_column_run(m, TRBDF2Soil(model=m, grid=grid))
+            assert ck.make_fused_column_run(m, TRBDF2Soil(model=m, grid=grid)).name == name
+        # still refused: lagged coefficients with assume_no_ice (ROADMAP B4)
+        m = dataclasses.replace(model, coefficient_update="step", assume_no_ice=True)
+        with pytest.raises(NotImplementedError, match="ROADMAP B4"):
+            ck.make_fused_column_run(m, TRBDF2Soil(model=m, grid=grid))
     elif mode in ("B5_most", "B6_land"):  # ported: not with freeze-thaw or assume_no_ice
         from landhydrology_tpu_torch.models.land import LandModel
 
@@ -276,9 +281,12 @@ def test_unported_modes_raise(mode):
             ck.make_fused_column_run(model, streamed_geometry=(geometry[0][:4], geometry[1]))
         with pytest.raises(TypeError, match="pair of tensors"):
             ck.make_fused_column_run(model, streamed_geometry=(None, None))
-    else:
-        with pytest.raises(NotImplementedError, match="A17"):
-            ck.make_fused_column_run(model, differentiable=True)
+    else:  # ported (B9): the plain soil column; a LandModel stays refused, as in JAX
+        from landhydrology_tpu_torch.models.land import LandModel
+
+        assert ck.make_fused_column_run(model, differentiable=True).name == "B9:B1"
+        with pytest.raises(NotImplementedError, match="differentiable"):
+            ck.make_fused_column_run(LandModel(soil=model), differentiable=True)
 
 
 def _branch_models(model):
