@@ -8,8 +8,9 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles ``landhydrology_tpu_torch/csrc/column_kernel.cu``,
-   ``csrc/implicit_kernel.cu`` and ``csrc/land_kernel.cu`` with nvcc, one
-   process each, in parallel;
+   ``csrc/implicit_kernel.cu``, ``csrc/land_kernel.cu`` and
+   ``csrc/rk_kernel.cu`` with nvcc, one process per source and float type,
+   in parallel;
    prints the registers of every template instance; reads the instruction
    cost of exp, log, sqrt and a division from ``cuobjdump -sass`` of small
    kernels (``op_costs``), for the bounds;
@@ -56,8 +57,8 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    per-column atmosphere fields over both Businger branches in B5, B2+B5,
    B6, B6-step, B2+B6-step and the four B6 names with ``-pond``, f64 and
    f32; the eager engine against ``golden_land_f64.npz`` (routing included)
-   at rtol 1e-12; then ``bench.py::build_land`` at nz=64 x 65,536, 96 steps
-   of dt=1 in 3 launches, f32 and f64, in the reference setting (B6), the
+   at rtol 1e-12; then ``bench.py::build_land`` at nz=64 x 65,536, 32 steps
+   of dt=1 in one launch, f32 and f64, in the reference setting (B6), the
    production setting (B2+B6-step), B6-step, B2+B6, B6-pond, and its soil
    alone in B5 and B2+B5, and its plain top under the pond in B6-pond,
    B6-step-pond, B2+B6-pond and B2+B6-step-pond, driven and checked as in
@@ -76,7 +77,7 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    through ``run_forced`` (windows of 240, 24 steps per launch, pinned
    staging), f32 and f64, with and without overlap: (a) equal bit for bit
    to the in-memory fused segment, (b) every 128th column equal to the
-   plain version on those columns' rows over the first two launches, (c)
+   plain version on those columns' rows over the first launch, (c)
    the water budget within 1% of the largest column's rain, (d) prefetch
    hits and the native reader; prints grid-points/s end to end with the
    IO, kernel ms per launch, the host's ms per window (reader, pinned
@@ -108,7 +109,9 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    and the plain version must diverge in the same columns), with the
    script's summary on the other columns (vartheta_l within [0, nu],
    Dirichlet columns wetter, the water-mass change) and grid-points/s,
-   kernel ms per launch and the bound; and the lateral surface coupling on the eager engine
+   kernel ms per launch and the bound; one timed launch of each other
+   kinds / B8 instance at nz=48 x 32,768 (the implicit ones at dt 30 s,
+   every column finite); and the lateral surface coupling on the eager engine
    (``tests/parallel/test_sharding.py``'s 8 x 8 batch): water conserved to
    1e-12, the surface bump flattening;
 13. adaptive stepping (``landhydrology_tpu_torch/adaptive.py``, kernel
@@ -166,16 +169,43 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    and the backward's ms, the backward's peak memory, each field's
    gradient norm and, in f64, one directional central difference (rtol
    1e-4);
+15. the run-file CLI (ROADMAP A16) and the explicit steppers of
+   ``csrc/rk_kernel.cu`` (ForwardEuler, SSPRK22, SSPRK104; ROADMAP B1): (a)
+   every new (stepper, mode) instance on 1,000 columns, 2 steps, f64 and
+   f32, against the plain version (``_check`` or the freeze bars, and
+   ``_check_increment``) and as a B9 forward equal bit for bit to its
+   launch; the no-ice ones also on an icy state (``rk_icy``; B1-no-ice's
+   miss printed beside them, ROADMAP C); then each timed at nz=64 x 65,536,
+   4 steps per launch, on the column its SSPRK33 mode runs at width; (b) ``bench.py::build``'s model at
+   nz=64 x 65,536 with Ksat drawn per column from ``--seed``, written by
+   ``config.to_config`` into a run file (hydrostatic state, SSPRK104,
+   ``"engine": "pallas"``, f64) and run by ``python -m
+   landhydrology_tpu_torch run`` in subprocesses: 96 steps in 3 launches with
+   a save per launch and a checkpoint, a resumed run for one more launch
+   equal bit for bit to a straight 128-step run, whose every 64th column is
+   held against the plain version; the CLI's launch counts and host time,
+   and one 32-step launch of each explicit stepper at that width, f32 and
+   f64 (kernel ms against the plain version, and against the predictions
+   in PERF.md); (c) each stepper's temporal order in f64 through its
+   kernel under a time-varying flux top (slopes within 0.35 of 1, 2, 3, 4);
 6. times of every mode's kernel and plain version at its phase-4/5/8/9/10/12/14
-   shape (CUDA events, in turns), beside the least time the card could take
-   (with the MOST solve's probes counted from the plain version's solves on
-   the same inputs), and the scratch traffic per cell and step of the
-   implicit kernel.
+   shape (CUDA events: the kernel x5 twice, then the plain version once,
+   warm),
+   beside the least time the card could take (with the MOST solve's probes
+   counted from the plain version's solves on the same inputs, under a
+   counting shim that is not timed), and the scratch traffic per cell and
+   step of the implicit kernel.  Phase 12 also times one launch of each of
+   its ``MODE_COLUMNS`` variants but B1 at nz=48 x 32,768 (the plain version
+   not timed), and phases 11 and 13 time their plain versions once.
 
 ``--forced-only`` runs phases 1, 2 and 11 alone (a quick check of kernel
 B7), ``--grid-only`` phases 1, 2 and 12 with phase 6's times of phase 12's
 paths, ``--adaptive-only`` phases 1, 2 and 13, ``--grad-only`` phases 1, 2
-and 14 (14b times its policy paths).  With ``--profile`` a seventh phase follows for B1 and B2 at the phase-4
+and 14 (14b times its policy paths), ``--cli-only`` phases 1, 2 and 15
+(``--seed`` seeds 15b's Ksat).  ``--compare-with PARENT`` builds this tree
+and the tree at PARENT (an unpacked ``git archive`` of another commit) in
+turns in subprocesses and holds the other tree's instances to their
+registers and B1's kernel time to within 2% of the other's.  With ``--profile`` a seventh phase follows for B1 and B2 at the phase-4
 shape: six timings each of the kernel and the plain version in turns, a
 ``tile_cols`` sweep, the SM clock and power draw under load, and
 ``Simulation.run`` end to end, unprofiled and under ``torch.profiler``
@@ -333,6 +363,19 @@ def build_variant_model(ncol, dtype, device, seed):
         "rho_e_int": volumetric_internal_energy(theta_i, rho_c_s, T, ps),
     }}
     return model, Y
+
+
+def icy_state(model, Y):
+    """``Y`` with theta_i 0.05 and vartheta_l = nu - 0.02 in the lower half
+    of the column (rho_e_int as it was): vartheta_l > nu - theta_i there,
+    where the cap of theta_l under ``assume_no_ice`` at nu and the rhs's
+    cap at nu - theta_i part (ROADMAP C)."""
+    soil = {k: v.clone() for k, v in Y["soil"].items()}
+    lower = slice(0, soil["vartheta_l"].shape[0] // 2)
+    nu = torch.as_tensor(model.soil_param_set.nu, dtype=soil["vartheta_l"].dtype, device=soil["vartheta_l"].device)
+    soil["theta_i"][lower] = 0.05
+    soil["vartheta_l"][lower] = (nu - 0.02).expand_as(soil["vartheta_l"][lower])
+    return {"soil": soil}
 
 
 def branch_variants(dtype, device, ncol=1000):
@@ -728,9 +771,11 @@ def registers(ck, libs):
     for lib in libs.values():
         name = None
         for line in lib.with_suffix(".ptxas.txt").read_text().splitlines():
-            m = re.search(r"Compiling entry function '\w*?(ssprk33|implicit|land)_column_kernelI([fd])Li(\d+)E", line)
+            m = re.search(r"Compiling entry function '\w*?(ssprk33|implicit|land|rk)_column_kernelI([fd])Li(\d+)E", line)
             if m:
-                name = f"{'f32' if m.group(2) == 'f' else 'f64'}, {ck.mode_name(int(m.group(3)))}"
+                # the rk instances run every explicit stepper: named by the mode alone, after "rk:"
+                name = (f"{'f32' if m.group(2) == 'f' else 'f64'}, {'rk:' if m.group(1) == 'rk' else ''}"
+                        f"{ck.mode_name(int(m.group(3)) & ~ck.MODE_RHS_CAP)}")
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
                 out[name], name = int(m.group(1)), None
@@ -763,7 +808,13 @@ def cell_step_ops(ck, mode, n_iter=60, iters=2, nz=NZ):
     per step, the other rhs evaluations without their closures and the heat
     sweeps' live kappa; rate freeze-thaw the sources of every rhs
     evaluation and of theta_i's fixed points; the equilibrium projection
-    its bisection once per step."""
+    its bisection once per step.  The explicit modes count one rhs sweep per
+    stage of their stepper (ForwardEuler 1, SSPRK22 2, SSPRK33 3, SSPRK104
+    10) and their stage combinations per field (SSPRK33 2 per stage as
+    before; ForwardEuler 1, SSPRK22 4, SSPRK104 16 per step: an axpy 1, a
+    combination 3, SSPRK104's split 4 and last stage 3); lagged coefficients
+    on a branch, K (water-only) or the thermal closures (heat-only) once per
+    step and psi or T per stage."""
     no_ice = bool(mode & ck.MODE_NO_ICE)
     water = not mode & ck.MODE_HEAT
     heat = not mode & ck.MODE_WATER
@@ -794,17 +845,30 @@ def cell_step_ops(ck, mode, n_iter=60, iters=2, nz=NZ):
     fields = (2 if water else 0) + (1 if heat else 0)
     implicit = mode & ck.MODE_IMPLICIT
     if not implicit:
-        if mode & ck.MODE_LAGGED:  # coefficients once, then psi and T per stage
+        stages = {ck.MODE_EULER: 1, ck.MODE_SSPRK22: 2, ck.MODE_SSPRK104: 10}.get(mode & ck.MODE_RK, 3)
+        combine = {ck.MODE_EULER: 1, ck.MODE_SSPRK22: 4, ck.MODE_SSPRK104: 16}.get(mode & ck.MODE_RK, 6)
+        if mode & ck.MODE_LAGGED and water and not heat:  # K once, psi per stage
+            add(1, **_HYDRAULIC)
+            add(stages, **_PSI)
+            add(stages, op=3 + 8, div=2)
+            add(1, op=combine * fields)
+        elif mode & ck.MODE_LAGGED and heat and not water:  # the thermal closures once, T per stage
+            add(1, **_THERMAL)
+            add(1, div=1)  # 1 / rho_c_s
+            add(stages, op=4 + 7, div=2)
+            add(1, op=combine * fields)
+        elif mode & ck.MODE_LAGGED:  # coefficients once, then psi and T per stage
             add(1, **closures)
             add(1, op=5, div=1)  # nu_eff, theta_l, 1/rho_c_s, rho_e_int_l K
-            add(3, **_PSI)
-            add(3, op=21, div=4)  # interior face fluxes and the stage update
-            add(3, op=4 if no_ice else 7)  # nu_eff, theta_l, T, h
+            add(stages, **_PSI)
+            add(stages, op=21, div=4)  # interior face fluxes and the stage update
+            add(stages, op=4 if no_ice else 7)  # nu_eff, theta_l, T, h
+            add(1, op=(combine - 2 * stages) * fields)  # beyond the update counted with the fluxes
         else:
-            rhs(3)
-            add(3, op=2 * fields)  # the stage combination
+            rhs(stages)
+            add(1, op=combine * fields)  # the stage combinations
         if mode & ck.MODE_FREEZE_RATE:  # phase_change_sources per stage
-            add(3, op=26, div=5, pow=2)
+            add(stages, op=26, div=5, pow=2)
         if mode & ck.MODE_FREEZE_EQ:  # bisection, first residual, last partition
             add(1, op=28 * n_iter + 41, div=n_iter + 2, pow=2 * n_iter + 4)
         return ops
@@ -1110,8 +1174,12 @@ def _clone(Y):
     return {group: {k: v.clone() for k, v in fields.items()} for group, fields in Y.items()}
 
 
+#: the script's start on the host clock (``main`` sets it), for ``_mark`` inside phases
+T_START = time.perf_counter()
+
+
 def _mark(t_start, what):
-    """One line with the script's time so far, at the end of a phase."""
+    """One line with the script's time so far, at the end of a phase or a part of one."""
     print(f"[clock] {what} done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
 
@@ -1240,8 +1308,12 @@ def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving, stepper=None):
             if tuple(v.shape) != (saves, *Y0[group][k].shape) or not bool(torch.isfinite(v).all()):
                 raise AssertionError(f"{what}: saved {k} has shape {tuple(v.shape)} or non-finite values")
     Yp, t = Y0, torch.as_tensor(0.0, dtype=dtype)
-    for _ in range(n_steps // spc):
-        Yp = ck.fused_column_run_plain(model, stepper, dt, spc, Yp, t)
+    for i in range(n_steps // spc):
+        if i == 0 and ck.kernel_mode(model, stepper) & ck.MODE_MOST:  # phase 6 reads its solves' probes
+            Yp, *solves = _counting_solves(lambda: ck.fused_column_run_plain(model, stepper, dt, spc, Yp, t))
+            _PATH_PROBES[_path_key(model, Y0, dt, spc, stepper)] = tuple(solves)
+        else:
+            Yp = ck.fused_column_run_plain(model, stepper, dt, spc, Yp, t)
         t = t + spc * torch.as_tensor(dt, dtype=dtype)
     torch.cuda.synchronize()
     kern, plain = _np(sim.Y), _np(Yp)
@@ -1262,14 +1334,13 @@ def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving, stepper=None):
     return kern, launches[name], err, wall
 
 
-def most_probes(ck, model, stepper, dt, spc, Y0, forcing=None, forcing_time_grid=None):
-    """``(solves, probes)`` of the MOST solves in the plain version's launch
-    of ``spc`` steps from ``Y0`` (with ``forcing``, its rows): the solves
-    per column, and the mean per
-    solve and column of the probes its rounds evaluate when each stops at
-    its first probe past the sign change, as the kernel's solve does
-    (``surface_conditions``' ``probes``, read through a wrapper of it for
-    the one call); ``(0, None)`` without a MOST top."""
+def _counting_solves(fn):
+    """``(fn(), solves, probes)``: ``fn`` run with the MOST solve
+    (``surface_conditions``) wrapped to read each call's ``probes``: the
+    solves per column, and the mean per solve and column of the probes its
+    rounds evaluate when each stops at its first probe past the sign
+    change, as the kernel's solve does (``probes`` ``None`` without a
+    solve)."""
     from landhydrology_tpu_torch.models.soil import surface_fluxes as sf
 
     solve, counts = sf.surface_conditions, []
@@ -1281,21 +1352,44 @@ def most_probes(ck, model, stepper, dt, spc, Y0, forcing=None, forcing_time_grid
 
     sf.surface_conditions = counted
     try:
-        ck.fused_column_run_plain(model, stepper, dt, spc, Y0, 0.0, forcing=forcing,
-                                  forcing_time_grid=forcing_time_grid)
+        out = fn()
     finally:
         sf.surface_conditions = solve
     if not counts:
-        return 0, None
+        return out, 0, None
     total = sum(float(c.double().sum()) for c in counts)
-    return len(counts), total / (len(counts) * counts[0].numel())
+    return out, len(counts), total / (len(counts) * counts[0].numel())
+
+
+#: ``(solves, probes)`` of a path's first plain launch, counted while
+#: ``drive_path`` checks the path, keyed by ``_path_key``: ``most_probes``
+#: takes them from here rather than running that launch again
+_PATH_PROBES = {}
+
+
+def _path_key(model, Y0, dt, spc, stepper):
+    return id(model), id(Y0), float(dt), int(spc), type(stepper).__name__
+
+
+def most_probes(ck, model, stepper, dt, spc, Y0, forcing=None, forcing_time_grid=None):
+    """``(solves, probes)`` of the MOST solves in the plain version's launch
+    of ``spc`` steps from ``Y0`` at t0 = 0 (with ``forcing``, its rows;
+    ``_counting_solves``), or of that launch in ``drive_path``'s check;
+    ``(0, None)`` without a MOST top."""
+    key = _path_key(model, Y0, dt, spc, stepper)
+    if forcing is None and key in _PATH_PROBES:
+        return _PATH_PROBES[key]
+    _, solves, probes = _counting_solves(lambda: ck.fused_column_run_plain(
+        model, stepper, dt, spc, Y0, 0.0, forcing=forcing, forcing_time_grid=forcing_time_grid))
+    return solves, probes
 
 
 def time_mode(ck, model, Y0, dt, spc, stepper=None):
     """``(kernel ms, plain ms, MOST probes)`` per launch of ``spc`` steps:
-    CUDA events, in turns (plain, kernel x5, kernel x5, plain), each pair
-    averaged; the plain version's warm-up counts the MOST solve's probes
-    (``most_probes``, checked to be one solve per exchange)."""
+    CUDA events, kernel x5 twice (two samples), then the plain version once
+    (one sample; it is warm from the path's check, and a MOST mode's run
+    under ``most_probes``' counting shim, which counts the solve's probes
+    and is checked to be one solve per exchange, is not timed)."""
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
     stepper = SSPRK33() if stepper is None else stepper
@@ -1309,11 +1403,10 @@ def time_mode(ck, model, Y0, dt, spc, stepper=None):
     expect = spc * most_exchanges(ck, mode, getattr(stepper, "iters", 2)) if mode & ck.MODE_MOST else 0
     if solves != expect:
         raise AssertionError(f"{run.name}: {solves} MOST solves in the plain launch, expected {expect}")
-    p1 = _time_ms(plain_column, 1)
     k1 = _time_ms(fused_column, 5)
     k2 = _time_ms(fused_column, 5)
-    p2 = _time_ms(plain_column, 1)
-    return (k1, k2), (p1, p2), probes
+    p1 = _time_ms(plain_column, 1)
+    return (k1, k2), (p1,), probes
 
 
 def host_per_launch(ck, model, Y0, Ya, dt, spc, stepper, reps=5):
@@ -1415,8 +1508,8 @@ def kernel_of(ck, mode, dtype):
     """``(kernel name, source path in the repo)`` of the instance that runs
     ``mode``."""
     lib, _ = ck._entry(mode, dtype)
-    kernel = {"implicit_kernel": "implicit_column_kernel", "land_kernel": "land_column_kernel"}.get(
-        lib, "ssprk33_column_kernel")
+    kernel = {"implicit_kernel": "implicit_column_kernel", "land_kernel": "land_column_kernel",
+              "rk_kernel": "rk_column_kernel"}.get(lib, "ssprk33_column_kernel")
     return kernel, os.path.relpath(ck.SOURCES[lib], HERE)
 
 
@@ -1440,6 +1533,10 @@ def evaporation(model, Y, t):
     grid = make_function_space(soil.domain, soil.float_dtype, soil.device)
     ex = _exchange_from_state(model, grid, Y, {"zc": grid.zc, soil.name: {}}, torch.as_tensor(t, dtype=soil.float_dtype))
     return (ex["evap_soil"] + ex["evap_pond"]).double()
+
+
+#: phase 10's paths at width: 32 steps in one launch (a depth cut for the script's time)
+LAND_WIDE_STEPS = 32
 
 
 def land_phase(ck, gc, device, smi):
@@ -1530,6 +1627,7 @@ def land_phase(ck, gc, device, smi):
         ("MOST soil", {}, "soil"),
         ("MOST soil, lagged", {"coefficient_update": "step"}, "soil"),
     )
+    _mark(T_START, "phase 10's checks")
     for dtype in (torch.float32, torch.float64):
         ends = {}
         for setting, kw, what in settings:
@@ -1542,7 +1640,7 @@ def land_phase(ck, gc, device, smi):
                     dataclasses.replace(land.soil.boundary_conditions, top=build_bench_model(
                         NZ, 32, dtype, device)[0].boundary_conditions.top))))
             moving = ("vartheta_l", "rho_e_int", "h_s") if what != "soil" else ("vartheta_l", "rho_e_int")
-            kern, launches, err, wall = drive_path(ck, model, Y0, Ya, DT, N_STEPS, SPC, "10 land", moving)
+            kern, launches, err, wall = drive_path(ck, model, Y0, Ya, DT, LAND_WIDE_STEPS, SPC, "10 land", moving)
             paths.append((model, Y0, DT, SPC, launches, err, SSPRK33()))
             ends[setting] = kern
             name = ck.make_fused_column_run(model).name
@@ -1551,9 +1649,10 @@ def land_phase(ck, gc, device, smi):
                 end = {"soil": {k: torch.as_tensor(kern[k], device=device) for k in Y0["soil"]},
                        "surface": {"h_s": torch.as_tensor(kern["h_s"], device=device)}}
                 change = water_in(end, dz) - water_in(Y0, dz)
-                rain = 8e-6 * N_STEPS * DT
+                rain = 8e-6 * LAND_WIDE_STEPS * DT
                 end = {g: {k: v.to(dtype) for k, v in f.items()} for g, f in end.items()}
-                evap = 0.5 * (evaporation(model, Y0, 0.0) + evaporation(model, end, N_STEPS * DT)) * N_STEPS * DT
+                horizon = LAND_WIDE_STEPS * DT
+                evap = 0.5 * (evaporation(model, Y0, 0.0) + evaporation(model, end, horizon)) * horizon
                 budget = change - (rain - evap)
                 print(f"[10 land] {str(dtype)[6:]} {name} water budget per column: change of column water + "
                       f"h_s {float(change.mean()):.6e} m (mean), rain {rain:.6e} m, evaporation (trapezoid of "
@@ -1744,8 +1843,9 @@ class TimedReader:
 def time_forced(ck, run, model, Y0, rows, dt, spc, forcing_time_grid=None, stepper=None):
     """``(kernel ms, plain ms, MOST probes)`` per forced launch of ``spc``
     steps of ``stepper`` (SSPRK33 by default) from ``Y0`` with ``rows``:
-    CUDA events, in turns (plain, kernel x5, kernel x5, plain), each pair
-    averaged; the probes from the plain version's launch (``most_probes``)."""
+    CUDA events, kernel x5 twice (averaged), then the plain version once
+    (one sample, warm: after its launch under ``most_probes``' counting
+    shim, which gives the probes and is not timed)."""
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
     stepper = SSPRK33() if stepper is None else stepper
@@ -1755,10 +1855,8 @@ def time_forced(ck, run, model, Y0, rows, dt, spc, forcing_time_grid=None, stepp
     plain = lambda: ck.fused_column_run_plain(  # noqa: E731
         model, stepper, dt, spc, Y0, 0.0, forcing=rows, forcing_time_grid=forcing_time_grid)
     _, probes = most_probes(ck, model, stepper, dt, spc, Y0, forcing=rows, forcing_time_grid=forcing_time_grid)
-    p1 = _time_ms(plain, 1)
     k1, k2 = _time_ms(kernel, 5), _time_ms(kernel, 5)
-    p2 = _time_ms(plain, 1)
-    return (k1 + k2) / 2, (p1 + p2) / 2, probes
+    return (k1 + k2) / 2, _time_ms(plain, 1), probes
 
 
 def forced_small(ck, gc, device):
@@ -1873,6 +1971,7 @@ def forced_phase(ck, gc, device, smi, costs):
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
     forced_small(ck, gc, device)
+    _mark(T_START, "phase 11's small checks")
     entries = []
     nz, ncol, dt, spc, n = FORCED_NZ, FORCED_NCOL, FORCED_DT, FORCED_SPC, FORCED_STEPS
     points = nz * ncol * n
@@ -1924,18 +2023,18 @@ def forced_phase(ck, gc, device, smi, costs):
             if not all(np.isfinite(v).all() for v in end.values()):
                 raise AssertionError("forced run: non-finite state")
             # the in-memory segment again, launch by launch: the evaporation at
-            # each launch boundary for (c), the state after two launches for (b)
-            Yc, kept, evap = launch_by_launch(lambda Y, t, r: seg(Y, Ya, t, r), land, Y0, rows, dt, spc, keep=(1,))
+            # each launch boundary for (c), the state after the first launch for (b)
+            Yc, kept, evap = launch_by_launch(lambda Y, t, r: seg(Y, Ya, t, r), land, Y0, rows, dt, spc, keep=(0,))
             for g, f in Yref.items():
                 for k, v in f.items():
                     if not torch.equal(Yc[g][k], v):
                         raise AssertionError(f"the segment launch by launch differs from one call in {k}")
-            # (b): 1,024 columns through the plain version for the first two launches
-            m = 2 * spc
+            # (b): 1,024 columns through the plain version for the first launch
+            m = spc
             small, Ys, _ = build_reanalysis(nz, cols.numel(), dtype, device)
             r_cols = {k: v[:m, cols].contiguous() for k, v in rows.items()}
             plain = _np(forced_plain(ck, small, dt, spc, Ys, 0.0, r_cols))
-            kern = {k: v[..., cols.cpu().numpy()] for k, v in _np(kept[1]).items()}
+            kern = {k: v[..., cols.cpu().numpy()] for k, v in _np(kept[0]).items()}
             shares = check_forced(kern, plain, _np(Ys), dtype, f"11 forced {tag} columns")
             print(f"[11 forced] {tag} B6+B7 nz={nz} x {ncol}, {m} steps: every {FORCED_STRIDE}th column against "
                   f"the plain version on those columns' rows: max abs {_max_abs(kern, plain):.3e}; change error / "
@@ -1988,10 +2087,12 @@ def forced_phase(ck, gc, device, smi, costs):
                   f"GB/s) on {smi}", flush=True)
             entries.append(forced_entry(ck, run, dtype, main_launches, _max_abs(kern, plain), k_ms, p_ms, b_ms, b_by))
             del Yref, Yf, Yc, kept, seg, run
+            _mark(T_START, f"phase 11's {tag} reanalysis run")
             for setting in ("production", "MOST soil", "time-indexed"):
                 entries.append(forced_setting(ck, costs, setting, land, Y0, rows, cols, smi))
             del rows, land, Y0
             torch.cuda.empty_cache()
+            _mark(T_START, f"phase 11's {tag} settings")
             for case in FORCED_COMBOS:
                 entries.append(forced_combination(ck, costs, smi, case, dtype, device))
             torch.cuda.empty_cache()
@@ -2271,8 +2372,9 @@ GRID_VARIANTS = ("B1", "B2", "B3-rate", "B1-water", "B4-be-richards", "B4-be-ric
                  "B4-trbdf2-water", "B5", "B6", "cross-energy", "cross-water")
 
 
-def build_grid_variant(ncol, dtype, device, seed, case):
-    """A heterogeneous column (the JAX fused tests' soil, nz=16) with the
+def build_grid_variant(ncol, dtype, device, seed, case, nz=16):
+    """A heterogeneous column (the JAX fused tests' soil, nz=16 unless
+    given) with the
     per-column features its mode takes (``ck.KINDS_MODES``,
     ``ck.GEOMETRY_MODES``): BC kinds drawn per column at both faces
     (hydrology FLUX or DIRICHLET on top, any of the three below; energy
@@ -2296,7 +2398,6 @@ def build_grid_variant(ncol, dtype, device, seed, case):
     from landhydrology_tpu_torch.ops.cuda import column_kernel as ck
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
-    nz = 16
     base, Y = build_kernel_test_model(VerticalFlux(0.0), VerticalFlux(0.0), nz, ncol, dtype, device, seed=seed,
                                       heterogeneous=True)
     rng = np.random.default_rng(seed + 1)
@@ -2681,10 +2782,474 @@ def grid_phase(ck, costs, smi, device, t_start):
                 failures.append(str(e))
             torch.cuda.empty_cache()
     _mark(t_start, "phase 12's regional paths")
+    time_grid_variants(ck, costs, smi, device)
+    _mark(t_start, "phase 12's kinds / B8 instances")
     lateral_eager(device)
     if failures:
         raise AssertionError("phase 12 regional paths failed: " + " | ".join(failures))
     return paths
+
+
+#: the kinds / B8 instances timed at width: three launches each, the plain version not timed
+GRID_TIMED_NZ, GRID_TIMED_NCOL = 48, 32768
+#: their implicit modes' dt: at 60 s (``build_grid_variant``'s) three f32 TR-BDF2 columns of
+#: nz=48 leave the finite numbers in the plain version as in the kernel; none at 45 s
+GRID_TIMED_IMPLICIT_DT = 30.0
+
+
+def time_grid_variants(ck, costs, smi, device):
+    """Three timed launches (CUDA events, after an untimed one; the median of
+    three one-launch samples, each from the start state) of each ``MODE_COLUMNS`` instance of
+    ``GRID_VARIANTS`` that the regional paths do not time (all but B1), at
+    nz=48 x 32,768 in f32 and f64 (``build_grid_variant``'s columns and
+    steps, its dt but ``GRID_TIMED_IMPLICIT_DT`` for the implicit modes),
+    beside its bound (a MOST mode's probes from the plain version's launch,
+    which is not timed).  Every column's state stays finite in both
+    launches, or the phase fails."""
+    ncol_of = lambda v: v.shape[-1]  # noqa: E731
+    for dtype in (torch.float32, torch.float64):
+        for case in GRID_VARIANTS:
+            if case == "B1" or case.startswith("cross"):
+                continue
+            model, Y, stepper, dt, steps = build_grid_variant(GRID_TIMED_NCOL, dtype, device, 12, case,
+                                                              nz=GRID_TIMED_NZ)
+            dt = GRID_TIMED_IMPLICIT_DT if case.startswith("B4") else dt
+            run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=steps)
+            states = [_clone(Y) for _ in range(4)]
+            run(states[0], 0.0)  # warm: the instance's first launch on the card loads its module
+            ms = float(np.median([_time_ms(lambda: run(Yk, 0.0), 1) for Yk in states[1:]]))
+            for state in states:
+                lost = int(sum((~torch.isfinite(v)).reshape(-1, ncol_of(v)).any(0)
+                               for v in state["soil"].values()).count_nonzero())
+                if lost:
+                    raise AssertionError(f"12 time {run.name}: {lost} columns left the finite numbers")
+            probes = most_probes(ck, model, stepper, dt, steps, Y)[1] if run.mode & ck.MODE_MOST else None
+            nz, ncol = GRID_TIMED_NZ, GRID_TIMED_NCOL
+            b_ms, b_by = bound_ms(ck, costs, run.mode, dtype, nz * ncol, steps, iters=getattr(stepper, "iters", 2),
+                                  ncol=ncol, probes=probes, read_values=per_column_values(run, nz, ncol, dtype))
+            print(f"[12 time] {str(dtype)[6:]} {run.name} {steps} steps of dt={dt:g} nz={nz} ncol={ncol}: kernel "
+                  f"{ms:.3f} ms (median of three launches, {nz * ncol * steps / (ms / 1e3):.4e} grid-points/s; "
+                  "every column finite), plain not timed, "
+                  f"bound {b_ms:.3f} ms by {b_by} ({b_ms / ms:.3f} of the kernel's time) on {smi}", flush=True)
+            del Y, states
+        torch.cuda.empty_cache()
+
+
+# ---- phase 15: the run-file CLI (ROADMAP A16) and the explicit steppers of rk_kernel.cu (ROADMAP B1) ----
+
+RK_STEPPERS = ("ForwardEuler", "SSPRK22", "SSPRK104")
+#: 15a: each new instance checked on 1,000 columns over 2 steps
+RK_NCOL, RK_STEPS = 1000, 2
+#: 15a: each new instance timed at nz=64 x 65,536 over launches of this many steps
+RK_TIMED_STEPS = 4
+#: 15b: the CLI path's launches of SPC steps, then one more launch resumed
+CLI_LAUNCHES, CLI_SAMPLE = 3, 1024
+#: 15b: the predicted ms of a 32-step launch at nz=64 x 65,536 (f32 / f64), from B1's time per stage sweep
+CLI_PREDICTED = {"SSPRK104": (43.0, 147.0), "SSPRK22": (8.6, 29.0), "ForwardEuler": (4.3, 15.0)}
+#: 15c: the order column (nz x ncol), its horizon and coarsest steps, the reference's refinement
+ORDER_NZ, ORDER_NCOL, ORDER_HORIZON, ORDER_STEPS, ORDER_REF = 16, 64, 1920.0, 8, 32
+
+
+def _stepper(name):
+    from landhydrology_tpu_torch import timestepping
+
+    return getattr(timestepping, name)()
+
+
+def rk_cases(dtype, device, ncol):
+    """15a's paths: ``(model, start state, dt, steppers, moving fields,
+    freeze bars)`` of the coupled variant column (``build_variant_model``)
+    in the eight plain-soil modes under the three new steppers, and of the
+    water-only and heat-only columns of ``branch_variants`` under them, and
+    with lagged coefficients, ``assume_no_ice`` or both under all four."""
+    from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw, FreezeThaw
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    out = []
+    base, Y = build_variant_model(ncol, dtype, device, seed=7)
+    for kw in ({}, {"coefficient_update": "step"}, {"assume_no_ice": True},
+               {"coefficient_update": "step", "assume_no_ice": True}, {"freeze_thaw": FreezeThaw(tau=60.0)},
+               {"coefficient_update": "step", "freeze_thaw": FreezeThaw(tau=60.0)},
+               {"freeze_thaw": EquilibriumFreezeThaw()},
+               {"coefficient_update": "step", "freeze_thaw": EquilibriumFreezeThaw()}):
+        out.append((dataclasses.replace(base, **kw), Y, 5.0, RK_STEPPERS, ("vartheta_l", "rho_e_int"),
+                    "freeze_thaw" in kw))
+    for model, Yb, stepper, dt, _, _, moving in branch_variants(dtype, device, ncol):
+        if not isinstance(stepper, SSPRK33):
+            continue
+        for kw in ({}, {"coefficient_update": "step"}, {"assume_no_ice": True},
+                   {"coefficient_update": "step", "assume_no_ice": True}):
+            out.append((dataclasses.replace(model, **kw), Yb, dt, RK_STEPPERS + (("SSPRK33",) if kw else ()),
+                        moving, False))
+    return out
+
+
+def rk_check(ck, model, Y0, stepper, dt, moving, freeze):
+    """One launch of ``RK_STEPS`` from t0 = 2 s on ``Y0`` against the plain
+    version (``check_variant``: ``_check``, or the freeze bars, and
+    ``_check_increment``), then the same launch as a B9 forward (start
+    tensors that require grad), its launch counted under ``B9:<mode>`` and
+    its output equal bit for bit to the kernel's.  Returns ``(name, error,
+    shares)``."""
+    dtype = model.float_dtype
+    check = (lambda a, b, d, w: _check_freeze(a, b, model, d, w)) if freeze else _check
+    run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=RK_STEPS)
+    kern, plain, shares = check_variant(ck, model, _clone(Y0), dt, RK_STEPS, 2.0, f"15a {run.name}", moving,
+                                        stepper=stepper, check=check)
+    b9 = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=RK_STEPS, differentiable=True)
+    start = {k: v.clone().requires_grad_(True) for k, v in Y0["soil"].items()}
+    torch.cuda.synchronize()
+    ck.LAUNCHES.clear()
+    out = b9({"soil": start}, 2.0)["soil"]
+    torch.cuda.synchronize()
+    if dict(ck.LAUNCHES) != {b9.name: 1}:
+        raise AssertionError(f"15a {b9.name}: launches {dict(ck.LAUNCHES)}")
+    for k, v in out.items():
+        if not np.array_equal(v.detach().double().cpu().numpy(), kern[k]):
+            raise AssertionError(f"15a {b9.name}: the B9 forward differs from the kernel's launch in {k}")
+    return run.name, _max_abs(kern, plain), shares
+
+
+def rk_icy(ck, dtype, device):
+    """15a: the no-ice instances on ``icy_state`` of the variant column
+    (``RK_NCOL`` columns, ``RK_STEPS`` steps of 5 s), stage and lagged
+    coefficients, each rk instance held to its plain version
+    (``check_variant``); ``column_kernel.cu``'s B1-no-ice, which caps
+    theta_l at nu where the plain version caps it at nu - theta_i, printed
+    beside them and not held (ROADMAP C)."""
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    base, Y = build_variant_model(RK_NCOL, dtype, device, seed=7)
+    Y = icy_state(base, Y)
+    held = []
+    for kw in ({"assume_no_ice": True}, {"assume_no_ice": True, "coefficient_update": "step"}):
+        model = dataclasses.replace(base, **kw)
+        for name in RK_STEPPERS:
+            st = _stepper(name)
+            run_name = ck.make_fused_column_run(model, st).name
+            kern, plain, shares = check_variant(ck, model, _clone(Y), 5.0, RK_STEPS, 2.0, f"15a icy {run_name}",
+                                                ("vartheta_l", "rho_e_int"), stepper=st)
+            held.append(f"{run_name} {_max_abs(kern, plain):.2e} ({_fmt(shares)})")
+    model = dataclasses.replace(base, assume_no_ice=True)
+    plain = _np(ck.fused_column_run_plain(model, SSPRK33(), 5.0, RK_STEPS, Y, 2.0))
+    Yk = _clone(Y)
+    ck.make_fused_column_run(model, SSPRK33(), dt=5.0, steps_per_call=RK_STEPS)(Yk, 2.0)
+    print(f"[15a icy] {str(dtype)[6:]} no ice on an icy state (theta_i 0.05, vartheta_l = nu - 0.02 in the lower "
+          f"half), {RK_NCOL} columns, {RK_STEPS} steps: kernel vs plain max abs, change error / largest change (bar "
+          f"{INCREMENT_RTOL[dtype]:g}): " + "; ".join(held) + f"; not held: column_kernel.cu's B1-no-ice "
+          f"{_max_abs(_np(Yk), plain):.3e} (caps theta_l at nu, ROADMAP C)", flush=True)
+
+
+def rk_timed_paths(gc, dtype, device):
+    """15a's timed paths at nz=64 x 65,536: ``(model, start state, dt,
+    stepper names)`` of each mode on the column its SSPRK33
+    instance runs at width (phases 4, 5, 8, 9): ``bench.py::build``'s
+    (B1-no-ice, B2, B2-no-ice at ``DT``), the freeze column (B3-rate,
+    B3-eq, each lagged; its dt), the stiff water-only column at ``dt_exp``
+    and the heat-only column at 10 s, each branch alone and with lagged
+    coefficients, ``assume_no_ice`` or both; the new steppers, and SSPRK33
+    on the branch-policy modes (not B1@: 15b times those).  Every dt is
+    under half of ``explicit_dt_limit`` (SSPRK33's extent 2.5), so under
+    0.625 of ForwardEuler's and SSPRK22's limits."""
+    from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw, FreezeThaw
+
+    bench, Y, _ = build_bench_model(NZ, NCOL, dtype, device)
+    for kw in ({"assume_no_ice": True}, {"coefficient_update": "step"},
+               {"coefficient_update": "step", "assume_no_ice": True}):
+        yield dataclasses.replace(bench, **kw), Y, DT, RK_STEPPERS
+    del bench, Y
+    for freeze in (FreezeThaw(tau=60.0), EquilibriumFreezeThaw()):
+        model, Y, _, dt = build_freeze_wide(gc, dtype, device, freeze)
+        for kw in ({}, {"coefficient_update": "step"}):
+            yield dataclasses.replace(model, **kw), Y, dt, RK_STEPPERS
+        del model, Y
+    stiff, Ys, _ = build_stiff(NZ, NCOL, dtype, device)
+    heat, Yh, _ = build_heat_only(NZ, NCOL, dtype, device, seed=5)
+    for model, Y, dt in ((stiff, Ys, stiff_dt_explicit(stiff, Ys)), (heat, Yh, 10.0)):
+        for kw in ({}, {"coefficient_update": "step"}, {"assume_no_ice": True},
+                   {"coefficient_update": "step", "assume_no_ice": True}):
+            yield dataclasses.replace(model, **kw), Y, dt, RK_STEPPERS + (("SSPRK33",) if kw else ())
+
+
+def time_rk(ck, costs, smi, model, Y0, dt, stepper, err):
+    """One 15a instance at nz=64 x 65,536, ``RK_TIMED_STEPS`` steps per
+    launch from t0 = 0 (CUDA events): the kernel x3 twice after an untimed
+    launch, the plain version once (one sample); the kernel's state finite
+    after every launch (the instance is held to its plain version on
+    ``RK_NCOL`` columns).  Returns the kernel record."""
+    run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=RK_TIMED_STEPS)
+    Yk = _clone(Y0)
+    run(Yk, 0.0)
+    k1 = _time_ms(lambda: run(Yk, 0.0), 3)
+    k2 = _time_ms(lambda: run(Yk, 0.0), 3)
+    p1 = _time_ms(lambda: ck.fused_column_run_plain(model, stepper, dt, RK_TIMED_STEPS, Y0, 0.0), 1)
+    if not all(bool(torch.isfinite(v).all()) for v in Yk["soil"].values()):
+        raise AssertionError(f"15a {run.name} at nz={NZ} x {NCOL}: the state left the finite numbers")
+    return time_record(ck, costs, smi, model, Y0, dt, RK_TIMED_STEPS, stepper, 1, err, (k1, k2), (p1,), None,
+                       tag="15a time")
+
+
+def rk_phase(ck, costs, smi, device, t_start):
+    """15a: every new (stepper, mode) instance checked (``rk_check``) on
+    ``RK_NCOL`` columns in f64 and f32, the no-ice ones also on an icy
+    state (``rk_icy``), then each but the coupled B1 instances (15b times
+    those at full width) timed at nz=64 x 65,536 (``rk_timed_paths``,
+    ``time_rk``).  Returns the kernel records."""
+    gc = _load_golden_config()
+    entries = []
+    for dtype in (torch.float64, torch.float32):
+        results = {}
+        for model, Y, dt, steppers, moving, freeze in rk_cases(dtype, device, RK_NCOL):
+            for name in steppers:
+                results[(id(model), name)] = rk_check(ck, model, Y, _stepper(name), dt, moving, freeze)
+        print(f"[15a rk] {str(dtype)[6:]} {len(results)} instances on {RK_NCOL} columns, {RK_STEPS} steps: kernel "
+              f"vs plain max abs, change error / largest change (bar {INCREMENT_RTOL[dtype]:g}); each B9 forward = "
+              "the launch bit for bit: " + "; ".join(
+                  f"{n} {e:.2e} ({_fmt(sh)})" for n, e, sh in results.values()), flush=True)
+        rk_icy(ck, dtype, device)
+        _mark(t_start, f"phase 15a's {str(dtype)[6:]} checks")
+        errors = {n: e for n, e, _ in results.values()}
+        for model, Y, dt, steppers in rk_timed_paths(gc, dtype, device):
+            for name in steppers:
+                st = _stepper(name)
+                err = errors[ck.make_fused_column_run(model, st).name]
+                entries.append(time_rk(ck, costs, smi, model, Y, dt, st, err))
+        torch.cuda.empty_cache()
+        _mark(t_start, f"phase 15a's {str(dtype)[6:]} times")
+    return entries
+
+
+def _run_cli(path, what):
+    """``python -m landhydrology_tpu_torch run <path>`` in a subprocess from
+    the checkout: ``(stdout, kernel launches, host seconds of the run)``."""
+    proc = subprocess.run([sys.executable, "-m", "landhydrology_tpu_torch", "run", path], cwd=HERE,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"15b {what}: the CLI exited {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+    launches = json.loads(proc.stdout.split("kernel launches: ", 1)[1].splitlines()[0])
+    wall = float(re.search(r"cells in ([0-9.e+-]+) s \(host clock\)", proc.stdout).group(1))
+    return proc.stdout, launches, wall
+
+
+def cli_model(dtype, device, seed):
+    """``bench.py::build``'s model at nz=64 x 65,536 with Ksat drawn per
+    column from ``seed``: 0.5-2x bench.py's value, in ``dtype``."""
+    model, _, _ = build_bench_model(NZ, NCOL, dtype, device)
+    hm = model.hydrology_model.hydraulic_model
+    Ksat = torch.as_tensor(hm.Ksat * np.random.default_rng(seed).uniform(0.5, 2.0, NCOL), dtype=dtype, device=device)
+    return dataclasses.replace(model, hydrology_model=dataclasses.replace(
+        model.hydrology_model, hydraulic_model=dataclasses.replace(hm, Ksat=Ksat)))
+
+
+def cli_phase(ck, costs, smi, device, seed, workdir):
+    """15b: ``bench.py::build``'s model at nz=64 x 65,536 with Ksat drawn per
+    column from ``seed`` (0.5-2x bench.py's), written by ``to_config`` into
+    a run file with hydrostatic initial conditions (z_table -1 m, 288 K),
+    SSPRK104 and ``"engine": "pallas"``, f64: (A) 96 steps in 3 launches,
+    saved at each launch, with a checkpoint; (B) the same file to 128 steps,
+    resumed from A's checkpoint for one more launch; a straight 128-step run
+    of the file's model and state (``Simulation``, in this process; the CLI
+    builds the same run): B's state
+    equals its state bit for bit, its every 64th column (1,024) against the
+    plain version's 128 steps.  dt is the largest power of two
+    under half of ``explicit_dt_limit`` (which assumes SSPRK33's real-axis
+    extent 2.5): under 0.625 of ForwardEuler's and SSPRK22's limits (extent
+    2) and far under SSPRK104's.  Then one 32-step launch of each explicit
+    stepper at the same width in f32 and f64 (kernel x3 twice, CUDA events;
+    the plain version once but for SSPRK33), the kernel checked against the
+    plain version on its start state.  Returns the kernel records of
+    B1@ForwardEuler, B1@SSPRK22, B1@SSPRK104."""
+    from landhydrology_tpu_torch import cli
+    from landhydrology_tpu_torch.config import to_config
+    from landhydrology_tpu_torch.diagnostics import explicit_dt_limit
+
+    model = cli_model(torch.float64, device, seed)
+    files = {k: os.path.join(workdir, f"run_{k}.json") for k in "AB"}
+    outs = {k: os.path.join(workdir, f"out_{k}.npz") for k in "AB"}
+    ckpt = os.path.join(workdir, "checkpoints")
+    cfg = {"model": to_config(model),
+           "simulation": {"dt": 1.0, "t_final": 1.0, "stepper": "SSPRK104", "engine": "pallas",
+                          "steps_per_call": SPC},
+           "initial_conditions": {"kind": "hydrostatic", "z_table": -1.0, "T": 288.0}}
+    with open(files["A"], "w") as f:
+        json.dump(cfg, f)
+    run_model, _, Y_ic, _, _, _ = cli.load_run(files["A"], device)
+    limit = float(explicit_dt_limit(run_model, Y_ic))
+    dt = 2.0 ** math.floor(math.log2(0.5 * limit))
+    n_cli = CLI_LAUNCHES * SPC
+    for key, t_final in (("A", n_cli * dt), ("B", (n_cli + SPC) * dt)):
+        c = dict(cfg, output={"path": outs[key]}, checkpoint={"directory": ckpt})
+        c["simulation"] = dict(cfg["simulation"], dt=dt, t_final=t_final, saveat=SPC * dt)
+        with open(files[key], "w") as f:
+            json.dump(c, f)
+    print(f"[15b cli] run files at nz={NZ} x {NCOL} (Ksat per column from seed {seed}), hydrostatic z_table -1.0 m, "
+          f"288 K, SSPRK104, engine pallas: explicit_dt_limit {limit:.6g} s, dt {dt!r} s", flush=True)
+    ran = {}
+    for key, what, expect in (("A", "96 steps with a checkpoint", CLI_LAUNCHES), ("B", "resumed", 1)):
+        out, launches, wall = _run_cli(files[key], what)
+        if launches != {"B1@SSPRK104": expect}:
+            raise AssertionError(f"15b {what}: launches {launches}, expected {expect} of B1@SSPRK104")
+        if key == "B" and f"resumed from checkpoint step {n_cli}" not in out:
+            raise AssertionError(f"15b {what}: did not resume from step {n_cli}:\n{out}")
+        ran[key] = (launches, wall)
+        print(f"[15b cli] {what}: python -m landhydrology_tpu_torch run: kernel launches {launches}, Simulation.run "
+              f"{wall:.6f} s host clock", flush=True)
+    from landhydrology_tpu_torch import Simulation
+
+    sim = Simulation(run_model, _stepper("SSPRK104"), Y_init=Y_ic, dt=dt, tspan=(0.0, (n_cli + SPC) * dt),
+                     saveat=SPC * dt, engine="fused", steps_per_call=SPC)
+    torch.cuda.synchronize()
+    ck.LAUNCHES.clear()
+    t_wall = time.perf_counter()
+    sol = sim.run()
+    torch.cuda.synchronize()
+    straight_wall = time.perf_counter() - t_wall
+    if dict(ck.LAUNCHES) != {"B1@SSPRK104": CLI_LAUNCHES + 1}:
+        raise AssertionError(f"15b straight run: launches {dict(ck.LAUNCHES)}")
+    fields = ("vartheta_l", "theta_i", "rho_e_int")
+    data = {k: np.load(outs[k]) for k in "AB"}
+    data["straight"] = {k: sol.us["soil"][k].cpu().numpy() for k in fields}
+    del sol, sim
+    saves = {k: len(data[k]["vartheta_l"]) for k in data}
+    if saves != {"A": CLI_LAUNCHES + 1, "B": 2, "straight": CLI_LAUNCHES + 2}:
+        raise AssertionError(f"15b: saves {saves}")
+    for k in fields:
+        if not np.array_equal(data["B"][k][-1], data["straight"][k][-1]):
+            raise AssertionError(f"15b: the resumed run differs from the straight run in {k}")
+        if not (np.array_equal(data["B"][k][0], data["A"][k][-1])
+                and np.array_equal(data["A"][k][-1], data["straight"][k][-2])):
+            raise AssertionError(f"15b: the checkpoint's {k} is not the straight run's state at step {n_cli}")
+    print(f"[15b cli] straight {n_cli + SPC} steps (Simulation in this process): kernel launches "
+          f"{{'B1@SSPRK104': {CLI_LAUNCHES + 1}}}, Simulation.run {straight_wall:.6f} s host clock", flush=True)
+    # the plain version on every 64th column of the straight run
+    idx = torch.arange(0, NCOL, NCOL // CLI_SAMPLE, device=device)
+    sub, Yp = column_slice(run_model, Y_ic, idx)
+    start = _np(Yp)
+    t = torch.as_tensor(0.0, dtype=torch.float64)
+    for _ in range(CLI_LAUNCHES + 1):
+        Yp = ck.fused_column_run_plain(sub, _stepper("SSPRK104"), dt, SPC, Yp, t)
+        t = t + SPC * torch.as_tensor(dt, dtype=torch.float64)
+    kern = {k: data["straight"][k][-1][:, idx.cpu().numpy()] for k in fields}
+    plain = _np(Yp)
+    _check(kern, plain, torch.float64, "15b straight run vs plain")
+    shares = _check_increment(kern, plain, start, torch.float64, "15b straight run vs plain", ("vartheta_l",))
+    err = _max_abs(kern, plain)
+    print(f"[15b cli] resumed run = straight run bit for bit; checkpoint = the straight run at step {n_cli}; "
+          f"{CLI_SAMPLE} columns of the straight run vs plain max abs {err:.3e}, change error / largest change "
+          f"{_fmt(shares)} (bar {INCREMENT_RTOL[torch.float64]:g})", flush=True)
+    del data, Yp
+    # each explicit stepper at the same width, f32 and f64
+    entries, kernel_ms = [], {}
+    for dtype in (torch.float32, torch.float64):
+        m = cli_model(dtype, device, seed)
+        Y0, _ = cli._build_ic(m, cfg["initial_conditions"])
+        for name in RK_STEPPERS + ("SSPRK33",):
+            st = _stepper(name)
+            run = ck.make_fused_column_run(m, st, dt=dt, steps_per_call=SPC)
+            Yk = _clone(Y0)
+            torch.cuda.synchronize()
+            ck.LAUNCHES.clear()
+            run(Yk, 0.0)
+            torch.cuda.synchronize()
+            if dict(ck.LAUNCHES) != {run.name: 1}:
+                raise AssertionError(f"15b {run.name}: launches {dict(ck.LAUNCHES)}")
+            got = _np(Yk)
+            k1, k2 = _time_ms(lambda: run(Yk, 0.0), 3), _time_ms(lambda: run(Yk, 0.0), 3)
+            kernel_ms[(dtype, name)] = (k1 + k2) / 2
+            if name == "SSPRK33":
+                print(f"[15b time] {str(dtype)[6:]} {run.name} {SPC} steps nz={NZ} ncol={NCOL}: kernel {k1:.3f}/"
+                      f"{k2:.3f} ms ({NZ * NCOL * SPC / ((k1 + k2) / 2e3):.4e} grid-points/s) on {smi}", flush=True)
+                continue
+            plain = []
+            p1 = _time_ms(lambda: plain.append(ck.fused_column_run_plain(m, st, dt, SPC, Y0, 0.0)), 1)
+            ref = _np(plain.pop())
+            _check(got, ref, dtype, f"15b {run.name}")
+            _check_increment(got, ref, _np(Y0), dtype, f"15b {run.name}", ("vartheta_l",))
+            # the CLI path's launches for its instance, this check's launch for the others
+            launches = ran["A"][0][run.name] if dtype == torch.float64 and name == "SSPRK104" else 1
+            entries.append(time_record(ck, costs, smi, m, Y0, dt, SPC, st, launches, _max_abs(got, ref), (k1, k2),
+                                       (p1,), None, tag="15b time"))
+            del plain, ref, got
+        del Y0
+        torch.cuda.empty_cache()
+    wall = ran["A"][1]
+    busy = CLI_LAUNCHES * kernel_ms[(torch.float64, "SSPRK104")] / 1e3
+    print(f"[15b cli] the CLI's run A: {NZ * NCOL * n_cli / wall:.4e} grid-points/s end to end (host clock), "
+          f"kernel {busy:.6f} s of {wall:.6f} s, host share {1 - busy / wall:.4f}; per 32-step launch measured "
+          "(predicted) ms: " + "; ".join(
+              f"{n} " + ", ".join(f"{str(d)[6:]} {kernel_ms[(d, n)]:.3f} ({CLI_PREDICTED[n][i]:g})"
+                                  for i, d in enumerate((torch.float32, torch.float64))) for n in CLI_PREDICTED)
+          + "; SSPRK33 (B1) " + ", ".join(f"{str(d)[6:]} {kernel_ms[(d, 'SSPRK33')]:.3f}"
+                                          for d in (torch.float32, torch.float64)) + f" on {smi}", flush=True)
+    return entries
+
+
+def order_model(device):
+    """15c's column: the benchmark soil at nz=16 x 64 in f64 under a
+    time-varying flux top (callables, so the tables hold every stage time):
+    rain of 2e-6 (1 + sin(2 pi t / 1,920 s)) m/s and an energy flux of
+    40 sin(2 pi t / 960 s) W/m^2."""
+    from landhydrology_tpu_torch import SoilColumnBC, SoilComponentBC, VerticalFlux
+
+    model, Y, _ = build_bench_model(ORDER_NZ, ORDER_NCOL, torch.float64, device)
+    w = 2.0 * math.pi / ORDER_HORIZON
+    top = SoilComponentBC(hydrology=VerticalFlux(lambda t: -2e-6 * (1.0 + torch.sin(w * t))),
+                          energy=VerticalFlux(lambda t: 40.0 * torch.sin(2.0 * w * t)))
+    model = dataclasses.replace(model, boundary_conditions=SoilColumnBC(
+        top=top, bottom=model.boundary_conditions.bottom))
+    return model, Y
+
+
+def order_phase(ck, device):
+    """15c: each explicit stepper through its kernel (B1@...) over
+    ``ORDER_HORIZON`` at ``ORDER_STEPS``, twice and four times as many steps
+    (one launch each), against SSPRK104 at ``ORDER_REF`` times the finest
+    steps (one launch): the error (the largest deviation over the fields,
+    each over its largest value) falls by 2^p per halving, the last slope
+    within 0.35 of p = 1, 2, 3, 4, each error above 1e-10."""
+    model, Y0 = order_model(device)
+    fields = ("vartheta_l", "rho_e_int")
+
+    def solve(name, n):
+        run = ck.make_fused_column_run(model, _stepper(name), dt=ORDER_HORIZON / n, steps_per_call=n)
+        Y = _clone(Y0)
+        ck.LAUNCHES.clear()
+        run(Y, 0.0)
+        torch.cuda.synchronize()
+        if dict(ck.LAUNCHES) != {run.name: 1}:
+            raise AssertionError(f"15c {run.name}: launches {dict(ck.LAUNCHES)}")
+        return _np(Y)
+
+    ref = solve("SSPRK104", 4 * ORDER_STEPS * ORDER_REF)
+    lines = []
+    for p, name in enumerate(("ForwardEuler", "SSPRK22", "SSPRK33", "SSPRK104"), start=1):
+        errs = []
+        for n in (ORDER_STEPS, 2 * ORDER_STEPS, 4 * ORDER_STEPS):
+            got = solve(name, n)
+            errs.append(max(float(np.max(np.abs(got[k] - ref[k]))) / float(np.max(np.abs(ref[k]))) for k in fields))
+        slopes = [math.log2(errs[i] / errs[i + 1]) for i in range(2)]
+        if not (abs(slopes[-1] - p) < 0.35 and min(errs) > 1e-10):
+            raise AssertionError(f"15c {name}: errors {errs}, slopes {slopes}, expected order {p}")
+        lines.append(f"{name} errors {', '.join(f'{e:.3e}' for e in errs)}, slopes {slopes[0]:.3f} {slopes[1]:.3f} "
+                     f"(order {p})")
+    print(f"[15c order] f64 nz={ORDER_NZ} x {ORDER_NCOL}, time-varying flux top, {ORDER_HORIZON:g} s in "
+          f"{ORDER_STEPS}, {2 * ORDER_STEPS}, {4 * ORDER_STEPS} steps against SSPRK104 in "
+          f"{4 * ORDER_STEPS * ORDER_REF}: " + "; ".join(lines), flush=True)
+
+
+def cli_main(ck, costs, smi, device, seed, t_start):
+    """Phase 15: 15a (``rk_phase``), 15b (``cli_phase``, in a temporary
+    directory removed at its end), 15c (``order_phase``).  Returns the
+    kernel records."""
+    import tempfile
+
+    entries = rk_phase(ck, costs, smi, device, t_start)
+    _mark(t_start, "phase 15a")
+    with tempfile.TemporaryDirectory() as workdir:
+        entries += cli_phase(ck, costs, smi, device, seed, workdir)
+    _mark(t_start, "phase 15b")
+    order_phase(ck, device)
+    return entries
 
 
 # ---- phase 13: adaptive stepping (ROADMAP A15), kernel modes B1-dt and B4+B5(+B7) ----
@@ -3097,6 +3662,7 @@ def adaptive_phase(ck, gc, costs, smi, device):
         fine_check(ck, "adaptive bench", model, Y0, SSPRK33(), SPC, 3600.0, log, final, config)
         del Y0, Ya, final
         torch.cuda.empty_cache()
+        _mark(T_START, f"phase 13c's {tag} bench run")
         # the stiff path over phase 8's horizon, TR-BDF2 and SSPRK33, 8 steps per segment
         model, Y0, Ya = build_stiff(NZ, NCOL, dtype, device)
         dt_exp = stiff_dt_explicit(model, Y0)
@@ -3117,6 +3683,7 @@ def adaptive_phase(ck, gc, costs, smi, device):
               + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
         del Y0, Ya, ref, final
         torch.cuda.empty_cache()
+        _mark(T_START, f"phase 13c's {tag} stiff runs")
         # the reanalysis LandModel under its first rows as a time-indexed table, and its soil under TR-BDF2
         land, Y0, Ya = build_reanalysis(FORCED_NZ, FORCED_NCOL, dtype, device)
         _, fields = reanalysis_forcing(ADAPTIVE_FORCED_ROWS, FORCED_NCOL, FORCED_DT)
@@ -3136,6 +3703,7 @@ def adaptive_phase(ck, gc, costs, smi, device):
                        forcing=r, grid=(0.0, FORCED_DT, ADAPTIVE_FORCED_ROWS))
             if run.mode & ck.MODE_IMPLICIT:
                 entries.append(time_b4_b5(ck, costs, smi, dtype, device, "TRBDF2Soil", True, launches, err))
+            _mark(T_START, f"phase 13c's {tag} forced {label}")
         del land, Y0, Ya, rows, soil_rows
         torch.cuda.empty_cache()
         for name in ("TRBDF2Soil", "BackwardEulerSoil", "BackwardEulerRichards"):
@@ -3630,6 +4198,13 @@ def main() -> int:
                              "with phase 6's times of its paths")
     parser.add_argument("--adaptive-only", action="store_true",
                         help="run phases 1, 2 and 13 only (adaptive stepping, kernel modes B1-dt and B4+B5)")
+    parser.add_argument("--cli-only", action="store_true",
+                        help="run phases 1, 2 and 15 only (the run-file CLI and the explicit steppers of "
+                             "rk_kernel.cu)")
+    parser.add_argument("--seed", type=int, default=0, help="seed of phase 15b's per-column Ksat")
+    parser.add_argument("--compare-with", metavar="PARENT",
+                        help="after phases 1 and 2, hold this tree's registers and B1's kernel time to the tree at "
+                             "PARENT (an unpacked git archive), built and timed in turns")
     parser.add_argument("--grad-only", action="store_true",
                         help="run phases 1, 2 and 14 only (the gradient path, kernel modes B9 and B4 + step "
                              "policies, with the times of its B4 + policy instances)")
@@ -3637,7 +4212,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
         return 1
-    t_start = time.perf_counter()
+    global T_START
+    t_start = T_START = time.perf_counter()
     sys.path.insert(0, HERE)
     from landhydrology_tpu_torch import VerticalFlux
     from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw, FreezeThaw
@@ -3666,6 +4242,9 @@ def main() -> int:
           flush=True)
 
     gc = _load_golden_config()
+    if args.compare_with:
+        compare_with(args.compare_with, smi)
+        return finish([], smi, t_start)
     if args.forced_only:
         return finish(forced_phase(ck, gc, device, smi, costs), smi, t_start)
     if args.grid_only:
@@ -3676,6 +4255,10 @@ def main() -> int:
         grad_entries = grad_main(ck, gc, costs, smi, device, t_start)
         _mark(t_start, "phase 14")
         return finish(grad_entries, smi, t_start)
+    if args.cli_only:
+        cli_entries = cli_main(ck, costs, smi, device, args.seed, t_start)
+        _mark(t_start, "phase 15")
+        return finish(cli_entries, smi, t_start)
 
     # ---- 3: goldens in f64 through the kernels, and variants ----
     data = os.path.join(HERE, "tests", "data")
@@ -3886,6 +4469,10 @@ def main() -> int:
     forced_entries += grad_main(ck, gc, costs, smi, device, t_start)
     _mark(t_start, "phase 14")
 
+    # ---- 15: the run-file CLI and the explicit steppers of rk_kernel.cu ----
+    forced_entries += cli_main(ck, costs, smi, device, args.seed, t_start)
+    _mark(t_start, "phase 15")
+
     # ---- 6: times at the main-path shapes, in turns ----
     entries = time_paths(ck, costs, smi, paths)
     _mark(t_start, "phase 6")
@@ -3912,13 +4499,16 @@ def time_paths(ck, costs, smi, paths):
     return entries
 
 
-def time_record(ck, costs, smi, model, Y0, dt, spc, stepper, launches, err, kernel_ms, plain_ms, probes):
-    """Print a path's times ``kernel_ms`` and ``plain_ms`` (two samples
-    each) beside its bound; returns its kernel record."""
+def time_record(ck, costs, smi, model, Y0, dt, spc, stepper, launches, err, kernel_ms, plain_ms, probes,
+                tag="6 time"):
+    """Print a path's times ``kernel_ms`` (two samples) and ``plain_ms``
+    (one or two samples) beside its bound; returns its kernel record."""
     from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw
 
-    (k1, k2), (p1, p2) = kernel_ms, plain_ms
-    ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+    k1, k2 = kernel_ms
+    ms = (k1 + k2) / 2
+    samples = plain_ms
+    plain_ms = sum(samples) / len(samples)
     dtype = model.float_dtype
     mode = ck.kernel_mode(model, stepper)
     run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=spc)
@@ -3939,9 +4529,10 @@ def time_record(ck, costs, smi, model, Y0, dt, spc, stepper, launches, err, kern
         nbytes = values * (torch.finfo(dtype).bits // 8)
         traffic = (f"; scratch and state traffic {values} values = {nbytes} B per cell-step, "
                    f"{1e3 * cell_steps * nbytes / HBM_BYTES_PER_S:.3f} ms at the HBM rate if none stayed in L2")
-    print(f"[6 time] {str(dtype)[6:]} {name} {spc} steps nz={nz} ncol={ncol}: kernel {k1:.3f}/{k2:.3f} ms "
-          f"({cell_steps / (ms / 1e3):.4e} grid-points/s), plain {p1:.3f}/{p2:.3f} ms "
-          f"({cell_steps / (plain_ms / 1e3):.4e} grid-points/s), bound {b_ms:.3f} ms by {b_by} "
+    plain = (f"{'/'.join(f'{p:.3f}' for p in samples)} ms ({'one sample' if len(samples) == 1 else 'two samples'}, "
+             f"{cell_steps / (plain_ms / 1e3):.4e} grid-points/s)")
+    print(f"[{tag}] {str(dtype)[6:]} {name} {spc} steps nz={nz} ncol={ncol}: kernel {k1:.3f}/{k2:.3f} ms "
+          f"({cell_steps / (ms / 1e3):.4e} grid-points/s), plain {plain}, bound {b_ms:.3f} ms by {b_by} "
           f"({b_ms / ms:.3f} of the kernel's time){traffic} on {smi}", flush=True)
     kernel, source = kernel_of(ck, mode, dtype)
     return {
@@ -3957,6 +4548,55 @@ def time_record(ck, costs, smi, model, Y0, dt, spc, stepper, launches, err, kern
         "bound_by": b_by,
         "library_ms": None,  # no single PyTorch call computes these steps
     }
+
+
+#: run in a subprocess from a tree: its build's registers and B1's kernel ms at the main shape
+_COMPARE_SNIPPET = r"""
+import json, sys, torch
+sys.path.insert(0, {tree!r})
+import chip_smoke as cs
+from landhydrology_tpu_torch.ops.cuda import column_kernel as ck
+libs = ck.build_library()
+out = {{"registers": cs.registers(ck, libs), "ms": {{}}}}
+for dtype in (torch.float32, torch.float64):
+    model, Y, _ = cs.build_bench_model(cs.NZ, cs.NCOL, dtype, "cuda")
+    run = ck.make_fused_column_run(model, dt=cs.DT, steps_per_call=cs.SPC)
+    run(Y, 0.0)
+    out["ms"][str(dtype)[6:]] = [cs._time_ms(lambda: run(Y, 0.0), 5) for _ in range(4)]
+print("COMPARE " + json.dumps(out))
+"""
+
+
+def compare_with(parent, smi) -> None:
+    """``--compare-with PARENT``: this tree and the tree at ``PARENT`` (an
+    unpacked ``git archive`` of the parent commit), each in a subprocess in
+    turns (parent, this, this, parent), each building its own kernels: every
+    instance the parent builds keeps its registers per thread (ptxas) here,
+    and B1's kernel time per 32-step launch at nz=64 x 65,536 (CUDA events,
+    four samples of five launches per run) is within 2% of the parent's,
+    f32 and f64."""
+    runs = []
+    for tree in (parent, HERE, HERE, parent):
+        proc = subprocess.run([sys.executable, "-c", _COMPARE_SNIPPET.format(tree=os.path.abspath(tree))],
+                              cwd=tree, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise AssertionError(f"compare {tree}: exit {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+        runs.append(json.loads(proc.stdout.split("COMPARE ", 1)[1]))
+    before, after = runs[0]["registers"], runs[1]["registers"]
+    changed = {k: (v, after.get(k)) for k, v in before.items() if after.get(k) != v}
+    print(f"[compare] registers: {len(before)} instances of the parent, {len(after)} here; changed "
+          f"{changed or 'none'}; new: {sorted(set(after) - set(before))}", flush=True)
+    if changed:
+        raise AssertionError(f"the parent's instances changed registers: {changed}")
+    for tag in ("float32", "float64"):
+        ms_parent = [m for r in (runs[0], runs[3]) for m in r["ms"][tag]]
+        ms_here = [m for r in (runs[1], runs[2]) for m in r["ms"][tag]]
+        ratio = float(np.median(ms_here)) / float(np.median(ms_parent))
+        print(f"[compare] {tag} B1 {SPC} steps nz={NZ} ncol={NCOL}: parent ms {', '.join(f'{m:.3f}' for m in ms_parent)}; "
+              f"this tree {', '.join(f'{m:.3f}' for m in ms_here)}; median ratio {ratio:.4f} (bar 1 +- 0.02) on {smi}",
+              flush=True)
+        if not abs(ratio - 1.0) <= 0.02:
+            raise AssertionError(f"B1 {tag}: kernel time {ratio:.4f}x the parent's")
 
 
 def finish(entries, smi, t_start) -> int:

@@ -2,9 +2,10 @@
 
 A batched 1-D soil-column solver for coupled water (Richards equation) and
 energy (heat equation) transport.  State tensors are ``(nz, *batch)`` with
-the columns contiguous; the explicit SSPRK33 hot path runs in one
-hand-written CUDA kernel per ``steps_per_call`` steps
-(``ops/cuda/column_kernel.py``, engine ``"fused"``), and so do the implicit
+the columns contiguous; the explicit hot path (SSPRK33, and ForwardEuler,
+SSPRK22, SSPRK104) runs in one hand-written CUDA kernel per
+``steps_per_call`` steps (``ops/cuda/column_kernel.py``, engine
+``"fused"``), and so do the implicit
 steppers of ``imex.py`` (TR-BDF2 and backward Euler with a tridiagonal solve
 in each column), and so do a MOST top face and the LandModel pond
 (``models/land.py``); every function also runs eagerly on CPU or GPU
@@ -20,6 +21,11 @@ Heterogeneous grids: per-column BC kinds (``BatchedBC``, ``BCKind``) and
 depths (``VariableDepthColumn``) run on both engines (kernel modes
 B1-batched and B8); ``LateralSurfaceCoupling`` on an ``(nx, ny)`` batch on
 the eager engine.
+
+JSON run files of the JAX package run through ``python -m
+landhydrology_tpu_torch run run.json`` (``cli.py``; ``config.py``'s
+``to_config`` / ``from_config`` and ``checkpoint.py``'s
+``CheckpointManager`` in the JAX package's ``.npz`` layout).
 
 The public API mirrors ``landhydrology_tpu``'s, minus what is not ported yet
 (see ROADMAP.md).  This package imports neither JAX nor landhydrology_tpu.

@@ -1,5 +1,5 @@
 // Device code shared by the soil-column kernels (column_kernel.cu,
-// implicit_kernel.cu, land_kernel.cu): the argument struct of the C interface, the pointwise
+// implicit_kernel.cu, land_kernel.cu, rk_kernel.cu): the argument struct of the C interface, the pointwise
 // closures of models/soil/water.py, heat.py and freeze_thaw.py, the boundary
 // flux conversion of boundary.py and one rhs sweep of rhs.py over a column.
 //
@@ -60,8 +60,11 @@ enum Surface {
 // Bits of KernelArgs::mode; values fixed by MODE_* in ops/cuda/column_kernel.py.
 // Branch: MODE_WATER (Richards only) or MODE_HEAT (conduction only), coupled
 // without either.  Stepper: SSPRK33 (column_kernel.cu) without a stepper
-// bit, else one of the implicit steppers (implicit_kernel.cu).  MODE_PCR is
-// read at run time and selects no template instance.  Surface (land_kernel.cu):
+// bit, one of the implicit steppers (implicit_kernel.cu), or ForwardEuler,
+// SSPRK22 or SSPRK104 (rk_kernel.cu, which also runs SSPRK33 with lagged
+// coefficients or assume_no_ice on the water-only and heat-only branches).
+// MODE_PCR and the explicit stepper bits are read at run time and select no
+// template instance.  Surface (land_kernel.cu):
 // MODE_MOST (a PrescribedAtmosForcing top), MODE_LAND (the LandModel pond),
 // MODE_SURFACE_STEP (its exchange frozen per step).  MODE_COLUMNS: the run
 // reads per-column BC kinds (kernel mode B1-batched) and/or a per-column
@@ -74,8 +77,24 @@ enum Mode : int64_t {
   MODE_BE_RICHARDS = 64, MODE_BE_SOIL = 128, MODE_TRBDF2 = 256,
   MODE_PCR = 512,
   MODE_MOST = 1024, MODE_LAND = 2048, MODE_SURFACE_STEP = 4096,
-  MODE_COLUMNS = 8192
+  MODE_COLUMNS = 8192,
+  MODE_EULER = 16384, MODE_SSPRK22 = 32768, MODE_SSPRK104 = 65536,
+  // Never in the host's mode word: rk_kernel.cu sets it on its instances.
+  // With it, assume_no_ice caps theta_l at nu - theta_i for the closures of
+  // the stage rhs, as rhs.py does; the instances of column_kernel.cu and
+  // implicit_kernel.cu cap it at nu (ROADMAP C) and keep their code.
+  MODE_RHS_CAP = 131072
 };
+
+// The explicit Runge-Kutta stages of rk_kernel.cu: at most kMaxStages per
+// step, each n = u + h f(u) of the register it reads, then (StageKind)
+//   STAGE_AXPY   out = n
+//   STAGE_COMB   out = a_y aux + a_u n              (c = h, a_y, a_u)
+//   STAGE_SPLIT  aux = c1 Y + c2 n; out = c3 aux + c4 n   (SSPRK104's q2, q1)
+//   STAGE_FINAL  out = (aux + c1 u) + h f(u)         (SSPRK104's last stage)
+// Registers: 0 the state, 1 and 2 the two scratch states.
+constexpr int kMaxStages = 10;
+enum StageKind : int64_t { STAGE_AXPY = 0, STAGE_COMB = 1, STAGE_SPLIT = 2, STAGE_FINAL = 3 };
 
 // Every field is 8 bytes wide: mirrors _KernelArgs in ops/cuda/column_kernel.py.
 struct KernelArgs {
@@ -131,6 +150,13 @@ struct KernelArgs {
   int64_t profile_row_stride[kNumProfiles];
   int64_t profile_level_stride[kNumProfiles];
   int64_t profile_col_stride[kNumProfiles];
+  // the explicit stages of rk_kernel.cu: register read, register written,
+  // auxiliary register and StageKind of stage s, and its coefficients at
+  // stage_c[5 s + j] (h, then the kind's; each a value of the model dtype
+  // held in a double)
+  int64_t n_stages;
+  int64_t stage_in[kMaxStages], stage_out[kMaxStages], stage_aux[kMaxStages], stage_kind[kMaxStages];
+  double stage_c[5 * kMaxStages];
 };
 
 // Values of KernelArgs::frow_mode.
@@ -178,6 +204,7 @@ template <int M> struct Modes {
   static constexpr bool land = (M & MODE_LAND) != 0;
   static constexpr bool surface_step = (M & MODE_SURFACE_STEP) != 0;
   static constexpr bool columns = (M & MODE_COLUMNS) != 0;  // B1-batched, B8
+  static constexpr bool rhs_cap = (M & MODE_RHS_CAP) != 0;
 };
 
 // Per-column constants and Earth constants, in the working type.
@@ -493,14 +520,29 @@ __device__ Center<T> center_fields(const Column<T>& c, const Coefs<T>& coef,
   x.kappa = x.rcs = x.K = x.psi = x.h = x.reK = T(0);
   x.src_l = x.src_i = T(0);
   T nu_eff = Modes<M>::no_ice ? c.p[P_NU] : c.p[P_NU] - ti;
-  T theta_l = d_min(vl, nu_eff);
+  T theta_l = d_min(vl, Modes<M>::no_ice && !Modes<M>::rhs_cap ? c.p[P_NU] : c.p[P_NU] - ti);
   if (Modes<M>::water) {
     x.temp = temp_prescribed;
-    x.K = conductivity(c, vl, ti, temp_prescribed);
+    x.K = Modes<M>::lagged   ? coef.K[i]
+          : Modes<M>::no_ice ? conductivity_no_ice(c, vl, temp_prescribed)
+                             : conductivity(c, vl, ti, temp_prescribed);
   } else if (Modes<M>::heat) {
-    x.rcs = c.p[P_RHO_C_DS] + theta_l * c.rho_cp_l + ti * c.rho_cp_i;
-    x.temp = c.T_0 + (re + ti * c.rho_ice * c.LH_f0) / x.rcs;
-    x.kappa = thermal_conductivity(c, vl, ti);
+    if (Modes<M>::lagged) {
+      T inv_rho_c_s = coef.inv_rho_c_s[i];
+      x.temp = Modes<M>::no_ice ? c.T_0 + re * inv_rho_c_s
+                                : c.T_0 + (re + ti * c.rho_ice * c.LH_f0) * inv_rho_c_s;
+      x.kappa = coef.kappa[i];
+    } else if (Modes<M>::no_ice) {
+      // rhs.py's heat-only branch caps theta_l at nu - theta_i, no ice or not
+      T theta_l_h = d_min(vl, c.p[P_NU] - ti);
+      x.rcs = c.p[P_RHO_C_DS] + theta_l_h * c.rho_cp_l;
+      x.temp = c.T_0 + re / x.rcs;
+      x.kappa = thermal_conductivity_no_ice(c, theta_l_h);
+    } else {
+      x.rcs = c.p[P_RHO_C_DS] + theta_l * c.rho_cp_l + ti * c.rho_cp_i;
+      x.temp = c.T_0 + (re + ti * c.rho_ice * c.LH_f0) / x.rcs;
+      x.kappa = thermal_conductivity(c, vl, ti);
+    }
     return x;
   } else if (Modes<M>::lagged) {
     T inv_rho_c_s = coef.inv_rho_c_s[i];

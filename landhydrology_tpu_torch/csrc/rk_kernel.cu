@@ -1,0 +1,199 @@
+// Fused multi-step soil-column kernel for the other explicit Runge-Kutta
+// steppers: ForwardEuler, SSPRK22 and SSPRK104 (timestepping.py), one thread
+// per column, and SSPRK33 where column_kernel.cu has no instance (lagged
+// coefficients or assume_no_ice on the water-only and heat-only branches).
+//
+// Replaces landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run
+// with those steppers traced in its body (`stepper_i.step`): `n_steps` steps
+// per launch, in place.  The template's mode word selects the branch and the
+// step policies as in column_kernel.cu (MODE_WATER, MODE_HEAT, MODE_LAGGED,
+// MODE_FREEZE_RATE, MODE_FREEZE_EQ, MODE_NO_ICE); the stepper is read at run
+// time from the launch's stage table (KernelArgs::stage_*, built on the host
+// by ops/cuda/column_kernel.py::stage_table), so one instance per mode runs
+// all four steppers.  Per step the order is: coefficients (from the step's
+// start state, held across every stage), the stages, the projection after
+// the last stage.
+//
+// Each stage is one rhs_sweep of column_common.cuh over the register it
+// reads, writing the register the table names:
+//   ForwardEuler  Y <- Y + dt f(Y)                       (in place)
+//   SSPRK22       A <- Y + dt f(Y); Y <- Y/2 + (A + dt f(A))/2
+//   SSPRK33       A, B, Y as in ssprk33.cuh
+//   SSPRK104      A <- Y + dt/6 f(Y); A <- A + dt/6 f(A) three times;
+//                 the fifth stage also forms q2 = Y/25 + 9/25 A into B and
+//                 A <- 15 B - 5 A; four more A <- A + dt/6 f(A); then
+//                 Y <- (B + 3/5 A) + dt/10 f(A)
+// so the state itself is SSPRK104's third register: it is read until the
+// fifth stage and written only by the last, and the two scratch states of
+// SSPRK33 hold q1 and q2.  A stage that reads and writes one register is
+// safe because rhs_sweep emits level k-1 only after it has read level k,
+// and no later face reads level k-1 from memory (the sliding window holds
+// it).  The stage times of the BC and profile tables come from the
+// stepper's stage_times on the host, in the model dtype, and so do the
+// coefficients h (dt, dt/6, dt/10): the kernel computes no time.
+//
+// Every instance carries MODE_RHS_CAP: under assume_no_ice the stage rhs
+// caps theta_l at nu - theta_i for the closures, as rhs.py's coupled branch
+// does (column_kernel.cu's B1-no-ice caps it at nu; ROADMAP C).
+
+#include "column_common.cuh"
+
+namespace {
+
+// One explicit stage for one column, by the stage table's entry `s`.
+template <typename T, int M>
+__device__ void rk_stage(const Column<T>& c, const KernelArgs& a, int64_t col, const Fields<T> reg[3], int s,
+                         bool last, const T bc_val[kNumBC], const Profiles<T, M>& prof, const Grid<T, M>& g,
+                         const Coefs<T>& coef) {
+  const int64_t ncol = a.ncol;
+  constexpr bool has_water = !Modes<M>::heat, has_heat = !Modes<M>::water;
+  const int64_t kind = a.stage_kind[s];
+  const Fields<T> u = reg[a.stage_in[s]], out = reg[a.stage_out[s]], aux = reg[a.stage_aux[s]];
+  const Fields<T> y = reg[0];
+  const double* coefs = a.stage_c + 5 * s;
+  const T h = T(coefs[0]), c1 = T(coefs[1]), c2 = T(coefs[2]), c3 = T(coefs[3]), c4 = T(coefs[4]);
+
+  // the stage's value of one field from its centre value x, tendency d and
+  // index i; SPLIT also writes the auxiliary register
+  auto combine = [&](T x, T d, const T* y_f, T* aux_f, int64_t i) -> T {
+    if (kind == STAGE_FINAL) return (aux_f[i] + c1 * x) + h * d;
+    T n = x + h * d;
+    if (kind == STAGE_COMB) return c1 * aux_f[i] + c2 * n;
+    if (kind == STAGE_SPLIT) {
+      T q2 = c1 * y_f[i] + c2 * n;
+      aux_f[i] = q2;
+      return c3 * q2 + c4 * n;
+    }
+    return n;
+  };
+
+  auto write = [&](int64_t k, const Center<T>& x, T d_vl, T d_ti, T d_re) {
+    const int64_t i = k * ncol + col;
+    T n_vl = T(0), n_ti = T(0), n_re = T(0);
+    if (has_water) {
+      n_vl = combine(x.vl, d_vl, y.vl, aux.vl, i);
+      n_ti = combine(x.ti, d_ti, y.ti, aux.ti, i);
+    }
+    if (has_heat) n_re = combine(x.re, d_re, y.re, aux.re, i);
+    if (Modes<M>::eq && last) phase_projection(c, &n_vl, &n_ti, n_re);
+    if (has_water) {
+      out.vl[i] = n_vl;
+      out.ti[i] = n_ti;
+    }
+    if (has_heat) out.re[i] = n_re;
+  };
+  rhs_sweep<T, M>(c, a, col, u, bc_val, prof, g, coef, write);
+}
+
+// lagged.py::compute_coeffs of the branch over one column at the step's
+// start (table row `row`): the coupled coefficients of column_common.cuh;
+// K alone on the water-only branch (T from the profile); kappa and
+// 1/rho_c_s on the heat-only branch (vartheta_l, theta_i from the profiles).
+template <typename T, int M>
+__device__ void branch_coefficients(const Column<T>& c, const KernelArgs& a, int64_t col, const Fields<T>& Y,
+                                    const Profiles<T, M>& prof, const Coefs<T>& coef) {
+  if (Modes<M>::coupled) {
+    coefficients<T, M>(c, a, col, Y.vl, Y.ti, Y.re, coef);
+    return;
+  }
+  for (int64_t k = 0; k < a.nz; ++k) {
+    const int64_t i = k * a.ncol + col;
+    if (Modes<M>::water) {
+      const T vl = Y.vl[i], ti = Y.ti[i], temp = prof.at(PROF_T, k);
+      coef.K[i] = Modes<M>::no_ice ? conductivity_no_ice(c, vl, temp) : conductivity(c, vl, ti, temp);
+    } else {
+      const T vl = prof.at(PROF_VARTHETA_L, k), ti = prof.at(PROF_THETA_I, k);
+      const T theta_l = d_min(vl, Modes<M>::no_ice ? c.p[P_NU] : c.p[P_NU] - ti);
+      T temp, kappa, rho_c_s, K;
+      closures<T, M>(c, vl, ti, Y.re[i], theta_l, &temp, &kappa, &rho_c_s, &K);
+      coef.kappa[i] = kappa;
+      coef.inv_rho_c_s[i] = T(1) / rho_c_s;
+    }
+  }
+}
+
+template <typename T, int M>
+__global__ void rk_column_kernel(const KernelArgs a, T eps, T tiny) {
+  const int64_t col = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (col >= a.ncol) return;  // ragged last block
+
+  const Column<T> c = load_column<T>(a, col, eps, tiny);
+  const Grid<T, M> g = load_grid<T, M>(a, col);
+
+  const int64_t n = a.nz * a.ncol;
+  T* scratch = static_cast<T*>(a.scratch);
+  const Fields<T> reg[3] = {
+      {static_cast<T*>(a.vartheta_l), static_cast<T*>(a.theta_i), static_cast<T*>(a.rho_e_int)},
+      {scratch, scratch + n, scratch + 2 * n},
+      {scratch + 3 * n, scratch + 4 * n, scratch + 5 * n}};
+  Coefs<T> coef{scratch + 6 * n, scratch + 7 * n, scratch + 8 * n, scratch + 9 * n, scratch + 10 * n};
+
+  for (int64_t step = 0; step < a.n_steps; ++step) {
+    if (Modes<M>::lagged) {
+      const Profiles<T, M> prof = load_profiles<T, M>(a, a.rows_per_step * step, col);
+      branch_coefficients<T, M>(c, a, col, reg[0], prof, coef);
+    }
+    for (int s = 0; s < a.n_stages; ++s) {
+      const int64_t row = a.rows_per_step * step + s;
+      T bc_val[kNumBC];
+      load_bc(a, row, col, bc_val);
+      const Profiles<T, M> prof = load_profiles<T, M>(a, row, col);
+      rk_stage<T, M>(c, a, col, reg, s, s == a.n_stages - 1, bc_val, prof, g, coef);
+    }
+  }
+}
+
+template <typename T, int M>
+int launch(const KernelArgs* args, int block, void* stream) {
+  const int64_t grid = (args->ncol + block - 1) / block;
+  rk_column_kernel<T, M | MODE_RHS_CAP><<<static_cast<unsigned>(grid), block, 0, static_cast<cudaStream_t>(stream)>>>(
+      *args, std::numeric_limits<T>::epsilon(), std::numeric_limits<T>::min());
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The plain-soil modes of column_kernel.cu without MODE_COLUMNS, and lagged
+// coefficients and assume_no_ice (alone and together) on the water-only and
+// heat-only branches; the stepper bits select no instance.
+template <typename T>
+int dispatch(const KernelArgs* args, int block, void* stream) {
+  if (args->n_stages < 1 || args->n_stages > kMaxStages) return static_cast<int>(cudaErrorInvalidValue);
+  switch (args->mode & ~int64_t(MODE_EULER | MODE_SSPRK22 | MODE_SSPRK104)) {
+    case 0: return launch<T, 0>(args, block, stream);
+    case MODE_LAGGED: return launch<T, MODE_LAGGED>(args, block, stream);
+    case MODE_NO_ICE: return launch<T, MODE_NO_ICE>(args, block, stream);
+    case MODE_LAGGED | MODE_NO_ICE: return launch<T, MODE_LAGGED | MODE_NO_ICE>(args, block, stream);
+    case MODE_FREEZE_RATE: return launch<T, MODE_FREEZE_RATE>(args, block, stream);
+    case MODE_LAGGED | MODE_FREEZE_RATE: return launch<T, MODE_LAGGED | MODE_FREEZE_RATE>(args, block, stream);
+    case MODE_FREEZE_EQ: return launch<T, MODE_FREEZE_EQ>(args, block, stream);
+    case MODE_LAGGED | MODE_FREEZE_EQ: return launch<T, MODE_LAGGED | MODE_FREEZE_EQ>(args, block, stream);
+    case MODE_WATER: return launch<T, MODE_WATER>(args, block, stream);
+    case MODE_WATER | MODE_LAGGED: return launch<T, MODE_WATER | MODE_LAGGED>(args, block, stream);
+    case MODE_WATER | MODE_NO_ICE: return launch<T, MODE_WATER | MODE_NO_ICE>(args, block, stream);
+    case MODE_WATER | MODE_LAGGED | MODE_NO_ICE:
+      return launch<T, MODE_WATER | MODE_LAGGED | MODE_NO_ICE>(args, block, stream);
+    case MODE_HEAT: return launch<T, MODE_HEAT>(args, block, stream);
+    case MODE_HEAT | MODE_LAGGED: return launch<T, MODE_HEAT | MODE_LAGGED>(args, block, stream);
+    case MODE_HEAT | MODE_NO_ICE: return launch<T, MODE_HEAT | MODE_NO_ICE>(args, block, stream);
+    case MODE_HEAT | MODE_LAGGED | MODE_NO_ICE:
+      return launch<T, MODE_HEAT | MODE_LAGGED | MODE_NO_ICE>(args, block, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// Built once per float type: -DKERNEL_F32_ONLY or -DKERNEL_F64_ONLY keeps
+// one entry point, and with it that type's template instances alone.
+extern "C" {
+
+int rk_kernel_args_size() { return static_cast<int>(sizeof(KernelArgs)); }
+
+#ifndef KERNEL_F64_ONLY
+int rk_kernel_f32(const KernelArgs* args, int block, void* stream) { return dispatch<float>(args, block, stream); }
+#endif
+
+#ifndef KERNEL_F32_ONLY
+int rk_kernel_f64(const KernelArgs* args, int block, void* stream) { return dispatch<double>(args, block, stream); }
+#endif
+
+}  // extern "C"

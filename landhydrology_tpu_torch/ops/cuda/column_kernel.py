@@ -1,9 +1,9 @@
 """Fused multi-step column kernels (CUDA, Hopper) and their plain version.
 
 Replaces ``landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run``
-in its SSPRK33 modes, its implicit modes and its surface modes:
+in its explicit modes, its implicit modes and its surface modes:
 ``steps_per_call`` steps of the soil (or land) tendency per launch, updating
-the state in place.  Three CUDA sources share ``csrc/column_common.cuh``:
+the state in place.  Four CUDA sources share ``csrc/column_common.cuh``:
 
 - ``csrc/column_kernel.cu``: SSPRK33 (kernel modes B1, B2, B3), on the
   coupled, water-only or heat-only branch;
@@ -16,10 +16,16 @@ the state in place.  Three CUDA sources share ``csrc/column_common.cuh``:
   ``PrescribedAtmosForcing``) or a ``LandModel`` pond (B6), the MOST solve
   in ``csrc/surface_fluxes.cuh``; each with streamed forcing rows (B7): the
   atmosphere fields and the rain rate read per step from rows on the card,
-  step-indexed or time-indexed.
+  step-indexed or time-indexed;
+- ``csrc/rk_kernel.cu``: ForwardEuler, SSPRK22 and SSPRK104 in every
+  plain-soil mode of ``column_kernel.cu`` (kernel mode B1's remainder), and
+  all four explicit steppers with lagged coefficients or ``assume_no_ice``
+  on the water-only and heat-only branches: one template instance per
+  mode, the stepper read at run time from the launch's stage table
+  (:func:`stage_table`).
 
 Each is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C interface at first use (all three in parallel) and bound with
+plain C interface at first use (all in parallel) and bound with
 ``ctypes``.
 
 - One thread owns one column and sweeps its levels; the grid is
@@ -38,8 +44,9 @@ plain C interface at first use (all three in parallel) and bound with
   ``Dirichlet(lambda t: 0.31)`` or a prescribed profile ``T(z, t)``: each is
   evaluated on the host into a table with one row per (step, stage time),
   at the times the stepper's own ``stage_times`` gives (SSPRK33: ``t``,
-  ``t + dt``, ``t + dt/2``; TR-BDF2: ``t``, ``t + g dt``, ``t + dt``;
-  backward Euler: ``t + dt``) from the step times ``t0 + i*dt``, in the
+  ``t + dt``, ``t + dt/2``; SSPRK104: ten, ``dt/6`` accumulated; TR-BDF2:
+  ``t``, ``t + g dt``, ``t + dt``; backward Euler: ``t + dt``) from the
+  step times ``t0 + i*dt``, in the
   model dtype.  So are callable atmosphere fields and the rain rate.
   Profiles are ``(nz,)`` rows, or ``(nz, ncol)`` rows where they vary by
   column (kernel mode B8), up to ``PROFILE_TABLE_BYTES`` per launch.
@@ -75,10 +82,10 @@ dt_run: the forward is the kernel, the backward the plain version's vjp,
 replayed one step at a time.
 
 Combinations without a kernel raise ``NotImplementedError`` naming their
-ROADMAP item, on either device: ForwardEuler, SSPRK22 and SSPRK104 (B1),
-lagged coefficients or ``assume_no_ice`` on the water-only and heat-only
-branches, the implicit steppers with step policies under a MOST top, on the
-branches or lagged with ``assume_no_ice``, or with a LandModel (B4), MOST or
+ROADMAP item, on either device: ForwardEuler, SSPRK22 and SSPRK104 under a
+MOST top or with a LandModel (B1), the implicit steppers with step policies
+under a MOST top, on the branches or lagged with ``assume_no_ice``, or with
+a LandModel (B4), MOST or
 the LandModel with freeze-thaw, ``assume_no_ice`` or one component
 prescribed (B5, B6; so also their forcing rows), per-column kinds or
 geometry outside the modes that hold them or with forcing rows (B1-batched,
@@ -163,7 +170,13 @@ from landhydrology_tpu_torch.runtime.forcing_driver import (
     _split_routing,
     time_row,
 )
-from landhydrology_tpu_torch.timestepping import SSPRK33, AbstractTimestepper
+from landhydrology_tpu_torch.timestepping import (
+    SSPRK22,
+    SSPRK33,
+    SSPRK104,
+    AbstractTimestepper,
+    ForwardEuler,
+)
 
 _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
@@ -174,13 +187,14 @@ SOURCES = {
     "column_kernel": CSRC / "column_kernel.cu",
     "implicit_kernel": CSRC / "implicit_kernel.cu",
     "land_kernel": CSRC / "land_kernel.cu",
+    "rk_kernel": CSRC / "rk_kernel.cu",
 }
 #: a source's C entry points are ``<prefix>_f32`` and ``<prefix>_f64``; the
 #: library of each float type is compiled with ``-DKERNEL_<TAG>_ONLY`` and
 #: holds that type's template instances alone, so the halves build in parallel
 _TAGS = ("f32", "f64")
 _ENTRY_PREFIX = {"column_kernel": "column_kernel_ssprk33", "implicit_kernel": "implicit_kernel",
-                 "land_kernel": "land_kernel"}
+                 "land_kernel": "land_kernel", "rk_kernel": "rk_kernel"}
 BUILD_DIR = _PACKAGE / "_build"
 #: ``-split-compile=0`` optimizes the template instances of a source in
 #: parallel on all host cores
@@ -235,11 +249,25 @@ MODE_PCR = 512
 MODE_MOST, MODE_LAND, MODE_SURFACE_STEP = 1024, 2048, 4096
 #: the instance reads per-column BC kinds, grid and profiles (B1-batched, B8)
 MODE_COLUMNS = 8192
+#: the explicit steppers of ``csrc/rk_kernel.cu`` (SSPRK33 has no bit), read
+#: at run time from the launch's stage table
+MODE_EULER, MODE_SSPRK22, MODE_SSPRK104 = 16384, 32768, 65536
+#: set by ``csrc/rk_kernel.cu`` on its template instances, never in a run's
+#: mode word: no ice caps theta_l at nu - theta_i in the stage rhs, as rhs.py
+MODE_RHS_CAP = 131072
 MODE_IMPLICIT = MODE_BE_RICHARDS | MODE_BE_SOIL | MODE_TRBDF2
+MODE_RK = MODE_EULER | MODE_SSPRK22 | MODE_SSPRK104
 _STEPPER_BITS = {TRBDF2Soil: MODE_TRBDF2, BackwardEulerRichards: MODE_BE_RICHARDS,
-                 BackwardEulerSoil: MODE_BE_SOIL}
+                 BackwardEulerSoil: MODE_BE_SOIL, ForwardEuler: MODE_EULER, SSPRK22: MODE_SSPRK22,
+                 SSPRK104: MODE_SSPRK104}
+#: the steppers the explicit kernels run
+_EXPLICIT_STEPPERS = (ForwardEuler, SSPRK22, SSPRK33, SSPRK104)
 _STEPPER_NAMES = {MODE_TRBDF2: "B4-trbdf2", MODE_BE_RICHARDS: "B4-be-richards",
-                  MODE_BE_SOIL: "B4-be-soil"}
+                  MODE_BE_SOIL: "B4-be-soil", MODE_EULER: "ForwardEuler", MODE_SSPRK22: "SSPRK22",
+                  MODE_SSPRK104: "SSPRK104"}
+#: ``enum StageKind`` of the header and its most stages per step
+STAGE_AXPY, STAGE_COMB, STAGE_SPLIT, STAGE_FINAL = 0, 1, 2, 3
+MAX_STAGES = 10
 
 _P = len(PARAM_NAMES)
 _B = len(BC_SLOTS)
@@ -312,6 +340,12 @@ class _KernelArgs(ctypes.Structure):
         ("profile_row_stride", ctypes.c_int64 * _R),
         ("profile_level_stride", ctypes.c_int64 * _R),
         ("profile_col_stride", ctypes.c_int64 * _R),
+        ("n_stages", ctypes.c_int64),
+        ("stage_in", ctypes.c_int64 * MAX_STAGES),
+        ("stage_out", ctypes.c_int64 * MAX_STAGES),
+        ("stage_aux", ctypes.c_int64 * MAX_STAGES),
+        ("stage_kind", ctypes.c_int64 * MAX_STAGES),
+        ("stage_c", ctypes.c_double * (5 * MAX_STAGES)),
     ]
 
 
@@ -423,8 +457,12 @@ def _entry(mode: int, dtype) -> tuple:
     """``(library name, C function)`` that launches ``mode`` in ``dtype``."""
     if mode & MODE_IMPLICIT:
         name = "implicit_kernel"
+    elif mode & (MODE_MOST | MODE_LAND):
+        name = "land_kernel"
+    elif mode & MODE_RK or (mode & (MODE_WATER | MODE_HEAT) and mode & (MODE_LAGGED | MODE_NO_ICE)):
+        name = "rk_kernel"
     else:
-        name = "land_kernel" if mode & (MODE_MOST | MODE_LAND) else "column_kernel"
+        name = "column_kernel"
     return name, f"{_ENTRY_PREFIX[name]}_{'f32' if dtype == torch.float32 else 'f64'}"
 
 
@@ -488,7 +526,10 @@ def mode_name(mode: int, features: tuple = (True, True)) -> str:
     coefficients) or ``B2`` (lagged), ``-no-ice`` for ``assume_no_ice``,
     ``B3-rate`` / ``B3-eq`` for freeze-thaw (``B2+B3-rate`` with lagged
     coefficients), ``B1-water`` / ``B1-heat`` for the water-only and
-    heat-only branches; ``B4-trbdf2``, ``B4-be-richards`` and
+    heat-only branches (``B2-water``, ``B1-heat-no-ice``, ... with lagged
+    coefficients or ``assume_no_ice``); ``@ForwardEuler``, ``@SSPRK22`` or
+    ``@SSPRK104`` after any of these for the other explicit steppers
+    (``B3-eq@SSPRK104``); ``B4-trbdf2``, ``B4-be-richards`` and
     ``B4-be-soil`` for the implicit steppers, with ``-water`` / ``-heat``
     for the branch, ``-no-ice``, ``-pcr`` for PCR solves, ``+B2`` for
     lagged coefficients, ``+B3-rate`` / ``+B3-eq`` for freeze-thaw and
@@ -504,6 +545,8 @@ def mode_name(mode: int, features: tuple = (True, True)) -> str:
     if mode & MODE_COLUMNS:
         kinds, geometry = features
         return mode_name(mode & ~MODE_COLUMNS) + ("+kinds" if kinds else "") + ("+B8" if geometry else "")
+    if mode & MODE_RK:
+        return mode_name(mode & ~MODE_RK) + "@" + _STEPPER_NAMES[mode & MODE_RK]
     if mode & MODE_LAND:
         name = "B6" + ("-step" if mode & MODE_SURFACE_STEP else "")
         name += "" if mode & MODE_MOST else "-pond"
@@ -517,9 +560,9 @@ def mode_name(mode: int, features: tuple = (True, True)) -> str:
         return name + ("+B5" if mode & MODE_MOST else "")
     if mode & MODE_MOST:
         return "B2+B5" if mode & MODE_LAGGED else "B5"
-    if branch:
-        return "B1" + branch
     name = "B2" if mode & MODE_LAGGED else "B1"
+    if branch:
+        return name + branch + ("-no-ice" if mode & MODE_NO_ICE else "")
     if mode & MODE_NO_ICE:
         name += "-no-ice"
     freeze = {MODE_FREEZE_RATE: "B3-rate", MODE_FREEZE_EQ: "B3-eq"}.get(
@@ -533,9 +576,12 @@ def mode_name(mode: int, features: tuple = (True, True)) -> str:
 def scratch_fields(mode: int) -> int:
     """Scratch values per cell.  SSPRK33: the two stage states, and with
     lagged coefficients K, kappa, 1/rho_c_s, rho_e_int_l K (and rho_c_s for
-    the rate sources).  Implicit: the iterate and the stage constants (three
-    fields each), the sweep's F, K and C, the solver's cp and dp (Thomas)
-    or two sets of (a, c, d, b) (PCR), then the lagged coefficients."""
+    the rate sources).  The other explicit steppers alike: SSPRK104's q1
+    and q2 are the two stage states, and the state itself its third
+    register (read up to its fifth stage, written by its last).  Implicit:
+    the iterate and the stage constants (three fields each), the sweep's F,
+    K and C, the solver's cp and dp (Thomas) or two sets of (a, c, d, b)
+    (PCR), then the lagged coefficients."""
     if mode & MODE_IMPLICIT:
         lagged = (5 if mode & MODE_FREEZE_RATE else 4) if mode & MODE_LAGGED else 0
         return 9 + (8 if mode & MODE_PCR else 2) + lagged
@@ -621,6 +667,37 @@ def table_times(stepper, t0, dt, n_steps: int, dtype) -> tuple:
     dt_t = torch.as_tensor(dt, dtype=dtype)
     per_step = [base.stage_times(t, dt_t) for t in step_times(t0, dt, n_steps, dtype)]
     return [t for row in per_step for t in row], len(per_step[0]) if per_step else 0
+
+
+def stage_table(stepper, dt, dtype) -> list:
+    """The explicit kernel's stages of one step of ``stepper`` (ForwardEuler,
+    SSPRK22, SSPRK33 or SSPRK104; ``enum StageKind`` of the header): per
+    stage ``(kind, register read, register written, auxiliary register,
+    (h, c1, c2, c3, c4))``, registers 0 for the state and 1, 2 for the two
+    scratch states.  Each stage is ``n = u + h f(u)`` of the register it
+    reads; ``h`` is computed from ``dt`` in ``dtype`` as the eager step
+    computes it (``dt``, ``dt / 6.0``, ``0.1 * dt``), the weights are the
+    step's Python numbers, rounded to ``dtype`` by the kernel as the eager
+    step rounds them."""
+    base = _base_stepper(stepper)
+    dt_t = torch.as_tensor(dt, dtype=dtype)
+    h = float(dt_t)
+    if type(base) is ForwardEuler:
+        return [(STAGE_AXPY, 0, 0, 0, (h, 0.0, 0.0, 0.0, 0.0))]
+    if type(base) is SSPRK22:
+        return [(STAGE_AXPY, 0, 1, 0, (h, 0.0, 0.0, 0.0, 0.0)),
+                (STAGE_COMB, 1, 0, 0, (h, 0.5, 0.5, 0.0, 0.0))]
+    if type(base) is SSPRK33:
+        return [(STAGE_AXPY, 0, 1, 0, (h, 0.0, 0.0, 0.0, 0.0)),
+                (STAGE_COMB, 1, 2, 0, (h, 0.75, 0.25, 0.0, 0.0)),
+                (STAGE_COMB, 2, 0, 0, (h, 1.0 / 3.0, 2.0 / 3.0, 0.0, 0.0))]
+    if type(base) is SSPRK104:
+        sixth, tenth = float(dt_t / 6.0), float(0.1 * dt_t)
+        axpy = (STAGE_AXPY, 1, 1, 0, (sixth, 0.0, 0.0, 0.0, 0.0))
+        return ([(STAGE_AXPY, 0, 1, 0, (sixth, 0.0, 0.0, 0.0, 0.0))] + [axpy] * 3
+                + [(STAGE_SPLIT, 1, 1, 2, (sixth, 1.0 / 25.0, 9.0 / 25.0, 15.0, -5.0))] + [axpy] * 4
+                + [(STAGE_FINAL, 1, 0, 2, (tenth, 3.0 / 5.0, 0.0, 0.0, 0.0))])
+    raise TypeError(f"{type(base).__name__} is not an explicit stepper of the kernel")
 
 
 def bc_value_table(value, t0, dt, n_steps: int, ncol: int, dtype, device,
@@ -1231,6 +1308,13 @@ def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt,
     if isinstance(ft, EquilibriumFreezeThaw):
         a.n_iter, a.T_lo, a.T_hi = int(ft.n_iter), float(ft.T_lo), float(ft.T_hi)
     a.rows_per_step = len(base.stage_times(0.0, dt))
+    if isinstance(base, _EXPLICIT_STEPPERS):
+        stages = stage_table(base, dt, soil.float_dtype)
+        a.n_stages = len(stages)
+        for s, (kind, reg_in, reg_out, reg_aux, coefs) in enumerate(stages):
+            a.stage_kind[s], a.stage_in[s], a.stage_out[s], a.stage_aux[s] = kind, reg_in, reg_out, reg_aux
+            for j, value in enumerate(coefs):
+                a.stage_c[5 * s + j] = value
     a.iters = int(getattr(base, "iters", 0))
     k = trbdf2_coefficients()
     a.half_g, a.a1, a.a2, a.b_bdf2 = k["half_g"], k["a1"], k["a2"], k["b"]
@@ -1404,17 +1488,17 @@ def _check_stepper(model, stepper) -> None:
                 "coefficient_update / freeze_thaw / surface_update do not call for it"
             )
         st = st.inner
-    if type(base) is SSPRK33:
-        if branch_only and (soil.coefficient_update == "step" or soil.assume_no_ice):
+    if type(base) in _EXPLICIT_STEPPERS:
+        if type(base) is not SSPRK33 and exchanged_components(model):
             raise NotImplementedError(
-                "lagged coefficients and assume_no_ice on the water-only and "
-                "heat-only branches are not ported to the kernel yet (ROADMAP B1)"
+                f"the in-kernel {type(base).__name__} with a MOST top or a LandModel is not ported yet "
+                "(ROADMAP B1): the land kernel steps with SSPRK33"
             )
         return
     if type(base) not in _STEPPER_BITS:
         raise NotImplementedError(
-            f"the fused kernels step with SSPRK33 and the implicit steppers; the "
-            f"in-kernel {type(base).__name__} is not ported yet (ROADMAP B1)"
+            "the fused kernels step with ForwardEuler, SSPRK22, SSPRK33, SSPRK104 and the implicit "
+            f"steppers; {type(base).__name__} has no kernel"
         )
     if isinstance(model, LandModel):
         raise NotImplementedError(

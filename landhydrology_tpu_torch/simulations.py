@@ -9,8 +9,10 @@ callbacks at the save points.  Two engines:
   the JAX package's XLA engine);
 - ``"fused"``: the CUDA column kernels (``ops/cuda/column_kernel.py``, the
   analogue of the ``"pallas"`` engine), ``steps_per_call`` steps per
-  launch, with time carried in the model dtype: SSPRK33 and the implicit
-  steppers of ``imex.py``, whose ``model`` must be the simulation's.
+  launch, with time carried in the model dtype: the explicit steppers
+  (ForwardEuler, SSPRK22, SSPRK33, SSPRK104; not ForwardEuler, SSPRK22 or
+  SSPRK104 under a MOST top or with a LandModel) and the implicit steppers of
+  ``imex.py``, whose ``model`` must be the simulation's.
 
 An implicit stepper's grid is rebuilt on the model's device.  A
 ``LandModel`` (soil + pond, ``models/land.py``) runs on both engines: its

@@ -56,8 +56,13 @@ class ForwardEuler(AbstractTimestepper):
     stages = 1
     order = 1
 
+    def stage_times(self, t, dt) -> tuple:
+        """The time of the one rhs evaluation."""
+        return (t,)
+
     def step(self, rhs, Y, Ya, t, dt):
-        return _axpy(dt, rhs(Y, Ya, t), Y)
+        (t1,) = self.stage_times(t, dt)
+        return _axpy(dt, rhs(Y, Ya, t1), Y)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,9 +72,14 @@ class SSPRK22(AbstractTimestepper):
     stages = 2
     order = 2
 
+    def stage_times(self, t, dt) -> tuple:
+        """The times of the two rhs evaluations."""
+        return (t, t + dt)
+
     def step(self, rhs, Y, Ya, t, dt):
-        u1 = _axpy(dt, rhs(Y, Ya, t), Y)
-        u2 = _axpy(dt, rhs(u1, Ya, t + dt), u1)
+        t1, t2 = self.stage_times(t, dt)
+        u1 = _axpy(dt, rhs(Y, Ya, t1), Y)
+        u2 = _axpy(dt, rhs(u1, Ya, t2), u1)
         return _lincomb2(0.5, Y, 0.5, u2)
 
 
@@ -101,19 +111,30 @@ class SSPRK104(AbstractTimestepper):
     stages = 10
     order = 4
 
+    def stage_times(self, t, dt) -> tuple:
+        """The times of the ten rhs evaluations, as the JAX package's step
+        computes them in the model dtype: ``dt/6`` accumulated from ``t``
+        over the first five, then from ``t + dt/3`` (``15 q2 - 5 q1``
+        rewinds the stage time) over the last five."""
+        sixth = dt / 6.0
+        times = []
+        for start in (t, t + (1.0 / 3.0) * dt):
+            tq = start
+            for _ in range(5):
+                times.append(tq)
+                tq = tq + sixth
+        return tuple(times)
+
     def step(self, rhs, Y, Ya, t, dt):
+        times = self.stage_times(t, dt)
         sixth = dt / 6.0
         q1 = Y
-        tq = t
-        for _ in range(5):
+        for tq in times[:5]:
             q1 = _axpy(sixth, rhs(q1, Ya, tq), q1)
-            tq = tq + sixth
         q2 = _lincomb2(1.0 / 25.0, Y, 9.0 / 25.0, q1)
         q1 = _lincomb2(15.0, q2, -5.0, q1)
-        tq = t + (1.0 / 3.0) * dt  # 15*q2 - 5*q1 rewinds the stage time
-        for _ in range(4):
+        for tq in times[5:9]:
             q1 = _axpy(sixth, rhs(q1, Ya, tq), q1)
-            tq = tq + sixth
-        f_last = rhs(q1, Ya, tq)
+        f_last = rhs(q1, Ya, times[9])
         out = _lincomb2(1.0, q2, 3.0 / 5.0, q1)
         return _axpy(0.1 * dt, f_last, out)

@@ -206,10 +206,22 @@ def _golden_port():
 )
 def test_unported_modes_raise(mode):
     model = _golden_port()
-    if mode == "B2_lagged":  # ported: the water-only and heat-only lagged branches are not
-        for branch in _branch_models(model):
-            with pytest.raises(NotImplementedError, match="branch"):
-                ck.make_fused_column_run(dataclasses.replace(branch, coefficient_update="step"))
+    if mode == "B2_lagged":  # ported, on the water-only and heat-only branches too (rk_kernel.cu)
+        for branch, name in zip(_branch_models(model), ("B2-water", "B2-heat")):
+            lagged = dataclasses.replace(branch, coefficient_update="step")
+            assert ck.make_fused_column_run(lagged).name == name
+            assert ck.make_fused_column_run(dataclasses.replace(lagged, assume_no_ice=True)).name == name + "-no-ice"
+            assert ck._entry(ck.make_fused_column_run(lagged).mode, torch.float64)[0] == "rk_kernel"
+        # still refused: per-column BC kinds in them (ROADMAP B1-batched)
+        from landhydrology_tpu_torch import BatchedBC
+
+        water_only = _branch_models(model)[0]
+        bcs = water_only.boundary_conditions
+        kinds = dataclasses.replace(water_only, coefficient_update="step", boundary_conditions=SoilColumnBC(
+            top=bcs.top, bottom=SoilComponentBC(hydrology=BatchedBC(kind=torch.zeros(8, dtype=torch.int64),
+                                                                    value=0.0), energy=bcs.bottom.energy)))
+        with pytest.raises(NotImplementedError, match="ROADMAP B1-batched"):
+            ck.make_fused_column_run(kinds)
     elif mode == "B3_freeze_thaw":  # ported: an unknown scheme is refused
         with pytest.raises(TypeError, match="FreezeThaw"):
             dataclasses.replace(model, freeze_thaw=object())
@@ -311,21 +323,30 @@ def _branch_models(model):
 def test_unported_branches_and_options_raise():
     """The water-only and heat-only branches build runs of kernels B1-water
     and B1-heat (BC slots of the prescribed component hold NoBC, as in
-    bench.py::build_stiff); assume_no_ice builds B1-no-ice; ForwardEuler,
-    SSPRK22 and SSPRK104 still raise, on every branch."""
+    bench.py::build_stiff); assume_no_ice builds B1-no-ice, and on the
+    branches B1-water-no-ice / B1-heat-no-ice; ForwardEuler, SSPRK22 and
+    SSPRK104 build their instances on every branch (``@<stepper>``), and
+    still raise under a MOST top (ROADMAP B1)."""
     model = _golden_port()
     water_only, heat_only = _branch_models(model)
     assert ck.mode_name(ck.make_fused_column_run(water_only).mode) == "B1-water"
     assert ck.mode_name(ck.make_fused_column_run(heat_only).mode) == "B1-heat"
     run = ck.make_fused_column_run(dataclasses.replace(model, assume_no_ice=True))
     assert ck.mode_name(run.mode) == "B1-no-ice"
-    for m in (model, water_only, heat_only):
+    for m, name in ((model, "B1"), (water_only, "B1-water"), (heat_only, "B1-heat")):
         for stepper in (ForwardEuler(), SSPRK22(), SSPRK104()):
-            with pytest.raises(NotImplementedError, match="ROADMAP B1"):
-                ck.make_fused_column_run(m, stepper)
-    for m in (water_only, heat_only):
+            run = ck.make_fused_column_run(m, stepper)
+            assert run.name == f"{name}@{type(stepper).__name__}"
+            assert ck._entry(run.mode, torch.float64)[0] == "rk_kernel"
+    for m, name in ((water_only, "B1-water-no-ice"), (heat_only, "B1-heat-no-ice")):
+        assert ck.make_fused_column_run(dataclasses.replace(m, assume_no_ice=True)).name == name
+    most = dataclasses.replace(model, boundary_conditions=SoilColumnBC(
+        top=PrescribedAtmosForcing(u_atm=2.0, theta_atm=300.0, z_atm=2.0, theta_scale=300.0, rho_a_sfc=1.2,
+                                   q_atm=0.005),
+        bottom=model.boundary_conditions.bottom))
+    for stepper in (ForwardEuler(), SSPRK22(), SSPRK104()):
         with pytest.raises(NotImplementedError, match="ROADMAP B1"):
-            ck.make_fused_column_run(dataclasses.replace(m, assume_no_ice=True))
+            ck.make_fused_column_run(most, stepper)
 
 
 def test_mode_names_and_scratch():
