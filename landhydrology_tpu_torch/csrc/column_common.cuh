@@ -1,7 +1,8 @@
 // Device code shared by the soil-column kernels (column_kernel.cu,
-// implicit_kernel.cu, land_kernel.cu, rk_kernel.cu): the argument struct of the C interface, the pointwise
-// closures of models/soil/water.py, heat.py and freeze_thaw.py, the boundary
-// flux conversion of boundary.py and one rhs sweep of rhs.py over a column.
+// implicit_kernel.cu, land_kernel.cu, land_policy_kernel.cu, rk_kernel.cu):
+// the argument struct of the C interface, the pointwise closures of
+// models/soil/water.py, heat.py and freeze_thaw.py, the boundary flux
+// conversion of boundary.py and one rhs sweep of rhs.py over a column.
 //
 // Numerics follow the eager PyTorch port (landhydrology_tpu_torch) operation
 // for operation.  eps and tiny are numeric_limits<T>::epsilon() / min()
@@ -79,10 +80,12 @@ enum Mode : int64_t {
   MODE_MOST = 1024, MODE_LAND = 2048, MODE_SURFACE_STEP = 4096,
   MODE_COLUMNS = 8192,
   MODE_EULER = 16384, MODE_SSPRK22 = 32768, MODE_SSPRK104 = 65536,
-  // Never in the host's mode word: rk_kernel.cu sets it on its instances.
-  // With it, assume_no_ice caps theta_l at nu - theta_i for the closures of
-  // the stage rhs, as rhs.py does; the instances of column_kernel.cu and
-  // implicit_kernel.cu cap it at nu (ROADMAP C) and keep their code.
+  // Never in the host's mode word: the sources set it on their no-ice
+  // instances (every rk_kernel.cu instance carries it).  With it,
+  // assume_no_ice caps theta_l at nu - theta_i for the closures of the stage
+  // rhs, as rhs.py does; without it at nu (column_kernel.cu's B2-no-ice,
+  // whose lagged closures cap at nu as lagged.py's do, and which reads the
+  // stage theta_l only for rate sources, which no ice excludes).
   MODE_RHS_CAP = 131072
 };
 

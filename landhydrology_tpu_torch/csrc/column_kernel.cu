@@ -86,6 +86,9 @@ int launch(const KernelArgs* args, int block, void* stream) {
 // The mode word selects a template instance; assume_no_ice excludes
 // freeze-thaw, the two freeze-thaw schemes exclude each other, and the
 // water-only and heat-only branches run with stage coefficients alone.
+// B1-no-ice carries MODE_RHS_CAP: its stage rhs caps theta_l at nu -
+// theta_i, as rhs.py does (B2-no-ice takes its closures from lagged.py's
+// sweep, which caps at nu).
 // MODE_COLUMNS joins B1, B2, B3-rate and B1-water (KINDS_MODES and
 // GEOMETRY_MODES in ops/cuda/column_kernel.py).
 template <typename T>
@@ -93,7 +96,7 @@ int dispatch(const KernelArgs* args, int block, void* stream) {
   switch (args->mode) {
     case 0: return launch<T, 0>(args, block, stream);
     case MODE_LAGGED: return launch<T, MODE_LAGGED>(args, block, stream);
-    case MODE_NO_ICE: return launch<T, MODE_NO_ICE>(args, block, stream);
+    case MODE_NO_ICE: return launch<T, MODE_NO_ICE | MODE_RHS_CAP>(args, block, stream);
     case MODE_LAGGED | MODE_NO_ICE:
       return launch<T, MODE_LAGGED | MODE_NO_ICE>(args, block, stream);
     case MODE_FREEZE_RATE: return launch<T, MODE_FREEZE_RATE>(args, block, stream);

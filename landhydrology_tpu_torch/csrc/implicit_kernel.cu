@@ -414,12 +414,13 @@ int launch(const KernelArgs* args, int block, void* stream) {
 // water-only branches; MODE_MOST each stepper on the coupled branch; the
 // step policies each stepper on the coupled branch, lagged coefficients
 // alone or with either freeze-thaw scheme, and either scheme or no ice
-// alone.
+// alone; the no-ice instances carry MODE_RHS_CAP (the rhs caps theta_l at
+// nu - theta_i, as rhs.py and imex.py's sweeps do).
 #define POLICY_CASES(S)                                                                              \
   case S | MODE_LAGGED: return launch<T, S | MODE_LAGGED>(args, block, stream);                     \
   case S | MODE_FREEZE_RATE: return launch<T, S | MODE_FREEZE_RATE>(args, block, stream);           \
   case S | MODE_FREEZE_EQ: return launch<T, S | MODE_FREEZE_EQ>(args, block, stream);               \
-  case S | MODE_NO_ICE: return launch<T, S | MODE_NO_ICE>(args, block, stream);                     \
+  case S | MODE_NO_ICE: return launch<T, S | MODE_NO_ICE | MODE_RHS_CAP>(args, block, stream);      \
   case S | MODE_LAGGED | MODE_FREEZE_RATE:                                                          \
     return launch<T, S | MODE_LAGGED | MODE_FREEZE_RATE>(args, block, stream);                      \
   case S | MODE_LAGGED | MODE_FREEZE_EQ: return launch<T, S | MODE_LAGGED | MODE_FREEZE_EQ>(args, block, stream);

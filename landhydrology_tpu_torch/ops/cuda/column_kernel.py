@@ -3,7 +3,7 @@
 Replaces ``landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run``
 in its explicit modes, its implicit modes and its surface modes:
 ``steps_per_call`` steps of the soil (or land) tendency per launch, updating
-the state in place.  Four CUDA sources share ``csrc/column_common.cuh``:
+the state in place.  Five CUDA sources share ``csrc/column_common.cuh``:
 
 - ``csrc/column_kernel.cu``: SSPRK33 (kernel modes B1, B2, B3), on the
   coupled, water-only or heat-only branch;
@@ -17,6 +17,11 @@ the state in place.  Four CUDA sources share ``csrc/column_common.cuh``:
   in ``csrc/surface_fluxes.cuh``; each with streamed forcing rows (B7): the
   atmosphere fields and the rain rate read per step from rows on the card,
   step-indexed or time-indexed;
+- ``csrc/land_policy_kernel.cu``: the same kernel (``csrc/land_column.cuh``)
+  under rate or equilibrium freeze-thaw or ``assume_no_ice``, each alone or
+  with lagged coefficients, on the MOST soil column and the four LandModel
+  tops (B5, B6, B6 with its exchange frozen per step, and both with a plain
+  top BC), without forcing rows;
 - ``csrc/rk_kernel.cu``: ForwardEuler, SSPRK22 and SSPRK104 in every
   plain-soil mode of ``column_kernel.cu`` (kernel mode B1's remainder), and
   all four explicit steppers with lagged coefficients or ``assume_no_ice``
@@ -85,12 +90,13 @@ Combinations without a kernel raise ``NotImplementedError`` naming their
 ROADMAP item, on either device: ForwardEuler, SSPRK22 and SSPRK104 under a
 MOST top or with a LandModel (B1), the implicit steppers with step policies
 under a MOST top, on the branches or lagged with ``assume_no_ice``, or with
-a LandModel (B4), MOST or
-the LandModel with freeze-thaw, ``assume_no_ice`` or one component
-prescribed (B5, B6; so also their forcing rows), per-column kinds or
-geometry outside the modes that hold them or with forcing rows (B1-batched,
-B8).  Lateral coupling, pond routing, a per-column rain callable and a 2-D
-column batch raise ``ValueError``, as the JAX kernel's factory does; so does
+a LandModel, which the reference kernel cannot run either (B4), the
+LandModel on a water-only soil, and streamed forcing rows with freeze-thaw
+or ``assume_no_ice`` under MOST or a LandModel (B5, B6), per-column kinds
+or geometry outside the modes that hold them or with forcing rows
+(B1-batched, B8).  Lateral coupling, pond routing, a per-column rain
+callable and a 2-D column batch raise ``ValueError``, as the JAX kernel's
+factory does; so does
 a non-differentiable run on CUDA state tensors that require grad in grad
 mode (the kernel writes them where autograd cannot see).
 """
@@ -187,6 +193,7 @@ SOURCES = {
     "column_kernel": CSRC / "column_kernel.cu",
     "implicit_kernel": CSRC / "implicit_kernel.cu",
     "land_kernel": CSRC / "land_kernel.cu",
+    "land_policy_kernel": CSRC / "land_policy_kernel.cu",
     "rk_kernel": CSRC / "rk_kernel.cu",
 }
 #: a source's C entry points are ``<prefix>_f32`` and ``<prefix>_f64``; the
@@ -194,7 +201,8 @@ SOURCES = {
 #: holds that type's template instances alone, so the halves build in parallel
 _TAGS = ("f32", "f64")
 _ENTRY_PREFIX = {"column_kernel": "column_kernel_ssprk33", "implicit_kernel": "implicit_kernel",
-                 "land_kernel": "land_kernel", "rk_kernel": "rk_kernel"}
+                 "land_kernel": "land_kernel", "land_policy_kernel": "land_policy_kernel",
+                 "rk_kernel": "rk_kernel"}
 BUILD_DIR = _PACKAGE / "_build"
 #: ``-split-compile=0`` optimizes the template instances of a source in
 #: parallel on all host cores
@@ -252,8 +260,9 @@ MODE_COLUMNS = 8192
 #: the explicit steppers of ``csrc/rk_kernel.cu`` (SSPRK33 has no bit), read
 #: at run time from the launch's stage table
 MODE_EULER, MODE_SSPRK22, MODE_SSPRK104 = 16384, 32768, 65536
-#: set by ``csrc/rk_kernel.cu`` on its template instances, never in a run's
-#: mode word: no ice caps theta_l at nu - theta_i in the stage rhs, as rhs.py
+#: set by the sources on their no-ice template instances (every instance of
+#: ``csrc/rk_kernel.cu``), never in a run's mode word: no ice caps theta_l at
+#: nu - theta_i in the stage rhs, as rhs.py
 MODE_RHS_CAP = 131072
 MODE_IMPLICIT = MODE_BE_RICHARDS | MODE_BE_SOIL | MODE_TRBDF2
 MODE_RK = MODE_EULER | MODE_SSPRK22 | MODE_SSPRK104
@@ -265,6 +274,8 @@ _EXPLICIT_STEPPERS = (ForwardEuler, SSPRK22, SSPRK33, SSPRK104)
 _STEPPER_NAMES = {MODE_TRBDF2: "B4-trbdf2", MODE_BE_RICHARDS: "B4-be-richards",
                   MODE_BE_SOIL: "B4-be-soil", MODE_EULER: "ForwardEuler", MODE_SSPRK22: "SSPRK22",
                   MODE_SSPRK104: "SSPRK104"}
+#: the policies of ``csrc/land_policy_kernel.cu`` (with or without MODE_LAGGED)
+_FREEZE_OR_NO_ICE = MODE_FREEZE_RATE | MODE_FREEZE_EQ | MODE_NO_ICE
 #: ``enum StageKind`` of the header and its most stages per step
 STAGE_AXPY, STAGE_COMB, STAGE_SPLIT, STAGE_FINAL = 0, 1, 2, 3
 MAX_STAGES = 10
@@ -458,7 +469,7 @@ def _entry(mode: int, dtype) -> tuple:
     if mode & MODE_IMPLICIT:
         name = "implicit_kernel"
     elif mode & (MODE_MOST | MODE_LAND):
-        name = "land_kernel"
+        name = "land_policy_kernel" if mode & _FREEZE_OR_NO_ICE else "land_kernel"
     elif mode & MODE_RK or (mode & (MODE_WATER | MODE_HEAT) and mode & (MODE_LAGGED | MODE_NO_ICE)):
         name = "rk_kernel"
     else:
@@ -537,7 +548,9 @@ def mode_name(mode: int, features: tuple = (True, True)) -> str:
     ``B4-trbdf2-pcr+B5``); ``B5`` for a MOST top
     (``B2+B5`` lagged), ``B6`` for the LandModel with a MOST top, ``-step``
     with its exchange frozen per step, ``B2+`` lagged and ``-pond`` with a
-    plain top BC (``B2+B6-step-pond``).  The ``MODE_COLUMNS`` instance adds
+    plain top BC (``B2+B6-step-pond``), each with ``+B3-rate``, ``+B3-eq``
+    or ``-no-ice`` for its step policy (``B6+B3-rate``, ``B2+B6-step+B3-eq``,
+    ``B5-no-ice``, ``B2+B6-pond-no-ice``).  The ``MODE_COLUMNS`` instance adds
     ``+kinds`` where it reads per-column BC kinds (B1-batched) and ``+B8``
     where it reads per-column geometry: ``features`` is ``(kinds,
     geometry)`` of a run (:func:`per_column_features`), both by default,
@@ -547,10 +560,12 @@ def mode_name(mode: int, features: tuple = (True, True)) -> str:
         return mode_name(mode & ~MODE_COLUMNS) + ("+kinds" if kinds else "") + ("+B8" if geometry else "")
     if mode & MODE_RK:
         return mode_name(mode & ~MODE_RK) + "@" + _STEPPER_NAMES[mode & MODE_RK]
+    policy = {MODE_FREEZE_RATE: "+B3-rate", MODE_FREEZE_EQ: "+B3-eq", MODE_NO_ICE: "-no-ice"}.get(
+        mode & _FREEZE_OR_NO_ICE, "")
     if mode & MODE_LAND:
         name = "B6" + ("-step" if mode & MODE_SURFACE_STEP else "")
         name += "" if mode & MODE_MOST else "-pond"
-        return "B2+" + name if mode & MODE_LAGGED else name
+        return ("B2+" + name if mode & MODE_LAGGED else name) + policy
     branch = {MODE_WATER: "-water", MODE_HEAT: "-heat"}.get(mode & (MODE_WATER | MODE_HEAT), "")
     if mode & MODE_IMPLICIT:
         name = _STEPPER_NAMES[mode & MODE_IMPLICIT] + branch + ("-no-ice" if mode & MODE_NO_ICE else "")
@@ -559,7 +574,7 @@ def mode_name(mode: int, features: tuple = (True, True)) -> str:
             mode & (MODE_FREEZE_RATE | MODE_FREEZE_EQ), "")
         return name + ("+B5" if mode & MODE_MOST else "")
     if mode & MODE_MOST:
-        return "B2+B5" if mode & MODE_LAGGED else "B5"
+        return ("B2+B5" if mode & MODE_LAGGED else "B5") + policy
     name = "B2" if mode & MODE_LAGGED else "B1"
     if branch:
         return name + branch + ("-no-ice" if mode & MODE_NO_ICE else "")
@@ -1336,7 +1351,7 @@ def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt,
 # --------------------------------------------------------------------------
 
 
-def _check_surface(model, rain_forced: bool = False) -> None:
+def _check_surface(model, rain_forced: bool = False, forcing_fields=()) -> None:
     """Refuse the surface configurations no kernel runs: those the JAX
     kernel's factory refuses (``ValueError``) and those not ported yet.  A
     rain rate streamed as forcing rows may be per column."""
@@ -1360,10 +1375,10 @@ def _check_surface(model, rain_forced: bool = False) -> None:
         raise NotImplementedError(
             f"the LandModel on a water-only soil is not ported to the kernel yet (ROADMAP {item})"
         )
-    if soil.freeze_thaw is not None or soil.assume_no_ice:
+    if forcing_fields and (soil.freeze_thaw is not None or soil.assume_no_ice):
         raise NotImplementedError(
-            "freeze-thaw or assume_no_ice with a MOST top or a LandModel is not "
-            f"ported to the kernel yet (ROADMAP {item})"
+            "streamed forcing rows (B7) with freeze-thaw or assume_no_ice under a MOST top or a "
+            f"LandModel are not ported to the kernel yet (ROADMAP {item})"
         )
 
 
@@ -1409,7 +1424,7 @@ def _check_per_column(model, stepper, streamed_geometry, forcing_fields) -> None
             )
 
 
-def _check_model(model, rain_forced: bool = False) -> None:
+def _check_model(model, rain_forced: bool = False, forcing_fields=()) -> None:
     if not isinstance(model, (SoilModel, LandModel)):
         raise TypeError(f"expected a SoilModel or a LandModel; got {type(model).__name__}")
     soil = _soil_of(model)
@@ -1420,7 +1435,7 @@ def _check_model(model, rain_forced: bool = False) -> None:
         )
     exchanged = exchanged_components(model)
     if exchanged:
-        _check_surface(model, rain_forced)
+        _check_surface(model, rain_forced, forcing_fields)
     if len(soil.domain.batch_shape) != 1:
         raise ValueError(
             "the fused column kernel expects a 1-D column batch (nz, ncol); "
@@ -1453,7 +1468,10 @@ def _check_model(model, rain_forced: bool = False) -> None:
 
 
 def _implied_policies(model, base):
-    """The step-policy wrappers ``Simulation`` puts around ``base``."""
+    """The step-policy wrappers ``Simulation`` puts around ``base``, in the
+    JAX kernel's order: the equilibrium projection inside, then lagged
+    coefficients or, for a LandModel, the frozen exchange (which also lags
+    its soil's coefficients) outside."""
     soil = _soil_of(model)
     st = wrap_stepper_with_projection(base, soil)
     if isinstance(model, LandModel):
@@ -1502,7 +1520,9 @@ def _check_stepper(model, stepper) -> None:
         )
     if isinstance(model, LandModel):
         raise NotImplementedError(
-            "the implicit steppers with a LandModel are not ported to the kernel yet (ROADMAP B4)"
+            "the implicit steppers with a LandModel have no kernel, and the reference kernel cannot run "
+            "them either: JAX's implicit steppers return the soil state alone, dropping the pond that "
+            "its kernel body then reads (ROADMAP B4)"
         )
     if base.model is not model:
         raise ValueError(
@@ -1598,7 +1618,7 @@ def make_fused_column_run(
                 f"forcing_time_grid needs n_rows >= 1 and dt_forcing > 0; got {forcing_time_grid}"
             )
         forcing_time_grid = (float(t_start), float(dt_forcing), int(n_rows))
-    _check_model(model, rain_forced)
+    _check_model(model, rain_forced, forcing_fields)
     _check_stepper(model, stepper)
     _check_per_column(model, stepper, streamed_geometry, forcing_fields)
     if streamed_geometry is not None:

@@ -15,10 +15,11 @@ callbacks at the save points.  Two engines:
   ``imex.py``, whose ``model`` must be the simulation's.
 
 An implicit stepper's grid is rebuilt on the model's device.  A
-``LandModel`` (soil + pond, ``models/land.py``) runs on both engines: its
-soil component owns the freeze-thaw projection, and its step-level
-policies (frozen surface exchange, lagged coefficients) wrap the stepper
-as ``wrap_stepper_for_land`` does.  Per-column BC kinds and depths run on
+``LandModel`` (soil + pond, ``models/land.py``) runs on both engines, its
+soil with freeze-thaw or ``assume_no_ice`` too (on the fused engine under
+SSPRK33): its soil component owns the freeze-thaw projection, and its
+step-level policies (frozen surface exchange, lagged coefficients) wrap
+the stepper as ``wrap_stepper_for_land`` does.  Per-column BC kinds and depths run on
 both engines; a ``LateralSurfaceCoupling`` couples columns and runs on the
 eager engine only (the fused engine raises ``ValueError``).
 """

@@ -237,7 +237,7 @@ def test_unported_modes_raise(mode):
         m = dataclasses.replace(model, coefficient_update="step", assume_no_ice=True)
         with pytest.raises(NotImplementedError, match="ROADMAP B4"):
             ck.make_fused_column_run(m, TRBDF2Soil(model=m, grid=grid))
-    elif mode in ("B5_most", "B6_land"):  # ported: not with freeze-thaw or assume_no_ice
+    elif mode in ("B5_most", "B6_land"):  # ported, with freeze-thaw and assume_no_ice; not with their rows
         from landhydrology_tpu_torch.models.land import LandModel
 
         most = dataclasses.replace(model, boundary_conditions=SoilColumnBC(
@@ -245,11 +245,13 @@ def test_unported_modes_raise(mode):
                                        theta_scale=300.0, rho_a_sfc=1.2, q_atm=0.005),
             bottom=model.boundary_conditions.bottom))
         assert ck.mode_name(ck.make_fused_column_run(most).mode) == "B5"
-        for kw in ({"freeze_thaw": FreezeThaw(tau=60.0)}, {"assume_no_ice": True}):
+        for kw, suffix in (({"freeze_thaw": FreezeThaw(tau=60.0)}, "+B3-rate"), ({"assume_no_ice": True}, "-no-ice")):
             m = dataclasses.replace(most, **kw)
             item = "B5" if mode == "B5_most" else "B6"
+            m = m if mode == "B5_most" else LandModel(soil=m)
+            assert ck.make_fused_column_run(m).name == item + suffix
             with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-                ck.make_fused_column_run(m if mode == "B5_most" else LandModel(soil=m))
+                ck.make_fused_column_run(m, forcing_fields=("u_atm",))
     elif mode == "B7_forcing":  # ported: not onto a top without an atmosphere, nor under freeze-thaw
         with pytest.raises(TypeError, match="PrescribedAtmosForcing"):
             ck.make_fused_column_run(model, forcing_fields=("u_atm",))

@@ -216,8 +216,9 @@ def test_fused_engine_runs_the_land_model():
 
 def test_fused_run_refusals():
     """What the JAX kernel's factory refuses (routing, per-column rain, a
-    2-D batch: ValueError) and what the kernel does not run yet
-    (NotImplementedError naming ROADMAP B5/B6/B4)."""
+    2-D batch: ValueError) and what the kernel does not run (NotImplementedError
+    naming ROADMAP B5/B6/B4): freeze-thaw and no ice with forcing rows, the
+    implicit steppers with a LandModel."""
     from landhydrology_tpu_torch.models.soil.freeze_thaw import FreezeThaw
     from landhydrology_tpu_torch.imex import TRBDF2Soil
 
@@ -234,15 +235,19 @@ def test_fused_run_refusals():
     soil2d = dataclasses.replace(model.soil, domain=dataclasses.replace(model.soil.domain, batch_shape=(16, 16)))
     with pytest.raises(ValueError, match="1-D column batch"):
         ck.make_fused_column_run(dataclasses.replace(model, soil=soil2d))
-    for kw in ({"freeze_thaw": FreezeThaw(tau=60.0)}, {"assume_no_ice": True}):
+    # freeze-thaw and no ice run under MOST and a LandModel, but not with streamed forcing rows yet
+    for kw, suffix in (({"freeze_thaw": FreezeThaw(tau=60.0)}, "+B3-rate"), ({"assume_no_ice": True}, "-no-ice")):
         soil = dataclasses.replace(model.soil, **kw)
+        assert ck.make_fused_column_run(dataclasses.replace(model, soil=soil)).name == "B6" + suffix
+        assert ck.make_fused_column_run(soil).name == "B5" + suffix
         with pytest.raises(NotImplementedError, match="ROADMAP B6"):
-            ck.make_fused_column_run(dataclasses.replace(model, soil=soil))
+            ck.make_fused_column_run(dataclasses.replace(model, soil=soil), forcing_fields=("precipitation",))
         with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-            ck.make_fused_column_run(soil)
+            ck.make_fused_column_run(soil, forcing_fields=("u_atm",))
     from landhydrology_tpu_torch.domains import make_function_space
 
-    # the implicit steppers run under the soil's MOST top (B4+B5), not with the LandModel (ROADMAP B4)
+    # the implicit steppers run under the soil's MOST top (B4+B5), not with the LandModel, which the
+    # reference kernel cannot run either (ROADMAP B4)
     st = TRBDF2Soil(model=model.soil, grid=make_function_space(model.soil.domain, torch.float64, "cpu"))
     assert ck.make_fused_column_run(model.soil, st).name == "B4-trbdf2+B5"
     with pytest.raises(NotImplementedError, match="ROADMAP B4"):

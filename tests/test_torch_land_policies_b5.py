@@ -1,0 +1,295 @@
+"""The step policies under a MOST top and a LandModel (kernel modes B5 and
+B6 with freeze-thaw or ``assume_no_ice``, each alone or with lagged
+coefficients; ``csrc/land_policy_kernel.cu``) through the kernel's plain
+version, against the JAX package's fused kernel in interpret mode.
+
+This file holds the cases' builders and the MOST soil column (B5); the B6
+tops are in ``test_torch_land_policies_b6.py`` and
+``test_torch_land_policies_pond.py`` (split so that xdist spreads the
+interpret-mode runs, 1-5 s each here).
+
+- The column: ``test_pallas_kernel.py``'s soil (nz=16 x 256) under a cold
+  MOST atmosphere (273.15 K, within 5.2 K of every column), the LandModel of
+  ``test_torch_land.py::_jax_land`` around it; the state 268-278 K and 0.20-
+  0.30 wet by column with 0.02 of ice everywhere, so the cold columns freeze
+  and the warm ones thaw; a pond of 0-2e-4 m.  2 steps of dt = 2 s from t0 =
+  30 s, ``tile_cols=128``, f64.
+- The bar: rtol 1e-12 (atol 1e-16, the pond 1e-18).  Under
+  ``EquilibriumFreezeThaw`` the projection's bisection resolves T to
+  adjacent floating-point numbers, and JAX's pow and exp round apart from
+  torch's in the last place, so a cell whose residual changes sign within
+  an ulp of T may land one ulp of T apart: at most ``EQ_CELLS`` cells may
+  pass the strict bar, by at most two ulps of T times the freezing curve's
+  steepest slope (``chip_smoke.py::_check_freeze``'s allowance).
+- Freeze cases: theta_i must grow in some cells and shrink in others.
+  No-ice cases also run on ``icy``, the state with theta_i 0.05 and
+  vartheta_l = nu - 0.02 in the lower half, where the rhs's cap of theta_l
+  at nu - theta_i matters (ROADMAP C).
+
+The kernel itself is held against this plain version on the card in
+``chip_smoke.py`` phase 16a; the ``cuda``-marked tests skip without a GPU.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from landhydrology_tpu import PrescribedAtmosForcing as JAtmos
+from landhydrology_tpu.constants import default_earth_param_set as jps
+from landhydrology_tpu.models.soil.freeze_thaw import EquilibriumFreezeThaw as JEq
+from landhydrology_tpu.models.soil.freeze_thaw import FreezeThaw as JRate
+from landhydrology_tpu.models.soil.heat import volumetric_heat_capacity, volumetric_internal_energy
+from landhydrology_tpu.ops.pallas import make_fused_column_run as jax_fused
+from landhydrology_tpu.timestepping import SSPRK33 as JSSPRK33
+from landhydrology_tpu_torch.convert import model_from_reference, state_from_numpy, state_to_numpy
+from landhydrology_tpu_torch.ops.cuda import column_kernel as ck
+from landhydrology_tpu_torch.timestepping import SSPRK33
+from tests.test_pallas_kernel import NCOL, NZ
+from tests.test_torch_land import _jax_land
+
+#: a cold atmosphere: theta_atm within 5.2 K of every column's 268-278 K
+COLD_ATMOS = dict(u_atm=2.0, theta_atm=273.15, z_atm=2.0, theta_scale=273.15, rho_a_sfc=1.29, q_atm=0.003)
+#: the policies: mode name suffix and the soil's options
+POLICIES = {
+    "+B3-rate": {"freeze_thaw": JRate(tau=60.0)},
+    "+B3-eq": {"freeze_thaw": JEq()},
+    "-no-ice": {"assume_no_ice": True},
+}
+#: the five tops: the MOST soil column, then the LandModel's four
+TOPS = ("B5", "B6", "B6-step", "B6-pond", "B6-step-pond")
+DT, STEPS, T0 = 2.0, 2, 30.0
+#: the most cells an equilibrium case may hold within the ulp allowance alone
+EQ_CELLS = 4
+
+
+def soil_of(jm):
+    """The soil column of a case's JAX model."""
+    return jm.soil if hasattr(jm, "surface") else jm
+
+
+def mode_of(top, policy, lagged):
+    """The kernel table's name of a case: ``B2+`` when lagged, then the
+    top, then the policy (``B2+B6-step+B3-eq``)."""
+    return ("B2+" if lagged else "") + top + policy
+
+
+def cases(tops):
+    """``(top, policy, lagged)`` of every case on ``tops``."""
+    return [(top, policy, lagged) for top in tops for policy in POLICIES for lagged in (False, True)]
+
+
+def case_id(case):
+    return mode_of(*case)
+
+
+def jax_model(top, policy, lagged):
+    """The JAX model of a case: the B5 soil column, or a LandModel with a
+    MOST top or (``-pond``) the soil's zero-flux top, its exchange per
+    stage or (``-step``) frozen per step."""
+    most = not top.endswith("-pond")
+    jm = _jax_land(most=most, surface_update="step" if "-step" in top else "stage",
+                   coefficient_update="step" if lagged else "stage")
+    soil = jm.soil
+    if most:
+        soil = dataclasses.replace(soil, boundary_conditions=dataclasses.replace(
+            soil.boundary_conditions, top=JAtmos(**COLD_ATMOS)))
+    soil = dataclasses.replace(soil, **POLICIES[policy])
+    return soil if top == "B5" else dataclasses.replace(jm, soil=soil)
+
+
+def cold_state(jm, icy=False):
+    """The cold start state of a case as JAX arrays (and a pond for a
+    LandModel); ``icy``: theta_i 0.05 and vartheta_l = nu - 0.02 in the
+    lower half of the column."""
+    land = hasattr(jm, "surface")
+    soil = soil_of(jm)
+    col = np.linspace(0.0, 1.0, NCOL)[None]
+    theta = np.array(np.broadcast_to(0.20 + 0.1 * col, (NZ, NCOL)))
+    ice = np.full((NZ, NCOL), 0.02)
+    if icy:
+        ice[: NZ // 2] = 0.05
+        theta[: NZ // 2] = float(soil.soil_param_set.nu) - 0.02
+    T = np.broadcast_to(268.0 + 10.0 * col, (NZ, NCOL))
+    rho_c_s = volumetric_heat_capacity(theta, ice, soil.soil_param_set.rho_c_ds, jps)
+    Y = {"soil": {"vartheta_l": jnp.asarray(theta), "theta_i": jnp.asarray(ice),
+                  "rho_e_int": jnp.asarray(volumetric_internal_energy(ice, rho_c_s, T, jps))}}
+    if land:
+        Y["surface"] = {"h_s": jnp.asarray(np.linspace(0.0, 2e-4, NCOL))}
+    return Y
+
+
+def ulp_allowance(soil):
+    """Two ulps of T (f64, at T_0) times the steepest slope of the JAX
+    freezing curve below T_0, in theta_i (and theta_l)."""
+    from landhydrology_tpu.models.soil.freeze_thaw import equilibrium_unfrozen_liquid
+
+    T = np.linspace(jps.T_0 - 30.0, jps.T_0 - 1e-6, 300001)
+    theta = np.asarray(equilibrium_unfrozen_liquid(soil.hydrology_model.hydraulic_model, jnp.asarray(T),
+                                                   soil.soil_param_set.nu, jps))
+    slope = float(np.max(np.abs(np.diff(theta) / np.diff(T))))
+    return 2 * float(np.spacing(jps.T_0)) * slope * jps.rho_cloud_liq / jps.rho_cloud_ice
+
+
+def assert_matches(got, ref, jm):
+    """``got`` against ``ref`` at rtol 1e-12 (atol 1e-16, the pond 1e-18);
+    under EquilibriumFreezeThaw at most ``EQ_CELLS`` cells past that bar,
+    each within ``ulp_allowance`` in the water contents and rho_l LH_f0
+    times it in rho_e_int."""
+    soil = soil_of(jm)
+    extra = ulp_allowance(soil) if isinstance(soil.freeze_thaw, JEq) else 0.0
+    loose = 0
+    for group, fields in ref.items():
+        for k, v in fields.items():
+            r, a = np.asarray(v), np.asarray(got[group][k])
+            atol = 1e-18 if k == "h_s" else 1e-16
+            bar = 1e-12 * np.abs(r) + atol
+            past = np.abs(a - r) > bar
+            if past.any() and extra:
+                allowance = extra * (jps.rho_cloud_liq * jps.LH_f0 if k == "rho_e_int" else 1.0)
+                np.testing.assert_array_less(np.abs(a - r)[past], bar[past] + allowance, err_msg=f"{group}/{k}")
+                loose = max(loose, int(past.sum()))
+                continue
+            np.testing.assert_allclose(a, r, rtol=1e-12, atol=atol, err_msg=f"{group}/{k}")
+    assert loose <= EQ_CELLS, f"{loose} cells past the strict bar"
+
+
+def run_case(top, policy, lagged, icy=False):
+    """The JAX fused kernel (interpret mode) and the port's fused run (its
+    plain version on the CPU) on a case; returns ``(JAX model, start state,
+    JAX final state, port run)`` after holding the port to JAX
+    (``assert_matches``) and checking the run's mode name."""
+    jm = jax_model(top, policy, lagged)
+    Y = cold_state(jm, icy)
+    ref = jax_fused(jm, JSSPRK33(), dt=DT, steps_per_call=STEPS, tile_cols=128, interpret=True)(Y, T0)
+    model = model_from_reference(jm, device="cpu")
+    run = ck.make_fused_column_run(model, SSPRK33(), dt=DT, steps_per_call=STEPS)
+    assert run.name == mode_of(top, policy, lagged)
+    assert ck._entry(run.mode, torch.float64) == ("land_policy_kernel", "land_policy_kernel_f64")
+    Yt = state_from_numpy(Y, device="cpu")
+    before = dict(ck.LAUNCHES)
+    assert run(Yt, T0) is Yt and ck.LAUNCHES == before
+    ref = jax.tree_util.tree_map(np.asarray, ref)
+    assert_matches(state_to_numpy(Yt), ref, jm)
+    return jm, Y, ref, run
+
+
+def check_case(top, policy, lagged):
+    """``run_case``, and in the freeze cases that ice formed in some cells
+    and melted in others; a no-ice case also on the icy state."""
+    _, Y, ref, _ = run_case(top, policy, lagged)
+    change = ref["soil"]["theta_i"] - np.asarray(Y["soil"]["theta_i"])
+    if policy == "-no-ice":
+        assert not change.any()  # no phase change
+        jm, Yi, _, _ = run_case(top, policy, lagged, icy=True)
+        soil = {k: np.asarray(v) for k, v in Yi["soil"].items()}
+        assert np.any(soil["vartheta_l"] > float(soil_of(jm).soil_param_set.nu) - soil["theta_i"])
+    else:
+        assert int((change > 1e-8).sum()) > 100 and int((change < -1e-8).sum()) > 100
+
+
+@pytest.mark.parametrize("case", cases(("B5",)), ids=case_id)
+def test_most_soil_column_matches_jax_fused(case):
+    check_case(*case)
+
+
+def test_mode_words_names_and_scratch():
+    """The 30 new modes: distinct names (the ``mode_name`` rules), the land
+    policy source, scratch for the lagged rate sources' rho_c_s."""
+    names = set()
+    for top, policy, lagged in cases(TOPS):
+        model = model_from_reference(jax_model(top, policy, lagged), device="cpu")
+        mode = ck.kernel_mode(model)
+        name = ck.mode_name(mode)
+        assert name == mode_of(top, policy, lagged) and name not in names
+        names.add(name)
+        assert ck._entry(mode, torch.float32)[0] == "land_policy_kernel"
+        assert ck.scratch_fields(mode) == (6 if not lagged else 11 if policy == "+B3-rate" else 10)
+    assert len(names) == 30
+    plain = model_from_reference(_jax_land(), device="cpu")
+    assert ck._entry(ck.kernel_mode(plain), torch.float64)[0] == "land_kernel"
+
+
+def _refused(case):
+    """``(exception type, message pattern, the call that raises)`` of one
+    refusal kept by the policy slice."""
+    from landhydrology_tpu_torch import BatchedBC, PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC
+    from landhydrology_tpu_torch.domains import make_function_space
+    from landhydrology_tpu_torch.imex import TRBDF2Soil
+    from landhydrology_tpu_torch.timestepping import SSPRK104
+
+    soil = model_from_reference(jax_model("B5", "+B3-rate", False), device="cpu")
+    land = model_from_reference(jax_model("B6", "-no-ice", False), device="cpu")
+    grid = make_function_space(soil.domain, torch.float64, "cpu")
+    if case == "rows_most":
+        return r"forcing rows.*ROADMAP B5\)", lambda: ck.make_fused_column_run(soil, forcing_fields=("theta_atm",))
+    if case == "rows_land":
+        return r"forcing rows.*ROADMAP B6\)", lambda: ck.make_fused_column_run(land, forcing_fields=("precipitation",))
+    if case == "kinds":
+        bcs = soil.boundary_conditions
+        kinds = dataclasses.replace(soil, boundary_conditions=SoilColumnBC(top=bcs.top, bottom=SoilComponentBC(
+            energy=bcs.bottom.energy, hydrology=BatchedBC(kind=torch.zeros(NCOL, dtype=torch.int64)))))
+        return r"in mode B5\+B3-rate.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(kinds)
+    if case == "geometry":
+        geometry = (torch.full((NCOL,), 0.125, dtype=torch.float64), grid.zc.expand(NZ, NCOL).contiguous())
+        return r"in mode B6-no-ice.*ROADMAP B8\)", lambda: ck.make_fused_column_run(land, streamed_geometry=geometry)
+    if case == "explicit_stepper":
+        return r"SSPRK104 with a MOST top or a LandModel.*ROADMAP B1\)", lambda: ck.make_fused_column_run(
+            land, SSPRK104())
+    if case == "implicit_under_most":
+        return r"freeze-thaw or assume_no_ice under a MOST top.*ROADMAP B4\)", lambda: ck.make_fused_column_run(
+            soil, TRBDF2Soil(model=soil, grid=grid))
+    if case == "implicit_land":
+        return r"reference kernel cannot run.*ROADMAP B4\)", lambda: ck.make_fused_column_run(
+            land, TRBDF2Soil(model=land.soil, grid=grid))
+    pond = model_from_reference(jax_model("B6-pond", "-no-ice", False), device="cpu")
+    water = dataclasses.replace(pond, soil=dataclasses.replace(
+        pond.soil, energy_model=PrescribedTemperatureModel(), assume_no_ice=False))
+    return r"water-only soil.*ROADMAP B6\)", lambda: ck.make_fused_column_run(water)
+
+
+@pytest.mark.parametrize("case", ["rows_most", "rows_land", "kinds", "geometry", "explicit_stepper",
+                                  "implicit_under_most", "implicit_land", "water_only_land"])
+def test_refusal_names_its_roadmap_item(case):
+    """What stays refused, each a ``NotImplementedError`` naming its ROADMAP
+    item: streamed forcing rows with a policy (B5, B6), per-column BC kinds
+    or geometry in the policy modes (B1-batched, B8), the other explicit
+    steppers (B1), the implicit steppers with the policies under MOST or
+    with a LandModel, which the reference kernel cannot run either (B4), and
+    the LandModel on a water-only soil (B6)."""
+    pattern, call = _refused(case)
+    with pytest.raises(NotImplementedError, match=pattern):
+        call()
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: torch.cuda.is_available() is false")
+    return torch.device("cuda", 0)
+
+
+def cuda_matches_plain(device, top, policy, lagged, icy=False):
+    """A new instance against its plain version on the card, f64 at the
+    bar of ``assert_matches`` (the plain version in place of JAX)."""
+    jm = jax_model(top, policy, lagged)
+    Y = state_from_numpy(cold_state(jm, icy), device=device)
+    model = model_from_reference(jm, device=device)
+    plain = state_to_numpy(ck.fused_column_run_plain(model, SSPRK33(), DT, STEPS, Y, T0))
+    run = ck.make_fused_column_run(model, SSPRK33(), dt=DT, steps_per_call=STEPS)
+    before = ck.LAUNCHES[run.name]
+    run(Y, T0)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES[run.name] == before + 1
+    assert_matches(state_to_numpy(Y), plain, jm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", cases(("B5",)), ids=case_id)
+def test_cuda_most_soil_policy_instances_match_plain(cuda_device, case):
+    cuda_matches_plain(cuda_device, *case)
+    if case[1] == "-no-ice":
+        cuda_matches_plain(cuda_device, *case, icy=True)

@@ -12,9 +12,11 @@ version on the CPU, against the JAX package.
 - one case per stepper against JAX's fused kernel in interpret mode (the
   Pallas body tracing the stepper), at the same bar.
 - ``assume_no_ice`` on golden #1's column made icy (vartheta_l > nu -
-  theta_i), where ``rhs.py`` caps theta_l at nu - theta_i and
-  ``column_kernel.cu``'s B1-no-ice at nu (ROADMAP C): the plain version,
-  which the rk instances match, equals JAX under all four steppers.
+  theta_i), where ``rhs.py`` caps theta_l at nu - theta_i (and the kernel
+  instances with ``MODE_RHS_CAP``: every no-ice instance but the lagged
+  ones, whose closures cap at nu as ``lagged.py``'s do): the plain version
+  equals JAX under all four explicit steppers and the three implicit ones;
+  the ``cuda``-marked tests hold the kernels to it there.
 
 The branch modes are in ``test_torch_rk_branches.py``; the kernel itself is
 held against this plain version on the card in ``chip_smoke.py`` phase 15a.
@@ -150,6 +152,70 @@ def test_cuda_rk_no_ice_kernel_on_an_icy_state(cuda_device, mode, stepper):
     jm, Y, dt, n, t0 = icy_case(mode)
     model = model_from_reference(jm, device=cuda_device)
     st = getattr(pts, stepper)()
+    Yt = state_from_numpy(Y, device=cuda_device)
+    plain = ck.fused_column_run_plain(model, st, dt, n, Yt, t0)
+    ck.make_fused_column_run(model, st, dt=dt, steps_per_call=n)(Yt, t0)
+    torch.cuda.synchronize()
+    for k, v in plain["soil"].items():
+        np.testing.assert_allclose(Yt["soil"][k].cpu().numpy(), v.cpu().numpy(), rtol=1e-12, atol=1e-16, err_msg=k)
+
+
+#: the implicit steppers of the B4 no-ice instances, at dt = 60 s
+IMPLICIT = ("TRBDF2Soil", "BackwardEulerSoil", "BackwardEulerRichards")
+
+
+def implicit_icy(stepper, device):
+    """``(JAX model, JAX stepper, port model, port stepper, state, dt, n,
+    t0)``: golden #1's column with ``assume_no_ice`` on its icy state
+    (``icy_case``), under an implicit stepper (iters=2) at dt = 60 s."""
+    from landhydrology_tpu import imex as jimex
+    from landhydrology_tpu.domains import make_function_space as jax_grid
+    from landhydrology_tpu_torch.convert import stepper_from_reference
+
+    jm, Y, _, _, t0 = icy_case("B1-no-ice")
+    jst = getattr(jimex, stepper)(model=jm, grid=jax_grid(jm.domain, jnp.float64), iters=2)
+    model = model_from_reference(jm, device=device)
+    return jm, jst, model, stepper_from_reference(jst, model, device=device), Y, 60.0, 2, t0
+
+
+@pytest.mark.parametrize("stepper", IMPLICIT)
+def test_implicit_plain_version_matches_jax_on_an_icy_no_ice_state(stepper):
+    """The B4 no-ice instances' plain version on the icy state against the
+    JAX fused kernel in interpret mode (the implicit sweeps cap theta_l at nu
+    - theta_i, as the rhs does), rtol 1e-12."""
+    jm, jst, model, st, Y, dt, n, t0 = implicit_icy(stepper, "cpu")
+    ncol = jm.domain.batch_shape[0]
+    ref = jax_fused(jm, jst, dt=dt, steps_per_call=n, tile_cols=ncol, interpret=True)(Y, t0)
+    run = ck.make_fused_column_run(model, st, dt=dt, steps_per_call=n)
+    assert run.name == ck._STEPPER_NAMES[ck.kernel_mode(model, st) & ck.MODE_IMPLICIT] + "-no-ice"
+    Yt = state_from_numpy(Y, device="cpu")
+    run(Yt, t0)
+    assert_same({k: v.numpy() for k, v in Yt["soil"].items()},
+                {k: np.asarray(v) for k, v in ref["soil"].items()}, Y["soil"])
+
+
+@pytest.mark.cuda
+def test_cuda_ssprk33_no_ice_kernel_on_an_icy_state(cuda_device):
+    """``column_kernel.cu``'s B1-no-ice (MODE_RHS_CAP) equals its plain
+    version on the icy state at rtol 1e-12 (f64)."""
+    jm, Y, dt, n, t0 = icy_case("B1-no-ice")
+    model = model_from_reference(jm, device=cuda_device)
+    Yt = state_from_numpy(Y, device=cuda_device)
+    plain = ck.fused_column_run_plain(model, pts.SSPRK33(), dt, n, Yt, t0)
+    run = ck.make_fused_column_run(model, pts.SSPRK33(), dt=dt, steps_per_call=n)
+    assert ck._entry(run.mode, torch.float64)[0] == "column_kernel"
+    run(Yt, t0)
+    torch.cuda.synchronize()
+    for k, v in plain["soil"].items():
+        np.testing.assert_allclose(Yt["soil"][k].cpu().numpy(), v.cpu().numpy(), rtol=1e-12, atol=1e-16, err_msg=k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stepper", IMPLICIT)
+def test_cuda_implicit_no_ice_kernel_on_an_icy_state(cuda_device, stepper):
+    """The B4 no-ice instances (MODE_RHS_CAP) equal their plain version on
+    the icy state at rtol 1e-12 (f64)."""
+    _, _, model, st, Y, dt, n, t0 = implicit_icy(stepper, cuda_device)
     Yt = state_from_numpy(Y, device=cuda_device)
     plain = ck.fused_column_run_plain(model, st, dt, n, Yt, t0)
     ck.make_fused_column_run(model, st, dt=dt, steps_per_call=n)(Yt, t0)
