@@ -8,9 +8,10 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
 
 1. device: requires CUDA; prints the card's name and power limit;
 2. build: compiles ``landhydrology_tpu_torch/csrc/column_kernel.cu``,
-   ``csrc/implicit_kernel.cu``, ``csrc/land_kernel.cu``,
-   ``csrc/land_policy_kernel.cu`` and ``csrc/rk_kernel.cu`` with nvcc, one
-   process per source and float type (ten), in parallel;
+   ``csrc/implicit_kernel.cu``, ``csrc/implicit_most_kernel.cu``,
+   ``csrc/land_kernel.cu``, ``csrc/land_policy_kernel.cu`` and
+   ``csrc/rk_kernel.cu`` with nvcc, one process per source and float type
+   (twelve), in parallel;
    prints the registers of every template instance; reads the instruction
    cost of exp, log, sqrt and a division from ``cuobjdump -sass`` of small
    kernels (``op_costs``), for the bounds;
@@ -103,7 +104,7 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    each through the script's loop of ``make_fused_column_run`` calls and
    ``Simulation(engine="fused")`` (equal bit for bit, launch counts set to 0
    just before each and read just after), the first launch at full width,
-   and every 128th column and every column that leaves the finite numbers
+   and (f64) every 128th column and every column that leaves the finite numbers
    over the hour, against the plain version (dt=5 s is past the explicit
    limit of a few columns that saturate, in the JAX package too: the kernel
    and the plain version must diverge in the same columns), with the
@@ -155,8 +156,8 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    of its difference; (b) every plain-soil mode of the kernel table (the
    SSPRK33 modes, each implicit stepper alone and with each step policy,
    the branches, kinds and depths, a MOST top under SSPRK33, lagged and
-   TR-BDF2) as a B9 forward on 1,000 columns, f64 and
-   f32: equal bit for bit to the non-differentiable run, the gradient finite
+   TR-BDF2) as a B9 forward on 1,000 columns, those of ``B9_MODES``, f64
+   and f32: equal bit for bit to the non-differentiable run, the gradient finite
    and within the repo's bars of autograd through the whole launch's plain
    version; then each B4 + policy instance (and each implicit stepper
    without one) at nz=64 x 16,384, 4 steps of 60 s on the freeze column,
@@ -194,10 +195,13 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    ``csrc/land_policy_kernel.cu``, ``COLD_MODES``): (a) every instance on
    1,000 columns of ``build_land_variant``'s column made cold (268-278 K by
    column, 0.02 of ice, theta_atm within 8 K), 4 steps of 2 s, f64 and f32,
-   against the plain version (the freeze bars of ``_check_freeze`` with
-   freeze-thaw, else ``_check``; ``_check_increment``), ice growing in some
-   columns and melting in others under freeze-thaw and unchanged without
-   it; the no-ice ones on the icy state too; (b) ``bench.py::build_land``'s
+   with per-column forcing rows (theta_atm within 8 K of 273.15 K under MOST,
+   rain on a LandModel: ``B5+B3-rate+B7``, ...; the cut that pays for phase
+   17's checks of the rows), against the plain version (the freeze bars of
+   ``_check_freeze`` with freeze-thaw, else ``_check``;
+   ``_check_increment``), ice growing in some columns and melting in others
+   under freeze-thaw and unchanged without it; the no-ice ones on the icy
+   state too, without rows; (b) ``bench.py::build_land``'s
    LandModel around ``build_freeze_wide``'s cold column (theta_atm 263.15
    K) at nz=64 x 65,536, one launch of 32 steps of 5 s, f32 and f64, in
    ``B6+B3-rate``, the production setting ``B2+B6-step+B3-rate`` and
@@ -206,6 +210,39 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    closed, the kernel (CUDA events) and its check's plain launch timed, the
    host share; (c) every other instance timed at that width, one launch of
    4 steps (kernel only; the plain version not timed there), beside its
+   bound;
+17. cold forced and water-only land (kernel modes B5/B6 + B7 under the step
+   policies, the LandModel on a water-only soil, B4+B5 with the step
+   policies): (a) on 1,000 columns of 16a's cold column, 4 steps, f64 and
+   f32, against the plain version as in 16a (which holds the 30 land
+   policy instances with step-indexed rows): the MOST tops' rate instances
+   with time-indexed rows, the 8 water-only LandModel instances (T prescribed
+   at 270-275 K, ``TemperatureDependentViscosity``; ``B6-pond-water``, ...)
+   with and without rain rows, the 24 implicit instances at dt = 60 s
+   (``B4-trbdf2+B2+B5`` to ``B4-be-richards-no-ice+B2+B5``, and lagged with
+   no ice on the plain soil), two of them with both row kinds; the new
+   no-ice instances also on the icy state; (b) the cold season's forced
+   reanalysis: ``forced_reanalysis.py``'s LandModel under
+   ``FreezeThaw(tau=3600)`` at 273.4-275.4 K, nz=24 x 131,072, 48 rows of
+   its forcing with theta_atm 24 K lower (two windows; from step 70-74 the
+   rain band falls on frozen ground and the explicit step leaves the finite
+   numbers there, in the JAX package as in the port,
+   ``tests/test_torch_cold_forced_divergence.py``) through ``run_forced``
+   from a file, in ``B6+B3-rate`` and ``B2+B6-step+B3-rate``, f32 and f64:
+   the first launch against the plain version on every 128th column, ice
+   formed, the water budget, the kernel's time and the reader's and host's
+   shares; (c) ``catchment.py``'s storm on its water-only soil at 512 x 512
+   columns (no routing, a uniform 2 m depth), nz=16, 32 steps of 2 s from
+   t0 = 1,700 s in ``B6-pond-water`` and ``B2+B6-step-pond-water``: every
+   256th column against the plain version, a pond formed, the water budget;
+   (d) TR-BDF2 under 16b's cold MOST top at nz=64 x 65,536, one launch of 8
+   steps of 60 s, in ``B4-trbdf2+B3-rate+B5`` and
+   ``B4-trbdf2+B2+B3-eq+B5``, driven and checked as in phase 4 (the f32
+   equilibrium path's change bar on the total water and rho_e_int, which
+   the projection does not re-partition), ice formed;
+   (e) every other new instance timed at the width of its path, and the 30
+   land policy instances with rows at 16c's width (rows that carry the
+   model's own values), one launch of 4 steps (kernel only), beside the
    bound;
 6. times of every mode's kernel and plain version at its phase-4/5/8/9/10/12/14
    shape (CUDA events: the kernel x5 twice, then the plain version once,
@@ -222,7 +259,8 @@ B7), ``--grid-only`` phases 1, 2 and 12 with phase 6's times of phase 12's
 paths, ``--adaptive-only`` phases 1, 2 and 13, ``--grad-only`` phases 1, 2
 and 14 (14b times its policy paths), ``--cli-only`` phases 1, 2 and 15
 (``--seed`` seeds 15b's Ksat), ``--land-only`` phases 1, 2, 10 and 16 with
-phase 6's times of phase 10's paths.  ``--compare-with PARENT`` builds this tree
+phase 6's times of phase 10's paths, ``--cold-forced-only`` phases 1, 2 and
+17 with phase 6's times of 17d's paths.  ``--compare-with PARENT`` builds this tree
 and the tree at PARENT (an unpacked ``git archive`` of another commit) in
 turns in subprocesses and holds the other tree's instances to their
 registers (but those of ``REPAIRED``) and B1's kernel time to within 2% of
@@ -1026,6 +1064,21 @@ def most_exchanges(ck, mode, iters=2):
     return 1 if mode & ck.MODE_SURFACE_STEP else 3
 
 
+def plain_solves(ck, mode, iters=2):
+    """MOST solves per column and step of the plain version: the kernel's
+    (``most_exchanges``), and under freeze-thaw the rhs evaluations the eager
+    implicit steppers take for theta_i's phase change, which the kernel
+    computes without the top face: TR-BDF2 one per iteration of each stage
+    under rate freeze-thaw, BackwardEulerSoil one per step under either
+    scheme."""
+    solves = most_exchanges(ck, mode, iters)
+    if mode & ck.MODE_TRBDF2 and mode & ck.MODE_FREEZE_RATE:
+        solves += 2 * iters
+    if mode & ck.MODE_BE_SOIL and mode & (ck.MODE_FREEZE_RATE | ck.MODE_FREEZE_EQ):
+        solves += 1
+    return solves
+
+
 def column_step_ops(ck, mode, dtype, probes=None, iters=2):
     """Operations per column and step of the surface exchange of a B5/B6
     mode, counted from ``csrc/surface_fluxes.cuh``, ``csrc/land_kernel.cu``
@@ -1060,7 +1113,8 @@ def column_step_ops(ck, mode, dtype, probes=None, iters=2):
     if mode & ck.MODE_LAND:
         add(exchanges, **_HYDRAULIC)
         add(exchanges * 2, **_PSI)
-        add(exchanges, **_TEMP)
+        if not mode & ck.MODE_WATER:  # the water-only exchange takes 288 K
+            add(exchanges, **_TEMP)
         add(exchanges, op=12, div=2)  # f_pot, the supply, the infiltration
         add(3, op=4)  # the pond's stage update
     elif not mode & ck.MODE_LAGGED:
@@ -1279,7 +1333,7 @@ def _check_increment(kern, plain, start, dtype, what, moving, extra=None):
         if not err <= bar:
             raise AssertionError(f"{what}/{k}: change differs by {err:.3e} > bar {bar:.3e}")
         if k in moving:
-            if not scale >= 5 * bar:
+            if not (scale > 0.0 and scale >= 5 * bar):
                 raise AssertionError(
                     f"{what}/{k}: largest change {scale:.3e} is under 5x the bar {bar:.3e}"
                 )
@@ -1402,12 +1456,14 @@ def profile_main_path(dtype, device, smi, coefficient_update):
     print(events.table(sort_by=key, row_limit=8), flush=True)
 
 
-def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving, stepper=None, projections=1):
+def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving, stepper=None, projections=1, change_of=None):
     """One main path: ``Simulation(model, stepper, engine="fused")``
     (SSPRK33 by default) for ``n_steps`` steps saved every ``spc``, with the
     launch counts set to 0 just before the run and read just after, held
     against the plain version (``_check``, or ``_check_freeze`` with
-    freeze-thaw after ``projections`` projections, and ``_check_increment``).  Returns the kernel's final
+    freeze-thaw after ``projections`` projections, and ``_check_increment``
+    with ``carried_allowance``, on the quantities ``change_of`` maps a state
+    to where given, else on the state's fields).  Returns the kernel's final
     state, its launch count, its largest deviation from the plain version
     and the run's wall time in ms (host clock, synchronized)."""
     from landhydrology_tpu_torch import Simulation
@@ -1462,7 +1518,9 @@ def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving, stepper=None, 
     else:
         water, energy = _check_freeze(kern, plain, soil, dtype, what, projections)
         extra = f" (freeze bars: partition +{water:.3e}, rho_e_int +{energy:.3e})" if water else ""
-    shares = _check_increment(kern, plain, _np(Y0), dtype, what, moving, carried_allowance(soil, dtype, projections))
+    held = change_of or (lambda Y: Y)
+    shares = _check_increment(held(kern), held(plain), held(_np(Y0)), dtype, what, moving,
+                              carried_allowance(soil, dtype, projections))
     err = _max_abs(kern, plain)
     first = next(iter(kern))
     print(f"[{what}] {str(dtype)[6:]} {name} Simulation(engine='fused') {tuple(Y0['soil'][first].shape)} "
@@ -1551,7 +1609,7 @@ def time_mode(ck, model, Y0, dt, spc, stepper=None):
     plain_column = lambda: ck.fused_column_run_plain(model, stepper, dt, spc, Y0, 0.0)  # noqa: E731
     mode = ck.kernel_mode(model, stepper)
     solves, probes = most_probes(ck, model, stepper, dt, spc, Y0) if mode & ck.MODE_MOST else (0, None)
-    expect = spc * most_exchanges(ck, mode, getattr(stepper, "iters", 2)) if mode & ck.MODE_MOST else 0
+    expect = spc * plain_solves(ck, mode, getattr(stepper, "iters", 2)) if mode & ck.MODE_MOST else 0
     if solves != expect:
         raise AssertionError(f"{run.name}: {solves} MOST solves in the plain launch, expected {expect}")
     k1 = _time_ms(fused_column, 5)
@@ -1628,8 +1686,9 @@ def check_golden(ck, model, Y, dt, n_steps, golden, what, stepper=None, atol=Non
 
 
 def check_variant(ck, model, Y, dt, n_steps, t0, what, moving, stepper=None, geometry=None, check=_check,
-                  plain=None, increment_extra=None):
+                  plain=None, increment_extra=None, forcing=None, forcing_time_grid=None):
     """One launch of ``n_steps`` from ``t0`` (on ``streamed_geometry`` where
+    given, with the ``forcing`` rows, on ``forcing_time_grid``, where
     given), with the launch counts set to 0 just before it and read just
     after, against the plain version (its state ``plain`` where the caller
     ran it): ``check`` (``_check`` by default) and ``_check_increment``
@@ -1640,12 +1699,14 @@ def check_variant(ck, model, Y, dt, n_steps, t0, what, moving, stepper=None, geo
     dtype = model.float_dtype
     start = _np(Y)
     if plain is None:
-        plain = ck.fused_column_run_plain(model, stepper, dt, n_steps, Y, t0, geometry=geometry)
+        plain = ck.fused_column_run_plain(model, stepper, dt, n_steps, Y, t0, geometry=geometry, forcing=forcing,
+                                          forcing_time_grid=forcing_time_grid)
     plain = _np(plain)
-    run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=n_steps, streamed_geometry=geometry)
+    run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=n_steps, streamed_geometry=geometry,
+                                   forcing_fields=tuple(forcing or ()), forcing_time_grid=forcing_time_grid)
     torch.cuda.synchronize()
     ck.LAUNCHES.clear()
-    run(Y, t0)
+    run(Y, t0, forcing=forcing)
     torch.cuda.synchronize()
     if dict(ck.LAUNCHES) != {run.name: 1}:
         raise AssertionError(f"{what}: launches {dict(ck.LAUNCHES)}, expected one of {run.name}")
@@ -1660,9 +1721,9 @@ def kernel_of(ck, mode, dtype):
     """``(kernel name, source path in the repo)`` of the instance that runs
     ``mode``."""
     lib, _ = ck._entry(mode, dtype)
-    kernel = {"implicit_kernel": "implicit_column_kernel", "land_kernel": "land_column_kernel",
-              "land_policy_kernel": "land_column_kernel", "rk_kernel": "rk_column_kernel"}.get(
-        lib, "ssprk33_column_kernel")
+    kernel = {"implicit_kernel": "implicit_column_kernel", "implicit_most_kernel": "implicit_column_kernel",
+              "land_kernel": "land_column_kernel", "land_policy_kernel": "land_column_kernel",
+              "rk_kernel": "rk_column_kernel"}.get(lib, "ssprk33_column_kernel")
     return kernel, os.path.relpath(ck.SOURCES[lib], HERE)
 
 
@@ -1993,21 +2054,25 @@ class TimedReader:
         self.read_ms.append((time.perf_counter() - t) * 1e3)
 
 
-def time_forced(ck, run, model, Y0, rows, dt, spc, forcing_time_grid=None, stepper=None):
+def time_forced(ck, run, model, Y0, rows, dt, spc, forcing_time_grid=None, stepper=None, checked=None):
     """``(kernel ms, plain ms, MOST probes)`` per forced launch of ``spc``
     steps of ``stepper`` (SSPRK33 by default) from ``Y0`` with ``rows``:
     the plain version once under ``_counting_solves``, which gives the
-    probes and its time (one sample), then CUDA events, kernel x5 twice
-    (averaged)."""
+    probes and its time (one sample), or ``checked``, ``(plain ms,
+    probes)`` of the caller's check launch so counted; then CUDA events,
+    kernel x5 twice (averaged)."""
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
     stepper = SSPRK33() if stepper is None else stepper
     Yk = _clone(Y0)
     run(Yk, 0.0, forcing=rows)  # warm-up
     kernel = lambda: run(Yk, 0.0, forcing=rows)  # noqa: E731
-    plain = lambda: ck.fused_column_run_plain(  # noqa: E731
-        model, stepper, dt, spc, Y0, 0.0, forcing=rows, forcing_time_grid=forcing_time_grid)
-    _, _, probes, plain_ms = _counting_solves(plain)
+    if checked is None:
+        plain = lambda: ck.fused_column_run_plain(  # noqa: E731
+            model, stepper, dt, spc, Y0, 0.0, forcing=rows, forcing_time_grid=forcing_time_grid)
+        _, _, probes, plain_ms = _counting_solves(plain)
+    else:
+        plain_ms, probes = checked
     k1, k2 = _time_ms(kernel, 5), _time_ms(kernel, 5)
     return (k1 + k2) / 2, plain_ms, probes
 
@@ -2186,7 +2251,9 @@ def forced_phase(ck, gc, device, smi, costs):
             m = spc
             small, Ys, _ = build_reanalysis(nz, cols.numel(), dtype, device)
             r_cols = {k: v[:m, cols].contiguous() for k, v in rows.items()}
-            plain = _np(forced_plain(ck, small, dt, spc, Ys, 0.0, r_cols))
+            plain, _, check_probes, check_ms = _counting_solves(
+                lambda: forced_plain(ck, small, dt, spc, Ys, 0.0, r_cols))
+            plain = _np(plain)
             kern = {k: v[..., cols.cpu().numpy()] for k, v in _np(kept[0]).items()}
             shares = check_forced(kern, plain, _np(Ys), dtype, f"11 forced {tag} columns")
             print(f"[11 forced] {tag} B6+B7 nz={nz} x {ncol}, {m} steps: every {FORCED_STRIDE}th column against "
@@ -2202,7 +2269,7 @@ def forced_phase(ck, gc, device, smi, costs):
             # times: the kernel per launch, the window's host legs, the bound
             run = ck.make_fused_column_run(land, SSPRK33(), dt=dt, steps_per_call=spc, forcing_fields=fields)
             chunk = {k: v[:spc] for k, v in rows.items()}
-            k_ms, p_ms, probes = time_forced(ck, run, land, Y0, chunk, dt, spc)
+            k_ms, p_ms, probes = time_forced(ck, run, land, Y0, chunk, dt, spc, checked=(check_ms, check_probes))
             mode = run.mode
             b_ms, b_by = bound_ms(ck, costs, mode, dtype, nz * ncol, spc, ncol=ncol, probes=probes,
                                   read_values=len(fields) * spc * ncol)
@@ -2232,13 +2299,15 @@ def forced_phase(ck, gc, device, smi, costs):
                   f"{FORCED_WINDOW}, {spc} steps per launch), run_forced end to end incl. IO, two runs each in "
                   f"turns: overlap {_fmt_ms(walls[True])} = {rates[True]} grid-points/s, no overlap "
                   f"{_fmt_ms(walls[False])} = {rates[False]} grid-points/s; kernel {k_ms:.3f} ms per launch "
-                  f"(plain {p_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by}, MOST probes per solve {probes:.4f}); device "
+                  f"(plain {p_ms:.3f} ms on {cols.numel()} columns, bound {b_ms:.3f} ms by {b_by}, MOST probes per "
+                  f"solve {probes:.4f}); device "
                   f"busy share overlap {busy[True]}, no overlap {busy[False]}; host per window: reader (read into the pinned "
                   f"buffer, prefetch wait included) overlap {_fmt_ms(reads[True])}, no overlap "
                   f"{_fmt_ms(reads[False])}; of it the copy of a staged window into pinned memory {copy_ms:.3f} ms; "
                   f"H2D copy (and cast) of a window {h2d_ms:.3f} ms ({4 * FORCED_WINDOW * len(fields) * ncol / h2d_ms / 1e6:.3f} "
                   f"GB/s) on {smi}", flush=True)
-            entries.append(forced_entry(ck, run, dtype, main_launches, _max_abs(kern, plain), k_ms, p_ms, b_ms, b_by))
+            entries.append(dict(forced_entry(ck, run, dtype, main_launches, _max_abs(kern, plain), k_ms, p_ms, b_ms,
+                                             b_by), plain_at=f"11b: nz={nz} x {cols.numel()} columns, {spc} steps"))
             del Yref, Yf, Yc, kept, seg, run
             _mark(T_START, f"phase 11's {tag} reanalysis run")
             for setting in ("production", "MOST soil", "time-indexed"):
@@ -2265,7 +2334,8 @@ def forced_combination(ck, costs, smi, case, dtype, device, ncol=FORCED_COMBO_NC
     lagged coefficients, ``-pond`` the soil's zero-flux top under the rain
     rows alone).  One launch of ``FORCED_SPC`` rows, with the launch counts
     set to 0 just before it and read just after, checked against the plain
-    version, then timed (``time_forced``).  Returns its kernel record."""
+    version (its launch counted and timed for the record), then timed
+    (``time_forced``).  Returns its kernel record."""
     from landhydrology_tpu_torch import SoilColumnBC, SoilComponentBC, VerticalFlux
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
@@ -2295,11 +2365,12 @@ def forced_combination(ck, costs, smi, case, dtype, device, ncol=FORCED_COMBO_NC
     launches = dict(ck.LAUNCHES)
     if launches != {run.name: 1}:
         raise AssertionError(f"forced combination {case}: launches {launches}")
-    kern, plain = _np(Yk), _np(forced_plain(ck, model, dt, spc, Y0, 0.0, rows))
+    plain, _, probes, p_ms = _counting_solves(lambda: forced_plain(ck, model, dt, spc, Y0, 0.0, rows))
+    kern, plain = _np(Yk), _np(plain)
     moving = [k for k in ("vartheta_l", "rho_e_int", "h_s") if k in kern and not (k == "rho_e_int" and "pond" in case)]
     _check(kern, plain, dtype, f"11 forced {case}")
     shares = _check_increment(kern, plain, _np(Y0), dtype, f"11 forced {case}", moving)
-    k_ms, p_ms, probes = time_forced(ck, run, model, Y0, rows, dt, spc)
+    k_ms, p_ms, probes = time_forced(ck, run, model, Y0, rows, dt, spc, checked=(p_ms, probes))
     b_ms, b_by = bound_ms(ck, costs, run.mode, dtype, nz * ncol, spc, ncol=ncol, probes=probes,
                           read_values=len(rows) * spc * ncol)
     most = f", MOST probes per solve {probes:.4f}" if probes is not None else ""
@@ -2357,7 +2428,9 @@ def forced_setting(ck, costs, setting, land, Y0, rows, cols, smi):
     soil alone under the atmosphere rows, B5+B7) or ``"time-indexed"`` (B6
     with a table of every second row on a grid of 2 dt, B6+B7-time).
     Checked on the strided columns against the plain version over the
-    first launch, and timed.  Returns its kernel record."""
+    first launch (its launch counted and timed for the record: the plain
+    versions are bound by launch latency, not by the columns), and timed.
+    Returns its kernel record."""
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
     dt, spc, nz = FORCED_DT, FORCED_SPC, FORCED_NZ
@@ -2400,18 +2473,22 @@ def forced_setting(ck, costs, setting, land, Y0, rows, cols, smi):
     small, Ys, _ = build_reanalysis(nz, cols.numel(), dtype, cols.device)  # the start state is uniform
     m_small, Ys = configure(small, Ys)
     r0 = {k: v[:, cols] for k, v in rows_of(0).items()}
-    plain = _np(ck.fused_column_run_plain(m_small, SSPRK33(), dt, spc, Ys, 0.0, forcing=r0, forcing_time_grid=grid))
+    plain, _, probes, p_ms = _counting_solves(lambda: ck.fused_column_run_plain(
+        m_small, SSPRK33(), dt, spc, Ys, 0.0, forcing=r0, forcing_time_grid=grid))
+    plain = _np(plain)
     shares = check_forced(first, plain, _np(Ys), dtype, f"11 forced {setting}")
-    k_ms, p_ms, probes = time_forced(ck, run, model, Y0, rows_of(0), dt, spc, grid)
+    k_ms, p_ms, probes = time_forced(ck, run, model, Y0, rows_of(0), dt, spc, grid, checked=(p_ms, probes))
     n_rows = next(iter(rows_of(0).values())).shape[0]
     b_ms, b_by = bound_ms(ck, costs, run.mode, dtype, nz * FORCED_NCOL, spc, ncol=FORCED_NCOL, probes=probes,
                           read_values=len(rows) * n_rows * FORCED_NCOL)
     print(f"[11 forced] {str(dtype)[6:]} {run.name} ({setting}) nz={nz} x {FORCED_NCOL}, {n_launches} launches "
           f"of {spc} steps: every {FORCED_STRIDE}th column against the plain version over the first launch: max abs "
           f"{_max_abs(first, plain):.3e}; change error / largest change {_fmt(shares)}; kernel {k_ms:.3f} ms per "
-          f"launch (plain {p_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by}, MOST probes per solve {probes:.4f}) on {smi}",
+          f"launch (plain {p_ms:.3f} ms on {cols.numel()} columns, bound {b_ms:.3f} ms by {b_by}, MOST probes per "
+          f"solve {probes:.4f}) on {smi}",
           flush=True)
-    return forced_entry(ck, run, dtype, launches[run.name], _max_abs(first, plain), k_ms, p_ms, b_ms, b_by)
+    return dict(forced_entry(ck, run, dtype, launches[run.name], _max_abs(first, plain), k_ms, p_ms, b_ms, b_by),
+                plain_at=f"11: nz={nz} x {cols.numel()} columns, {spc} steps")
 
 
 # ---- phase 12: the regional-grid path, kernel modes B1-batched and B8 ----
@@ -2761,9 +2838,9 @@ def regional_path(ck, costs, smi, dtype, device, variable_depth):
     full width against the plain version; the script's loop of
     ``make_fused_column_run`` calls and ``Simulation(engine="fused")``, each
     with the launch counts set to 0 just before and read just after, equal
-    bit for bit; ``GRID_SAMPLE`` columns and every column the kernel takes out of
-    the range (``_sound_columns``) over the hour against the plain version
-    on those columns (``check_diverged``: dt=5 s is past the explicit limit
+    bit for bit; in f64, ``GRID_SAMPLE`` columns and every column the kernel
+    takes out of the range (``_sound_columns``) over the hour against the
+    plain version on those columns (``check_diverged``: dt=5 s is past the explicit limit
     of a few columns that saturate or pond over thin cells, and they blow up
     in the JAX package too: ``tests/test_torch_regional_divergence.py``);
     the script's summary, on the other columns.  Returns the path to
@@ -2831,19 +2908,23 @@ def regional_path(ck, costs, smi, dtype, device, variable_depth):
     del sim
 
     # the plain version over the hour on GRID_SAMPLE columns and on every
-    # column the kernel takes out of the range, in one batch
+    # column the kernel takes out of the range, in one batch: in f64 (the
+    # f32 runs' hour of plain launches is cut for the script's time; their
+    # first launch is held above)
     end = _np(Y)
     sound = _sound_columns(end)
     diverged = np.flatnonzero(~sound)
     if diverged.size > 4096:
         raise AssertionError(f"{what}: {diverged.size} columns diverge")
     cols = np.union1d(np.arange(0, ncol, ncol // GRID_SAMPLE), diverged)
-    sub, Ys = column_slice(model, Y0, torch.as_tensor(cols, device=device))
-    clock = time.perf_counter()
-    plain = _np(advance(sub, Ys, lambda m, Y, t: ck.fused_column_run_plain(m, SSPRK33(), dt, spc, Y, t)))
-    plain_hour_s = time.perf_counter() - clock
-    shares, err, _ = check_diverged({k: v[:, cols] for k, v in end.items()}, plain, _np(Ys), dtype,
-                                    f"{what} columns", moving)
+    shares, err, plain_hour_s = {}, 0.0, 0.0
+    if dtype == torch.float64:
+        sub, Ys = column_slice(model, Y0, torch.as_tensor(cols, device=device))
+        clock = time.perf_counter()
+        plain = _np(advance(sub, Ys, lambda m, Y, t: ck.fused_column_run_plain(m, SSPRK33(), dt, spc, Y, t)))
+        plain_hour_s = time.perf_counter() - clock
+        shares, err, _ = check_diverged({k: v[:, cols] for k, v in end.items()}, plain, _np(Ys), dtype,
+                                        f"{what} columns", moving)
 
     v = end["vartheta_l"][:, sound]
     nu = np.broadcast_to(model.soil_param_set.nu.double().cpu().numpy(), (ncol,))[sound]
@@ -2865,9 +2946,10 @@ def regional_path(ck, costs, smi, dtype, device, variable_depth):
           f"{ncol}, {n} steps of dt={dt:g} ({n // spc} launches of {spc}): first launch vs plain max abs {err1:.3e}, "
           f"change error / largest change {_fmt(shares1)} ({div1} columns diverged in both); every "
           f"{ncol // GRID_SAMPLE}th "
-          f"column and the diverged ones over the hour vs plain max abs {err:.3e}, change error / largest change "
-          f"{_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g}); {diverged.size} of {ncol} columns leave the range over "
-          f"the hour, in the plain version too (dt past their explicit limit): {diverged.tolist()[:100]}, summary "
+          f"column and the diverged ones over the hour vs plain (f64) max abs {err:.3e}, change error / largest "
+          f"change {_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g}); {diverged.size} of {ncol} columns leave the range "
+          f"over the hour (in f64 in the plain version too; dt past their explicit limit): "
+          f"{diverged.tolist()[:100]}, summary "
           f"on the {int(sound.sum())} others; plain version {plain_first_s:.1f} s for the first launch, "
           f"{plain_hour_s:.1f} s for the hour on {cols.size} columns; "
           f"Simulation(engine='fused') equal bit for bit to the script's loop; launches loop {loop_launches}, "
@@ -3418,8 +3500,9 @@ def cli_main(ck, costs, smi, device, seed, t_start):
 # ---- phase 13: adaptive stepping (ROADMAP A15), kernel modes B1-dt and B4+B5(+B7) ----
 
 #: phase 13a replays this many iterations of each kernel-driven run through
-#: the plain version on the card (the eager closures take most of the phase)
-ADAPTIVE_PLAIN_ITERS = 8
+#: the plain version on the card (the eager closures take most of the phase;
+#: two iterations chain six launches, each at its own dt_run)
+ADAPTIVE_PLAIN_ITERS = 2
 #: phase 13b launches every mode at this share of its factory dt, on this many columns
 DT_RUN_SHARE, DT_RUN_NCOL = 0.37, 1000
 #: the plain version's check of the full-width adaptive runs takes this many evenly spaced columns
@@ -4204,17 +4287,28 @@ def time_policy(ck, costs, smi, model, Y0, stepper, what):
     return entry, err, shares
 
 
+#: 14b's B9 modes, f64 and f32 (a cut for the script's time from every mode of ``b9_modes``): the
+#: coupled SSPRK33 mode and the lagged freeze-thaw ones (their f32 instances have no other check against
+#: the plain version), the implicit steppers, a branch each, the MOST top (14a holds B9 on the MOST
+#: soils to the JAX package's differences in f64)
+B9_MODES = frozenset({"B1", "B2+B3-rate", "B2+B3-eq", "B4-trbdf2+B3-rate", "B4-be-soil", "B4-be-richards",
+                          "B1-water", "B4-trbdf2-heat", "B5", "B4-trbdf2+B5"})
+
+
 def grad_modes(ck, gc, costs, smi, device, t_start):
-    """14b: ``b9_forward`` of every plain-soil mode (``b9_modes``), f64 and
-    f32; then each B4 + policy instance, and each implicit stepper without
+    """14b: ``b9_forward`` of the plain-soil modes (``b9_modes``) in
+    ``B9_MODES``, f64 and f32 (a cut for the script's time: the other modes'
+    instances are held to their plain version in phases 3-5, 8-10, 12, 13
+    and 14b's policy paths, and the B9 forward is the mode's launch); then each B4 + policy instance, and each implicit stepper without
     a policy for comparison, checked against its plain version and timed
     (``time_policy``) at nz=64 x ``POLICY_NCOL`` (``build_freeze_wide``'s
     column, ``POLICY_STEPS`` steps of ``POLICY_DT``).  Returns the kernel
     records of the policy paths."""
     entries = []
     for dtype in (torch.float64, torch.float32):
-        results = [b9_forward(ck, gc, model, Y, stepper, dt, GRAD_STEPS)
-                   for model, Y, stepper, dt in b9_modes(gc, dtype, device)]
+        cases = [(model, Y, stepper, dt) for model, Y, stepper, dt in b9_modes(gc, dtype, device)
+                 if ck.make_fused_column_run(model, stepper).name in B9_MODES]
+        results = [b9_forward(ck, gc, model, Y, stepper, dt, GRAD_STEPS) for model, Y, stepper, dt in cases]
         print(f"[14b B9 modes] {str(dtype)[6:]} {len(results)} modes on {GRAD_NCOL} columns, {GRAD_STEPS} steps: "
               "B9 forward = the kernel's run bit for bit; gradient deviation / scale from the whole launch's "
               "plain version: " + ", ".join(f"{n} {d:.1e}" for n, d in results), flush=True)
@@ -4398,35 +4492,40 @@ def _ice_columns(kern, start):
     return int((change > 1e-4 * 0.01).any(0).sum()), int((change < -1e-4 * 0.01).any(0).sum())
 
 
-def cold_check(ck, name, dtype, device, icy=False):
-    """16a: one instance on ``COLD_NCOL`` columns of ``build_land_variant``'s
-    cold column (or its ``icy_state``), ``COLD_STEPS`` steps of 2 s from t0 =
-    5 s, against the plain version (``check_variant``: the freeze bars of
-    ``_check_freeze`` after ``COLD_STEPS`` projections with freeze-thaw, else ``_check``; and
-    ``_check_increment``, with ``carried_allowance``), the plain launch timed (host clock, synchronized).
-    A freeze instance must grow ice in some columns and melt it in others, a
-    no-ice one leave theta_i alone.  Returns ``(error, shares, grown, melted,
-    plain ms)``."""
-    from landhydrology_tpu_torch.timestepping import SSPRK33
-
-    model, Y = build_land_variant(COLD_NCOL, dtype, device, seed=29, case=name, cold=True)
+def cold_check(ck, name, dtype, device, icy=False, rows=False, time_grid=None, tag="16a"):
+    """16a and 17a: one instance ``name`` on ``COLD_NCOL`` columns
+    (``policy_variant``: ``build_land_variant``'s cold column, its water-only
+    LandModel or the implicit steppers on its soil; or its ``icy_state``),
+    with ``rows`` (``policy_rows``, step-indexed or on ``time_grid``) or
+    without, from t0 = 5 s, against the plain version (``check_variant``: the
+    freeze bars of ``_check_freeze`` after the launch's projections with
+    freeze-thaw, else ``_check``; and ``_check_increment``, with
+    ``carried_allowance``), the plain launch timed (host clock,
+    synchronized).  A freeze instance must grow ice in some columns and melt
+    it in others, another leave theta_i alone.  Returns ``(error, shares,
+    grown, melted, plain ms)``."""
+    model, Y, stepper, dt, steps = policy_variant(name, dtype, device)
     soil = getattr(model, "soil", model)
     if icy:
         Y = dict(Y, soil=icy_state(soil, Y)["soil"])
+    forcing = policy_rows(model, steps if time_grid is None else time_grid[2], seed=37) if rows else None
     start = _np(Y)
     torch.cuda.synchronize()
     clock = time.perf_counter()
-    plain = ck.fused_column_run_plain(model, SSPRK33(), 2.0, COLD_STEPS, Y, 5.0)
+    plain = ck.fused_column_run_plain(model, stepper, dt, steps, Y, 5.0, forcing=forcing, forcing_time_grid=time_grid)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - clock) * 1e3
     freeze = soil.freeze_thaw is not None
-    check = (lambda a, b, d, w: _check_freeze(a, b, soil, d, w, COLD_STEPS)) if freeze else _check
-    what = f"16a cold {'icy ' if icy else ''}{str(dtype)[6:]} {name}"
-    kern, _, shares = check_variant(ck, model, Y, 2.0, COLD_STEPS, 5.0, what, ("vartheta_l", "rho_e_int"),
-                                    check=check, plain=plain,
-                                    increment_extra=carried_allowance(soil, dtype, COLD_STEPS))
-    if ck.make_fused_column_run(model).name != name:
-        raise AssertionError(f"{what}: mode {ck.make_fused_column_run(model).name}")
+    check = (lambda a, b, d, w: _check_freeze(a, b, soil, d, w, steps)) if freeze else _check
+    what = f"{tag} cold {'icy ' if icy else ''}{str(dtype)[6:]} {name}"
+    moving = ("vartheta_l",) if "rho_e_int" not in start else ("vartheta_l", "rho_e_int")
+    kern, _, shares = check_variant(ck, model, Y, dt, steps, 5.0, what, moving, stepper=stepper, check=check,
+                                    plain=plain, increment_extra=carried_allowance(soil, dtype, steps),
+                                    forcing=forcing, forcing_time_grid=time_grid)
+    built = ck.make_fused_column_run(model, stepper, forcing_fields=tuple(forcing or ()),
+                                     forcing_time_grid=time_grid).name
+    if built != name + ("" if not rows else "+B7" if time_grid is None else "+B7-time"):
+        raise AssertionError(f"{what}: mode {built}")
     grown, melted = _ice_columns(kern, start)
     if freeze and not (grown and melted):
         raise AssertionError(f"{what}: ice grew in {grown} columns and melted in {melted}: "
@@ -4437,23 +4536,26 @@ def cold_check(ck, name, dtype, device, icy=False):
 
 
 def cold_checks(ck, dtype, device):
-    """16a: every instance of ``COLD_MODES`` (``cold_check``), the no-ice
-    ones on the icy state too.  Returns ``{name: (error, plain ms)}``."""
+    """16a: every instance of ``COLD_MODES`` (``cold_check``) with
+    step-indexed forcing rows (``policy_rows``: theta_atm within 8 K of
+    273.15 K under MOST, rain on a LandModel), the no-ice ones also on the
+    icy state without rows.  Returns ``{name: (error, plain ms)}`` (the
+    check with rows; 16c's and 17e's records carry them)."""
     out, lines = {}, []
     for name in COLD_MODES:
-        err, shares, grown, melted, plain_ms = cold_check(ck, name, dtype, device)
+        err, shares, grown, melted, plain_ms = cold_check(ck, name, dtype, device, rows=True)
         out[name] = (err, plain_ms)
-        line = f"{name} {err:.2e} ({_fmt(shares)}; ice grew in {grown}, melted in {melted} columns)"
+        line = f"{name}+B7 {err:.2e} ({_fmt(shares)}; ice grew in {grown}, melted in {melted} columns)"
         if name.endswith("-no-ice"):
             err_icy, shares, _, _, _ = cold_check(ck, name, dtype, device, icy=True)
             out[name] = (max(err, err_icy), plain_ms)
-            line += f", icy {err_icy:.2e} ({_fmt(shares)})"
+            line += f", icy without rows {err_icy:.2e} ({_fmt(shares)})"
         lines.append(line)
     print(f"[16a cold] {str(dtype)[6:]} {len(COLD_MODES)} instances of land_policy_kernel.cu on {COLD_NCOL} columns "
-          f"at 268-278 K with 0.02 of ice, theta_atm within 8 K, {COLD_STEPS} steps of 2 s: kernel vs plain max abs, "
-          f"change error / largest change (bar {INCREMENT_RTOL[dtype]:g}), columns where theta_i changed; the no-ice "
-          "ones also on the icy state (theta_i 0.05, vartheta_l = nu - 0.02 in the lower half): " + "; ".join(lines),
-          flush=True)
+          f"at 268-278 K with 0.02 of ice, {COLD_STEPS} steps of 2 s, with per-column forcing rows (theta_atm within 8 K "
+          f"of 273.15 K under MOST, rain on a LandModel): kernel vs plain max abs, change error / largest change (bar "
+          f"{INCREMENT_RTOL[dtype]:g}), columns where theta_i changed; the no-ice ones also on the icy state (theta_i "
+          "0.05, vartheta_l = nu - 0.02 in the lower half) without rows: " + "; ".join(lines), flush=True)
     return out
 
 
@@ -4509,19 +4611,23 @@ def cold_path(ck, gc, costs, smi, dtype, device, name):
                        (plain_ms,), probes, tag="16b time")
 
 
-def cold_probes(ck, model, Y0, dt):
+def cold_probes(ck, model, Y0, dt, stepper=None, steps=COLD_TIMED_STEPS):
     """The mean probes per MOST solve and column of the plain version's
-    launch of ``COLD_TIMED_STEPS`` steps on every ``COLD_PROBE_STRIDE``-th
-    column of ``Y0`` (``most_probes`` on a ``column_slice``)."""
+    launch of ``steps`` steps of ``stepper`` (SSPRK33 by default) on every
+    ``COLD_PROBE_STRIDE``-th column of ``Y0`` (``most_probes`` on a
+    ``column_slice``)."""
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
     soil = getattr(model, "soil", model)
     idx = torch.arange(0, NCOL, COLD_PROBE_STRIDE, device=Y0["soil"]["vartheta_l"].device)
     sub, Ys = column_slice(soil, {"soil": Y0["soil"]}, idx)
+    stepper = SSPRK33() if stepper is None else stepper
+    if hasattr(stepper, "model"):
+        stepper = dataclasses.replace(stepper, model=sub)
     if soil is not model:
         sub = dataclasses.replace(model, soil=sub)
         Ys["surface"] = {"h_s": Y0["surface"]["h_s"][idx].contiguous()}
-    return most_probes(ck, sub, SSPRK33(), dt, COLD_TIMED_STEPS, Ys)[1]
+    return most_probes(ck, sub, stepper, dt, steps, Ys)[1]
 
 
 def time_cold(ck, gc, costs, smi, dtype, device, name, checked):
@@ -4531,7 +4637,8 @@ def time_cold(ck, gc, costs, smi, dtype, device, name, checked):
     with the MOST probes of ``cold_probes``.  The plain version is not timed
     here: the record carries 16a's plain launch (``checked``: ``(error,
     plain ms)`` on ``COLD_NCOL`` columns, ``COLD_STEPS`` steps) under
-    ``plain_at``."""
+    ``plain_at``.  Returns the record and the probes (``None`` without
+    MOST), which 17e reuses for the instance with rows."""
     model, Y0, _, dt = build_cold_land(gc, dtype, device, name)
     run = ck.make_fused_column_run(model, dt=dt, steps_per_call=COLD_TIMED_STEPS)
     Yk = _clone(Y0)
@@ -4551,18 +4658,21 @@ def time_cold(ck, gc, costs, smi, dtype, device, name, checked):
     kernel, source = kernel_of(ck, run.mode, dtype)
     return {"name": f"{kernel}<{str(dtype)[6:].replace('float', 'f')}, {run.name}>", "route": "cuda",
             "source": source, "replaces": REPLACES, "launches": 1, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "plain_at": f"16a: nz=16 x {COLD_NCOL}, {COLD_STEPS} steps", "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+            "plain_ms": plain_ms, "plain_at": f"16a: nz=16 x {COLD_NCOL}, {COLD_STEPS} steps, with rows",
+            "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}, probes
 
 
 def cold_phase(ck, costs, smi, device, t_start):
     """Phase 16: 16a's checks of every new instance (``cold_checks``), 16b's
     three paths at width (``cold_path``), 16c's time of every instance at
-    width but the paths' (``time_cold``).  Returns the kernel records."""
+    width but the paths' (``time_cold``).  Returns the kernel records,
+    16a's checks ``{dtype: {name: (error, plain ms)}}`` and 16c's MOST
+    probes ``{(dtype, name): probes}`` (phase 17 reads both)."""
     gc = _load_golden_config()
-    entries = []
+    entries, checks, probes = [], {}, {}
     for dtype in (torch.float64, torch.float32):
-        checked = cold_checks(ck, dtype, device)
+        checked = checks[dtype] = cold_checks(ck, dtype, device)
         _mark(t_start, f"phase 16a's {str(dtype)[6:]} checks")
         for name in COLD_PATHS:
             entries.append(cold_path(ck, gc, costs, smi, dtype, device, name))
@@ -4570,10 +4680,558 @@ def cold_phase(ck, costs, smi, device, t_start):
         _mark(t_start, f"phase 16b's {str(dtype)[6:]} paths")
         for name in COLD_MODES:
             if name not in COLD_PATHS:
-                entries.append(time_cold(ck, gc, costs, smi, dtype, device, name, checked[name]))
+                record, probes[(dtype, name)] = time_cold(ck, gc, costs, smi, dtype, device, name, checked[name])
+                entries.append(record)
         torch.cuda.empty_cache()
         _mark(t_start, f"phase 16c's {str(dtype)[6:]} times")
+    return entries, checks, probes
+
+
+# ---- phase 17: cold forced and water-only land: the step policies with forcing rows, the water-only
+# LandModel, the implicit steppers' step policies under a MOST top ----
+
+#: 17a: the water-only LandModel's instances (csrc/land_kernel.cu; the no-ice ones csrc/land_policy_kernel.cu)
+WATER_MODES = tuple(lag + top + "-water" + ice for top in ("B6-pond", "B6-step-pond") for lag in ("", "B2+")
+                    for ice in ("", "-no-ice"))
+#: the implicit steppers' mode names, and their step policies (the name's suffix before ``+B5``)
+IMPLICIT_STEPPERS = {"B4-trbdf2": "TRBDF2Soil", "B4-be-soil": "BackwardEulerSoil",
+                     "B4-be-richards": "BackwardEulerRichards"}
+IMPLICIT_POLICIES = ("+B2", "+B3-rate", "+B3-eq", "-no-ice", "+B2+B3-rate", "+B2+B3-eq", "-no-ice+B2")
+#: the implicit instances: under a MOST top with each policy (csrc/implicit_most_kernel.cu), and lagged
+#: with no ice on the plain soil (csrc/implicit_kernel.cu)
+IMPLICIT_MODES = (tuple(st + p + "+B5" for st in IMPLICIT_STEPPERS for p in IMPLICIT_POLICIES)
+                  + tuple(st + "-no-ice+B2" for st in IMPLICIT_STEPPERS))
+#: 17a: the implicit instances' dt on the cold column, and the two also checked with forcing rows
+IMPLICIT_DT = 60.0
+IMPLICIT_ROW_MODES = ("B4-trbdf2+B3-rate+B5", "B4-trbdf2+B2+B3-eq+B5")
+#: 17a: the MOST tops' rate instances checked with time-indexed rows too
+COLD_TIME_MODES = ("B5+B3-rate", "B6+B3-rate", "B6-step+B3-rate")
+#: 17a's time grids (t_start, dt_forcing, rows) from t0 = 5 s: the SSPRK33 instances' four steps of 2 s
+#: read rows 0, 0, 1, 2; the implicit ones' four of 60 s rows 0, 0, 1, 1
+COLD_TIME_GRID, IMPLICIT_TIME_GRID = (4.5, 3.0, 3), (0.0, 100.0, 3)
+#: 17b: ``forced_reanalysis.py``'s forcing with theta_atm lowered by COLD_FORCED_SHIFT (to 270 +- 8 K), under
+#: FreezeThaw(tau), in the reference and production settings: 48 of its 1,440 steps in two windows.  Cut from
+#: 240: from step 70-74 the rain band falls on frozen top cells, whose potential infiltration sees the face
+#: saturated at nu over their ice (psi = theta_i / S_s), so the top cell saturates past the explicit limit of
+#: dt = 120 s and leaves the finite numbers, in the JAX package's forced segment as in the port's plain
+#: version (tests/test_torch_cold_forced_divergence.py)
+COLD_FORCED_STEPS, COLD_FORCED_WINDOW, COLD_FORCED_SHIFT, COLD_FORCED_TAU = 48, 24, 24.0, 3600.0
+COLD_FORCED_PATHS = ("B6+B3-rate", "B2+B6-step+B3-rate")
+#: 17c: ``catchment.py``'s storm on a 512 x 512 grid (no routing, a uniform 2 m depth), 32 steps of 2 s
+#: from t0 = 1,700 s in one launch; the plain version on every STORM_STRIDE-th column
+STORM_NZ, STORM_SIDE, STORM_DT, STORM_STEPS, STORM_T0, STORM_STRIDE = 16, 512, 2.0, 32, 1700.0, 256
+STORM_PATHS = ("B6-pond-water", "B2+B6-step-pond-water")
+#: 17d: TR-BDF2 under the cold MOST top at nz=64 x 65,536, one launch of 8 steps of IMPLICIT_DT
+COLD_IMPLICIT_PATHS = ("B4-trbdf2+B3-rate+B5", "B4-trbdf2+B2+B3-eq+B5")
+COLD_IMPLICIT_STEPS = 8
+
+
+def build_water_variant(ncol, dtype, device, seed, case):
+    """17a: ``build_land_variant``'s LandModel under its plain top (``case``
+    names it, ``-water`` after the top) on a water-only soil: T prescribed
+    as 275 K + 3 K/m z, ``TemperatureDependentViscosity``, zero water flux at
+    both faces, no ice; ``-no-ice`` sets ``assume_no_ice``."""
+    from landhydrology_tpu_torch import PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC, VerticalFlux
+    from landhydrology_tpu_torch.models.soil import TemperatureDependentViscosity
+
+    land, Y = build_land_variant(ncol, dtype, device, seed, case.replace("-water", "").replace("-no-ice", ""))
+    soil = land.soil
+    water = dataclasses.replace(
+        soil, energy_model=PrescribedTemperatureModel(T_profile=lambda z, t: 275.0 + 3.0 * z),
+        hydrology_model=dataclasses.replace(soil.hydrology_model, viscosity_factor=TemperatureDependentViscosity()),
+        assume_no_ice=case.endswith("-no-ice"),
+        boundary_conditions=SoilColumnBC(top=SoilComponentBC(hydrology=VerticalFlux(0.0)),
+                                         bottom=SoilComponentBC(hydrology=VerticalFlux(0.0))))
+    state = {"vartheta_l": Y["soil"]["vartheta_l"], "theta_i": torch.zeros_like(Y["soil"]["theta_i"])}
+    return dataclasses.replace(land, soil=water), {"soil": state, "surface": Y["surface"]}
+
+
+def implicit_case(name):
+    """``(stepper class name, the cold land case of its soil)`` of an
+    implicit instance: ``B4-be-soil-no-ice+B2+B5`` -> (``BackwardEulerSoil``,
+    ``B2+B5-no-ice``); the plain soil's lagged no-ice ones take the pond
+    variant's soil (``B2+B6-pond-no-ice``)."""
+    stepper = next(k for k in IMPLICIT_STEPPERS if name.startswith(k + "+") or name.startswith(k + "-"))
+    rest = name[len(stepper):]
+    policy = next((p for p in ("+B3-rate", "+B3-eq") if p in rest), "-no-ice" if "-no-ice" in rest else "")
+    top = "B5" if rest.endswith("+B5") else "B6-pond"
+    return IMPLICIT_STEPPERS[stepper], ("B2+" if "+B2" in rest else "") + top + policy
+
+
+def policy_variant(name, dtype, device):
+    """``(model, state, stepper, dt, steps)`` of 16a's and 17a's check of
+    instance ``name`` on ``COLD_NCOL`` columns: ``build_land_variant``'s cold
+    column (``COLD_STEPS`` steps of 2 s), its water-only LandModel
+    (``build_water_variant``), or an implicit stepper on its soil under the
+    cold MOST atmosphere or the plain top (``COLD_STEPS`` steps of
+    ``IMPLICIT_DT``)."""
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    if name.startswith("B4-"):
+        stepper, case = implicit_case(name)
+        model, Y = build_land_variant(COLD_NCOL, dtype, device, seed=29, case=case, cold=True)
+        soil = getattr(model, "soil", model)
+        return soil, {"soil": Y["soil"]}, implicit(stepper, soil, 2), IMPLICIT_DT, COLD_STEPS
+    if "-water" in name:
+        model, Y = build_water_variant(COLD_NCOL, dtype, device, 29, name)
+        return model, Y, SSPRK33(), 2.0, COLD_STEPS
+    model, Y = build_land_variant(COLD_NCOL, dtype, device, seed=29, case=name, cold=True)
+    return model, Y, SSPRK33(), 2.0, COLD_STEPS
+
+
+def policy_rows(model, n_rows, seed):
+    """Forcing rows of a 17a check, ``(n_rows, ncol)`` each: ``theta_atm``
+    within 8 K of 273.15 K under a MOST top, a rain rate of 0-1.2e-5 m/s on
+    a LandModel."""
+    from landhydrology_tpu_torch import PrescribedAtmosForcing
+
+    soil = getattr(model, "soil", model)
+    ncol = soil.domain.batch_shape[0]
+    rng = np.random.default_rng(seed)
+    tensor = lambda x: torch.as_tensor(x, dtype=soil.float_dtype, device=soil.device)  # noqa: E731
+    rows = {}
+    if isinstance(soil.boundary_conditions.top, PrescribedAtmosForcing):
+        rows["theta_atm"] = tensor(273.15 + rng.uniform(-8.0, 8.0, (n_rows, ncol)))
+    if soil is not model:
+        rows["precipitation"] = tensor(rng.uniform(0.0, 1.2e-5, (n_rows, ncol)))
+    return rows
+
+
+def cold_forced_checks(ck, dtype, device):
+    """17a: the MOST tops' rate instances with time-indexed rows (16a holds
+    the 30 land policy instances with step-indexed rows), the 8 water-only
+    ones with and without rain rows, the 24 implicit ones (two with both row
+    kinds); the new no-ice instances also on the icy state (``cold_check``
+    each).  Returns ``{name: (error, plain ms)}`` of the new instances'
+    checks without rows."""
+    out, lines = {}, []
+    cases = ([(name, dict(rows=True, time_grid=COLD_TIME_GRID)) for name in COLD_TIME_MODES]
+             + [(name, kw) for name in WATER_MODES for kw in (dict(), dict(rows=True))]
+             + [(name, dict()) for name in IMPLICIT_MODES]
+             + [(name, dict(rows=True, time_grid=grid)) for name in IMPLICIT_ROW_MODES
+                for grid in (None, IMPLICIT_TIME_GRID)])
+    for name, kw in cases:
+        new = not kw
+        for icy in (False, True) if new and "no-ice" in name else (False,):
+            err, shares, grown, melted, plain_ms = cold_check(ck, name, dtype, device, icy=icy, tag="17a", **kw)
+            rows = "" if not kw else " +B7" if kw.get("time_grid") is None else " +B7-time"
+            lines.append(f"{name}{rows}{' icy' if icy else ''} {err:.2e} ({_fmt(shares)}; ice grew in {grown}, "
+                         f"melted in {melted})")
+            if new:
+                old_err, old_ms = out.get(name, (0.0, plain_ms))
+                out[name] = (max(err, old_err), old_ms)
+    print(f"[17a cold forced] {str(dtype)[6:]} {len(cases)} checks on {COLD_NCOL} columns at 268-278 K with 0.02 "
+          f"of ice, {COLD_STEPS} steps (2 s; the implicit ones {IMPLICIT_DT:g} s): the MOST tops' rate instances with "
+          "time-indexed theta_atm rows within 8 K of 273.15 K (and rain rows), the water-only LandModel (T 270-275 K "
+          "prescribed, viscosity, no ice) with and without rain rows, the implicit steppers' policy instances; the "
+          "new no-ice ones also on the icy state: kernel vs plain max abs (change error / largest change, bar "
+          f"{INCREMENT_RTOL[dtype]:g}; columns where theta_i changed): " + "; ".join(lines), flush=True)
+    return out
+
+
+def build_cold_reanalysis(nz, ncol, dtype, device, setting):
+    """17b: ``build_reanalysis``'s LandModel under ``FreezeThaw(tau=
+    COLD_FORCED_TAU)`` in ``setting`` (``B6+B3-rate``, or the production
+    ``B2+B6-step+B3-rate``: the frozen exchange and lagged coefficients),
+    its soil at ``build_freeze_wide``'s temperatures (273.4-275.4 K by
+    column) with its water (0.18) and no pond."""
+    from landhydrology_tpu_torch.constants import default_earth_param_set as ps
+    from landhydrology_tpu_torch.models.soil.freeze_thaw import FreezeThaw
+    from landhydrology_tpu_torch.models.soil.heat import volumetric_heat_capacity, volumetric_internal_energy
+
+    land, Y, Ya = build_reanalysis(nz, ncol, dtype, device)
+    production = setting.startswith("B2+")
+    soil = dataclasses.replace(land.soil, freeze_thaw=FreezeThaw(tau=COLD_FORCED_TAU),
+                               coefficient_update="step" if production else "stage")
+    land = dataclasses.replace(land, soil=soil, surface_update="step" if production else "stage")
+    theta, theta_i = Y["soil"]["vartheta_l"], Y["soil"]["theta_i"]
+    T = (273.4 + 2.0 * torch.arange(ncol, dtype=dtype, device=device)[None, :] / ncol).expand(nz, ncol)
+    rho_c_s = volumetric_heat_capacity(theta, theta_i, 1.3e6, ps)
+    Y["soil"]["rho_e_int"] = volumetric_internal_energy(theta_i, rho_c_s, T, ps).contiguous()
+    return land, Y, Ya
+
+
+def cold_forced_path(ck, costs, smi, dtype, device, setting, path):
+    """17b: the cold season's forced reanalysis at full width
+    (``build_cold_reanalysis``, nz=24 x 131,072) in ``setting``:
+    ``COLD_FORCED_STEPS`` rows from the file at ``path`` in windows of
+    ``COLD_FORCED_WINDOW`` through ``run_forced`` (``FORCED_SPC`` steps per
+    launch), with the launch counts
+    set to 0 just before it and read just after; equal bit for bit to the
+    in-memory segment launch by launch, whose first launch is held to the
+    plain version on every ``FORCED_STRIDE``-th column (the freeze bars of
+    ``_check_freeze``, ``_check_increment``; its MOST probes counted for the
+    bound); ice must form; the column + pond water budget closes
+    (``check_budget``).  The kernel timed by CUDA events, the reader's and
+    the host's share of the run's wall time printed.  Returns its kernel
+    record."""
+    from landhydrology_tpu_torch.runtime import ForcingReader, make_forced_segment_run, run_forced
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    nz, ncol, dt, spc, n = FORCED_NZ, FORCED_NCOL, FORCED_DT, FORCED_SPC, COLD_FORCED_STEPS
+    tag = str(dtype)[6:]
+    what = f"17b cold forced {tag} {setting}"
+    land, Y0, Ya = build_cold_reanalysis(nz, ncol, dtype, device, setting)
+    with ForcingReader(path) as reader:
+        fields = list(reader.field_names)
+        block = np.empty((n, len(fields), ncol), dtype=reader.dtype)
+        reader.read_into(0, n, block)
+    rows = {k: torch.from_numpy(block[:, j]).to(device).to(dtype) for j, k in enumerate(fields)}
+    del block
+    name = f"{setting}+B7"
+    torch.cuda.synchronize()
+    ck.LAUNCHES.clear()
+    clock = time.perf_counter()
+    with ForcingReader(path) as base:
+        reader = TimedReader(base)
+        Yf, tf = run_forced(land, Y0, Ya, reader, SSPRK33(), dt=dt, window=COLD_FORCED_WINDOW, engine="fused",
+                            steps_per_call=spc)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - clock) * 1e3
+    launches = dict(ck.LAUNCHES)
+    if launches != {name: n // spc}:
+        raise AssertionError(f"{what}: launches {launches}, expected {n // spc} of {name}")
+    seg = make_forced_segment_run(land, SSPRK33(), dt=dt, field_names=fields, engine="fused", steps_per_call=spc)
+    Yc, kept, evap = launch_by_launch(lambda Y, t, r: seg(Y, Ya, t, r), land, Y0, rows, dt, spc, keep=(0,))
+    for g, f in Yc.items():
+        for k, v in f.items():
+            if not torch.equal(Yf[g][k], v):
+                raise AssertionError(f"{what}: run_forced differs from the segment launch by launch in {k}")
+    cols = torch.arange(0, ncol, FORCED_STRIDE, device=device)
+    sub, Ys = column_slice(land.soil, {"soil": Y0["soil"]}, cols)
+    Ys["surface"] = {"h_s": Y0["surface"]["h_s"][cols].contiguous()}
+    small = dataclasses.replace(land, soil=sub)
+    r_cols = {k: v[:spc, cols].contiguous() for k, v in rows.items()}
+    plain, _, probes, plain_ms = _counting_solves(lambda: forced_plain(ck, small, dt, spc, Ys, 0.0, r_cols))
+    plain = _np(plain)
+    kern = {k: v[..., cols.cpu().numpy()] for k, v in _np(kept[0]).items()}
+    _check_freeze(kern, plain, land.soil, dtype, what)
+    shares = _check_increment(kern, plain, _np(Ys), dtype, what, ("vartheta_l", "rho_e_int"))
+    end = _np(Yf)
+    ice_cols = int((end["theta_i"].max(0) > 1e-6).sum())
+    if not float(np.max(end["theta_i"])) > 1e-4:
+        raise AssertionError(f"{what}: no ice formed (max theta_i {float(np.max(end['theta_i']))})")
+    change, rain_max, evap_mean, residual = check_budget(land, Y0, Yf, rows, dt, evap, what)
+    run = ck.make_fused_column_run(land, SSPRK33(), dt=dt, steps_per_call=spc, forcing_fields=tuple(fields))
+    chunk = {k: v[:spc] for k, v in rows.items()}
+    Yk = _clone(Y0)
+    run(Yk, 0.0, forcing=chunk)
+    k1, k2 = _time_ms(lambda: run(Yk, 0.0, forcing=chunk), 3), _time_ms(lambda: run(Yk, 0.0, forcing=chunk), 3)
+    k_ms = (k1 + k2) / 2
+    b_ms, b_by = bound_ms(ck, costs, run.mode, dtype, nz * ncol, spc, ncol=ncol, probes=probes,
+                          read_values=len(fields) * spc * ncol)
+    read = sum(reader.read_ms)
+    print(f"[17b cold forced] {tag} {name} nz={nz} x {ncol}, {n} steps of dt={dt:g} (theta_atm {COLD_FORCED_SHIFT:g} K "
+          f"below the experiment's, FreezeThaw tau {COLD_FORCED_TAU:g} s) through run_forced from the file, windows "
+          f"of {COLD_FORCED_WINDOW} ({launches[name]} launches): equal bit for bit to the segment launch by launch; every {FORCED_STRIDE}th "
+          f"column's first launch vs plain max abs {_max_abs(kern, plain):.3e}, change error / largest change "
+          f"{_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g}); max theta_i {float(np.max(end['theta_i'])):.4e} (ice in "
+          f"{ice_cols} columns); water budget: change {change:.6e} m (mean), largest rain {rain_max:.6e} m, "
+          f"evaporation {evap_mean:.6e} m (mean), largest residual {residual:.3e} m; wall {wall:.3f} ms "
+          f"({nz * ncol * n / (wall / 1e3):.4e} grid-points/s), kernel {k1:.3f}/{k2:.3f} ms per launch (plain "
+          f"{plain_ms:.3f} ms on {cols.numel()} columns, bound {b_ms:.3f} ms by {b_by}, MOST probes per solve "
+          f"{probes:.4f}); reader share {read / wall:.3f}, host share {1.0 - launches[name] * k_ms / wall:.3f} on "
+          f"{smi}", flush=True)
+    entry = forced_entry(ck, run, dtype, launches[name], _max_abs(kern, plain), k_ms, plain_ms, b_ms, b_by)
+    entry["plain_at"] = f"17b: nz={nz} x {cols.numel()} columns, {spc} steps"
+    return entry
+
+
+def storm_precipitation(t):
+    """``catchment.py``'s storm for its default 2 h run: a Gaussian pulse of
+    40 mm/h at t = 1,800 s, width 576 s (m/s, in t's dtype)."""
+    return (40.0 / 1000.0 / 3600.0) * torch.exp(-(((t - 1800.0) / 576.0) ** 2))
+
+
+def build_storm(dtype, device, case, side=None):
+    """17c: ``experiments/soil/catchment.py:87-123``'s soil on a ``side`` x
+    ``side`` grid, flattened (columns in row-major order): the ridge/valley
+    terrain's per-column vanGenuchten (n 1.8-3.0, alpha 2.0-3.5, Ksat
+    10**(-6.5 + 1.2 z_norm + noise), theta_r 0.05; ``default_rng(42)``), nu
+    0.42, S_s 1e-3, zero-flux bedrock, T prescribed; its storm
+    (``storm_precipitation``), tau_pond 600 s; water 0.15, no ice, no pond.
+    Cut: no routing (a cross-column stencil, eager only in both packages)
+    and a uniform 2 m depth (variable depth is kernel mode B8, not opened
+    in these modes).  ``case``: ``B6-pond-water`` and its lagged /
+    frozen-exchange / no-ice names.  Returns ``(land, state)``."""
+    side = STORM_SIDE if side is None else side
+    from landhydrology_tpu_torch import (
+        Column, PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC, SoilHydrologyModel, SoilModel,
+        SoilParams, VerticalFlux,
+    )
+    from landhydrology_tpu_torch.models.land import LandModel, SurfaceWaterModel
+    from landhydrology_tpu_torch.models.soil import vanGenuchten
+
+    ix, iy = np.arange(side)[:, None], np.arange(side)[None, :]
+    z = 4.0 * (1.0 + np.cos(2 * np.pi * ix / side)) * np.ones((1, side)) + 0.3 * np.sin(
+        2 * np.pi * iy / side) * np.sin(2 * np.pi * ix / side)
+    z_norm = ((z - z.min()) / (z.max() - z.min())).reshape(-1)
+    log_ksat = -6.5 + 1.2 * z_norm + 0.15 * np.random.default_rng(42).standard_normal(side * side)
+    tensor = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
+    hm = vanGenuchten(n=tensor(1.8 + 1.2 * z_norm), alpha=tensor(2.0 + 1.5 * z_norm), Ksat=tensor(10.0 ** log_ksat),
+                      theta_r=0.05)
+    ncol = side * side
+    soil = SoilModel(
+        domain=Column(zlim=(-2.0, 0.0), nelements=STORM_NZ, batch_shape=(ncol,)),
+        energy_model=PrescribedTemperatureModel(), hydrology_model=SoilHydrologyModel(hydraulic_model=hm),
+        boundary_conditions=SoilColumnBC(top=SoilComponentBC(hydrology=VerticalFlux(0.0)),
+                                         bottom=SoilComponentBC(hydrology=VerticalFlux(0.0))),
+        soil_param_set=SoilParams(nu=0.42, S_s=1e-3, rho_c_ds=1.3e6), dtype=dtype, device=device,
+        coefficient_update="step" if case.startswith("B2+") else "stage", assume_no_ice=case.endswith("-no-ice"),
+    )
+    land = LandModel(soil=soil, surface=SurfaceWaterModel(precipitation=storm_precipitation, tau_pond=600.0),
+                     surface_update="step" if "-step" in case else "stage")
+    theta = torch.full((STORM_NZ, ncol), 0.15, dtype=dtype, device=device)
+    return land, {"soil": {"vartheta_l": theta, "theta_i": torch.zeros_like(theta)},
+                  "surface": {"h_s": torch.zeros(ncol, dtype=dtype, device=device)}}
+
+
+def storm_path(ck, costs, smi, dtype, device, case):
+    """17c: the water-only storm at width (``build_storm``, nz=16 x 262,144):
+    one launch of ``STORM_STEPS`` steps from ``STORM_T0`` through
+    ``Simulation(engine="fused")``, the launch counts set to 0 just before
+    it and read just after; every ``STORM_STRIDE``-th column held to the
+    plain version (``_check``, ``_check_increment``); a pond must form; the
+    column + pond water equals the storm's rain over the launch as SSPRK33
+    integrates it (weights 1/6, 1/6, 2/3 at t, t + dt, t + dt/2) within
+    ``BUDGET_SHARE`` of the largest column's; the kernel timed by CUDA
+    events.  Returns its kernel record."""
+    from landhydrology_tpu_torch import Simulation
+    from landhydrology_tpu_torch.domains import make_function_space
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    tag = str(dtype)[6:]
+    land, Y0 = build_storm(dtype, device, case)
+    nz, ncol, dt, n = STORM_NZ, STORM_SIDE ** 2, STORM_DT, STORM_STEPS
+    what = f"17c storm {tag} {case}"
+    Ya = {"zc": make_function_space(land.soil.domain, dtype, device).zc, "soil": {}}
+    sim = Simulation(land, SSPRK33(), Y_init=Y0, Ya_init=Ya, dt=dt, tspan=(STORM_T0, STORM_T0 + n * dt),
+                     engine="fused", steps_per_call=n)
+    torch.cuda.synchronize()
+    ck.LAUNCHES.clear()
+    clock = time.perf_counter()
+    sim.run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - clock) * 1e3
+    launches = dict(ck.LAUNCHES)
+    if launches != {case: 1}:
+        raise AssertionError(f"{what}: launches {launches}, expected one of {case}")
+    end = sim.Y
+    cols = torch.arange(0, ncol, STORM_STRIDE, device=device)
+    sub, Ys = column_slice(land.soil, {"soil": Y0["soil"]}, cols)
+    Ys["surface"] = {"h_s": Y0["surface"]["h_s"][cols].contiguous()}
+    small = dataclasses.replace(land, soil=sub)
+    torch.cuda.synchronize()
+    clock = time.perf_counter()
+    plain = _np(ck.fused_column_run_plain(small, SSPRK33(), dt, n, Ys, STORM_T0))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - clock) * 1e3
+    kern = {k: v[..., cols.cpu().numpy()] for k, v in _np(end).items()}
+    # in f32 a pond that forms in the launch carries the f32 spread of the potential infiltration, which
+    # the wet top cell's pressure head takes from a difference near saturation: the pond is held by its
+    # change bar (_check_increment) there, as _check_freeze holds a pond after several projections
+    _check(kern if dtype == torch.float64 else {k: v for k, v in kern.items() if k != "h_s"}, plain, dtype, what)
+    shares = _check_increment(kern, plain, _np(Ys), dtype, what, ("vartheta_l", "h_s"))
+    h = end["surface"]["h_s"]
+    ponded = int((h > 1e-6).sum())
+    if not ponded:
+        raise AssertionError(f"{what}: no pond formed (max h_s {float(h.max())})")
+    t = STORM_T0 + dt * torch.arange(n, dtype=torch.float64)
+    rain = float((dt * (storm_precipitation(t) / 6 + storm_precipitation(t + dt) / 6
+                        + 2 * storm_precipitation(t + dt / 2) / 3)).sum())
+    change = water_in(end, 2.0 / nz) - water_in(Y0, 2.0 / nz)
+    residual = float((change - rain).abs().max())
+    if not residual <= BUDGET_SHARE * rain:
+        raise AssertionError(f"{what}: water budget residual {residual:.3e} m of {rain:.3e} m of rain")
+    run = ck.make_fused_column_run(land, SSPRK33(), dt=dt, steps_per_call=n)
+    Yk = _clone(Y0)
+    run(Yk, STORM_T0)
+    k1, k2 = (_time_ms(lambda: run(Yk, STORM_T0), 3) for _ in range(2))
+    b_ms, b_by = bound_ms(ck, costs, run.mode, dtype, nz * ncol, n, ncol=ncol)
+    print(f"[17c storm] {tag} {case} catchment.py's soil and storm on {STORM_SIDE} x {STORM_SIDE} columns, nz={nz}, "
+          f"{n} steps of dt={dt:g} from t0={STORM_T0:g} s (no routing, a uniform 2 m depth): launches {launches}; "
+          f"every {STORM_STRIDE}th column vs plain max abs {_max_abs(kern, plain):.3e} (h_s "
+          f"{float(np.max(np.abs(kern['h_s'] - plain['h_s']))):.3e} m), change error / largest change "
+          f"{_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g}); a pond in {ponded} columns (max h_s "
+          f"{float(h.max()):.4e} m); water budget: rain {rain:.6e} m, largest residual {residual:.3e} m (bar "
+          f"{BUDGET_SHARE:g} of the rain); Simulation.run {wall:.3f} ms, kernel {k1:.3f}/{k2:.3f} ms "
+          f"({nz * ncol * n / ((k1 + k2) / 2e3):.4e} grid-points/s), plain {plain_ms:.3f} ms on {cols.numel()} "
+          f"columns, bound {b_ms:.3f} ms by {b_by} on {smi}", flush=True)
+    kernel, source = kernel_of(ck, run.mode, dtype)
+    return {"name": f"{kernel}<{tag.replace('float', 'f')}, {case}>", "route": "cuda", "source": source,
+            "replaces": REPLACES, "launches": launches[case], "max_abs_err": _max_abs(kern, plain),
+            "ms": (k1 + k2) / 2, "plain_ms": plain_ms,
+            "plain_at": f"17c: nz={nz} x {cols.numel()} columns, {n} steps", "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def cold_implicit_path(ck, gc, dtype, device, name):
+    """17d: TR-BDF2 under the cold MOST top at width (``build_cold_land``'s
+    soil, nz=64 x 65,536, theta_atm ``COLD_THETA_ATM``) in instance ``name``:
+    one launch of ``COLD_IMPLICIT_STEPS`` steps of ``IMPLICIT_DT`` through
+    ``Simulation(engine="fused")`` held to the plain version
+    (``drive_path``: the freeze bars after as many projections, and the
+    change bar; in f32 an equilibrium path's change bar holds the
+    quantities the projection does not re-partition, ``unpartitioned``);
+    ice must form.  Returns the path for phase 6's times."""
+    stepper, case = implicit_case(name)
+    soil, Y0, Ya, _ = build_cold_land(gc, dtype, device, case)
+    st = implicit(stepper, soil, 2)
+    n = COLD_IMPLICIT_STEPS
+    change_of, moving = None, ("vartheta_l", "rho_e_int")
+    if dtype == torch.float32 and _projection_allowance(soil, dtype)[0]:
+        # an f32 projection partitions a cell whose T lies within an ulp of T_eq either way, by up to
+        # _check_freeze's allowance (2.9e-3 of vartheta_l here), near the launch's largest change of
+        # vartheta_l and theta_i: their spread is held by _check_freeze's state bars, and the change bar
+        # (0.1 of the change, each quantity moving) by the total water and rho_e_int, which no
+        # projection moves
+        change_of, moving = unpartitioned(soil), ("water", "rho_e_int")
+    kern, launches, err, wall = drive_path(ck, soil, Y0, Ya, IMPLICIT_DT, n, n, "17d cold implicit", moving,
+                                           stepper=st, projections=n, change_of=change_of)
+    ice = float(np.max(kern["theta_i"]))
+    if not ice > 1e-4:
+        raise AssertionError(f"17d {name} {dtype}: no ice formed (max theta_i {ice})")
+    print(f"[17d cold implicit] {str(dtype)[6:]} {name} nz={NZ} x {NCOL}, {n} steps of dt={IMPLICIT_DT:g}, theta_atm "
+          f"{COLD_THETA_ATM} K: max theta_i {ice:.4e} (> 1e-4: ice formed) in "
+          f"{int((kern['theta_i'].max(0) > 1e-6).sum())} columns; Simulation.run {wall:.3f} ms", flush=True)
+    return soil, Y0, IMPLICIT_DT, n, launches, err, st
+
+
+def unpartitioned(soil):
+    """Maps an ``_np`` state to what an equilibrium projection leaves as it
+    was (``freeze_thaw.equilibrium_phase_projection``): the total water
+    vartheta_l + theta_i rho_i / rho_l, and rho_e_int (and the pond)."""
+    ratio = soil.earth_param_set.rho_cloud_ice / soil.earth_param_set.rho_cloud_liq
+
+    def fields(Y):
+        out = {"water": Y["vartheta_l"] + ratio * Y["theta_i"], "rho_e_int": Y["rho_e_int"]}
+        return dict(out, h_s=Y["h_s"]) if "h_s" in Y else out
+
+    return fields
+
+
+def time_at_width(ck, costs, smi, model, Y0, stepper, dt, t0, name, checked, forcing=None, probes=None):
+    """17e: one instance at width, kernel only: an untimed launch of
+    ``COLD_TIMED_STEPS`` steps, then two samples of three launches (CUDA
+    events), the state finite after each; its bound, a MOST instance's with
+    the probes of ``cold_probes`` (or ``probes``), the rows read once
+    (``forcing``).  The record carries 17a's check (``checked``: ``(error,
+    plain ms)`` on ``COLD_NCOL`` columns) under ``plain_at``."""
+    dtype = model.float_dtype
+    run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=COLD_TIMED_STEPS,
+                                   forcing_fields=tuple(forcing or ()))
+    if run.name != name:
+        raise AssertionError(f"17e: built {run.name}, expected {name}")
+    Yk = _clone(Y0)
+    run(Yk, t0, forcing=forcing)
+    k1, k2 = (_time_ms(lambda: run(Yk, t0, forcing=forcing), 3) for _ in range(2))
+    if not all(bool(torch.isfinite(v).all()) for f in Yk.values() for v in f.values()):
+        raise AssertionError(f"17e {name}: the state left the finite numbers")
+    if run.mode & ck.MODE_MOST and probes is None:  # the implicit steppers' over one step
+        probes = cold_probes(ck, model, Y0, dt, stepper, 1 if run.mode & ck.MODE_IMPLICIT else COLD_TIMED_STEPS)
+    nz, ncol = next(iter(Y0["soil"].values())).shape
+    ms = (k1 + k2) / 2
+    read = sum(v.numel() for v in (forcing or {}).values())
+    b_ms, b_by = bound_ms(ck, costs, run.mode, dtype, nz * ncol, COLD_TIMED_STEPS, iters=getattr(stepper, "iters", 2),
+                          ncol=ncol, probes=probes, read_values=read)
+    err, plain_ms = checked
+    most = f"; MOST probes per solve {probes:.4f}" if probes is not None else ""
+    print(f"[17e time] {str(dtype)[6:]} {name} {COLD_TIMED_STEPS} steps of dt={dt:g} nz={nz} ncol={ncol}: kernel "
+          f"{k1:.3f}/{k2:.3f} ms ({nz * ncol * COLD_TIMED_STEPS / (ms / 1e3):.4e} grid-points/s), plain not timed, "
+          f"bound {b_ms:.3f} ms by {b_by} ({b_ms / ms:.3f} of the kernel's time){most} on {smi}", flush=True)
+    kernel, source = kernel_of(ck, run.mode, dtype)
+    return {"name": f"{kernel}<{str(dtype)[6:].replace('float', 'f')}, {name}>", "route": "cuda", "source": source,
+            "replaces": REPLACES, "launches": 1, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "plain_at": f"17a: nz=16 x {COLD_NCOL}, {COLD_STEPS} steps", "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
+def time_new_instances(ck, gc, costs, smi, dtype, device, checked, checked_rows, cold_probes_of):
+    """17e: each new instance but the paths' at the width of its path: the
+    water-only ones on 17c's storm, the implicit ones under 17d's cold MOST
+    top (the plain soil's lagged no-ice ones on ``build_freeze_wide``'s
+    column), ``IMPLICIT_DT``; then the 30 land policy instances with rows at
+    16c's width, the rows carrying the model's own atmosphere and rain, so
+    that the work (and the MOST probes, ``cold_probes_of[name]`` where 16c
+    counted them, else counted here as 16c counts them) is 16c's.
+    ``checked`` and ``checked_rows`` are 17a's and 16a's ``(error, plain
+    ms)`` of each.  Returns the kernel records."""
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    entries = []
+    for name in WATER_MODES:
+        if name not in STORM_PATHS:
+            land, Y0 = build_storm(dtype, device, name)
+            entries.append(time_at_width(ck, costs, smi, land, Y0, SSPRK33(), STORM_DT, STORM_T0, name,
+                                         checked[name]))
+    torch.cuda.empty_cache()
+    for name in IMPLICIT_MODES:
+        if name in COLD_IMPLICIT_PATHS:
+            continue
+        stepper, case = implicit_case(name)
+        if case.startswith("B2+B6-pond"):
+            soil, Y0, _, _ = build_freeze_wide(gc, dtype, device, None)
+            soil = dataclasses.replace(soil, freeze_thaw=None, coefficient_update="step", assume_no_ice=True)
+        else:
+            soil, Y0, _, _ = build_cold_land(gc, dtype, device, case)
+        entries.append(time_at_width(ck, costs, smi, soil, Y0, implicit(stepper, soil, 2), IMPLICIT_DT, 0.0, name,
+                                     checked[name]))
+    torch.cuda.empty_cache()
+    for name in COLD_MODES:
+        model, Y0, _, dt = build_cold_land(gc, dtype, device, name)
+        soil = getattr(model, "soil", model)
+        rows = {}
+        if "-pond" not in name:
+            rows["theta_atm"] = torch.full((COLD_TIMED_STEPS, NCOL), COLD_THETA_ATM, dtype=dtype, device=device)
+        if soil is not model:
+            rows["precipitation"] = torch.full((COLD_TIMED_STEPS, NCOL), 8e-6, dtype=dtype, device=device)
+        entries.append(time_at_width(ck, costs, smi, model, Y0, SSPRK33(), dt, 0.0, f"{name}+B7", checked_rows[name],
+                                     forcing=rows, probes=cold_probes_of.get(name)))
+    torch.cuda.empty_cache()
     return entries
+
+
+def cold_forced_phase(ck, costs, smi, device, t_start, cold_checked, cold_probes_of):
+    """Phase 17: 17a's checks (``cold_forced_checks``), 17b's cold forced
+    reanalysis (``cold_forced_path``, its forcing written once to a
+    temporary file), 17c's storm (``storm_path``), 17d's implicit paths
+    (``cold_implicit_path``), 17e's times (``time_new_instances``), with
+    16a's checks (``cold_checked``, ``{dtype: {name: (error, plain ms)}}``)
+    and 16c's MOST probes (``cold_probes_of``, ``{(dtype, name): probes}``,
+    empty where phase 16 did not run).  Returns ``(kernel records, 17d's
+    paths for phase 6)``."""
+    import tempfile
+
+    from landhydrology_tpu_torch.runtime import write_forcing
+
+    gc = _load_golden_config()
+    entries, paths = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "cold_forcing.bin")
+        times, rows = reanalysis_forcing(COLD_FORCED_STEPS, FORCED_NCOL, FORCED_DT)
+        rows["theta_atm"] = rows["theta_atm"] - np.float32(COLD_FORCED_SHIFT)
+        write_forcing(path, times, rows)
+        del rows
+        for dtype in (torch.float64, torch.float32):
+            tag = str(dtype)[6:]
+            checked = cold_forced_checks(ck, dtype, device)
+            _mark(t_start, f"phase 17a's {tag} checks")
+            for setting in COLD_FORCED_PATHS:
+                entries.append(cold_forced_path(ck, costs, smi, dtype, device, setting, path))
+                torch.cuda.empty_cache()
+            _mark(t_start, f"phase 17b's {tag} forced paths")
+            for case in STORM_PATHS:
+                entries.append(storm_path(ck, costs, smi, dtype, device, case))
+                torch.cuda.empty_cache()
+            _mark(t_start, f"phase 17c's {tag} storm")
+            for name in COLD_IMPLICIT_PATHS:
+                paths.append(cold_implicit_path(ck, gc, dtype, device, name))
+                torch.cuda.empty_cache()
+            _mark(t_start, f"phase 17d's {tag} implicit paths")
+            probes = {name: p for (d, name), p in cold_probes_of.items() if d == dtype}
+            entries += time_new_instances(ck, gc, costs, smi, dtype, device, checked, cold_checked[dtype], probes)
+            _mark(t_start, f"phase 17e's {tag} times")
+    return entries, paths
 
 
 def _fmt_ms(values):
@@ -4606,6 +5264,10 @@ def main() -> int:
                         help="run phases 1, 2, 10 and 16 only (the land path and the cold land path, kernel modes "
                              "B5 and B6 with and without the step policies), with phase 6's times of phase 10's "
                              "paths")
+    parser.add_argument("--cold-forced-only", action="store_true",
+                        help="run phases 1, 2 and 17 only (cold forced and water-only land: the land policy "
+                             "instances with forcing rows, the water-only LandModel, the implicit steppers' policies "
+                             "under a MOST top), with phase 6's times of 17d's paths")
     parser.add_argument("--grad-only", action="store_true",
                         help="run phases 1, 2 and 14 only (the gradient path, kernel modes B9 and B4 + step "
                              "policies, with the times of its B4 + policy instances)")
@@ -4661,10 +5323,17 @@ def main() -> int:
         cli_entries = cli_main(ck, costs, smi, device, args.seed, t_start)
         _mark(t_start, "phase 15")
         return finish(cli_entries, smi, t_start)
+    if args.cold_forced_only:
+        # 16a's checks of the land policy instances with step-indexed rows, which 17a completes
+        cold_checked = {dtype: cold_checks(ck, dtype, device) for dtype in (torch.float64, torch.float32)}
+        _mark(t_start, "phase 16a")
+        cold_entries, cold_paths = cold_forced_phase(ck, costs, smi, device, t_start, cold_checked, {})
+        _mark(t_start, "phase 17")
+        return finish(time_paths(ck, costs, smi, cold_paths) + cold_entries, smi, t_start)
     if args.land_only:
         land_paths = land_phase(ck, gc, device, smi)
         _mark(t_start, "phase 10")
-        cold_entries = cold_phase(ck, costs, smi, device, t_start)
+        cold_entries, _, _ = cold_phase(ck, costs, smi, device, t_start)
         _mark(t_start, "phase 16")
         return finish(time_paths(ck, costs, smi, land_paths) + cold_entries, smi, t_start)
 
@@ -4882,8 +5551,15 @@ def main() -> int:
     _mark(t_start, "phase 15")
 
     # ---- 16: the cold land path, kernel modes B5/B6 with freeze-thaw or no ice ----
-    forced_entries += cold_phase(ck, costs, smi, device, t_start)
+    cold_entries, cold_checked, cold_probes_of = cold_phase(ck, costs, smi, device, t_start)
+    forced_entries += cold_entries
     _mark(t_start, "phase 16")
+
+    # ---- 17: cold forced and water-only land, B5/B6 + B7 and B4+B5 with the step policies ----
+    cold_entries, cold_paths = cold_forced_phase(ck, costs, smi, device, t_start, cold_checked, cold_probes_of)
+    paths += cold_paths
+    forced_entries += cold_entries
+    _mark(t_start, "phase 17")
 
     # ---- 6: times at the main-path shapes, in turns ----
     entries = time_paths(ck, costs, smi, paths)
@@ -4980,9 +5656,8 @@ print("COMPARE " + json.dumps(out))
 """
 
 
-#: the instances whose code the no-ice cap's repair changed (MODE_RHS_CAP, ROADMAP C): their registers may
-#: differ from the parent's
-REPAIRED = ("B1-no-ice", "B4-trbdf2-no-ice", "B4-be-soil-no-ice", "B4-be-richards-no-ice")
+#: the instances whose code a repair changed (their registers may differ from the parent's): none in this tree
+REPAIRED = ()
 
 
 def compare_with(parent, smi) -> None:

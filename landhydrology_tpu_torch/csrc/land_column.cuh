@@ -3,7 +3,9 @@
 // their streamed forcing rows), and its launch.  Two sources instantiate it:
 // land_kernel.cu the surface modes alone and with lagged coefficients,
 // land_policy_kernel.cu the surface modes with freeze-thaw or assume_no_ice
-// (each alone or with lagged coefficients).
+// (each alone or with lagged coefficients); each also the LandModel on a
+// water-only soil under its plain top (MODE_WATER, land_policy_kernel.cu
+// with assume_no_ice).
 //
 // Replaces landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run
 // where its body traces a MOST top face (B5: PrescribedAtmosForcing, the
@@ -28,7 +30,14 @@
 //                      left alone, as freeze_thaw.py keeps it;
 //   MODE_NO_ICE        assume_no_ice in the soil rhs, always with
 //                      MODE_RHS_CAP (theta_l capped at nu - theta_i, as
-//                      rhs.py caps it).
+//                      rhs.py caps it);
+//   MODE_WATER         the LandModel on a water-only soil
+//                      (PrescribedTemperatureModel, a plain top): Richards
+//                      alone, T from the prescribed profile in the soil rhs
+//                      and its lagged K (the profile at the step's start), no
+//                      rho_e_int; the exchange sees 288 K (surface_exchange),
+//                      as land.py does in a fused run, whose auxiliary state
+//                      carries no T.
 // B7 (column_kernel.py:413-475, :512-575, forcing_fields and
 // forcing_time_grid) is a row source, not a mode: the forced atmosphere
 // fields and the rain rate are read at the step's forcing row (the step, or
@@ -36,10 +45,11 @@
 // for a frozen exchange; the others keep their stage rows.  The rows stay in
 // global memory (no copy per launch: the pointers carry the launch's chunk
 // offset), read once per column and exchange.
-// B5 reads T of the top cell as the soil rhs has it (through the lagged
-// heat capacity in B2+B5; under assume_no_ice without the ice terms, as
-// rhs.py's no-ice closures diagnose it); B6's exchange diagnoses T of the top
-// slab in full, as land.py does, assume_no_ice or not.  The exchange reads only the top cell, and its
+// B5 reads T of the top cell as the soil rhs has it (rhs_temperature:
+// through the lagged heat capacity in B2+B5; under assume_no_ice without the
+// ice terms, as rhs.py's no-ice closures diagnose it); B6's exchange
+// diagnoses T of the top slab in full, as land.py does, assume_no_ice or
+// not.  The exchange reads only the top cell, and its
 // rates replace the top face's BC values of the stage's rhs sweep.
 //
 // Bound: one MOST solve per column and stage (per step with
@@ -78,7 +88,7 @@ __global__ void land_column_kernel(const KernelArgs a, T eps, T tiny) {
   Coefs<T> coef{scratch + 6 * n, scratch + 7 * n, scratch + 8 * n, scratch + 9 * n,
                 Modes<M>::rate ? scratch + 10 * n : nullptr};
 
-  constexpr bool land = Modes<M>::land;
+  constexpr bool land = Modes<M>::land, water = Modes<M>::water;
   T* h_s = static_cast<T*>(a.h_s);
   T h = land ? h_s[col] : T(0);
   const T tau_pond = land ? surface_value<T>(a, S_TAU_POND, 0, col) : T(1);
@@ -86,13 +96,17 @@ __global__ void land_column_kernel(const KernelArgs a, T eps, T tiny) {
 
   const T t0 = T(a.t0), t_f0 = T(a.t_forcing0), inv_dt_f = T(a.inv_dt_forcing);
   for (int64_t step = 0; step < a.n_steps; ++step) {
-    if (Modes<M>::lagged) coefficients<T, M>(c, a, col, Y.vl, Y.ti, Y.re, coef);
+    if constexpr (Modes<M>::lagged && water) {  // K alone, at the profile's T of the step's start
+      branch_coefficients<T, M>(c, a, col, Y, load_profiles<T, M>(a, a.rows_per_step * step, col), coef);
+    } else if (Modes<M>::lagged) {
+      coefficients<T, M>(c, a, col, Y.vl, Y.ti, Y.re, coef);
+    }
     const int64_t row0 = a.rows_per_step * step;
     const int64_t frow = forcing_row<T>(a.frow_mode, step, t0, dt, t_f0, inv_dt_f, a.n_frows);
     Exchange<T> frozen{};
     if (land && Modes<M>::surface_step) {
-      frozen = surface_exchange<T, M>(c, a, row0, frow, col, Y.vl[top], Y.ti[top], Y.re[top], h, dzb,
-                                      tau_pond, h_evap);
+      frozen = surface_exchange<T, M>(c, a, row0, frow, col, Y.vl[top], Y.ti[top], water ? T(0) : Y.re[top], h,
+                                      dzb, tau_pond, h_evap);
     }
     T h_a = T(0), h_b = T(0);  // the pond after stages 0 and 1
     for (int s = 0; s < 3; ++s) {
@@ -101,7 +115,7 @@ __global__ void land_column_kernel(const KernelArgs a, T eps, T tiny) {
       const Fields<T> out = s == 0 ? A : (s == 1 ? B : Y);
       T bc_val[kNumBC];
       load_bc(a, row, col, bc_val);
-      const T vl = u.vl[top], ti = u.ti[top], re = u.re[top];
+      const T vl = u.vl[top], ti = u.ti[top], re = water ? T(0) : u.re[top];
       if (land) {
         const T h_u = s == 0 ? h : (s == 1 ? h_a : h_b);
         const Exchange<T> ex = Modes<M>::surface_step
@@ -115,16 +129,7 @@ __global__ void land_column_kernel(const KernelArgs a, T eps, T tiny) {
         if (s == 1) h_b = T(0.75) * h + T(0.25) * n_h;
         if (s == 2) h = T(1.0 / 3.0) * h + T(2.0 / 3.0) * n_h;
       } else {  // B5: the soil rhs's T of the top cell
-        T temp;
-        if (Modes<M>::lagged && Modes<M>::no_ice) {
-          temp = c.T_0 + re * coef.inv_rho_c_s[top];
-        } else if (Modes<M>::lagged) {
-          temp = c.T_0 + (re + ti * c.rho_ice * c.LH_f0) * coef.inv_rho_c_s[top];
-        } else if (Modes<M>::no_ice) {
-          temp = c.T_0 + re / (c.p[P_RHO_C_DS] + d_min(vl, c.p[P_NU] - ti) * c.rho_cp_l);
-        } else {
-          temp = cell_temperature(c, vl, ti, re);
-        }
+        const T temp = rhs_temperature<T, M>(c, coef, top, vl, ti, re);
         turbulent_fluxes(c, a, load_atmos<T>(a, row, frow, col), vl, ti, temp,
                          &bc_val[BC_TOP_ENERGY], &bc_val[BC_TOP_HYDROLOGY]);
       }

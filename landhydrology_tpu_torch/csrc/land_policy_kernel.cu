@@ -1,7 +1,8 @@
 // Fused multi-step column kernel with a surface exchange at the top face
 // (kernel modes B5 and B6) under the step policies: rate freeze-thaw,
 // equilibrium freeze-thaw or assume_no_ice, each alone or with lagged
-// coefficients, on each of the five tops.  The kernel, and what it replaces,
+// coefficients, on each of the five tops, and assume_no_ice on the
+// LandModel over a water-only soil.  The kernel, and what it replaces,
 // is in land_column.cuh; the JAX body traces these modes as
 // FrozenExchangeStepper(PhaseEquilibriumStepper(SSPRK33)) over the land rhs
 // (landhydrology_tpu/ops/pallas/column_kernel.py:142-143, :385-411).
@@ -28,6 +29,14 @@ namespace {
     return launch<T, S | MODE_LAGGED | MODE_FREEZE_EQ>(args, block, stream);                    \
   case S | MODE_LAGGED | MODE_NO_ICE:                                                           \
     return launch<T, S | MODE_LAGGED | MODE_NO_ICE | MODE_RHS_CAP>(args, block, stream);
+// The LandModel on a water-only soil (a plain top) with assume_no_ice, alone
+// and lagged, its exchange per stage or frozen per step; freeze-thaw needs a
+// dynamic energy model.
+#define WATER_CASES(S)                                                                                \
+  case S | MODE_WATER | MODE_NO_ICE:                                                                  \
+    return launch<T, S | MODE_WATER | MODE_NO_ICE | MODE_RHS_CAP>(args, block, stream);               \
+  case S | MODE_WATER | MODE_LAGGED | MODE_NO_ICE:                                                    \
+    return launch<T, S | MODE_WATER | MODE_LAGGED | MODE_NO_ICE | MODE_RHS_CAP>(args, block, stream);
 template <typename T>
 int dispatch(const KernelArgs* args, int block, void* stream) {
   switch (args->mode) {
@@ -36,10 +45,13 @@ int dispatch(const KernelArgs* args, int block, void* stream) {
     POLICY_CASES(MODE_LAND | MODE_MOST | MODE_SURFACE_STEP)
     POLICY_CASES(MODE_LAND)
     POLICY_CASES(MODE_LAND | MODE_SURFACE_STEP)
+    WATER_CASES(MODE_LAND)
+    WATER_CASES(MODE_LAND | MODE_SURFACE_STEP)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 #undef POLICY_CASES
+#undef WATER_CASES
 
 }  // namespace
 

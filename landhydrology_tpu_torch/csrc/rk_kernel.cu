@@ -85,33 +85,6 @@ __device__ void rk_stage(const Column<T>& c, const KernelArgs& a, int64_t col, c
   rhs_sweep<T, M>(c, a, col, u, bc_val, prof, g, coef, write);
 }
 
-// lagged.py::compute_coeffs of the branch over one column at the step's
-// start (table row `row`): the coupled coefficients of column_common.cuh;
-// K alone on the water-only branch (T from the profile); kappa and
-// 1/rho_c_s on the heat-only branch (vartheta_l, theta_i from the profiles).
-template <typename T, int M>
-__device__ void branch_coefficients(const Column<T>& c, const KernelArgs& a, int64_t col, const Fields<T>& Y,
-                                    const Profiles<T, M>& prof, const Coefs<T>& coef) {
-  if (Modes<M>::coupled) {
-    coefficients<T, M>(c, a, col, Y.vl, Y.ti, Y.re, coef);
-    return;
-  }
-  for (int64_t k = 0; k < a.nz; ++k) {
-    const int64_t i = k * a.ncol + col;
-    if (Modes<M>::water) {
-      const T vl = Y.vl[i], ti = Y.ti[i], temp = prof.at(PROF_T, k);
-      coef.K[i] = Modes<M>::no_ice ? conductivity_no_ice(c, vl, temp) : conductivity(c, vl, ti, temp);
-    } else {
-      const T vl = prof.at(PROF_VARTHETA_L, k), ti = prof.at(PROF_THETA_I, k);
-      const T theta_l = d_min(vl, Modes<M>::no_ice ? c.p[P_NU] : c.p[P_NU] - ti);
-      T temp, kappa, rho_c_s, K;
-      closures<T, M>(c, vl, ti, Y.re[i], theta_l, &temp, &kappa, &rho_c_s, &K);
-      coef.kappa[i] = kappa;
-      coef.inv_rho_c_s[i] = T(1) / rho_c_s;
-    }
-  }
-}
-
 template <typename T, int M>
 __global__ void rk_column_kernel(const KernelArgs a, T eps, T tiny) {
   const int64_t col = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;

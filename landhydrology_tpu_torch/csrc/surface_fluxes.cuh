@@ -291,14 +291,32 @@ __device__ __forceinline__ T cell_temperature(const Column<T>& c, T vl, T ti, T 
   return c.T_0 + (re + ti * c.rho_ice * c.LH_f0) / rho_c_s;
 }
 
+// T of cell i (vl, ti, re) as the soil rhs of mode M diagnoses it for its
+// MOST top face (kernel B5): through the step's lagged heat capacity with
+// lagged coefficients; without the ice terms under assume_no_ice, as rhs.py's
+// no-ice closures diagnose it (theta_l capped as the rhs caps it); else the
+// stage closures.
+template <typename T, int M>
+__device__ __forceinline__ T rhs_temperature(const Column<T>& c, const Coefs<T>& coef, int64_t i, T vl, T ti,
+                                             T re) {
+  if (Modes<M>::lagged && Modes<M>::no_ice) return c.T_0 + re * coef.inv_rho_c_s[i];
+  if (Modes<M>::lagged) return c.T_0 + (re + ti * c.rho_ice * c.LH_f0) * coef.inv_rho_c_s[i];
+  if (Modes<M>::no_ice) {
+    return c.T_0 + re / (c.p[P_RHO_C_DS] + d_min(vl, Modes<M>::rhs_cap ? c.p[P_NU] - ti : c.p[P_NU]) * c.rho_cp_l);
+  }
+  return cell_temperature(c, vl, ti, re);
+}
+
 // The MOST top face of one rhs evaluation (kernel mode B5 under the
-// implicit steppers): the turbulent heat and water fluxes of the top cell
-// (vl, ti, re) at table row `row` and forcing row `frow` replace the top
-// slots' BC values, which the host sets to BC_FLUX.
-template <typename T>
-__device__ __forceinline__ void most_top_bc(const Column<T>& c, const KernelArgs& a, int64_t row,
-                                            int64_t frow, int64_t col, T vl, T ti, T re, T* bc_val) {
-  turbulent_fluxes(c, a, load_atmos<T>(a, row, frow, col), vl, ti, cell_temperature(c, vl, ti, re),
+// implicit steppers): the turbulent heat and water fluxes of the top cell i
+// (vl, ti, re), at T as the rhs diagnoses it (rhs_temperature, with the
+// step's lagged coefficients `coef`), at table row `row` and forcing row
+// `frow` replace the top slots' BC values, which the host sets to BC_FLUX.
+template <typename T, int M>
+__device__ __forceinline__ void most_top_bc(const Column<T>& c, const KernelArgs& a, const Coefs<T>& coef,
+                                            int64_t row, int64_t frow, int64_t col, int64_t i, T vl, T ti, T re,
+                                            T* bc_val) {
+  turbulent_fluxes(c, a, load_atmos<T>(a, row, frow, col), vl, ti, rhs_temperature<T, M>(c, coef, i, vl, ti, re),
                    &bc_val[BC_TOP_ENERGY], &bc_val[BC_TOP_HYDROLOGY]);
 }
 
@@ -310,15 +328,18 @@ struct Exchange {
 };
 
 // The exchange rates for the top cell (vl, ti, re) and the pond height h_s
-// at table row `row` and forcing row `frow`: T diagnosed on the top slab;
-// the potential infiltration is the Dirichlet branch of face_fluxes with the
-// face at nu; with MOST, one solve over the blended pond/bare-soil humidity.
+// at table row `row` and forcing row `frow`: T diagnosed on the top slab, or
+// on a water-only soil (MODE_WATER, no rho_e_int; re is not read) 288 K, as
+// land.py::_diagnose_state_T gives it where the auxiliary state carries no
+// T, as a fused run's does not; the potential infiltration is the Dirichlet
+// branch of face_fluxes with the face at nu; with MOST, one solve over the
+// blended pond/bare-soil humidity.
 template <typename T, int M>
 __device__ Exchange<T> surface_exchange(const Column<T>& c, const KernelArgs& a, int64_t row,
                                         int64_t frow, int64_t col, T vl, T ti, T re, T h_s, T dzb,
                                         T tau_pond, T h_evap_smoothing) {
   Exchange<T> ex;
-  T temp = cell_temperature(c, vl, ti, re);
+  T temp = Modes<M>::water ? T(288) : cell_temperature(c, vl, ti, re);
 
   Center<T> x{};
   x.vl = vl;

@@ -3,25 +3,29 @@
 Replaces ``landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run``
 in its explicit modes, its implicit modes and its surface modes:
 ``steps_per_call`` steps of the soil (or land) tendency per launch, updating
-the state in place.  Five CUDA sources share ``csrc/column_common.cuh``:
+the state in place.  Six CUDA sources share ``csrc/column_common.cuh``:
 
 - ``csrc/column_kernel.cu``: SSPRK33 (kernel modes B1, B2, B3), on the
   coupled, water-only or heat-only branch;
 - ``csrc/implicit_kernel.cu``: ``TRBDF2Soil``, ``BackwardEulerRichards`` and
   ``BackwardEulerSoil`` (kernel mode B4), with Thomas or PCR solves, with
   the step policies on the coupled plain soil (lagged coefficients,
-  freeze-thaw, ``assume_no_ice``), and under a MOST top (B4+B5) with its
-  forcing rows;
+  freeze-thaw, ``assume_no_ice``, lagged with either), and under a MOST top
+  (B4+B5) with its forcing rows;
+- ``csrc/implicit_most_kernel.cu``: the same kernel
+  (``csrc/implicit_column.cuh``) under a MOST top with those step policies;
 - ``csrc/land_kernel.cu``: SSPRK33 with a MOST top face (kernel mode B5,
   ``PrescribedAtmosForcing``) or a ``LandModel`` pond (B6), the MOST solve
-  in ``csrc/surface_fluxes.cuh``; each with streamed forcing rows (B7): the
-  atmosphere fields and the rain rate read per step from rows on the card,
+  in ``csrc/surface_fluxes.cuh``, and the LandModel on a water-only soil
+  under a plain top; each with streamed forcing rows (B7): the atmosphere
+  fields and the rain rate read per step from rows on the card,
   step-indexed or time-indexed;
 - ``csrc/land_policy_kernel.cu``: the same kernel (``csrc/land_column.cuh``)
   under rate or equilibrium freeze-thaw or ``assume_no_ice``, each alone or
   with lagged coefficients, on the MOST soil column and the four LandModel
   tops (B5, B6, B6 with its exchange frozen per step, and both with a plain
-  top BC), without forcing rows;
+  top BC), and under ``assume_no_ice`` on the water-only LandModel, each with
+  or without forcing rows;
 - ``csrc/rk_kernel.cu``: ForwardEuler, SSPRK22 and SSPRK104 in every
   plain-soil mode of ``column_kernel.cu`` (kernel mode B1's remainder), and
   all four explicit steppers with lagged coefficients or ``assume_no_ice``
@@ -77,9 +81,11 @@ Every mode takes its step size at run time (kernel mode B1-dt):
 ``run(Y, t0, dt_run=h)`` launches at ``h`` rounded to the model dtype, its
 tables built at the stage times of ``h``, and equals a run built with
 ``dt=h`` bit for bit.  The implicit steppers also run under a MOST top
-(``B4-trbdf2+B5``, ``B4-be-soil+B5``, ``B4-be-richards+B5``), with its
-forcing rows (B7): every rhs evaluation of the implicit kernel takes its top
-fluxes from a MOST solve at its own top cell.
+(``B4-trbdf2+B5``, ``B4-be-soil+B5``, ``B4-be-richards+B5``, and with the
+step policies ``B4-trbdf2+B2+B3-rate+B5``, ``B4-be-soil-no-ice+B2+B5``,
+...), with its forcing rows (B7): every rhs evaluation of the implicit
+kernel takes its top fluxes from a MOST solve at its own top cell, at T as
+that evaluation's rhs diagnoses it.
 
 ``differentiable=True`` (kernel mode B9, ``ops/cuda/differentiable.py``)
 returns a run that ``torch.autograd`` differentiates in the state, t0 and
@@ -89,11 +95,10 @@ replayed one step at a time.
 Combinations without a kernel raise ``NotImplementedError`` naming their
 ROADMAP item, on either device: ForwardEuler, SSPRK22 and SSPRK104 under a
 MOST top or with a LandModel (B1), the implicit steppers with step policies
-under a MOST top, on the branches or lagged with ``assume_no_ice``, or with
-a LandModel, which the reference kernel cannot run either (B4), the
-LandModel on a water-only soil, and streamed forcing rows with freeze-thaw
-or ``assume_no_ice`` under MOST or a LandModel (B5, B6), per-column kinds
-or geometry outside the modes that hold them or with forcing rows
+on the water-only and heat-only branches, the water-only Newton sweep with
+``TemperatureDependentViscosity``, and the implicit steppers with a
+LandModel, which the reference kernel cannot run either (B4), per-column
+kinds or geometry outside the modes that hold them or with forcing rows
 (B1-batched, B8).  Lateral coupling, pond routing, a per-column rain
 callable and a 2-D column batch raise ``ValueError``, as the JAX kernel's
 factory does; so does
@@ -186,12 +191,13 @@ from landhydrology_tpu_torch.timestepping import (
 
 _PACKAGE = Path(__file__).resolve().parents[2]
 CSRC = _PACKAGE / "csrc"
-#: the header both kernel sources include
+#: the header every kernel source includes
 HEADER = CSRC / "column_common.cuh"
 #: the kernel sources, one shared library per source and float type
 SOURCES = {
     "column_kernel": CSRC / "column_kernel.cu",
     "implicit_kernel": CSRC / "implicit_kernel.cu",
+    "implicit_most_kernel": CSRC / "implicit_most_kernel.cu",
     "land_kernel": CSRC / "land_kernel.cu",
     "land_policy_kernel": CSRC / "land_policy_kernel.cu",
     "rk_kernel": CSRC / "rk_kernel.cu",
@@ -201,8 +207,8 @@ SOURCES = {
 #: holds that type's template instances alone, so the halves build in parallel
 _TAGS = ("f32", "f64")
 _ENTRY_PREFIX = {"column_kernel": "column_kernel_ssprk33", "implicit_kernel": "implicit_kernel",
-                 "land_kernel": "land_kernel", "land_policy_kernel": "land_policy_kernel",
-                 "rk_kernel": "rk_kernel"}
+                 "implicit_most_kernel": "implicit_most_kernel", "land_kernel": "land_kernel",
+                 "land_policy_kernel": "land_policy_kernel", "rk_kernel": "rk_kernel"}
 BUILD_DIR = _PACKAGE / "_build"
 #: ``-split-compile=0`` optimizes the template instances of a source in
 #: parallel on all host cores
@@ -467,7 +473,7 @@ def load_library(key: str) -> ctypes.CDLL:
 def _entry(mode: int, dtype) -> tuple:
     """``(library name, C function)`` that launches ``mode`` in ``dtype``."""
     if mode & MODE_IMPLICIT:
-        name = "implicit_kernel"
+        name = "implicit_most_kernel" if mode & MODE_MOST and mode & _POLICY_BITS else "implicit_kernel"
     elif mode & (MODE_MOST | MODE_LAND):
         name = "land_policy_kernel" if mode & _FREEZE_OR_NO_ICE else "land_kernel"
     elif mode & MODE_RK or (mode & (MODE_WATER | MODE_HEAT) and mode & (MODE_LAGGED | MODE_NO_ICE)):
@@ -548,9 +554,11 @@ def mode_name(mode: int, features: tuple = (True, True)) -> str:
     ``B4-trbdf2-pcr+B5``); ``B5`` for a MOST top
     (``B2+B5`` lagged), ``B6`` for the LandModel with a MOST top, ``-step``
     with its exchange frozen per step, ``B2+`` lagged and ``-pond`` with a
-    plain top BC (``B2+B6-step-pond``), each with ``+B3-rate``, ``+B3-eq``
-    or ``-no-ice`` for its step policy (``B6+B3-rate``, ``B2+B6-step+B3-eq``,
-    ``B5-no-ice``, ``B2+B6-pond-no-ice``).  The ``MODE_COLUMNS`` instance adds
+    plain top BC (``B2+B6-step-pond``), ``-water`` on a water-only soil
+    (``B6-pond-water``), each with ``+B3-rate``, ``+B3-eq`` or ``-no-ice``
+    for its step policy (``B6+B3-rate``, ``B2+B6-step+B3-eq``,
+    ``B5-no-ice``, ``B2+B6-pond-no-ice``, ``B2+B6-step-pond-water-no-ice``).
+    The ``MODE_COLUMNS`` instance adds
     ``+kinds`` where it reads per-column BC kinds (B1-batched) and ``+B8``
     where it reads per-column geometry: ``features`` is ``(kinds,
     geometry)`` of a run (:func:`per_column_features`), both by default,
@@ -564,7 +572,7 @@ def mode_name(mode: int, features: tuple = (True, True)) -> str:
         mode & _FREEZE_OR_NO_ICE, "")
     if mode & MODE_LAND:
         name = "B6" + ("-step" if mode & MODE_SURFACE_STEP else "")
-        name += "" if mode & MODE_MOST else "-pond"
+        name += ("" if mode & MODE_MOST else "-pond") + ("-water" if mode & MODE_WATER else "")
         return ("B2+" + name if mode & MODE_LAGGED else name) + policy
     branch = {MODE_WATER: "-water", MODE_HEAT: "-heat"}.get(mode & (MODE_WATER | MODE_HEAT), "")
     if mode & MODE_IMPLICIT:
@@ -1351,10 +1359,12 @@ def kernel_args(model, fields, scratch, zc, dz, params, tables, n_steps, dt,
 # --------------------------------------------------------------------------
 
 
-def _check_surface(model, rain_forced: bool = False, forcing_fields=()) -> None:
-    """Refuse the surface configurations no kernel runs: those the JAX
-    kernel's factory refuses (``ValueError``) and those not ported yet.  A
-    rain rate streamed as forcing rows may be per column."""
+def _check_surface(model, rain_forced: bool = False) -> None:
+    """Refuse the surface configurations no kernel runs, those the JAX
+    kernel's factory refuses: routing and a per-column rain rate
+    (``ValueError``), a MOST top without dynamic energy and hydrology
+    (``TypeError``).  A rain rate streamed as forcing rows may be per
+    column."""
     soil = _soil_of(model)
     land = isinstance(model, LandModel)
     if land and model.surface.runoff is not None:
@@ -1369,16 +1379,6 @@ def _check_surface(model, rain_forced: bool = False, forcing_fields=()) -> None:
         raise TypeError(
             "Turbulent surface fluxes require dynamic SoilEnergyModel and "
             "SoilHydrologyModel components."
-        )
-    item = "B6" if land else "B5"
-    if not (_dynamic(soil, "energy") and _dynamic(soil, "hydrology")):
-        raise NotImplementedError(
-            f"the LandModel on a water-only soil is not ported to the kernel yet (ROADMAP {item})"
-        )
-    if forcing_fields and (soil.freeze_thaw is not None or soil.assume_no_ice):
-        raise NotImplementedError(
-            "streamed forcing rows (B7) with freeze-thaw or assume_no_ice under a MOST top or a "
-            f"LandModel are not ported to the kernel yet (ROADMAP {item})"
         )
 
 
@@ -1424,7 +1424,7 @@ def _check_per_column(model, stepper, streamed_geometry, forcing_fields) -> None
             )
 
 
-def _check_model(model, rain_forced: bool = False, forcing_fields=()) -> None:
+def _check_model(model, rain_forced: bool = False) -> None:
     if not isinstance(model, (SoilModel, LandModel)):
         raise TypeError(f"expected a SoilModel or a LandModel; got {type(model).__name__}")
     soil = _soil_of(model)
@@ -1435,7 +1435,7 @@ def _check_model(model, rain_forced: bool = False, forcing_fields=()) -> None:
         )
     exchanged = exchanged_components(model)
     if exchanged:
-        _check_surface(model, rain_forced, forcing_fields)
+        _check_surface(model, rain_forced)
     if len(soil.domain.batch_shape) != 1:
         raise ValueError(
             "the fused column kernel expects a 1-D column batch (nz, ncol); "
@@ -1481,11 +1481,12 @@ def _implied_policies(model, base):
 
 #: the step-policy bits of the mode word
 _POLICY_BITS = MODE_LAGGED | MODE_FREEZE_RATE | MODE_FREEZE_EQ | MODE_NO_ICE
-#: the policies the implicit kernel takes on the coupled plain soil (B4 with
-#: B2, B3-rate, B3-eq, no ice, B2+B3-rate and B2+B3-eq)
+#: the policies the implicit kernel takes on the coupled branch, plain soil
+#: or MOST top (B4 with B2, B3-rate, B3-eq, no ice, B2+B3-rate, B2+B3-eq and
+#: B2 with no ice)
 _IMPLICIT_POLICIES = frozenset({
     0, MODE_LAGGED, MODE_FREEZE_RATE, MODE_FREEZE_EQ, MODE_NO_ICE,
-    MODE_LAGGED | MODE_FREEZE_RATE, MODE_LAGGED | MODE_FREEZE_EQ,
+    MODE_LAGGED | MODE_FREEZE_RATE, MODE_LAGGED | MODE_FREEZE_EQ, MODE_LAGGED | MODE_NO_ICE,
 })
 
 
@@ -1536,16 +1537,16 @@ def _check_stepper(model, stepper) -> None:
     if isinstance(base, BackwardEulerSoil) and branch_only:
         raise TypeError("BackwardEulerSoil needs dynamic hydrology and energy models")
     policies = kernel_mode(model, base) & _POLICY_BITS
-    if policies and (branch_only or _most_top(model)):
+    if policies and branch_only:
         raise NotImplementedError(
-            "the implicit steppers with lagged coefficients, freeze-thaw or assume_no_ice under a MOST "
-            "top or on the water-only and heat-only branches are not ported to the kernel yet (ROADMAP B4)"
+            "the implicit steppers with lagged coefficients, freeze-thaw or assume_no_ice on the "
+            "water-only and heat-only branches are not ported to the kernel yet (ROADMAP B4)"
         )
     if policies not in _IMPLICIT_POLICIES:
         raise NotImplementedError(
             f"the implicit kernel mode {mode_name(kernel_mode(model, base))} is not ported yet (ROADMAP B4): "
-            "the kernel takes lagged coefficients alone or "
-            "with either freeze-thaw scheme, and either scheme or assume_no_ice alone"
+            "the kernel takes lagged coefficients alone or with either freeze-thaw scheme or "
+            "assume_no_ice, and either scheme or assume_no_ice alone"
         )
     if not _dynamic(model, "energy") and isinstance(
         model.hydrology_model.viscosity_factor, TemperatureDependentViscosity
@@ -1618,7 +1619,7 @@ def make_fused_column_run(
                 f"forcing_time_grid needs n_rows >= 1 and dt_forcing > 0; got {forcing_time_grid}"
             )
         forcing_time_grid = (float(t_start), float(dt_forcing), int(n_rows))
-    _check_model(model, rain_forced, forcing_fields)
+    _check_model(model, rain_forced)
     _check_stepper(model, stepper)
     _check_per_column(model, stepper, streamed_geometry, forcing_fields)
     if streamed_geometry is not None:

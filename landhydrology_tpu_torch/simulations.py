@@ -14,12 +14,14 @@ callbacks at the save points.  Two engines:
   SSPRK104 under a MOST top or with a LandModel) and the implicit steppers of
   ``imex.py``, whose ``model`` must be the simulation's.
 
-An implicit stepper's grid is rebuilt on the model's device.  A
-``LandModel`` (soil + pond, ``models/land.py``) runs on both engines, its
-soil with freeze-thaw or ``assume_no_ice`` too (on the fused engine under
-SSPRK33): its soil component owns the freeze-thaw projection, and its
-step-level policies (frozen surface exchange, lagged coefficients) wrap
-the stepper as ``wrap_stepper_for_land`` does.  Per-column BC kinds and depths run on
+An implicit stepper's grid is rebuilt on the model's device; with its step
+policies it runs on the fused engine on the coupled soil, under a MOST top
+too.  A ``LandModel`` (soil + pond, ``models/land.py``) runs on both
+engines, its soil with freeze-thaw or ``assume_no_ice`` too, or water-only
+under a plain top (on the fused engine under SSPRK33): its soil component
+owns the freeze-thaw projection, and its step-level policies (frozen
+surface exchange, lagged coefficients) wrap the stepper as
+``wrap_stepper_for_land`` does.  Per-column BC kinds and depths run on
 both engines; a ``LateralSurfaceCoupling`` couples columns and runs on the
 eager engine only (the fused engine raises ``ValueError``).
 """

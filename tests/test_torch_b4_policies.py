@@ -107,7 +107,7 @@ def test_plain_version_matches_jax_fused(policy, stepper, tridiag):
 
 def test_policy_instances_scratch_and_refusals():
     """The lagged instances keep their coefficients after the solver's
-    fields (4, or 5 with rate sources); lagged coefficients with no ice and
+    fields (4, or 5 with rate sources), lagged coefficients with no ice too;
     the policies on the water-only branch stay refused (ROADMAP B4)."""
     model, _, _, _ = gct.build_freeze_model_and_state(F64, "cpu")
     grid = make_function_space(model.domain, F64, "cpu")
@@ -120,8 +120,9 @@ def test_policy_instances_scratch_and_refusals():
     assert ck.scratch_fields(mode(coefficient_update="step")) == 17 + 5
     assert ck.scratch_fields(mode()) == 17
     lagged_dry = dataclasses.replace(model, coefficient_update="step", assume_no_ice=True, freeze_thaw=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        ck.make_fused_column_run(lagged_dry, TRBDF2Soil(model=lagged_dry, grid=grid))
+    run = ck.make_fused_column_run(lagged_dry, TRBDF2Soil(model=lagged_dry, grid=grid, tridiag="pcr"))
+    assert run.name == "B4-trbdf2-no-ice-pcr+B2" and ck.scratch_fields(run.mode) == 17 + 4
+    assert ck._entry(run.mode, F64) == ("implicit_kernel", "implicit_kernel_f64")
     from landhydrology_tpu_torch import NoBC, PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC
 
     bcs = model.boundary_conditions

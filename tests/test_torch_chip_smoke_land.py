@@ -125,10 +125,11 @@ def test_cold_path_forms_ice_and_closes_the_water_budget(plain_card, monkeypatch
 def test_time_cold_record(plain_card, monkeypatch):  # noqa: F811
     """16c: a MOST instance at a narrow width, kernel only; the record
     carries every key, 16a's error and plain time (``plain_at``) and a
-    bound counted with the MOST probes."""
+    bound counted with the MOST probes, which it returns beside it."""
     monkeypatch.setattr(cs, "NCOL", 32)
     monkeypatch.setattr(cs, "COLD_PROBE_STRIDE", 8)
-    record = cs.time_cold(ck, cs._load_golden_config(), COSTS, "smi", F64, "cpu", "B5-no-ice", (1.5e-9, 7.0))
+    record, probes = cs.time_cold(ck, cs._load_golden_config(), COSTS, "smi", F64, "cpu", "B5-no-ice", (1.5e-9, 7.0))
+    assert probes > 1.0
     assert set(record) - {"plain_at"} == KEYS and record["plain_ms"] == 7.0 and record["max_abs_err"] == 1.5e-9
     assert record["bound_by"] in ("bytes", "operations") and np.isfinite(record["bound_ms"])
     most = cs.bound_ms(ck, COSTS, ck.kernel_mode(cs.build_cold_land(cs._load_golden_config(), F64, "cpu", "B5-no-ice",

@@ -230,14 +230,15 @@ def test_unported_modes_raise(mode):
         for kw, name in (({"coefficient_update": "step"}, "B4-trbdf2+B2"),
                          ({"freeze_thaw": FreezeThaw(tau=60.0)}, "B4-trbdf2+B3-rate"),
                          ({"freeze_thaw": EquilibriumFreezeThaw()}, "B4-trbdf2+B3-eq"),
-                         ({"assume_no_ice": True}, "B4-trbdf2-no-ice")):
+                         ({"assume_no_ice": True}, "B4-trbdf2-no-ice"),
+                         ({"coefficient_update": "step", "assume_no_ice": True}, "B4-trbdf2-no-ice+B2")):
             m = dataclasses.replace(model, **kw)
             assert ck.make_fused_column_run(m, TRBDF2Soil(model=m, grid=grid)).name == name
-        # still refused: lagged coefficients with assume_no_ice (ROADMAP B4)
-        m = dataclasses.replace(model, coefficient_update="step", assume_no_ice=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-            ck.make_fused_column_run(m, TRBDF2Soil(model=m, grid=grid))
-    elif mode in ("B5_most", "B6_land"):  # ported, with freeze-thaw and assume_no_ice; not with their rows
+        # still refused: the policies on the water-only branch (ROADMAP B4)
+        water = dataclasses.replace(_branch_models(model)[0], coefficient_update="step")
+        with pytest.raises(NotImplementedError, match="water-only and heat-only branches.*ROADMAP B4"):
+            ck.make_fused_column_run(water, TRBDF2Soil(model=water, grid=grid))
+    elif mode in ("B5_most", "B6_land"):  # ported, with freeze-thaw and assume_no_ice, with their rows too
         from landhydrology_tpu_torch.models.land import LandModel
 
         most = dataclasses.replace(model, boundary_conditions=SoilColumnBC(
@@ -250,17 +251,20 @@ def test_unported_modes_raise(mode):
             item = "B5" if mode == "B5_most" else "B6"
             m = m if mode == "B5_most" else LandModel(soil=m)
             assert ck.make_fused_column_run(m).name == item + suffix
-            with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-                ck.make_fused_column_run(m, forcing_fields=("u_atm",))
-    elif mode == "B7_forcing":  # ported: not onto a top without an atmosphere, nor under freeze-thaw
+            assert ck.make_fused_column_run(m, forcing_fields=("u_atm",)).name == item + suffix + "+B7"
+    elif mode == "B7_forcing":  # ported, under freeze-thaw too: not onto a top without an atmosphere
         with pytest.raises(TypeError, match="PrescribedAtmosForcing"):
             ck.make_fused_column_run(model, forcing_fields=("u_atm",))
         most = dataclasses.replace(model, freeze_thaw=FreezeThaw(tau=60.0), boundary_conditions=SoilColumnBC(
             top=PrescribedAtmosForcing(u_atm=2.0, theta_atm=300.0, z_atm=2.0,
                                        theta_scale=300.0, rho_a_sfc=1.2, q_atm=0.005),
             bottom=model.boundary_conditions.bottom))
-        with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-            ck.make_fused_column_run(most, forcing_fields=("u_atm",))
+        assert ck.make_fused_column_run(most, forcing_fields=("u_atm",)).name == "B5+B3-rate+B7"
+        # still refused: the other explicit steppers with rows under MOST (ROADMAP B1)
+        from landhydrology_tpu_torch.timestepping import SSPRK22
+
+        with pytest.raises(NotImplementedError, match="ROADMAP B1"):
+            ck.make_fused_column_run(most, SSPRK22(), forcing_fields=("u_atm",))
     elif mode == "B7_time_grid":  # ported, with the implicit steppers too; a grid needs rows
         with pytest.raises(ValueError, match="requires forcing_fields"):
             ck.make_fused_column_run(model, forcing_time_grid=(0.0, 60.0, 10))
@@ -272,18 +276,20 @@ def test_unported_modes_raise(mode):
         run = ck.make_fused_column_run(most, TRBDF2Soil(model=most, grid=grid), forcing_fields=("u_atm",),
                                        forcing_time_grid=(0.0, 60.0, 10))
         assert run.name == "B4-trbdf2+B5+B7-time"
-        # still refused: B4 with a LandModel, B4+B5 with lagged coefficients (ROADMAP B4) or freeze-thaw (B5)
+        # B4+B5 with lagged coefficients or freeze-thaw, with rows too; still refused: B4 with a
+        # LandModel, which the reference kernel cannot run either (ROADMAP B4)
         from landhydrology_tpu_torch.models.land import LandModel
 
         with pytest.raises(NotImplementedError, match="ROADMAP B4"):
             ck.make_fused_column_run(LandModel(soil=most), TRBDF2Soil(model=most, grid=grid))
         lagged = dataclasses.replace(most, coefficient_update="step")
-        with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-            ck.make_fused_column_run(lagged, TRBDF2Soil(model=lagged, grid=grid), forcing_fields=("u_atm",))
+        run = ck.make_fused_column_run(lagged, TRBDF2Soil(model=lagged, grid=grid), forcing_fields=("u_atm",))
+        assert run.name == "B4-trbdf2+B2+B5+B7"
         frozen = dataclasses.replace(most, freeze_thaw=FreezeThaw(tau=60.0))
-        with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-            ck.make_fused_column_run(frozen, TRBDF2Soil(model=frozen, grid=grid), forcing_fields=("u_atm",),
-                                     forcing_time_grid=(0.0, 60.0, 10))
+        run = ck.make_fused_column_run(frozen, TRBDF2Soil(model=frozen, grid=grid), forcing_fields=("u_atm",),
+                                       forcing_time_grid=(0.0, 60.0, 10))
+        assert run.name == "B4-trbdf2+B3-rate+B5+B7-time"
+        assert ck._entry(run.mode, torch.float64)[0] == "implicit_most_kernel"
     elif mode == "B8_geometry":  # ported: in the modes chip_smoke.py holds it in, of the model's shape
         grid = make_function_space(model.domain, torch.float64, "cpu")
         geometry = (torch.full((8,), 0.05, dtype=torch.float64), grid.zc.expand(24, 8).contiguous())

@@ -360,16 +360,21 @@ def test_per_column_rain_streams_as_rows_but_not_as_a_callable():
 
 
 def test_unported_forced_combinations_raise_naming_their_item():
+    """Freeze-thaw and no ice take forcing rows under MOST and a LandModel;
+    the other explicit steppers with rows (ROADMAP B1) and per-column
+    geometry with rows (B8) stay refused."""
+    from landhydrology_tpu_torch.timestepping import SSPRK104
+
     jm, jY, jYa = _soil_case()
     model = model_from_reference(jm, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-        ck.make_fused_column_run(dataclasses.replace(model, freeze_thaw=FreezeThaw(tau=60.0)),
-                                 forcing_fields=("u_atm",))
+    frozen = dataclasses.replace(model, freeze_thaw=FreezeThaw(tau=60.0))
+    assert ck.make_fused_column_run(frozen, forcing_fields=("u_atm",)).name == "B5+B3-rate+B7"
     jland_m, _, _, _ = _land_case(n_steps=2)
     land = model_from_reference(jland_m, device="cpu")
     no_ice = dataclasses.replace(land, soil=dataclasses.replace(land.soil, assume_no_ice=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP B6"):
-        make_forced_segment_run(no_ice, field_names=("precipitation",), engine="fused")
+    make_forced_segment_run(no_ice, field_names=("precipitation",), engine="fused")
+    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
+        make_forced_segment_run(no_ice, SSPRK104(), field_names=("precipitation",), engine="fused")
     with pytest.raises(NotImplementedError, match="ROADMAP B8"):
         ck.make_fused_column_run(model, forcing_fields=("u_atm",), streamed_geometry=(1.0, 1.0))
 

@@ -217,8 +217,8 @@ def test_fused_engine_runs_the_land_model():
 def test_fused_run_refusals():
     """What the JAX kernel's factory refuses (routing, per-column rain, a
     2-D batch: ValueError) and what the kernel does not run (NotImplementedError
-    naming ROADMAP B5/B6/B4): freeze-thaw and no ice with forcing rows, the
-    implicit steppers with a LandModel."""
+    naming ROADMAP B4): the implicit steppers with a LandModel.  Freeze-thaw
+    and no ice run under MOST and a LandModel, with forcing rows too."""
     from landhydrology_tpu_torch.models.soil.freeze_thaw import FreezeThaw
     from landhydrology_tpu_torch.imex import TRBDF2Soil
 
@@ -235,15 +235,19 @@ def test_fused_run_refusals():
     soil2d = dataclasses.replace(model.soil, domain=dataclasses.replace(model.soil.domain, batch_shape=(16, 16)))
     with pytest.raises(ValueError, match="1-D column batch"):
         ck.make_fused_column_run(dataclasses.replace(model, soil=soil2d))
-    # freeze-thaw and no ice run under MOST and a LandModel, but not with streamed forcing rows yet
+    # freeze-thaw and no ice run under MOST and a LandModel, with streamed forcing rows too
+    Y, _ = _jax_land_state(_jax_land(), 1e-5)
     for kw, suffix in (({"freeze_thaw": FreezeThaw(tau=60.0)}, "+B3-rate"), ({"assume_no_ice": True}, "-no-ice")):
         soil = dataclasses.replace(model.soil, **kw)
         assert ck.make_fused_column_run(dataclasses.replace(model, soil=soil)).name == "B6" + suffix
         assert ck.make_fused_column_run(soil).name == "B5" + suffix
-        with pytest.raises(NotImplementedError, match="ROADMAP B6"):
-            ck.make_fused_column_run(dataclasses.replace(model, soil=soil), forcing_fields=("precipitation",))
-        with pytest.raises(NotImplementedError, match="ROADMAP B5"):
-            ck.make_fused_column_run(soil, forcing_fields=("u_atm",))
+        for m, field, name in ((dataclasses.replace(model, soil=soil), "precipitation", "B6"), (soil, "u_atm", "B5")):
+            run = ck.make_fused_column_run(m, dt=2.0, steps_per_call=2, forcing_fields=(field,))
+            assert run.name == name + suffix + "+B7"
+            Yt = state_from_numpy(Y if name == "B6" else {"soil": Y["soil"]}, device="cpu")
+            rows = torch.full((2, NCOL), 1e-6 if field == "precipitation" else 3.0, dtype=torch.float64)
+            run(Yt, 0.0, forcing={field: rows})
+            assert all(bool(torch.isfinite(v).all()) for f in Yt.values() for v in f.values())
     from landhydrology_tpu_torch.domains import make_function_space
 
     # the implicit steppers run under the soil's MOST top (B4+B5), not with the LandModel, which the

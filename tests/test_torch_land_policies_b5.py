@@ -214,52 +214,87 @@ def test_mode_words_names_and_scratch():
 
 
 def _refused(case):
-    """``(exception type, message pattern, the call that raises)`` of one
-    refusal kept by the policy slice."""
+    """``(message pattern, the call that raises NotImplementedError)`` of
+    one refusal the policy slices keep."""
     from landhydrology_tpu_torch import BatchedBC, PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC
     from landhydrology_tpu_torch.domains import make_function_space
     from landhydrology_tpu_torch.imex import TRBDF2Soil
-    from landhydrology_tpu_torch.timestepping import SSPRK104
+    from landhydrology_tpu_torch.models.soil.water import TemperatureDependentViscosity
+    from landhydrology_tpu_torch.timestepping import SSPRK104, ForwardEuler
 
     soil = model_from_reference(jax_model("B5", "+B3-rate", False), device="cpu")
     land = model_from_reference(jax_model("B6", "-no-ice", False), device="cpu")
     grid = make_function_space(soil.domain, torch.float64, "cpu")
-    if case == "rows_most":
-        return r"forcing rows.*ROADMAP B5\)", lambda: ck.make_fused_column_run(soil, forcing_fields=("theta_atm",))
-    if case == "rows_land":
-        return r"forcing rows.*ROADMAP B6\)", lambda: ck.make_fused_column_run(land, forcing_fields=("precipitation",))
+    geometry = (torch.full((NCOL,), 0.125, dtype=torch.float64), grid.zc.expand(NZ, NCOL).contiguous())
+    pond = model_from_reference(jax_model("B6-pond", "-no-ice", False), device="cpu")
+    water = dataclasses.replace(pond, soil=dataclasses.replace(
+        pond.soil, energy_model=PrescribedTemperatureModel(), assume_no_ice=False))
+    bottom_kinds = SoilComponentBC(hydrology=BatchedBC(kind=torch.zeros(NCOL, dtype=torch.int64)))
+    water_soil = water.soil
+    if case == "rows_most":  # the other explicit steppers with forcing rows under MOST
+        return r"SSPRK104 with a MOST top or a LandModel.*ROADMAP B1\)", lambda: ck.make_fused_column_run(
+            soil, SSPRK104(), forcing_fields=("theta_atm",))
+    if case == "rows_land":  # per-column geometry in a policy mode, with rain rows
+        return r"in mode B6-no-ice.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
+            land, streamed_geometry=geometry, forcing_fields=("precipitation",))
     if case == "kinds":
         bcs = soil.boundary_conditions
         kinds = dataclasses.replace(soil, boundary_conditions=SoilColumnBC(top=bcs.top, bottom=SoilComponentBC(
             energy=bcs.bottom.energy, hydrology=BatchedBC(kind=torch.zeros(NCOL, dtype=torch.int64)))))
         return r"in mode B5\+B3-rate.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(kinds)
+    if case == "kinds_water_land":  # per-column kinds on the water-only LandModel
+        kinds = dataclasses.replace(water, soil=dataclasses.replace(water_soil, boundary_conditions=SoilColumnBC(
+            top=water_soil.boundary_conditions.top, bottom=bottom_kinds)))
+        return r"in mode B6-pond-water.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(kinds)
     if case == "geometry":
-        geometry = (torch.full((NCOL,), 0.125, dtype=torch.float64), grid.zc.expand(NZ, NCOL).contiguous())
         return r"in mode B6-no-ice.*ROADMAP B8\)", lambda: ck.make_fused_column_run(land, streamed_geometry=geometry)
+    if case == "geometry_implicit_most":  # per-column geometry under an implicit stepper with a policy
+        return r"in mode B4-trbdf2\+B3-rate\+B5.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
+            soil, TRBDF2Soil(model=soil, grid=grid), streamed_geometry=geometry)
     if case == "explicit_stepper":
         return r"SSPRK104 with a MOST top or a LandModel.*ROADMAP B1\)", lambda: ck.make_fused_column_run(
             land, SSPRK104())
-    if case == "implicit_under_most":
-        return r"freeze-thaw or assume_no_ice under a MOST top.*ROADMAP B4\)", lambda: ck.make_fused_column_run(
-            soil, TRBDF2Soil(model=soil, grid=grid))
-    if case == "implicit_land":
-        return r"reference kernel cannot run.*ROADMAP B4\)", lambda: ck.make_fused_column_run(
-            land, TRBDF2Soil(model=land.soil, grid=grid))
-    pond = model_from_reference(jax_model("B6-pond", "-no-ice", False), device="cpu")
-    water = dataclasses.replace(pond, soil=dataclasses.replace(
-        pond.soil, energy_model=PrescribedTemperatureModel(), assume_no_ice=False))
-    return r"water-only soil.*ROADMAP B6\)", lambda: ck.make_fused_column_run(water)
+    if case == "water_only_land":  # the water-only LandModel under another explicit stepper
+        return r"ForwardEuler with a MOST top or a LandModel.*ROADMAP B1\)", lambda: ck.make_fused_column_run(
+            water, ForwardEuler())
+    if case in ("implicit_under_most", "implicit_heat_branch"):  # the policies on the branches
+        bcs = soil.boundary_conditions
+        if case == "implicit_under_most":  # the MOST soil's column, water-only, lagged
+            branch = dataclasses.replace(water_soil, coefficient_update="step")
+        else:
+            from landhydrology_tpu_torch import PrescribedHydrologyModel, VerticalFlux
+
+            branch = dataclasses.replace(soil, hydrology_model=PrescribedHydrologyModel(), freeze_thaw=None,
+                                         assume_no_ice=True, boundary_conditions=SoilColumnBC(
+                                             top=SoilComponentBC(energy=VerticalFlux(0.0)),
+                                             bottom=SoilComponentBC(energy=bcs.bottom.energy)))
+        return r"water-only and heat-only branches.*ROADMAP B4\)", lambda: ck.make_fused_column_run(
+            branch, TRBDF2Soil(model=branch, grid=grid))
+    if case == "implicit_water_viscosity":  # the water-only sweep would read T from the auxiliary state
+        visc = dataclasses.replace(water_soil, hydrology_model=dataclasses.replace(
+            water_soil.hydrology_model, viscosity_factor=TemperatureDependentViscosity()))
+        return r"TemperatureDependentViscosity.*ROADMAP B4\)", lambda: ck.make_fused_column_run(
+            visc, TRBDF2Soil(model=visc, grid=grid))
+    assert case == "implicit_land"
+    return r"reference kernel cannot run.*ROADMAP B4\)", lambda: ck.make_fused_column_run(
+        land, TRBDF2Soil(model=land.soil, grid=grid))
 
 
-@pytest.mark.parametrize("case", ["rows_most", "rows_land", "kinds", "geometry", "explicit_stepper",
-                                  "implicit_under_most", "implicit_land", "water_only_land"])
+@pytest.mark.parametrize("case", ["rows_most", "rows_land", "kinds", "kinds_water_land", "geometry",
+                                  "geometry_implicit_most", "explicit_stepper", "implicit_under_most",
+                                  "implicit_heat_branch", "implicit_water_viscosity", "implicit_land",
+                                  "water_only_land"])
 def test_refusal_names_its_roadmap_item(case):
     """What stays refused, each a ``NotImplementedError`` naming its ROADMAP
-    item: streamed forcing rows with a policy (B5, B6), per-column BC kinds
-    or geometry in the policy modes (B1-batched, B8), the other explicit
-    steppers (B1), the implicit steppers with the policies under MOST or
-    with a LandModel, which the reference kernel cannot run either (B4), and
-    the LandModel on a water-only soil (B6)."""
+    item: per-column BC kinds or geometry in the policy modes and the
+    water-only LandModel, with forcing rows or not (B1-batched, B8); the
+    other explicit steppers under MOST or with a LandModel, with rows or
+    not, the water-only one too (B1); the implicit steppers with the
+    policies on the water-only and heat-only branches, the water-only sweep
+    with ``TemperatureDependentViscosity``, and a LandModel, which the
+    reference kernel cannot run either (B4).  (The cases ``rows_most``,
+    ``rows_land``, ``implicit_under_most`` and ``water_only_land`` named
+    refusals that are now ported; they hold their neighbours that stay.)"""
     pattern, call = _refused(case)
     with pytest.raises(NotImplementedError, match=pattern):
         call()
