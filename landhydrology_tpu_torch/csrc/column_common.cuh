@@ -1,8 +1,10 @@
 // Device code shared by the soil-column kernels (column_kernel.cu,
-// implicit_kernel.cu, land_kernel.cu, land_policy_kernel.cu, rk_kernel.cu):
-// the argument struct of the C interface, the pointwise closures of
-// models/soil/water.py, heat.py and freeze_thaw.py, the boundary flux
-// conversion of boundary.py and one rhs sweep of rhs.py over a column.
+// implicit_kernel.cu, implicit_most_kernel.cu, implicit_branch_kernel.cu,
+// land_kernel.cu, land_policy_kernel.cu, rk_kernel.cu): the argument struct
+// of the C interface, the pointwise closures of models/soil/water.py,
+// heat.py and freeze_thaw.py, the boundary flux conversion of boundary.py,
+// one rhs sweep of rhs.py over a column, and one stage of the explicit
+// steppers' stage table (rk_kernel.cu and land_column.cuh).
 //
 // Numerics follow the eager PyTorch port (landhydrology_tpu_torch) operation
 // for operation.  eps and tiny are numeric_limits<T>::epsilon() / min()
@@ -89,8 +91,9 @@ enum Mode : int64_t {
   MODE_RHS_CAP = 131072
 };
 
-// The explicit Runge-Kutta stages of rk_kernel.cu: at most kMaxStages per
-// step, each n = u + h f(u) of the register it reads, then (StageKind)
+// The explicit Runge-Kutta stages of rk_kernel.cu and land_column.cuh (the
+// stage table, table_stage below): at most kMaxStages per step, each
+// n = u + h f(u) of the register it reads, then (StageKind)
 //   STAGE_AXPY   out = n
 //   STAGE_COMB   out = a_y aux + a_u n              (c = h, a_y, a_u)
 //   STAGE_SPLIT  aux = c1 Y + c2 n; out = c3 aux + c4 n   (SSPRK104's q2, q1)
@@ -795,6 +798,80 @@ __device__ void branch_coefficients(const Column<T>& c, const KernelArgs& a, int
       coef.inv_rho_c_s[i] = T(1) / rho_c_s;
     }
   }
+}
+
+// ---- timestepping.py: one stage of the explicit steppers' stage table ----
+
+// Entry `s` of the launch's stage table (KernelArgs::stage_*, built on the
+// host by ops/cuda/column_kernel.py::stage_table): the registers it reads,
+// writes and keeps aside, and its coefficients rounded to T, as the eager
+// step rounds its Python numbers.
+template <typename T>
+struct Stage {
+  int64_t kind, in, out, aux;
+  T h, c1, c2, c3, c4;
+};
+
+template <typename T>
+__device__ __forceinline__ Stage<T> load_stage(const KernelArgs& a, int s) {
+  const double* k = a.stage_c + 5 * s;
+  return {a.stage_kind[s], a.stage_in[s], a.stage_out[s], a.stage_aux[s],
+          T(k[0]), T(k[1]), T(k[2]), T(k[3]), T(k[4])};
+}
+
+// The value stage `st` writes for one value from its value x in the register
+// the stage reads and its tendency d there; `y` points at its value in the
+// state (read by STAGE_SPLIT) and `aux` at its value in the stage's
+// auxiliary register (read by STAGE_COMB and STAGE_FINAL, written with q2 by
+// STAGE_SPLIT).  The arithmetic of timestepping.py's _axpy and _lincomb2.
+// Used for the soil fields (table_stage) and for a LandModel's pond
+// (land_column.cuh).
+template <typename T>
+__device__ __forceinline__ T stage_value(const Stage<T>& st, T x, T d, const T* y, T* aux) {
+  if (st.kind == STAGE_FINAL) return (*aux + st.c1 * x) + st.h * d;
+  const T n = x + st.h * d;
+  if (st.kind == STAGE_COMB) return st.c1 * *aux + st.c2 * n;
+  if (st.kind == STAGE_SPLIT) {
+    const T q2 = st.c1 * *y + st.c2 * n;
+    *aux = q2;
+    return st.c3 * q2 + st.c4 * n;
+  }
+  return n;
+}
+
+// One stage `st` of the soil fields of one column: the rhs sweep of the
+// register it reads at the BC values `bc_val` and profiles `prof`, each
+// level written to the register the stage names (reg[0] the state, reg[1]
+// and reg[2] the two scratch states), with MODE_FREEZE_EQ's projection on
+// the step's `last` stage.  A stage that reads and writes one register is
+// safe: rhs_sweep emits level k-1 only after it has read level k, and no
+// later face reads level k-1 from memory (the sliding window holds it).
+// The fields a branch lacks are left alone.
+template <typename T, int M>
+__device__ void table_stage(const Column<T>& c, const KernelArgs& a, int64_t col, const Fields<T> reg[3],
+                            const Stage<T>& st, bool last, const T bc_val[kNumBC], const Profiles<T, M>& prof,
+                            const Grid<T, M>& g, const Coefs<T>& coef) {
+  const int64_t ncol = a.ncol;
+  constexpr bool has_water = !Modes<M>::heat, has_heat = !Modes<M>::water;
+  const Fields<T> u = reg[st.in], out = reg[st.out], aux = reg[st.aux];
+  const Fields<T> y = reg[0];
+
+  auto write = [&](int64_t k, const Center<T>& x, T d_vl, T d_ti, T d_re) {
+    const int64_t i = k * ncol + col;
+    T n_vl = T(0), n_ti = T(0), n_re = T(0);
+    if (has_water) {
+      n_vl = stage_value(st, x.vl, d_vl, &y.vl[i], &aux.vl[i]);
+      n_ti = stage_value(st, x.ti, d_ti, &y.ti[i], &aux.ti[i]);
+    }
+    if (has_heat) n_re = stage_value(st, x.re, d_re, &y.re[i], &aux.re[i]);
+    if (Modes<M>::eq && last) phase_projection(c, &n_vl, &n_ti, n_re);
+    if (has_water) {
+      out.vl[i] = n_vl;
+      out.ti[i] = n_ti;
+    }
+    if (has_heat) out.re[i] = n_re;
+  };
+  rhs_sweep<T, M>(c, a, col, u, bc_val, prof, g, coef, write);
 }
 
 }  // namespace

@@ -1,9 +1,10 @@
 // The fused multi-step soil-column kernel of the implicit steppers (kernel mode
 // B4): TR-BDF2, backward Euler for Richards, and backward Euler for the
 // coupled soil, one thread per column, `n_steps` steps per launch, in place,
-// and its launch.  Two sources instantiate it: implicit_kernel.cu the plain
+// and its launch.  Three sources instantiate it: implicit_kernel.cu the plain
 // soil (with its step policies) and the MOST top without them,
-// implicit_most_kernel.cu the MOST top with the step policies.
+// implicit_most_kernel.cu the MOST top with the step policies, and
+// implicit_branch_kernel.cu the step policies on the water-only branch.
 //
 // Replaces landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run
 // in its implicit modes, whose body traces landhydrology_tpu/imex.py
@@ -34,6 +35,14 @@
 //                     step (column_common.cuh::phase_projection);
 //   MODE_NO_ICE       the no-ice closures in the rhs; the sweeps' Jacobian
 //                     keeps the state's ice, as imex.py's sweeps do.
+// On the water-only branch (implicit_branch_kernel.cu) the policies are
+// lagged coefficients, assume_no_ice and both: MODE_LAGGED lags K alone, at
+// the step's start state (column_common.cuh's branch_coefficients,
+// lagged.py:50-92; it reads no T: TemperatureDependentViscosity is refused
+// on this branch's sweep, so the profile row it is given does not matter);
+// the water sweep's K stays live at the iterate with the state's ice.  The
+// heat-only branch takes no policy: the reference's implicit heat sweep
+// reads theta_i from a state that holds none (imex.py:231).
 // Under MODE_MOST each MOST solve reads T of the top cell as that rhs
 // evaluation's rhs diagnoses it (surface_fluxes.cuh::rhs_temperature): through
 // the step's lagged heat capacity, or the no-ice closures, as the land kernel
@@ -325,7 +334,11 @@ __global__ void implicit_column_kernel(const KernelArgs a, T eps, T tiny) {
   [[maybe_unused]] const int64_t top = (nz - 1) * ncol + col;  // read under MODE_MOST
   for (int64_t step = 0; step < a.n_steps; ++step) {
     const int64_t row0 = a.rows_per_step * step;
-    if constexpr (Modes<M>::lagged) coefficients<T, M>(c, a, col, Y.vl, Y.ti, Y.re, coef);
+    if constexpr (Modes<M>::lagged && Modes<M>::water) {  // K at the step's start state
+      branch_coefficients<T, M>(c, a, col, Y, load_profiles<T, M>(a, row0, col), coef);
+    } else if constexpr (Modes<M>::lagged) {
+      coefficients<T, M>(c, a, col, Y.vl, Y.ti, Y.re, coef);
+    }
     // the step's forcing row (B7), one for all stages and sweeps
     int64_t frow = 0;
     if constexpr (Modes<M>::most) {

@@ -1,37 +1,23 @@
 // Fused multi-step column kernel with a surface exchange at the top face
-// (kernel modes B5 and B6, and B7, their streamed forcing rows): the surface
-// modes alone and with lagged coefficients, and the LandModel on a
-// water-only soil.  The kernel, and what it replaces, is in land_column.cuh.
+// (kernel modes B5 and B6, and B7, their streamed forcing rows) under
+// SSPRK33: the surface modes alone and with lagged coefficients, and the
+// LandModel on a water-only soil.  The kernel, and what it replaces, is in
+// land_column.cuh; land_rk_kernel.cu instantiates the same modes for the
+// other explicit steppers.
 
 #include "land_column.cuh"
 
 namespace {
 
-// B5 and B2+B5 on a soil column; B6 (with MOST) and B6-pond (a plain top
-// BC), each with or without the frozen exchange and lagged coefficients;
-// B6-pond on a water-only soil (H) likewise; B5 and B6 with per-column kinds
-// and geometry (MODE_COLUMNS).
+// LAND_SURFACE_CASES with SSPRK33's fixed stages, and B5 and B6 with
+// per-column kinds and geometry (MODE_COLUMNS); a stepper bit selects none.
 template <typename T>
 int dispatch(const KernelArgs* args, int block, void* stream) {
-  constexpr int64_t L = MODE_LAND, S = MODE_SURFACE_STEP, G = MODE_LAGGED, W = MODE_MOST, C = MODE_COLUMNS;
-  constexpr int64_t H = MODE_WATER;
   switch (args->mode) {
-    case W: return launch<T, W>(args, block, stream);
-    case W | G: return launch<T, W | G>(args, block, stream);
-    case L | W: return launch<T, L | W>(args, block, stream);
-    case L | W | S: return launch<T, L | W | S>(args, block, stream);
-    case L | W | G: return launch<T, L | W | G>(args, block, stream);
-    case L | W | G | S: return launch<T, L | W | G | S>(args, block, stream);
-    case L: return launch<T, L>(args, block, stream);
-    case L | S: return launch<T, L | S>(args, block, stream);
-    case L | G: return launch<T, L | G>(args, block, stream);
-    case L | G | S: return launch<T, L | G | S>(args, block, stream);
-    case L | H: return launch<T, L | H>(args, block, stream);
-    case L | S | H: return launch<T, L | S | H>(args, block, stream);
-    case L | G | H: return launch<T, L | G | H>(args, block, stream);
-    case L | G | S | H: return launch<T, L | G | S | H>(args, block, stream);
-    case W | C: return launch<T, W | C>(args, block, stream);
-    case L | W | C: return launch<T, L | W | C>(args, block, stream);
+    LAND_SURFACE_CASES(false)
+    case MODE_MOST | MODE_COLUMNS: return launch<T, MODE_MOST | MODE_COLUMNS, false>(args, block, stream);
+    case MODE_LAND | MODE_MOST | MODE_COLUMNS:
+      return launch<T, MODE_LAND | MODE_MOST | MODE_COLUMNS, false>(args, block, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

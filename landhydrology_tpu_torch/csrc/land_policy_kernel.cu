@@ -1,57 +1,30 @@
 // Fused multi-step column kernel with a surface exchange at the top face
-// (kernel modes B5 and B6) under the step policies: rate freeze-thaw,
-// equilibrium freeze-thaw or assume_no_ice, each alone or with lagged
-// coefficients, on each of the five tops, and assume_no_ice on the
-// LandModel over a water-only soil.  The kernel, and what it replaces,
-// is in land_column.cuh; the JAX body traces these modes as
-// FrozenExchangeStepper(PhaseEquilibriumStepper(SSPRK33)) over the land rhs
-// (landhydrology_tpu/ops/pallas/column_kernel.py:142-143, :385-411).
+// (kernel modes B5 and B6) under the step policies, with SSPRK33: rate
+// freeze-thaw, equilibrium freeze-thaw or assume_no_ice, each alone or with
+// lagged coefficients, on each of the five tops, and assume_no_ice on the
+// LandModel over a water-only soil (LAND_ALL_POLICY_CASES).  The kernel,
+// and what it replaces, is in land_column.cuh; the JAX body traces these
+// modes as FrozenExchangeStepper(PhaseEquilibriumStepper(SSPRK33)) over the
+// land rhs (landhydrology_tpu/ops/pallas/column_kernel.py:142-143,
+// :385-411).  land_policy_rk_kernel.cu instantiates the same modes for the
+// other explicit steppers.
 //
 // A source of its own beside land_kernel.cu: the MOST instances are the
 // slowest to compile, and the build runs one nvcc per source and float type
-// in parallel.  Every no-ice instance carries MODE_RHS_CAP: its stage rhs
-// caps theta_l at nu - theta_i, as rhs.py does.
+// in parallel.
 
 #include "land_column.cuh"
 
 namespace {
 
-// The five tops: B5 (the MOST soil column), B6 with a MOST top and with a
-// plain top BC (-pond), each B6 with its exchange per stage or frozen per
-// step; on each the six policies.
-#define POLICY_CASES(S)                                                                          \
-  case S | MODE_FREEZE_RATE: return launch<T, S | MODE_FREEZE_RATE>(args, block, stream);       \
-  case S | MODE_FREEZE_EQ: return launch<T, S | MODE_FREEZE_EQ>(args, block, stream);           \
-  case S | MODE_NO_ICE: return launch<T, S | MODE_NO_ICE | MODE_RHS_CAP>(args, block, stream);  \
-  case S | MODE_LAGGED | MODE_FREEZE_RATE:                                                      \
-    return launch<T, S | MODE_LAGGED | MODE_FREEZE_RATE>(args, block, stream);                  \
-  case S | MODE_LAGGED | MODE_FREEZE_EQ:                                                        \
-    return launch<T, S | MODE_LAGGED | MODE_FREEZE_EQ>(args, block, stream);                    \
-  case S | MODE_LAGGED | MODE_NO_ICE:                                                           \
-    return launch<T, S | MODE_LAGGED | MODE_NO_ICE | MODE_RHS_CAP>(args, block, stream);
-// The LandModel on a water-only soil (a plain top) with assume_no_ice, alone
-// and lagged, its exchange per stage or frozen per step; freeze-thaw needs a
-// dynamic energy model.
-#define WATER_CASES(S)                                                                                \
-  case S | MODE_WATER | MODE_NO_ICE:                                                                  \
-    return launch<T, S | MODE_WATER | MODE_NO_ICE | MODE_RHS_CAP>(args, block, stream);               \
-  case S | MODE_WATER | MODE_LAGGED | MODE_NO_ICE:                                                    \
-    return launch<T, S | MODE_WATER | MODE_LAGGED | MODE_NO_ICE | MODE_RHS_CAP>(args, block, stream);
+// A stepper bit selects none.
 template <typename T>
 int dispatch(const KernelArgs* args, int block, void* stream) {
   switch (args->mode) {
-    POLICY_CASES(MODE_MOST)
-    POLICY_CASES(MODE_LAND | MODE_MOST)
-    POLICY_CASES(MODE_LAND | MODE_MOST | MODE_SURFACE_STEP)
-    POLICY_CASES(MODE_LAND)
-    POLICY_CASES(MODE_LAND | MODE_SURFACE_STEP)
-    WATER_CASES(MODE_LAND)
-    WATER_CASES(MODE_LAND | MODE_SURFACE_STEP)
+    LAND_ALL_POLICY_CASES(false)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-#undef POLICY_CASES
-#undef WATER_CASES
 
 }  // namespace
 

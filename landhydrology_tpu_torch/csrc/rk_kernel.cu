@@ -15,7 +15,8 @@
 // the last stage.
 //
 // Each stage is one rhs_sweep of column_common.cuh over the register it
-// reads, writing the register the table names:
+// reads, writing the register the table names (column_common.cuh's
+// table_stage, which land_column.cuh's surface modes share):
 //   ForwardEuler  Y <- Y + dt f(Y)                       (in place)
 //   SSPRK22       A <- Y + dt f(Y); Y <- Y/2 + (A + dt f(A))/2
 //   SSPRK33       A, B, Y as in ssprk33.cuh
@@ -25,10 +26,7 @@
 //                 Y <- (B + 3/5 A) + dt/10 f(A)
 // so the state itself is SSPRK104's third register: it is read until the
 // fifth stage and written only by the last, and the two scratch states of
-// SSPRK33 hold q1 and q2.  A stage that reads and writes one register is
-// safe because rhs_sweep emits level k-1 only after it has read level k,
-// and no later face reads level k-1 from memory (the sliding window holds
-// it).  The stage times of the BC and profile tables come from the
+// SSPRK33 hold q1 and q2.  The stage times of the BC and profile tables come from the
 // stepper's stage_times on the host, in the model dtype, and so do the
 // coefficients h (dt, dt/6, dt/10): the kernel computes no time.
 //
@@ -39,51 +37,6 @@
 #include "column_common.cuh"
 
 namespace {
-
-// One explicit stage for one column, by the stage table's entry `s`.
-template <typename T, int M>
-__device__ void rk_stage(const Column<T>& c, const KernelArgs& a, int64_t col, const Fields<T> reg[3], int s,
-                         bool last, const T bc_val[kNumBC], const Profiles<T, M>& prof, const Grid<T, M>& g,
-                         const Coefs<T>& coef) {
-  const int64_t ncol = a.ncol;
-  constexpr bool has_water = !Modes<M>::heat, has_heat = !Modes<M>::water;
-  const int64_t kind = a.stage_kind[s];
-  const Fields<T> u = reg[a.stage_in[s]], out = reg[a.stage_out[s]], aux = reg[a.stage_aux[s]];
-  const Fields<T> y = reg[0];
-  const double* coefs = a.stage_c + 5 * s;
-  const T h = T(coefs[0]), c1 = T(coefs[1]), c2 = T(coefs[2]), c3 = T(coefs[3]), c4 = T(coefs[4]);
-
-  // the stage's value of one field from its centre value x, tendency d and
-  // index i; SPLIT also writes the auxiliary register
-  auto combine = [&](T x, T d, const T* y_f, T* aux_f, int64_t i) -> T {
-    if (kind == STAGE_FINAL) return (aux_f[i] + c1 * x) + h * d;
-    T n = x + h * d;
-    if (kind == STAGE_COMB) return c1 * aux_f[i] + c2 * n;
-    if (kind == STAGE_SPLIT) {
-      T q2 = c1 * y_f[i] + c2 * n;
-      aux_f[i] = q2;
-      return c3 * q2 + c4 * n;
-    }
-    return n;
-  };
-
-  auto write = [&](int64_t k, const Center<T>& x, T d_vl, T d_ti, T d_re) {
-    const int64_t i = k * ncol + col;
-    T n_vl = T(0), n_ti = T(0), n_re = T(0);
-    if (has_water) {
-      n_vl = combine(x.vl, d_vl, y.vl, aux.vl, i);
-      n_ti = combine(x.ti, d_ti, y.ti, aux.ti, i);
-    }
-    if (has_heat) n_re = combine(x.re, d_re, y.re, aux.re, i);
-    if (Modes<M>::eq && last) phase_projection(c, &n_vl, &n_ti, n_re);
-    if (has_water) {
-      out.vl[i] = n_vl;
-      out.ti[i] = n_ti;
-    }
-    if (has_heat) out.re[i] = n_re;
-  };
-  rhs_sweep<T, M>(c, a, col, u, bc_val, prof, g, coef, write);
-}
 
 template <typename T, int M>
 __global__ void rk_column_kernel(const KernelArgs a, T eps, T tiny) {
@@ -111,7 +64,7 @@ __global__ void rk_column_kernel(const KernelArgs a, T eps, T tiny) {
       T bc_val[kNumBC];
       load_bc(a, row, col, bc_val);
       const Profiles<T, M> prof = load_profiles<T, M>(a, row, col);
-      rk_stage<T, M>(c, a, col, reg, s, s == a.n_stages - 1, bc_val, prof, g, coef);
+      table_stage<T, M>(c, a, col, reg, load_stage<T>(a, s), s == a.n_stages - 1, bc_val, prof, g, coef);
     }
   }
 }

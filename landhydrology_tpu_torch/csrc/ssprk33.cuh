@@ -1,6 +1,9 @@
-// The SSPRK33 stage of the explicit column kernels (column_kernel.cu,
-// land_kernel.cu): one stage's rhs sweep and update, with the equilibrium
-// phase projection (kernel B3) of column_common.cuh on its last stage.
+// The SSPRK33 stage of the explicit column kernels' SSPRK33 instances
+// (column_kernel.cu, and land_column.cuh's with fixed stages): one stage's
+// rhs sweep and update, with the equilibrium phase projection (kernel B3)
+// of column_common.cuh on its last stage.  The stage-table instances
+// (rk_kernel.cu, land_column.cuh's others) step through
+// column_common.cuh's table_stage.
 
 #pragma once
 

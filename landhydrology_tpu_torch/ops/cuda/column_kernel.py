@@ -3,7 +3,7 @@
 Replaces ``landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run``
 in its explicit modes, its implicit modes and its surface modes:
 ``steps_per_call`` steps of the soil (or land) tendency per launch, updating
-the state in place.  Six CUDA sources share ``csrc/column_common.cuh``:
+the state in place.  Nine CUDA sources share ``csrc/column_common.cuh``:
 
 - ``csrc/column_kernel.cu``: SSPRK33 (kernel modes B1, B2, B3), on the
   coupled, water-only or heat-only branch;
@@ -14,6 +14,9 @@ the state in place.  Six CUDA sources share ``csrc/column_common.cuh``:
   (B4+B5) with its forcing rows;
 - ``csrc/implicit_most_kernel.cu``: the same kernel
   (``csrc/implicit_column.cuh``) under a MOST top with those step policies;
+- ``csrc/implicit_branch_kernel.cu``: the same kernel with lagged
+  coefficients, ``assume_no_ice`` or both on the water-only branch
+  (TR-BDF2 and backward Euler for Richards);
 - ``csrc/land_kernel.cu``: SSPRK33 with a MOST top face (kernel mode B5,
   ``PrescribedAtmosForcing``) or a ``LandModel`` pond (B6), the MOST solve
   in ``csrc/surface_fluxes.cuh``, and the LandModel on a water-only soil
@@ -26,6 +29,10 @@ the state in place.  Six CUDA sources share ``csrc/column_common.cuh``:
   tops (B5, B6, B6 with its exchange frozen per step, and both with a plain
   top BC), and under ``assume_no_ice`` on the water-only LandModel, each with
   or without forcing rows;
+- ``csrc/land_rk_kernel.cu`` and ``csrc/land_policy_rk_kernel.cu``: the modes
+  of the two land sources (but ``MODE_COLUMNS``) under ForwardEuler, SSPRK22
+  and SSPRK104, the stepper read at run time from the launch's stage table
+  (:func:`stage_table`), as in ``csrc/rk_kernel.cu``;
 - ``csrc/rk_kernel.cu``: ForwardEuler, SSPRK22 and SSPRK104 in every
   plain-soil mode of ``column_kernel.cu`` (kernel mode B1's remainder), and
   all four explicit steppers with lagged coefficients or ``assume_no_ice``
@@ -34,7 +41,8 @@ the state in place.  Six CUDA sources share ``csrc/column_common.cuh``:
   (:func:`stage_table`).
 
 Each is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C interface at first use (all in parallel) and bound with
+plain C interface at its first use (both float types in parallel;
+:func:`build_library` builds any set of sources at once) and bound with
 ``ctypes``.
 
 - One thread owns one column and sweeps its levels; the grid is
@@ -93,12 +101,13 @@ dt_run: the forward is the kernel, the backward the plain version's vjp,
 replayed one step at a time.
 
 Combinations without a kernel raise ``NotImplementedError`` naming their
-ROADMAP item, on either device: ForwardEuler, SSPRK22 and SSPRK104 under a
-MOST top or with a LandModel (B1), the implicit steppers with step policies
-on the water-only and heat-only branches, the water-only Newton sweep with
+ROADMAP item, on either device: the implicit steppers with step policies
+on the heat-only branch (whose heat sweep in the reference reads theta_i
+from a state that holds none), the water-only Newton sweep with
 ``TemperatureDependentViscosity``, and the implicit steppers with a
 LandModel, which the reference kernel cannot run either (B4), per-column
-kinds or geometry outside the modes that hold them or with forcing rows
+kinds or geometry outside the modes that hold them (so under ForwardEuler,
+SSPRK22 and SSPRK104 with a MOST top or a LandModel) or with forcing rows
 (B1-batched, B8).  Lateral coupling, pond routing, a per-column rain
 callable and a 2-D column batch raise ``ValueError``, as the JAX kernel's
 factory does; so does
@@ -198,8 +207,11 @@ SOURCES = {
     "column_kernel": CSRC / "column_kernel.cu",
     "implicit_kernel": CSRC / "implicit_kernel.cu",
     "implicit_most_kernel": CSRC / "implicit_most_kernel.cu",
+    "implicit_branch_kernel": CSRC / "implicit_branch_kernel.cu",
     "land_kernel": CSRC / "land_kernel.cu",
     "land_policy_kernel": CSRC / "land_policy_kernel.cu",
+    "land_rk_kernel": CSRC / "land_rk_kernel.cu",
+    "land_policy_rk_kernel": CSRC / "land_policy_rk_kernel.cu",
     "rk_kernel": CSRC / "rk_kernel.cu",
 }
 #: a source's C entry points are ``<prefix>_f32`` and ``<prefix>_f64``; the
@@ -207,8 +219,10 @@ SOURCES = {
 #: holds that type's template instances alone, so the halves build in parallel
 _TAGS = ("f32", "f64")
 _ENTRY_PREFIX = {"column_kernel": "column_kernel_ssprk33", "implicit_kernel": "implicit_kernel",
-                 "implicit_most_kernel": "implicit_most_kernel", "land_kernel": "land_kernel",
-                 "land_policy_kernel": "land_policy_kernel", "rk_kernel": "rk_kernel"}
+                 "implicit_most_kernel": "implicit_most_kernel", "implicit_branch_kernel": "implicit_branch_kernel",
+                 "land_kernel": "land_kernel", "land_policy_kernel": "land_policy_kernel",
+                 "land_rk_kernel": "land_rk_kernel", "land_policy_rk_kernel": "land_policy_rk_kernel",
+                 "rk_kernel": "rk_kernel"}
 BUILD_DIR = _PACKAGE / "_build"
 #: ``-split-compile=0`` optimizes the template instances of a source in
 #: parallel on all host cores
@@ -393,8 +407,9 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build_library() -> dict:
-    """Compile each kernel source into ``_build/`` (once per content of
+def build_library(sources=None) -> dict:
+    """Compile the kernel sources named in ``sources`` (keys of
+    :data:`SOURCES`; all by default) into ``_build/`` (once per content of
     ``csrc/`` and flag set), one ``nvcc`` per source and float type, all
     started together; concurrent processes serialize on a lock file and
     publish each library by atomic rename.  ptxas's report (registers and
@@ -403,7 +418,8 @@ def build_library() -> dict:
     :data:`BUILD_SECONDS`.  Returns ``{library key: path}``, keyed
     ``<source>_<tag>``."""
     digest = _digest()
-    libs = {f"{name}_{tag}": BUILD_DIR / f"{name}_{tag}_{digest}.so" for name in SOURCES for tag in _TAGS}
+    names = SOURCES if sources is None else sources
+    libs = {f"{name}_{tag}": BUILD_DIR / f"{name}_{tag}_{digest}.so" for name in names for tag in _TAGS}
     if all(lib.exists() for lib in libs.values()):
         return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -452,7 +468,7 @@ def load_library(key: str) -> ctypes.CDLL:
     cached per process."""
     if key not in _libraries:
         name, tag = key.rsplit("_", 1)
-        path = build_library()[key]
+        path = build_library((name,))[key]
         lib = ctypes.CDLL(str(path))
         size_fn = getattr(lib, f"{name}_args_size")
         size_fn.restype = ctypes.c_int
@@ -472,10 +488,12 @@ def load_library(key: str) -> ctypes.CDLL:
 
 def _entry(mode: int, dtype) -> tuple:
     """``(library name, C function)`` that launches ``mode`` in ``dtype``."""
-    if mode & MODE_IMPLICIT:
+    if mode & MODE_IMPLICIT and mode & _POLICY_BITS and mode & MODE_WATER:
+        name = "implicit_branch_kernel"
+    elif mode & MODE_IMPLICIT:
         name = "implicit_most_kernel" if mode & MODE_MOST and mode & _POLICY_BITS else "implicit_kernel"
     elif mode & (MODE_MOST | MODE_LAND):
-        name = "land_policy_kernel" if mode & _FREEZE_OR_NO_ICE else "land_kernel"
+        name = ("land_policy" if mode & _FREEZE_OR_NO_ICE else "land") + ("_rk_kernel" if mode & MODE_RK else "_kernel")
     elif mode & MODE_RK or (mode & (MODE_WATER | MODE_HEAT) and mode & (MODE_LAGGED | MODE_NO_ICE)):
         name = "rk_kernel"
     else:
@@ -551,13 +569,15 @@ def mode_name(mode: int, features: tuple = (True, True)) -> str:
     for the branch, ``-no-ice``, ``-pcr`` for PCR solves, ``+B2`` for
     lagged coefficients, ``+B3-rate`` / ``+B3-eq`` for freeze-thaw and
     ``+B5`` under a MOST top (``B4-trbdf2-pcr+B2+B3-eq``,
-    ``B4-trbdf2-pcr+B5``); ``B5`` for a MOST top
+    ``B4-trbdf2-pcr+B5``, ``B4-be-richards-water-no-ice+B2``); ``B5`` for a MOST top
     (``B2+B5`` lagged), ``B6`` for the LandModel with a MOST top, ``-step``
     with its exchange frozen per step, ``B2+`` lagged and ``-pond`` with a
     plain top BC (``B2+B6-step-pond``), ``-water`` on a water-only soil
     (``B6-pond-water``), each with ``+B3-rate``, ``+B3-eq`` or ``-no-ice``
     for its step policy (``B6+B3-rate``, ``B2+B6-step+B3-eq``,
-    ``B5-no-ice``, ``B2+B6-pond-no-ice``, ``B2+B6-step-pond-water-no-ice``).
+    ``B5-no-ice``, ``B2+B6-pond-no-ice``, ``B2+B6-step-pond-water-no-ice``),
+    each with ``@ForwardEuler``, ... for the other explicit steppers
+    (``B2+B6-step@SSPRK104``).
     The ``MODE_COLUMNS`` instance adds
     ``+kinds`` where it reads per-column BC kinds (B1-batched) and ``+B8``
     where it reads per-column geometry: ``features`` is ``(kinds,
@@ -1023,7 +1043,8 @@ class FusedColumnRun:
     :func:`make_fused_column_run`).  Each launch adds one to the module's
     ``LAUNCHES`` under :attr:`name`: the name of its mode, with ``+B7`` for
     streamed rows (``+B7-time`` time-indexed), ``+kinds`` for per-column BC
-    kinds (B1-batched) and ``+B8`` for per-column geometry."""
+    kinds (B1-batched) and ``+B8`` for per-column geometry, and last the
+    explicit stepper but SSPRK33 (``B6+B3-rate+B7@ForwardEuler``)."""
 
     def __init__(self, model, stepper, dt: float, steps_per_call: int, tile_cols: int,
                  forcing_fields=(), forcing_time_grid=None, streamed_geometry=None):
@@ -1042,9 +1063,11 @@ class FusedColumnRun:
         self.geometry = streamed_geometry
         #: per-column BC kinds (B1-batched) and per-column geometry (B8)
         self.batched, self.variable = per_column_features(model, streamed_geometry)
-        self.name = mode_name(self.mode, (self.batched, self.variable))
+        self.name = mode_name(self.mode & ~MODE_RK, (self.batched, self.variable))
         if self.forcing_fields:
             self.name += "+B7-time" if forcing_time_grid else "+B7"
+        if self.mode & MODE_RK:
+            self.name += "@" + _STEPPER_NAMES[self.mode & MODE_RK]
         self._device_inputs = {}  # (device, ncol) -> _inputs()
         self._device_kinds = {}  # (device, ncol) -> bc_kind_columns()
 
@@ -1508,11 +1531,6 @@ def _check_stepper(model, stepper) -> None:
             )
         st = st.inner
     if type(base) in _EXPLICIT_STEPPERS:
-        if type(base) is not SSPRK33 and exchanged_components(model):
-            raise NotImplementedError(
-                f"the in-kernel {type(base).__name__} with a MOST top or a LandModel is not ported yet "
-                "(ROADMAP B1): the land kernel steps with SSPRK33"
-            )
         return
     if type(base) not in _STEPPER_BITS:
         raise NotImplementedError(
@@ -1537,10 +1555,11 @@ def _check_stepper(model, stepper) -> None:
     if isinstance(base, BackwardEulerSoil) and branch_only:
         raise TypeError("BackwardEulerSoil needs dynamic hydrology and energy models")
     policies = kernel_mode(model, base) & _POLICY_BITS
-    if policies and branch_only:
+    if policies and not _dynamic(model, "hydrology"):
         raise NotImplementedError(
-            "the implicit steppers with lagged coefficients, freeze-thaw or assume_no_ice on the "
-            "water-only and heat-only branches are not ported to the kernel yet (ROADMAP B4)"
+            "the implicit steppers with lagged coefficients or assume_no_ice on the heat-only branch have "
+            "no kernel, and the reference kernel cannot run them either: JAX's implicit heat sweep reads "
+            "theta_i from a state that holds none (imex.py:231, KeyError 'theta_i'; ROADMAP B4)"
         )
     if policies not in _IMPLICIT_POLICIES:
         raise NotImplementedError(
@@ -1572,7 +1591,8 @@ def make_fused_column_run(
 ) -> FusedColumnRun:
     """Build ``run(Y, t0) -> Y`` advancing ``steps_per_call`` steps per call
     **in place** (see :class:`FusedColumnRun`).  ``model`` is a
-    ``SoilModel`` or a ``LandModel``; ``stepper`` is SSPRK33, bare or in the
+    ``SoilModel`` or a ``LandModel``; ``stepper`` is an explicit stepper
+    (ForwardEuler, SSPRK22, SSPRK33, SSPRK104), bare or in the
     step-policy wrappers ``Simulation`` puts around it, or one of the
     implicit steppers built with this ``model``; the kernel's mode follows
     the model and the stepper (:func:`kernel_mode`).  ``tile_cols`` is the

@@ -10,15 +10,16 @@ callbacks at the save points.  Two engines:
 - ``"fused"``: the CUDA column kernels (``ops/cuda/column_kernel.py``, the
   analogue of the ``"pallas"`` engine), ``steps_per_call`` steps per
   launch, with time carried in the model dtype: the explicit steppers
-  (ForwardEuler, SSPRK22, SSPRK33, SSPRK104; not ForwardEuler, SSPRK22 or
-  SSPRK104 under a MOST top or with a LandModel) and the implicit steppers of
-  ``imex.py``, whose ``model`` must be the simulation's.
+  (ForwardEuler, SSPRK22, SSPRK33, SSPRK104, under a MOST top and with a
+  LandModel too) and the implicit steppers of ``imex.py``, whose ``model``
+  must be the simulation's.
 
 An implicit stepper's grid is rebuilt on the model's device; with its step
 policies it runs on the fused engine on the coupled soil, under a MOST top
-too.  A ``LandModel`` (soil + pond, ``models/land.py``) runs on both
+too, and on the water-only soil (lagged coefficients, ``assume_no_ice``).
+A ``LandModel`` (soil + pond, ``models/land.py``) runs on both
 engines, its soil with freeze-thaw or ``assume_no_ice`` too, or water-only
-under a plain top (on the fused engine under SSPRK33): its soil component
+under a plain top: its soil component
 owns the freeze-thaw projection, and its step-level policies (frozen
 surface exchange, lagged coefficients) wrap the stepper as
 ``wrap_stepper_for_land`` does.  Per-column BC kinds and depths run on

@@ -108,7 +108,7 @@ def test_plain_version_matches_jax_fused(policy, stepper, tridiag):
 def test_policy_instances_scratch_and_refusals():
     """The lagged instances keep their coefficients after the solver's
     fields (4, or 5 with rate sources), lagged coefficients with no ice too;
-    the policies on the water-only branch stay refused (ROADMAP B4)."""
+    the policies on the water-only branch run in their own source."""
     model, _, _, _ = gct.build_freeze_model_and_state(F64, "cpu")
     grid = make_function_space(model.domain, F64, "cpu")
 
@@ -130,6 +130,7 @@ def test_policy_instances_scratch_and_refusals():
         model, energy_model=PrescribedTemperatureModel(), freeze_thaw=None, coefficient_update="step",
         boundary_conditions=SoilColumnBC(top=SoilComponentBC(hydrology=bcs.top.hydrology),
                                          bottom=SoilComponentBC(hydrology=bcs.bottom.hydrology, energy=NoBC())))
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        ck.make_fused_column_run(water, TRBDF2Soil(model=water, grid=grid))
+    run = ck.make_fused_column_run(water, TRBDF2Soil(model=water, grid=grid))
+    assert run.name == "B4-trbdf2-water+B2" and ck.scratch_fields(run.mode) == 11 + 4
+    assert ck._entry(run.mode, F64) == ("implicit_branch_kernel", "implicit_branch_kernel_f64")
     assert isinstance(model.freeze_thaw, FreezeThaw)

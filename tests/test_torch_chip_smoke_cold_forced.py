@@ -37,7 +37,7 @@ def test_mode_lists_name_the_new_instances_and_their_sources():
     for name in cs.WATER_MODES + cs.IMPLICIT_MODES:
         model, Y, stepper, dt, steps = cs.policy_variant(name, F64, "cpu")
         run = ck.make_fused_column_run(model, stepper)
-        assert run.name == name and steps == cs.COLD_STEPS
+        assert run.name == name and steps == (cs.IMPLICIT_STEPS if name.startswith("B4-") else cs.cold_steps(F64))
         assert dt == (cs.IMPLICIT_DT if name.startswith("B4-") else 2.0)
         sources.setdefault(ck._entry(run.mode, F64)[0], []).append(name)
     assert len(sources["implicit_most_kernel"]) == 21 and len(sources["implicit_kernel"]) == 3
@@ -72,7 +72,7 @@ def test_cold_check_passes_the_plain_version(plain_card, monkeypatch, name, kw):
     in some columns and melted in others under freeze-thaw, and stayed
     without it."""
     monkeypatch.setattr(cs, "COLD_NCOL", 48)
-    err, shares, grown, melted, _ = cs.cold_check(ck, name, F64, "cpu", tag="17a", **kw)
+    err, shares, grown, melted, _, _ = cs.cold_check(ck, name, F64, "cpu", tag="17a", **kw)
     assert err == 0.0 and "vartheta_l" in shares
     freeze = "B3" in name
     assert (grown > 0 and melted > 0) if freeze else grown == melted == 0

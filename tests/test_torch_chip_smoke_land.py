@@ -85,9 +85,9 @@ def test_cold_check_passes_the_plain_version_and_counts_ice(plain_card, monkeypa
     in some columns and melted in others under freeze-thaw; a no-ice
     instance leaves theta_i alone, on the icy state too."""
     monkeypatch.setattr(cs, "COLD_NCOL", 64)
-    err, shares, grown, melted, _ = cs.cold_check(ck, "B2+B6-step+B3-rate", F64, "cpu")
+    err, shares, grown, melted, _, _ = cs.cold_check(ck, "B2+B6-step+B3-rate", F64, "cpu")
     assert err == 0.0 and grown > 0 and melted > 0 and set(shares) == {"vartheta_l", "rho_e_int"}
-    err, _, grown, melted, _ = cs.cold_check(ck, "B5-no-ice", F64, "cpu", icy=True)
+    err, _, grown, melted, _, _ = cs.cold_check(ck, "B5-no-ice", F64, "cpu", icy=True)
     assert err == 0.0 and grown == melted == 0
 
 

@@ -234,10 +234,15 @@ def test_unported_modes_raise(mode):
                          ({"coefficient_update": "step", "assume_no_ice": True}, "B4-trbdf2-no-ice+B2")):
             m = dataclasses.replace(model, **kw)
             assert ck.make_fused_column_run(m, TRBDF2Soil(model=m, grid=grid)).name == name
-        # still refused: the policies on the water-only branch (ROADMAP B4)
+        # the policies on the water-only branch (implicit_branch_kernel.cu); still refused: on the
+        # heat-only branch, which the reference kernel cannot run either (ROADMAP B4)
         water = dataclasses.replace(_branch_models(model)[0], coefficient_update="step")
-        with pytest.raises(NotImplementedError, match="water-only and heat-only branches.*ROADMAP B4"):
-            ck.make_fused_column_run(water, TRBDF2Soil(model=water, grid=grid))
+        run = ck.make_fused_column_run(water, TRBDF2Soil(model=water, grid=grid))
+        assert run.name == "B4-trbdf2-water+B2"
+        assert ck._entry(run.mode, torch.float64)[0] == "implicit_branch_kernel"
+        heat = dataclasses.replace(_branch_models(model)[1], coefficient_update="step")
+        with pytest.raises(NotImplementedError, match="heat-only branch.*imex.py:231.*ROADMAP B4"):
+            ck.make_fused_column_run(heat, TRBDF2Soil(model=heat, grid=grid))
     elif mode in ("B5_most", "B6_land"):  # ported, with freeze-thaw and assume_no_ice, with their rows too
         from landhydrology_tpu_torch.models.land import LandModel
 
@@ -260,11 +265,12 @@ def test_unported_modes_raise(mode):
                                        theta_scale=300.0, rho_a_sfc=1.2, q_atm=0.005),
             bottom=model.boundary_conditions.bottom))
         assert ck.make_fused_column_run(most, forcing_fields=("u_atm",)).name == "B5+B3-rate+B7"
-        # still refused: the other explicit steppers with rows under MOST (ROADMAP B1)
+        # the other explicit steppers with rows under MOST too (land_policy_rk_kernel.cu's stage table)
         from landhydrology_tpu_torch.timestepping import SSPRK22
 
-        with pytest.raises(NotImplementedError, match="ROADMAP B1"):
-            ck.make_fused_column_run(most, SSPRK22(), forcing_fields=("u_atm",))
+        run = ck.make_fused_column_run(most, SSPRK22(), forcing_fields=("u_atm",))
+        assert run.name == "B5+B3-rate+B7@SSPRK22"
+        assert ck._entry(run.mode, torch.float64)[0] == "land_policy_rk_kernel"
     elif mode == "B7_time_grid":  # ported, with the implicit steppers too; a grid needs rows
         with pytest.raises(ValueError, match="requires forcing_fields"):
             ck.make_fused_column_run(model, forcing_time_grid=(0.0, 60.0, 10))
@@ -334,7 +340,7 @@ def test_unported_branches_and_options_raise():
     bench.py::build_stiff); assume_no_ice builds B1-no-ice, and on the
     branches B1-water-no-ice / B1-heat-no-ice; ForwardEuler, SSPRK22 and
     SSPRK104 build their instances on every branch (``@<stepper>``), and
-    still raise under a MOST top (ROADMAP B1)."""
+    under a MOST top those of the land kernel (``B5@<stepper>``)."""
     model = _golden_port()
     water_only, heat_only = _branch_models(model)
     assert ck.mode_name(ck.make_fused_column_run(water_only).mode) == "B1-water"
@@ -353,8 +359,9 @@ def test_unported_branches_and_options_raise():
                                    q_atm=0.005),
         bottom=model.boundary_conditions.bottom))
     for stepper in (ForwardEuler(), SSPRK22(), SSPRK104()):
-        with pytest.raises(NotImplementedError, match="ROADMAP B1"):
-            ck.make_fused_column_run(most, stepper)
+        run = ck.make_fused_column_run(most, stepper)
+        assert run.name == f"B5@{type(stepper).__name__}"
+        assert ck._entry(run.mode, torch.float64)[0] == "land_rk_kernel"
 
 
 def test_mode_names_and_scratch():

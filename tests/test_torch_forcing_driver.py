@@ -360,9 +360,9 @@ def test_per_column_rain_streams_as_rows_but_not_as_a_callable():
 
 
 def test_unported_forced_combinations_raise_naming_their_item():
-    """Freeze-thaw and no ice take forcing rows under MOST and a LandModel;
-    the other explicit steppers with rows (ROADMAP B1) and per-column
-    geometry with rows (B8) stay refused."""
+    """Freeze-thaw and no ice take forcing rows under MOST and a LandModel,
+    under the other explicit steppers too; per-column geometry with rows
+    (B8) stays refused."""
     from landhydrology_tpu_torch.timestepping import SSPRK104
 
     jm, jY, jYa = _soil_case()
@@ -373,8 +373,9 @@ def test_unported_forced_combinations_raise_naming_their_item():
     land = model_from_reference(jland_m, device="cpu")
     no_ice = dataclasses.replace(land, soil=dataclasses.replace(land.soil, assume_no_ice=True))
     make_forced_segment_run(no_ice, field_names=("precipitation",), engine="fused")
-    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
-        make_forced_segment_run(no_ice, SSPRK104(), field_names=("precipitation",), engine="fused")
+    make_forced_segment_run(no_ice, SSPRK104(), field_names=("precipitation",), engine="fused")
+    run = ck.make_fused_column_run(no_ice, SSPRK104(), forcing_fields=("precipitation",))
+    assert run.name == "B6-no-ice+B7@SSPRK104"
     with pytest.raises(NotImplementedError, match="ROADMAP B8"):
         ck.make_fused_column_run(model, forcing_fields=("u_atm",), streamed_geometry=(1.0, 1.0))
 

@@ -231,9 +231,12 @@ def _refused(case):
         pond.soil, energy_model=PrescribedTemperatureModel(), assume_no_ice=False))
     bottom_kinds = SoilComponentBC(hydrology=BatchedBC(kind=torch.zeros(NCOL, dtype=torch.int64)))
     water_soil = water.soil
-    if case == "rows_most":  # the other explicit steppers with forcing rows under MOST
-        return r"SSPRK104 with a MOST top or a LandModel.*ROADMAP B1\)", lambda: ck.make_fused_column_run(
-            soil, SSPRK104(), forcing_fields=("theta_atm",))
+    if case == "rows_most":  # another explicit stepper with forcing rows under MOST, with per-column kinds
+        bcs = soil.boundary_conditions
+        kinds = dataclasses.replace(soil, boundary_conditions=SoilColumnBC(top=bcs.top, bottom=SoilComponentBC(
+            energy=bcs.bottom.energy, hydrology=BatchedBC(kind=torch.zeros(NCOL, dtype=torch.int64)))))
+        return r"in mode B5\+B3-rate@SSPRK104.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(
+            kinds, SSPRK104(), forcing_fields=("theta_atm",))
     if case == "rows_land":  # per-column geometry in a policy mode, with rain rows
         return r"in mode B6-no-ice.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
             land, streamed_geometry=geometry, forcing_fields=("precipitation",))
@@ -251,24 +254,27 @@ def _refused(case):
     if case == "geometry_implicit_most":  # per-column geometry under an implicit stepper with a policy
         return r"in mode B4-trbdf2\+B3-rate\+B5.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
             soil, TRBDF2Soil(model=soil, grid=grid), streamed_geometry=geometry)
-    if case == "explicit_stepper":
-        return r"SSPRK104 with a MOST top or a LandModel.*ROADMAP B1\)", lambda: ck.make_fused_column_run(
-            land, SSPRK104())
-    if case == "water_only_land":  # the water-only LandModel under another explicit stepper
-        return r"ForwardEuler with a MOST top or a LandModel.*ROADMAP B1\)", lambda: ck.make_fused_column_run(
-            water, ForwardEuler())
-    if case in ("implicit_under_most", "implicit_heat_branch"):  # the policies on the branches
-        bcs = soil.boundary_conditions
-        if case == "implicit_under_most":  # the MOST soil's column, water-only, lagged
-            branch = dataclasses.replace(water_soil, coefficient_update="step")
-        else:
-            from landhydrology_tpu_torch import PrescribedHydrologyModel, VerticalFlux
+    if case == "explicit_stepper":  # a LandModel under another explicit stepper, with per-column geometry
+        return r"in mode B6-no-ice@SSPRK104.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
+            land, SSPRK104(), streamed_geometry=geometry)
+    if case == "water_only_land":  # the water-only LandModel under another explicit stepper, with kinds
+        kinds = dataclasses.replace(water, soil=dataclasses.replace(water_soil, boundary_conditions=SoilColumnBC(
+            top=water_soil.boundary_conditions.top, bottom=bottom_kinds)))
+        return r"in mode B6-pond-water@ForwardEuler.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(
+            kinds, ForwardEuler())
+    if case == "implicit_under_most":  # the MOST soil's column, water-only, lagged: with per-column geometry
+        branch = dataclasses.replace(water_soil, coefficient_update="step")
+        return r"in mode B4-trbdf2-water\+B2.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
+            branch, TRBDF2Soil(model=branch, grid=grid), streamed_geometry=geometry)
+    if case == "implicit_heat_branch":  # the policies on the heat-only branch, which JAX's kernel cannot run
+        from landhydrology_tpu_torch import PrescribedHydrologyModel, VerticalFlux
 
-            branch = dataclasses.replace(soil, hydrology_model=PrescribedHydrologyModel(), freeze_thaw=None,
-                                         assume_no_ice=True, boundary_conditions=SoilColumnBC(
-                                             top=SoilComponentBC(energy=VerticalFlux(0.0)),
-                                             bottom=SoilComponentBC(energy=bcs.bottom.energy)))
-        return r"water-only and heat-only branches.*ROADMAP B4\)", lambda: ck.make_fused_column_run(
+        bcs = soil.boundary_conditions
+        branch = dataclasses.replace(soil, hydrology_model=PrescribedHydrologyModel(), freeze_thaw=None,
+                                     assume_no_ice=True, boundary_conditions=SoilColumnBC(
+                                         top=SoilComponentBC(energy=VerticalFlux(0.0)),
+                                         bottom=SoilComponentBC(energy=bcs.bottom.energy)))
+        return r"heat-only branch.*imex.py:231.*ROADMAP B4\)", lambda: ck.make_fused_column_run(
             branch, TRBDF2Soil(model=branch, grid=grid))
     if case == "implicit_water_viscosity":  # the water-only sweep would read T from the auxiliary state
         visc = dataclasses.replace(water_soil, hydrology_model=dataclasses.replace(
@@ -287,14 +293,14 @@ def _refused(case):
 def test_refusal_names_its_roadmap_item(case):
     """What stays refused, each a ``NotImplementedError`` naming its ROADMAP
     item: per-column BC kinds or geometry in the policy modes and the
-    water-only LandModel, with forcing rows or not (B1-batched, B8); the
-    other explicit steppers under MOST or with a LandModel, with rows or
-    not, the water-only one too (B1); the implicit steppers with the
-    policies on the water-only and heat-only branches, the water-only sweep
-    with ``TemperatureDependentViscosity``, and a LandModel, which the
-    reference kernel cannot run either (B4).  (The cases ``rows_most``,
-    ``rows_land``, ``implicit_under_most`` and ``water_only_land`` named
-    refusals that are now ported; they hold their neighbours that stay.)"""
+    water-only LandModel, with forcing rows or not, and so under the other
+    explicit steppers (B1-batched, B8); the implicit steppers with the
+    policies on the heat-only branch, the water-only sweep with
+    ``TemperatureDependentViscosity``, and a LandModel, which the reference
+    kernel cannot run either (B4).  (The cases ``rows_most``,
+    ``rows_land``, ``explicit_stepper``, ``implicit_under_most`` and
+    ``water_only_land`` named refusals that are now ported; they hold their
+    neighbours that stay.)"""
     pattern, call = _refused(case)
     with pytest.raises(NotImplementedError, match=pattern):
         call()

@@ -249,8 +249,9 @@ def test_stage_table_and_rows(stepper):
 
 
 def test_explicit_steppers_refused_where_no_kernel():
-    """ForwardEuler, SSPRK22 and SSPRK104 under a MOST top (ROADMAP B1) and
-    with per-column BC kinds (ROADMAP B1-batched) raise."""
+    """ForwardEuler, SSPRK22 and SSPRK104 with per-column BC kinds raise
+    (ROADMAP B1-batched), on the plain soil and under a MOST top; without
+    them a MOST top runs in the land kernel (``B5@<stepper>``)."""
     from landhydrology_tpu_torch import BatchedBC, PrescribedAtmosForcing, SoilColumnBC, SoilComponentBC
 
     jm, _, _, _, _ = case("B1")
@@ -263,8 +264,11 @@ def test_explicit_steppers_refused_where_no_kernel():
     kinds = dataclasses.replace(model, boundary_conditions=SoilColumnBC(
         top=bcs.top, bottom=SoilComponentBC(energy=bcs.bottom.energy,
                                             hydrology=BatchedBC(kind=torch.zeros(8, dtype=torch.int64)))))
+    most_kinds = dataclasses.replace(most, boundary_conditions=SoilColumnBC(
+        top=most.boundary_conditions.top, bottom=kinds.boundary_conditions.bottom))
     for stepper in STEPPERS:
-        with pytest.raises(NotImplementedError, match="ROADMAP B1"):
-            ck.make_fused_column_run(most, getattr(pts, stepper)())
-        with pytest.raises(NotImplementedError, match="ROADMAP B1-batched"):
-            ck.make_fused_column_run(kinds, getattr(pts, stepper)())
+        run = ck.make_fused_column_run(most, getattr(pts, stepper)())
+        assert run.name == f"B5@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "land_rk_kernel"
+        for m in (kinds, most_kinds):
+            with pytest.raises(NotImplementedError, match="ROADMAP B1-batched"):
+                ck.make_fused_column_run(m, getattr(pts, stepper)())
