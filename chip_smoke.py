@@ -12,9 +12,10 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    ``csrc/rk_kernel.cu`` with nvcc, one process per source and float type,
    in parallel, and starts ``csrc/implicit_most_kernel.cu``,
    ``csrc/implicit_branch_kernel.cu``, ``csrc/land_policy_kernel.cu``,
-   ``csrc/land_rk_kernel.cu`` and ``csrc/land_policy_rk_kernel.cu`` the same
-   way in the background at nice 19 (``LaterBuild``), which phases 16-18
-   (and the end) wait for;
+   ``csrc/land_rk_kernel.cu``, ``csrc/land_policy_rk_kernel.cu``,
+   ``csrc/land_columns_kernel.cu`` and ``csrc/land_policy_columns_kernel.cu``
+   the same way in the background at nice 19 (``LaterBuild``), which phases
+   16-19 (and the end) wait for;
    prints the registers of every template instance; reads the instruction
    cost of exp, log, sqrt and a division from ``cuobjdump -sass`` of small
    kernels (``op_costs``), for the bounds;
@@ -42,12 +43,15 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
 5. freeze-thaw at full width: the freeze golden's column at nz=64 x 65,536
    with moisture and temperature varied by column, under ``FreezeThaw(tau=60)``
    (B3-rate) and ``EquilibriumFreezeThaw()`` (B3-eq), 64 steps of dt=5 in two
-   launches, f32 and f64, driven and checked as in phase 4; ice must form;
+   launches, f32 and f64, driven and checked as in phase 4 (held to the
+   plain version by their first launch since phase 19, but f32's B3-eq,
+   whose change bar needs both); ice must form;
 8. the stiff path at full width (``bench.py``'s ``implicit`` path):
    ``bench.py::build_stiff`` at nz=64 x 65,536, ``dt_exp`` as bench.py
    computes it; ``TRBDF2Soil(iters=2)`` at 40 dt_exp, 8 steps in one launch
    (Thomas, and PCR), and SSPRK33 at dt_exp over the same horizon (320
-   steps, 8 launches), f32 and f64, driven and checked as in phase 4, with
+   steps, 8 launches, held to the plain version by its first since phase
+   19), f32 and f64, driven and checked as in phase 4, with
    the matched-horizon RMSE (below 1e-2, bench.py's gate) and maximum
    deviation, and each path's wall time end to end;
 9. the other new modes at full width: B1-heat and B4-trbdf2-heat on a
@@ -60,13 +64,15 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    B6-step, which must differ from B6), 1,000-column variants with
    per-column atmosphere fields over both Businger branches in B5, B2+B5,
    B6, B6-step, B2+B6-step and the four B6 names with ``-pond``, f64 and
-   f32; the eager engine against ``golden_land_f64.npz`` (routing included)
+   f32 (8 steps; 2 in f64 since phase 19); the eager engine against ``golden_land_f64.npz`` (routing included)
    at rtol 1e-12; then ``bench.py::build_land`` at nz=64 x 65,536, 32 steps
    of dt=1 in one launch, f32 and f64, in the reference setting (B6), the
    production setting (B2+B6-step), B6-step, B2+B6, B6-pond, and its soil
    alone in B5 and B2+B5, and its plain top under the pond in B6-pond,
    B6-step-pond, B2+B6-pond and B2+B6-step-pond, driven and checked as in
-   phase 4 (the pond too), with each land run's water budget, the host
+   phase 4 (the pond too; since phase 19 all but B6 and B2+B6-step, and
+   f32's MOST soil, held by a launch of 4 steps), with each land run's water
+   budget, the host
    time per launch and the largest deviation of B2+B6-step from B6;
 11. the forced-reanalysis path (kernel mode B7, streamed forcing rows):
    f64 checks at the JAX tests' sizes (``golden_forced_f64.npz`` at rtol
@@ -92,7 +98,8 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    the atmosphere rows (B5+B7) and time-indexed rows on a grid of 2 dt
    (B6+B7-time); then one launch each of the other B5/B6 modes with rows
    (B2+B5, B6-step, B2+B6 and the four ``-pond`` modes) at nz=24 x 32,768,
-   checked against the plain version and timed;
+   checked against the plain version (in f64 by a launch of their first 8
+   rows since phase 19) and timed;
 12. the regional-grid path (kernel modes B1-batched and B8): f64 checks at
    the JAX tests' sizes (``test_batched_heterogeneous.py:59``'s three
    bottom kinds, ``test_variable_depth.py:237``'s 8 variable-depth columns
@@ -149,7 +156,8 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    iteration's first half-step launch against the plain version on 1,024
    evenly spaced columns, and the final state against a fixed-dt kernel run at the
    largest accepted dt / 8 (within the tolerance the controller accepted);
-   then the B4+B5 modes timed at nz=24 x 32,768;
+   then the B4+B5 modes timed at nz=24 x 32,768 (the plain version over
+   one step on every 256th column since phase 19);
 14. the gradient path (ROADMAP A17, kernel modes B9 and B4 with step
    policies): (a) f64, ``golden_grad_f64.npz`` through
    ``make_fused_column_run(differentiable=True)`` (the kernel's forward, one
@@ -214,7 +222,8 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    K) at nz=64 x 65,536, one launch of 32 steps of 5 s, f32 and f64, in
    ``B6+B3-rate``, the production setting ``B2+B6-step+B3-rate`` and
    ``B6+B3-eq`` (``COLD_PATHS``) through ``Simulation(engine="fused")``,
-   checked as in phase 4 (the pond too), ice formed, the water budget
+   checked as in phase 4 (the pond too; the last two by a launch of 4 steps
+   since phase 19), ice formed, the water budget
    closed, the kernel (CUDA events) and its check's plain launch timed, the
    host share; (c) every other instance timed at that width, one launch of
    4 steps (kernel only; the plain version not timed there), beside its
@@ -242,12 +251,15 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    the first launch against the plain version on every 128th column, ice
    formed, the water budget, the kernel's time and the reader's and host's
    shares; (c) ``catchment.py``'s storm on its water-only soil at 512 x 512
-   columns (no routing, a uniform 2 m depth), nz=16, 32 steps of 2 s from
+   columns (no routing, a uniform 2 m depth: the instances without
+   ``MODE_COLUMNS``; 19a runs its own depth), nz=16, 32 steps of 2 s from
    t0 = 1,700 s in ``B6-pond-water`` and ``B2+B6-step-pond-water``: every
    256th column against the plain version, a pond formed, the water budget;
    (d) TR-BDF2 under 16b's cold MOST top at nz=64 x 65,536, one launch of 8
    steps of 60 s, in ``B4-trbdf2+B3-rate+B5`` and
-   ``B4-trbdf2+B2+B3-eq+B5``, driven and checked as in phase 4 (the f32
+   ``B4-trbdf2+B2+B3-eq+B5`` (in f64 held by a launch of 2 steps since phase
+   19),
+   driven and checked as in phase 4 (the f32
    equilibrium path's change bar on the total water and rho_e_int, which
    the projection does not re-partition), ice formed;
    (e) every other new instance timed at the width of its path, and the 30
@@ -282,6 +294,28 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    PCR on two on ``build_stiff``'s column (1,000 columns, 2 steps of 5 s),
    the no-ice ones also on the icy state, f32 and f64, each timed at
    18a's width and step;
+19. per-column BC kinds and geometry in the land modes (kernel modes
+   B1-batched and B8 under a MOST top and a LandModel:
+   ``csrc/land_columns_kernel.cu`` and ``csrc/land_policy_columns_kernel.cu``,
+   every explicit stepper from the stage table, and ``csrc/land_kernel.cu``'s
+   SSPRK33 B5 and B6; ROADMAP B item 1), f64 and f32: (a) ``catchment.py``'s
+   storm at its regolith depth (0.5-2 m by column, ``VariableDepthColumn``)
+   on 512 x 512 columns, nz=16, 32 steps of 2 s from t0 = 1,700 s in
+   ``B6-pond-water+B8`` and ``B2+B6-step-pond-water+B8`` through
+   ``Simulation(engine="fused")``: every 256th column against the plain
+   version, a pond formed, the water budget with each column's dz, the
+   kernel's time, bound and the host's share; (b) its ``--atmos`` soil
+   (coupled, under MOST, from 292 K) there in ``B2+B6-step+B8`` and in
+   ``land_kernel.cu``'s ``B6+B8``, checked alike but for the rain budget
+   (the exchange evaporates); (c) each of the 48 land instances with
+   ``MODE_COLUMNS`` on 1,000 cold columns with per-column BC kinds (bottom
+   hydrology flux / Dirichlet / free drainage, energy flux / Dirichlet, a
+   plain top's energy too) and depths (``with_columns``), under ForwardEuler,
+   SSPRK22, SSPRK33 or SSPRK104 (``land_columns_cases``: each family meets
+   every stepper, a third with forcing rows), 2 steps (4 in f32), against
+   the plain version as in 16a; (d) each timed at 16c's width (17c's storm
+   for the water-only ones) with the same kinds and depths, one launch of 4
+   steps (kernel only), beside its bound;
 6. times of every mode's kernel and plain version at its phase-4/5/8/9/10/12/14
    shape (CUDA events: the kernel x3 twice, then the plain version once,
    warm),
@@ -299,11 +333,13 @@ and 14 (14b times its policy paths), ``--cli-only`` phases 1, 2 and 15
 (``--seed`` seeds 15b's Ksat), ``--land-only`` phases 1, 2, 10 and 16 with
 phase 6's times of phase 10's paths, ``--cold-forced-only`` phases 1, 2 and
 17 with phase 6's times of 17d's paths, ``--land-rk-only`` phases 1, 2 and 18
-with phase 6's times of 18a's paths.  ``--compare-with PARENT`` builds this tree
+with phase 6's times of 18a's paths, ``--land-columns-only`` phases 1, 2 and
+19.  ``--compare-with PARENT`` builds this tree
 and the tree at PARENT (an unpacked ``git archive`` of another commit) in
 turns in subprocesses and holds the other tree's instances to their
-registers (but those of ``REPAIRED``; it prints the land stage-table
-instances' registers and spill stores beside their SSPRK33 twins') and the
+registers (but those of ``REPAIRED``; it prints the new column stage-table
+instances' registers and spill stores beside their twins' without
+``MODE_COLUMNS``) and the
 kernel times of B1 and of ``COMPARE_LAND``'s SSPRK33 land instances to
 within 2% of the other's.  With ``--profile`` a seventh phase follows for B1 and B2 at the phase-4
 shape: six timings each of the kernel and the plain version in turns, a
@@ -1516,16 +1552,22 @@ def profile_main_path(dtype, device, smi, coefficient_update):
     print(events.table(sort_by=key, row_limit=8), flush=True)
 
 
-def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving, stepper=None, projections=1, change_of=None):
+def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving, stepper=None, projections=1, change_of=None,
+               plain_steps=None):
     """One main path: ``Simulation(model, stepper, engine="fused")``
     (SSPRK33 by default) for ``n_steps`` steps saved every ``spc``, with the
     launch counts set to 0 just before the run and read just after, held
     against the plain version (``_check``, or ``_check_freeze`` with
     freeze-thaw after ``projections`` projections, and ``_check_increment``
     with ``carried_allowance``, on the quantities ``change_of`` maps a state
-    to where given, else on the state's fields).  Returns the kernel's final
-    state, its launch count, its largest deviation from the plain version
-    and the run's wall time in ms (host clock, synchronized)."""
+    to where given, else on the state's fields).  With ``plain_steps`` (a
+    cut of plain launches, for the script's time) the path's saves are
+    checked finite as before, and the plain version holds a launch of that
+    many steps from the start state (outside the path's count) instead of
+    the path's launches (phase 6 then prints that launch's plain time,
+    ``_PATH_CHECKED_STEPS``).  Returns the kernel's final state, its launch
+    count, its largest deviation from the plain version and the run's wall
+    time in ms (host clock, synchronized)."""
     from landhydrology_tpu_torch import Simulation
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
@@ -1557,21 +1599,30 @@ def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving, stepper=None, 
     Yp, t = Y0, torch.as_tensor(0.0, dtype=dtype)
     key = _path_key(model, Y0, dt, spc, stepper)
     _PATH_PLAIN_MS[key] = []
-    for i in range(n_steps // spc):
+    final = _np(sim.Y)
+    checked, launches_checked = spc, n_steps // spc
+    if plain_steps is not None:  # a launch of plain_steps from the start state, held to the plain version
+        checked, launches_checked = plain_steps, 1
+        projections = min(projections, plain_steps)
+        _PATH_CHECKED_STEPS[key] = plain_steps
+        Yk = _clone(Y0)
+        ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=plain_steps)(Yk, 0.0)
+    for i in range(launches_checked):
         if i == 0 and ck.kernel_mode(model, stepper) & ck.MODE_MOST:
             # phase 6 reads its solves' probes
-            Yp, solves, probes, ms = _counting_solves(lambda: ck.fused_column_run_plain(model, stepper, dt, spc, Yp, t))
+            Yp, solves, probes, ms = _counting_solves(lambda: ck.fused_column_run_plain(model, stepper, dt, checked,
+                                                                                        Yp, t))
             _PATH_PROBES[key] = (solves, probes)
         else:
             torch.cuda.synchronize()
             clock = time.perf_counter()
-            Yp = ck.fused_column_run_plain(model, stepper, dt, spc, Yp, t)
+            Yp = ck.fused_column_run_plain(model, stepper, dt, checked, Yp, t)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - clock) * 1e3
         _PATH_PLAIN_MS[key].append(ms)
         t = t + spc * torch.as_tensor(dt, dtype=dtype)
     torch.cuda.synchronize()
-    kern, plain = _np(sim.Y), _np(Yp)
+    kern, plain = (final if plain_steps is None else _np(Yk)), _np(Yp)
     extra = ""
     if soil.freeze_thaw is None:
         _check(kern, plain, dtype, what)
@@ -1583,12 +1634,13 @@ def drive_path(ck, model, Y0, Ya, dt, n_steps, spc, what, moving, stepper=None, 
                               carried_allowance(soil, dtype, projections))
     err = _max_abs(kern, plain)
     first = next(iter(kern))
+    held = "" if plain_steps is None else f" (held by a launch of {plain_steps} steps)"
     print(f"[{what}] {str(dtype)[6:]} {name} Simulation(engine='fused') {tuple(Y0['soil'][first].shape)} "
-          f"{n_steps} steps: {launches[name]} launches, finite, kernel vs plain max abs {err:.3e} "
+          f"{n_steps} steps: {launches[name]} launches, finite, kernel vs plain max abs {err:.3e}{held} "
           f"({first} {np.max(np.abs(kern[first] - plain[first])):.3e}); change error / "
           f"largest change {_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g}){extra}; wall {wall:.3f} ms",
           flush=True)
-    return kern, launches[name], err, wall
+    return final, launches[name], err, wall
 
 
 def _counting_solves(fn):
@@ -1628,6 +1680,8 @@ def _counting_solves(fn):
 #: ``drive_path`` checks the path, keyed by ``_path_key``: ``most_probes``
 #: takes them from here rather than running that launch again
 _PATH_PROBES = {}
+#: the steps of the plain check of the paths ``drive_path`` held by a shorter launch (``plain_steps``)
+_PATH_CHECKED_STEPS = {}
 #: the host ms of each of a path's plain launches in its check (synchronized; the one under the
 #: counting shim too, which adds a list append per solve), by ``_path_key``: ``time_mode`` takes them
 #: rather than running the plain version again
@@ -1670,7 +1724,8 @@ def time_mode(ck, model, Y0, dt, spc, stepper=None):
     plain_column = lambda: ck.fused_column_run_plain(model, stepper, dt, spc, Y0, 0.0)  # noqa: E731
     mode = ck.kernel_mode(model, stepper)
     solves, probes = most_probes(ck, model, stepper, dt, spc, Y0) if mode & ck.MODE_MOST else (0, None)
-    expect = spc * plain_solves(ck, mode, getattr(stepper, "iters", 2)) if mode & ck.MODE_MOST else 0
+    steps = _PATH_CHECKED_STEPS.get(_path_key(model, Y0, dt, spc, stepper), spc)
+    expect = steps * plain_solves(ck, mode, getattr(stepper, "iters", 2)) if mode & ck.MODE_MOST else 0
     if solves != expect:
         raise AssertionError(f"{run.name}: {solves} MOST solves in the plain launch, expected {expect}")
     k1 = _time_ms(fused_column, 3)
@@ -1785,7 +1840,8 @@ def kernel_of(ck, mode, dtype):
     kernel = {"implicit_kernel": "implicit_column_kernel", "implicit_most_kernel": "implicit_column_kernel",
               "implicit_branch_kernel": "implicit_column_kernel", "land_kernel": "land_column_kernel",
               "land_policy_kernel": "land_column_kernel", "land_rk_kernel": "land_column_kernel",
-              "land_policy_rk_kernel": "land_column_kernel", "rk_kernel": "rk_column_kernel"}.get(
+              "land_policy_rk_kernel": "land_column_kernel", "land_columns_kernel": "land_column_kernel",
+              "land_policy_columns_kernel": "land_column_kernel", "rk_kernel": "rk_column_kernel"}.get(
                   lib, "ssprk33_column_kernel")
     return kernel, os.path.relpath(ck.SOURCES[lib], HERE)
 
@@ -1814,6 +1870,10 @@ def evaporation(model, Y, t):
 
 #: phase 10's paths at width: 32 steps in one launch (a depth cut for the script's time)
 LAND_WIDE_STEPS = 32
+#: phase 10's settings held to the plain version over their whole launch; the others by a launch of
+#: LAND_CHECKED_STEPS steps (phase 19's cut of plain launches), in f32 but the MOST soil's (its f32 change error
+#: is 3e-2 of the change over the launch, under the bar of 0.1: too near it for a shorter launch)
+LAND_FULL_CHECK, LAND_CHECKED_STEPS = ("reference", "production"), 4
 
 
 def land_phase(ck, gc, device, smi):
@@ -1868,8 +1928,8 @@ def land_phase(ck, gc, device, smi):
         for case in ("B5", "B2+B5", "B6", "B6-step", "B2+B6-step", "B6-pond", "B6-step-pond", "B2+B6-pond",
                      "B2+B6-step-pond"):
             model, Y = build_land_variant(1000, dtype, device, seed=13, case=case)
-            kern, plain, shares = check_variant(ck, model, Y, 2.0, 8, 5.0, f"10 land variant {dtype} {case}",
-                                                ("vartheta_l", "rho_e_int"))
+            kern, plain, shares = check_variant(ck, model, Y, 2.0, COLD_STEPS_F64 if dtype == torch.float64 else 8,
+                                                5.0, f"10 land variant {dtype} {case}", ("vartheta_l", "rho_e_int"))
             if ck.make_fused_column_run(model).name != case:
                 raise AssertionError(f"variant: mode {ck.make_fused_column_run(model).name}, expected {case}")
             print(f"[10 land] {str(dtype)[6:]} {case} ncol=1000 per-column atmosphere (both Businger "
@@ -1917,7 +1977,9 @@ def land_phase(ck, gc, device, smi):
                     dataclasses.replace(land.soil.boundary_conditions, top=build_bench_model(
                         NZ, 32, dtype, device)[0].boundary_conditions.top))))
             moving = ("vartheta_l", "rho_e_int", "h_s") if what != "soil" else ("vartheta_l", "rho_e_int")
-            kern, launches, err, wall = drive_path(ck, model, Y0, Ya, DT, LAND_WIDE_STEPS, SPC, "10 land", moving)
+            short = setting not in LAND_FULL_CHECK and (dtype == torch.float64 or what != "soil")
+            kern, launches, err, wall = drive_path(ck, model, Y0, Ya, DT, LAND_WIDE_STEPS, SPC, "10 land", moving,
+                                                   plain_steps=LAND_CHECKED_STEPS if short else None)
             paths.append((model, Y0, DT, SPC, launches, err, SSPRK33()))
             ends[setting] = kern
             name = ck.make_fused_column_run(model).name
@@ -2387,6 +2449,8 @@ def forced_phase(ck, gc, device, smi, costs):
 #: phase 11's timed B7 combinations: their width (a quarter of the
 #: reanalysis run's) and modes
 FORCED_COMBO_NCOL = 32768
+#: the rows of the f64 check of a FORCED_COMBOS mode (phase 19's cut of plain launches: were FORCED_SPC)
+FORCED_COMBO_CHECKED = 8
 FORCED_COMBOS = ("B2+B5", "B6-step", "B2+B6", "B6-pond", "B6-step-pond", "B2+B6-pond", "B2+B6-step-pond")
 
 
@@ -2397,8 +2461,10 @@ def forced_combination(ck, costs, smi, case, dtype, device, ncol=FORCED_COMBO_NC
     lagged coefficients, ``-pond`` the soil's zero-flux top under the rain
     rows alone).  One launch of ``FORCED_SPC`` rows, with the launch counts
     set to 0 just before it and read just after, checked against the plain
-    version (its launch counted and timed for the record), then timed
-    (``time_forced``).  Returns its kernel record."""
+    version (its launch counted and timed for the record; in f64 since phase
+    19 a launch of the first ``FORCED_COMBO_CHECKED`` rows instead, a cut of
+    plain launches), then timed (``time_forced``).  Returns its kernel
+    record."""
     from landhydrology_tpu_torch import SoilColumnBC, SoilComponentBC, VerticalFlux
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
@@ -2428,7 +2494,15 @@ def forced_combination(ck, costs, smi, case, dtype, device, ncol=FORCED_COMBO_NC
     launches = dict(ck.LAUNCHES)
     if launches != {run.name: 1}:
         raise AssertionError(f"forced combination {case}: launches {launches}")
-    plain, _, probes, p_ms = _counting_solves(lambda: forced_plain(ck, model, dt, spc, Y0, 0.0, rows))
+    checked = FORCED_COMBO_CHECKED if dtype == torch.float64 else spc
+    if checked < spc:  # the first rows through a launch of their own, held to the plain version
+        rows_checked = {k: v[:checked] for k, v in rows.items()}
+        Yk = _clone(Y0)
+        ck.make_fused_column_run(model, SSPRK33(), dt=dt, steps_per_call=checked,
+                                 forcing_fields=tuple(rows))(Yk, 0.0, forcing=rows_checked)
+    else:
+        rows_checked = rows
+    plain, _, probes, p_ms = _counting_solves(lambda: forced_plain(ck, model, dt, checked, Y0, 0.0, rows_checked))
     kern, plain = _np(Yk), _np(plain)
     moving = [k for k in ("vartheta_l", "rho_e_int", "h_s") if k in kern and not (k == "rho_e_int" and "pond" in case)]
     _check(kern, plain, dtype, f"11 forced {case}")
@@ -2437,11 +2511,15 @@ def forced_combination(ck, costs, smi, case, dtype, device, ncol=FORCED_COMBO_NC
     b_ms, b_by = bound_ms(ck, costs, run.mode, dtype, nz * ncol, spc, ncol=ncol, probes=probes,
                           read_values=len(rows) * spc * ncol)
     most = f", MOST probes per solve {probes:.4f}" if probes is not None else ""
+    held = "" if checked == spc else f" (held by a launch of its first {checked} rows)"
     print(f"[11 forced] {str(dtype)[6:]} {run.name} nz={nz} x {ncol}, one launch of {spc} rows (launch counts "
-          f"{launches}): kernel vs plain max abs {_max_abs(kern, plain):.3e}; change error / largest change "
-          f"{_fmt(shares)}; kernel {k_ms:.3f} ms per launch (plain {p_ms:.3f} ms, bound {b_ms:.3f} ms by "
-          f"{b_by}{most}) on {smi}", flush=True)
-    return forced_entry(ck, run, dtype, launches[run.name], _max_abs(kern, plain), k_ms, p_ms, b_ms, b_by)
+          f"{launches}): kernel vs plain max abs {_max_abs(kern, plain):.3e}{held}; change error / largest change "
+          f"{_fmt(shares)}; kernel {k_ms:.3f} ms per launch (plain {p_ms:.3f} ms over {checked} rows, bound "
+          f"{b_ms:.3f} ms by {b_by}{most}) on {smi}", flush=True)
+    entry = forced_entry(ck, run, dtype, launches[run.name], _max_abs(kern, plain), k_ms, p_ms, b_ms, b_by)
+    if checked < spc:
+        entry["plain_at"] = f"11: nz={nz} x {ncol}, {checked} rows"
+    return entry
 
 
 def variant_rows(model, case, n_rows, seed=17):
@@ -4057,11 +4135,13 @@ def time_b4_b5(ck, costs, smi, dtype, device, name, forced, launches, err):
     """The timing of a B4+B5 mode (implicit stepper ``name`` with two
     iterations; with ``forced``, under the reanalysis rows as a
     time-indexed table) on the reanalysis soil at ``B4_B5_TIMED_NCOL``
-    columns: kernel and plain version per launch (``time_forced``, CUDA
-    events, in turns) of ``B4_B5_TIMED_STEPS`` steps of dt=120, beside its
-    bound (the MOST solves' probes counted from the plain version's).
-    ``launches`` and ``err`` come from the run that drove the mode, or (as
-    ``None``) from phase 13b's launch."""
+    columns: the kernel per launch (``time_forced``, CUDA events) of
+    ``B4_B5_TIMED_STEPS`` steps of dt=120, beside its bound (the MOST
+    solves' probes counted from the plain version's); the plain version
+    timed over one step on every ``COLD_PROBE_STRIDE``-th column, which
+    also counts the probes (``plain_at``; phase 19's cut of plain launches:
+    was the whole launch).  ``launches`` and ``err`` come from the run that
+    drove the mode, or (as ``None``) from phase 13b's launch."""
     spc, ncol = B4_B5_TIMED_STEPS, B4_B5_TIMED_NCOL
     land, Y0, _ = build_reanalysis(FORCED_NZ, ncol, dtype, device)
     model, Y0 = land.soil, {"soil": Y0["soil"]}
@@ -4074,12 +4154,19 @@ def time_b4_b5(ck, costs, smi, dtype, device, name, forced, launches, err):
         grid = (0.0, FORCED_DT, ADAPTIVE_FORCED_ROWS)
     timed = ck.make_fused_column_run(model, stepper, dt=FORCED_DT, steps_per_call=spc,
                                      forcing_fields=tuple(rows or ()), forcing_time_grid=grid)
-    k_ms, p_ms, probes = time_forced(ck, timed, model, Y0, rows, FORCED_DT, spc, grid, stepper=stepper)
+    few = torch.arange(0, ncol, COLD_PROBE_STRIDE, device=device)
+    sub, Ys = column_slice(model, Y0, few)
+    sub_rows = None if rows is None else {k: v[:, few].contiguous() for k, v in rows.items()}
+    _, _, probes, plain_1 = _counting_solves(lambda: ck.fused_column_run_plain(
+        sub, implicit(name, sub, 2), FORCED_DT, 1, Ys, 0.0, forcing=sub_rows, forcing_time_grid=grid))
+    k_ms, p_ms, probes = time_forced(ck, timed, model, Y0, rows, FORCED_DT, spc, grid, stepper=stepper,
+                                     checked=(plain_1, probes))
     read = len(rows) * next(iter(rows.values())).numel() if rows else 0
     b_ms, b_by = bound_ms(ck, costs, timed.mode, dtype, nz * ncol, spc, iters=stepper.iters, ncol=ncol,
                           probes=probes, read_values=read)
     print(f"[13 time] {str(dtype)[6:]} {timed.name} {spc} steps of dt={FORCED_DT:g} nz={nz} x {ncol}: kernel "
-          f"{k_ms:.3f} ms ({nz * ncol * spc / (k_ms / 1e3):.4e} grid-points/s), plain {p_ms:.3f} ms, bound "
+          f"{k_ms:.3f} ms ({nz * ncol * spc / (k_ms / 1e3):.4e} grid-points/s), plain {p_ms:.3f} ms (one step on "
+          f"{len(few)} columns), bound "
           f"{b_ms:.3f} ms by {b_by} ({b_ms / k_ms:.3f} of the kernel's time), MOST probes per solve {probes:.4f}, "
           f"{most_exchanges(ck, timed.mode, stepper.iters)} solves per step on {smi}", flush=True)
     return (dtype, timed.name, launches, err, k_ms, p_ms, b_ms, b_by, timed)
@@ -4092,7 +4179,9 @@ def adaptive_entries(ck, timed, dt_run_records):
     for dtype, name, launches, err, k_ms, p_ms, b_ms, b_by, run in timed:
         if launches is None:
             launches, err = dt_run_records[(dtype, name)]
-        entries.append(forced_entry(ck, run, dtype, launches, err, k_ms, p_ms, b_ms, b_by))
+        entry = forced_entry(ck, run, dtype, launches, err, k_ms, p_ms, b_ms, b_by)
+        entry["plain_at"] = f"13: nz={FORCED_NZ} x {len(range(0, B4_B5_TIMED_NCOL, COLD_PROBE_STRIDE))}, 1 step"
+        entries.append(entry)
     return entries
 
 
@@ -4513,8 +4602,11 @@ COLD_MODES = tuple(lag + top + policy for top in COLD_TOPS for policy in COLD_PO
 #: 16a: each instance checked on this many columns over this many steps of 2 s; in f64 over COLD_STEPS_F64 since
 #: phase 18 (a cut for the script's time: f64's change bar needs no more, f32's needs the water to move)
 COLD_NCOL, COLD_STEPS, COLD_STEPS_F64 = 1000, 4, 2
-#: 16b: the path's modes at nz=64 x 65,536, one launch of COLD_WIDE_STEPS steps of the freeze column's dt
+#: 16b: the path's modes at nz=64 x 65,536, one launch of COLD_WIDE_STEPS steps of the freeze column's dt, held
+#: to the plain version over the launch but those of COLD_SHORT_CHECKED, held by a launch of COLD_TIMED_STEPS steps
+#: (phase 19's cut of plain launches; 16a holds their instance where ice acts)
 COLD_PATHS = ("B6+B3-rate", "B2+B6-step+B3-rate", "B6+B3-eq")
+COLD_SHORT_CHECKED = ("B2+B6-step+B3-rate", "B6+B3-eq")
 COLD_WIDE_STEPS = 32
 #: 16b: the atmosphere over the cold column
 COLD_THETA_ATM = 263.15
@@ -4561,12 +4653,15 @@ def _ice_columns(kern, start):
     return int((change > 1e-4 * 0.01).any(0).sum()), int((change < -1e-4 * 0.01).any(0).sum())
 
 
-def cold_check(ck, name, dtype, device, icy=False, rows=False, time_grid=None, tag="16a", stepper=None, steps=None):
-    """16a, 17a and 18c: one instance ``name`` on ``COLD_NCOL`` columns
+def cold_check(ck, name, dtype, device, icy=False, rows=False, time_grid=None, tag="16a", stepper=None, steps=None,
+               columns=False):
+    """16a, 17a, 18c and 19c: one instance ``name`` on ``COLD_NCOL`` columns
     (``policy_variant``: ``build_land_variant``'s cold column, its water-only
     LandModel or the implicit steppers on its soil; or its ``icy_state``),
     under ``stepper`` for ``steps`` steps where given (an explicit stepper's
-    name; else ``policy_variant``'s), with ``rows`` (``policy_rows``,
+    name; else ``policy_variant``'s), with per-column BC kinds and depths
+    where ``columns`` (``with_columns``, the ``+kinds+B8`` instance), with
+    ``rows`` (``policy_rows``,
     step-indexed or on ``time_grid``) or without, from t0 = 5 s, against the
     plain version (``check_variant``: the freeze bars of ``_check_freeze``
     after the launch's projections with freeze-thaw, else ``_check``; and
@@ -4576,6 +4671,8 @@ def cold_check(ck, name, dtype, device, icy=False, rows=False, time_grid=None, t
     and melt it in others, another leave theta_i alone.  Returns ``(error,
     shares, grown, melted, plain ms, MOST probes per solve or None)``."""
     model, Y, base, dt, base_steps = policy_variant(name, dtype, device)
+    if columns:
+        model = with_columns(model, COLUMNS_SEED)
     stepper = base if stepper is None else _stepper(stepper)
     steps = base_steps if steps is None else steps
     soil = getattr(model, "soil", model)
@@ -4595,6 +4692,7 @@ def cold_check(ck, name, dtype, device, icy=False, rows=False, time_grid=None, t
                                     forcing=forcing, forcing_time_grid=time_grid)
     built = ck.make_fused_column_run(model, stepper, forcing_fields=tuple(forcing or ()),
                                      forcing_time_grid=time_grid).name
+    name += "+kinds+B8" if columns else ""
     if built != name + ("" if not rows else "+B7" if time_grid is None else "+B7-time") + at:
         raise AssertionError(f"{what}: mode {built}")
     grown, melted = _ice_columns(kern, start)
@@ -4650,9 +4748,11 @@ def cold_path(ck, gc, costs, smi, dtype, device, name):
     if run.name != name:
         raise AssertionError(f"16b: mode {run.name}, expected {name}")
     key = _path_key(model, Y0, dt, COLD_WIDE_STEPS, SSPRK33())
+    short = name in COLD_SHORT_CHECKED  # no ice forms in its first steps: theta_i held to its finite change alone
     kern, launches, err, wall = drive_path(ck, model, Y0, Ya, dt, COLD_WIDE_STEPS, COLD_WIDE_STEPS, "16b cold",
+                                           ("vartheta_l", "rho_e_int", "h_s") if short else
                                            ("vartheta_l", "theta_i", "rho_e_int", "h_s"),
-                                           projections=COLD_WIDE_STEPS)
+                                           projections=COLD_WIDE_STEPS, plain_steps=COLD_TIMED_STEPS if short else None)
     plain_ms, = _PATH_PLAIN_MS[key]
     probes = _PATH_PROBES[key][1] if run.mode & ck.MODE_MOST else None
     ice = float(np.max(kern["theta_i"]))
@@ -4794,7 +4894,8 @@ COLD_FORCED_PATHS = ("B6+B3-rate", "B2+B6-step+B3-rate")
 #: from t0 = 1,700 s in one launch; the plain version on every STORM_STRIDE-th column
 STORM_NZ, STORM_SIDE, STORM_DT, STORM_STEPS, STORM_T0, STORM_STRIDE = 16, 512, 2.0, 32, 1700.0, 256
 STORM_PATHS = ("B6-pond-water", "B2+B6-step-pond-water")
-#: 17d: TR-BDF2 under the cold MOST top at nz=64 x 65,536, one launch of 8 steps of IMPLICIT_DT
+#: 17d: TR-BDF2 under the cold MOST top at nz=64 x 65,536, one launch of 8 steps of IMPLICIT_DT; the second in f64
+#: held to the plain version by a launch of IMPLICIT_STEPS steps (phase 19's cut of plain launches)
 COLD_IMPLICIT_PATHS = ("B4-trbdf2+B3-rate+B5", "B4-trbdf2+B2+B3-eq+B5")
 COLD_IMPLICIT_STEPS = 8
 
@@ -5023,22 +5124,29 @@ def storm_precipitation(t):
     return (40.0 / 1000.0 / 3600.0) * torch.exp(-(((t - 1800.0) / 576.0) ** 2))
 
 
-def build_storm(dtype, device, case, side=None):
-    """17c: ``experiments/soil/catchment.py:87-123``'s soil on a ``side`` x
-    ``side`` grid, flattened (columns in row-major order): the ridge/valley
-    terrain's per-column vanGenuchten (n 1.8-3.0, alpha 2.0-3.5, Ksat
-    10**(-6.5 + 1.2 z_norm + noise), theta_r 0.05; ``default_rng(42)``), nu
-    0.42, S_s 1e-3, zero-flux bedrock, T prescribed; its storm
-    (``storm_precipitation``), tau_pond 600 s; water 0.15, no ice, no pond.
-    Cut: no routing (a cross-column stencil, eager only in both packages)
-    and a uniform 2 m depth (variable depth is kernel mode B8, not opened
-    in these modes).  ``case``: ``B6-pond-water`` and its lagged /
-    frozen-exchange / no-ice names.  Returns ``(land, state)``."""
+def build_storm(dtype, device, case, side=None, variable_depth=False, atmos=False):
+    """17c and 19a-b: ``experiments/soil/catchment.py:87-180``'s soil on a
+    ``side`` x ``side`` grid, flattened (columns in row-major order): the
+    ridge/valley terrain's per-column vanGenuchten (n 1.8-3.0, alpha
+    2.0-3.5, Ksat 10**(-6.5 + 1.2 z_norm + noise), theta_r 0.05;
+    ``default_rng(42)``), nu 0.42, S_s 1e-3, zero-flux bedrock, T
+    prescribed; its storm (``storm_precipitation``), tau_pond 600 s; water
+    0.15, no ice, no pond.  Cut: no routing (a cross-column stencil, eager
+    only in both packages).  17c runs a uniform 2 m depth (the
+    instances without ``MODE_COLUMNS``); ``variable_depth`` (19a) the
+    regolith of ``catchment.py:99``, 0.5 m on the ridge to 2 m in the valley
+    (a ``VariableDepthColumn``, kernel mode B8); ``atmos`` (19b) its
+    ``--atmos`` soil (``:112-118``, ``:177-178``): coupled, under its MOST
+    top, zero-flux energy below, 292 K.  ``case``: ``B6-pond-water`` and its
+    lagged / frozen-exchange / no-ice names, or with ``atmos`` ``B6``,
+    ``B2+B6-step``, ....  Returns ``(land, state)``."""
     side = STORM_SIDE if side is None else side
     from landhydrology_tpu_torch import (
-        Column, PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC, SoilHydrologyModel, SoilModel,
-        SoilParams, VerticalFlux,
+        Column, PrescribedAtmosForcing, PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC, SoilEnergyModel,
+        SoilHydrologyModel, SoilModel, SoilParams, VariableDepthColumn, VerticalFlux,
     )
+    from landhydrology_tpu_torch.constants import default_earth_param_set as ps
+    from landhydrology_tpu_torch.models.soil.heat import volumetric_heat_capacity, volumetric_internal_energy
     from landhydrology_tpu_torch.models.land import LandModel, SurfaceWaterModel
     from landhydrology_tpu_torch.models.soil import vanGenuchten
 
@@ -5051,40 +5159,56 @@ def build_storm(dtype, device, case, side=None):
     hm = vanGenuchten(n=tensor(1.8 + 1.2 * z_norm), alpha=tensor(2.0 + 1.5 * z_norm), Ksat=tensor(10.0 ** log_ksat),
                       theta_r=0.05)
     ncol = side * side
+    domain = Column(zlim=(-2.0, 0.0), nelements=STORM_NZ, batch_shape=(ncol,))
+    if variable_depth:
+        domain = VariableDepthColumn(z_bottom=-(0.5 + 1.5 * (1.0 - z_norm)), nelements=STORM_NZ, batch_shape=(ncol,))
+    energy, top = PrescribedTemperatureModel(), SoilComponentBC(hydrology=VerticalFlux(0.0))
+    bottom = SoilComponentBC(hydrology=VerticalFlux(0.0))
+    if atmos:
+        energy = SoilEnergyModel()
+        top = PrescribedAtmosForcing(u_atm=2.0, theta_atm=300.0, z_atm=2.0, theta_scale=300.0, rho_a_sfc=1.2,
+                                     q_atm=0.006)
+        bottom = SoilComponentBC(hydrology=VerticalFlux(0.0), energy=VerticalFlux(0.0))
     soil = SoilModel(
-        domain=Column(zlim=(-2.0, 0.0), nelements=STORM_NZ, batch_shape=(ncol,)),
-        energy_model=PrescribedTemperatureModel(), hydrology_model=SoilHydrologyModel(hydraulic_model=hm),
-        boundary_conditions=SoilColumnBC(top=SoilComponentBC(hydrology=VerticalFlux(0.0)),
-                                         bottom=SoilComponentBC(hydrology=VerticalFlux(0.0))),
+        domain=domain, energy_model=energy, hydrology_model=SoilHydrologyModel(hydraulic_model=hm),
+        boundary_conditions=SoilColumnBC(top=top, bottom=bottom),
         soil_param_set=SoilParams(nu=0.42, S_s=1e-3, rho_c_ds=1.3e6), dtype=dtype, device=device,
         coefficient_update="step" if case.startswith("B2+") else "stage", assume_no_ice=case.endswith("-no-ice"),
     )
     land = LandModel(soil=soil, surface=SurfaceWaterModel(precipitation=storm_precipitation, tau_pond=600.0),
                      surface_update="step" if "-step" in case else "stage")
     theta = torch.full((STORM_NZ, ncol), 0.15, dtype=dtype, device=device)
-    return land, {"soil": {"vartheta_l": theta, "theta_i": torch.zeros_like(theta)},
-                  "surface": {"h_s": torch.zeros(ncol, dtype=dtype, device=device)}}
+    state = {"vartheta_l": theta, "theta_i": torch.zeros_like(theta)}
+    if atmos:
+        rho_c_s = volumetric_heat_capacity(theta, state["theta_i"], 1.3e6, ps)
+        state["rho_e_int"] = volumetric_internal_energy(state["theta_i"], rho_c_s, torch.full_like(theta, 292.0), ps)
+    return land, {"soil": state, "surface": {"h_s": torch.zeros(ncol, dtype=dtype, device=device)}}
 
 
-def storm_path(ck, costs, smi, dtype, device, case):
-    """17c: the water-only storm at width (``build_storm``, nz=16 x 262,144):
+def storm_path(ck, costs, smi, dtype, device, case, variable_depth=False, atmos=False, tag="17c"):
+    """17c and 19a-b: the storm at width (``build_storm``, nz=16 x 262,144;
+    19a at catchment.py's regolith depth, 19b its ``--atmos`` soil there):
     one launch of ``STORM_STEPS`` steps from ``STORM_T0`` through
     ``Simulation(engine="fused")``, the launch counts set to 0 just before
     it and read just after; every ``STORM_STRIDE``-th column held to the
-    plain version (``_check``, ``_check_increment``); a pond must form; the
-    column + pond water equals the storm's rain over the launch as SSPRK33
-    integrates it (weights 1/6, 1/6, 2/3 at t, t + dt, t + dt/2) within
-    ``BUDGET_SHARE`` of the largest column's; the kernel timed by CUDA
-    events.  Returns its kernel record."""
+    plain version (``_check``, ``_check_increment``); a pond must form; on
+    the water-only soil the column + pond water (each column's dz) equals
+    the storm's rain over the launch as SSPRK33 integrates it (weights 1/6,
+    1/6, 2/3 at t, t + dt, t + dt/2) within ``BUDGET_SHARE`` of the largest
+    column's (under MOST the exchange also evaporates, so 19b holds the
+    state to the plain version alone); the kernel timed by CUDA events, and
+    the host's share of the run's wall time.  Returns its kernel record."""
     from landhydrology_tpu_torch import Simulation
     from landhydrology_tpu_torch.domains import make_function_space
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
-    tag = str(dtype)[6:]
-    land, Y0 = build_storm(dtype, device, case)
+    dname = str(dtype)[6:]
+    land, Y0 = build_storm(dtype, device, case, variable_depth=variable_depth, atmos=atmos)
     nz, ncol, dt, n = STORM_NZ, STORM_SIDE ** 2, STORM_DT, STORM_STEPS
-    what = f"17c storm {tag} {case}"
-    Ya = {"zc": make_function_space(land.soil.domain, dtype, device).zc, "soil": {}}
+    name = case + ("+B8" if variable_depth else "")
+    what = f"{tag} storm {dname} {name}"
+    grid = make_function_space(land.soil.domain, dtype, device)
+    Ya = {"zc": grid.zc, "soil": {}}
     sim = Simulation(land, SSPRK33(), Y_init=Y0, Ya_init=Ya, dt=dt, tspan=(STORM_T0, STORM_T0 + n * dt),
                      engine="fused", steps_per_call=n)
     torch.cuda.synchronize()
@@ -5094,54 +5218,62 @@ def storm_path(ck, costs, smi, dtype, device, case):
     torch.cuda.synchronize()
     wall = (time.perf_counter() - clock) * 1e3
     launches = dict(ck.LAUNCHES)
-    if launches != {case: 1}:
-        raise AssertionError(f"{what}: launches {launches}, expected one of {case}")
+    if launches != {name: 1}:
+        raise AssertionError(f"{what}: launches {launches}, expected one of {name}")
     end = sim.Y
     cols = torch.arange(0, ncol, STORM_STRIDE, device=device)
     sub, Ys = column_slice(land.soil, {"soil": Y0["soil"]}, cols)
     Ys["surface"] = {"h_s": Y0["surface"]["h_s"][cols].contiguous()}
     small = dataclasses.replace(land, soil=sub)
-    torch.cuda.synchronize()
-    clock = time.perf_counter()
-    plain = _np(ck.fused_column_run_plain(small, SSPRK33(), dt, n, Ys, STORM_T0))
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - clock) * 1e3
+    plain, _, probes, plain_ms = _counting_solves(lambda: ck.fused_column_run_plain(small, SSPRK33(), dt, n, Ys,
+                                                                                     STORM_T0))
+    plain = _np(plain)
     kern = {k: v[..., cols.cpu().numpy()] for k, v in _np(end).items()}
     # in f32 a pond that forms in the launch carries the f32 spread of the potential infiltration, which
     # the wet top cell's pressure head takes from a difference near saturation: the pond is held by its
     # change bar (_check_increment) there, as _check_freeze holds a pond after several projections
     _check(kern if dtype == torch.float64 else {k: v for k, v in kern.items() if k != "h_s"}, plain, dtype, what)
-    shares = _check_increment(kern, plain, _np(Ys), dtype, what, ("vartheta_l", "h_s"))
+    moving = ("vartheta_l", "rho_e_int", "h_s") if atmos else ("vartheta_l", "h_s")
+    shares = _check_increment(kern, plain, _np(Ys), dtype, what, moving)
     h = end["surface"]["h_s"]
     ponded = int((h > 1e-6).sum())
     if not ponded:
         raise AssertionError(f"{what}: no pond formed (max h_s {float(h.max())})")
-    t = STORM_T0 + dt * torch.arange(n, dtype=torch.float64)
-    rain = float((dt * (storm_precipitation(t) / 6 + storm_precipitation(t + dt) / 6
-                        + 2 * storm_precipitation(t + dt / 2) / 3)).sum())
-    change = water_in(end, 2.0 / nz) - water_in(Y0, 2.0 / nz)
-    residual = float((change - rain).abs().max())
-    if not residual <= BUDGET_SHARE * rain:
-        raise AssertionError(f"{what}: water budget residual {residual:.3e} m of {rain:.3e} m of rain")
+    budget = "under MOST the exchange evaporates: no rain budget"
+    if not atmos:
+        t = STORM_T0 + dt * torch.arange(n, dtype=torch.float64)
+        rain = float((dt * (storm_precipitation(t) / 6 + storm_precipitation(t + dt) / 6
+                            + 2 * storm_precipitation(t + dt / 2) / 3)).sum())
+        dz = grid.dz.reshape(-1) if torch.is_tensor(grid.dz) else grid.dz
+        change = water_in(end, dz) - water_in(Y0, dz)
+        residual = float((change - rain).abs().max())
+        if not residual <= BUDGET_SHARE * rain:
+            raise AssertionError(f"{what}: water budget residual {residual:.3e} m of {rain:.3e} m of rain")
+        budget = (f"water budget (each column's dz): rain {rain:.6e} m, largest residual {residual:.3e} m (bar "
+                  f"{BUDGET_SHARE:g} of the rain)")
     run = ck.make_fused_column_run(land, SSPRK33(), dt=dt, steps_per_call=n)
     Yk = _clone(Y0)
     run(Yk, STORM_T0)
     k1, k2 = (_time_ms(lambda: run(Yk, STORM_T0), 3) for _ in range(2))
-    b_ms, b_by = bound_ms(ck, costs, run.mode, dtype, nz * ncol, n, ncol=ncol)
-    print(f"[17c storm] {tag} {case} catchment.py's soil and storm on {STORM_SIDE} x {STORM_SIDE} columns, nz={nz}, "
-          f"{n} steps of dt={dt:g} from t0={STORM_T0:g} s (no routing, a uniform 2 m depth): launches {launches}; "
+    b_ms, b_by = bound_ms(ck, costs, run.mode, dtype, nz * ncol, n, ncol=ncol, probes=probes,
+                          read_values=per_column_values(run, nz, ncol, dtype))
+    ms = (k1 + k2) / 2
+    depth = "catchment.py's regolith depth, 0.5-2 m" if variable_depth else "a uniform 2 m depth"
+    soil = "its --atmos soil under MOST from 292 K" if atmos else "catchment.py's soil"
+    print(f"[{tag} storm] {dname} {name} {soil} and storm on {STORM_SIDE} x {STORM_SIDE} columns, nz={nz}, "
+          f"{n} steps of dt={dt:g} from t0={STORM_T0:g} s (no routing, {depth}): launches {launches}; "
           f"every {STORM_STRIDE}th column vs plain max abs {_max_abs(kern, plain):.3e} (h_s "
           f"{float(np.max(np.abs(kern['h_s'] - plain['h_s']))):.3e} m), change error / largest change "
           f"{_fmt(shares)} (bar {INCREMENT_RTOL[dtype]:g}); a pond in {ponded} columns (max h_s "
-          f"{float(h.max()):.4e} m); water budget: rain {rain:.6e} m, largest residual {residual:.3e} m (bar "
-          f"{BUDGET_SHARE:g} of the rain); Simulation.run {wall:.3f} ms, kernel {k1:.3f}/{k2:.3f} ms "
-          f"({nz * ncol * n / ((k1 + k2) / 2e3):.4e} grid-points/s), plain {plain_ms:.3f} ms on {cols.numel()} "
-          f"columns, bound {b_ms:.3f} ms by {b_by} on {smi}", flush=True)
+          f"{float(h.max()):.4e} m); {budget}; Simulation.run {wall:.3f} ms, kernel {k1:.3f}/{k2:.3f} ms "
+          f"({nz * ncol * n / (ms / 1e3):.4e} grid-points/s; host share of the run {max(wall - ms, 0.0) / wall:.3f}), "
+          f"plain {plain_ms:.3f} ms on {cols.numel()} columns, bound {b_ms:.3f} ms by {b_by}"
+          + (f" (MOST probes per solve {probes:.4f})" if probes is not None else "") + f" on {smi}", flush=True)
     kernel, source = kernel_of(ck, run.mode, dtype)
-    return {"name": f"{kernel}<{tag.replace('float', 'f')}, {case}>", "route": "cuda", "source": source,
-            "replaces": REPLACES, "launches": launches[case], "max_abs_err": _max_abs(kern, plain),
-            "ms": (k1 + k2) / 2, "plain_ms": plain_ms,
-            "plain_at": f"17c: nz={nz} x {cols.numel()} columns, {n} steps", "bound_ms": b_ms, "bound_by": b_by,
+    return {"name": f"{kernel}<{dname.replace('float', 'f')}, {name}>", "route": "cuda", "source": source,
+            "replaces": REPLACES, "launches": launches[name], "max_abs_err": _max_abs(kern, plain),
+            "ms": ms, "plain_ms": plain_ms,
+            "plain_at": f"{tag}: nz={nz} x {cols.numel()} columns, {n} steps", "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None}
 
 
@@ -5167,7 +5299,9 @@ def cold_implicit_path(ck, gc, dtype, device, name):
         # projection moves
         change_of, moving = unpartitioned(soil), ("water", "rho_e_int")
     kern, launches, err, wall = drive_path(ck, soil, Y0, Ya, IMPLICIT_DT, n, n, "17d cold implicit", moving,
-                                           stepper=st, projections=n, change_of=change_of)
+                                           stepper=st, projections=n, change_of=change_of,
+                                           plain_steps=IMPLICIT_STEPS if name == COLD_IMPLICIT_PATHS[1]
+                                           and dtype == torch.float64 else None)
     ice = float(np.max(kern["theta_i"]))
     if not ice > 1e-4:
         raise AssertionError(f"17d {name} {dtype}: no ice formed (max theta_i {ice})")
@@ -5212,7 +5346,7 @@ def time_at_width(ck, costs, smi, model, Y0, stepper, dt, t0, name, checked, for
         probes = cold_probes(ck, model, Y0, dt, stepper, 1 if run.mode & ck.MODE_IMPLICIT else steps)
     nz, ncol = next(iter(Y0["soil"].values())).shape
     ms = (k1 + k2) / 2
-    read = sum(v.numel() for v in (forcing or {}).values())
+    read = sum(v.numel() for v in (forcing or {}).values()) + per_column_values(run, nz, ncol, dtype)
     b_ms, b_by = bound_ms(ck, costs, run.mode, dtype, nz * ncol, steps, iters=getattr(stepper, "iters", 2),
                           ncol=ncol, probes=probes, read_values=read)
     err, plain_ms = checked
@@ -5690,6 +5824,146 @@ def land_rk_phase(ck, costs, smi, device, t_start):
     return entries, paths
 
 
+# ---- phase 19: per-column BC kinds and geometry in the land modes (ROADMAP B item 1: B1-batched and B8 under
+# a MOST top and a LandModel, every explicit stepper, with forcing rows) ----
+
+#: 19c: the steppers each family of land instances rotates through
+COLUMNS_STEPPERS = ("ForwardEuler", "SSPRK22", "SSPRK33", "SSPRK104")
+#: 19c: the seed of ``with_columns``'s kinds and depths
+COLUMNS_SEED = 41
+#: 19a: catchment.py's storm at its regolith depth (``build_storm(variable_depth=True)``), in the reference and
+#: production settings of the water-only LandModel; 19b: its --atmos soil there, in the production setting (the
+#: stage-table instance) and the reference one (land_kernel.cu's SSPRK33 instance with MODE_COLUMNS)
+DEPTH_STORM_PATHS = ("B6-pond-water", "B2+B6-step-pond-water")
+ATMOS_STORM_PATHS = ("B2+B6-step", "B6")
+#: 19d: each instance timed at width over launches of this many steps
+COLUMNS_TIMED_STEPS = 4
+
+
+def with_columns(model, seed, kinds=True, depth=True):
+    """19c and 19d: ``model`` (a land model, a MOST soil or a plain soil on
+    a ``Column`` of a flat column batch) with per-column BC kinds (``BatchedBC``, kernel
+    mode B1-batched) where ``kinds``: at the bottom the hydrology FLUX (-1e-7
+    m/s), DIRICHLET (0.30) or FREE_DRAINAGE, the energy (a dynamic one) FLUX
+    (0) or DIRICHLET (268-278 K), and under a plain top its energy FLUX or
+    DIRICHLET likewise (the top faces the surface exchange supplies keep
+    theirs); and per-column depths (a ``VariableDepthColumn``, kernel mode
+    B8) of 0.8-1.2 times the column's own where ``depth``.  Drawn from
+    ``default_rng(seed)``."""
+    from landhydrology_tpu_torch import BatchedBC, SoilColumnBC, SoilComponentBC, SoilEnergyModel, VariableDepthColumn
+
+    land = hasattr(model, "soil")
+    soil = model.soil if land else model
+    ncol, nz = soil.domain.batch_shape[0], soil.domain.nelements
+    rng = np.random.default_rng(seed)
+    tensor = lambda x: torch.as_tensor(x, dtype=soil.float_dtype, device=soil.device)  # noqa: E731
+    codes = lambda n: torch.as_tensor(rng.integers(0, n, ncol), device=soil.device)  # noqa: E731
+
+    def energy_kinds():
+        kind = codes(2)
+        return BatchedBC(kind=kind, value=torch.where(kind == 1, tensor(rng.uniform(268.0, 278.0, ncol)), tensor(0.0)))
+
+    if kinds:
+        bcs = soil.boundary_conditions
+        coupled = isinstance(soil.energy_model, SoilEnergyModel)
+        kind = codes(3)
+        water = BatchedBC(kind=kind, value=torch.where(kind == 1, tensor(0.30), tensor(-1e-7)))
+        bottom = SoilComponentBC(hydrology=water, energy=energy_kinds() if coupled else bcs.bottom.energy)
+        top = bcs.top
+        if isinstance(top, SoilComponentBC) and coupled:
+            top = dataclasses.replace(top, energy=energy_kinds())
+        soil = dataclasses.replace(soil, boundary_conditions=SoilColumnBC(top=top, bottom=bottom))
+    if depth:  # of the model's uniform Column
+        z_bottom, z_top = soil.domain.zlim
+        soil = dataclasses.replace(soil, domain=VariableDepthColumn(
+            z_bottom=z_top - (z_top - z_bottom) * rng.uniform(0.8, 1.2, ncol), z_top=z_top, nelements=nz,
+            batch_shape=(ncol,)))
+    return dataclasses.replace(model, soil=soil) if land else soil
+
+
+def land_columns_cases():
+    """19c's checks: ``(instance, stepper, rows)`` of each of
+    ``LAND_RK_MODES`` with per-column kinds and depths, the four explicit
+    steppers of ``COLUMNS_STEPPERS`` cycled over them (the cycle shifted by
+    one every four instances), and step-indexed forcing rows on every third:
+    each family (the surface modes, each policy, the water-only LandModel)
+    meets every stepper, and each stepper meets rows and none
+    (``tests/test_torch_chip_smoke_land_columns.py``)."""
+    return [(name, COLUMNS_STEPPERS[(i + i // 4) % 4], i % 3 == 0) for i, name in enumerate(LAND_RK_MODES)]
+
+
+def land_columns_checks(ck, costs, smi, dtype, device):
+    """19c and 19d: each of ``land_columns_cases`` (``cold_check`` with
+    ``columns``: 16a's steps from t0 = 5 s, 2 in f64 and 4 in f32, on 16a's
+    cold column or its water-only LandModel with ``with_columns``'s kinds
+    and depths; the freeze bars with freeze-thaw), then timed at width
+    (``land_rk_width``'s model with the same kinds and depths drawn for its
+    columns, dt at most half its explicit limit; ``time_at_width``:
+    ``COLUMNS_TIMED_STEPS`` steps, rows where the check has them, carrying
+    the model's own atmosphere and rain; the bound's MOST probes from the
+    plain version's ForwardEuler step on every ``COLD_PROBE_STRIDE``-th
+    column, its reads the per-column grid and kinds too).  Returns the
+    kernel records."""
+    from landhydrology_tpu_torch.diagnostics import explicit_dt_limit
+
+    gc = _load_golden_config()
+    base = build_freeze_wide(gc, dtype, device, None)
+    entries, lines = [], []
+    for name, stepper, rows in land_columns_cases():
+        err, shares, grown, melted, plain_ms, _ = cold_check(ck, name, dtype, device, rows=rows, tag="19c",
+                                                             stepper=stepper, columns=True)
+        model, Y0, dt, t0 = land_rk_width(gc, dtype, device, name, base)
+        model = with_columns(model, COLUMNS_SEED)
+        soil = getattr(model, "soil", model)
+        dt = min(dt, 0.5 * float(explicit_dt_limit(soil, {"soil": Y0["soil"]})))
+        ncol = Y0["soil"]["vartheta_l"].shape[1]
+        forcing = {} if rows else None
+        if rows and "-pond" not in name:
+            forcing["theta_atm"] = torch.full((COLUMNS_TIMED_STEPS, ncol), COLD_THETA_ATM, dtype=dtype, device=device)
+        if rows and soil is not model:
+            forcing["precipitation"] = torch.full((COLUMNS_TIMED_STEPS, ncol), 8e-6, dtype=dtype, device=device)
+        probes = None
+        if "-pond" not in name:
+            probes = cold_probes(ck, model, Y0, dt, _stepper("ForwardEuler"), 1)
+        run_name = f"{name}+kinds+B8{'+B7' if rows else ''}" + ("" if stepper == "SSPRK33" else f"@{stepper}")
+        entries.append(time_at_width(ck, costs, smi, model, Y0, _stepper(stepper), dt, t0, run_name, (err, plain_ms),
+                                     forcing, probes, COLUMNS_TIMED_STEPS, "19d",
+                                     f"19c: nz=16 x {COLD_NCOL}, {cold_steps(dtype)} steps"))
+        lines.append(f"{run_name} {err:.2e} ({_fmt(shares)}; ice grew in {grown}, melted in {melted})")
+        del model, Y0, forcing
+    del base
+    torch.cuda.empty_cache()
+    print(f"[19c land columns] {str(dtype)[6:]} {len(lines)} land instances with per-column BC kinds (bottom "
+          f"hydrology flux / Dirichlet / free drainage, energy flux / Dirichlet, and so a plain top's energy) and "
+          f"depths (0.8-1.2 of 2 m) under ForwardEuler, SSPRK22, SSPRK33 and SSPRK104 on {COLD_NCOL} columns at "
+          f"268-278 K with 0.02 of ice (the water-only ones T 270-275 K prescribed, no ice), {cold_steps(dtype)} "
+          f"steps of 2 s, a third with per-column forcing rows: kernel vs plain max abs (change error / largest "
+          f"change, bar {INCREMENT_RTOL[dtype]:g}; columns where theta_i changed): " + "; ".join(lines), flush=True)
+    return entries
+
+
+def land_columns_phase(ck, costs, smi, device, t_start):
+    """Phase 19: 19a catchment.py's storm at its regolith depth
+    (``storm_path`` with ``variable_depth``: ``DEPTH_STORM_PATHS``, the water
+    budget with each column's dz), 19b its ``--atmos`` soil there
+    (``ATMOS_STORM_PATHS``), 19c and 19d the 48 land instances with
+    per-column kinds and depths (``land_columns_checks``), f64 and f32.
+    Returns the kernel records."""
+    entries = []
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype)[6:]
+        for case in DEPTH_STORM_PATHS:
+            entries.append(storm_path(ck, costs, smi, dtype, device, case, variable_depth=True, tag="19a"))
+            torch.cuda.empty_cache()
+        for case in ATMOS_STORM_PATHS:
+            entries.append(storm_path(ck, costs, smi, dtype, device, case, variable_depth=True, atmos=True, tag="19b"))
+            torch.cuda.empty_cache()
+        _mark(t_start, f"phase 19a-b's {tag} storms")
+        entries += land_columns_checks(ck, costs, smi, dtype, device)
+        _mark(t_start, f"phase 19c-d's {tag} instances")
+    return entries
+
+
 def _fmt_ms(values):
     return "/".join(f"{v:.3f}" for v in values) + " ms"
 
@@ -5728,6 +6002,10 @@ def main() -> int:
                         help="run phases 1, 2 and 18 only (the explicit steppers under a MOST top and a LandModel, the "
                              "LandModel run files, the implicit steppers' policies on the water-only branch), with "
                              "phase 6's times of 18a's paths")
+    parser.add_argument("--land-columns-only", action="store_true",
+                        help="run phases 1, 2 and 19 only (per-column BC kinds and geometry in the land modes under "
+                             "every explicit stepper: catchment.py's storm at its regolith depth, the 48 column "
+                             "instances)")
     parser.add_argument("--grad-only", action="store_true",
                         help="run phases 1, 2 and 14 only (the gradient path, kernel modes B9 and B4 + step "
                              "policies, with the times of its B4 + policy instances)")
@@ -5800,6 +6078,11 @@ def main() -> int:
         rk_entries, rk_paths = land_rk_phase(ck, costs, smi, device, t_start)
         _mark(t_start, "phase 18")
         return finish(time_paths(ck, costs, smi, rk_paths) + rk_entries, smi, t_start)
+    if args.land_columns_only:
+        later.finish()
+        columns_entries = land_columns_phase(ck, costs, smi, device, t_start)
+        _mark(t_start, "phase 19")
+        return finish(columns_entries, smi, t_start)
     if args.land_only:
         land_paths = land_phase(ck, gc, device, smi)
         _mark(t_start, "phase 10")
@@ -5919,8 +6202,10 @@ def main() -> int:
             paths.append((model, Y0, DT, SPC, launches, err, SSPRK33()))
         for freeze in (FreezeThaw(tau=60.0), EquilibriumFreezeThaw()):
             model, Y0, Ya, dt = build_freeze_wide(gc, dtype, device, freeze)
+            short = dtype == torch.float64 or isinstance(freeze, FreezeThaw)
             kern, launches, err, _ = drive_path(ck, model, Y0, Ya, dt, FREEZE_STEPS, FREEZE_STEPS // 2,
-                                                "5 freeze", ("vartheta_l", "theta_i", "rho_e_int"))
+                                                "5 freeze", ("vartheta_l", "theta_i", "rho_e_int"),
+                                                plain_steps=FREEZE_STEPS // 2 if short else None)
             ice = float(np.max(kern["theta_i"]))
             if not ice > 1e-4:
                 raise AssertionError(f"freeze at width: no ice formed (max theta_i {ice})")
@@ -5947,8 +6232,8 @@ def main() -> int:
             paths.append((model, Y0, dt_imp, STIFF_STEPS, launches, err, st))
         n_exp = STIFF_STEPS * STIFF_FACTOR
         kern, launches, err, walls["explicit"] = drive_path(
-            ck, model, Y0, Ya, dt_exp, n_exp, STIFF_FACTOR, "8 stiff", ("vartheta_l",)
-        )
+            ck, model, Y0, Ya, dt_exp, n_exp, STIFF_FACTOR, "8 stiff", ("vartheta_l",), plain_steps=STIFF_FACTOR
+        )  # held by its first launch (phase 19's cut of plain launches: were all eight)
         paths.append((model, Y0, dt_exp, STIFF_FACTOR, launches, err, SSPRK33()))
         tag = str(dtype)[6:]
         for tridiag, v_imp in finals.items():
@@ -6039,6 +6324,10 @@ def main() -> int:
     forced_entries += rk_entries
     _mark(t_start, "phase 18")
 
+    # ---- 19: per-column BC kinds and geometry in the land modes, every explicit stepper ----
+    forced_entries += land_columns_phase(ck, costs, smi, device, t_start)
+    _mark(t_start, "phase 19")
+
     # ---- 6: times at the main-path shapes, in turns ----
     entries = time_paths(ck, costs, smi, paths)
     _mark(t_start, "phase 6")
@@ -6096,8 +6385,11 @@ def time_record(ck, costs, smi, model, Y0, dt, spc, stepper, launches, err, kern
         traffic = (f"; scratch and state traffic {values} values = {nbytes} B per cell-step, "
                    f"{1e3 * cell_steps * nbytes / HBM_BYTES_PER_S:.3f} ms at the HBM rate if none stayed in L2")
     count = "one sample" if len(samples) == 1 else f"{len(samples)} samples"
-    plain = (f"{'/'.join(f'{p:.3f}' for p in samples)} ms ({count}, "
-             f"{cell_steps / (plain_ms / 1e3):.4e} grid-points/s)")
+    plain_steps = _PATH_CHECKED_STEPS.get(_path_key(model, Y0, dt, spc, stepper), spc)
+    plain_at = None if plain_steps == spc else f"the path's check: nz={nz} x {ncol}, {plain_steps} steps"
+    plain = (f"{'/'.join(f'{p:.3f}' for p in samples)} ms ({count}"
+             + (f" of {plain_steps} steps" if plain_at else "")
+             + f", {nz * ncol * plain_steps / (plain_ms / 1e3):.4e} grid-points/s)")
     print(f"[{tag}] {str(dtype)[6:]} {name} {spc} steps nz={nz} ncol={ncol}: kernel {k1:.3f}/{k2:.3f} ms "
           f"({cell_steps / (ms / 1e3):.4e} grid-points/s), plain {plain}, bound {b_ms:.3f} ms by {b_by} "
           f"({b_ms / ms:.3f} of the kernel's time){traffic} on {smi}", flush=True)
@@ -6114,6 +6406,7 @@ def time_record(ck, costs, smi, model, Y0, dt, spc, stepper, launches, err, kern
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,  # no single PyTorch call computes these steps
+        **({"plain_at": plain_at} if plain_at else {}),
     }
 
 
@@ -6169,9 +6462,9 @@ def compare_with(parent, smi) -> None:
     unpacked ``git archive`` of the parent commit), each in a subprocess in
     turns (parent, this, this, parent), each building its own kernels: every
     instance the parent builds keeps its registers per thread (ptxas) here
-    but those of ``REPAIRED``; the land stage-table instances (``table:``)
-    have their registers and spill stores printed beside their SSPRK33
-    twins'; B1's and ``COMPARE_LAND``'s kernel times per 32-step launch at
+    but those of ``REPAIRED``; the new land stage-table instances
+    (``table:<mode>+kinds+B8``) have their registers and spill stores
+    printed beside the parent's twins without ``MODE_COLUMNS``; B1's and ``COMPARE_LAND``'s kernel times per 32-step launch at
     their widths (CUDA events, four samples per run, each of five launches
     or of 200 ms, whichever is longer) are within 2% of the parent's, f32
     and f64."""
@@ -6192,10 +6485,11 @@ def compare_with(parent, smi) -> None:
           f"{changed or 'none'}; spill stores changed {spills_changed or 'none'}; repaired (parent, here): "
           f"{repaired}; new: {new}", flush=True)
     tables = [k for k in new if ", table:" in k]
-    print(f"[compare] {len(tables)} land stage-table instances, registers / spill-store bytes (the parent's SSPRK33 "
-          "instance of the mode -> the table's): " + "; ".join(
-              f"{k.replace('table:', '')} {before.get(k.replace('table:', ''))}->{after[k]} / "
-              f"{spills_before.get(k.replace('table:', ''), 0)}->{spills_after.get(k, 0)}" for k in tables), flush=True)
+    print(f"[compare] {len(tables)} new land stage-table instances with MODE_COLUMNS, registers / spill-store bytes "
+          "(the parent's table instance of the mode without it -> this one): " + "; ".join(
+              f"{k} {before.get(k.replace('+kinds+B8', ''))}->{after[k]} / "
+              f"{spills_before.get(k.replace('+kinds+B8', ''), 0)}->{spills_after.get(k, 0)}" for k in tables),
+          flush=True)
     if changed:
         raise AssertionError(f"the parent's instances changed registers: {changed}")
     missed = []
@@ -6226,7 +6520,7 @@ class LaterBuild(threading.Thread):
     slower all the same (on an H100 host phase 3 took 62-78 s beside it, 28
     s without, also with the build kept off two of the eight CPUs), but
     less than the build would take in front of them.  ``finish`` (before
-    phases 16-18, and at the end) starts it if need be and waits for
+    phases 16-19, and at the end) starts it if need be and waits for
     it, once, loads its libraries and prints their build seconds, registers
     and spill stores.  Not a daemon: the interpreter waits for the build on
     an early exit."""

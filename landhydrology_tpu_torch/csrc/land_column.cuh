@@ -6,7 +6,11 @@
 // land_kernel.cu (SSPRK33) and land_rk_kernel.cu (the other steppers); the
 // surface modes with freeze-thaw or assume_no_ice (each alone or with lagged
 // coefficients), and the water-only LandModel with assume_no_ice, by
-// land_policy_kernel.cu and land_policy_rk_kernel.cu.
+// land_policy_kernel.cu and land_policy_rk_kernel.cu.  With per-column BC
+// kinds and geometry (MODE_COLUMNS) every one of these 48 modes runs the
+// stage table, all four explicit steppers, from land_columns_kernel.cu and
+// land_policy_columns_kernel.cu; land_kernel.cu keeps B5 and B6 with
+// MODE_COLUMNS under SSPRK33's fixed stages.
 //
 // Replaces landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run
 // where its body traces a MOST top face (B5: PrescribedAtmosForcing, the
@@ -52,7 +56,12 @@
 //                      and its lagged K (the profile at the step's start), no
 //                      rho_e_int; the exchange sees 288 K (surface_exchange),
 //                      as land.py does in a fused run, whose auxiliary state
-//                      carries no T.
+//                      carries no T;
+//   MODE_COLUMNS       per-column BC kinds (B1-batched) and geometry (B8):
+//                      the column's own dz, so also the pond's top half-cell
+//                      dzb, centers and prescribed profiles (load_grid,
+//                      load_profiles), and the kind of each BC_BATCHED slot
+//                      the exchange does not replace (column_kind).
 // B7 (column_kernel.py:413-475, :512-575, forcing_fields and
 // forcing_time_grid) is a row source, not a mode: the forced atmosphere
 // fields and the rain rate are read at the step's forcing row (the step, or
@@ -211,15 +220,16 @@ int launch(const KernelArgs* args, int block, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The surface modes each pair of sources instantiates with stepping K (the fixed SSPRK33 stages or the stage
-// table): B5 and B2+B5 on a soil column; B6 (with MOST) and B6-pond (a plain top BC), each with or without the
-// frozen exchange and lagged coefficients; B6-pond on a water-only soil (MODE_WATER) likewise.
-#define LAND_SURFACE_CASES(K)                                                                                 \
-  case MODE_MOST: return launch<T, MODE_MOST, K>(args, block, stream);                                        \
-  case MODE_MOST | MODE_LAGGED: return launch<T, MODE_MOST | MODE_LAGGED, K>(args, block, stream);            \
-  LAND_TOP_CASES(MODE_LAND | MODE_MOST, K)                                                                    \
-  LAND_TOP_CASES(MODE_LAND, K)                                                                                \
-  LAND_TOP_CASES(MODE_LAND | MODE_WATER, K)
+// The surface modes each source instantiates with stepping K (the fixed SSPRK33 stages or the stage table) and
+// the extra mode bit C (0, or MODE_COLUMNS: per-column BC kinds and geometry): B5 and B2+B5 on a soil column; B6
+// (with MOST) and B6-pond (a plain top BC), each with or without the frozen exchange and lagged coefficients;
+// B6-pond on a water-only soil (MODE_WATER) likewise.
+#define LAND_SURFACE_CASES(K, C)                                                                              \
+  case MODE_MOST | C: return launch<T, MODE_MOST | C, K>(args, block, stream);                                \
+  case MODE_MOST | MODE_LAGGED | C: return launch<T, MODE_MOST | MODE_LAGGED | C, K>(args, block, stream);    \
+  LAND_TOP_CASES(MODE_LAND | MODE_MOST | C, K)                                                                \
+  LAND_TOP_CASES(MODE_LAND | C, K)                                                                            \
+  LAND_TOP_CASES(MODE_LAND | MODE_WATER | C, K)
 #define LAND_TOP_CASES(S, K)                                                                                  \
   case S: return launch<T, S, K>(args, block, stream);                                                        \
   case S | MODE_SURFACE_STEP: return launch<T, S | MODE_SURFACE_STEP, K>(args, block, stream);                \
@@ -243,13 +253,14 @@ int launch(const KernelArgs* args, int block, void* stream) {
     return launch<T, S | MODE_WATER | MODE_NO_ICE | MODE_RHS_CAP, K>(args, block, stream);                    \
   case S | MODE_WATER | MODE_LAGGED | MODE_NO_ICE:                                                            \
     return launch<T, S | MODE_WATER | MODE_LAGGED | MODE_NO_ICE | MODE_RHS_CAP, K>(args, block, stream);
-#define LAND_ALL_POLICY_CASES(K)                                                                              \
-  LAND_POLICY_CASES(MODE_MOST, K)                                                                             \
-  LAND_POLICY_CASES(MODE_LAND | MODE_MOST, K)                                                                 \
-  LAND_POLICY_CASES(MODE_LAND | MODE_MOST | MODE_SURFACE_STEP, K)                                             \
-  LAND_POLICY_CASES(MODE_LAND, K)                                                                             \
-  LAND_POLICY_CASES(MODE_LAND | MODE_SURFACE_STEP, K)                                                         \
-  LAND_WATER_POLICY_CASES(MODE_LAND, K)                                                                       \
-  LAND_WATER_POLICY_CASES(MODE_LAND | MODE_SURFACE_STEP, K)
+// The 34 policy modes with stepping K and the extra mode bit C, as LAND_SURFACE_CASES.
+#define LAND_ALL_POLICY_CASES(K, C)                                                                           \
+  LAND_POLICY_CASES(MODE_MOST | C, K)                                                                         \
+  LAND_POLICY_CASES(MODE_LAND | MODE_MOST | C, K)                                                             \
+  LAND_POLICY_CASES(MODE_LAND | MODE_MOST | MODE_SURFACE_STEP | C, K)                                         \
+  LAND_POLICY_CASES(MODE_LAND | C, K)                                                                         \
+  LAND_POLICY_CASES(MODE_LAND | MODE_SURFACE_STEP | C, K)                                                     \
+  LAND_WATER_POLICY_CASES(MODE_LAND | C, K)                                                                   \
+  LAND_WATER_POLICY_CASES(MODE_LAND | MODE_SURFACE_STEP | C, K)
 
 }  // namespace

@@ -14,7 +14,7 @@ namespace {
 template <typename T>
 int dispatch(const KernelArgs* args, int block, void* stream) {
   switch (args->mode) {
-    LAND_SURFACE_CASES(false)
+    LAND_SURFACE_CASES(false, 0)
     case MODE_MOST | MODE_COLUMNS: return launch<T, MODE_MOST | MODE_COLUMNS, false>(args, block, stream);
     case MODE_LAND | MODE_MOST | MODE_COLUMNS:
       return launch<T, MODE_LAND | MODE_MOST | MODE_COLUMNS, false>(args, block, stream);

@@ -21,7 +21,7 @@ namespace {
 template <typename T>
 int dispatch(const KernelArgs* args, int block, void* stream) {
   switch (args->mode) {
-    LAND_ALL_POLICY_CASES(false)
+    LAND_ALL_POLICY_CASES(false, 0)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -19,7 +19,7 @@ template <typename T>
 int dispatch(const KernelArgs* args, int block, void* stream) {
   if (args->n_stages < 1 || args->n_stages > kMaxStages) return static_cast<int>(cudaErrorInvalidValue);
   switch (args->mode & ~int64_t(MODE_EULER | MODE_SSPRK22 | MODE_SSPRK104)) {
-    LAND_ALL_POLICY_CASES(true)
+    LAND_ALL_POLICY_CASES(true, 0)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

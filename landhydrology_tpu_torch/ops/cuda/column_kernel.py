@@ -3,7 +3,7 @@
 Replaces ``landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run``
 in its explicit modes, its implicit modes and its surface modes:
 ``steps_per_call`` steps of the soil (or land) tendency per launch, updating
-the state in place.  Nine CUDA sources share ``csrc/column_common.cuh``:
+the state in place.  Eleven CUDA sources share ``csrc/column_common.cuh``:
 
 - ``csrc/column_kernel.cu``: SSPRK33 (kernel modes B1, B2, B3), on the
   coupled, water-only or heat-only branch;
@@ -33,6 +33,10 @@ the state in place.  Nine CUDA sources share ``csrc/column_common.cuh``:
   of the two land sources (but ``MODE_COLUMNS``) under ForwardEuler, SSPRK22
   and SSPRK104, the stepper read at run time from the launch's stage table
   (:func:`stage_table`), as in ``csrc/rk_kernel.cu``;
+- ``csrc/land_columns_kernel.cu`` and ``csrc/land_policy_columns_kernel.cu``:
+  the same 48 land modes with per-column BC kinds and geometry
+  (``MODE_COLUMNS``) under all four explicit steppers from the stage table
+  (SSPRK33 in B5 and B6 keeps ``land_kernel.cu``'s fixed stages);
 - ``csrc/rk_kernel.cu``: ForwardEuler, SSPRK22 and SSPRK104 in every
   plain-soil mode of ``column_kernel.cu`` (kernel mode B1's remainder), and
   all four explicit steppers with lagged coefficients or ``assume_no_ice``
@@ -76,13 +80,17 @@ plain C interface at its first use (both float types in parallel;
   or ``streamed_geometry``, kernel mode B8) as a ``(ncol,)`` spacing and
   ``(nz, ncol)`` centers read in place.  Both are read at run time by the
   template instances with ``MODE_COLUMNS``, one beside each mode of
-  :data:`KINDS_MODES` and :data:`GEOMETRY_MODES` (the modes
-  ``chip_smoke.py`` holds them in; the others refuse them); the instances
-  without it read what they read before those modes, in fewer registers.
+  :data:`KINDS_MODES` and :data:`GEOMETRY_MODES` and beside each of the 48
+  land modes (:func:`takes_per_column`: ``csrc/land_columns_kernel.cu`` and
+  ``csrc/land_policy_columns_kernel.cu`` run all four explicit steppers from
+  the stage table, with forcing rows or without; the other modes refuse
+  them); the instances without it read what they read before those modes,
+  in fewer registers.
 
 The plain version, :func:`fused_column_run_plain`, is the same number of
 eager ``stepper.step`` calls, with the model's step policies wrapped around
-the stepper as ``Simulation`` wraps them.  A run on CPU tensors uses it; a
+the stepper as ``Simulation`` wraps them, on the run's grid (per-column with
+B8) and BCs.  A run on CPU tensors uses it; a
 run on CUDA tensors launches a kernel or raises.
 
 Every mode takes its step size at run time (kernel mode B1-dt):
@@ -107,10 +115,10 @@ from a state that holds none), the water-only Newton sweep with
 ``TemperatureDependentViscosity``, and the implicit steppers with a
 LandModel, which the reference kernel cannot run either (B4), per-column
 kinds or geometry outside the modes that hold them (so under ForwardEuler,
-SSPRK22 and SSPRK104 with a MOST top or a LandModel) or with forcing rows
-(B1-batched, B8).  Lateral coupling, pond routing, a per-column rain
-callable and a 2-D column batch raise ``ValueError``, as the JAX kernel's
-factory does; so does
+SSPRK22 and SSPRK104 on the plain soil and the branches, and with the
+implicit steppers' policies) or there with forcing rows (B1-batched, B8).
+Lateral coupling, pond routing, a per-column rain callable and a 2-D column
+batch raise ``ValueError``, as the JAX kernel's factory does; so does
 a non-differentiable run on CUDA state tensors that require grad in grad
 mode (the kernel writes them where autograd cannot see).
 """
@@ -212,6 +220,8 @@ SOURCES = {
     "land_policy_kernel": CSRC / "land_policy_kernel.cu",
     "land_rk_kernel": CSRC / "land_rk_kernel.cu",
     "land_policy_rk_kernel": CSRC / "land_policy_rk_kernel.cu",
+    "land_columns_kernel": CSRC / "land_columns_kernel.cu",
+    "land_policy_columns_kernel": CSRC / "land_policy_columns_kernel.cu",
     "rk_kernel": CSRC / "rk_kernel.cu",
 }
 #: a source's C entry points are ``<prefix>_f32`` and ``<prefix>_f64``; the
@@ -222,7 +232,8 @@ _ENTRY_PREFIX = {"column_kernel": "column_kernel_ssprk33", "implicit_kernel": "i
                  "implicit_most_kernel": "implicit_most_kernel", "implicit_branch_kernel": "implicit_branch_kernel",
                  "land_kernel": "land_kernel", "land_policy_kernel": "land_policy_kernel",
                  "land_rk_kernel": "land_rk_kernel", "land_policy_rk_kernel": "land_policy_rk_kernel",
-                 "rk_kernel": "rk_kernel"}
+                 "land_columns_kernel": "land_columns_kernel",
+                 "land_policy_columns_kernel": "land_policy_columns_kernel", "rk_kernel": "rk_kernel"}
 BUILD_DIR = _PACKAGE / "_build"
 #: ``-split-compile=0`` optimizes the template instances of a source in
 #: parallel on all host cores
@@ -257,9 +268,12 @@ SURFACE_NAMES = (
 BC_FLUX, BC_DIRICHLET, BC_FREE_DRAINAGE, BC_BATCHED = 1, 2, 3, 4
 _BC_KIND = {VerticalFlux: BC_FLUX, Dirichlet: BC_DIRICHLET, FreeDrainage: BC_FREE_DRAINAGE,
             BatchedBC: BC_BATCHED}
-#: the modes (:func:`mode_name`) that take per-column BC kinds (B1-batched)
-#: and per-column geometry (B8): those ``chip_smoke.py`` holds against the
-#: plain version
+#: the plain-soil and implicit modes (:func:`mode_name`, under SSPRK33 or the
+#: implicit stepper of the name) that take per-column BC kinds (B1-batched)
+#: and per-column geometry (B8), and B5 and B6 under SSPRK33: those
+#: ``chip_smoke.py`` holds in phase 12.  Every land mode (a MOST top or a
+#: LandModel) under an explicit stepper takes both too, with forcing rows or
+#: without (:func:`takes_per_column`; ``chip_smoke.py`` phase 19)
 KINDS_MODES = frozenset({"B1", "B1-water", "B2", "B3-rate", "B4-be-richards", "B4-be-richards-water",
                          "B4-trbdf2", "B4-trbdf2-water", "B5", "B6"})
 GEOMETRY_MODES = frozenset({"B1", "B1-water", "B2", "B4-be-richards", "B4-be-richards-water", "B4-trbdf2",
@@ -296,6 +310,10 @@ _STEPPER_NAMES = {MODE_TRBDF2: "B4-trbdf2", MODE_BE_RICHARDS: "B4-be-richards",
                   MODE_SSPRK104: "SSPRK104"}
 #: the policies of ``csrc/land_policy_kernel.cu`` (with or without MODE_LAGGED)
 _FREEZE_OR_NO_ICE = MODE_FREEZE_RATE | MODE_FREEZE_EQ | MODE_NO_ICE
+#: the land modes with MODE_COLUMNS whose SSPRK33 instance has fixed stages (``csrc/land_kernel.cu``: B5 and
+#: B6); the others, and these under the other steppers, run ``csrc/land_columns_kernel.cu`` and
+#: ``csrc/land_policy_columns_kernel.cu``
+_SSPRK33_COLUMNS = frozenset({MODE_MOST | MODE_COLUMNS, MODE_LAND | MODE_MOST | MODE_COLUMNS})
 #: ``enum StageKind`` of the header and its most stages per step
 STAGE_AXPY, STAGE_COMB, STAGE_SPLIT, STAGE_FINAL = 0, 1, 2, 3
 MAX_STAGES = 10
@@ -493,7 +511,11 @@ def _entry(mode: int, dtype) -> tuple:
     elif mode & MODE_IMPLICIT:
         name = "implicit_most_kernel" if mode & MODE_MOST and mode & _POLICY_BITS else "implicit_kernel"
     elif mode & (MODE_MOST | MODE_LAND):
-        name = ("land_policy" if mode & _FREEZE_OR_NO_ICE else "land") + ("_rk_kernel" if mode & MODE_RK else "_kernel")
+        name = "land_policy" if mode & _FREEZE_OR_NO_ICE else "land"
+        if mode & MODE_COLUMNS and (mode & MODE_RK or mode not in _SSPRK33_COLUMNS):
+            name += "_columns_kernel"  # every stepper from the stage table
+        else:
+            name += "_rk_kernel" if mode & MODE_RK else "_kernel"
     elif mode & MODE_RK or (mode & (MODE_WATER | MODE_HEAT) and mode & (MODE_LAGGED | MODE_NO_ICE)):
         name = "rk_kernel"
     else:
@@ -1432,11 +1454,27 @@ def _per_column_profiles(soil: SoilModel) -> bool:
         torch.broadcast_shapes((zc.shape[0], 1), torch.as_tensor(f(zc, t0)).shape) for f in fns))
 
 
+def takes_per_column(mode: int) -> bool:
+    """Whether ``mode`` (a mode word with its stepper's bits) takes
+    per-column BC kinds and geometry, with forcing rows or without: each of
+    the 48 land modes (a MOST top or a LandModel, each step policy, the
+    water-only LandModel) under an explicit stepper, whose ``MODE_COLUMNS``
+    instances are in ``csrc/land_columns_kernel.cu``,
+    ``csrc/land_policy_columns_kernel.cu`` and, for SSPRK33 in B5 and B6,
+    ``csrc/land_kernel.cu``."""
+    return bool(mode & (MODE_MOST | MODE_LAND)) and not mode & MODE_IMPLICIT
+
+
 def _check_per_column(model, stepper, streamed_geometry, forcing_fields) -> None:
-    """Refuse per-column kinds or geometry in a mode ``chip_smoke.py`` does
-    not hold them in, and with streamed forcing rows."""
+    """Refuse per-column kinds or geometry outside the land modes under the
+    explicit steppers (:func:`takes_per_column`) in a mode ``chip_smoke.py``
+    does not hold them in (:data:`KINDS_MODES`, :data:`GEOMETRY_MODES`), and
+    there with streamed forcing rows."""
     kinds, geometry = per_column_features(model, streamed_geometry)
-    name = mode_name(kernel_mode(model, stepper) & ~MODE_COLUMNS)
+    mode = kernel_mode(model, stepper) & ~MODE_COLUMNS
+    if takes_per_column(mode):
+        return
+    name = mode_name(mode)
     for used, modes, item, what in ((kinds, KINDS_MODES, "B1-batched", "per-column BC kinds (BatchedBC)"),
                                     (geometry, GEOMETRY_MODES, "B8", "per-column geometry")):
         if used and (name not in modes or forcing_fields):

@@ -21,6 +21,7 @@ after a short last step; JAX's own reruns from one-ulp moves of the initial
 state spread as far (``*_ulp_*`` of the golden).
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import jax.numpy as jnp

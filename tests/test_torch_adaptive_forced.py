@@ -8,6 +8,7 @@ held as ``test_torch_adaptive.py`` holds them (each JAX test's bars, the
 free run, the replay of JAX's iteration records).
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import numpy as np

@@ -15,6 +15,7 @@ version), and the drivers' state handling:
   inputs without JAX.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,7 @@ The kernels themselves run on the card: ``chip_smoke.py`` phase 13 holds
 them to these plain runs.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import jax

@@ -4,10 +4,12 @@ lagged coefficients and ``assume_no_ice`` on the plain soil
 (``csrc/implicit_kernel.cu``) through the kernel's plain version, against
 the JAX package's fused kernel in interpret mode.
 
-- The MOST column: ``test_torch_land_policies_b5.py``'s B5 soil (nz=16 x
-  256 under a cold atmosphere, 268-278 K with 0.02 of ice, rate freeze-thaw
-  at tau = 60 s), 2 steps of dt = 60 s from t0 = 30 s, iters=2, Thomas
-  solves, ``tile_cols=128``; each of ``TRBDF2Soil``, ``BackwardEulerSoil``
+- The MOST column: ``test_torch_land_policies_b5.py``'s B5 soil (nz=16
+  under a cold atmosphere, 268-278 K with 0.02 of ice, rate freeze-thaw at
+  tau = 60 s) on ``CHECK_NCOL`` columns in one tile (``FULL_CASES``: 256
+  in two tiles of 128), 2 steps of dt = 60 s from t0 = 30 s, iters=2, Thomas
+  solves, JAX's kernel of a case compiled once (``jax_kernel``, also for
+  the icy state); each of ``TRBDF2Soil``, ``BackwardEulerSoil``
   and ``BackwardEulerRichards`` with the seven policy settings (``+B2``,
   ``+B3-rate``, ``+B3-eq``, ``-no-ice``, ``+B2+B3-rate``, ``+B2+B3-eq``,
   ``-no-ice+B2``); TR-BDF2 with rate and with lagged equilibrium
@@ -30,7 +32,9 @@ against this plain version on the card in ``chip_smoke.py`` phase 17a; the
 ``cuda``-marked tests skip without a GPU.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -49,7 +53,10 @@ from landhydrology_tpu_torch.convert import model_from_reference, state_from_num
 from landhydrology_tpu_torch.convert import stepper_from_reference
 from landhydrology_tpu_torch.ops.cuda import column_kernel as ck
 from tests.data import golden_config as gc
-from tests.test_torch_land_policies_b5 import T0, assert_matches, cold_state, cuda_device, jax_model  # noqa: F401
+from tests.test_pallas_kernel import NCOL
+from tests.test_torch_land_policies_b5 import (  # noqa: F401
+    CHECK_NCOL, T0, assert_matches, cold_state, cuda_device, jax_model, tile_of,
+)
 from tests.test_torch_land_policies_rows import TIME_GRID, forcing_rows
 
 #: the policy settings: the mode name's suffix (before ``+B5``) and the soil's options
@@ -66,16 +73,19 @@ STEPPERS = {"trbdf2": JTRBDF2, "be-soil": JBES, "be-richards": JBER}
 DT, STEPS = 60.0, 2
 #: the settings with rows (TR-BDF2): step-indexed and time-indexed
 ROW_POLICIES = ("+B3-rate", "+B2+B3-eq")
+#: the MOST cases (stepper, policy) that keep test_pallas_kernel.py's 256 columns in two tiles of 128
+FULL_CASES = frozenset({("be-richards", "+B2")})
 
 
 def case_id(case):
     return "B4-" + "".join(str(p) for p in case[:2] if p) + ("+B5" if len(case) < 3 or case[2] else "")
 
 
-def most_soil(policy):
-    """The JAX MOST soil column of a policy setting: the B5 column of the
-    land policy tests without its own policy, then the setting's options."""
-    soil = jax_model("B5", "-no-ice", False)
+def most_soil(policy, ncol=NCOL):
+    """The JAX MOST soil column of a policy setting on ``ncol`` columns: the
+    B5 column of the land policy tests without its own policy, then the
+    setting's options."""
+    soil = jax_model("B5", "-no-ice", False, ncol)
     soil = dataclasses.replace(soil, assume_no_ice=False, freeze_thaw=None, coefficient_update="stage")
     return dataclasses.replace(soil, **POLICIES[policy])
 
@@ -97,24 +107,39 @@ def icy(jm, Y):
     return {"soil": {k: jnp.asarray(v) for k, v in soil.items()}}
 
 
+def case_model(stepper, policy, most=True):
+    """``(JAX model, start state, dt, steps)`` of a case: the MOST soil on
+    ``CHECK_NCOL`` columns (256 for ``FULL_CASES``), or the plain soil."""
+    if most:
+        jm = most_soil(policy, NCOL if (stepper, policy) in FULL_CASES else CHECK_NCOL)
+        return jm, cold_state(jm), DT, STEPS
+    return plain_soil()
+
+
+@functools.lru_cache(maxsize=None)
+def jax_kernel(stepper, policy, most=True, fields=(), time_grid=None):
+    """JAX's fused kernel of a case in interpret mode (one tile up to 128
+    columns), under ``jax.jit``: compiled once per process, also for the icy
+    state."""
+    jm, Y, dt, n = case_model(stepper, policy, most)
+    jst = STEPPERS[stepper](model=jm, grid=jax_grid(jm.domain, jnp.float64), iters=2)
+    return jax.jit(jax_fused(jm, jst, dt=dt, steps_per_call=n, tile_cols=tile_of(jm.domain.batch_shape[0]),
+                             interpret=True, forcing_fields=fields, forcing_time_grid=time_grid))
+
+
 def run_implicit_case(stepper, policy, most=True, icy_state=False, time_grid=None, rows=False):
     """JAX's fused kernel in interpret mode against the port's fused run (its
     plain version on the CPU) on one case; checks the mode name and the
     source, holds the port to JAX (``assert_matches``) and returns ``(JAX
     model, start state, JAX final state)``."""
-    if most:
-        jm, dt, n = most_soil(policy), DT, STEPS
-        Y = cold_state(jm)
-    else:
-        jm, Y, dt, n = plain_soil()
+    jm, Y, dt, n = case_model(stepper, policy, most)
     if icy_state:
         Y = icy(jm, Y)
     jst = STEPPERS[stepper](model=jm, grid=jax_grid(jm.domain, jnp.float64), iters=2)
-    forcing = forcing_rows("B5", n if time_grid is None else time_grid[2]) if rows else None
-    fields = tuple(forcing or ())
     ncol = jm.domain.batch_shape[0]
-    ref = jax_fused(jm, jst, dt=dt, steps_per_call=n, tile_cols=min(ncol, 128), interpret=True,
-                    forcing_fields=fields, forcing_time_grid=time_grid)(Y, T0, forcing=forcing)
+    forcing = forcing_rows("B5", n if time_grid is None else time_grid[2], ncol=ncol) if rows else None
+    fields = tuple(forcing or ())
+    ref = jax_kernel(stepper, policy, most, fields, time_grid)(Y, T0, forcing=forcing)
     model = model_from_reference(jm, device="cpu")
     run = ck.make_fused_column_run(model, stepper_from_reference(jst, model, device="cpu"), dt=dt,
                                    steps_per_call=n, forcing_fields=fields, forcing_time_grid=time_grid)

@@ -8,6 +8,7 @@ the JAX package's fused kernel in interpret mode (the cases and the bar:
 version on the card in ``chip_smoke.py`` phase 17a.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import pytest
 
 from tests.test_torch_b4_most_policies import case_id, cases, check_implicit_case, cuda_implicit_matches_plain

@@ -8,6 +8,7 @@ the JAX package's fused kernel in interpret mode (the cases and the bar:
 plain version on the card in ``chip_smoke.py`` phase 17a.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import pytest
 
 from tests.test_torch_b4_most_policies import ROW_POLICIES, check_implicit_case, cuda_implicit_matches_plain
@@ -46,9 +47,9 @@ def test_fused_engine_runs_the_implicit_policies_under_most():
     from landhydrology_tpu_torch.models.soil.freeze_thaw import PhaseEquilibriumStepper
     from landhydrology_tpu_torch.models.soil.lagged import LaggedCoefficientStepper
     from tests.test_torch_b4_most_policies import most_soil
-    from tests.test_torch_land_policies_b5 import cold_state
+    from tests.test_torch_land_policies_b5 import CHECK_NCOL, cold_state
 
-    jm = most_soil("+B2+B3-eq")
+    jm = most_soil("+B2+B3-eq", CHECK_NCOL)
     model = model_from_reference(jm, device="cpu")
     grid = make_function_space(model.domain, model.float_dtype, "cpu")
     kw = dict(Y_init=state_from_numpy(cold_state(jm), device="cpu"), Ya_init={"zc": grid.zc, "soil": {}},

@@ -21,6 +21,7 @@ The kernel itself is held against this plain version on the card, in
 ``chip_smoke.py`` phase 14b.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import jax.numpy as jnp

@@ -8,6 +8,7 @@ name, the same ``/``-joined keys, the time as ``__t``.  An interrupted save
 it; restores cast to the template's dtype.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import os
 
 import jax.numpy as jnp

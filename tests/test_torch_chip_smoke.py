@@ -12,6 +12,7 @@ builder at width and the operation counts behind each kernel's bound are
 checked too.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 import functools
 

@@ -12,6 +12,7 @@ steppers of ``csrc/rk_kernel.cu``) on the CPU, without a GPU.
   run's plain version (the same check the phase makes through the kernels).
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import importlib.util
 import json
 import math
@@ -89,7 +90,7 @@ def test_order_column_gives_the_orders_through_the_plain_version():
         run = ck.make_fused_column_run(model, cs._stepper(name), dt=cs.ORDER_HORIZON / n, steps_per_call=n)
         return cs._np(run(Y, 0.0))
 
-    ref = solve("SSPRK104", 4 * cs.ORDER_STEPS * cs.ORDER_REF)
+    ref = solve("SSPRK104", 2 * cs.ORDER_STEPS * cs.ORDER_REF)  # 16x the finest step: its error 1e-5 of theirs
     for p, name in ((1, "ForwardEuler"), (4, "SSPRK104")):
         errs = []
         for n in (2 * cs.ORDER_STEPS, 4 * cs.ORDER_STEPS):

@@ -10,6 +10,7 @@ form ice or a pond, close their water budgets and count their launches on
 narrow widths; 17e's records carry every key of the kernels line.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import numpy as np
@@ -131,10 +132,10 @@ def test_storm_builder_is_catchments_soil():
 
 
 def test_storm_path_ponds_and_closes_its_budget(plain_card, monkeypatch, capsys):  # noqa: F811
-    """17c on 16 x 16 columns with the plain version as the kernel, a
-    launch of 8 steps: one launch, a pond forms, the budget closes, the
-    record carries every key."""
-    monkeypatch.setattr(cs, "STORM_SIDE", 16)
+    """17c on 8 x 8 columns with the plain version as the kernel, a launch
+    of 8 steps: one launch, a pond forms, the budget closes, the record
+    carries every key."""
+    monkeypatch.setattr(cs, "STORM_SIDE", 8)
     monkeypatch.setattr(cs, "STORM_STRIDE", 4)
     monkeypatch.setattr(cs, "STORM_STEPS", 8)
     record = cs.storm_path(ck, COSTS, "smi", F64, "cpu", "B6-pond-water")
@@ -145,18 +146,18 @@ def test_storm_path_ponds_and_closes_its_budget(plain_card, monkeypatch, capsys)
 
 
 def test_cold_forced_path_forms_ice_and_closes_its_budget(plain_card, monkeypatch, tmp_path, capsys):  # noqa: F811
-    """17b on 256 columns in f32 with the plain version as the kernel, 24
+    """17b on 64 columns in f32 with the plain version as the kernel, 24
     steps: the forcing from a file in two windows, two launches, equal to
     the segment launch by launch, ice formed, the budget closed, the
     record's keys."""
     from landhydrology_tpu_torch.runtime import write_forcing
 
-    monkeypatch.setattr(cs, "FORCED_NCOL", 256)
-    monkeypatch.setattr(cs, "FORCED_STRIDE", 64)
+    monkeypatch.setattr(cs, "FORCED_NCOL", 64)
+    monkeypatch.setattr(cs, "FORCED_STRIDE", 16)
     monkeypatch.setattr(cs, "COLD_FORCED_STEPS", 24)
     monkeypatch.setattr(cs, "COLD_FORCED_WINDOW", 12)
     monkeypatch.setattr(cs, "FORCED_SPC", 12)
-    times, rows = cs.reanalysis_forcing(cs.COLD_FORCED_STEPS, 256, cs.FORCED_DT)
+    times, rows = cs.reanalysis_forcing(cs.COLD_FORCED_STEPS, 64, cs.FORCED_DT)
     rows["theta_atm"] = rows["theta_atm"] - np.float32(cs.COLD_FORCED_SHIFT)
     path = str(tmp_path / "forcing.bin")
     write_forcing(path, times, rows)

@@ -10,6 +10,7 @@ and closes its water budget on a narrow width; 16c's record carries every
 key of the kernels line.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import numpy as np
@@ -109,13 +110,16 @@ def test_cold_check_fails_a_kernel_that_drops_the_phase_change(plain_card, monke
 
 
 def test_cold_path_forms_ice_and_closes_the_water_budget(plain_card, monkeypatch, capsys):  # noqa: F811
-    """16b on 64 columns with the plain version as the kernel: ice forms,
-    the budget closes, the record carries every key, the launch is counted
-    and the MOST probes come from the sampled columns."""
-    monkeypatch.setattr(cs, "NCOL", 64)
-    monkeypatch.setattr(cs, "COLD_PROBE_STRIDE", 16)
+    """16b on 16 columns with the plain version as the kernel: ice forms,
+    the budget closes, the record carries every key (and, the production
+    path held by a shorter launch since phase 19, its check's ``plain_at``),
+    the launch is counted and the MOST probes come from the sampled
+    columns."""
+    monkeypatch.setattr(cs, "NCOL", 16)
+    monkeypatch.setattr(cs, "COLD_PROBE_STRIDE", 4)
     record = cs.cold_path(ck, cs._load_golden_config(), COSTS, "smi", F64, "cpu", "B2+B6-step+B3-rate")
-    assert set(record) == KEYS and record["launches"] == 1 and record["max_abs_err"] == 0.0
+    assert set(record) - {"plain_at"} == KEYS and record["launches"] == 1 and record["max_abs_err"] == 0.0
+    assert record["plain_at"] == f"the path's check: nz={cs.NZ} x 16, {cs.COLD_TIMED_STEPS} steps"
     assert record["name"] == "land_column_kernel<f64, B2+B6-step+B3-rate>"
     assert record["source"] == "landhydrology_tpu_torch/csrc/land_policy_kernel.cu"
     out = capsys.readouterr().out

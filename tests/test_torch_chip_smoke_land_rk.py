@@ -12,6 +12,7 @@ the CLI and equal a straight ``Simulation`` bit for bit; the bound counts
 one surface exchange and one pond tendency per stage of the stepper.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import contextlib
 import io
 import json

@@ -12,6 +12,7 @@ LandModel on the eager engine.  ``describe`` and ``example`` print the JAX
 package's text (``describe`` adds the port's device line).
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import contextlib
 import copy
 import io

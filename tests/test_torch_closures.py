@@ -3,6 +3,7 @@ float64 on seeded numpy grids, including the clamp edges: S -> 1, S > 1,
 S -> 0, theta_w -> 0 and theta_i on both sides of eps.  Bar: rtol 1e-13
 (the eager f64 bar of the port)."""
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import math
 
 import jax.numpy as jnp

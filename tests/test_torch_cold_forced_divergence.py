@@ -29,6 +29,7 @@ version (what phase 17b holds the kernel to), ``STEPS`` rows:
   unstable).
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import jax.numpy as jnp

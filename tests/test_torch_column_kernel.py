@@ -9,6 +9,7 @@ times, the argument struct, the modes, the checks) are tested here too.
 Tests marked ``cuda`` launch the CUDA kernels and skip without a GPU.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import ctypes
 import dataclasses
 import re

@@ -13,6 +13,7 @@ against the JAX package's ``config.py``.
   trips; callables raise ``TypeError`` as in the JAX package.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 import inspect
 import json

@@ -11,6 +11,7 @@ against the JAX package's (``landhydrology_tpu/runtime/forcing.py``).
   raises with the compiler's output.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import threading
 
 import numpy as np

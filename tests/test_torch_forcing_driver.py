@@ -19,6 +19,7 @@ package's ``runtime/forcing_driver.py``.
   its plain version and the golden.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import jax
@@ -361,8 +362,9 @@ def test_per_column_rain_streams_as_rows_but_not_as_a_callable():
 
 def test_unported_forced_combinations_raise_naming_their_item():
     """Freeze-thaw and no ice take forcing rows under MOST and a LandModel,
-    under the other explicit steppers too; per-column geometry with rows
-    (B8) stays refused."""
+    under the other explicit steppers too, and so does per-column geometry;
+    per-column geometry with rows under the implicit steppers (B8) stays
+    refused."""
     from landhydrology_tpu_torch.timestepping import SSPRK104
 
     jm, jY, jYa = _soil_case()
@@ -376,8 +378,14 @@ def test_unported_forced_combinations_raise_naming_their_item():
     make_forced_segment_run(no_ice, SSPRK104(), field_names=("precipitation",), engine="fused")
     run = ck.make_fused_column_run(no_ice, SSPRK104(), forcing_fields=("precipitation",))
     assert run.name == "B6-no-ice+B7@SSPRK104"
+    grid = make_function_space(model.domain, F64, "cpu")
+    ncol = model.domain.batch_shape[0]
+    geometry = (torch.full((ncol,), 0.1, dtype=F64), grid.zc.expand(-1, ncol).contiguous())
+    run = ck.make_fused_column_run(frozen, SSPRK104(), forcing_fields=("u_atm",), streamed_geometry=geometry)
+    assert run.name == "B5+B3-rate+B8+B7@SSPRK104"
     with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        ck.make_fused_column_run(model, forcing_fields=("u_atm",), streamed_geometry=(1.0, 1.0))
+        ck.make_fused_column_run(model, TRBDF2Soil(model=model, grid=grid), forcing_fields=("u_atm",),
+                                 streamed_geometry=geometry)
 
 
 def test_kernel_args_carry_the_rows():

@@ -17,6 +17,7 @@ the port in float64:
 Tests marked ``cuda`` launch the CUDA kernel and skip without a GPU.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import jax.numpy as jnp

@@ -28,6 +28,7 @@ the JAX package.
   the differences there.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import jax

@@ -30,6 +30,7 @@ same everywhere: the step-by-step replay of the plain version under
   state that requires grad raises, and B9's forward is the kernel.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import numpy as np

@@ -18,6 +18,7 @@ and the fused run's plain version), f64 at rtol 1e-12 / atol 1e-15:
   with stage and lagged coefficients, and the fused engine's refusal.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 import re
 

@@ -15,6 +15,7 @@
 - ``stages``, ``stage_times`` and ``convert.stepper_from_reference``.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 import math
 

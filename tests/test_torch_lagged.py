@@ -16,6 +16,7 @@ The same inputs go through the JAX package and the port in float64:
 Tests marked ``cuda`` launch the CUDA kernel and skip without a GPU.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import jax.numpy as jnp

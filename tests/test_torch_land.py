@@ -13,6 +13,7 @@ against the JAX package.
 - ``model_from_reference`` of a JAX LandModel, and the fused run's refusals.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import jax

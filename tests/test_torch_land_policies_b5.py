@@ -8,12 +8,17 @@ tops are in ``test_torch_land_policies_b6.py`` and
 ``test_torch_land_policies_pond.py`` (split so that xdist spreads the
 interpret-mode runs, 1-5 s each here).
 
-- The column: ``test_pallas_kernel.py``'s soil (nz=16 x 256) under a cold
-  MOST atmosphere (273.15 K, within 5.2 K of every column), the LandModel of
+- The column: ``test_pallas_kernel.py``'s soil (nz=16) under a cold MOST
+  atmosphere (273.15 K, within 5.2 K of every column), the LandModel of
   ``test_torch_land.py::_jax_land`` around it; the state 268-278 K and 0.20-
   0.30 wet by column with 0.02 of ice everywhere, so the cold columns freeze
   and the warm ones thaw; a pond of 0-2e-4 m.  2 steps of dt = 2 s from t0 =
-  30 s, ``tile_cols=128``, f64.
+  30 s, f64.  ``CHECK_NCOL`` columns in one tile (JAX's kernel in interpret
+  mode costs its trace and compile, the port's plain version grows with the
+  columns); the cases of ``FULL_CASES`` keep ``test_pallas_kernel.py``'s 256
+  columns in two tiles of 128, so that a tile or stride fault still shows.
+  JAX's kernel of a case is compiled once (``jax_kernel``), also where it
+  runs on a second state.
 - The bar: rtol 1e-12 (atol 1e-16, the pond 1e-18).  Under
   ``EquilibriumFreezeThaw`` the projection's bisection resolves T to
   adjacent floating-point numbers, and JAX's pow and exp round apart from
@@ -30,7 +35,9 @@ The kernel itself is held against this plain version on the card in
 ``chip_smoke.py`` phase 16a; the ``cuda``-marked tests skip without a GPU.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -64,6 +71,21 @@ TOPS = ("B5", "B6", "B6-step", "B6-pond", "B6-step-pond")
 DT, STEPS, T0 = 2.0, 2, 30.0
 #: the most cells an equilibrium case may hold within the ulp allowance alone
 EQ_CELLS = 4
+#: the columns of a check, one tile; the cases (top, policy, lagged) that keep the 256 columns of
+#: test_pallas_kernel.py in two tiles
+CHECK_NCOL = 64
+FULL_CASES = frozenset({("B5", "+B3-rate", False), ("B6", "+B3-rate", False)})
+
+
+def case_ncol(top, policy, lagged):
+    """The columns of a case's check: ``NCOL`` for ``FULL_CASES``, else
+    ``CHECK_NCOL``."""
+    return NCOL if (top, policy, lagged) in FULL_CASES else CHECK_NCOL
+
+
+def tile_of(ncol):
+    """The JAX kernel's tile: the whole batch up to 128 columns, else 128."""
+    return ncol if ncol <= 128 else 128
 
 
 def soil_of(jm):
@@ -86,10 +108,10 @@ def case_id(case):
     return mode_of(*case)
 
 
-def jax_model(top, policy, lagged):
-    """The JAX model of a case: the B5 soil column, or a LandModel with a
-    MOST top or (``-pond``) the soil's zero-flux top, its exchange per
-    stage or (``-step``) frozen per step."""
+def jax_model(top, policy, lagged, ncol=NCOL):
+    """The JAX model of a case on ``ncol`` columns: the B5 soil column, or a
+    LandModel with a MOST top or (``-pond``) the soil's zero-flux top, its
+    exchange per stage or (``-step``) frozen per step."""
     most = not top.endswith("-pond")
     jm = _jax_land(most=most, surface_update="step" if "-step" in top else "stage",
                    coefficient_update="step" if lagged else "stage")
@@ -97,7 +119,7 @@ def jax_model(top, policy, lagged):
     if most:
         soil = dataclasses.replace(soil, boundary_conditions=dataclasses.replace(
             soil.boundary_conditions, top=JAtmos(**COLD_ATMOS)))
-    soil = dataclasses.replace(soil, **POLICIES[policy])
+    soil = dataclasses.replace(soil, domain=dataclasses.replace(soil.domain, batch_shape=(ncol,)), **POLICIES[policy])
     return soil if top == "B5" else dataclasses.replace(jm, soil=soil)
 
 
@@ -107,19 +129,31 @@ def cold_state(jm, icy=False):
     lower half of the column."""
     land = hasattr(jm, "surface")
     soil = soil_of(jm)
-    col = np.linspace(0.0, 1.0, NCOL)[None]
-    theta = np.array(np.broadcast_to(0.20 + 0.1 * col, (NZ, NCOL)))
-    ice = np.full((NZ, NCOL), 0.02)
+    ncol = soil.domain.batch_shape[0]
+    col = np.linspace(0.0, 1.0, ncol)[None]
+    theta = np.array(np.broadcast_to(0.20 + 0.1 * col, (NZ, ncol)))
+    ice = np.full((NZ, ncol), 0.02)
     if icy:
         ice[: NZ // 2] = 0.05
         theta[: NZ // 2] = float(soil.soil_param_set.nu) - 0.02
-    T = np.broadcast_to(268.0 + 10.0 * col, (NZ, NCOL))
+    T = np.broadcast_to(268.0 + 10.0 * col, (NZ, ncol))
     rho_c_s = volumetric_heat_capacity(theta, ice, soil.soil_param_set.rho_c_ds, jps)
     Y = {"soil": {"vartheta_l": jnp.asarray(theta), "theta_i": jnp.asarray(ice),
                   "rho_e_int": jnp.asarray(volumetric_internal_energy(ice, rho_c_s, T, jps))}}
     if land:
-        Y["surface"] = {"h_s": jnp.asarray(np.linspace(0.0, 2e-4, NCOL))}
+        Y["surface"] = {"h_s": jnp.asarray(np.linspace(0.0, 2e-4, ncol))}
     return Y
+
+
+@functools.lru_cache(maxsize=None)
+def jax_kernel(top, policy, lagged, ncol, fields=(), time_grid=None):
+    """JAX's fused kernel of a case (its model on ``ncol`` columns, SSPRK33,
+    ``STEPS`` steps of ``DT``, ``fields`` streamed on ``time_grid``) in
+    interpret mode over ``tile_of(ncol)``, under ``jax.jit``: compiled once
+    per process, also for a second start state."""
+    jm = jax_model(top, policy, lagged, ncol)
+    return jax.jit(jax_fused(jm, JSSPRK33(), dt=DT, steps_per_call=STEPS, tile_cols=tile_of(ncol), interpret=True,
+                             forcing_fields=fields, forcing_time_grid=time_grid))
 
 
 def ulp_allowance(soil):
@@ -162,9 +196,10 @@ def run_case(top, policy, lagged, icy=False):
     plain version on the CPU) on a case; returns ``(JAX model, start state,
     JAX final state, port run)`` after holding the port to JAX
     (``assert_matches``) and checking the run's mode name."""
-    jm = jax_model(top, policy, lagged)
+    ncol = case_ncol(top, policy, lagged)
+    jm = jax_model(top, policy, lagged, ncol)
     Y = cold_state(jm, icy)
-    ref = jax_fused(jm, JSSPRK33(), dt=DT, steps_per_call=STEPS, tile_cols=128, interpret=True)(Y, T0)
+    ref = jax_kernel(top, policy, lagged, ncol)(Y, T0)
     model = model_from_reference(jm, device="cpu")
     run = ck.make_fused_column_run(model, SSPRK33(), dt=DT, steps_per_call=STEPS)
     assert run.name == mode_of(top, policy, lagged)
@@ -216,9 +251,11 @@ def test_mode_words_names_and_scratch():
 def _refused(case):
     """``(message pattern, the call that raises NotImplementedError)`` of
     one refusal the policy slices keep."""
-    from landhydrology_tpu_torch import BatchedBC, PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC
+    from landhydrology_tpu_torch import (
+        BatchedBC, PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC, VerticalFlux,
+    )
     from landhydrology_tpu_torch.domains import make_function_space
-    from landhydrology_tpu_torch.imex import TRBDF2Soil
+    from landhydrology_tpu_torch.imex import BackwardEulerSoil, TRBDF2Soil
     from landhydrology_tpu_torch.models.soil.water import TemperatureDependentViscosity
     from landhydrology_tpu_torch.timestepping import SSPRK104, ForwardEuler
 
@@ -231,45 +268,43 @@ def _refused(case):
         pond.soil, energy_model=PrescribedTemperatureModel(), assume_no_ice=False))
     bottom_kinds = SoilComponentBC(hydrology=BatchedBC(kind=torch.zeros(NCOL, dtype=torch.int64)))
     water_soil = water.soil
-    if case == "rows_most":  # another explicit stepper with forcing rows under MOST, with per-column kinds
-        bcs = soil.boundary_conditions
-        kinds = dataclasses.replace(soil, boundary_conditions=SoilColumnBC(top=bcs.top, bottom=SoilComponentBC(
-            energy=bcs.bottom.energy, hydrology=BatchedBC(kind=torch.zeros(NCOL, dtype=torch.int64)))))
-        return r"in mode B5\+B3-rate@SSPRK104.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(
-            kinds, SSPRK104(), forcing_fields=("theta_atm",))
-    if case == "rows_land":  # per-column geometry in a policy mode, with rain rows
-        return r"in mode B6-no-ice.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
-            land, streamed_geometry=geometry, forcing_fields=("precipitation",))
-    if case == "kinds":
-        bcs = soil.boundary_conditions
-        kinds = dataclasses.replace(soil, boundary_conditions=SoilColumnBC(top=bcs.top, bottom=SoilComponentBC(
-            energy=bcs.bottom.energy, hydrology=BatchedBC(kind=torch.zeros(NCOL, dtype=torch.int64)))))
-        return r"in mode B5\+B3-rate.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(kinds)
-    if case == "kinds_water_land":  # per-column kinds on the water-only LandModel
-        kinds = dataclasses.replace(water, soil=dataclasses.replace(water_soil, boundary_conditions=SoilColumnBC(
-            top=water_soil.boundary_conditions.top, bottom=bottom_kinds)))
-        return r"in mode B6-pond-water.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(kinds)
-    if case == "geometry":
-        return r"in mode B6-no-ice.*ROADMAP B8\)", lambda: ck.make_fused_column_run(land, streamed_geometry=geometry)
+    bcs = soil.boundary_conditions
+    kinds = dataclasses.replace(soil, boundary_conditions=SoilColumnBC(top=bcs.top, bottom=SoilComponentBC(
+        energy=bcs.bottom.energy, hydrology=BatchedBC(kind=torch.zeros(NCOL, dtype=torch.int64)))))
+    plain_top = SoilComponentBC(hydrology=VerticalFlux(0.0), energy=VerticalFlux(0.0))
+    plain = dataclasses.replace(soil, boundary_conditions=SoilColumnBC(top=plain_top, bottom=bcs.bottom))
+    water_kinds = dataclasses.replace(water_soil, boundary_conditions=SoilColumnBC(
+        top=water_soil.boundary_conditions.top, bottom=bottom_kinds))
+    if case == "rows_most":  # the implicit steppers under MOST with forcing rows and per-column kinds
+        return r"in mode B4-trbdf2\+B3-rate\+B5.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(
+            kinds, TRBDF2Soil(model=kinds, grid=grid), forcing_fields=("theta_atm",))
+    if case == "rows_land":  # per-column geometry in an implicit policy mode under MOST, with rows
+        return r"in mode B4-be-soil\+B3-rate\+B5.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
+            soil, BackwardEulerSoil(model=soil, grid=grid), streamed_geometry=geometry, forcing_fields=("theta_atm",))
+    if case == "kinds":  # per-column kinds under an implicit stepper with a policy, under MOST
+        return r"in mode B4-be-soil\+B3-rate\+B5.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(
+            kinds, BackwardEulerSoil(model=kinds, grid=grid))
+    if case == "kinds_water_land":  # per-column kinds on the water-only soil with no ice, no LandModel
+        no_ice = dataclasses.replace(water_kinds, assume_no_ice=True)
+        return r"in mode B1-water-no-ice.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(no_ice)
+    if case == "geometry":  # per-column geometry on the plain soil with rate freeze-thaw
+        return r"in mode B3-rate.*ROADMAP B8\)", lambda: ck.make_fused_column_run(plain, streamed_geometry=geometry)
     if case == "geometry_implicit_most":  # per-column geometry under an implicit stepper with a policy
         return r"in mode B4-trbdf2\+B3-rate\+B5.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
             soil, TRBDF2Soil(model=soil, grid=grid), streamed_geometry=geometry)
-    if case == "explicit_stepper":  # a LandModel under another explicit stepper, with per-column geometry
-        return r"in mode B6-no-ice@SSPRK104.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
-            land, SSPRK104(), streamed_geometry=geometry)
-    if case == "water_only_land":  # the water-only LandModel under another explicit stepper, with kinds
-        kinds = dataclasses.replace(water, soil=dataclasses.replace(water_soil, boundary_conditions=SoilColumnBC(
-            top=water_soil.boundary_conditions.top, bottom=bottom_kinds)))
-        return r"in mode B6-pond-water@ForwardEuler.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(
-            kinds, ForwardEuler())
+    if case == "explicit_stepper":  # the plain soil under another explicit stepper, with per-column geometry
+        return r"in mode B3-rate@SSPRK104.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
+            plain, SSPRK104(), streamed_geometry=geometry)
+    if case == "water_only_land":  # the water-only soil under another explicit stepper, with kinds
+        return r"in mode B1-water@ForwardEuler.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(
+            water_kinds, ForwardEuler())
     if case == "implicit_under_most":  # the MOST soil's column, water-only, lagged: with per-column geometry
         branch = dataclasses.replace(water_soil, coefficient_update="step")
         return r"in mode B4-trbdf2-water\+B2.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
             branch, TRBDF2Soil(model=branch, grid=grid), streamed_geometry=geometry)
     if case == "implicit_heat_branch":  # the policies on the heat-only branch, which JAX's kernel cannot run
-        from landhydrology_tpu_torch import PrescribedHydrologyModel, VerticalFlux
+        from landhydrology_tpu_torch import PrescribedHydrologyModel
 
-        bcs = soil.boundary_conditions
         branch = dataclasses.replace(soil, hydrology_model=PrescribedHydrologyModel(), freeze_thaw=None,
                                      assume_no_ice=True, boundary_conditions=SoilColumnBC(
                                          top=SoilComponentBC(energy=VerticalFlux(0.0)),
@@ -292,15 +327,16 @@ def _refused(case):
                                   "water_only_land"])
 def test_refusal_names_its_roadmap_item(case):
     """What stays refused, each a ``NotImplementedError`` naming its ROADMAP
-    item: per-column BC kinds or geometry in the policy modes and the
-    water-only LandModel, with forcing rows or not, and so under the other
-    explicit steppers (B1-batched, B8); the implicit steppers with the
-    policies on the heat-only branch, the water-only sweep with
-    ``TemperatureDependentViscosity``, and a LandModel, which the reference
-    kernel cannot run either (B4).  (The cases ``rows_most``,
-    ``rows_land``, ``explicit_stepper``, ``implicit_under_most`` and
-    ``water_only_land`` named refusals that are now ported; they hold their
-    neighbours that stay.)"""
+    item: per-column BC kinds or geometry under the implicit steppers with a
+    policy, with forcing rows or not, and on the plain and water-only soil
+    in the modes that do not take them (B1-batched, B8); the implicit
+    steppers with the policies on the heat-only branch, the water-only sweep
+    with ``TemperatureDependentViscosity``, and a LandModel, which the
+    reference kernel cannot run either (B4).  (The cases ``rows_most``,
+    ``rows_land``, ``kinds``, ``kinds_water_land``, ``geometry``,
+    ``explicit_stepper``, ``implicit_under_most`` and ``water_only_land``
+    named refusals that are now ported; they hold their neighbours that
+    stay.)"""
     pattern, call = _refused(case)
     with pytest.raises(NotImplementedError, match=pattern):
         call()

@@ -7,6 +7,7 @@ bar: ``test_torch_land_policies_b5.py``).  The kernel is held against this
 plain version on the card in ``chip_smoke.py`` phase 16a.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import pytest
 
 from tests.test_torch_land_policies_b5 import case_id, cases, check_case, cuda_device, cuda_matches_plain  # noqa: F401

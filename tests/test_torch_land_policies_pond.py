@@ -9,6 +9,7 @@ for the eager engine.  The kernel is held against this plain version on the
 card in ``chip_smoke.py`` phase 16a.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import numpy as np
 import pytest
 import torch

@@ -5,8 +5,9 @@ rows (kernel mode B7 as a row source of the 30 instances of
 the JAX package's fused kernel in interpret mode.
 
 - The cases and the bar are ``test_torch_land_policies_b5.py``'s (the cold
-  column, 2 steps of 2 s from t0 = 30 s, f64 rtol 1e-12, the equilibrium
-  cases within the ulp allowance of ``assert_matches``).
+  column on ``case_ncol`` columns, JAX's kernel compiled once per case, 2
+  steps of 2 s from t0 = 30 s, f64 rtol 1e-12, the equilibrium cases within
+  the ulp allowance of ``assert_matches``).
 - The rows: per-column ``theta_atm`` within 8 K of 273.15 K under a MOST
   top, and per-column rain rows (0-1.2e-5 m/s) on a LandModel, one row per
   step (``+B7``); on the MOST tops' rate instances also time-indexed rows,
@@ -20,19 +21,18 @@ The kernel itself is held against this plain version on the card in
 ``chip_smoke.py`` phase 17a; the ``cuda``-marked tests skip without a GPU.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import jax
 import numpy as np
 import pytest
 import torch
 
-from landhydrology_tpu.ops.pallas import make_fused_column_run as jax_fused
-from landhydrology_tpu.timestepping import SSPRK33 as JSSPRK33
 from landhydrology_tpu_torch.convert import model_from_reference, state_from_numpy, state_to_numpy
 from landhydrology_tpu_torch.ops.cuda import column_kernel as ck
 from landhydrology_tpu_torch.timestepping import SSPRK33
 from tests.test_pallas_kernel import NCOL
 from tests.test_torch_land_policies_b5 import (  # noqa: F401
-    DT, STEPS, T0, assert_matches, case_id, cases, cold_state, cuda_device, jax_model, soil_of,
+    DT, STEPS, T0, assert_matches, case_id, case_ncol, cases, cold_state, cuda_device, jax_kernel, jax_model, soil_of,
 )
 
 #: the time grid of the time-indexed cases: steps at t0 and t0 + DT read rows 0 and 1
@@ -41,16 +41,16 @@ TIME_GRID = (29.2, 1.5, 3)
 TIME_CASES = [(top, "+B3-rate", False) for top in ("B5", "B6", "B6-step")]
 
 
-def forcing_rows(top, n_rows, seed=23):
+def forcing_rows(top, n_rows, seed=23, ncol=NCOL):
     """The rows of a case: per-column ``theta_atm`` within 8 K of 273.15 K
-    under a MOST top, per-column rain under a LandModel (``(n_rows, NCOL)``
+    under a MOST top, per-column rain under a LandModel (``(n_rows, ncol)``
     each)."""
     rng = np.random.default_rng(seed)
     rows = {}
     if not top.endswith("-pond"):
-        rows["theta_atm"] = 273.15 + 8.0 * (2.0 * rng.random((n_rows, NCOL)) - 1.0)
+        rows["theta_atm"] = 273.15 + 8.0 * (2.0 * rng.random((n_rows, ncol)) - 1.0)
     if top != "B5":
-        rows["precipitation"] = 1.2e-5 * rng.random((n_rows, NCOL))
+        rows["precipitation"] = 1.2e-5 * rng.random((n_rows, ncol))
     return rows
 
 
@@ -59,12 +59,12 @@ def run_rows_case(top, policy, lagged, icy=False, time_grid=None):
     plain version on the CPU) on a case with its rows, step-indexed or on
     ``time_grid``; holds the port to JAX (``assert_matches``) and checks the
     run's name.  Returns ``(JAX model, start state, JAX final state)``."""
-    jm = jax_model(top, policy, lagged)
+    ncol = case_ncol(top, policy, lagged)
+    jm = jax_model(top, policy, lagged, ncol)
     Y = cold_state(jm, icy)
-    rows = forcing_rows(top, STEPS if time_grid is None else time_grid[2])
+    rows = forcing_rows(top, STEPS if time_grid is None else time_grid[2], ncol=ncol)
     fields = tuple(rows)
-    ref = jax_fused(jm, JSSPRK33(), dt=DT, steps_per_call=STEPS, tile_cols=128, interpret=True,
-                    forcing_fields=fields, forcing_time_grid=time_grid)(Y, T0, forcing=rows)
+    ref = jax_kernel(top, policy, lagged, ncol, fields, time_grid)(Y, T0, forcing=rows)
     model = model_from_reference(jm, device="cpu")
     run = ck.make_fused_column_run(model, SSPRK33(), dt=DT, steps_per_call=STEPS, forcing_fields=fields,
                                    forcing_time_grid=time_grid)

@@ -8,6 +8,7 @@ policy on the fused engine against the eager one.  The kernel is held
 against this plain version on the card in ``chip_smoke.py`` phase 17a.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import numpy as np
 import pytest
 

@@ -5,8 +5,10 @@ and a LandModel (kernel modes B5 and B6 with the stage table of
 kernel in interpret mode tracing the same stepper.
 
 - The cases and the bar are ``test_torch_land_policies_b5.py``'s: the cold
-  column (nz=16 x 256, 268-278 K, 0.02 of ice) under a cold MOST atmosphere
-  and the LandModel around it, 2 steps of 2 s from t0 = 30 s, f64 rtol
+  column (nz=16, 268-278 K, 0.02 of ice; ``CHECK_NCOL`` columns in one tile,
+  the cases of ``FULL_CASES`` 256 in two tiles of 128, one per source)
+  under a cold MOST atmosphere and the LandModel around it, 2 steps of 2 s
+  from t0 = 30 s, JAX's kernel compiled once per case, f64 rtol
   1e-12 (the pond atol 1e-18), the equilibrium cases within the ulp
   allowance of its ``assert_matches`` in at most ``EQ_CELLS`` columns (not
   cells: the cold column's levels below the top share one state, so one
@@ -23,13 +25,14 @@ kernel in interpret mode tracing the same stepper.
   LandModel on a water-only soil); each stepper four times or more.
 - The mode names and entries of the 48 land instances under each new
   stepper, the stage table a land launch carries, and the ``MODE_COLUMNS``
-  land instances, which stay refused under the new steppers (ROADMAP
-  B1-batched, B8).
+  land instances under the new steppers, whose plain-soil neighbours stay
+  refused (ROADMAP B1-batched, B8).
 
 The kernel itself is held against this plain version on the card in
 ``chip_smoke.py`` phase 18c; the ``cuda``-marked tests skip without a GPU.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import jax
@@ -46,7 +49,8 @@ from landhydrology_tpu_torch.ops.cuda import column_kernel as ck
 from tests.test_pallas_kernel import NCOL, NZ
 from tests.test_torch_land import _jax_land
 from tests.test_torch_land_policies_b5 import (  # noqa: F401
-    COLD_ATMOS, DT, EQ_CELLS, POLICIES, STEPS, T0, cold_state, cuda_device, soil_of, ulp_allowance,
+    CHECK_NCOL, COLD_ATMOS, DT, EQ_CELLS, POLICIES, STEPS, T0, cold_state, cuda_device, soil_of, tile_of,
+    ulp_allowance,
 )
 from tests.test_torch_land_policies_rows import TIME_GRID, forcing_rows
 from tests.test_torch_land_water import jax_water_land, rain_rows, water_state
@@ -67,6 +71,8 @@ CASES = [
     ("B6", "+B3-eq", False, "SSPRK22", None, False),
     ("B6", "+B3-rate", False, "ForwardEuler", "time", False),
 ]
+#: the cases that keep test_pallas_kernel.py's 256 columns in two tiles, one for each source
+FULL_CASES = frozenset({("B5", "", False, "ForwardEuler"), ("B5", "+B3-rate", False, "SSPRK22")})
 
 
 def mode_of(top, policy, lagged):
@@ -83,13 +89,14 @@ def case_id(case):
     return run_name(*case) + ("-icy" if case[5] else "")
 
 
-def jax_land_model(top, policy, lagged):
-    """The JAX model of a case: ``test_torch_land_policies_b5.jax_model``,
-    without a step policy too (``policy`` ""); a top ending in ``-water`` is
-    the LandModel on ``test_torch_land_water.py``'s water-only soil
-    (``policy`` "" or "-no-ice")."""
+def jax_land_model(top, policy, lagged, ncol=NCOL):
+    """The JAX model of a case on ``ncol`` columns:
+    ``test_torch_land_policies_b5.jax_model``, without a step policy too
+    (``policy`` ""); a top ending in ``-water`` is the LandModel on
+    ``test_torch_land_water.py``'s water-only soil (``policy`` "" or
+    "-no-ice")."""
     if top.endswith("-water"):
-        return jax_water_land(top[: -len("-water")], lagged, policy == "-no-ice")
+        return jax_water_land(top[: -len("-water")], lagged, policy == "-no-ice", ncol=ncol)
     most = not top.endswith("-pond")
     jm = _jax_land(most=most, surface_update="step" if "-step" in top else "stage",
                    coefficient_update="step" if lagged else "stage")
@@ -97,19 +104,27 @@ def jax_land_model(top, policy, lagged):
     if most:
         soil = dataclasses.replace(soil, boundary_conditions=dataclasses.replace(
             soil.boundary_conditions, top=JAtmos(**COLD_ATMOS)))
-    soil = dataclasses.replace(soil, **POLICIES.get(policy, {}))
+    soil = dataclasses.replace(soil, domain=dataclasses.replace(soil.domain, batch_shape=(ncol,)),
+                               **POLICIES.get(policy, {}))
     return soil if top == "B5" else dataclasses.replace(jm, soil=soil)
 
 
-def case_inputs(top, policy, lagged, rows, icy):
-    """``(JAX model, start state, forcing rows or None, time grid or None)``."""
-    jm = jax_land_model(top, policy, lagged)
+def case_ncol(top, policy, lagged, stepper):
+    """The columns of a case's check: ``NCOL`` for ``FULL_CASES``, else
+    ``CHECK_NCOL``."""
+    return NCOL if (top, policy, lagged, stepper) in FULL_CASES else CHECK_NCOL
+
+
+def case_inputs(top, policy, lagged, rows, icy, ncol=NCOL):
+    """``(JAX model, start state, forcing rows or None, time grid or None)``
+    on ``ncol`` columns."""
+    jm = jax_land_model(top, policy, lagged, ncol)
     water = top.endswith("-water")
     Y = water_state(jm, icy) if water else cold_state(jm, icy)
     grid = TIME_GRID if rows == "time" else None
     forcing = None
     if rows:
-        forcing = rain_rows() if water else forcing_rows(top, STEPS if grid is None else grid[2])
+        forcing = rain_rows(ncol=ncol) if water else forcing_rows(top, STEPS if grid is None else grid[2], ncol=ncol)
     return jm, Y, forcing, grid
 
 
@@ -149,9 +164,10 @@ def check_rk_case(top, policy, lagged, stepper, rows, icy):
     port's fused run (its plain version on the CPU): the run's name and
     source, no launch counted, the final state at ``assert_matches``'s bar;
     a freeze case forms and melts ice."""
-    jm, Y, forcing, grid = case_inputs(top, policy, lagged, rows, icy)
+    ncol = case_ncol(top, policy, lagged, stepper)
+    jm, Y, forcing, grid = case_inputs(top, policy, lagged, rows, icy, ncol)
     fields = tuple(forcing or ())
-    ref = jax_fused(jm, getattr(jts, stepper)(), dt=DT, steps_per_call=STEPS, tile_cols=128, interpret=True,
+    ref = jax_fused(jm, getattr(jts, stepper)(), dt=DT, steps_per_call=STEPS, tile_cols=tile_of(ncol), interpret=True,
                     forcing_fields=fields, forcing_time_grid=grid)(Y, T0, forcing=forcing)
     model = model_from_reference(jm, device="cpu")
     run = ck.make_fused_column_run(model, getattr(pts, stepper)(), dt=DT, steps_per_call=STEPS,
@@ -243,22 +259,31 @@ def test_land_instances_under_the_new_steppers():
 
 @pytest.mark.parametrize("stepper", NEW_STEPPERS)
 def test_per_column_land_instances_stay_refused(stepper):
-    """``MODE_COLUMNS``'s land instances (B5+kinds, B6+kinds+B8) run
-    SSPRK33 alone: under the new steppers per-column kinds and geometry
-    raise, naming B1-batched and B8 (ROADMAP B queue item 3)."""
-    from landhydrology_tpu_torch import BatchedBC, SoilColumnBC, SoilComponentBC
+    """``MODE_COLUMNS``'s land instances run every explicit stepper (B5 and
+    B6 with per-column kinds or geometry from
+    ``csrc/land_columns_kernel.cu``); their plain-soil neighbours under the
+    new steppers stay refused, naming B1-batched and B8 (ROADMAP B queue
+    item 2)."""
+    from landhydrology_tpu_torch import BatchedBC, SoilColumnBC, SoilComponentBC, VerticalFlux
     from landhydrology_tpu_torch.domains import make_function_space
 
     soil = model_from_reference(jax_land_model("B5", "", False), device="cpu")
     land = model_from_reference(jax_land_model("B6", "", False), device="cpu")
     bcs = soil.boundary_conditions
-    kinds = dataclasses.replace(soil, boundary_conditions=SoilColumnBC(top=bcs.top, bottom=SoilComponentBC(
-        energy=bcs.bottom.energy, hydrology=BatchedBC(kind=torch.zeros(NCOL, dtype=torch.int64)))))
+    bottom = SoilComponentBC(energy=bcs.bottom.energy, hydrology=BatchedBC(kind=torch.zeros(NCOL, dtype=torch.int64)))
+    kinds = dataclasses.replace(soil, boundary_conditions=SoilColumnBC(top=bcs.top, bottom=bottom))
     assert ck.make_fused_column_run(kinds).name == "B5+kinds"
-    with pytest.raises(NotImplementedError, match=rf"in mode B5@{stepper}.*ROADMAP B1-batched\)"):
-        ck.make_fused_column_run(kinds, getattr(pts, stepper)())
+    run = ck.make_fused_column_run(kinds, getattr(pts, stepper)())
+    assert run.name == f"B5+kinds@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "land_columns_kernel"
+    plain_top = SoilComponentBC(hydrology=VerticalFlux(0.0), energy=VerticalFlux(0.0))
+    plain = dataclasses.replace(kinds, boundary_conditions=SoilColumnBC(top=plain_top, bottom=bottom))
+    with pytest.raises(NotImplementedError, match=rf"in mode B1@{stepper}.*ROADMAP B1-batched\)"):
+        ck.make_fused_column_run(plain, getattr(pts, stepper)())
     grid = make_function_space(soil.domain, torch.float64, "cpu")
     geometry = (torch.full((NCOL,), 0.125, dtype=torch.float64), grid.zc.expand(NZ, NCOL).contiguous())
     assert ck.make_fused_column_run(land, streamed_geometry=geometry).name == "B6+B8"
-    with pytest.raises(NotImplementedError, match=rf"in mode B6@{stepper}.*ROADMAP B8\)"):
-        ck.make_fused_column_run(land, getattr(pts, stepper)(), streamed_geometry=geometry)
+    run = ck.make_fused_column_run(land, getattr(pts, stepper)(), streamed_geometry=geometry)
+    assert run.name == f"B6+B8@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "land_columns_kernel"
+    with pytest.raises(NotImplementedError, match=rf"in mode B1@{stepper}.*ROADMAP B8\)"):
+        ck.make_fused_column_run(dataclasses.replace(plain, boundary_conditions=SoilColumnBC(
+            top=plain_top, bottom=bcs.bottom)), getattr(pts, stepper)(), streamed_geometry=geometry)

@@ -10,6 +10,7 @@ steps of 2 s in launches of 4, saved every 4 steps.  ``chip_smoke.py``
 phase 18b drives the same kind of file at nz=64 x 65,536 on the card.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import copy
 
 from landhydrology_tpu.config import to_config as jax_to_config

@@ -8,6 +8,7 @@ LandModel (T prescribed, ``TemperatureDependentViscosity``) and its rain
 rows.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import pytest
 
 from tests.test_torch_land_policies_b5 import cuda_device  # noqa: F401

@@ -10,8 +10,9 @@ in interpret mode, with and without streamed rain rows (B7).
   prescribed as 275 K + 3 K/m z (270-275 K), ``TemperatureDependentViscosity``
   in the hydraulic conductivity, a zero-flux bottom; the state 0.20-0.30
   wet by column without ice, a pond of 0-2e-4 m.  2 steps of dt = 2 s
-  from t0 = 30 s, ``tile_cols=128``, f64, rtol 1e-12 (atol 1e-16, the pond
-  1e-18).
+  from t0 = 30 s, f64, rtol 1e-12 (atol 1e-16, the pond 1e-18);
+  ``FULL_CASE`` on 256 columns in two tiles of 128, the others on
+  ``CHECK_NCOL`` in one tile, JAX's kernel compiled once per case.
 - Which T the exchange sees: a fused run's auxiliary state carries no T, so
   land.py's ``_diagnose_state_T`` gives 288 K on a soil without rho_e_int,
   in JAX's kernel as in the port, while the soil rhs reads the profile.  The
@@ -26,7 +27,9 @@ The kernel is held against this plain version on the card in
 ``chip_smoke.py`` phase 17a; the ``cuda``-marked tests skip without a GPU.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -47,7 +50,7 @@ from landhydrology_tpu_torch.ops.cuda import column_kernel as ck
 from landhydrology_tpu_torch.timestepping import SSPRK33
 from tests.test_pallas_kernel import NCOL, NZ
 from tests.test_torch_land import _jax_land
-from tests.test_torch_land_policies_b5 import DT, STEPS, T0, cuda_device  # noqa: F401
+from tests.test_torch_land_policies_b5 import CHECK_NCOL, DT, STEPS, T0, cuda_device, tile_of  # noqa: F401
 
 #: the tops (exchange per stage or frozen per step), lagged or not, no ice or not
 CASES = [(top, lagged, no_ice) for top in ("B6-pond", "B6-step-pond") for lagged in (False, True)
@@ -68,8 +71,9 @@ def t_profile(z, t):
     return 275.0 + 3.0 * z + 0.0 * t
 
 
-def jax_water_land(top, lagged, no_ice, viscosity=True):
-    """The JAX LandModel of a case on its water-only soil."""
+def jax_water_land(top, lagged, no_ice, viscosity=True, ncol=NCOL):
+    """The JAX LandModel of a case on its water-only soil, ``ncol``
+    columns."""
     jm = _jax_land(most=False, surface_update="step" if "-step" in top else "stage",
                    coefficient_update="step" if lagged else "stage")
     soil = jm.soil
@@ -79,6 +83,7 @@ def jax_water_land(top, lagged, no_ice, viscosity=True):
         hydrology = dataclasses.replace(hydrology, viscosity_factor=JViscosity())
     soil = dataclasses.replace(
         soil, energy_model=JPrescribedT(T_profile=t_profile), hydrology_model=hydrology, assume_no_ice=no_ice,
+        domain=dataclasses.replace(soil.domain, batch_shape=(ncol,)),
         boundary_conditions=JSoilColumnBC(top=JSoilComponentBC(hydrology=bcs.top.hydrology),
                                           bottom=JSoilComponentBC(hydrology=bcs.bottom.hydrology)))
     return dataclasses.replace(jm, soil=soil)
@@ -89,30 +94,45 @@ def water_state(jm, icy=False):
     (``icy``: 0.05 of ice and vartheta_l = nu - 0.02 in the lower half; ice
     at the top would saturate the potential infiltration's face), a pond of
     0-2e-4 m."""
-    col = np.linspace(0.0, 1.0, NCOL)[None]
-    theta = np.array(np.broadcast_to(0.20 + 0.1 * col, (NZ, NCOL)))
-    ice = np.zeros((NZ, NCOL))
+    ncol = jm.soil.domain.batch_shape[0]
+    col = np.linspace(0.0, 1.0, ncol)[None]
+    theta = np.array(np.broadcast_to(0.20 + 0.1 * col, (NZ, ncol)))
+    ice = np.zeros((NZ, ncol))
     if icy:
         ice[: NZ // 2] = 0.05
         theta[: NZ // 2] = float(jm.soil.soil_param_set.nu) - 0.02
     return {"soil": {"vartheta_l": jnp.asarray(theta), "theta_i": jnp.asarray(ice)},
-            "surface": {"h_s": jnp.asarray(np.linspace(0.0, 2e-4, NCOL))}}
+            "surface": {"h_s": jnp.asarray(np.linspace(0.0, 2e-4, ncol))}}
 
 
-def rain_rows(seed=31):
+def rain_rows(seed=31, ncol=NCOL):
     """Per-column rain rows, 0-1.2e-5 m/s, one per step."""
-    return {"precipitation": 1.2e-5 * np.random.default_rng(seed).random((STEPS, NCOL))}
+    return {"precipitation": 1.2e-5 * np.random.default_rng(seed).random((STEPS, ncol))}
+
+
+#: the case (top, lagged, no ice, rows) that keeps test_pallas_kernel.py's 256 columns in two tiles of 128;
+#: the others run on CHECK_NCOL columns in one tile
+FULL_CASE = ("B6-pond", False, False, False)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_kernel(top, lagged, no_ice, rows, ncol):
+    """JAX's fused kernel of a case in interpret mode under ``jax.jit``:
+    compiled once per process, also for the icy state."""
+    jm = jax_water_land(top, lagged, no_ice, ncol=ncol)
+    return jax.jit(jax_fused(jm, JSSPRK33(), dt=DT, steps_per_call=STEPS, tile_cols=tile_of(ncol), interpret=True,
+                             forcing_fields=("precipitation",) if rows else ()))
 
 
 def run_water_case(top, lagged, no_ice, rows=False, icy=False):
     """JAX's fused kernel (interpret mode) against the port's fused run (its
     plain version on the CPU) at rtol 1e-12; returns the JAX final state."""
-    jm = jax_water_land(top, lagged, no_ice)
+    ncol = NCOL if (top, lagged, no_ice, rows) == FULL_CASE else CHECK_NCOL
+    jm = jax_water_land(top, lagged, no_ice, ncol=ncol)
     Y = water_state(jm, icy)
-    forcing = rain_rows() if rows else None
+    forcing = rain_rows(ncol=ncol) if rows else None
     fields = tuple(forcing or ())
-    ref = jax_fused(jm, JSSPRK33(), dt=DT, steps_per_call=STEPS, tile_cols=128, interpret=True,
-                    forcing_fields=fields)(Y, T0, forcing=forcing)
+    ref = jax_kernel(top, lagged, no_ice, rows, ncol)(Y, T0, forcing=forcing)
     model = model_from_reference(jm, device="cpu")
     run = ck.make_fused_column_run(model, SSPRK33(), dt=DT, steps_per_call=STEPS, forcing_fields=fields)
     assert run.name == mode_of(top, lagged, no_ice) + ("+B7" if rows else "")

@@ -23,6 +23,7 @@ plain version on the CPU, one step at a time for the hour:
   step.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import jax
@@ -174,13 +175,15 @@ def test_regional_columns_blow_up_in_jax_too(variable_depth, dtype):
 
     rhs = j_make_rhs(jm)
     step = jax.jit(lambda Y, t: JSSPRK33().step(rhs, Y, jYa, t, jnp.asarray(DT, jax_dtype)))
+    # one step of the fused run's plain version (fused_column_run_plain's step, built once)
+    port_step, dt = ck.plain_step(model, SSPRK33(), torch.device("cpu")), torch.as_tensor(DT, dtype=dtype)
     t_jax, t_port = jnp.asarray(0.0, jax_dtype), torch.as_tensor(0.0, dtype=dtype)
     left = {"jax": np.full(cols.size, -1), "port": np.full(cols.size, -1)}
     worst = np.zeros(cols.size)
     for s in range(STEPS):
         start = {"soil": {k: torch.as_tensor(np.array(v)) for k, v in jY["soil"].items()}}
-        one = ck.fused_column_run_plain(model, SSPRK33(), DT, 1, start, t_port)
-        Y = ck.fused_column_run_plain(model, SSPRK33(), DT, 1, Y, t_port)
+        one = port_step(start, t_port, dt)
+        Y = port_step(Y, t_port, dt)
         jY = step(jY, t_jax)
         t_jax, t_port = t_jax + jnp.asarray(DT, jax_dtype), t_port + torch.as_tensor(DT, dtype=dtype)
         want = {k: np.asarray(v, dtype=np.float64) for k, v in jY["soil"].items()}

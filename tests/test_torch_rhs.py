@@ -7,6 +7,7 @@ relative to each field's largest tendency: a tendency is a difference of
 face fluxes, which cancels where neighbouring fluxes are nearly equal, so
 elementwise relative errors of such near-zero entries carry no meaning."""
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import jax.numpy as jnp

@@ -15,6 +15,7 @@ mode.  The kernel is held against this plain version on the card in
 ``chip_smoke.py`` phase 15a.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import jax.numpy as jnp

@@ -22,6 +22,7 @@ The branch modes are in ``test_torch_rk_branches.py``; the kernel itself is
 held against this plain version on the card in ``chip_smoke.py`` phase 15a.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import jax.numpy as jnp
@@ -250,8 +251,9 @@ def test_stage_table_and_rows(stepper):
 
 def test_explicit_steppers_refused_where_no_kernel():
     """ForwardEuler, SSPRK22 and SSPRK104 with per-column BC kinds raise
-    (ROADMAP B1-batched), on the plain soil and under a MOST top; without
-    them a MOST top runs in the land kernel (``B5@<stepper>``)."""
+    on the plain soil (ROADMAP B1-batched); a MOST top runs in the land
+    kernel (``B5@<stepper>``), with kinds in its ``MODE_COLUMNS`` instance
+    (``B5+kinds@<stepper>``)."""
     from landhydrology_tpu_torch import BatchedBC, PrescribedAtmosForcing, SoilColumnBC, SoilComponentBC
 
     jm, _, _, _, _ = case("B1")
@@ -269,6 +271,7 @@ def test_explicit_steppers_refused_where_no_kernel():
     for stepper in STEPPERS:
         run = ck.make_fused_column_run(most, getattr(pts, stepper)())
         assert run.name == f"B5@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "land_rk_kernel"
-        for m in (kinds, most_kinds):
-            with pytest.raises(NotImplementedError, match="ROADMAP B1-batched"):
-                ck.make_fused_column_run(m, getattr(pts, stepper)())
+        with pytest.raises(NotImplementedError, match="ROADMAP B1-batched"):
+            ck.make_fused_column_run(kinds, getattr(pts, stepper)())
+        run = ck.make_fused_column_run(most_kinds, getattr(pts, stepper)())
+        assert run.name == f"B5+kinds@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "land_columns_kernel"

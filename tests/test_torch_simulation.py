@@ -12,6 +12,7 @@
   and state without JAX, and the package imports no JAX.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 import os
 import subprocess

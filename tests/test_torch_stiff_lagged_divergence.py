@@ -16,6 +16,7 @@ max_dev_lagged bar (1e-2) of the stage-coefficient run (after two steps the
 lagged run is 1.6e-2 away: the deviation peaks while the front is sharp).
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 import functools
 

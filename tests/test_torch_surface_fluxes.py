@@ -13,6 +13,7 @@ against the JAX package's.
   stage and with lagged coefficients.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import jax.numpy as jnp

@@ -11,6 +11,7 @@ package's.
   2, 3 and 4) and SSPRK104 against SSPRK33 at matched work.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -6,6 +6,7 @@ operations in the same order); PCR matches Thomas to the rounding of a
 different elimination order, rtol 1e-12.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -13,6 +13,7 @@ LandModel (kinematic-wave routing over variable regolith) on the eager
 engine.
 """
 
+from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import dataclasses
 
 import jax.numpy as jnp
