@@ -13,9 +13,12 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    in parallel, and starts ``csrc/implicit_most_kernel.cu``,
    ``csrc/implicit_branch_kernel.cu``, ``csrc/land_policy_kernel.cu``,
    ``csrc/land_rk_kernel.cu``, ``csrc/land_policy_rk_kernel.cu``,
-   ``csrc/land_columns_kernel.cu`` and ``csrc/land_policy_columns_kernel.cu``
-   the same way in the background at nice 19 (``LaterBuild``), which phases
-   16-19 (and the end) wait for;
+   ``csrc/land_columns_kernel.cu``, ``csrc/land_policy_columns_kernel.cu``,
+   ``csrc/implicit_policy_kernel.cu`` (the plain soil's implicit policy
+   instances, out of ``implicit_kernel.cu`` since phase 20's cut),
+   ``csrc/rk_columns_kernel.cu`` and ``csrc/implicit_columns_kernel.cu`` in
+   the background at nice 19, six compiles at a time
+   (``LaterBuild``), which phases 14-20 (and the end) wait for;
    prints the registers of every template instance; reads the instruction
    cost of exp, log, sqrt and a division from ``cuobjdump -sass`` of small
    kernels (``op_costs``), for the bounds;
@@ -38,14 +41,16 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    (``coefficient_update="step"``, B2), and each with ``assume_no_ice``;
    the launch counts are set to 0 just before each run and read just after;
    each is compared with the plain version and, change against change, from
-   the start state (``_check_increment``); the lagged runs print their
+   the start state (``_check_increment``; in f64 by the path's first launch
+   since phase 20's cut of plain launches); the lagged runs print their
    largest deviation from the stage run (``bench.py``'s ``max_dev_lagged``);
 5. freeze-thaw at full width: the freeze golden's column at nz=64 x 65,536
    with moisture and temperature varied by column, under ``FreezeThaw(tau=60)``
    (B3-rate) and ``EquilibriumFreezeThaw()`` (B3-eq), 64 steps of dt=5 in two
    launches, f32 and f64, driven and checked as in phase 4 (held to the
-   plain version by their first launch since phase 19, but f32's B3-eq,
-   whose change bar needs both); ice must form;
+   plain version by their first launch since phase 19, f32's B3-eq since
+   phase 20 with its change bar on the total water and rho_e_int, which no
+   projection moves); ice must form;
 8. the stiff path at full width (``bench.py``'s ``implicit`` path):
    ``bench.py::build_stiff`` at nz=64 x 65,536, ``dt_exp`` as bench.py
    computes it; ``TRBDF2Soil(iters=2)`` at 40 dt_exp, 8 steps in one launch
@@ -57,7 +62,8 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
 9. the other new modes at full width: B1-heat and B4-trbdf2-heat on a
    heat-only column, B4-trbdf2, B4-be-soil and B4-be-richards on the
    benchmark configuration, B4-be-richards-water on the stiff column, f32
-   and f64, driven and checked as in phase 4;
+   and f64, driven and checked as in phase 4 (each held by its first launch
+   since phase 20);
 10. the land path (``bench.py``'s ``land`` path, kernel modes B5 and B6):
    f64 checks at the JAX fused tests' sizes (``test_pallas_kernel.py:215``
    in B5, ``:278`` in B6 with a pond forming, ``test_land_model.py:862`` in
@@ -70,8 +76,9 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    production setting (B2+B6-step), B6-step, B2+B6, B6-pond, and its soil
    alone in B5 and B2+B5, and its plain top under the pond in B6-pond,
    B6-step-pond, B2+B6-pond and B2+B6-step-pond, driven and checked as in
-   phase 4 (the pond too; since phase 19 all but B6 and B2+B6-step, and
-   f32's MOST soil, held by a launch of 4 steps), with each land run's water
+   phase 4 (the pond too; all but f32's MOST soil held by a launch of 4
+   steps, since phase 19, B6 and B2+B6-step since phase 20), with each land
+   run's water
    budget, the host
    time per launch and the largest deviation of B2+B6-step from B6;
 11. the forced-reanalysis path (kernel mode B7, streamed forcing rows):
@@ -82,9 +89,9 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    equal bit for bit to the step-indexed rows), 1,000-column variants of
    every B5/B6 mode with forcing rows (both Businger branches, step- and
    time-indexed), f64 and f32; then ``experiments/soil/forced_reanalysis.py``'s
-   LandModel at nz=24 x 131,072 (``build_reanalysis``), 480 steps of dt=120
+   LandModel at nz=24 x 131,072 (``build_reanalysis``), 240 steps of dt=120
    of its forcing (``reanalysis_forcing``, written to a temporary file)
-   through ``run_forced`` (windows of 240, 24 steps per launch, pinned
+   through ``run_forced`` (windows of 120, 24 steps per launch, pinned
    staging), f32 and f64, with and without overlap: (a) equal bit for bit
    to the in-memory fused segment, (b) every 128th column equal to the
    plain version on those columns' rows over the first launch, (c)
@@ -177,9 +184,10 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    without one) at nz=64 x 16,384, 4 steps of 60 s on the freeze column,
    against the plain version (``_check_freeze``, ``_check_increment``) and
    timed in the same pass as phase 6 times its paths; (c) at full width, f32 and f64, ``bench.py::build`` under
-   SSPRK33 (32 steps, B9:B1) and ``build_freeze_wide`` under
-   ``TRBDF2Soil(iters=2)`` with rate freeze-thaw (8 steps of 60 s,
-   B9:B4-trbdf2+B3-rate), with the launch count set to 0 just before and
+   SSPRK33 (16 steps, B9:B1) and ``build_freeze_wide`` under
+   ``TRBDF2Soil(iters=2)`` with rate freeze-thaw (4 steps of 60 s,
+   B9:B4-trbdf2+B3-rate; 32 and 8 steps until phase 20's depth cut), with
+   the launch count set to 0 just before and
    read just after: the forward against the plain version, the forward's
    and the backward's ms, the backward's peak memory, each field's
    gradient norm and, in f64, one directional central difference (rtol
@@ -222,7 +230,8 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    K) at nz=64 x 65,536, one launch of 32 steps of 5 s, f32 and f64, in
    ``B6+B3-rate``, the production setting ``B2+B6-step+B3-rate`` and
    ``B6+B3-eq`` (``COLD_PATHS``) through ``Simulation(engine="fused")``,
-   checked as in phase 4 (the pond too; the last two by a launch of 4 steps
+   checked as in phase 4 (the pond too; each by a launch of 4 steps, the
+   first since phase 20, the last two
    since phase 19), ice formed, the water budget
    closed, the kernel (CUDA events) and its check's plain launch timed, the
    host share; (c) every other instance timed at that width, one launch of
@@ -257,7 +266,8 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    256th column against the plain version, a pond formed, the water budget;
    (d) TR-BDF2 under 16b's cold MOST top at nz=64 x 65,536, one launch of 8
    steps of 60 s, in ``B4-trbdf2+B3-rate+B5`` and
-   ``B4-trbdf2+B2+B3-eq+B5`` (in f64 held by a launch of 2 steps since phase
+   ``B4-trbdf2+B2+B3-eq+B5`` (in f64 held by a launch of 2 steps, the first
+   since phase 20, the second since phase
    19),
    driven and checked as in phase 4 (the f32
    equilibrium path's change bar on the total water and rho_e_int, which
@@ -316,6 +326,32 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    the plain version as in 16a; (d) each timed at 16c's width (17c's storm
    for the water-only ones) with the same kinds and depths, one launch of 4
    steps (kernel only), beside its bound;
+20. per-column BC kinds and geometry in the plain-soil modes (kernel modes
+   B1-batched and B8: ``csrc/rk_columns_kernel.cu`` under every explicit
+   stepper from the stage table, ``csrc/implicit_columns_kernel.cu`` under
+   every implicit step policy; ROADMAP B item 2, plain-soil part): (a)
+   ``regional_grid.py``'s hour as phase 12 drives it, with
+   ``production_run.py``'s ``assume_no_ice=True`` (``B1-no-ice+kinds`` and
+   its variable-depth twin ``B1-no-ice+kinds+B8``), f32 and f64, the first
+   launch against the plain version, ``Simulation(engine="fused")`` equal bit
+   for bit to the script's loop, its diverged columns those of phase 12's B1
+   hour, then timed as phase 6 times its paths; (b) the twin with lagged
+   coefficients as a run file (SSPRK104, ``"engine": "pallas"``, a constant
+   start) through ``python -m landhydrology_tpu_torch run``
+   (``B2+kinds+B8@SSPRK104``, 2 launches of 48 steps), its first save equal
+   bit for bit to the file's first launch in this process, that launch on
+   every 64th column against the plain version; (c) each of the 44 new
+   instances on 1,000 columns of ``build_grid_variant``'s kinds (both faces,
+   both components) and depths, the freeze-thaw and no-ice ones from 16a's
+   cold start (the explicit no-ice ones on its icy state), the explicit
+   steppers rotated
+   through each family (``soil_columns_cases``) over 2 steps in f64 and 4
+   in f32, the implicit ones over 2 steps of 30 s, two also with PCR, f64
+   and f32, against the plain version; (d) each timed at phase 12's variant
+   width (nz=48 x 32,768, phase 12's warm start, the dt scaled by (16/48)^2
+   with the spacing),
+   two samples of one launch of 4 steps from the start state (kernel
+   only), beside its bound;
 6. times of every mode's kernel and plain version at its phase-4/5/8/9/10/12/14
    shape (CUDA events: the kernel x3 twice, then the plain version once,
    warm),
@@ -334,12 +370,13 @@ and 14 (14b times its policy paths), ``--cli-only`` phases 1, 2 and 15
 phase 6's times of phase 10's paths, ``--cold-forced-only`` phases 1, 2 and
 17 with phase 6's times of 17d's paths, ``--land-rk-only`` phases 1, 2 and 18
 with phase 6's times of 18a's paths, ``--land-columns-only`` phases 1, 2 and
-19.  ``--compare-with PARENT`` builds this tree
+19, ``--soil-columns-only`` phases 1, 2 and 20.  ``--compare-with PARENT``
+builds this tree
 and the tree at PARENT (an unpacked ``git archive`` of another commit) in
 turns in subprocesses and holds the other tree's instances to their
-registers (but those of ``REPAIRED``; it prints the new column stage-table
-instances' registers and spill stores beside their twins' without
-``MODE_COLUMNS``) and the
+registers (but those of ``REPAIRED``; it prints the new ``MODE_COLUMNS``
+instances' registers and spill stores beside their twins' without it) and
+the
 kernel times of B1 and of ``COMPARE_LAND``'s SSPRK33 land instances to
 within 2% of the other's.  With ``--profile`` a seventh phase follows for B1 and B2 at the phase-4
 shape: six timings each of the kernel and the plain version in turns, a
@@ -1841,7 +1878,9 @@ def kernel_of(ck, mode, dtype):
               "implicit_branch_kernel": "implicit_column_kernel", "land_kernel": "land_column_kernel",
               "land_policy_kernel": "land_column_kernel", "land_rk_kernel": "land_column_kernel",
               "land_policy_rk_kernel": "land_column_kernel", "land_columns_kernel": "land_column_kernel",
-              "land_policy_columns_kernel": "land_column_kernel", "rk_kernel": "rk_column_kernel"}.get(
+              "land_policy_columns_kernel": "land_column_kernel", "rk_kernel": "rk_column_kernel",
+              "rk_columns_kernel": "rk_column_kernel", "implicit_policy_kernel": "implicit_column_kernel",
+              "implicit_columns_kernel": "implicit_column_kernel"}.get(
                   lib, "ssprk33_column_kernel")
     return kernel, os.path.relpath(ck.SOURCES[lib], HERE)
 
@@ -1870,10 +1909,10 @@ def evaporation(model, Y, t):
 
 #: phase 10's paths at width: 32 steps in one launch (a depth cut for the script's time)
 LAND_WIDE_STEPS = 32
-#: phase 10's settings held to the plain version over their whole launch; the others by a launch of
-#: LAND_CHECKED_STEPS steps (phase 19's cut of plain launches), in f32 but the MOST soil's (its f32 change error
-#: is 3e-2 of the change over the launch, under the bar of 0.1: too near it for a shorter launch)
-LAND_FULL_CHECK, LAND_CHECKED_STEPS = ("reference", "production"), 4
+#: phase 10's settings held to the plain version by a launch of LAND_CHECKED_STEPS steps (phase 19's cut of plain
+#: launches, and phase 20's of the reference and production settings'), in f32 but the MOST soil's (its f32
+#: change error is 3e-2 of the change over the launch, under the bar of 0.1: too near it for a shorter launch)
+LAND_CHECKED_STEPS = 4
 
 
 def land_phase(ck, gc, device, smi):
@@ -1977,7 +2016,7 @@ def land_phase(ck, gc, device, smi):
                     dataclasses.replace(land.soil.boundary_conditions, top=build_bench_model(
                         NZ, 32, dtype, device)[0].boundary_conditions.top))))
             moving = ("vartheta_l", "rho_e_int", "h_s") if what != "soil" else ("vartheta_l", "rho_e_int")
-            short = setting not in LAND_FULL_CHECK and (dtype == torch.float64 or what != "soil")
+            short = dtype == torch.float64 or what != "soil"
             kern, launches, err, wall = drive_path(ck, model, Y0, Ya, DT, LAND_WIDE_STEPS, SPC, "10 land", moving,
                                                    plain_steps=LAND_CHECKED_STEPS if short else None)
             paths.append((model, Y0, DT, SPC, launches, err, SSPRK33()))
@@ -2013,8 +2052,9 @@ def land_phase(ck, gc, device, smi):
 # ---- phase 11: the forced-reanalysis path, kernel mode B7 ----
 
 #: ``experiments/soil/forced_reanalysis.py``'s run (nz, ncol, dt, window,
-#: steps per launch), cut from its 2-day horizon (1,440 steps) to two windows
-FORCED_NZ, FORCED_NCOL, FORCED_DT, FORCED_WINDOW, FORCED_SPC, FORCED_STEPS = 24, 131072, 120.0, 240, 24, 480
+#: steps per launch), cut from its 2-day horizon (1,440 steps) to two windows (of 240 steps until phase 20's
+#: depth cut, of 120 since)
+FORCED_NZ, FORCED_NCOL, FORCED_DT, FORCED_WINDOW, FORCED_SPC, FORCED_STEPS = 24, 131072, 120.0, 120, 24, 240
 #: the experiment's horizon (``--days``), which sets the rain band's speed
 FORCED_DAYS = 2.0
 #: the plain version's check at width takes every 128th column (1,024)
@@ -2563,7 +2603,7 @@ def forced_entry(ck, run, dtype, launches, err, k_ms, p_ms, b_ms, b_by):
 
 def forced_setting(ck, costs, setting, land, Y0, rows, cols, smi):
     """One more forced path at the reanalysis width, over the first window
-    (10 launches of ``FORCED_SPC`` steps) with the launch counts set to 0
+    (``FORCED_WINDOW // FORCED_SPC`` launches of ``FORCED_SPC`` steps) with the launch counts set to 0
     just before it and read just after: ``"production"`` (the frozen
     exchange and lagged coefficients, B2+B6-step+B7), ``"MOST soil"`` (its
     soil alone under the atmosphere rows, B5+B7) or ``"time-indexed"`` (B6
@@ -2741,11 +2781,9 @@ GRID_VARIANTS = ("B1", "B2", "B3-rate", "B1-water", "B4-be-richards", "B4-be-ric
                  "B4-trbdf2-water", "B5", "B6", "cross-energy", "cross-water")
 
 
-def build_grid_variant(ncol, dtype, device, seed, case, nz=16):
+def build_grid_variant(ncol, dtype, device, seed, case, nz=16, cold=False, icy=False):
     """A heterogeneous column (the JAX fused tests' soil, nz=16 unless
-    given) with the
-    per-column features its mode takes (``ck.KINDS_MODES``,
-    ``ck.GEOMETRY_MODES``): BC kinds drawn per column at both faces
+    given) with per-column features: BC kinds drawn per column at both faces
     (hydrology FLUX or DIRICHLET on top, any of the three below; energy
     FLUX or DIRICHLET, a callable per-column Dirichlet temperature on top),
     and depths from U(0.8, 3.0) m.  ``case`` is a mode of
@@ -2755,16 +2793,23 @@ def build_grid_variant(ncol, dtype, device, seed, case, nz=16):
     cross-component case (B1, with temperature-dependent viscosity):
     ``cross-energy``, a plain energy Dirichlet top over hydrology kinds with
     DIRICHLET columns, and ``cross-water``, energy kinds with DIRICHLET
-    columns under a plain hydrology Dirichlet.
-    Returns ``(model, Y, stepper, dt, steps)``."""
+    columns under a plain hydrology Dirichlet; or any plain-soil mode of
+    phase 20 (``SOIL_RK_MODES``, ``SOIL_IMPLICIT_MODES``) with its policies
+    (lagged, ``-no-ice``, ``B3-rate``, ``B3-eq``) and branch (``-water``,
+    ``-heat``: the moisture prescribed as ``build_heat_only`` prescribes it,
+    energy kinds at both faces).  With ``cold`` the freeze-thaw and no-ice
+    modes start cold, as 16a's column (268-278 K by column, 0.02 of ice), the
+    no-ice ones with ``icy`` on its ``icy_state``.  Returns ``(model, Y,
+    stepper, dt, steps)``."""
     from landhydrology_tpu_torch import (
-        BatchedBC, BCKind, Dirichlet, NoBC, PrescribedAtmosForcing, PrescribedTemperatureModel, SoilColumnBC,
-        SoilComponentBC, VariableDepthColumn, VerticalFlux,
+        BatchedBC, BCKind, Dirichlet, NoBC, PrescribedAtmosForcing, PrescribedHydrologyModel,
+        PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC, VariableDepthColumn, VerticalFlux,
     )
+    from landhydrology_tpu_torch.constants import default_earth_param_set as eps
     from landhydrology_tpu_torch.models.land import LandModel, PulsePrecipitation, SurfaceWaterModel
     from landhydrology_tpu_torch.models.soil import TemperatureDependentViscosity
-    from landhydrology_tpu_torch.models.soil.freeze_thaw import FreezeThaw
-    from landhydrology_tpu_torch.ops.cuda import column_kernel as ck
+    from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw, FreezeThaw
+    from landhydrology_tpu_torch.models.soil.heat import volumetric_heat_capacity, volumetric_internal_energy
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
     base, Y = build_kernel_test_model(VerticalFlux(0.0), VerticalFlux(0.0), nz, ncol, dtype, device, seed=seed,
@@ -2773,7 +2818,10 @@ def build_grid_variant(ncol, dtype, device, seed, case, nz=16):
     tensor = lambda x: torch.as_tensor(x, dtype=dtype, device=device)  # noqa: E731
     kinds = lambda n: torch.as_tensor(rng.integers(0, n, ncol), dtype=torch.int32, device=device)  # noqa: E731
     mode = {"cross-energy": "B1", "cross-water": "B1"}.get(case, case)
-    use_kinds, use_depths = mode in ck.KINDS_MODES, mode in ck.GEOMETRY_MODES
+    solver = next((s for s in IMPLICIT_STEPPERS if mode.startswith(s)), None)
+    lagged = mode.startswith("B2") or "+B2" in mode
+    freeze = FreezeThaw(tau=60.0) if "B3-rate" in mode else EquilibriumFreezeThaw() if "B3-eq" in mode else None
+    no_ice, heat = "-no-ice" in mode, "-heat" in mode
     k_top, k_bot, e_top, e_bot = kinds(2), kinds(3), kinds(2), kinds(2)
     T_top = tensor(rng.uniform(281.0, 293.0, ncol))
     hyd_top = BatchedBC(kind=k_top, value=torch.where(k_top == BCKind.DIRICHLET, tensor(rng.uniform(0.38, 0.44, ncol)),
@@ -2783,9 +2831,6 @@ def build_grid_variant(ncol, dtype, device, seed, case, nz=16):
     en_top = BatchedBC(kind=e_top, value=lambda t: T_top + 1e-3 * t)
     en_bot = BatchedBC(kind=e_bot, value=torch.where(e_bot == BCKind.DIRICHLET, tensor(rng.uniform(283.0, 290.0, ncol)),
                                                      tensor(rng.uniform(-3.0, 3.0, ncol))))
-    if not use_kinds:
-        hyd_top, hyd_bot = Dirichlet(lambda t: 0.42 + 0.0 * t), VerticalFlux(0.0)
-        en_top, en_bot = Dirichlet(290.0), VerticalFlux(0.0)
     if case == "cross-energy":
         en_top = Dirichlet(lambda t: 292.0 + 1e-3 * t)
     elif case == "cross-water":
@@ -2796,25 +2841,40 @@ def build_grid_variant(ncol, dtype, device, seed, case, nz=16):
     if case.startswith("cross"):  # the face temperature enters K through the viscosity
         model = dataclasses.replace(model, hydrology_model=dataclasses.replace(
             model.hydrology_model, viscosity_factor=TemperatureDependentViscosity()))
-    if use_depths:
-        model = dataclasses.replace(model, domain=VariableDepthColumn(
-            z_bottom=-rng.uniform(0.8, 3.0, ncol), nelements=nz, batch_shape=(ncol,)))
+    model = dataclasses.replace(model, domain=VariableDepthColumn(
+        z_bottom=-rng.uniform(0.8, 3.0, ncol), nelements=nz, batch_shape=(ncol,)))
     stepper, dt, steps = SSPRK33(), 0.25, 8
-    if mode == "B2":
-        model = dataclasses.replace(model, coefficient_update="step")
-    elif mode == "B3-rate":
-        model = dataclasses.replace(model, freeze_thaw=FreezeThaw(tau=60.0), boundary_conditions=SoilColumnBC(
+    model = dataclasses.replace(model, coefficient_update="step" if lagged else "stage", assume_no_ice=no_ice)
+    if freeze is not None:
+        model = dataclasses.replace(model, freeze_thaw=freeze, boundary_conditions=SoilColumnBC(
             top=SoilComponentBC(hydrology=hyd_top, energy=BatchedBC(kind=e_top, value=lambda t: T_top - 20.0)),
             bottom=bottom))
         dt = 2.0
-    elif mode.endswith("-water"):
+    if cold and (freeze is not None or no_ice):  # 16a's cold column: 268-278 K by column, 0.02 of ice
+        theta = Y["soil"]["vartheta_l"]
+        ice = torch.full_like(theta, 0.02)
+        T = (268.0 + 10.0 * torch.arange(ncol, dtype=dtype, device=device) / ncol).expand_as(theta)
+        rho_c_s = volumetric_heat_capacity(theta, ice, model.soil_param_set.rho_c_ds, eps)
+        Y = {"soil": {"vartheta_l": theta, "theta_i": ice,
+                      "rho_e_int": volumetric_internal_energy(ice, rho_c_s, T, eps)}}
+        if no_ice and icy:
+            Y = icy_state(model, Y)
+    if heat:
+        model = dataclasses.replace(
+            model, hydrology_model=PrescribedHydrologyModel(
+                vartheta_l_profile=lambda z, t: 0.25 + 0.05 * z + 1e-6 * t,
+                theta_i_profile=lambda z, t: 0.01 + 0.0 * z),
+            boundary_conditions=SoilColumnBC(top=SoilComponentBC(energy=en_top),
+                                             bottom=SoilComponentBC(energy=en_bot)))
+        Y = {"soil": {"rho_e_int": Y["soil"]["rho_e_int"]}}
+    elif "-water" in mode:
         model = dataclasses.replace(
             model, energy_model=PrescribedTemperatureModel(T_profile=lambda z, t: 285.0 + 3.0 * z + 1e-3 * t),
             boundary_conditions=SoilColumnBC(top=SoilComponentBC(hydrology=hyd_top, energy=NoBC()),
                                              bottom=SoilComponentBC(hydrology=hyd_bot, energy=NoBC())))
         Y = {"soil": {k: Y["soil"][k] for k in ("vartheta_l", "theta_i")}}
-    if mode.startswith("B4"):
-        stepper = implicit("BackwardEulerRichards" if "be-richards" in mode else "TRBDF2Soil", model, 2)
+    if solver:
+        stepper = implicit(IMPLICIT_STEPPERS[solver], model, 2)
         dt, steps = 60.0, 4
     if mode in ("B5", "B6"):
         v, ti = Y["soil"]["vartheta_l"][-1], Y["soil"]["theta_i"][-1]
@@ -2951,19 +3011,37 @@ def _sound_columns(state):
         return sound & (state["vartheta_l"] >= 0).all(0) & (state["vartheta_l"] <= 1).all(0)
 
 
-def check_diverged(kern, plain, start, dtype, what, moving):
-    """The kernel and the plain version must leave the range
-    (``_sound_columns``) in the same columns (an explicit step past a
-    column's stability limit diverges in both); on the other columns
-    ``_check`` and ``_check_increment``.  Returns ``(shares, max abs error,
-    diverged columns)``."""
-    fk, fp = _sound_columns(kern), _sound_columns(plain)
+def check_diverged(kern, plain, start, dtype, what, moving, sound=_sound_columns, check=_check, extra=None,
+                   change_of=None):
+    """The kernel and the plain version must leave the range (``sound``,
+    ``_sound_columns`` by default) in the same columns (an explicit step past
+    a column's stability limit diverges in both); on the other columns
+    ``check`` (``_check`` by default) and ``_check_increment`` (with
+    ``extra``, on the quantities ``change_of`` maps a state to where given).
+    Returns ``(shares, max abs error, diverged columns)``."""
+    fk, fp = sound(kern), sound(plain)
     if not np.array_equal(fk, fp):
         raise AssertionError(f"{what}: the kernel diverges in columns {np.flatnonzero(~fk)[:8]}, the plain version "
                              f"in {np.flatnonzero(~fp)[:8]}")
     kern, plain, start = ({k: v[:, fk] for k, v in x.items()} for x in (kern, plain, start))
-    _check(kern, plain, dtype, what)
-    return _check_increment(kern, plain, start, dtype, what, moving), _max_abs(kern, plain), int((~fk).sum())
+    check(kern, plain, dtype, what)
+    held = change_of or (lambda Y: Y)
+    shares = _check_increment(held(kern), held(plain), held(start), dtype, what, moving, extra)
+    return shares, _max_abs(kern, plain), int((~fk).sum())
+
+
+def _physical_columns(state):
+    """Columns whose every value is finite, vartheta_l within [0, 1] and
+    |rho_e_int| at most 1e9 J/m^3 (on the fields the branch has): 20c's
+    implicit steps of 30 s leave it in a few of the cold columns, in the
+    plain version as in the kernel."""
+    with np.errstate(invalid="ignore"):
+        ok = np.all([np.isfinite(v).all(0) for v in state.values()], axis=0)
+        if "vartheta_l" in state:
+            ok &= (state["vartheta_l"] >= 0).all(0) & (state["vartheta_l"] <= 1).all(0)
+        if "rho_e_int" in state:
+            ok &= (np.abs(state["rho_e_int"]) <= 1e9).all(0)
+    return ok
 
 
 def _equal_nan(a, b):
@@ -2971,9 +3049,14 @@ def _equal_nan(a, b):
     return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
-def regional_path(ck, costs, smi, dtype, device, variable_depth):
+#: the columns each regional hour took out of the range (``regional_path``), per (dtype, variable depth, no ice)
+REGIONAL_DIVERGED = {}
+
+
+def regional_path(ck, costs, smi, dtype, device, variable_depth, no_ice=False, tag="12 grid"):
     """Phase 12 (c) and (d): ``regional_grid.py``'s hour at nz=48 x 131,072
-    (``build_regional``, or its variable-depth twin): the first launch at
+    (``build_regional``, or its variable-depth twin; with ``no_ice``
+    ``production_run.py``'s ``assume_no_ice=True``, phase 20a): the first launch at
     full width against the plain version; the script's loop of
     ``make_fused_column_run`` calls and ``Simulation(engine="fused")``, each
     with the launch counts set to 0 just before and read just after, equal
@@ -2981,18 +3064,19 @@ def regional_path(ck, costs, smi, dtype, device, variable_depth):
     hour (``_sound_columns``; dt=5 s is past the explicit limit of a few
     columns that saturate or pond over thin cells, and they blow up in the
     JAX package too: ``tests/test_torch_regional_divergence.py``) counted,
-    at most 4,096; the script's summary, on the other columns.  Returns the
-    path to time."""
+    at most 4,096, and kept in ``REGIONAL_DIVERGED``; the script's summary,
+    on the other columns.  Returns the path to time."""
     from landhydrology_tpu_torch import Simulation
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
     nz, ncol, dt, spc, n = GRID_NZ, GRID_NCOL, GRID_DT, GRID_SPC, GRID_STEPS
-    tag = str(dtype)[6:]
+    prefix, tag = tag, str(dtype)[6:]
     moving = ("vartheta_l", "rho_e_int")
     model, Y0, Ya, kinds_top = build_regional(nz, ncol, dtype, device, variable_depth)
+    model = dataclasses.replace(model, assume_no_ice=no_ice)
     run = ck.make_fused_column_run(model, SSPRK33(), dt=dt, steps_per_call=spc)
     name = run.name
-    what = f"12 grid regional {tag} {name}"
+    what = f"{prefix} regional {tag} {name}"
     torch.cuda.synchronize()
     clock = time.perf_counter()
     plain = ck.fused_column_run_plain(model, SSPRK33(), dt, spc, Y0, 0.0)
@@ -3052,6 +3136,7 @@ def regional_path(ck, costs, smi, dtype, device, variable_depth):
     diverged = np.flatnonzero(~sound)
     if diverged.size > 4096:
         raise AssertionError(f"{what}: {diverged.size} columns diverge")
+    REGIONAL_DIVERGED[(dtype, variable_depth, no_ice)] = diverged
 
     v = end["vartheta_l"][:, sound]
     nu = np.broadcast_to(model.soil_param_set.nu.double().cpu().numpy(), (ncol,))[sound]
@@ -3069,7 +3154,7 @@ def regional_path(ck, costs, smi, dtype, device, variable_depth):
     summary = {"ncol": ncol, "nz": nz, "steps": n, "finite": bool(np.isfinite(end["vartheta_l"]).all()),
                "theta_min": float(v.min()), "theta_max": float(v.max()),
                "water_mass_change_frac": (mf - m0) / m0, "dirichlet_cols_wetter": wetter}
-    print(f"[12 grid] {tag} {name} regional_grid.py{' (variable-depth twin)' if variable_depth else ''} nz={nz} x "
+    print(f"[{prefix}] {tag} {name} regional_grid.py{' (variable-depth twin)' if variable_depth else ''} nz={nz} x "
           f"{ncol}, {n} steps of dt={dt:g} ({n // spc} launches of {spc}): first launch vs plain max abs {err1:.3e}, "
           f"change error / largest change {_fmt(shares1)} ({div1} columns diverged in both); {diverged.size} of "
           f"{ncol} columns leave the range over the hour (dt past their explicit limit; in the plain version too, "
@@ -4207,8 +4292,9 @@ B4_POLICIES = (
     {"coefficient_update": "step"}, {"freeze_thaw": "rate"}, {"freeze_thaw": "eq"}, {"assume_no_ice": True},
     {"coefficient_update": "step", "freeze_thaw": "rate"}, {"coefficient_update": "step", "freeze_thaw": "eq"},
 )
-#: 14c: the full-width gradient runs: (configuration, stepper, steps per launch, dt)
-GRAD_WIDE = (("bench", "SSPRK33", SPC, DT), ("freeze", "TRBDF2Soil", 8, 60.0))
+#: 14c: the full-width gradient runs: (configuration, stepper, steps per launch, dt), at half their depth since
+#: phase 20's cut (were 32 and 8 steps)
+GRAD_WIDE = (("bench", "SSPRK33", SPC // 2, DT), ("freeze", "TRBDF2Soil", 4, 60.0))
 
 
 def _policy(model, options):
@@ -4602,11 +4688,10 @@ COLD_MODES = tuple(lag + top + policy for top in COLD_TOPS for policy in COLD_PO
 #: 16a: each instance checked on this many columns over this many steps of 2 s; in f64 over COLD_STEPS_F64 since
 #: phase 18 (a cut for the script's time: f64's change bar needs no more, f32's needs the water to move)
 COLD_NCOL, COLD_STEPS, COLD_STEPS_F64 = 1000, 4, 2
-#: 16b: the path's modes at nz=64 x 65,536, one launch of COLD_WIDE_STEPS steps of the freeze column's dt, held
-#: to the plain version over the launch but those of COLD_SHORT_CHECKED, held by a launch of COLD_TIMED_STEPS steps
-#: (phase 19's cut of plain launches; 16a holds their instance where ice acts)
+#: 16b: the path's modes at nz=64 x 65,536, one launch of COLD_WIDE_STEPS steps of the freeze column's dt, each
+#: held to the plain version by a launch of COLD_TIMED_STEPS steps (the cuts of plain launches of phases 19 and 20;
+#: 16a holds their instance where ice acts)
 COLD_PATHS = ("B6+B3-rate", "B2+B6-step+B3-rate", "B6+B3-eq")
-COLD_SHORT_CHECKED = ("B2+B6-step+B3-rate", "B6+B3-eq")
 COLD_WIDE_STEPS = 32
 #: 16b: the atmosphere over the cold column
 COLD_THETA_ATM = 263.15
@@ -4748,11 +4833,10 @@ def cold_path(ck, gc, costs, smi, dtype, device, name):
     if run.name != name:
         raise AssertionError(f"16b: mode {run.name}, expected {name}")
     key = _path_key(model, Y0, dt, COLD_WIDE_STEPS, SSPRK33())
-    short = name in COLD_SHORT_CHECKED  # no ice forms in its first steps: theta_i held to its finite change alone
+    # no ice forms in the check's first steps: theta_i held to its finite change alone
     kern, launches, err, wall = drive_path(ck, model, Y0, Ya, dt, COLD_WIDE_STEPS, COLD_WIDE_STEPS, "16b cold",
-                                           ("vartheta_l", "rho_e_int", "h_s") if short else
-                                           ("vartheta_l", "theta_i", "rho_e_int", "h_s"),
-                                           projections=COLD_WIDE_STEPS, plain_steps=COLD_TIMED_STEPS if short else None)
+                                           ("vartheta_l", "rho_e_int", "h_s"), projections=COLD_WIDE_STEPS,
+                                           plain_steps=COLD_TIMED_STEPS)
     plain_ms, = _PATH_PLAIN_MS[key]
     probes = _PATH_PROBES[key][1] if run.mode & ck.MODE_MOST else None
     ice = float(np.max(kern["theta_i"]))
@@ -5300,8 +5384,7 @@ def cold_implicit_path(ck, gc, dtype, device, name):
         change_of, moving = unpartitioned(soil), ("water", "rho_e_int")
     kern, launches, err, wall = drive_path(ck, soil, Y0, Ya, IMPLICIT_DT, n, n, "17d cold implicit", moving,
                                            stepper=st, projections=n, change_of=change_of,
-                                           plain_steps=IMPLICIT_STEPS if name == COLD_IMPLICIT_PATHS[1]
-                                           and dtype == torch.float64 else None)
+                                           plain_steps=IMPLICIT_STEPS if dtype == torch.float64 else None)
     ice = float(np.max(kern["theta_i"]))
     if not ice > 1e-4:
         raise AssertionError(f"17d {name} {dtype}: no ice formed (max theta_i {ice})")
@@ -5325,23 +5408,29 @@ def unpartitioned(soil):
 
 
 def time_at_width(ck, costs, smi, model, Y0, stepper, dt, t0, name, checked, forcing=None, probes=None,
-                  steps=COLD_TIMED_STEPS, tag="17e", plain_at=None):
+                  steps=COLD_TIMED_STEPS, tag="17e", plain_at=None, from_start=False):
     """17e, 18c and 18d: one instance kernel only, at its path's width (18c
     at 16c's and 17c's, 18d at 18a's): an untimed launch of ``steps``
     steps, then two samples of three launches (CUDA events), the state
     finite after each; its bound, a MOST instance's with the probes of
-    ``cold_probes`` (or ``probes``), the rows read once (``forcing``).  The
-    record carries the instance's check (``checked``: ``(error, plain
-    ms)``; 17a's on ``COLD_NCOL`` columns by default) under ``plain_at``."""
+    ``cold_probes`` (or ``probes``), the rows read once (``forcing``); with
+    ``from_start`` (20d) an untimed launch and two samples of one launch,
+    each from the start state, as phase 12 times its variants.  The record
+    carries the instance's check (``checked``: ``(error, plain ms)``; 17a's
+    on ``COLD_NCOL`` columns by default) under ``plain_at``."""
     dtype = model.float_dtype
     run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=steps, forcing_fields=tuple(forcing or ()))
     if run.name != name:
         raise AssertionError(f"{tag}: built {run.name}, expected {name}")
-    Yk = _clone(Y0)
-    run(Yk, t0, forcing=forcing)
-    k1, k2 = (_time_ms(lambda: run(Yk, t0, forcing=forcing), 3) for _ in range(2))
-    if not all(bool(torch.isfinite(v).all()) for f in Yk.values() for v in f.values()):
+    states = [_clone(Y0) for _ in range(3 if from_start else 1)]
+    run(states[0], t0, forcing=forcing)
+    if from_start:
+        k1, k2 = (_time_ms(lambda Yk=Yk: run(Yk, t0, forcing=forcing), 1) for Yk in states[1:])
+    else:
+        k1, k2 = (_time_ms(lambda: run(states[0], t0, forcing=forcing), 3) for _ in range(2))
+    if not all(bool(torch.isfinite(v).all()) for Yk in states for f in Yk.values() for v in f.values()):
         raise AssertionError(f"{tag} {name}: the state left the finite numbers")
+    del states
     if run.mode & ck.MODE_MOST and probes is None:  # the implicit steppers' over one step
         probes = cold_probes(ck, model, Y0, dt, stepper, 1 if run.mode & ck.MODE_IMPLICIT else steps)
     nz, ncol = next(iter(Y0["soil"].values())).shape
@@ -5847,10 +5936,13 @@ def with_columns(model, seed, kinds=True, depth=True):
     m/s), DIRICHLET (0.30) or FREE_DRAINAGE, the energy (a dynamic one) FLUX
     (0) or DIRICHLET (268-278 K), and under a plain top its energy FLUX or
     DIRICHLET likewise (the top faces the surface exchange supplies keep
-    theirs); and per-column depths (a ``VariableDepthColumn``, kernel mode
-    B8) of 0.8-1.2 times the column's own where ``depth``.  Drawn from
+    theirs); on the heat-only branch the energy kinds at both faces; and
+    per-column depths (a ``VariableDepthColumn``, kernel mode B8) of 0.8-1.2
+    times the column's own where ``depth``.  Drawn from
     ``default_rng(seed)``."""
-    from landhydrology_tpu_torch import BatchedBC, SoilColumnBC, SoilComponentBC, SoilEnergyModel, VariableDepthColumn
+    from landhydrology_tpu_torch import (
+        BatchedBC, SoilColumnBC, SoilComponentBC, SoilEnergyModel, SoilHydrologyModel, VariableDepthColumn,
+    )
 
     land = hasattr(model, "soil")
     soil = model.soil if land else model
@@ -5863,7 +5955,10 @@ def with_columns(model, seed, kinds=True, depth=True):
         kind = codes(2)
         return BatchedBC(kind=kind, value=torch.where(kind == 1, tensor(rng.uniform(268.0, 278.0, ncol)), tensor(0.0)))
 
-    if kinds:
+    if kinds and not isinstance(soil.hydrology_model, SoilHydrologyModel):  # heat-only
+        soil = dataclasses.replace(soil, boundary_conditions=SoilColumnBC(
+            top=SoilComponentBC(energy=energy_kinds()), bottom=SoilComponentBC(energy=energy_kinds())))
+    elif kinds:
         bcs = soil.boundary_conditions
         coupled = isinstance(soil.energy_model, SoilEnergyModel)
         kind = codes(3)
@@ -5964,6 +6059,276 @@ def land_columns_phase(ck, costs, smi, device, t_start):
     return entries
 
 
+# ---- phase 20: per-column BC kinds and geometry in the plain-soil modes, every stepper and step policy ----
+
+#: 20c: the 16 plain-soil modes of ``csrc/rk_columns_kernel.cu``, in families (coupled, water-only, heat-only)
+#: whose order gives each member its stepper in ``soil_columns_cases``' rotation (B1, B2, B3-rate and
+#: B1-water never SSPRK33, whose MODE_COLUMNS instance of theirs is ``column_kernel.cu``'s, phase 12's)
+SOIL_RK_MODES = ("B1", "B2", "B1-no-ice", "B2-no-ice", "B3-rate", "B2+B3-rate", "B3-eq", "B2+B3-eq",
+                 "B2-water", "B1-water", "B1-water-no-ice", "B2-water-no-ice",
+                 "B1-heat", "B2-heat", "B1-heat-no-ice", "B2-heat-no-ice")
+#: 20c: the 28 implicit instances of ``csrc/implicit_columns_kernel.cu``: BackwardEulerSoil, each stepper with
+#: each policy, and the water-only branch's policies
+SOIL_IMPLICIT_MODES = (("B4-be-soil",) + tuple(st + p for st in IMPLICIT_STEPPERS for p in IMPLICIT_POLICIES)
+                       + tuple(st + "-water" + p for st in ("B4-trbdf2", "B4-be-richards")
+                               for p in ("+B2", "-no-ice", "-no-ice+B2")))
+#: 20c: the implicit instances also checked with PCR solves (read at run time)
+SOIL_IMPLICIT_PCR = ("B4-trbdf2+B2+B3-rate", "B4-be-richards-water+B2")
+#: 20c: the columns of a check, the implicit steppers' dt and steps, and the explicit steppers' steps per float
+#: type (the implicit ones take 2 in f32 too, as 17a's: over 4 f32 steps of 30 s the icy state's Dirichlet
+#: bottom cells cross the saturation branch of psi in one version and not in the other)
+SOIL_COLUMNS_NCOL, SOIL_IMPLICIT_DT, SOIL_IMPLICIT_STEPS = 1000, 30.0, 2
+SOIL_COLUMNS_STEPS = {torch.float64: 2, torch.float32: 4}
+#: 20b: the run file's launches of GRID_SPC steps of GRID_DT, its constant start, the strided plain check
+SOIL_CLI_LAUNCHES, SOIL_CLI_VARTHETA, SOIL_CLI_STRIDE = 2, 0.2, 64
+
+
+def soil_columns_cases():
+    """20c's checks: ``(mode, stepper, tridiag)`` of every new instance:
+    ``SOIL_RK_MODES`` under ``COLUMNS_STEPPERS`` cycled (shifted by one every
+    four modes, as ``land_columns_cases``: each family meets every stepper),
+    ``SOIL_IMPLICIT_MODES`` under their own stepper with Thomas solves, and
+    ``SOIL_IMPLICIT_PCR`` with PCR."""
+    cases = [(name, COLUMNS_STEPPERS[(i + i // 4) % 4], None) for i, name in enumerate(SOIL_RK_MODES)]
+    cases += [(name, None, "thomas") for name in SOIL_IMPLICIT_MODES]
+    return cases + [(name, None, "pcr") for name in SOIL_IMPLICIT_PCR]
+
+
+def soil_columns_variant(ncol, dtype, device, seed, mode, stepper_name, tridiag, nz=16, cold=True):
+    """``(model, state, stepper, dt, run name)`` of one of
+    ``soil_columns_cases`` on ``build_grid_variant``'s column (kinds at both
+    faces, depths 0.8-3.0 m, with ``cold`` the cold start of the freeze and
+    no-ice modes, the explicit no-ice ones on its icy state): an explicit
+    mode under ``stepper_name`` at the variant's dt, an implicit one at
+    ``SOIL_IMPLICIT_DT`` with ``tridiag``.  The implicit no-ice modes skip the
+    icy cells: there one-ulp changes of the start state move the plain
+    version's rho_e_int by up to 1e-11 of itself after 2 steps of 30 s
+    (BackwardEulerSoil lagged), past the f64 bar of 1e-12; the CPU tests hold
+    their cap on an icy state against the JAX package's kernel."""
+    model, Y, stepper, dt, _ = build_grid_variant(ncol, dtype, device, seed, mode, nz=nz, cold=cold,
+                                                  icy=tridiag is None)
+    if tridiag is None:
+        stepper = _stepper(stepper_name)
+        name = mode + "+kinds+B8" + ("" if stepper_name == "SSPRK33" else f"@{stepper_name}")
+    else:
+        stepper = implicit(IMPLICIT_STEPPERS[next(s for s in IMPLICIT_STEPPERS if mode.startswith(s))], model, 2,
+                           tridiag)
+        dt = SOIL_IMPLICIT_DT
+        name = mode + "+kinds+B8"
+        if tridiag == "pcr":  # mode_name puts -pcr after the branch and -no-ice, before the policies' +
+            head, plus, tail = name.partition("+")
+            name = f"{head}-pcr{plus}{tail}"
+    return model, Y, stepper, dt, name
+
+
+def soil_columns_checks(ck, costs, smi, dtype, device):
+    """20c and 20d: each of ``soil_columns_cases`` on ``SOIL_COLUMNS_NCOL``
+    columns, ``SOIL_COLUMNS_STEPS`` steps from t0 = 2 s
+    (``SOIL_IMPLICIT_STEPS`` under the implicit steppers), against the plain
+    version (``check_diverged``: the same columns, at most 1% (or 2), out of
+    ``_physical_columns``' range in both, where the cold start's Dirichlet
+    faces take an implicit step of 30 s past its two Newton sweeps; on the
+    others the freeze bars of ``_check_freeze`` after the launch's
+    projections with freeze-thaw, else ``_check``, and ``_check_increment``
+    with ``carried_allowance``, in f32 with the equilibrium projection on
+    ``unpartitioned``'s quantities), the plain launch timed
+    (host clock, synchronized); the instance must come from
+    ``rk_columns_kernel`` or ``implicit_columns_kernel``, a freeze-thaw one
+    grow ice in some columns and melt it in others.  Then each but the PCR
+    repeats timed at phase 12's variant width (``GRID_TIMED_NZ`` x
+    ``GRID_TIMED_NCOL``, the same kinds and depths drawn for its columns,
+    phase 12's warm start, dt scaled by (16 / ``GRID_TIMED_NZ``)^2 with the
+    levels' spacing;
+    ``time_at_width`` from the start state,
+    ``COLUMNS_TIMED_STEPS`` steps).  Returns the kernel records; the line
+    of the checks gives each case's seconds."""
+    entries, lines = [], []
+    for mode, stepper_name, tridiag in soil_columns_cases():
+        clock_case = time.perf_counter()
+        model, Y, stepper, dt, name = soil_columns_variant(SOIL_COLUMNS_NCOL, dtype, device, 7, mode, stepper_name,
+                                                           tridiag)
+        steps = SOIL_IMPLICIT_STEPS if tridiag else SOIL_COLUMNS_STEPS[dtype]
+        what = f"20c {str(dtype)[6:]} {name}"
+        start = _np(Y)
+        torch.cuda.synchronize()
+        clock = time.perf_counter()
+        plain = ck.fused_column_run_plain(model, stepper, dt, steps, Y, 2.0)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - clock) * 1e3
+        freeze = model.freeze_thaw is not None
+        check = (lambda a, b, d, w, m=model: _check_freeze(a, b, m, d, w, steps)) if freeze else _check
+        moving, change_of = tuple(k for k in ("vartheta_l", "rho_e_int") if k in start), None
+        if dtype == torch.float32 and _projection_allowance(model, dtype)[0]:
+            # the f32 projection's partition spread does not shrink with the change (phase 5's f32 B3-eq): the
+            # change bar holds the total water and rho_e_int, which no projection moves, _check_freeze the state
+            change_of, moving = unpartitioned(model), ("water", "rho_e_int")
+        run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=steps)
+        source = ck._entry(run.mode, dtype)[0]
+        if run.name != name or source != ("implicit_columns_kernel" if tridiag else "rk_columns_kernel"):
+            raise AssertionError(f"{what}: built {run.name} from {source}")
+        torch.cuda.synchronize()
+        ck.LAUNCHES.clear()
+        run(Y, 2.0)
+        torch.cuda.synchronize()
+        if dict(ck.LAUNCHES) != {name: 1}:
+            raise AssertionError(f"{what}: launches {dict(ck.LAUNCHES)}, expected one of {name}")
+        kern, plain = _np(Y), _np(plain)
+        shares, err, diverged = check_diverged(kern, plain, start, dtype, what, moving, sound=_physical_columns,
+                                               check=check, extra=carried_allowance(model, dtype, steps),
+                                               change_of=change_of)
+        if diverged > max(2, SOIL_COLUMNS_NCOL // 100):
+            raise AssertionError(f"{what}: {diverged} columns left the range in both versions")
+        ice = ""
+        if freeze:
+            grown, melted = _ice_columns(kern, start)
+            if not (grown and melted):
+                raise AssertionError(f"{what}: ice grew in {grown} columns and melted in {melted}")
+            ice = f"; ice grew in {grown}, melted in {melted} columns"
+        del kern, plain, Y
+        if tridiag != "pcr":  # a PCR repeat's instance is timed with Thomas solves
+            # from phase 12's warm start, at a dt scaled with the levels' spacing: the explicit limit scales
+            # with dz^2, and from the cold start at nz=48 a few columns of 32,768 leave the finite numbers in the
+            # plain version too (f32 under the implicit steppers, even at 30 s / 9)
+            model, Y0, stepper, dt, _ = soil_columns_variant(GRID_TIMED_NCOL, dtype, device, 12, mode, stepper_name,
+                                                             tridiag, nz=GRID_TIMED_NZ, cold=False)
+            dt *= (16 / GRID_TIMED_NZ) ** 2
+            entries.append(time_at_width(ck, costs, smi, model, Y0, stepper, dt, 2.0, name, (err, plain_ms),
+                                         steps=COLUMNS_TIMED_STEPS, tag="20d", from_start=True,
+                                         plain_at=f"20c: nz=16 x {SOIL_COLUMNS_NCOL}, {steps} steps"))
+            del model, Y0
+        out = f", {diverged} columns out of the range in both" if diverged else ""
+        lines.append(f"{name} {err:.2e} ({_fmt(shares)}, plain {plain_ms:.1f} ms{ice}{out}; "
+                     f"{time.perf_counter() - clock_case:.1f} s)")
+    torch.cuda.empty_cache()
+    print(f"[20c soil columns] {str(dtype)[6:]} {len(lines)} checks of the 44 plain-soil instances with per-column BC "
+          f"kinds (hydrology and energy at both faces) and depths (0.8-3.0 m) on {SOIL_COLUMNS_NCOL} columns, "
+          f"{SOIL_COLUMNS_STEPS[dtype]} steps under the explicit steppers (rotated), {SOIL_IMPLICIT_STEPS} of "
+          f"{SOIL_IMPLICIT_DT:g} s under the implicit ones (iters=2, two also with PCR), the freeze-thaw and "
+          f"no-ice modes from 268-278 K with 0.02 of ice (the explicit no-ice ones on its icy state): kernel vs "
+          f"plain max abs (change error / largest change, bar {INCREMENT_RTOL[dtype]:g}): "
+          + "; ".join(lines), flush=True)
+    return entries
+
+
+def regional_cli(ck, costs, smi, device, workdir):
+    """20b: ``regional_grid.py``'s variable-depth twin (nz=48 x 131,072, f64)
+    with lagged coefficients, written by ``to_config`` into a run file
+    (a constant start of vartheta_l ``SOIL_CLI_VARTHETA`` at 288 K,
+    SSPRK104, ``"engine": "pallas"``, ``SOIL_CLI_LAUNCHES`` launches of
+    ``GRID_SPC`` steps of ``GRID_DT``, saved at each) and run by ``python -m
+    landhydrology_tpu_torch run`` in a subprocess (``B2+kinds+B8@SSPRK104``);
+    its first save equal bit for bit to a launch of the file's model and
+    state in this process, that launch on every ``SOIL_CLI_STRIDE``-th column
+    against the plain version (``check_diverged``), then the launch timed.
+    Returns its kernel record."""
+    from landhydrology_tpu_torch import cli
+    from landhydrology_tpu_torch.config import to_config
+
+    model, _, _, _ = build_regional(GRID_NZ, GRID_NCOL, torch.float64, device, variable_depth=True)
+    model = dataclasses.replace(model, coefficient_update="step")
+    path, out = os.path.join(workdir, "regional.json"), os.path.join(workdir, "regional.npz")
+    n = SOIL_CLI_LAUNCHES * GRID_SPC
+    cfg = {"model": to_config(model),
+           "simulation": {"dt": GRID_DT, "t_final": n * GRID_DT, "saveat": GRID_SPC * GRID_DT, "stepper": "SSPRK104",
+                          "engine": "pallas", "steps_per_call": GRID_SPC},
+           "initial_conditions": {"kind": "constant", "vartheta_l": SOIL_CLI_VARTHETA, "T": 288.0},
+           "output": {"path": out}}
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    del model
+    _, launches, wall = _run_cli(path, "20b regional run file")
+    name = "B2+kinds+B8@SSPRK104"
+    if launches != {name: SOIL_CLI_LAUNCHES}:
+        raise AssertionError(f"20b: launches {launches}, expected {SOIL_CLI_LAUNCHES} of {name}")
+    saved = np.load(out)
+    run_model, st, Y_ic, _, _, _ = cli.load_run(path, device)
+    run = ck.make_fused_column_run(run_model, st, dt=GRID_DT, steps_per_call=GRID_SPC)
+    Yk = _clone(Y_ic)
+    torch.cuda.synchronize()
+    ck.LAUNCHES.clear()
+    run(Yk, 0.0)
+    torch.cuda.synchronize()
+    if dict(ck.LAUNCHES) != {name: 1} or run.name != name:
+        raise AssertionError(f"20b: the file's first launch counted {dict(ck.LAUNCHES)} of {run.name}")
+    first = _np(Yk)
+    if not all(np.array_equal(saved[k][1], first[k], equal_nan=True) for k in first):
+        raise AssertionError("20b: the CLI's first save differs from the file's first launch in this process")
+    idx = torch.arange(0, GRID_NCOL, SOIL_CLI_STRIDE, device=device)
+    sub, Yp = column_slice(run_model, Y_ic, idx)
+    start = _np(Yp)
+    torch.cuda.synchronize()
+    clock = time.perf_counter()
+    Yp = ck.fused_column_run_plain(sub, st, GRID_DT, GRID_SPC, Yp, 0.0)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - clock) * 1e3
+    cols = idx.cpu().numpy()
+    kern = {k: v[:, cols] for k, v in first.items()}
+    shares, err, div = check_diverged(kern, _np(Yp), start, torch.float64, "20b first launch vs plain",
+                                      ("vartheta_l", "rho_e_int"))
+    end = {k: saved[k][-1] for k in first}
+    lost = int((~_sound_columns(end)).sum())
+    k1, k2 = (_time_ms(lambda: run(Yk, 0.0), 1) for _ in range(2))
+    nz, ncol = GRID_NZ, GRID_NCOL
+    b_ms, b_by = bound_ms(ck, costs, run.mode, torch.float64, nz * ncol, GRID_SPC,
+                          read_values=per_column_values(run, nz, ncol, torch.float64))
+    ms = (k1 + k2) / 2
+    print(f"[20b cli] regional_grid.py's variable-depth twin, lagged, as a run file (SSPRK104, engine pallas, "
+          f"constant start {SOIL_CLI_VARTHETA} at 288 K): python -m landhydrology_tpu_torch run: kernel launches "
+          f"{launches}, {nz * ncol * n / wall:.4e} grid-points/s end to end ({wall:.3f} s host clock); its first save "
+          f"equal bit for bit to the file's first launch here; every {SOIL_CLI_STRIDE}th column ({len(cols)}) of it vs "
+          f"plain max abs {err:.3e}, change error / largest change {_fmt(shares)} ({div} columns diverged in both); "
+          f"{lost} of {ncol} columns out of the range after {n} steps; kernel {k1:.3f}/{k2:.3f} ms per launch of "
+          f"{GRID_SPC} steps, plain {plain_ms:.3f} ms on the strided columns, bound {b_ms:.3f} ms by {b_by} "
+          f"({b_ms / ms:.3f} of the kernel's time) on {smi}", flush=True)
+    kernel, source = kernel_of(ck, run.mode, torch.float64)
+    return {"name": f"{kernel}<f64, {name}>", "route": "cuda", "source": source, "replaces": REPLACES,
+            "launches": SOIL_CLI_LAUNCHES, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "plain_at": f"20b: every {SOIL_CLI_STRIDE}th column, {GRID_SPC} steps", "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
+
+
+def soil_columns_phase(ck, costs, smi, device, t_start):
+    """Phase 20: 20a the regional hour with ``assume_no_ice`` (``regional_path``
+    with ``no_ice``: ``B1-no-ice+kinds`` and its variable-depth twin
+    ``B1-no-ice+kinds+B8``, f32 and f64), whose diverged columns must be
+    those phase 12's SSPRK33 B1 run leaves (``REGIONAL_DIVERGED``; run here
+    when phase 12 did not), then timed as phase 6 times its paths; 20b the
+    SSPRK104 run file (``regional_cli``); 20c and 20d the 44 new instances
+    (``soil_columns_checks``), f64 and f32.  Returns the kernel records."""
+    import tempfile
+
+    paths, failures = [], []
+    for dtype in (torch.float32, torch.float64):
+        for variable_depth in (False, True):
+            try:  # every path runs, so one run shows each path's failure
+                if (dtype, variable_depth, False) not in REGIONAL_DIVERGED:
+                    regional_path(ck, costs, smi, dtype, device, variable_depth, tag="20a B1")
+                paths.append(regional_path(ck, costs, smi, dtype, device, variable_depth, no_ice=True, tag="20a"))
+                b1, no_ice = (REGIONAL_DIVERGED[(dtype, variable_depth, x)] for x in (False, True))
+                print(f"[20a] {str(dtype)[6:]} diverged columns with no ice {no_ice.size}, B1's {b1.size}: "
+                      f"{'the same' if np.array_equal(b1, no_ice) else 'NOT the same'}", flush=True)
+                if not np.array_equal(b1, no_ice):
+                    raise AssertionError(f"20a {dtype} {variable_depth}: no ice diverges in {no_ice.tolist()[:20]}, "
+                                         f"B1 in {b1.tolist()[:20]}")
+            except AssertionError as e:
+                print(f"[20a] FAILED: {e}", flush=True)
+                failures.append(str(e))
+            torch.cuda.empty_cache()
+    entries = time_paths(ck, costs, smi, paths)
+    del paths
+    _mark(t_start, "phase 20a")
+    with tempfile.TemporaryDirectory() as workdir:
+        entries.append(regional_cli(ck, costs, smi, device, workdir))
+    torch.cuda.empty_cache()
+    _mark(t_start, "phase 20b")
+    for dtype in (torch.float64, torch.float32):
+        entries += soil_columns_checks(ck, costs, smi, dtype, device)
+        _mark(t_start, f"phase 20c-d's {str(dtype)[6:]} instances")
+    if failures:
+        raise AssertionError("phase 20a failed: " + " | ".join(failures))
+    return entries
+
+
 def _fmt_ms(values):
     return "/".join(f"{v:.3f}" for v in values) + " ms"
 
@@ -5972,126 +6337,13 @@ def _fmt_rates(points, walls_ms):
     return "/".join(f"{points / (w / 1e3):.4e}" for w in walls_ms)
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--profile", action="store_true",
-                        help="add phase 7: repeated timings, tile sweep, clock, profiler")
-    parser.add_argument("--forced-only", action="store_true",
-                        help="run phases 1, 2 and 11 only (the forced path, kernel mode B7)")
-    parser.add_argument("--grid-only", action="store_true",
-                        help="run phases 1, 2 and 12 only (the regional grid, kernel modes B1-batched and B8), "
-                             "with phase 6's times of its paths")
-    parser.add_argument("--adaptive-only", action="store_true",
-                        help="run phases 1, 2 and 13 only (adaptive stepping, kernel modes B1-dt and B4+B5)")
-    parser.add_argument("--cli-only", action="store_true",
-                        help="run phases 1, 2 and 15 only (the run-file CLI and the explicit steppers of "
-                             "rk_kernel.cu)")
-    parser.add_argument("--seed", type=int, default=0, help="seed of phase 15b's per-column Ksat")
-    parser.add_argument("--compare-with", metavar="PARENT",
-                        help="after phases 1 and 2, hold this tree's registers and B1's kernel time to the tree at "
-                             "PARENT (an unpacked git archive), built and timed in turns")
-    parser.add_argument("--land-only", action="store_true",
-                        help="run phases 1, 2, 10 and 16 only (the land path and the cold land path, kernel modes "
-                             "B5 and B6 with and without the step policies), with phase 6's times of phase 10's "
-                             "paths")
-    parser.add_argument("--cold-forced-only", action="store_true",
-                        help="run phases 1, 2 and 17 only (cold forced and water-only land: the land policy "
-                             "instances with forcing rows, the water-only LandModel, the implicit steppers' policies "
-                             "under a MOST top), with phase 6's times of 17d's paths")
-    parser.add_argument("--land-rk-only", action="store_true",
-                        help="run phases 1, 2 and 18 only (the explicit steppers under a MOST top and a LandModel, the "
-                             "LandModel run files, the implicit steppers' policies on the water-only branch), with "
-                             "phase 6's times of 18a's paths")
-    parser.add_argument("--land-columns-only", action="store_true",
-                        help="run phases 1, 2 and 19 only (per-column BC kinds and geometry in the land modes under "
-                             "every explicit stepper: catchment.py's storm at its regolith depth, the 48 column "
-                             "instances)")
-    parser.add_argument("--grad-only", action="store_true",
-                        help="run phases 1, 2 and 14 only (the gradient path, kernel modes B9 and B4 + step "
-                             "policies, with the times of its B4 + policy instances)")
-    args = parser.parse_args()
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
-        return 1
-    global T_START
-    t_start = T_START = time.perf_counter()
-    sys.path.insert(0, HERE)
+def golden_phase(ck, gc, device):
+    """Phase 3: the goldens in f64 through the kernels, the JAX fused tests'
+    implicit cases and the 1,000-column variants (the module docstring's
+    list)."""
     from landhydrology_tpu_torch import VerticalFlux
     from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw, FreezeThaw
-    from landhydrology_tpu_torch.ops.cuda import column_kernel as ck
-    from landhydrology_tpu_torch.timestepping import SSPRK33
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = _smi("name,power.limit")
-    device = torch.device("cuda", 0)
-    print(f"[1 device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
-          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-
-    t = time.perf_counter()
-    libs = ck.build_library(FIRST_SOURCES)
-    for key in libs:
-        ck.load_library(key)
-    build_s = time.perf_counter() - t
-    costs = op_costs(ck)
-    print(f"[2 build] {', '.join(ck.SOURCES[n].name for n in FIRST_SOURCES)} -> sm_90a in {build_s:.3f} s "
-          f"(one nvcc per source and float type, in parallel; "
-          f"{', '.join(f'{k} {v:.1f} s' for k, v in ck.BUILD_SECONDS.items())}); "
-          f"registers per thread (ptxas): {registers(ck, libs)}; spill stores in bytes (ptxas; the "
-          f"instances without any left out): {({k: v for k, v in spill_stores(ck, libs).items() if v}) or 'none'}; "
-          f"FP instructions per call (cuobjdump -sass, fast path): " + "; ".join(
-              f"{str(d)[6:]} " + ", ".join(f"{k} {v}" for k, v in c.items()) for d, c in costs.items()),
-          flush=True)
-    global LATER_BUILD
-    later = LATER_BUILD = LaterBuild(ck)
-    later.start()
-
-    gc = _load_golden_config()
-    if args.compare_with:
-        later.finish()
-        compare_with(args.compare_with, smi)
-        return finish([], smi, t_start)
-    if args.forced_only:
-        return finish(forced_phase(ck, gc, device, smi, costs), smi, t_start)
-    if args.grid_only:
-        return finish(time_paths(ck, costs, smi, grid_phase(ck, costs, smi, device, t_start)), smi, t_start)
-    if args.adaptive_only:
-        return finish(adaptive_main(ck, gc, costs, smi, device, t_start), smi, t_start)
-    if args.grad_only:
-        grad_entries = grad_main(ck, gc, costs, smi, device, t_start)
-        _mark(t_start, "phase 14")
-        return finish(grad_entries, smi, t_start)
-    if args.cli_only:
-        cli_entries = cli_main(ck, costs, smi, device, args.seed, t_start)
-        _mark(t_start, "phase 15")
-        return finish(cli_entries, smi, t_start)
-    if args.cold_forced_only:
-        later.finish()
-        # 16a's checks of the land policy instances with step-indexed rows, which 17a completes
-        cold_checked = {dtype: cold_checks(ck, dtype, device) for dtype in (torch.float64, torch.float32)}
-        _mark(t_start, "phase 16a")
-        cold_entries, cold_paths = cold_forced_phase(ck, costs, smi, device, t_start, cold_checked, {})
-        _mark(t_start, "phase 17")
-        return finish(time_paths(ck, costs, smi, cold_paths) + cold_entries, smi, t_start)
-    if args.land_rk_only:
-        later.finish()
-        rk_entries, rk_paths = land_rk_phase(ck, costs, smi, device, t_start)
-        _mark(t_start, "phase 18")
-        return finish(time_paths(ck, costs, smi, rk_paths) + rk_entries, smi, t_start)
-    if args.land_columns_only:
-        later.finish()
-        columns_entries = land_columns_phase(ck, costs, smi, device, t_start)
-        _mark(t_start, "phase 19")
-        return finish(columns_entries, smi, t_start)
-    if args.land_only:
-        land_paths = land_phase(ck, gc, device, smi)
-        _mark(t_start, "phase 10")
-        later.finish()
-        cold_entries, _, _ = cold_phase(ck, costs, smi, device, t_start)
-        _mark(t_start, "phase 16")
-        return finish(time_paths(ck, costs, smi, land_paths) + cold_entries, smi, t_start)
-
-    # ---- 3: goldens in f64 through the kernels, and variants ----
     data = os.path.join(HERE, "tests", "data")
     golden = {name: np.load(os.path.join(data, f"golden_{name}_f64.npz"))
               for name in ("coupled", "lagged", "freeze", "implicit")}
@@ -6171,6 +6423,138 @@ def main() -> int:
                   f"{_max_abs(kern, plain):.3e}; change error / largest change {_fmt(shares)} "
                   f"(bar {INCREMENT_RTOL[dtype]:g})", flush=True)
 
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--profile", action="store_true",
+                        help="add phase 7: repeated timings, tile sweep, clock, profiler")
+    parser.add_argument("--forced-only", action="store_true",
+                        help="run phases 1, 2 and 11 only (the forced path, kernel mode B7)")
+    parser.add_argument("--grid-only", action="store_true",
+                        help="run phases 1, 2 and 12 only (the regional grid, kernel modes B1-batched and B8), "
+                             "with phase 6's times of its paths")
+    parser.add_argument("--adaptive-only", action="store_true",
+                        help="run phases 1, 2 and 13 only (adaptive stepping, kernel modes B1-dt and B4+B5)")
+    parser.add_argument("--cli-only", action="store_true",
+                        help="run phases 1, 2 and 15 only (the run-file CLI and the explicit steppers of "
+                             "rk_kernel.cu)")
+    parser.add_argument("--seed", type=int, default=0, help="seed of phase 15b's per-column Ksat")
+    parser.add_argument("--compare-with", metavar="PARENT",
+                        help="after phases 1 and 2, hold this tree's registers and B1's kernel time to the tree at "
+                             "PARENT (an unpacked git archive), built and timed in turns")
+    parser.add_argument("--land-only", action="store_true",
+                        help="run phases 1, 2, 10 and 16 only (the land path and the cold land path, kernel modes "
+                             "B5 and B6 with and without the step policies), with phase 6's times of phase 10's "
+                             "paths")
+    parser.add_argument("--cold-forced-only", action="store_true",
+                        help="run phases 1, 2 and 17 only (cold forced and water-only land: the land policy "
+                             "instances with forcing rows, the water-only LandModel, the implicit steppers' policies "
+                             "under a MOST top), with phase 6's times of 17d's paths")
+    parser.add_argument("--land-rk-only", action="store_true",
+                        help="run phases 1, 2 and 18 only (the explicit steppers under a MOST top and a LandModel, the "
+                             "LandModel run files, the implicit steppers' policies on the water-only branch), with "
+                             "phase 6's times of 18a's paths")
+    parser.add_argument("--land-columns-only", action="store_true",
+                        help="run phases 1, 2 and 19 only (per-column BC kinds and geometry in the land modes under "
+                             "every explicit stepper: catchment.py's storm at its regolith depth, the 48 column "
+                             "instances)")
+    parser.add_argument("--soil-columns-only", action="store_true",
+                        help="run phases 1, 2 and 20 only (per-column BC kinds and geometry in the plain-soil modes "
+                             "under every explicit stepper and implicit step policy: the regional hour with no ice, "
+                             "its SSPRK104 run file, the 44 new instances)")
+    parser.add_argument("--grad-only", action="store_true",
+                        help="run phases 1, 2 and 14 only (the gradient path, kernel modes B9 and B4 + step "
+                             "policies, with the times of its B4 + policy instances)")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
+        return 1
+    global T_START
+    t_start = T_START = time.perf_counter()
+    sys.path.insert(0, HERE)
+    from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw, FreezeThaw
+    from landhydrology_tpu_torch.ops.cuda import column_kernel as ck
+    from landhydrology_tpu_torch.timestepping import SSPRK33
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = _smi("name,power.limit")
+    device = torch.device("cuda", 0)
+    print(f"[1 device] {torch.cuda.get_device_name(0)} | nvidia-smi: {smi} | "
+          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+    t = time.perf_counter()
+    libs = ck.build_library(FIRST_SOURCES)
+    for key in libs:
+        ck.load_library(key)
+    build_s = time.perf_counter() - t
+    costs = op_costs(ck)
+    print(f"[2 build] {', '.join(ck.SOURCES[n].name for n in FIRST_SOURCES)} -> sm_90a in {build_s:.3f} s "
+          f"(one nvcc per source and float type, in parallel; "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in ck.BUILD_SECONDS.items())}); "
+          f"registers per thread (ptxas): {registers(ck, libs)}; spill stores in bytes (ptxas; the "
+          f"instances without any left out): {({k: v for k, v in spill_stores(ck, libs).items() if v}) or 'none'}; "
+          f"FP instructions per call (cuobjdump -sass, fast path): " + "; ".join(
+              f"{str(d)[6:]} " + ", ".join(f"{k} {v}" for k, v in c.items()) for d, c in costs.items()),
+          flush=True)
+    global LATER_BUILD
+    later = LATER_BUILD = LaterBuild(ck)
+    later.start()
+
+    gc = _load_golden_config()
+    if args.compare_with:
+        later.finish()
+        compare_with(args.compare_with, smi)
+        return finish([], smi, t_start)
+    if args.forced_only:
+        return finish(forced_phase(ck, gc, device, smi, costs), smi, t_start)
+    if args.grid_only:
+        return finish(time_paths(ck, costs, smi, grid_phase(ck, costs, smi, device, t_start)), smi, t_start)
+    if args.adaptive_only:
+        return finish(adaptive_main(ck, gc, costs, smi, device, t_start), smi, t_start)
+    if args.grad_only:
+        later.finish()  # the plain soil's implicit policy instances (implicit_policy_kernel.cu)
+        grad_entries = grad_main(ck, gc, costs, smi, device, t_start)
+        _mark(t_start, "phase 14")
+        return finish(grad_entries, smi, t_start)
+    if args.cli_only:
+        later.finish()  # 15a's implicit no-ice instances (implicit_policy_kernel.cu)
+        cli_entries = cli_main(ck, costs, smi, device, args.seed, t_start)
+        _mark(t_start, "phase 15")
+        return finish(cli_entries, smi, t_start)
+    if args.cold_forced_only:
+        later.finish()
+        # 16a's checks of the land policy instances with step-indexed rows, which 17a completes
+        cold_checked = {dtype: cold_checks(ck, dtype, device) for dtype in (torch.float64, torch.float32)}
+        _mark(t_start, "phase 16a")
+        cold_entries, cold_paths = cold_forced_phase(ck, costs, smi, device, t_start, cold_checked, {})
+        _mark(t_start, "phase 17")
+        return finish(time_paths(ck, costs, smi, cold_paths) + cold_entries, smi, t_start)
+    if args.land_rk_only:
+        later.finish()
+        rk_entries, rk_paths = land_rk_phase(ck, costs, smi, device, t_start)
+        _mark(t_start, "phase 18")
+        return finish(time_paths(ck, costs, smi, rk_paths) + rk_entries, smi, t_start)
+    if args.land_columns_only:
+        later.finish()
+        columns_entries = land_columns_phase(ck, costs, smi, device, t_start)
+        _mark(t_start, "phase 19")
+        return finish(columns_entries, smi, t_start)
+    if args.soil_columns_only:
+        later.finish()
+        soil_entries = soil_columns_phase(ck, costs, smi, device, t_start)
+        _mark(t_start, "phase 20")
+        return finish(soil_entries, smi, t_start)
+    if args.land_only:
+        land_paths = land_phase(ck, gc, device, smi)
+        _mark(t_start, "phase 10")
+        later.finish()
+        cold_entries, _, _ = cold_phase(ck, costs, smi, device, t_start)
+        _mark(t_start, "phase 16")
+        return finish(time_paths(ck, costs, smi, land_paths) + cold_entries, smi, t_start)
+
+    # ---- 3: goldens in f64 through the kernels, and variants ----
+    golden_phase(ck, gc, device)
     _mark(t_start, "phase 3")
 
     # ---- 4 and 5: the main paths at full width ----
@@ -6181,8 +6565,11 @@ def main() -> int:
                    {"coefficient_update": "step", "assume_no_ice": True}):
             model, Y0, Ya = build_bench_model(NZ, NCOL, dtype, device)
             model = dataclasses.replace(model, **kw)
+            # f64 held by its first launch (phase 20's cut of plain launches); f32's change error, 4e-2 of the
+            # change over the path against the bar of 0.1, is too near it for a shorter launch
             kern, launches, err, _ = drive_path(ck, model, Y0, Ya, DT, N_STEPS, SPC, "4 main",
-                                                ("vartheta_l", "rho_e_int"))
+                                                ("vartheta_l", "rho_e_int"),
+                                                plain_steps=SPC if dtype == torch.float64 else None)
             if not kw:
                 stage_final = kern["vartheta_l"]
             if kw.get("coefficient_update") == "step":
@@ -6202,10 +6589,15 @@ def main() -> int:
             paths.append((model, Y0, DT, SPC, launches, err, SSPRK33()))
         for freeze in (FreezeThaw(tau=60.0), EquilibriumFreezeThaw()):
             model, Y0, Ya, dt = build_freeze_wide(gc, dtype, device, freeze)
-            short = dtype == torch.float64 or isinstance(freeze, FreezeThaw)
+            change_of, moving = None, ("vartheta_l", "theta_i", "rho_e_int")
+            if dtype == torch.float32 and isinstance(freeze, EquilibriumFreezeThaw):
+                # held by its first launch since phase 20's cut: the f32 projection's partition spread does not
+                # shrink with the change (phase 19's call 3), so the change bar holds the total water and
+                # rho_e_int, which no projection moves (as 17d's f32 equilibrium path), and _check_freeze the state
+                change_of, moving = unpartitioned(model), ("water", "rho_e_int")
             kern, launches, err, _ = drive_path(ck, model, Y0, Ya, dt, FREEZE_STEPS, FREEZE_STEPS // 2,
-                                                "5 freeze", ("vartheta_l", "theta_i", "rho_e_int"),
-                                                plain_steps=FREEZE_STEPS // 2 if short else None)
+                                                "5 freeze", moving, change_of=change_of,
+                                                plain_steps=FREEZE_STEPS // 2)
             ice = float(np.max(kern["theta_i"]))
             if not ice > 1e-4:
                 raise AssertionError(f"freeze at width: no ice formed (max theta_i {ice})")
@@ -6263,14 +6655,17 @@ def main() -> int:
     # ---- 9: the other new modes at full width ----
     for dtype in (torch.float32, torch.float64):
         model, Y0, Ya = build_heat_only(NZ, NCOL, dtype, device, seed=5)
+        # each path held by its first launch (phase 20's cut of plain launches: their change errors sat 200x or
+        # more under the bar over the whole path)
         for st, dt, n, spc in ((SSPRK33(), 10.0, N_STEPS, SPC), (implicit("TRBDF2Soil", model, 2), 600.0, 16, 8)):
-            _, launches, err, _ = drive_path(ck, model, Y0, Ya, dt, n, spc, "9 modes", ("rho_e_int",), stepper=st)
+            _, launches, err, _ = drive_path(ck, model, Y0, Ya, dt, n, spc, "9 modes", ("rho_e_int",), stepper=st,
+                                             plain_steps=spc)
             paths.append((model, Y0, dt, spc, launches, err, st))
         model, Y0, Ya = build_bench_model(NZ, NCOL, dtype, device)
         for name in ("TRBDF2Soil", "BackwardEulerSoil", "BackwardEulerRichards"):
             st = implicit(name, model, 2)
             _, launches, err, _ = drive_path(ck, model, Y0, Ya, 60.0, 16, 8, "9 modes",
-                                             ("vartheta_l", "rho_e_int"), stepper=st)
+                                             ("vartheta_l", "rho_e_int"), stepper=st, plain_steps=8)
             paths.append((model, Y0, 60.0, 8, launches, err, st))
         model, Y0, Ya = build_stiff(NZ, NCOL, dtype, device)
         dt_imp = STIFF_FACTOR * stiff_dt_explicit(model, Y0)
@@ -6299,6 +6694,7 @@ def main() -> int:
     _mark(t_start, "phase 13")
 
     # ---- 14: the gradient path, kernel modes B9 and B4 + step policies ----
+    later.finish()  # from here on the plain soil's implicit policy instances (implicit_policy_kernel.cu) run
     forced_entries += grad_main(ck, gc, costs, smi, device, t_start)
     _mark(t_start, "phase 14")
 
@@ -6307,7 +6703,6 @@ def main() -> int:
     _mark(t_start, "phase 15")
 
     # ---- 16: the cold land path, kernel modes B5/B6 with freeze-thaw or no ice ----
-    later.finish()
     cold_entries, cold_checked, cold_probes_of = cold_phase(ck, costs, smi, device, t_start)
     forced_entries += cold_entries
     _mark(t_start, "phase 16")
@@ -6327,6 +6722,10 @@ def main() -> int:
     # ---- 19: per-column BC kinds and geometry in the land modes, every explicit stepper ----
     forced_entries += land_columns_phase(ck, costs, smi, device, t_start)
     _mark(t_start, "phase 19")
+
+    # ---- 20: per-column BC kinds and geometry in the plain-soil modes, every stepper and step policy ----
+    forced_entries += soil_columns_phase(ck, costs, smi, device, t_start)
+    _mark(t_start, "phase 20")
 
     # ---- 6: times at the main-path shapes, in turns ----
     entries = time_paths(ck, costs, smi, paths)
@@ -6462,9 +6861,10 @@ def compare_with(parent, smi) -> None:
     unpacked ``git archive`` of the parent commit), each in a subprocess in
     turns (parent, this, this, parent), each building its own kernels: every
     instance the parent builds keeps its registers per thread (ptxas) here
-    but those of ``REPAIRED``; the new land stage-table instances
-    (``table:<mode>+kinds+B8``) have their registers and spill stores
-    printed beside the parent's twins without ``MODE_COLUMNS``; B1's and ``COMPARE_LAND``'s kernel times per 32-step launch at
+    but those of ``REPAIRED``; the new instances with ``MODE_COLUMNS``
+    (``rk:<mode>+kinds+B8``, ``<implicit mode>+kinds+B8``) have their
+    registers and spill stores printed beside the parent's twins without
+    it; B1's and ``COMPARE_LAND``'s kernel times per 32-step launch at
     their widths (CUDA events, four samples per run, each of five launches
     or of 200 ms, whichever is longer) are within 2% of the parent's, f32
     and f64."""
@@ -6484,9 +6884,9 @@ def compare_with(parent, smi) -> None:
     print(f"[compare] registers: {len(before)} instances of the parent, {len(after)} here; changed "
           f"{changed or 'none'}; spill stores changed {spills_changed or 'none'}; repaired (parent, here): "
           f"{repaired}; new: {new}", flush=True)
-    tables = [k for k in new if ", table:" in k]
-    print(f"[compare] {len(tables)} new land stage-table instances with MODE_COLUMNS, registers / spill-store bytes "
-          "(the parent's table instance of the mode without it -> this one): " + "; ".join(
+    tables = [k for k in new if k.endswith("+kinds+B8")]
+    print(f"[compare] {len(tables)} new instances with MODE_COLUMNS, registers / spill-store bytes (the parent's "
+          "instance of the mode without it -> this one): " + "; ".join(
               f"{k} {before.get(k.replace('+kinds+B8', ''))}->{after[k]} / "
               f"{spills_before.get(k.replace('+kinds+B8', ''), 0)}->{spills_after.get(k, 0)}" for k in tables),
           flush=True)
@@ -6511,29 +6911,41 @@ def compare_with(parent, smi) -> None:
 FIRST_SOURCES = ("column_kernel", "implicit_kernel", "land_kernel", "rk_kernel")
 #: the run's ``LaterBuild`` (``main`` starts it)
 LATER_BUILD = None
+#: the background build's compiles at a time, and its sources in the order it starts them, the longest first
+#: (their seconds in the calls of phase 20's PR, all twenty compiles at once: 130-273 s for the implicit and land
+#: policy sources in f64, 58-92 s for the others)
+LATER_JOBS = 6
+LATER_ORDER = ("implicit_most_kernel", "implicit_columns_kernel", "implicit_policy_kernel", "land_policy_columns_kernel",
+               "land_policy_rk_kernel", "land_policy_kernel", "implicit_branch_kernel", "land_columns_kernel",
+               "land_rk_kernel", "rk_columns_kernel")
 
 
 class LaterBuild(threading.Thread):
-    """Phase 2's build of the sources not in ``FIRST_SOURCES``, in a thread
-    whose ``nvcc`` processes run at nice 19 (the thread's own priority,
-    which Linux gives the processes it starts).  The phases beside it run
-    slower all the same (on an H100 host phase 3 took 62-78 s beside it, 28
-    s without, also with the build kept off two of the eight CPUs), but
-    less than the build would take in front of them.  ``finish`` (before
-    phases 16-19, and at the end) starts it if need be and waits for
-    it, once, loads its libraries and prints their build seconds, registers
-    and spill stores.  Not a daemon: the interpreter waits for the build on
-    an early exit."""
+    """Phase 2's build of the sources not in ``FIRST_SOURCES``
+    (``LATER_ORDER``), ``LATER_JOBS`` compiles at a time, in a thread whose
+    ``nvcc`` processes run at nice 19 (the thread's own priority, which
+    Linux gives the processes it starts).  The phases beside it run slower
+    all the same (on an H100 host phase 3 took 62-78 s beside seven sources,
+    28 s without, also with the build kept off two of the eight CPUs; beside
+    ten sources' twenty compiles at once, phases 3-5 ran at a fifth to a
+    third of their speed), but less than the build would take in front of
+    them.  ``finish`` (before phase 14, and at the end) starts it if need
+    be and waits for it, once, loads its libraries and prints their build
+    seconds, registers and spill stores.  Not a daemon: the interpreter
+    waits for the build on an early exit."""
 
     def __init__(self, ck):
         super().__init__()
         self.ck, self.libs, self.error, self.done = ck, None, None, False
         self.sources = tuple(name for name in ck.SOURCES if name not in FIRST_SOURCES)
+        if sorted(self.sources) != sorted(LATER_ORDER):
+            raise RuntimeError(f"LATER_ORDER {LATER_ORDER} does not list the sources {self.sources}")
+        self.sources = LATER_ORDER
 
     def run(self):
         os.setpriority(os.PRIO_PROCESS, threading.get_native_id(), 19)
         try:
-            self.libs = self.ck.build_library(self.sources)
+            self.libs = self.ck.build_library(self.sources, jobs=LATER_JOBS)
         except BaseException as error:  # raised in the main thread by finish
             self.error = error
 
@@ -6551,6 +6963,7 @@ class LaterBuild(threading.Thread):
             self.ck.load_library(key)
         seconds = {k: v for k, v in self.ck.BUILD_SECONDS.items() if k in self.libs}
         print(f"[2 build, in the background] {', '.join(self.ck.SOURCES[n].name for n in self.sources)} -> sm_90a, "
+              f"{LATER_JOBS} compiles at a time, "
               f"waited for {time.perf_counter() - clock:.3f} s ({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())} "
               f"from its start, at nice 19); registers per thread (ptxas): {registers(self.ck, self.libs)}; spill stores "
               f"in bytes: {({k: v for k, v in spill_stores(self.ck, self.libs).items() if v}) or 'none'}", flush=True)

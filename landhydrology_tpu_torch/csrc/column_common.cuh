@@ -1,10 +1,11 @@
-// Device code shared by the soil-column kernels (column_kernel.cu,
-// implicit_kernel.cu, implicit_most_kernel.cu, implicit_branch_kernel.cu,
-// land_kernel.cu, land_policy_kernel.cu, rk_kernel.cu): the argument struct
-// of the C interface, the pointwise closures of models/soil/water.py,
-// heat.py and freeze_thaw.py, the boundary flux conversion of boundary.py,
-// one rhs sweep of rhs.py over a column, and one stage of the explicit
-// steppers' stage table (rk_kernel.cu and land_column.cuh).
+// Device code shared by the soil-column kernels (column_kernel.cu, the
+// implicit_*.cu sources of implicit_column.cuh, the land_*.cu sources of
+// land_column.cuh, and rk_kernel.cu and rk_columns_kernel.cu of
+// rk_column.cuh): the argument struct of the C interface, the pointwise
+// closures of models/soil/water.py, heat.py and freeze_thaw.py, the boundary
+// flux conversion of boundary.py, one rhs sweep of rhs.py over a column, and
+// one stage of the explicit steppers' stage table (rk_column.cuh and
+// land_column.cuh).
 //
 // Numerics follow the eager PyTorch port (landhydrology_tpu_torch) operation
 // for operation.  eps and tiny are numeric_limits<T>::epsilon() / min()

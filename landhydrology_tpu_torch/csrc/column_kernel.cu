@@ -89,8 +89,8 @@ int launch(const KernelArgs* args, int block, void* stream) {
 // B1-no-ice carries MODE_RHS_CAP: its stage rhs caps theta_l at nu -
 // theta_i, as rhs.py does (B2-no-ice takes its closures from lagged.py's
 // sweep, which caps at nu).
-// MODE_COLUMNS joins B1, B2, B3-rate and B1-water (KINDS_MODES and
-// GEOMETRY_MODES in ops/cuda/column_kernel.py).
+// MODE_COLUMNS joins B1, B2, B3-rate and B1-water (the other modes take it
+// in rk_columns_kernel.cu, from the stage table).
 template <typename T>
 int dispatch(const KernelArgs* args, int block, void* stream) {
   switch (args->mode) {

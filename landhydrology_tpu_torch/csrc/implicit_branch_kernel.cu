@@ -8,23 +8,16 @@
 //
 // A source of its own beside implicit_kernel.cu, whose float64 half is the
 // slowest compile of the build: the build runs one nvcc per source and float
-// type in parallel.  The no-ice instances carry MODE_RHS_CAP, as every
-// no-ice instance of the explicit kernels does (on this branch the rhs reads
-// theta_l for no closure, so the cap changes nothing).  The heat-only branch
-// takes no policy (implicit_column.cuh).
+// type in parallel.  The heat-only branch takes no policy
+// (implicit_column.cuh).
 
 #include "implicit_column.cuh"
 
 namespace {
 
 // TR-BDF2 and backward Euler for Richards, each lagged, without ice, or
-// both; MODE_PCR is read at run time.
-#define WATER_POLICY_CASES(S)                                                                           \
-  case S | MODE_WATER | MODE_LAGGED: return launch<T, S | MODE_WATER | MODE_LAGGED>(args, block, stream); \
-  case S | MODE_WATER | MODE_NO_ICE:                                                                     \
-    return launch<T, S | MODE_WATER | MODE_NO_ICE | MODE_RHS_CAP>(args, block, stream);                  \
-  case S | MODE_WATER | MODE_LAGGED | MODE_NO_ICE:                                                       \
-    return launch<T, S | MODE_WATER | MODE_LAGGED | MODE_NO_ICE | MODE_RHS_CAP>(args, block, stream);
+// both (WATER_POLICY_CASES of implicit_column.cuh); MODE_PCR is read at run
+// time.
 template <typename T>
 int dispatch(const KernelArgs* args, int block, void* stream) {
   switch (args->mode & ~int64_t(MODE_PCR)) {
@@ -33,7 +26,6 @@ int dispatch(const KernelArgs* args, int block, void* stream) {
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
-#undef WATER_POLICY_CASES
 
 }  // namespace
 

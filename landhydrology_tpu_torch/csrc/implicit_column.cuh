@@ -1,10 +1,12 @@
 // The fused multi-step soil-column kernel of the implicit steppers (kernel mode
 // B4): TR-BDF2, backward Euler for Richards, and backward Euler for the
 // coupled soil, one thread per column, `n_steps` steps per launch, in place,
-// and its launch.  Three sources instantiate it: implicit_kernel.cu the plain
-// soil (with its step policies) and the MOST top without them,
-// implicit_most_kernel.cu the MOST top with the step policies, and
-// implicit_branch_kernel.cu the step policies on the water-only branch.
+// and its launch.  Five sources instantiate it: implicit_kernel.cu the plain
+// soil and the MOST top without the step policies, implicit_policy_kernel.cu
+// the plain soil with them, implicit_most_kernel.cu the MOST top with them,
+// implicit_branch_kernel.cu the step policies on the water-only branch, and
+// implicit_columns_kernel.cu the plain soil's policy instances and
+// BackwardEulerSoil with per-column BC kinds and geometry (MODE_COLUMNS).
 //
 // Replaces landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run
 // in its implicit modes, whose body traces landhydrology_tpu/imex.py
@@ -450,5 +452,17 @@ int launch(const KernelArgs* args, int block, void* stream) {
   case S | MODE_LAGGED | MODE_FREEZE_EQ:                                                            \
     return launch<T, S | MODE_LAGGED | MODE_FREEZE_EQ>(args, block, stream);                        \
   case S | MODE_LAGGED | MODE_NO_ICE: return launch<T, S | MODE_LAGGED | MODE_NO_ICE>(args, block, stream);
+
+// The step policies of the water-only branch on stepper bits S (TR-BDF2 or
+// backward Euler for Richards): lagged K, no ice, or both.  The no-ice
+// instances carry MODE_RHS_CAP, as every no-ice instance of the explicit
+// kernels does (on this branch the rhs reads theta_l for no closure, so the
+// cap changes nothing).
+#define WATER_POLICY_CASES(S)                                                                           \
+  case S | MODE_WATER | MODE_LAGGED: return launch<T, S | MODE_WATER | MODE_LAGGED>(args, block, stream); \
+  case S | MODE_WATER | MODE_NO_ICE:                                                                     \
+    return launch<T, S | MODE_WATER | MODE_NO_ICE | MODE_RHS_CAP>(args, block, stream);                  \
+  case S | MODE_WATER | MODE_LAGGED | MODE_NO_ICE:                                                       \
+    return launch<T, S | MODE_WATER | MODE_LAGGED | MODE_NO_ICE | MODE_RHS_CAP>(args, block, stream);
 
 }  // namespace

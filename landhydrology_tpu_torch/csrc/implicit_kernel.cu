@@ -1,6 +1,8 @@
 // Fused multi-step soil-column kernel for the implicit steppers (kernel mode
-// B4) on the plain soil, with the step policies, and under a MOST top
-// without them.  The kernel, and what it replaces, is in implicit_column.cuh.
+// B4) on the plain soil and under a MOST top, without the step policies (the
+// plain soil's are implicit_policy_kernel.cu's, built behind the sources the
+// first phases of chip_smoke.py launch).  The kernel, and what it replaces,
+// is in implicit_column.cuh.
 
 #include "implicit_column.cuh"
 
@@ -10,16 +12,11 @@ namespace {
 // at run time.  BackwardEulerRichards needs dynamic water, and
 // BackwardEulerSoil dynamic water and heat.  MODE_COLUMNS (per-column kinds
 // and geometry) joins TR-BDF2 and BackwardEulerRichards on the coupled and
-// water-only branches; MODE_MOST each stepper on the coupled branch; the
-// step policies each stepper on the coupled plain soil (POLICY_CASES of
-// implicit_column.cuh); the other policy instances under MODE_MOST are
-// implicit_most_kernel.cu's.
+// water-only branches (implicit_columns_kernel.cu has the other modes with
+// it); MODE_MOST each stepper on the coupled branch.
 template <typename T>
 int dispatch(const KernelArgs* args, int block, void* stream) {
   switch (args->mode & ~int64_t(MODE_PCR)) {
-    POLICY_CASES(MODE_TRBDF2)
-    POLICY_CASES(MODE_BE_RICHARDS)
-    POLICY_CASES(MODE_BE_SOIL)
     case MODE_TRBDF2: return launch<T, MODE_TRBDF2>(args, block, stream);
     case MODE_TRBDF2 | MODE_WATER: return launch<T, MODE_TRBDF2 | MODE_WATER>(args, block, stream);
     case MODE_TRBDF2 | MODE_HEAT: return launch<T, MODE_TRBDF2 | MODE_HEAT>(args, block, stream);

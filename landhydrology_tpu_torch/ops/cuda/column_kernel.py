@@ -3,15 +3,17 @@
 Replaces ``landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run``
 in its explicit modes, its implicit modes and its surface modes:
 ``steps_per_call`` steps of the soil (or land) tendency per launch, updating
-the state in place.  Eleven CUDA sources share ``csrc/column_common.cuh``:
+the state in place.  Fourteen CUDA sources share ``csrc/column_common.cuh``:
 
 - ``csrc/column_kernel.cu``: SSPRK33 (kernel modes B1, B2, B3), on the
   coupled, water-only or heat-only branch;
 - ``csrc/implicit_kernel.cu``: ``TRBDF2Soil``, ``BackwardEulerRichards`` and
-  ``BackwardEulerSoil`` (kernel mode B4), with Thomas or PCR solves, with
-  the step policies on the coupled plain soil (lagged coefficients,
-  freeze-thaw, ``assume_no_ice``, lagged with either), and under a MOST top
-  (B4+B5) with its forcing rows;
+  ``BackwardEulerSoil`` (kernel mode B4), with Thomas or PCR solves, and
+  under a MOST top (B4+B5) with its forcing rows;
+- ``csrc/implicit_policy_kernel.cu``: the same kernel
+  (``csrc/implicit_column.cuh``) with the step policies on the coupled
+  plain soil (lagged coefficients, freeze-thaw, ``assume_no_ice``, lagged
+  with either);
 - ``csrc/implicit_most_kernel.cu``: the same kernel
   (``csrc/implicit_column.cuh``) under a MOST top with those step policies;
 - ``csrc/implicit_branch_kernel.cu``: the same kernel with lagged
@@ -42,7 +44,15 @@ the state in place.  Eleven CUDA sources share ``csrc/column_common.cuh``:
   all four explicit steppers with lagged coefficients or ``assume_no_ice``
   on the water-only and heat-only branches: one template instance per
   mode, the stepper read at run time from the launch's stage table
-  (:func:`stage_table`).
+  (:func:`stage_table`);
+- ``csrc/rk_columns_kernel.cu`` and ``csrc/implicit_columns_kernel.cu``: the
+  plain-soil modes with per-column BC kinds and geometry (``MODE_COLUMNS``):
+  ``rk_kernel.cu``'s 16 modes under all four explicit steppers from the
+  stage table (SSPRK33 in B1, B2, B3-rate and B1-water keeps
+  ``column_kernel.cu``'s fixed stages), and ``BackwardEulerSoil`` and every
+  implicit step policy on the coupled and water-only branches (TR-BDF2 and
+  ``BackwardEulerRichards`` without a policy keep ``implicit_kernel.cu``'s
+  instances).
 
 Each is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C interface at its first use (both float types in parallel;
@@ -79,13 +89,11 @@ plain C interface at its first use (both float types in parallel;
   (:func:`cuda_kind_codes`); per-column geometry (a ``VariableDepthColumn``
   or ``streamed_geometry``, kernel mode B8) as a ``(ncol,)`` spacing and
   ``(nz, ncol)`` centers read in place.  Both are read at run time by the
-  template instances with ``MODE_COLUMNS``, one beside each mode of
-  :data:`KINDS_MODES` and :data:`GEOMETRY_MODES` and beside each of the 48
-  land modes (:func:`takes_per_column`: ``csrc/land_columns_kernel.cu`` and
-  ``csrc/land_policy_columns_kernel.cu`` run all four explicit steppers from
-  the stage table, with forcing rows or without; the other modes refuse
-  them); the instances without it read what they read before those modes,
-  in fewer registers.
+  template instances with ``MODE_COLUMNS``, one beside each mode that takes
+  them (:func:`takes_per_column`: every explicit mode, the land modes with
+  forcing rows or without, and every implicit mode on the plain soil but
+  TR-BDF2 on the heat-only branch); the instances without it read what they
+  read before those modes, in fewer registers.
 
 The plain version, :func:`fused_column_run_plain`, is the same number of
 eager ``stepper.step`` calls, with the model's step policies wrapped around
@@ -113,10 +121,11 @@ ROADMAP item, on either device: the implicit steppers with step policies
 on the heat-only branch (whose heat sweep in the reference reads theta_i
 from a state that holds none), the water-only Newton sweep with
 ``TemperatureDependentViscosity``, and the implicit steppers with a
-LandModel, which the reference kernel cannot run either (B4), per-column
-kinds or geometry outside the modes that hold them (so under ForwardEuler,
-SSPRK22 and SSPRK104 on the plain soil and the branches, and with the
-implicit steppers' policies) or there with forcing rows (B1-batched, B8).
+LandModel, which the reference kernel cannot run either (B4), and
+per-column kinds or geometry under the implicit steppers with a MOST top,
+with forcing rows or without (B1-batched, B8), or with TR-BDF2 on the
+heat-only branch (not queued: the reference's TR-BDF2 cannot run that
+branch at all).
 Lateral coupling, pond routing, a per-column rain callable and a 2-D column
 batch raise ``ValueError``, as the JAX kernel's factory does; so does
 a non-differentiable run on CUDA state tensors that require grad in grad
@@ -223,6 +232,9 @@ SOURCES = {
     "land_columns_kernel": CSRC / "land_columns_kernel.cu",
     "land_policy_columns_kernel": CSRC / "land_policy_columns_kernel.cu",
     "rk_kernel": CSRC / "rk_kernel.cu",
+    "implicit_policy_kernel": CSRC / "implicit_policy_kernel.cu",
+    "rk_columns_kernel": CSRC / "rk_columns_kernel.cu",
+    "implicit_columns_kernel": CSRC / "implicit_columns_kernel.cu",
 }
 #: a source's C entry points are ``<prefix>_f32`` and ``<prefix>_f64``; the
 #: library of each float type is compiled with ``-DKERNEL_<TAG>_ONLY`` and
@@ -233,7 +245,9 @@ _ENTRY_PREFIX = {"column_kernel": "column_kernel_ssprk33", "implicit_kernel": "i
                  "land_kernel": "land_kernel", "land_policy_kernel": "land_policy_kernel",
                  "land_rk_kernel": "land_rk_kernel", "land_policy_rk_kernel": "land_policy_rk_kernel",
                  "land_columns_kernel": "land_columns_kernel",
-                 "land_policy_columns_kernel": "land_policy_columns_kernel", "rk_kernel": "rk_kernel"}
+                 "land_policy_columns_kernel": "land_policy_columns_kernel", "rk_kernel": "rk_kernel",
+                 "implicit_policy_kernel": "implicit_policy_kernel", "rk_columns_kernel": "rk_columns_kernel",
+                 "implicit_columns_kernel": "implicit_columns_kernel"}
 BUILD_DIR = _PACKAGE / "_build"
 #: ``-split-compile=0`` optimizes the template instances of a source in
 #: parallel on all host cores
@@ -268,16 +282,6 @@ SURFACE_NAMES = (
 BC_FLUX, BC_DIRICHLET, BC_FREE_DRAINAGE, BC_BATCHED = 1, 2, 3, 4
 _BC_KIND = {VerticalFlux: BC_FLUX, Dirichlet: BC_DIRICHLET, FreeDrainage: BC_FREE_DRAINAGE,
             BatchedBC: BC_BATCHED}
-#: the plain-soil and implicit modes (:func:`mode_name`, under SSPRK33 or the
-#: implicit stepper of the name) that take per-column BC kinds (B1-batched)
-#: and per-column geometry (B8), and B5 and B6 under SSPRK33: those
-#: ``chip_smoke.py`` holds in phase 12.  Every land mode (a MOST top or a
-#: LandModel) under an explicit stepper takes both too, with forcing rows or
-#: without (:func:`takes_per_column`; ``chip_smoke.py`` phase 19)
-KINDS_MODES = frozenset({"B1", "B1-water", "B2", "B3-rate", "B4-be-richards", "B4-be-richards-water",
-                         "B4-trbdf2", "B4-trbdf2-water", "B5", "B6"})
-GEOMETRY_MODES = frozenset({"B1", "B1-water", "B2", "B4-be-richards", "B4-be-richards-water", "B4-trbdf2",
-                            "B4-trbdf2-water", "B6"})
 #: the most bytes of time-dependent per-column profile tables a launch builds
 PROFILE_TABLE_BYTES = 1 << 30
 #: ``KernelArgs::frow_mode`` of step-indexed and time-indexed forcing rows (0: none)
@@ -310,10 +314,13 @@ _STEPPER_NAMES = {MODE_TRBDF2: "B4-trbdf2", MODE_BE_RICHARDS: "B4-be-richards",
                   MODE_SSPRK104: "SSPRK104"}
 #: the policies of ``csrc/land_policy_kernel.cu`` (with or without MODE_LAGGED)
 _FREEZE_OR_NO_ICE = MODE_FREEZE_RATE | MODE_FREEZE_EQ | MODE_NO_ICE
-#: the land modes with MODE_COLUMNS whose SSPRK33 instance has fixed stages (``csrc/land_kernel.cu``: B5 and
-#: B6); the others, and these under the other steppers, run ``csrc/land_columns_kernel.cu`` and
+#: the modes with MODE_COLUMNS whose SSPRK33 instance has fixed stages: B1, B2, B3-rate and B1-water
+#: (``csrc/column_kernel.cu``), B5 and B6 (``csrc/land_kernel.cu``); the others, and these under the other
+#: steppers, run the stage table of ``csrc/rk_columns_kernel.cu``, ``csrc/land_columns_kernel.cu`` and
 #: ``csrc/land_policy_columns_kernel.cu``
-_SSPRK33_COLUMNS = frozenset({MODE_MOST | MODE_COLUMNS, MODE_LAND | MODE_MOST | MODE_COLUMNS})
+_SSPRK33_COLUMNS = frozenset({MODE_COLUMNS, MODE_LAGGED | MODE_COLUMNS, MODE_FREEZE_RATE | MODE_COLUMNS,
+                              MODE_WATER | MODE_COLUMNS, MODE_MOST | MODE_COLUMNS,
+                              MODE_LAND | MODE_MOST | MODE_COLUMNS})
 #: ``enum StageKind`` of the header and its most stages per step
 STAGE_AXPY, STAGE_COMB, STAGE_SPLIT, STAGE_FINAL = 0, 1, 2, 3
 MAX_STAGES = 10
@@ -425,42 +432,45 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build_library(sources=None) -> dict:
+def build_library(sources=None, jobs=None) -> dict:
     """Compile the kernel sources named in ``sources`` (keys of
     :data:`SOURCES`; all by default) into ``_build/`` (once per content of
     ``csrc/`` and flag set), one ``nvcc`` per source and float type, all
-    started together; concurrent processes serialize on a lock file and
-    publish each library by atomic rename.  ptxas's report (registers and
-    spills of each template instance) is kept beside each library as
-    ``<library>.ptxas.txt``, and each compile's seconds in
-    :data:`BUILD_SECONDS`.  Returns ``{library key: path}``, keyed
-    ``<source>_<tag>``."""
+    started together, or at most ``jobs`` at a time in the order of
+    ``sources`` (f64 before f32); concurrent processes serialize on a lock
+    file and publish each library by atomic rename.  ptxas's report
+    (registers and spills of each template instance) is kept beside each
+    library as ``<library>.ptxas.txt``, and each compile's seconds from the
+    build's start in :data:`BUILD_SECONDS`.  Returns ``{library key:
+    path}``, keyed ``<source>_<tag>``."""
     digest = _digest()
     names = SOURCES if sources is None else sources
-    libs = {f"{name}_{tag}": BUILD_DIR / f"{name}_{tag}_{digest}.so" for name in names for tag in _TAGS}
+    libs = {f"{name}_{tag}": BUILD_DIR / f"{name}_{tag}_{digest}.so" for name in names for tag in _TAGS[::-1]}
     if all(lib.exists() for lib in libs.values()):
         return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with open(BUILD_DIR / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        jobs = {}
+        started = {}
+        pending = [key for key, lib in libs.items() if not lib.exists()]
         start = time.perf_counter()
-        for key, lib in libs.items():
-            if lib.exists():
-                continue
-            name, tag = key.rsplit("_", 1)
-            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, f"-DKERNEL_{tag.upper()}_ONLY", "-o", str(tmp), str(SOURCES[name])]
-            report = open(tmp.with_suffix(".log"), "w+")
-            proc = subprocess.Popen(cmd, stdout=report, stderr=subprocess.STDOUT, text=True)
-            jobs[key] = (cmd, tmp, proc, report)
-        while any(proc.poll() is None for _, _, proc, _ in jobs.values()):
-            for key, (_, _, proc, _) in jobs.items():
+        while pending or any(proc.poll() is None for _, _, proc, _ in started.values()):
+            running = sum(proc.poll() is None for _, _, proc, _ in started.values())
+            while pending and (jobs is None or running < jobs):
+                key = pending.pop(0)
+                name, tag = key.rsplit("_", 1)
+                tmp = libs[key].with_name(f"{libs[key].name}.{os.getpid()}.tmp")
+                cmd = [_nvcc(), *NVCC_FLAGS, f"-DKERNEL_{tag.upper()}_ONLY", "-o", str(tmp), str(SOURCES[name])]
+                report = open(tmp.with_suffix(".log"), "w+")
+                proc = subprocess.Popen(cmd, stdout=report, stderr=subprocess.STDOUT, text=True)
+                started[key] = (cmd, tmp, proc, report)
+                running += 1
+            for key, (_, _, proc, _) in started.items():
                 if proc.poll() is not None and key not in BUILD_SECONDS:
                     BUILD_SECONDS[key] = time.perf_counter() - start
             time.sleep(0.1)
         failures = []
-        for key, (cmd, tmp, proc, report) in jobs.items():
+        for key, (cmd, tmp, proc, report) in started.items():
             BUILD_SECONDS.setdefault(key, time.perf_counter() - start)
             report.seek(0)
             out = report.read()
@@ -506,16 +516,24 @@ def load_library(key: str) -> ctypes.CDLL:
 
 def _entry(mode: int, dtype) -> tuple:
     """``(library name, C function)`` that launches ``mode`` in ``dtype``."""
-    if mode & MODE_IMPLICIT and mode & _POLICY_BITS and mode & MODE_WATER:
-        name = "implicit_branch_kernel"
-    elif mode & MODE_IMPLICIT:
-        name = "implicit_most_kernel" if mode & MODE_MOST and mode & _POLICY_BITS else "implicit_kernel"
+    table_columns = mode & MODE_COLUMNS and (mode & MODE_RK or mode not in _SSPRK33_COLUMNS)
+    if mode & MODE_IMPLICIT:
+        policy = mode & _POLICY_BITS
+        if mode & MODE_COLUMNS and (policy or mode & MODE_BE_SOIL):
+            name = "implicit_columns_kernel"
+        elif policy:
+            name = ("implicit_branch_kernel" if mode & MODE_WATER
+                    else "implicit_most_kernel" if mode & MODE_MOST else "implicit_policy_kernel")
+        else:
+            name = "implicit_kernel"
     elif mode & (MODE_MOST | MODE_LAND):
         name = "land_policy" if mode & _FREEZE_OR_NO_ICE else "land"
-        if mode & MODE_COLUMNS and (mode & MODE_RK or mode not in _SSPRK33_COLUMNS):
+        if table_columns:
             name += "_columns_kernel"  # every stepper from the stage table
         else:
             name += "_rk_kernel" if mode & MODE_RK else "_kernel"
+    elif table_columns:
+        name = "rk_columns_kernel"  # every stepper from the stage table
     elif mode & MODE_RK or (mode & (MODE_WATER | MODE_HEAT) and mode & (MODE_LAGGED | MODE_NO_ICE)):
         name = "rk_kernel"
     else:
@@ -1456,33 +1474,42 @@ def _per_column_profiles(soil: SoilModel) -> bool:
 
 def takes_per_column(mode: int) -> bool:
     """Whether ``mode`` (a mode word with its stepper's bits) takes
-    per-column BC kinds and geometry, with forcing rows or without: each of
-    the 48 land modes (a MOST top or a LandModel, each step policy, the
-    water-only LandModel) under an explicit stepper, whose ``MODE_COLUMNS``
-    instances are in ``csrc/land_columns_kernel.cu``,
-    ``csrc/land_policy_columns_kernel.cu`` and, for SSPRK33 in B5 and B6,
-    ``csrc/land_kernel.cu``."""
-    return bool(mode & (MODE_MOST | MODE_LAND)) and not mode & MODE_IMPLICIT
+    per-column BC kinds and geometry: every explicit mode (the plain soil,
+    its branches and each step policy: ``csrc/rk_columns_kernel.cu`` and,
+    for SSPRK33 in B1, B2, B3-rate and B1-water, ``csrc/column_kernel.cu``;
+    the 48 land modes with forcing rows or without:
+    ``csrc/land_columns_kernel.cu``, ``csrc/land_policy_columns_kernel.cu``
+    and, for SSPRK33 in B5 and B6, ``csrc/land_kernel.cu``), and every
+    implicit mode on the plain soil with each step policy, the water-only
+    branch and PCR included (``csrc/implicit_kernel.cu``,
+    ``csrc/implicit_columns_kernel.cu``), but TR-BDF2 on the heat-only
+    branch.  Not the implicit steppers under a MOST top."""
+    if not mode & MODE_IMPLICIT:
+        return True
+    return not mode & (MODE_MOST | MODE_HEAT)
 
 
 def _check_per_column(model, stepper, streamed_geometry, forcing_fields) -> None:
-    """Refuse per-column kinds or geometry outside the land modes under the
-    explicit steppers (:func:`takes_per_column`) in a mode ``chip_smoke.py``
-    does not hold them in (:data:`KINDS_MODES`, :data:`GEOMETRY_MODES`), and
-    there with streamed forcing rows."""
+    """Refuse per-column kinds or geometry in a mode that does not take them
+    (:func:`takes_per_column`), naming its ROADMAP item: the implicit
+    steppers under a MOST top, with forcing rows or without (B1-batched,
+    B8), and TR-BDF2 on the heat-only branch, which is not queued."""
     kinds, geometry = per_column_features(model, streamed_geometry)
     mode = kernel_mode(model, stepper) & ~MODE_COLUMNS
-    if takes_per_column(mode):
+    if not (kinds or geometry) or takes_per_column(mode):
         return
-    name = mode_name(mode)
-    for used, modes, item, what in ((kinds, KINDS_MODES, "B1-batched", "per-column BC kinds (BatchedBC)"),
-                                    (geometry, GEOMETRY_MODES, "B8", "per-column geometry")):
-        if used and (name not in modes or forcing_fields):
-            where = "with streamed forcing rows" if name in modes else f"in mode {name}"
-            raise NotImplementedError(
-                f"{what} {where} are not ported to the kernel yet (ROADMAP {item}); "
-                f"the kernel takes them in {', '.join(sorted(modes))}"
-            )
+    item, what = ("B1-batched", "per-column BC kinds (BatchedBC)") if kinds else ("B8", "per-column geometry")
+    where = f"in mode {mode_name(mode)}" + (" with streamed forcing rows" if forcing_fields else "")
+    if mode & MODE_HEAT:
+        raise NotImplementedError(
+            f"{what} {where} have no kernel and are not queued (ROADMAP {item}, not queued): the reference's "
+            "TRBDF2Soil cannot run the heat-only branch at all (its heat sweep reads theta_i from a state that "
+            "holds none, KeyError 'theta_i'), so per-column inputs there would be a feature it lacks"
+        )
+    raise NotImplementedError(
+        f"{what} {where} are not ported to the kernel yet (ROADMAP {item}): the implicit steppers under a MOST "
+        "top take them in the next slice of ROADMAP B item 2"
+    )
 
 
 def _check_model(model, rain_forced: bool = False) -> None:

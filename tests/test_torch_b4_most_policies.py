@@ -1,7 +1,7 @@
 """The implicit steppers with the step policies under a MOST top (kernel modes
 B4+B5 with B2, B3 and no ice, ``csrc/implicit_most_kernel.cu``) and with
 lagged coefficients and ``assume_no_ice`` on the plain soil
-(``csrc/implicit_kernel.cu``) through the kernel's plain version, against
+(``csrc/implicit_policy_kernel.cu``) through the kernel's plain version, against
 the JAX package's fused kernel in interpret mode.
 
 - The MOST column: ``test_torch_land_policies_b5.py``'s B5 soil (nz=16
@@ -145,7 +145,7 @@ def run_implicit_case(stepper, policy, most=True, icy_state=False, time_grid=Non
                                    steps_per_call=n, forcing_fields=fields, forcing_time_grid=time_grid)
     suffix = "" if not rows else "+B7" if time_grid is None else "+B7-time"
     assert run.name == f"B4-{stepper}{policy}" + ("+B5" if most else "") + suffix
-    assert ck._entry(run.mode, torch.float64)[0] == ("implicit_most_kernel" if most else "implicit_kernel")
+    assert ck._entry(run.mode, torch.float64)[0] == ("implicit_most_kernel" if most else "implicit_policy_kernel")
     Yt = state_from_numpy(Y, device="cpu")
     run(Yt, T0, forcing=None if forcing is None else {k: torch.as_tensor(v) for k, v in forcing.items()})
     ref = jax.tree_util.tree_map(np.asarray, ref)
@@ -192,7 +192,8 @@ def test_most_policy_mode_words_names_and_scratch():
             run = ck.make_fused_column_run(model, getattr(imex, st[stepper])(model=model, grid=grid))
             assert run.name == f"B4-{stepper}{policy}" + ("+B5" if most else "") and run.name not in names
             names.add(run.name)
-            assert ck._entry(run.mode, torch.float32)[0] == ("implicit_most_kernel" if most else "implicit_kernel")
+            assert ck._entry(run.mode, torch.float32)[0] == ("implicit_most_kernel" if most
+                                                             else "implicit_policy_kernel")
             lagged = 5 if "+B2+B3-rate" in policy else 4 if "B2" in policy else 0
             assert ck.scratch_fields(run.mode) == 11 + lagged
     assert len(names) == 24

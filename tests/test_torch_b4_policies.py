@@ -109,7 +109,8 @@ def test_plain_version_matches_jax_fused(policy, stepper, tridiag):
 def test_policy_instances_scratch_and_refusals():
     """The lagged instances keep their coefficients after the solver's
     fields (4, or 5 with rate sources), lagged coefficients with no ice too;
-    the policies on the water-only branch run in their own source."""
+    the plain soil's policies run in ``implicit_policy_kernel.cu``, those on
+    the water-only branch in their own source."""
     model, _, _, _ = gct.build_freeze_model_and_state(F64, "cpu")
     grid = make_function_space(model.domain, F64, "cpu")
 
@@ -123,7 +124,7 @@ def test_policy_instances_scratch_and_refusals():
     lagged_dry = dataclasses.replace(model, coefficient_update="step", assume_no_ice=True, freeze_thaw=None)
     run = ck.make_fused_column_run(lagged_dry, TRBDF2Soil(model=lagged_dry, grid=grid, tridiag="pcr"))
     assert run.name == "B4-trbdf2-no-ice-pcr+B2" and ck.scratch_fields(run.mode) == 17 + 4
-    assert ck._entry(run.mode, F64) == ("implicit_kernel", "implicit_kernel_f64")
+    assert ck._entry(run.mode, F64) == ("implicit_policy_kernel", "implicit_policy_kernel_f64")
     from landhydrology_tpu_torch import NoBC, PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC
 
     bcs = model.boundary_conditions

@@ -559,11 +559,20 @@ def test_regional_variable_depth_twin_and_column_slice():
 
 
 def test_grid_variants_cover_every_opened_mode():
-    """Phase 12's variants hold every mode that takes per-column kinds or
-    geometry (``KINDS_MODES``, ``GEOMETRY_MODES``) against its plain version,
-    and the cross-component cases ride on B1."""
+    """Phase 12's variants hold every fixed-stage SSPRK33 and implicit
+    ``MODE_COLUMNS`` instance of ``column_kernel.cu``, ``implicit_kernel.cu``
+    and ``land_kernel.cu`` against its plain version (the stage-table and
+    policy instances are phase 19's and 20's), and the cross-component
+    cases ride on B1."""
     modes = {c for c in cs.GRID_VARIANTS if not c.startswith("cross")}
-    assert modes == set(ck.KINDS_MODES) | set(ck.GEOMETRY_MODES)
+    sources = {"column_kernel": {"B1", "B2", "B3-rate", "B1-water"},
+               "implicit_kernel": {"B4-be-richards", "B4-be-richards-water", "B4-trbdf2", "B4-trbdf2-water"},
+               "land_kernel": {"B5", "B6"}}
+    assert modes == set().union(*sources.values())
+    for case in modes:
+        model, _, stepper, dt, n = cs.build_grid_variant(8, torch.float64, "cpu", 7, case)
+        run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=n)
+        assert case in sources[ck._entry(run.mode, torch.float64)[0]]
     assert {"cross-energy", "cross-water"} <= set(cs.GRID_VARIANTS)
 
 
@@ -574,10 +583,7 @@ def test_grid_variant_builds_its_mode(case):
     model, Y, stepper, dt, n = cs.build_grid_variant(32, torch.float64, "cpu", 7, case)
     mode = "B1" if case.startswith("cross") else case
     run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=n)
-    assert run.name == mode + ("+kinds" if mode in ck.KINDS_MODES else "") + ("+B8" if mode in ck.GEOMETRY_MODES else "")
-    assert run.name == ck.mode_name(run.mode, ck.per_column_features(model))
-    if mode in ck.KINDS_MODES and mode in ck.GEOMETRY_MODES:
-        assert ck.mode_name(run.mode) == mode + "+kinds+B8"  # the instance reads both
+    assert run.name == mode + "+kinds+B8" == ck.mode_name(run.mode, ck.per_column_features(model))
     start = cs._np(Y)
     end = cs._np(ck.fused_column_run_plain(model, stepper, dt, n, Y, 2.0))
     assert all(np.isfinite(v).all() for v in end.values())
@@ -694,9 +700,9 @@ def test_dt_run_cases_cover_every_mode_of_the_kernel_table(monkeypatch):
                 "B1-heat", "B4-trbdf2", "B4-trbdf2-pcr", "B4-trbdf2-water", "B4-trbdf2-heat", "B4-be-soil",
                 "B4-be-richards", "B4-be-richards-water", "B5", "B2+B5", "B6", "B6-step", "B2+B6", "B2+B6-step",
                 "B6-pond", "B6-step-pond", "B2+B6-pond", "B2+B6-step-pond", "B5+B7", "B2+B5+B7-time", "B6+B7",
-                "B6-step+B7-time", "B2+B6-step-pond+B7-time", "B1+kinds+B8", "B2+kinds+B8", "B3-rate+kinds",
+                "B6-step+B7-time", "B2+B6-step-pond+B7-time", "B1+kinds+B8", "B2+kinds+B8", "B3-rate+kinds+B8",
                 "B1-water+kinds+B8", "B4-be-richards+kinds+B8", "B4-be-richards-water+kinds+B8",
-                "B4-trbdf2+kinds+B8", "B4-trbdf2-water+kinds+B8", "B5+kinds", "B6+kinds+B8", "B4-trbdf2+B5",
+                "B4-trbdf2+kinds+B8", "B4-trbdf2-water+kinds+B8", "B5+kinds+B8", "B6+kinds+B8", "B4-trbdf2+B5",
                 "B4-trbdf2-pcr+B5", "B4-be-soil+B5", "B4-be-richards+B5", "B4-trbdf2+B5+B7",
                 "B4-trbdf2+B5+B7-time", "B4-be-soil+B5+B7-time", "B4-be-richards+B5+B7"}
     assert names == expected

@@ -41,7 +41,7 @@ def test_mode_lists_name_the_new_instances_and_their_sources():
         assert run.name == name and steps == (cs.IMPLICIT_STEPS if name.startswith("B4-") else cs.cold_steps(F64))
         assert dt == (cs.IMPLICIT_DT if name.startswith("B4-") else 2.0)
         sources.setdefault(ck._entry(run.mode, F64)[0], []).append(name)
-    assert len(sources["implicit_most_kernel"]) == 21 and len(sources["implicit_kernel"]) == 3
+    assert len(sources["implicit_most_kernel"]) == 21 and len(sources["implicit_policy_kernel"]) == 3
     assert len(sources["land_kernel"]) == len(sources["land_policy_kernel"]) == 4
     assert cs.implicit_case("B4-be-soil-no-ice+B2+B5") == ("BackwardEulerSoil", "B2+B5-no-ice")
     assert cs.implicit_case("B4-be-richards-no-ice+B2") == ("BackwardEulerRichards", "B2+B6-pond-no-ice")

@@ -213,7 +213,7 @@ def test_unported_modes_raise(mode):
             assert ck.make_fused_column_run(lagged).name == name
             assert ck.make_fused_column_run(dataclasses.replace(lagged, assume_no_ice=True)).name == name + "-no-ice"
             assert ck._entry(ck.make_fused_column_run(lagged).mode, torch.float64)[0] == "rk_kernel"
-        # still refused: per-column BC kinds in them (ROADMAP B1-batched)
+        # with per-column BC kinds in them: the stage table's MODE_COLUMNS instance (ROADMAP B1-batched)
         from landhydrology_tpu_torch import BatchedBC
 
         water_only = _branch_models(model)[0]
@@ -221,8 +221,8 @@ def test_unported_modes_raise(mode):
         kinds = dataclasses.replace(water_only, coefficient_update="step", boundary_conditions=SoilColumnBC(
             top=bcs.top, bottom=SoilComponentBC(hydrology=BatchedBC(kind=torch.zeros(8, dtype=torch.int64),
                                                                     value=0.0), energy=bcs.bottom.energy)))
-        with pytest.raises(NotImplementedError, match="ROADMAP B1-batched"):
-            ck.make_fused_column_run(kinds)
+        run = ck.make_fused_column_run(kinds)
+        assert run.name == "B2-water+kinds" and ck._entry(run.mode, torch.float64)[0] == "rk_columns_kernel"
     elif mode == "B3_freeze_thaw":  # ported: an unknown scheme is refused
         with pytest.raises(TypeError, match="FreezeThaw"):
             dataclasses.replace(model, freeze_thaw=object())
@@ -297,13 +297,16 @@ def test_unported_modes_raise(mode):
                                        forcing_time_grid=(0.0, 60.0, 10))
         assert run.name == "B4-trbdf2+B3-rate+B5+B7-time"
         assert ck._entry(run.mode, torch.float64)[0] == "implicit_most_kernel"
-    elif mode == "B8_geometry":  # ported: in the modes chip_smoke.py holds it in, of the model's shape
+    elif mode == "B8_geometry":  # ported, of the model's shape; not with TR-BDF2 on the heat-only branch
         grid = make_function_space(model.domain, torch.float64, "cpu")
         geometry = (torch.full((8,), 0.05, dtype=torch.float64), grid.zc.expand(24, 8).contiguous())
         assert ck.make_fused_column_run(model, streamed_geometry=geometry).name == "B1+B8"
-        with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-            ck.make_fused_column_run(dataclasses.replace(model, freeze_thaw=EquilibriumFreezeThaw()),
-                                     streamed_geometry=geometry)
+        run = ck.make_fused_column_run(dataclasses.replace(model, freeze_thaw=EquilibriumFreezeThaw()),
+                                       streamed_geometry=geometry)
+        assert run.name == "B3-eq+B8" and ck._entry(run.mode, torch.float64)[0] == "rk_columns_kernel"
+        heat_only = _branch_models(model)[1]
+        with pytest.raises(NotImplementedError, match=r"ROADMAP B8, not queued"):
+            ck.make_fused_column_run(heat_only, TRBDF2Soil(model=heat_only, grid=grid), streamed_geometry=geometry)
         with pytest.raises(ValueError, match="streamed_geometry has shapes"):
             ck.make_fused_column_run(model, streamed_geometry=(geometry[0][:4], geometry[1]))
         with pytest.raises(TypeError, match="pair of tensors"):

@@ -14,9 +14,9 @@ kernel in interpret mode.
   MOST from 292 K) as ``B2+B6-step+B8``.
 - f64 at rtol 1e-12 (atol 1e-16, the pond 1e-18), one tile.
 - A check of all 48 land modes without JAX: each takes kinds, geometry and
-  forcing rows, names its instance and source; the plain-soil modes outside
-  ``KINDS_MODES`` / ``GEOMETRY_MODES`` still refuse them (ROADMAP
-  B1-batched, B8).
+  forcing rows, names its instance and source; the implicit steppers under a
+  MOST top still refuse them (ROADMAP B1-batched, B8), and TR-BDF2 on the
+  heat-only branch (not queued).
 
 The cold policy instances, the no-ice cap and the other steppers are in
 ``test_torch_land_columns_policies.py``.  The kernels are held against this
@@ -213,42 +213,43 @@ def test_every_land_mode_takes_kinds_geometry_and_rows():
 
 def _refused_variant(name, what):
     """A port model of mode ``name`` with per-column kinds (``what`` is
-    ``"kinds"``) or depths, and its stepper: golden #1's column for the
-    plain-soil modes, ``chip_smoke.policy_variant``'s MOST soil under
-    TR-BDF2 for ``B4-trbdf2+B5``."""
+    ``"kinds"``) or depths, and its stepper: ``chip_smoke.policy_variant``'s
+    MOST soil under the implicit stepper of ``B4-<stepper>+B5``, or golden
+    #1's column on the heat-only branch under TR-BDF2 for
+    ``B4-trbdf2-heat``."""
     import chip_smoke as cs
     from tests.data import golden_config_torch as gct
 
-    from landhydrology_tpu_torch.models.soil.freeze_thaw import EquilibriumFreezeThaw
+    from landhydrology_tpu_torch import PrescribedHydrologyModel, SoilColumnBC, SoilComponentBC
 
-    mode, _, stepper = name.partition("@")
-    if mode == "B4-trbdf2+B5":
-        model = cs.policy_variant("B5", torch.float64, "cpu")[0]
-    else:
+    stepper = {"trbdf2": "TRBDF2Soil", "be-soil": "BackwardEulerSoil", "be-richards": "BackwardEulerRichards"}[
+        name[3:].split("+")[0].split("-heat")[0]]
+    if name == "B4-trbdf2-heat":
         model = gct.build_model_and_state(torch.float64, "cpu")[0]
-        options = {"B1-no-ice": {"assume_no_ice": True}, "B3-eq": {"freeze_thaw": EquilibriumFreezeThaw()}}
-        model = dataclasses.replace(model, **options.get(mode, {}))
+        bcs = model.boundary_conditions
+        model = dataclasses.replace(model, hydrology_model=PrescribedHydrologyModel(), boundary_conditions=SoilColumnBC(
+            top=SoilComponentBC(energy=bcs.top.energy), bottom=SoilComponentBC(energy=bcs.bottom.energy)))
+    else:
+        model = cs.policy_variant("B5", torch.float64, "cpu")[0]
     variant = cs.with_columns(model, 3, kinds=what == "kinds", depth=what != "kinds")
-    if mode == "B4-trbdf2+B5":
-        return variant, cs.implicit("TRBDF2Soil", variant, 2)
-    return variant, getattr(ts, stepper or "SSPRK33")()
+    return variant, cs.implicit(stepper, variant, 2)
 
 
-@pytest.mark.parametrize("name,what,item", [("B1-no-ice", "kinds", "B1-batched"), ("B3-eq", "depth", "B8"),
-                                            ("B1@SSPRK104", "kinds", "B1-batched"),
-                                            ("B1@ForwardEuler", "depth", "B8"),
-                                            ("B4-trbdf2+B5", "kinds", "B1-batched")])
+@pytest.mark.parametrize("name,what,item", [("B4-trbdf2+B5", "kinds", "B1-batched"), ("B4-trbdf2+B5", "depth", "B8"),
+                                            ("B4-be-soil+B5", "kinds", "B1-batched"),
+                                            ("B4-be-richards+B5", "depth", "B8"),
+                                            ("B4-trbdf2-heat", "kinds", "B1-batched, not queued")])
 def test_modes_outside_the_lists_still_refuse(name, what, item):
-    """Per-column kinds or geometry stay refused outside ``KINDS_MODES`` /
-    ``GEOMETRY_MODES`` and the land modes under the explicit steppers
-    (queue B item 2): the plain soil's other modes and steppers, and the
-    implicit steppers under MOST, with forcing rows or without, naming
-    B1-batched or B8."""
+    """Per-column kinds or geometry stay refused in the modes that do not
+    take them (``takes_per_column``): the implicit steppers under a MOST
+    top, with forcing rows or without (queue B item 2's remainder), naming
+    B1-batched or B8, and TR-BDF2 on the heat-only branch, which is not
+    queued (the reference's TRBDF2Soil cannot run that branch)."""
     variant, stepper = _refused_variant(name, what)
     assert not ck.takes_per_column(ck.kernel_mode(variant, stepper))
-    rows = ({},) + (({"forcing_fields": ("theta_atm",)},) if name == "B4-trbdf2+B5" else ())
+    rows = ({},) + (({"forcing_fields": ("theta_atm",)},) if name.endswith("+B5") else ())
     for kw in rows:
-        with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
+        with pytest.raises(NotImplementedError, match=rf"in mode {name.replace('+', '[+]')}.*ROADMAP {item}\)"):
             ck.make_fused_column_run(variant, stepper, **kw)
 
 

@@ -257,7 +257,6 @@ def _refused(case):
     from landhydrology_tpu_torch.domains import make_function_space
     from landhydrology_tpu_torch.imex import BackwardEulerSoil, TRBDF2Soil
     from landhydrology_tpu_torch.models.soil.water import TemperatureDependentViscosity
-    from landhydrology_tpu_torch.timestepping import SSPRK104, ForwardEuler
 
     soil = model_from_reference(jax_model("B5", "+B3-rate", False), device="cpu")
     land = model_from_reference(jax_model("B6", "-no-ice", False), device="cpu")
@@ -266,15 +265,10 @@ def _refused(case):
     pond = model_from_reference(jax_model("B6-pond", "-no-ice", False), device="cpu")
     water = dataclasses.replace(pond, soil=dataclasses.replace(
         pond.soil, energy_model=PrescribedTemperatureModel(), assume_no_ice=False))
-    bottom_kinds = SoilComponentBC(hydrology=BatchedBC(kind=torch.zeros(NCOL, dtype=torch.int64)))
     water_soil = water.soil
     bcs = soil.boundary_conditions
     kinds = dataclasses.replace(soil, boundary_conditions=SoilColumnBC(top=bcs.top, bottom=SoilComponentBC(
         energy=bcs.bottom.energy, hydrology=BatchedBC(kind=torch.zeros(NCOL, dtype=torch.int64)))))
-    plain_top = SoilComponentBC(hydrology=VerticalFlux(0.0), energy=VerticalFlux(0.0))
-    plain = dataclasses.replace(soil, boundary_conditions=SoilColumnBC(top=plain_top, bottom=bcs.bottom))
-    water_kinds = dataclasses.replace(water_soil, boundary_conditions=SoilColumnBC(
-        top=water_soil.boundary_conditions.top, bottom=bottom_kinds))
     if case == "rows_most":  # the implicit steppers under MOST with forcing rows and per-column kinds
         return r"in mode B4-trbdf2\+B3-rate\+B5.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(
             kinds, TRBDF2Soil(model=kinds, grid=grid), forcing_fields=("theta_atm",))
@@ -284,24 +278,36 @@ def _refused(case):
     if case == "kinds":  # per-column kinds under an implicit stepper with a policy, under MOST
         return r"in mode B4-be-soil\+B3-rate\+B5.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(
             kinds, BackwardEulerSoil(model=kinds, grid=grid))
-    if case == "kinds_water_land":  # per-column kinds on the water-only soil with no ice, no LandModel
-        no_ice = dataclasses.replace(water_kinds, assume_no_ice=True)
-        return r"in mode B1-water-no-ice.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(no_ice)
-    if case == "geometry":  # per-column geometry on the plain soil with rate freeze-thaw
-        return r"in mode B3-rate.*ROADMAP B8\)", lambda: ck.make_fused_column_run(plain, streamed_geometry=geometry)
+    from landhydrology_tpu_torch import PrescribedHydrologyModel
+    from landhydrology_tpu_torch.imex import BackwardEulerRichards
+
+    heat = dataclasses.replace(soil, hydrology_model=PrescribedHydrologyModel(), freeze_thaw=None,
+                               boundary_conditions=SoilColumnBC(top=SoilComponentBC(energy=VerticalFlux(0.0)),
+                                                                bottom=SoilComponentBC(energy=bcs.bottom.energy)))
+    if case == "kinds_water_land":  # per-column kinds under an implicit stepper with no ice, under MOST
+        no_ice = dataclasses.replace(kinds, assume_no_ice=True, freeze_thaw=None)
+        return r"in mode B4-be-richards-no-ice\+B5.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(
+            no_ice, BackwardEulerRichards(model=no_ice, grid=grid))
+    if case == "geometry":  # per-column geometry under TR-BDF2 with lagged coefficients, under MOST
+        lagged = dataclasses.replace(soil, coefficient_update="step", freeze_thaw=None)
+        return r"in mode B4-trbdf2\+B2\+B5.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
+            lagged, TRBDF2Soil(model=lagged, grid=grid), streamed_geometry=geometry)
     if case == "geometry_implicit_most":  # per-column geometry under an implicit stepper with a policy
         return r"in mode B4-trbdf2\+B3-rate\+B5.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
             soil, TRBDF2Soil(model=soil, grid=grid), streamed_geometry=geometry)
-    if case == "explicit_stepper":  # the plain soil under another explicit stepper, with per-column geometry
-        return r"in mode B3-rate@SSPRK104.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
-            plain, SSPRK104(), streamed_geometry=geometry)
-    if case == "water_only_land":  # the water-only soil under another explicit stepper, with kinds
-        return r"in mode B1-water@ForwardEuler.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(
-            water_kinds, ForwardEuler())
-    if case == "implicit_under_most":  # the MOST soil's column, water-only, lagged: with per-column geometry
-        branch = dataclasses.replace(water_soil, coefficient_update="step")
-        return r"in mode B4-trbdf2-water\+B2.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
-            branch, TRBDF2Soil(model=branch, grid=grid), streamed_geometry=geometry)
+    if case == "explicit_stepper":  # TR-BDF2 on the heat-only branch with per-column geometry: not queued
+        return r"in mode B4-trbdf2-heat .*ROADMAP B8, not queued\)", lambda: ck.make_fused_column_run(
+            heat, TRBDF2Soil(model=heat, grid=grid), streamed_geometry=geometry)
+    if case == "water_only_land":  # TR-BDF2 on the heat-only branch with per-column energy kinds: not queued
+        heat_kinds = dataclasses.replace(heat, boundary_conditions=SoilColumnBC(
+            top=SoilComponentBC(energy=BatchedBC(kind=torch.zeros(NCOL, dtype=torch.int64), value=0.0)),
+            bottom=heat.boundary_conditions.bottom))
+        return r"in mode B4-trbdf2-heat .*ROADMAP B1-batched, not queued\)", lambda: ck.make_fused_column_run(
+            heat_kinds, TRBDF2Soil(model=heat_kinds, grid=grid))
+    if case == "implicit_under_most":  # the MOST soil under TR-BDF2 without a policy, with per-column geometry
+        bare = dataclasses.replace(soil, freeze_thaw=None)
+        return r"in mode B4-trbdf2\+B5.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
+            bare, TRBDF2Soil(model=bare, grid=grid), streamed_geometry=geometry)
     if case == "implicit_heat_branch":  # the policies on the heat-only branch, which JAX's kernel cannot run
         from landhydrology_tpu_torch import PrescribedHydrologyModel
 
@@ -328,15 +334,15 @@ def _refused(case):
 def test_refusal_names_its_roadmap_item(case):
     """What stays refused, each a ``NotImplementedError`` naming its ROADMAP
     item: per-column BC kinds or geometry under the implicit steppers with a
-    policy, with forcing rows or not, and on the plain and water-only soil
-    in the modes that do not take them (B1-batched, B8); the implicit
-    steppers with the policies on the heat-only branch, the water-only sweep
-    with ``TemperatureDependentViscosity``, and a LandModel, which the
-    reference kernel cannot run either (B4).  (The cases ``rows_most``,
-    ``rows_land``, ``kinds``, ``kinds_water_land``, ``geometry``,
-    ``explicit_stepper``, ``implicit_under_most`` and ``water_only_land``
-    named refusals that are now ported; they hold their neighbours that
-    stay.)"""
+    MOST top, with a policy or without, with forcing rows or not (B1-batched,
+    B8), and under TR-BDF2 on the heat-only branch (not queued); the
+    implicit steppers with the policies on the heat-only branch, the
+    water-only sweep with ``TemperatureDependentViscosity``, and a
+    LandModel, which the reference kernel cannot run either (B4).  (The
+    cases ``rows_most``, ``rows_land``, ``kinds``, ``kinds_water_land``,
+    ``geometry``, ``explicit_stepper``, ``implicit_under_most`` and
+    ``water_only_land`` named refusals that are now ported; they hold their
+    neighbours that stay.)"""
     pattern, call = _refused(case)
     with pytest.raises(NotImplementedError, match=pattern):
         call()

@@ -261,9 +261,10 @@ def test_land_instances_under_the_new_steppers():
 def test_per_column_land_instances_stay_refused(stepper):
     """``MODE_COLUMNS``'s land instances run every explicit stepper (B5 and
     B6 with per-column kinds or geometry from
-    ``csrc/land_columns_kernel.cu``); their plain-soil neighbours under the
-    new steppers stay refused, naming B1-batched and B8 (ROADMAP B queue
-    item 2)."""
+    ``csrc/land_columns_kernel.cu``), and so do their plain-soil neighbours
+    (``csrc/rk_columns_kernel.cu``); the implicit steppers under the MOST
+    top stay refused with them, naming B1-batched and B8 (ROADMAP B queue
+    item 2's remainder)."""
     from landhydrology_tpu_torch import BatchedBC, SoilColumnBC, SoilComponentBC, VerticalFlux
     from landhydrology_tpu_torch.domains import make_function_space
 
@@ -277,13 +278,22 @@ def test_per_column_land_instances_stay_refused(stepper):
     assert run.name == f"B5+kinds@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "land_columns_kernel"
     plain_top = SoilComponentBC(hydrology=VerticalFlux(0.0), energy=VerticalFlux(0.0))
     plain = dataclasses.replace(kinds, boundary_conditions=SoilColumnBC(top=plain_top, bottom=bottom))
-    with pytest.raises(NotImplementedError, match=rf"in mode B1@{stepper}.*ROADMAP B1-batched\)"):
-        ck.make_fused_column_run(plain, getattr(pts, stepper)())
+    run = ck.make_fused_column_run(plain, getattr(pts, stepper)())
+    assert run.name == f"B1+kinds@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "rk_columns_kernel"
+    from landhydrology_tpu_torch import BackwardEulerSoil
+
+    with pytest.raises(NotImplementedError, match=r"in mode B4-be-soil\+B5.*ROADMAP B1-batched\)"):
+        ck.make_fused_column_run(kinds, BackwardEulerSoil(model=kinds, grid=make_function_space(
+            soil.domain, torch.float64, "cpu")))
     grid = make_function_space(soil.domain, torch.float64, "cpu")
     geometry = (torch.full((NCOL,), 0.125, dtype=torch.float64), grid.zc.expand(NZ, NCOL).contiguous())
     assert ck.make_fused_column_run(land, streamed_geometry=geometry).name == "B6+B8"
     run = ck.make_fused_column_run(land, getattr(pts, stepper)(), streamed_geometry=geometry)
     assert run.name == f"B6+B8@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "land_columns_kernel"
-    with pytest.raises(NotImplementedError, match=rf"in mode B1@{stepper}.*ROADMAP B8\)"):
-        ck.make_fused_column_run(dataclasses.replace(plain, boundary_conditions=SoilColumnBC(
-            top=plain_top, bottom=bcs.bottom)), getattr(pts, stepper)(), streamed_geometry=geometry)
+    flat_plain = dataclasses.replace(plain, boundary_conditions=SoilColumnBC(top=plain_top, bottom=bcs.bottom))
+    run = ck.make_fused_column_run(flat_plain, getattr(pts, stepper)(), streamed_geometry=geometry)
+    assert run.name == f"B1+B8@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "rk_columns_kernel"
+    from landhydrology_tpu_torch import TRBDF2Soil
+
+    with pytest.raises(NotImplementedError, match=r"in mode B4-trbdf2\+B5.*ROADMAP B8\)"):
+        ck.make_fused_column_run(soil, TRBDF2Soil(model=soil, grid=grid), streamed_geometry=geometry)

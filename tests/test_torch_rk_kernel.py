@@ -250,10 +250,12 @@ def test_stage_table_and_rows(stepper):
 
 
 def test_explicit_steppers_refused_where_no_kernel():
-    """ForwardEuler, SSPRK22 and SSPRK104 with per-column BC kinds raise
-    on the plain soil (ROADMAP B1-batched); a MOST top runs in the land
-    kernel (``B5@<stepper>``), with kinds in its ``MODE_COLUMNS`` instance
-    (``B5+kinds@<stepper>``)."""
+    """ForwardEuler, SSPRK22 and SSPRK104 with per-column BC kinds run on the
+    plain soil in ``rk_columns_kernel.cu``'s ``MODE_COLUMNS`` instance
+    (``B1+kinds@<stepper>``); a MOST top runs in the land kernel
+    (``B5@<stepper>``), with kinds in its ``MODE_COLUMNS`` instance
+    (``B5+kinds@<stepper>``); TR-BDF2 under the MOST top with kinds has no
+    kernel yet and raises (ROADMAP B1-batched)."""
     from landhydrology_tpu_torch import BatchedBC, PrescribedAtmosForcing, SoilColumnBC, SoilComponentBC
 
     jm, _, _, _, _ = case("B1")
@@ -271,7 +273,13 @@ def test_explicit_steppers_refused_where_no_kernel():
     for stepper in STEPPERS:
         run = ck.make_fused_column_run(most, getattr(pts, stepper)())
         assert run.name == f"B5@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "land_rk_kernel"
-        with pytest.raises(NotImplementedError, match="ROADMAP B1-batched"):
-            ck.make_fused_column_run(kinds, getattr(pts, stepper)())
+        run = ck.make_fused_column_run(kinds, getattr(pts, stepper)())
+        assert run.name == f"B1+kinds@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "rk_columns_kernel"
         run = ck.make_fused_column_run(most_kinds, getattr(pts, stepper)())
         assert run.name == f"B5+kinds@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "land_columns_kernel"
+    from landhydrology_tpu_torch import TRBDF2Soil
+    from landhydrology_tpu_torch.domains import make_function_space
+
+    grid = make_function_space(most.domain, torch.float64, "cpu")
+    with pytest.raises(NotImplementedError, match=r"in mode B4-trbdf2\+B5 .*ROADMAP B1-batched\)"):
+        ck.make_fused_column_run(most_kinds, TRBDF2Soil(model=most_kinds, grid=grid))
