@@ -10,15 +10,16 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
 2. build: compiles ``landhydrology_tpu_torch/csrc/column_kernel.cu``,
    ``csrc/implicit_kernel.cu``, ``csrc/land_kernel.cu`` and
    ``csrc/rk_kernel.cu`` with nvcc, one process per source and float type,
-   in parallel, and starts ``csrc/implicit_most_kernel.cu``,
+   in parallel, and starts ``csrc/implicit_most_columns_kernel.cu``,
+   ``csrc/implicit_most_kernel.cu``,
    ``csrc/implicit_branch_kernel.cu``, ``csrc/land_policy_kernel.cu``,
    ``csrc/land_rk_kernel.cu``, ``csrc/land_policy_rk_kernel.cu``,
    ``csrc/land_columns_kernel.cu``, ``csrc/land_policy_columns_kernel.cu``,
    ``csrc/implicit_policy_kernel.cu`` (the plain soil's implicit policy
    instances, out of ``implicit_kernel.cu`` since phase 20's cut),
    ``csrc/rk_columns_kernel.cu`` and ``csrc/implicit_columns_kernel.cu`` in
-   the background at nice 19, six compiles at a time
-   (``LaterBuild``), which phases 14-20 (and the end) wait for;
+   the background at nice 19, four compiles at a time, the longest first
+   (``LaterBuild``, ``LATER_ORDER``), which phases 14-21 (and the end) wait for;
    prints the registers of every template instance; reads the instruction
    cost of exp, log, sqrt and a division from ``cuobjdump -sass`` of small
    kernels (``op_costs``), for the bounds;
@@ -185,8 +186,9 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    against the plain version (``_check_freeze``, ``_check_increment``) and
    timed in the same pass as phase 6 times its paths; (c) at full width, f32 and f64, ``bench.py::build`` under
    SSPRK33 (16 steps, B9:B1) and ``build_freeze_wide`` under
-   ``TRBDF2Soil(iters=2)`` with rate freeze-thaw (4 steps of 60 s,
-   B9:B4-trbdf2+B3-rate; 32 and 8 steps until phase 20's depth cut), with
+   ``TRBDF2Soil(iters=2)`` with rate freeze-thaw (2 steps of 60 s,
+   B9:B4-trbdf2+B3-rate; 32 and 8 steps until phase 20's depth cut, 4
+   until phase 21's), with
    the launch count set to 0 just before and
    read just after: the forward against the plain version, the forward's
    and the backward's ms, the backward's peak memory, each field's
@@ -211,7 +213,9 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    phase 18's cut); the CLI's launch counts and host time,
    and one 32-step launch of each explicit stepper at that width, f32 and
    f64 (kernel ms against the plain version, and against the predictions
-   in PERF.md); (c) each stepper's temporal order in f64 through its
+   in PERF.md); in a whole run the CLI runs, and is checked, beside 17a's
+   f64 checks (``CliAhead``), and 15b keeps its times; (c) each stepper's
+   temporal order in f64 through its
    kernel under a time-varying flux top (slopes within 0.35 of 1, 2, 3, 4);
 16. the cold land path (kernel modes B5 and B6 with freeze-thaw or
    ``assume_no_ice``, each alone or with lagged coefficients:
@@ -295,7 +299,9 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    ``B6@ForwardEuler`` and ``B6@SSPRK22`` at that width, f32 and f64, and
    the two SSPRK104 instances in f32, each timed at width; each instance
    held by a launch of 4 steps against the plain version on every 256th
-   column (timed); (c) each of the 48 land instances without
+   column (timed); in a whole run the two CLIs run, and are checked, beside
+   17a's f64 checks with 15b's (``CliAhead``), and 18b keeps its times of
+   the other steppers; (c) each of the 48 land instances without
    ``MODE_COLUMNS`` once per float type under ForwardEuler, SSPRK22 or
    SSPRK104 (``land_rk_cases``: the steppers cycled, a third with forcing
    rows) on 1,000 cold columns, 2 steps (4 in f32), against the plain
@@ -352,6 +358,31 @@ the card, f64 at rtol 1e-12 / atol 1e-16, f32 at the loose bars of
    with the spacing),
    two samples of one launch of 4 steps from the start state (kernel
    only), beside its bound;
+21. per-column BC kinds and geometry under the implicit steppers with a MOST
+   top (kernel modes B4+B5 with B1-batched and B8:
+   ``csrc/implicit_most_columns_kernel.cu``; ROADMAP B item 2, MOST
+   remainder): (a) 17d's cold MOST column at nz=64 x 65,536 with per-column
+   kinds at its bottom faces and depths 0.8-1.2 of 2 m, one launch of 8
+   steps of 60 s, f64 and f32, in ``B4-trbdf2+B3-rate+B5+kinds+B8+B7``
+   (step-indexed theta_atm rows, through ``make_forced_segment_run(engine=
+   "fused")``) and ``B4-trbdf2+B2+B3-eq+B5+kinds+B8`` (through
+   ``Simulation(engine="fused")``), each equal bit for bit to the script's
+   own launch, held to the plain version by a launch of its first 2 steps,
+   ice formed, then timed from the start state beside 17d's
+   instance on it (the cost of ``MODE_COLUMNS`` under MOST); (b) the flagship run file's soil alone on a
+   variable-depth regolith with a batched bottom at nz=24 x 131,072 as a run
+   file (TRBDF2Soil, ``"iters": 2``, ``"engine": "pallas"``, dt 60 s, f64)
+   through ``python -m landhydrology_tpu_torch run``
+   (``B4-trbdf2+B5+kinds+B8``, 2 launches of 8 steps), its first save equal
+   bit for bit to the file's first launch in this process, that launch on
+   every 64th column against the plain version; (c) the 12 implicit no-ice
+   instances with ``MODE_COLUMNS`` (the plain soil's and the MOST top's) on
+   the icy state, f64, one well-conditioned step of 5 s, then each of the
+   24 new instances on 1,000 cold columns with kinds and depths, 2 steps of
+   60 s, a third with forcing rows, two also with PCR, f64 and f32, against
+   the plain version; (d) each timed at 17e's width (nz=64 x 65,536, two
+   samples of one launch of 4 steps from the start state, kernel only),
+   beside its bound;
 6. times of every mode's kernel and plain version at its phase-4/5/8/9/10/12/14
    shape (CUDA events: the kernel x3 twice, then the plain version once,
    warm),
@@ -370,7 +401,8 @@ and 14 (14b times its policy paths), ``--cli-only`` phases 1, 2 and 15
 phase 6's times of phase 10's paths, ``--cold-forced-only`` phases 1, 2 and
 17 with phase 6's times of 17d's paths, ``--land-rk-only`` phases 1, 2 and 18
 with phase 6's times of 18a's paths, ``--land-columns-only`` phases 1, 2 and
-19, ``--soil-columns-only`` phases 1, 2 and 20.  ``--compare-with PARENT``
+19, ``--soil-columns-only`` phases 1, 2 and 20, ``--most-columns-only``
+phases 1, 2 and 21.  ``--compare-with PARENT``
 builds this tree
 and the tree at PARENT (an unpacked ``git archive`` of another commit) in
 turns in subprocesses and holds the other tree's instances to their
@@ -1314,10 +1346,27 @@ def bound_ms(ck, costs, mode, dtype, cells, steps, n_iter=60, iters=2, ncol=0, p
 def _np(Y):
     """The soil fields of a state as float64 arrays, and a LandModel's pond
     as ``h_s``."""
-    out = {k: v.detach().double().cpu().numpy().copy() for k, v in Y["soil"].items()}
+    out = {k: _host(v) for k, v in Y["soil"].items()}
     if "surface" in Y:
-        out["h_s"] = Y["surface"]["h_s"].detach().double().cpu().numpy().copy()
+        out["h_s"] = _host(Y["surface"]["h_s"])
     return out
+
+
+def _host(v):
+    """A float64 array of ``v`` that shares no memory with it: a tensor on
+    the card is copied to the host once, a CPU tensor's array is copied."""
+    arr = v.detach().double().cpu().numpy()
+    return arr if v.device.type == "cuda" else arr.copy()
+
+
+def _assert_allclose(actual, desired, rtol, atol, err_msg):
+    """``np.testing.assert_allclose`` with its bars, in one pass where it
+    passes: arrays of one shape whose every value is within them (no NaN,
+    no infinity apart) pass it by ``np.isclose``, on the same arguments;
+    any other pair (shapes that differ, even where they broadcast, included)
+    runs the full assertion, which fails and reports as before."""
+    if np.shape(actual) != np.shape(desired) or not np.isclose(actual, desired, rtol=rtol, atol=atol).all():
+        np.testing.assert_allclose(actual, desired, rtol=rtol, atol=atol, err_msg=err_msg)
 
 
 def _max_abs(a, b):
@@ -1330,15 +1379,14 @@ def _check(a, b, dtype, what):
     its largest value on the pond (on the fields the branch has)."""
     if dtype == torch.float64:
         for k in a:
-            np.testing.assert_allclose(a[k], b[k], rtol=1e-12, atol=1e-18 if k == "h_s" else 1e-16,
-                                       err_msg=f"{what}/{k}")
+            _assert_allclose(a[k], b[k], rtol=1e-12, atol=1e-18 if k == "h_s" else 1e-16, err_msg=f"{what}/{k}")
         return
     if "h_s" in a:
-        np.testing.assert_allclose(a["h_s"], b["h_s"], rtol=0, atol=1e-4 * float(np.max(np.abs(b["h_s"]))),
-                                   err_msg=f"{what}/h_s")
+        _assert_allclose(a["h_s"], b["h_s"], rtol=0, atol=1e-4 * float(np.max(np.abs(b["h_s"]))),
+                         err_msg=f"{what}/h_s")
     for k in ("vartheta_l", "theta_i"):
         if k in a:
-            np.testing.assert_allclose(a[k], b[k], rtol=0, atol=2e-4, err_msg=f"{what}/{k}")
+            _assert_allclose(a[k], b[k], rtol=0, atol=2e-4, err_msg=f"{what}/{k}")
     if "rho_e_int" in a:
         rel = np.abs(a["rho_e_int"] - b["rho_e_int"]) / (np.abs(b["rho_e_int"]) + 1e3)
         if not np.max(rel) < 5e-4:
@@ -1422,8 +1470,9 @@ def _check_freeze(kern, plain, model, dtype, what, projections=1):
         extra = energy_extra if k == "rho_e_int" else water_extra
         base = rtol * scale if dtype == torch.float64 or k == "rho_e_int" else 2e-4
         rel = rtol if dtype == torch.float64 or k == "rho_e_int" else 0.0
-        diff, bar = np.abs(kern[k] - plain[k]), rel * np.abs(plain[k])
-        past = diff > bar + base + extra
+        if projections > 1 and extra:
+            diff, bar = np.abs(kern[k] - plain[k]), rel * np.abs(plain[k])
+            past = diff > bar + base + extra
         if projections > 1 and extra and past.any():
             carried = int(past.sum())
             most = max(FREEZE_CARRIED_CELLS, int(FREEZE_CARRIED_SHARE * diff.size))
@@ -1434,7 +1483,7 @@ def _check_freeze(kern, plain, model, dtype, what, projections=1):
                 raise AssertionError(f"{what}/{k}: {carried} cells past one projection's allowance (at most {most}), "
                                      f"the farthest {worst:.2f} times it (at most {projections})")
             continue
-        np.testing.assert_allclose(kern[k], plain[k], rtol=rel, atol=base + extra, err_msg=f"{what}/{k}")
+        _assert_allclose(kern[k], plain[k], rtol=rel, atol=base + extra, err_msg=f"{what}/{k}")
     return water_extra, energy_extra
 
 
@@ -1460,9 +1509,10 @@ def _check_increment(kern, plain, start, dtype, what, moving, extra=None):
     shares = {}
     for k in kern:
         dk, dp = kern[k] - start[k], plain[k] - start[k]
-        scale = float(np.max(np.abs(dp)))
-        bar = INCREMENT_RTOL[dtype] * scale + 8 * eps * float(np.max(np.abs(start[k]))) + (extra or {}).get(k, 0.0)
-        err = float(np.max(np.abs(dk - dp)))
+        scale = max(float(np.max(dp)), -float(np.min(dp)))
+        bar = (INCREMENT_RTOL[dtype] * scale + 8 * eps * max(float(np.max(start[k])), -float(np.min(start[k])))
+               + (extra or {}).get(k, 0.0))
+        err = float(np.max(np.abs(np.subtract(dk, dp, out=dk), out=dk)))
         if not err <= bar:
             raise AssertionError(f"{what}/{k}: change differs by {err:.3e} > bar {bar:.3e}")
         if k in moving:
@@ -1475,6 +1525,7 @@ def _check_increment(kern, plain, start, dtype, what, moving, extra=None):
 
 
 def _time_ms(fn, reps):
+    _quiet()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(reps):
@@ -1809,18 +1860,26 @@ def host_per_launch(ck, model, Y0, Ya, dt, spc, stepper, reps=5):
     return float(np.median(calls)), float(np.median(tables)), wall, kernel
 
 
-def check_golden(ck, model, Y, dt, n_steps, golden, what, stepper=None, atol=None):
+def check_golden(ck, model, Y, dt, n_steps, golden, what, stepper=None, atol=None, plain_steps=None):
     """f64 through the kernel in one launch against a golden (or, with
     ``golden=None``, against the plain version alone), rtol 1e-12 (with
-    ``atol``: within that absolute distance of the golden's vartheta_l)."""
+    ``atol``: within that absolute distance of the golden's vartheta_l).
+    With ``plain_steps`` (a golden given) the plain version holds a launch
+    of that many steps from the start state instead of the whole run."""
     from landhydrology_tpu_torch.timestepping import SSPRK33
 
     stepper = SSPRK33() if stepper is None else stepper
-    plain = _np(ck.fused_column_run_plain(model, stepper, dt, n_steps, Y, 0.0))
+    checked = n_steps if plain_steps is None else plain_steps
+    plain = _np(ck.fused_column_run_plain(model, stepper, dt, checked, Y, 0.0))
+    start = _clone(Y) if plain_steps is not None else None
     run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=n_steps)
     run(Y, 0.0)
     torch.cuda.synchronize()
     kern = _np(Y)
+    held = kern
+    if plain_steps is not None:
+        ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=plain_steps)(start, 0.0)
+        held = _np(start)
     name = run.name
     line = f"[3 golden] f64 {name} {what}:"
     if golden is not None and atol is not None:
@@ -1830,11 +1889,12 @@ def check_golden(ck, model, Y, dt, n_steps, golden, what, stepper=None, atol=Non
         line += f" kernel vs golden vartheta_l max abs {dev:.3e} (bar {atol:g});"
     elif golden is not None:
         for k in kern:
-            np.testing.assert_allclose(kern[k], golden[k], rtol=1e-12, atol=1e-16, err_msg=f"{what}/{k}")
+            _assert_allclose(kern[k], golden[k], rtol=1e-12, atol=1e-16, err_msg=f"{what}/{k}")
         rel = max(float(np.max(np.abs(kern[k] - golden[k]) / (np.abs(golden[k]) + 1e-300))) for k in kern)
         line += f" kernel vs golden max rel {rel:.3e} (bar 1e-12);"
-    _check(kern, plain, torch.float64, f"{what} plain")
-    print(f"{line} vs plain max abs {_max_abs(kern, plain):.3e}", flush=True)
+    _check(held, plain, torch.float64, f"{what} plain")
+    by = "" if plain_steps is None else f" (held by a launch of {plain_steps} steps)"
+    print(f"{line} vs plain max abs {_max_abs(held, plain):.3e}{by}", flush=True)
     return kern
 
 
@@ -1880,7 +1940,8 @@ def kernel_of(ck, mode, dtype):
               "land_policy_rk_kernel": "land_column_kernel", "land_columns_kernel": "land_column_kernel",
               "land_policy_columns_kernel": "land_column_kernel", "rk_kernel": "rk_column_kernel",
               "rk_columns_kernel": "rk_column_kernel", "implicit_policy_kernel": "implicit_column_kernel",
-              "implicit_columns_kernel": "implicit_column_kernel"}.get(
+              "implicit_columns_kernel": "implicit_column_kernel",
+              "implicit_most_columns_kernel": "implicit_column_kernel"}.get(
                   lib, "ssprk33_column_kernel")
     return kernel, os.path.relpath(ck.SOURCES[lib], HERE)
 
@@ -2376,7 +2437,9 @@ def forced_phase(ck, gc, device, smi, costs):
             Yref, tref = seg(Y0, Ya, 0.0, rows)  # (a)'s reference: the rows in memory
             torch.cuda.synchronize()
             walls, reads = {True: [], False: []}, {True: [], False: []}
-            for overlap in (False, True, True, False):  # in turns: the first run also pins the buffers
+            # in turns, the first run also pinning the buffers; one run each in f64, whose kernel-bound path the
+            # overlap moves little (a cut for the script's time)
+            for overlap in (False, True, True, False) if dtype == torch.float32 else (False, True):
                 torch.cuda.synchronize()
                 ck.LAUNCHES.clear()
                 t = time.perf_counter()
@@ -2461,8 +2524,8 @@ def forced_phase(ck, gc, device, smi, costs):
             rates = {o: _fmt_rates(points, w) for o, w in walls.items()}
             busy = {o: "/".join(f"{main_launches * k_ms / x:.3f}" for x in w) for o, w in walls.items()}
             print(f"[11 forced] {tag} B6+B7 nz={nz} x {ncol}, {n} steps of dt={dt:g} ({n_win} windows of "
-                  f"{FORCED_WINDOW}, {spc} steps per launch), run_forced end to end incl. IO, two runs each in "
-                  f"turns: overlap {_fmt_ms(walls[True])} = {rates[True]} grid-points/s, no overlap "
+                  f"{FORCED_WINDOW}, {spc} steps per launch), run_forced end to end incl. IO, {len(walls[True])} run(s) "
+                  f"each in turns: overlap {_fmt_ms(walls[True])} = {rates[True]} grid-points/s, no overlap "
                   f"{_fmt_ms(walls[False])} = {rates[False]} grid-points/s; kernel {k_ms:.3f} ms per launch "
                   f"(plain {p_ms:.3f} ms on {cols.numel()} columns, bound {b_ms:.3f} ms by {b_by}, MOST probes per "
                   f"solve {probes:.4f}); device "
@@ -3472,26 +3535,103 @@ def rk_phase(ck, costs, smi, device, t_start):
     return entries
 
 
-def _run_cli(path, what):
-    """``python -m landhydrology_tpu_torch run <path>`` in a subprocess from
-    the checkout: ``(stdout, kernel launches, host seconds of the run)``."""
-    return _run_clis([path], what)[0]
+def _start_cli(path):
+    """``python -m landhydrology_tpu_torch run <path>`` started in a
+    subprocess from the checkout (``_finish_cli`` waits for it)."""
+    return subprocess.Popen([sys.executable, "-m", "landhydrology_tpu_torch", "run", path], cwd=HERE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def _run_clis(paths, what):
-    """``_run_cli`` of each of ``paths``, the subprocesses run together (each
-    spends most of its time starting up); in the order of ``paths``."""
-    procs = [subprocess.Popen([sys.executable, "-m", "landhydrology_tpu_torch", "run", path], cwd=HERE,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for path in paths]
-    out = []
-    for proc in procs:
-        stdout, stderr = proc.communicate(timeout=600)
-        if proc.returncode != 0:
-            raise AssertionError(f"{what}: the CLI exited {proc.returncode}\n{stdout}\n{stderr}")
-        launches = json.loads(stdout.split("kernel launches: ", 1)[1].splitlines()[0])
-        wall = float(re.search(r"cells in ([0-9.e+-]+) s \(host clock\)", stdout).group(1))
-        out.append((stdout, launches, wall))
-    return out
+def _finish_cli(proc, what):
+    """``(stdout, kernel launches, host seconds of the run)`` of a CLI run
+    that ``_start_cli`` started, once it has exited 0."""
+    stdout, stderr = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: the CLI exited {proc.returncode}\n{stdout}\n{stderr}")
+    launches = json.loads(stdout.split("kernel launches: ", 1)[1].splitlines()[0])
+    wall = float(re.search(r"cells in ([0-9.e+-]+) s \(host clock\)", stdout).group(1))
+    return stdout, launches, wall
+
+
+#: the ``CliRuns`` started so far: ``_quiet`` waits for them before a kernel is timed
+_BACKGROUND = []
+
+
+def _quiet():
+    """Wait for every ``CliRuns`` started so far: no CLI run of theirs shares
+    the card with a timed launch (CUDA events; the card time-slices between
+    processes)."""
+    for runs in _BACKGROUND:
+        runs.join()
+
+
+class CliRuns(threading.Thread):
+    """``_start_cli`` and ``_finish_cli`` of each of ``paths``, in a thread
+    started at once, beside the caller's other work: in turn (each after the
+    one before: a run file may resume from another's checkpoint), or with
+    ``together`` all started before the first is waited for (each CLI spends
+    most of its time starting up); ``results`` waits for the thread and
+    returns their ``(stdout, kernel launches, host seconds)`` in the order
+    of ``paths``, or raises the first failure."""
+
+    def __init__(self, paths, what, together=False):
+        super().__init__()
+        self.paths, self.what, self.together, self.out, self.error = list(paths), what, together, [], None
+        _BACKGROUND.append(self)
+        self.start()
+
+    def run(self):
+        try:
+            if self.together:
+                procs = [_start_cli(path) for path in self.paths]
+                self.out = [_finish_cli(proc, self.what) for proc in procs]
+            else:
+                for path in self.paths:
+                    self.out.append(_finish_cli(_start_cli(path), self.what))
+        except BaseException as error:  # raised by results
+            self.error = error
+
+    def results(self):
+        self.join()
+        if self.error is not None:
+            raise self.error
+        return self.out
+
+
+class CliAhead:
+    """15b's and 18b's run-file CLIs for ``main``: their files
+    (``cli_run_files``, ``land_cli_files``) in a temporary directory, their
+    runs started together (``start``: 15b's A then B, beside 18b's two)
+    before 17a's checks, which run while they start up, and checked after
+    the first float type's (``check``); their times stay in phases 15 and 18
+    (``cli_times``, ``land_cli_times``).  A CLI spends most of its time
+    (about 8 s on the card's host) starting up, which costs nothing beside
+    17a's checks; a run of theirs shares the card with checks, never with a
+    timed launch (``_quiet``)."""
+
+    def __init__(self, device, seed):
+        import tempfile
+
+        self.workdir = tempfile.TemporaryDirectory()
+        self.spec = cli_run_files(device, seed, self.workdir.name)
+        self.land_files, self.land_dts = land_cli_files(device, self.workdir.name)
+        self.kernel_ms, self.runs, self.land_runs = None, None, None
+
+    def start(self):
+        files = self.spec["files"]
+        self.runs = CliRuns([files["A"], files["B"]], "15b")
+        self.land_runs = CliRuns([path for path, _ in self.land_files.values()], "18b", together=True)
+
+    def check(self, ck, costs, smi, device):
+        """15b's and 18b's checks of the runs (``cli_check``, ``cli_summary``
+        with 15b's times, ``land_cli_check``); removes the directory.
+        Returns 18b's kernel records."""
+        try:
+            ran = cli_check(ck, device, self.spec, self.runs)
+            cli_summary(smi, self.spec, ran, self.kernel_ms)
+            return land_cli_check(ck, costs, smi, device, self.land_files, self.land_dts, self.land_runs)
+        finally:
+            self.workdir.cleanup()
 
 
 def cli_model(dtype, device, seed):
@@ -3504,24 +3644,16 @@ def cli_model(dtype, device, seed):
         model.hydrology_model, hydraulic_model=dataclasses.replace(hm, Ksat=Ksat)))
 
 
-def cli_phase(ck, costs, smi, device, seed, workdir):
-    """15b: ``bench.py::build``'s model at nz=64 x 65,536 with Ksat drawn per
-    column from ``seed`` (0.5-2x bench.py's), written by ``to_config`` into
-    a run file with hydrostatic initial conditions (z_table -1 m, 288 K),
-    SSPRK104 and ``"engine": "pallas"``, f64: (A) 96 steps in 3 launches,
-    saved at each launch, with a checkpoint; (B) the same file to 128 steps,
-    resumed from A's checkpoint for one more launch; a straight 128-step run
-    of the file's model and state (``Simulation``, in this process; the CLI
-    builds the same run): B's state
-    equals its state bit for bit, its first launch on every 64th column
-    (1,024) against the plain version's 32 steps.  dt is the largest power of two
-    under half of ``explicit_dt_limit`` (which assumes SSPRK33's real-axis
-    extent 2.5): under 0.625 of ForwardEuler's and SSPRK22's limits (extent
-    2) and far under SSPRK104's.  Then one 32-step launch of each explicit
-    stepper at the same width in f32 and f64 (kernel x3 twice, CUDA events;
-    the plain version once but for SSPRK33), the kernel checked against the
-    plain version on its start state.  Returns the kernel records of
-    B1@ForwardEuler, B1@SSPRK22, B1@SSPRK104."""
+def cli_run_files(device, seed, workdir):
+    """15b's run files in ``workdir``: ``cli_model`` (f64) written by
+    ``to_config`` with hydrostatic initial conditions (z_table -1 m, 288 K),
+    SSPRK104 and ``"engine": "pallas"``: A, 96 steps in 3 launches saved at
+    each, with a checkpoint; B, the same to 128 steps.  dt is the largest
+    power of two under half of ``explicit_dt_limit`` (which assumes
+    SSPRK33's real-axis extent 2.5): under 0.625 of ForwardEuler's and
+    SSPRK22's limits (extent 2) and far under SSPRK104's.  Returns
+    ``{"files", "outs", "cfg", "dt", "n_cli"}`` for ``cli_check`` and
+    ``cli_times``."""
     from landhydrology_tpu_torch import cli
     from landhydrology_tpu_torch.config import to_config
     from landhydrology_tpu_torch.diagnostics import explicit_dt_limit
@@ -3547,9 +3679,23 @@ def cli_phase(ck, costs, smi, device, seed, workdir):
             json.dump(c, f)
     print(f"[15b cli] run files at nz={NZ} x {NCOL} (Ksat per column from seed {seed}), hydrostatic z_table -1.0 m, "
           f"288 K, SSPRK104, engine pallas: explicit_dt_limit {limit:.6g} s, dt {dt!r} s", flush=True)
+    return {"files": files, "outs": outs, "cfg": cfg, "dt": dt, "n_cli": n_cli}
+
+
+def cli_check(ck, device, spec, runs):
+    """15b's checks of the CLI runs ``runs`` (``CliRuns`` of
+    ``cli_run_files``' A then B): A launches 3 times, B once, resumed from
+    A's checkpoint; a straight 128-step run of the file's model and state
+    (``Simulation``, in this process; the CLI builds the same run) equals
+    B's state bit for bit, A's checkpoint its state at step 96, and its
+    first launch on every 64th column (1,024) meets the plain version's 32
+    steps.  Returns ``{file: (kernel launches, host seconds)}``."""
+    from landhydrology_tpu_torch import Simulation, cli
+
+    files, outs, dt, n_cli = spec["files"], spec["outs"], spec["dt"], spec["n_cli"]
     ran = {}
-    for key, what, expect in (("A", "96 steps with a checkpoint", CLI_LAUNCHES), ("B", "resumed", 1)):
-        out, launches, wall = _run_cli(files[key], f"15b {what}")
+    for key, (out, launches, wall) in zip("AB", runs.results()):
+        what, expect = {"A": ("96 steps with a checkpoint", CLI_LAUNCHES), "B": ("resumed", 1)}[key]
         if launches != {"B1@SSPRK104": expect}:
             raise AssertionError(f"15b {what}: launches {launches}, expected {expect} of B1@SSPRK104")
         if key == "B" and f"resumed from checkpoint step {n_cli}" not in out:
@@ -3557,8 +3703,7 @@ def cli_phase(ck, costs, smi, device, seed, workdir):
         ran[key] = (launches, wall)
         print(f"[15b cli] {what}: python -m landhydrology_tpu_torch run: kernel launches {launches}, Simulation.run "
               f"{wall:.6f} s host clock", flush=True)
-    from landhydrology_tpu_torch import Simulation
-
+    run_model, _, Y_ic, _, _, _ = cli.load_run(files["A"], device)
     sim = Simulation(run_model, _stepper("SSPRK104"), Y_init=Y_ic, dt=dt, tspan=(0.0, (n_cli + SPC) * dt),
                      saveat=SPC * dt, engine="fused", steps_per_call=SPC)
     torch.cuda.synchronize()
@@ -3598,12 +3743,24 @@ def cli_phase(ck, costs, smi, device, seed, workdir):
     print(f"[15b cli] resumed run = straight run bit for bit; checkpoint = the straight run at step {n_cli}; "
           f"{CLI_SAMPLE} columns of the straight run's first launch vs plain max abs {err:.3e}, change error / largest "
           f"change {_fmt(shares)} (bar {INCREMENT_RTOL[torch.float64]:g})", flush=True)
-    del data, Yp
-    # each explicit stepper at the same width, f32 and f64
+    return ran
+
+
+def cli_times(ck, costs, smi, device, seed, spec):
+    """15b's times: one 32-step launch of each explicit stepper at the run
+    files' width and dt in f32 and f64 (kernel x3 twice, CUDA events; the
+    plain version once but for SSPRK33), the kernel checked against the
+    plain version on its start state.  The f64 SSPRK104 record counts the
+    CLI's ``CLI_LAUNCHES`` launches (which ``cli_check`` holds), the others
+    this check's launch.  Returns ``(the kernel records of B1@ForwardEuler,
+    B1@SSPRK22, B1@SSPRK104, {(dtype, stepper): kernel ms})``."""
+    from landhydrology_tpu_torch import cli
+
+    dt = spec["dt"]
     entries, kernel_ms = [], {}
     for dtype in (torch.float32, torch.float64):
         m = cli_model(dtype, device, seed)
-        Y0, _ = cli._build_ic(m, cfg["initial_conditions"])
+        Y0, _ = cli._build_ic(m, spec["cfg"]["initial_conditions"])
         for name in RK_STEPPERS + ("SSPRK33",):
             st = _stepper(name)
             run = ck.make_fused_column_run(m, st, dt=dt, steps_per_call=SPC)
@@ -3627,21 +3784,40 @@ def cli_phase(ck, costs, smi, device, seed, workdir):
             _check(got, ref, dtype, f"15b {run.name}")
             _check_increment(got, ref, _np(Y0), dtype, f"15b {run.name}", ("vartheta_l",))
             # the CLI path's launches for its instance, this check's launch for the others
-            launches = ran["A"][0][run.name] if dtype == torch.float64 and name == "SSPRK104" else 1
+            launches = CLI_LAUNCHES if dtype == torch.float64 and name == "SSPRK104" else 1
             entries.append(time_record(ck, costs, smi, m, Y0, dt, SPC, st, launches, _max_abs(got, ref), (k1, k2),
                                        (p1,), None, tag="15b time"))
             del plain, ref, got
         del Y0
         torch.cuda.empty_cache()
+    return entries, kernel_ms
+
+
+def cli_summary(smi, spec, ran, kernel_ms):
+    """15b's line on the CLI's run A: its rate end to end, the kernel's
+    share of it, and each stepper's kernel time against its prediction."""
     wall = ran["A"][1]
     busy = CLI_LAUNCHES * kernel_ms[(torch.float64, "SSPRK104")] / 1e3
-    print(f"[15b cli] the CLI's run A: {NZ * NCOL * n_cli / wall:.4e} grid-points/s end to end (host clock), "
+    print(f"[15b cli] the CLI's run A: {NZ * NCOL * spec['n_cli'] / wall:.4e} grid-points/s end to end (host clock), "
           f"kernel {busy:.6f} s of {wall:.6f} s, host share {1 - busy / wall:.4f}; per 32-step launch measured "
           "(predicted) ms: " + "; ".join(
               f"{n} " + ", ".join(f"{str(d)[6:]} {kernel_ms[(d, n)]:.3f} ({CLI_PREDICTED[n][i]:g})"
                                   for i, d in enumerate((torch.float32, torch.float64))) for n in CLI_PREDICTED)
           + "; SSPRK33 (B1) " + ", ".join(f"{str(d)[6:]} {kernel_ms[(d, 'SSPRK33')]:.3f}"
                                           for d in (torch.float32, torch.float64)) + f" on {smi}", flush=True)
+
+
+def cli_phase(ck, costs, smi, device, seed, workdir):
+    """15b: ``cli_run_files``' files run by ``python -m
+    landhydrology_tpu_torch run`` (A, then B resumed from A's checkpoint;
+    ``CliRuns``) and checked (``cli_check``), then each explicit stepper
+    timed at their width (``cli_times``).  ``main`` runs the CLI beside
+    17a's checks instead (``CliAhead``).  Returns the kernel records of
+    B1@ForwardEuler, B1@SSPRK22, B1@SSPRK104."""
+    spec = cli_run_files(device, seed, workdir)
+    ran = cli_check(ck, device, spec, CliRuns([spec["files"]["A"], spec["files"]["B"]], "15b"))
+    entries, kernel_ms = cli_times(ck, costs, smi, device, seed, spec)
+    cli_summary(smi, spec, ran, kernel_ms)
     return entries
 
 
@@ -3698,16 +3874,21 @@ def order_phase(ck, device):
           f"{4 * ORDER_STEPS * ORDER_REF}: " + "; ".join(lines), flush=True)
 
 
-def cli_main(ck, costs, smi, device, seed, t_start):
+def cli_main(ck, costs, smi, device, seed, t_start, ahead=None):
     """Phase 15: 15a (``rk_phase``), 15b (``cli_phase``, in a temporary
-    directory removed at its end), 15c (``order_phase``).  Returns the
-    kernel records."""
+    directory removed at its end; with ``ahead``, a ``CliAhead``, its times
+    alone, ``cli_times``: ``main`` runs and checks its CLI beside 17a),
+    15c (``order_phase``).  Returns the kernel records."""
     import tempfile
 
     entries = rk_phase(ck, costs, smi, device, t_start)
     _mark(t_start, "phase 15a")
-    with tempfile.TemporaryDirectory() as workdir:
-        entries += cli_phase(ck, costs, smi, device, seed, workdir)
+    if ahead is not None:
+        records, ahead.kernel_ms = cli_times(ck, costs, smi, device, seed, ahead.spec)
+        entries += records
+    else:
+        with tempfile.TemporaryDirectory() as workdir:
+            entries += cli_phase(ck, costs, smi, device, seed, workdir)
     _mark(t_start, "phase 15b")
     order_phase(ck, device)
     return entries
@@ -4293,8 +4474,8 @@ B4_POLICIES = (
     {"coefficient_update": "step", "freeze_thaw": "rate"}, {"coefficient_update": "step", "freeze_thaw": "eq"},
 )
 #: 14c: the full-width gradient runs: (configuration, stepper, steps per launch, dt), at half their depth since
-#: phase 20's cut (were 32 and 8 steps)
-GRAD_WIDE = (("bench", "SSPRK33", SPC // 2, DT), ("freeze", "TRBDF2Soil", 4, 60.0))
+#: phase 20's cut (were 32 and 8 steps), TR-BDF2's halved again for phase 21 (was 4: its backward took 3.4-4.0 s)
+GRAD_WIDE = (("bench", "SSPRK33", SPC // 2, DT), ("freeze", "TRBDF2Soil", 2, 60.0))
 
 
 def _policy(model, options):
@@ -4608,8 +4789,10 @@ def grad_wide(ck, gc, costs, smi, device):
                 raise AssertionError(f"14c {run.name}: launches {launches}")
             with torch.no_grad():
                 fwd = [_time_ms(lambda: run({"soil": start}, t0, dt_run=dt_t), 3) for _ in range(2)]
-                plain_ms = _time_ms(lambda: ck.fused_column_run_plain(model, stepper, dt, spc, Y0, 0.0), 1)
-                plain = _np(ck.fused_column_run_plain(model, stepper, dt, spc, Y0, 0.0))
+                plain = []  # the checked launch timed (one sample)
+                plain_ms = _time_ms(lambda: plain.append(ck.fused_column_run_plain(model, stepper, dt, spc, Y0, 0.0)),
+                                    1)
+                plain = _np(plain.pop())
             kern = _np({"soil": out})
             if model.freeze_thaw is None:
                 _check(kern, plain, dtype, run.name)
@@ -5422,15 +5605,15 @@ def time_at_width(ck, costs, smi, model, Y0, stepper, dt, t0, name, checked, for
     run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=steps, forcing_fields=tuple(forcing or ()))
     if run.name != name:
         raise AssertionError(f"{tag}: built {run.name}, expected {name}")
-    states = [_clone(Y0) for _ in range(3 if from_start else 1)]
-    run(states[0], t0, forcing=forcing)
     if from_start:
-        k1, k2 = (_time_ms(lambda Yk=Yk: run(Yk, t0, forcing=forcing), 1) for Yk in states[1:])
+        k1, k2 = _from_start_ms(run, Y0, t0, forcing, f"{tag} {name}")
     else:
-        k1, k2 = (_time_ms(lambda: run(states[0], t0, forcing=forcing), 3) for _ in range(2))
-    if not all(bool(torch.isfinite(v).all()) for Yk in states for f in Yk.values() for v in f.values()):
-        raise AssertionError(f"{tag} {name}: the state left the finite numbers")
-    del states
+        Yk = _clone(Y0)
+        run(Yk, t0, forcing=forcing)
+        k1, k2 = (_time_ms(lambda: run(Yk, t0, forcing=forcing), 3) for _ in range(2))
+        if not all(bool(torch.isfinite(v).all()) for f in Yk.values() for v in f.values()):
+            raise AssertionError(f"{tag} {name}: the state left the finite numbers")
+        del Yk
     if run.mode & ck.MODE_MOST and probes is None:  # the implicit steppers' over one step
         probes = cold_probes(ck, model, Y0, dt, stepper, 1 if run.mode & ck.MODE_IMPLICIT else steps)
     nz, ncol = next(iter(Y0["soil"].values())).shape
@@ -5452,6 +5635,18 @@ def time_at_width(ck, costs, smi, model, Y0, stepper, dt, t0, name, checked, for
             "plain_at": plain_at, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
+def _from_start_ms(run, Y0, t0, forcing=None, what=None):
+    """Two samples (CUDA events) of one launch of ``run`` each from the
+    start state ``Y0``, after an untimed one; the states must stay finite
+    (checked where ``what`` names the run)."""
+    states = [_clone(Y0) for _ in range(3)]
+    run(states[0], t0, forcing=forcing)
+    samples = tuple(_time_ms(lambda Yk=Yk: run(Yk, t0, forcing=forcing), 1) for Yk in states[1:])
+    if what and not all(bool(torch.isfinite(v).all()) for Yk in states for f in Yk.values() for v in f.values()):
+        raise AssertionError(f"{what}: the state left the finite numbers")
+    return samples
+
+
 def time_new_instances(ck, gc, costs, smi, dtype, device, checked, checked_rows, cold_probes_of):
     """17e: each new instance but the paths' at the width of its path: the
     water-only ones on 17c's storm, the implicit ones under 17d's cold MOST
@@ -5459,7 +5654,9 @@ def time_new_instances(ck, gc, costs, smi, dtype, device, checked, checked_rows,
     column), ``IMPLICIT_DT``; then the 30 land policy instances with rows at
     16c's width, the rows carrying the model's own atmosphere and rain, so
     that the work (and the MOST probes, ``cold_probes_of[name]`` where 16c
-    counted them, else counted here as 16c counts them) is 16c's.
+    counted them, else counted here as 16c counts them) is 16c's.  The
+    implicit MOST instances' probes are counted once per stepper, on its
+    instance without a policy (as 21d counts them).
     ``checked`` and ``checked_rows`` are 17a's and 16a's ``(error, plain
     ms)`` of each.  Returns the kernel records."""
     from landhydrology_tpu_torch.timestepping import SSPRK33
@@ -5471,17 +5668,23 @@ def time_new_instances(ck, gc, costs, smi, dtype, device, checked, checked_rows,
             entries.append(time_at_width(ck, costs, smi, land, Y0, SSPRK33(), STORM_DT, STORM_T0, name,
                                          checked[name]))
     torch.cuda.empty_cache()
+    probes_of = {}  # the MOST probes per solve of each stepper without a policy (as 21d counts them)
     for name in IMPLICIT_MODES:
         if name in COLD_IMPLICIT_PATHS:
             continue
         stepper, case = implicit_case(name)
+        probes = None
         if case.startswith("B2+B6-pond"):
             soil, Y0, _, _ = build_freeze_wide(gc, dtype, device, None)
             soil = dataclasses.replace(soil, freeze_thaw=None, coefficient_update="step", assume_no_ice=True)
         else:
             soil, Y0, _, _ = build_cold_land(gc, dtype, device, case)
+            if stepper not in probes_of:
+                bare = build_cold_land(gc, dtype, device, "B5")[0]
+                probes_of[stepper] = cold_probes(ck, bare, Y0, IMPLICIT_DT, implicit(stepper, bare, 2), 1)
+            probes = probes_of[stepper]
         entries.append(time_at_width(ck, costs, smi, soil, Y0, implicit(stepper, soil, 2), IMPLICIT_DT, 0.0, name,
-                                     checked[name]))
+                                     checked[name], probes=probes))
     torch.cuda.empty_cache()
     for name in COLD_MODES:
         model, Y0, _, dt = build_cold_land(gc, dtype, device, name)
@@ -5497,15 +5700,17 @@ def time_new_instances(ck, gc, costs, smi, dtype, device, checked, checked_rows,
     return entries
 
 
-def cold_forced_phase(ck, costs, smi, device, t_start, cold_checked, cold_probes_of):
+def cold_forced_phase(ck, costs, smi, device, t_start, cold_checked, cold_probes_of, after_checks=None):
     """Phase 17: 17a's checks (``cold_forced_checks``), 17b's cold forced
     reanalysis (``cold_forced_path``, its forcing written once to a
     temporary file), 17c's storm (``storm_path``), 17d's implicit paths
     (``cold_implicit_path``), 17e's times (``time_new_instances``), with
     16a's checks (``cold_checked``, ``{dtype: {name: (error, plain ms)}}``)
     and 16c's MOST probes (``cold_probes_of``, ``{(dtype, name): probes}``,
-    empty where phase 16 did not run).  Returns ``(kernel records, 17d's
-    paths for phase 6)``."""
+    empty where phase 16 did not run); ``after_checks`` (``main``: the
+    run-file CLIs' checks, ``CliAhead.check``) runs once, after the first
+    float type's 17a checks, and returns kernel records.  Returns ``(kernel
+    records, 17d's paths for phase 6)``."""
     import tempfile
 
     from landhydrology_tpu_torch.runtime import write_forcing
@@ -5522,6 +5727,10 @@ def cold_forced_phase(ck, costs, smi, device, t_start, cold_checked, cold_probes
             tag = str(dtype)[6:]
             checked = cold_forced_checks(ck, dtype, device)
             _mark(t_start, f"phase 17a's {tag} checks")
+            if after_checks is not None:
+                entries += after_checks()
+                after_checks = None
+                _mark(t_start, "the run-file CLIs' checks (15b, 18b)")
             for setting in COLD_FORCED_PATHS:
                 entries.append(cold_forced_path(ck, costs, smi, dtype, device, setting, path))
                 torch.cuda.empty_cache()
@@ -5764,30 +5973,19 @@ def short_check(ck, model, stepper, dt, Y0, what, moving):
     return _max_abs(got, plain), shares, probes, plain_ms, f"18b: nz={nz} x {len(few)}, {COLD_TIMED_STEPS} steps"
 
 
-def land_cli_phase(ck, costs, smi, device, workdir):
-    """18b: ``bench.py::build_land``'s LandModel at nz=64 x 65,536 in each
-    of ``LAND_CLI_SETTINGS``, written by ``config.to_config`` into a run file
-    (hydrostatic initial conditions, a pond of 1e-4 m, SSPRK104,
-    ``"engine": "pallas"``, f64; dt as 15b chooses it) and run by ``python
-    -m landhydrology_tpu_torch run`` in a subprocess (the two together,
-    ``_run_clis``): ``CLI_LAUNCHES`` launches of ``SPC`` steps, saved at
-    each.  A straight ``Simulation`` of the file's model and state in this
-    process (launch counts set to 0 just before and read just after) equals
-    the CLI's saves bit for bit; the instance is held to the plain version
-    by ``short_check`` (a launch of ``COLD_TIMED_STEPS`` steps: fewer plain
-    launches, for the script's time) and timed at width (CUDA events, x3
-    twice).  Then one launch of ``SPC``
-    steps of B6 under each of ``LAND_CLI_TIMED`` at that width, f32 and
-    f64, and in f32 the two SSPRK104 instances, each timed at width and
-    held by ``short_check`` (the record's plain time and the MOST probes of
-    its bound).  Returns the kernel records."""
-    from landhydrology_tpu_torch import Simulation, cli
+def land_cli_files(device, workdir):
+    """18b's run files in ``workdir``: ``bench.py::build_land``'s LandModel
+    at nz=64 x 65,536 in each of ``LAND_CLI_SETTINGS``, written by
+    ``config.to_config`` (hydrostatic initial conditions, a pond of 1e-4 m,
+    SSPRK104, ``"engine": "pallas"``, f64; dt as 15b chooses it):
+    ``CLI_LAUNCHES`` launches of ``SPC`` steps, saved at each.  Returns
+    ``({setting: (run file, output)}, {setting: dt})``."""
+    from landhydrology_tpu_torch import cli
     from landhydrology_tpu_torch.config import to_config
     from landhydrology_tpu_torch.diagnostics import explicit_dt_limit
 
-    entries, dts, files = [], {}, {}
+    dts, files = {}, {}
     n_cli = CLI_LAUNCHES * SPC
-    moving = ("vartheta_l", "rho_e_int", "h_s")
     for setting, (surface, lagged) in LAND_CLI_SETTINGS.items():
         land, _, _ = build_land_model(NZ, NCOL, torch.float64, device, surface, lagged)
         path, out = os.path.join(workdir, f"land_{setting}.json"), os.path.join(workdir, f"land_{setting}.npz")
@@ -5804,7 +6002,23 @@ def land_cli_phase(ck, costs, smi, device, workdir):
             json.dump(cfg, f)
         files[setting] = (path, out)
         del land, model, Y_ic, Ya
-    ran = dict(zip(files, _run_clis([path for path, _ in files.values()], "18b")))
+    return files, dts
+
+
+def land_cli_check(ck, costs, smi, device, files, dts, runs):
+    """18b's checks of the CLI runs ``runs`` (``CliRuns`` of
+    ``land_cli_files``' files, together): a straight ``Simulation`` of
+    each file's model and state in this process (launch counts set to 0
+    just before and read just after) equals the CLI's saves bit for bit;
+    the instance is held to the plain version by ``short_check`` (a launch
+    of ``COLD_TIMED_STEPS`` steps: fewer plain launches, for the script's
+    time) and timed at width (CUDA events, x3 twice).  Returns the kernel
+    records."""
+    from landhydrology_tpu_torch import Simulation, cli
+
+    entries, n_cli = [], CLI_LAUNCHES * SPC
+    moving = ("vartheta_l", "rho_e_int", "h_s")
+    ran = dict(zip(files, runs.results()))
     for setting, (path, out) in files.items():
         model, _, Y_ic, Ya, _, _ = cli.load_run(path, device)
         dt, name = dts[setting], f"{setting}@SSPRK104"
@@ -5850,6 +6064,18 @@ def land_cli_phase(ck, costs, smi, device, workdir):
                         "plain_at": plain_at, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
         del model, Y_ic, Yk, run
         torch.cuda.empty_cache()
+    return entries
+
+
+def land_cli_times(ck, costs, smi, device, dts):
+    """18b's times: one launch of ``SPC`` steps of B6 under each of
+    ``LAND_CLI_TIMED`` at the run files' width and dt (``dts``), f32 and
+    f64, and in f32 the two SSPRK104 instances, each timed at width and held
+    by ``short_check`` (the record's plain time and the MOST probes of its
+    bound).  Returns the kernel records."""
+    from landhydrology_tpu_torch import cli
+
+    entries = []
     for dtype in (torch.float32, torch.float64):
         tag = str(dtype)[6:]
         for setting, (surface, lagged) in LAND_CLI_SETTINGS.items():
@@ -5890,19 +6116,35 @@ def land_cli_phase(ck, costs, smi, device, workdir):
     return entries
 
 
-def land_rk_phase(ck, costs, smi, device, t_start):
+def land_cli_phase(ck, costs, smi, device, workdir):
+    """18b: ``land_cli_files``' run files run by ``python -m
+    landhydrology_tpu_torch run`` in subprocesses, the two together
+    (``CliRuns`` with ``together``), and checked (``land_cli_check``), then the other
+    steppers timed (``land_cli_times``).  ``main`` runs the CLIs beside
+    17a's checks instead (``CliAhead``).  Returns the kernel records."""
+    files, dts = land_cli_files(device, workdir)
+    runs = CliRuns([path for path, _ in files.values()], "18b", together=True)
+    return land_cli_check(ck, costs, smi, device, files, dts, runs) + land_cli_times(ck, costs, smi, device, dts)
+
+
+def land_rk_phase(ck, costs, smi, device, t_start, ahead=None):
     """Phase 18: 18a's lagged stiff paths (``lagged_stiff_paths``, timed in
     phase 6), 18b's LandModel run files (``land_cli_phase``, in a temporary
-    directory removed at its end), 18c's land instances under the new
-    steppers (``land_rk_checks``) and 18d's water-branch policies
+    directory removed at its end; with ``ahead``, a ``CliAhead``, their
+    times alone, ``land_cli_times``: ``main`` runs and checks their CLIs
+    beside 17a), 18c's land instances under the new steppers
+    (``land_rk_checks``) and 18d's water-branch policies
     (``water_policy_checks``), f64 and f32.  Returns ``(kernel records,
     18a's paths)``."""
     import tempfile
 
     paths = lagged_stiff_paths(ck, device)
     _mark(t_start, "phase 18a")
-    with tempfile.TemporaryDirectory() as workdir:
-        entries = land_cli_phase(ck, costs, smi, device, workdir)
+    if ahead is not None:
+        entries = land_cli_times(ck, costs, smi, device, ahead.land_dts)
+    else:
+        with tempfile.TemporaryDirectory() as workdir:
+            entries = land_cli_phase(ck, costs, smi, device, workdir)
     _mark(t_start, "phase 18b")
     for dtype in (torch.float64, torch.float32):
         entries += land_rk_checks(ck, costs, smi, dtype, device)
@@ -6083,6 +6325,182 @@ SOIL_COLUMNS_STEPS = {torch.float64: 2, torch.float32: 4}
 SOIL_CLI_LAUNCHES, SOIL_CLI_VARTHETA, SOIL_CLI_STRIDE = 2, 0.2, 64
 
 
+def columns_checks(ck, dtype, cases, build, t0, ncol, tag, about):
+    """20c's and 21c's checks: each of ``cases`` built by ``build(case)`` as
+    ``(model, state, stepper, dt, steps, run name, the run's source,
+    forcing rows or None)`` on ``ncol`` columns, a launch of ``steps`` steps
+    from ``t0`` against the plain version's (``check_diverged``: the same
+    columns, at most 1% (or 2), out of ``_physical_columns``' range in both,
+    where a cold start's Dirichlet faces take an implicit step past its two
+    Newton sweeps; on the others the freeze bars of ``_check_freeze`` after
+    the launch's projections with freeze-thaw, else ``_check``, and
+    ``_check_increment`` with ``carried_allowance``, in f32 with the
+    equilibrium projection on ``unpartitioned``'s quantities), the plain
+    launch timed (host clock, synchronized); the run must come from its
+    source and launch once, a freeze-thaw one grow ice in some columns and
+    melt it in others.  Prints one line, ``[tag] <float type> <count>
+    checks of <about>``, with each case's seconds.  Returns ``[(*case, run
+    name, error, plain ms)]``."""
+    out, lines = [], []
+    for case in cases:
+        clock_case = time.perf_counter()
+        model, Y, stepper, dt, steps, name, source, forcing = build(case)
+        what = f"{tag.split()[0]} {str(dtype)[6:]} {name}"
+        start = _np(Y)
+        torch.cuda.synchronize()
+        clock = time.perf_counter()
+        plain = ck.fused_column_run_plain(model, stepper, dt, steps, Y, t0, forcing=forcing)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - clock) * 1e3
+        freeze = model.freeze_thaw is not None
+        check = (lambda a, b, d, w, m=model: _check_freeze(a, b, m, d, w, steps)) if freeze else _check
+        moving, change_of = tuple(k for k in ("vartheta_l", "rho_e_int") if k in start), None
+        if dtype == torch.float32 and _projection_allowance(model, dtype)[0]:
+            # the f32 projection's partition spread does not shrink with the change (phase 5's f32 B3-eq): the
+            # change bar holds the total water and rho_e_int, which no projection moves, _check_freeze the state
+            change_of, moving = unpartitioned(model), ("water", "rho_e_int")
+        run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=steps,
+                                       forcing_fields=tuple(forcing or ()))
+        built = ck._entry(run.mode, dtype)[0]
+        if run.name != name or built != source:
+            raise AssertionError(f"{what}: built {run.name} from {built}")
+        torch.cuda.synchronize()
+        ck.LAUNCHES.clear()
+        run(Y, t0, forcing=forcing)
+        torch.cuda.synchronize()
+        if dict(ck.LAUNCHES) != {name: 1}:
+            raise AssertionError(f"{what}: launches {dict(ck.LAUNCHES)}, expected one of {name}")
+        kern, plain = _np(Y), _np(plain)
+        shares, err, diverged = check_diverged(kern, plain, start, dtype, what, moving, sound=_physical_columns,
+                                               check=check, extra=carried_allowance(model, dtype, steps),
+                                               change_of=change_of)
+        if diverged > max(2, ncol // 100):
+            raise AssertionError(f"{what}: {diverged} columns left the range in both versions")
+        ice = ""
+        if freeze:
+            grown, melted = _ice_columns(kern, start)
+            if not (grown and melted):
+                raise AssertionError(f"{what}: ice grew in {grown} columns and melted in {melted}")
+            ice = f"; ice grew in {grown}, melted in {melted} columns"
+        del kern, plain, Y, model
+        out.append((*case, name, err, plain_ms))
+        div = f", {diverged} columns out of the range in both" if diverged else ""
+        lines.append(f"{name} {err:.2e} ({_fmt(shares)}, plain {plain_ms:.1f} ms{ice}{div}; "
+                     f"{time.perf_counter() - clock_case:.1f} s)")
+    torch.cuda.empty_cache()
+    print(f"[{tag}] {str(dtype)[6:]} {len(lines)} checks of {about}: kernel vs plain max abs (change error / largest "
+          f"change, bar {INCREMENT_RTOL[dtype]:g}): " + "; ".join(lines), flush=True)
+    return out
+
+
+def columns_times(ck, costs, smi, checked, build, tag):
+    """20d's and 21d's times: each of ``checked`` (``columns_checks``) but
+    the PCR repeats (a PCR repeat's instance is timed with Thomas solves),
+    built at width by ``build(case)`` as ``(model, start state, stepper, dt,
+    t0, forcing rows or None, MOST probes or None, where its check ran)``
+    and timed by ``time_at_width`` from the start state over
+    ``COLUMNS_TIMED_STEPS`` steps, its record carrying the check's error and
+    plain ms.  Returns the kernel records."""
+    entries = []
+    for *case, name, err, plain_ms in checked:
+        if "pcr" in case:
+            continue
+        model, Y0, stepper, dt, t0, forcing, probes, plain_at = build(tuple(case))
+        entries.append(time_at_width(ck, costs, smi, model, Y0, stepper, dt, t0, name, (err, plain_ms), forcing,
+                                     probes, steps=COLUMNS_TIMED_STEPS, tag=tag, plain_at=plain_at,
+                                     from_start=True))
+        del model, Y0, forcing
+    torch.cuda.empty_cache()
+    return entries
+
+
+@dataclasses.dataclass(frozen=True)
+class RunFile:
+    """A run file that ``run_file_cli`` drives: its path (the output beside
+    it, ``.npz``), its instance and source, its launches of ``spc`` steps of
+    ``dt``, the stride of the plain check, the phase's tag, what the printed
+    line calls it, the plain version's stepper for a slice of the file's
+    model and stepper (``plain_stepper(sub, stepper)``), and whether the
+    bound counts MOST probes."""
+    path: str
+    name: str
+    source: str
+    launches: int
+    spc: int
+    dt: float
+    stride: int
+    tag: str
+    about: str
+    plain_stepper: object = None
+    most: bool = False
+
+
+def run_file_cli(ck, costs, smi, device, spec, started):
+    """20b and 21b: the CLI run ``started`` (``_start_cli`` of ``spec.path``,
+    a ``RunFile``) collected: it launched ``spec.name`` ``spec.launches``
+    times; its first save equals bit for bit a launch of the file's model
+    and state in this process (launch counts set to 0 just before and read
+    just after, from ``spec.source``), that launch on every
+    ``spec.stride``-th column meets the plain version (``check_diverged``),
+    then the launch is timed (CUDA events, two samples) beside its bound.
+    Returns its kernel record."""
+    from landhydrology_tpu_torch import cli
+
+    tag = spec.tag
+    _, launches, wall = _finish_cli(started, f"{tag} run file")
+    if launches != {spec.name: spec.launches}:
+        raise AssertionError(f"{tag}: launches {launches}, expected {spec.launches} of {spec.name}")
+    saved = np.load(os.path.splitext(spec.path)[0] + ".npz")
+    run_model, st, Y_ic, _, _, _ = cli.load_run(spec.path, device)
+    run = ck.make_fused_column_run(run_model, st, dt=spec.dt, steps_per_call=spec.spc)
+    if run.name != spec.name or ck._entry(run.mode, torch.float64)[0] != spec.source:
+        raise AssertionError(f"{tag}: the file's run is {run.name} from {ck._entry(run.mode, torch.float64)[0]}")
+    Yk = _clone(Y_ic)
+    torch.cuda.synchronize()
+    ck.LAUNCHES.clear()
+    run(Yk, 0.0)
+    torch.cuda.synchronize()
+    if dict(ck.LAUNCHES) != {spec.name: 1}:
+        raise AssertionError(f"{tag}: the file's first launch counted {dict(ck.LAUNCHES)}")
+    first = _np(Yk)
+    if not all(np.array_equal(saved[k][1], first[k], equal_nan=True) for k in first):
+        raise AssertionError(f"{tag}: the CLI's first save differs from the file's first launch in this process")
+    nz, ncol = next(iter(first.values())).shape
+    idx = torch.arange(0, ncol, spec.stride, device=device)
+    sub, Y_sub = column_slice(run_model, Y_ic, idx)
+    stp = st if spec.plain_stepper is None else spec.plain_stepper(sub, st)
+    start = _np(Y_sub)
+    torch.cuda.synchronize()
+    clock = time.perf_counter()
+    Yp = ck.fused_column_run_plain(sub, stp, spec.dt, spec.spc, Y_sub, 0.0)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - clock) * 1e3
+    cols = idx.cpu().numpy()
+    kern = {k: v[:, cols] for k, v in first.items()}
+    shares, err, div = check_diverged(kern, _np(Yp), start, torch.float64, f"{tag} first launch vs plain",
+                                      ("vartheta_l", "rho_e_int"))
+    end = {k: saved[k][-1] for k in first}
+    lost = int((~_sound_columns(end)).sum())
+    k1, k2 = (_time_ms(lambda: run(Yk, 0.0), 1) for _ in range(2))
+    probes = most_probes(ck, sub, stp, spec.dt, 1, Y_sub)[1] if spec.most else None  # the solves of one step
+    b_ms, b_by = bound_ms(ck, costs, run.mode, torch.float64, nz * ncol, spec.spc, ncol=ncol, probes=probes,
+                          read_values=per_column_values(run, nz, ncol, torch.float64))
+    ms, n = (k1 + k2) / 2, spec.launches * spec.spc
+    most = f"; MOST probes per solve {probes:.4f}" if probes is not None else ""
+    print(f"[{tag} cli] {spec.about}: python -m landhydrology_tpu_torch run: kernel launches {launches}, "
+          f"{nz * ncol * n / wall:.4e} grid-points/s end to end ({wall:.3f} s host clock); its first save equal bit "
+          f"for bit to the file's first launch here; every {spec.stride}th column ({len(cols)}) of it vs plain max abs "
+          f"{err:.3e}, change error / largest change {_fmt(shares)} ({div} columns diverged in both); {lost} of {ncol} "
+          f"columns out of the range after {n} steps; kernel {k1:.3f}/{k2:.3f} ms per launch of {spec.spc} steps, "
+          f"plain {plain_ms:.3f} ms on the strided columns, bound {b_ms:.3f} ms by {b_by} ({b_ms / ms:.3f} of the "
+          f"kernel's time{most}) on {smi}", flush=True)
+    kernel, source = kernel_of(ck, run.mode, torch.float64)
+    return {"name": f"{kernel}<f64, {spec.name}>", "route": "cuda", "source": source, "replaces": REPLACES,
+            "launches": spec.launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "plain_at": f"{tag}: every {spec.stride}th column, {spec.spc} steps", "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
+
+
 def soil_columns_cases():
     """20c's checks: ``(mode, stepper, tridiag)`` of every new instance:
     ``SOIL_RK_MODES`` under ``COLUMNS_STEPPERS`` cycled (shifted by one every
@@ -6092,6 +6510,13 @@ def soil_columns_cases():
     cases = [(name, COLUMNS_STEPPERS[(i + i // 4) % 4], None) for i, name in enumerate(SOIL_RK_MODES)]
     cases += [(name, None, "thomas") for name in SOIL_IMPLICIT_MODES]
     return cases + [(name, None, "pcr") for name in SOIL_IMPLICIT_PCR]
+
+
+def pcr_name(name):
+    """A run name with ``-pcr`` where ``mode_name`` puts it: after the
+    stepper, branch and ``-no-ice``, before the policies' ``+``."""
+    head, plus, tail = name.partition("+")
+    return f"{head}-pcr{plus}{tail}"
 
 
 def soil_columns_variant(ncol, dtype, device, seed, mode, stepper_name, tridiag, nz=16, cold=True):
@@ -6114,114 +6539,60 @@ def soil_columns_variant(ncol, dtype, device, seed, mode, stepper_name, tridiag,
         stepper = implicit(IMPLICIT_STEPPERS[next(s for s in IMPLICIT_STEPPERS if mode.startswith(s))], model, 2,
                            tridiag)
         dt = SOIL_IMPLICIT_DT
-        name = mode + "+kinds+B8"
-        if tridiag == "pcr":  # mode_name puts -pcr after the branch and -no-ice, before the policies' +
-            head, plus, tail = name.partition("+")
-            name = f"{head}-pcr{plus}{tail}"
+        name = (pcr_name(mode) if tridiag == "pcr" else mode) + "+kinds+B8"
     return model, Y, stepper, dt, name
 
 
-def soil_columns_checks(ck, costs, smi, dtype, device):
-    """20c and 20d: each of ``soil_columns_cases`` on ``SOIL_COLUMNS_NCOL``
-    columns, ``SOIL_COLUMNS_STEPS`` steps from t0 = 2 s
-    (``SOIL_IMPLICIT_STEPS`` under the implicit steppers), against the plain
-    version (``check_diverged``: the same columns, at most 1% (or 2), out of
-    ``_physical_columns``' range in both, where the cold start's Dirichlet
-    faces take an implicit step of 30 s past its two Newton sweeps; on the
-    others the freeze bars of ``_check_freeze`` after the launch's
-    projections with freeze-thaw, else ``_check``, and ``_check_increment``
-    with ``carried_allowance``, in f32 with the equilibrium projection on
-    ``unpartitioned``'s quantities), the plain launch timed
-    (host clock, synchronized); the instance must come from
-    ``rk_columns_kernel`` or ``implicit_columns_kernel``, a freeze-thaw one
-    grow ice in some columns and melt it in others.  Then each but the PCR
-    repeats timed at phase 12's variant width (``GRID_TIMED_NZ`` x
-    ``GRID_TIMED_NCOL``, the same kinds and depths drawn for its columns,
-    phase 12's warm start, dt scaled by (16 / ``GRID_TIMED_NZ``)^2 with the
-    levels' spacing;
-    ``time_at_width`` from the start state,
-    ``COLUMNS_TIMED_STEPS`` steps).  Returns the kernel records; the line
-    of the checks gives each case's seconds."""
-    entries, lines = [], []
-    for mode, stepper_name, tridiag in soil_columns_cases():
-        clock_case = time.perf_counter()
+def soil_columns_checks(ck, dtype, device):
+    """20c: each of ``soil_columns_cases`` (``soil_columns_variant``) on
+    ``SOIL_COLUMNS_NCOL`` columns, ``SOIL_COLUMNS_STEPS`` steps from t0 = 2 s
+    (``SOIL_IMPLICIT_STEPS`` of 30 s under the implicit steppers), from
+    ``rk_columns_kernel`` or ``implicit_columns_kernel``
+    (``columns_checks``).  Returns ``[(mode, stepper name, tridiag, run
+    name, error, plain ms)]`` for ``soil_columns_times``."""
+
+    def build(case):
+        mode, stepper_name, tridiag = case
         model, Y, stepper, dt, name = soil_columns_variant(SOIL_COLUMNS_NCOL, dtype, device, 7, mode, stepper_name,
                                                            tridiag)
         steps = SOIL_IMPLICIT_STEPS if tridiag else SOIL_COLUMNS_STEPS[dtype]
-        what = f"20c {str(dtype)[6:]} {name}"
-        start = _np(Y)
-        torch.cuda.synchronize()
-        clock = time.perf_counter()
-        plain = ck.fused_column_run_plain(model, stepper, dt, steps, Y, 2.0)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - clock) * 1e3
-        freeze = model.freeze_thaw is not None
-        check = (lambda a, b, d, w, m=model: _check_freeze(a, b, m, d, w, steps)) if freeze else _check
-        moving, change_of = tuple(k for k in ("vartheta_l", "rho_e_int") if k in start), None
-        if dtype == torch.float32 and _projection_allowance(model, dtype)[0]:
-            # the f32 projection's partition spread does not shrink with the change (phase 5's f32 B3-eq): the
-            # change bar holds the total water and rho_e_int, which no projection moves, _check_freeze the state
-            change_of, moving = unpartitioned(model), ("water", "rho_e_int")
-        run = ck.make_fused_column_run(model, stepper, dt=dt, steps_per_call=steps)
-        source = ck._entry(run.mode, dtype)[0]
-        if run.name != name or source != ("implicit_columns_kernel" if tridiag else "rk_columns_kernel"):
-            raise AssertionError(f"{what}: built {run.name} from {source}")
-        torch.cuda.synchronize()
-        ck.LAUNCHES.clear()
-        run(Y, 2.0)
-        torch.cuda.synchronize()
-        if dict(ck.LAUNCHES) != {name: 1}:
-            raise AssertionError(f"{what}: launches {dict(ck.LAUNCHES)}, expected one of {name}")
-        kern, plain = _np(Y), _np(plain)
-        shares, err, diverged = check_diverged(kern, plain, start, dtype, what, moving, sound=_physical_columns,
-                                               check=check, extra=carried_allowance(model, dtype, steps),
-                                               change_of=change_of)
-        if diverged > max(2, SOIL_COLUMNS_NCOL // 100):
-            raise AssertionError(f"{what}: {diverged} columns left the range in both versions")
-        ice = ""
-        if freeze:
-            grown, melted = _ice_columns(kern, start)
-            if not (grown and melted):
-                raise AssertionError(f"{what}: ice grew in {grown} columns and melted in {melted}")
-            ice = f"; ice grew in {grown}, melted in {melted} columns"
-        del kern, plain, Y
-        if tridiag != "pcr":  # a PCR repeat's instance is timed with Thomas solves
-            # from phase 12's warm start, at a dt scaled with the levels' spacing: the explicit limit scales
-            # with dz^2, and from the cold start at nz=48 a few columns of 32,768 leave the finite numbers in the
-            # plain version too (f32 under the implicit steppers, even at 30 s / 9)
-            model, Y0, stepper, dt, _ = soil_columns_variant(GRID_TIMED_NCOL, dtype, device, 12, mode, stepper_name,
-                                                             tridiag, nz=GRID_TIMED_NZ, cold=False)
-            dt *= (16 / GRID_TIMED_NZ) ** 2
-            entries.append(time_at_width(ck, costs, smi, model, Y0, stepper, dt, 2.0, name, (err, plain_ms),
-                                         steps=COLUMNS_TIMED_STEPS, tag="20d", from_start=True,
-                                         plain_at=f"20c: nz=16 x {SOIL_COLUMNS_NCOL}, {steps} steps"))
-            del model, Y0
-        out = f", {diverged} columns out of the range in both" if diverged else ""
-        lines.append(f"{name} {err:.2e} ({_fmt(shares)}, plain {plain_ms:.1f} ms{ice}{out}; "
-                     f"{time.perf_counter() - clock_case:.1f} s)")
-    torch.cuda.empty_cache()
-    print(f"[20c soil columns] {str(dtype)[6:]} {len(lines)} checks of the 44 plain-soil instances with per-column BC "
-          f"kinds (hydrology and energy at both faces) and depths (0.8-3.0 m) on {SOIL_COLUMNS_NCOL} columns, "
-          f"{SOIL_COLUMNS_STEPS[dtype]} steps under the explicit steppers (rotated), {SOIL_IMPLICIT_STEPS} of "
-          f"{SOIL_IMPLICIT_DT:g} s under the implicit ones (iters=2, two also with PCR), the freeze-thaw and "
-          f"no-ice modes from 268-278 K with 0.02 of ice (the explicit no-ice ones on its icy state): kernel vs "
-          f"plain max abs (change error / largest change, bar {INCREMENT_RTOL[dtype]:g}): "
-          + "; ".join(lines), flush=True)
-    return entries
+        return (model, Y, stepper, dt, steps, name, "implicit_columns_kernel" if tridiag else "rk_columns_kernel",
+                None)
+
+    return columns_checks(
+        ck, dtype, soil_columns_cases(), build, 2.0, SOIL_COLUMNS_NCOL, "20c soil columns",
+        f"the 44 plain-soil instances with per-column BC kinds (hydrology and energy at both faces) and depths "
+        f"(0.8-3.0 m) on {SOIL_COLUMNS_NCOL} columns, {SOIL_COLUMNS_STEPS[dtype]} steps under the explicit steppers "
+        f"(rotated), {SOIL_IMPLICIT_STEPS} of {SOIL_IMPLICIT_DT:g} s under the implicit ones (iters=2, two also with "
+        f"PCR), the freeze-thaw and no-ice modes from 268-278 K with 0.02 of ice (the explicit no-ice ones on its icy "
+        f"state)")
 
 
-def regional_cli(ck, costs, smi, device, workdir):
-    """20b: ``regional_grid.py``'s variable-depth twin (nz=48 x 131,072, f64)
-    with lagged coefficients, written by ``to_config`` into a run file
-    (a constant start of vartheta_l ``SOIL_CLI_VARTHETA`` at 288 K,
-    SSPRK104, ``"engine": "pallas"``, ``SOIL_CLI_LAUNCHES`` launches of
-    ``GRID_SPC`` steps of ``GRID_DT``, saved at each) and run by ``python -m
-    landhydrology_tpu_torch run`` in a subprocess (``B2+kinds+B8@SSPRK104``);
-    its first save equal bit for bit to a launch of the file's model and
-    state in this process, that launch on every ``SOIL_CLI_STRIDE``-th column
-    against the plain version (``check_diverged``), then the launch timed.
-    Returns its kernel record."""
-    from landhydrology_tpu_torch import cli
+def soil_columns_times(ck, costs, smi, dtype, device, checked):
+    """20d: each instance of 20c's ``checked`` (``soil_columns_checks``)
+    timed at phase 12's variant width (``GRID_TIMED_NZ`` x
+    ``GRID_TIMED_NCOL``, the same kinds and depths drawn for its columns,
+    phase 12's warm start, dt scaled by (16 / ``GRID_TIMED_NZ``)^2 with the
+    levels' spacing; ``columns_times``).  Returns the kernel records."""
+
+    def build(case):
+        mode, stepper_name, tridiag = case
+        # from phase 12's warm start, at a dt scaled with the levels' spacing: the explicit limit scales with dz^2,
+        # and from the cold start at nz=48 a few columns of 32,768 leave the finite numbers in the plain version
+        # too (f32 under the implicit steppers, even at 30 s / 9)
+        model, Y0, stepper, dt, _ = soil_columns_variant(GRID_TIMED_NCOL, dtype, device, 12, mode, stepper_name,
+                                                         tridiag, nz=GRID_TIMED_NZ, cold=False)
+        steps = SOIL_IMPLICIT_STEPS if tridiag else SOIL_COLUMNS_STEPS[dtype]
+        return (model, Y0, stepper, dt * (16 / GRID_TIMED_NZ) ** 2, 2.0, None, None,
+                f"20c: nz=16 x {SOIL_COLUMNS_NCOL}, {steps} steps")
+
+    return columns_times(ck, costs, smi, checked, build, "20d")
+
+
+def regional_run_file(device, workdir):
+    """20b's run file in ``workdir`` (``regional_cli``): the variable-depth
+    twin lagged, its constant start, SSPRK104 on the fused engine; returns
+    its path."""
     from landhydrology_tpu_torch.config import to_config
 
     model, _, _, _ = build_regional(GRID_NZ, GRID_NCOL, torch.float64, device, variable_depth=True)
@@ -6235,56 +6606,27 @@ def regional_cli(ck, costs, smi, device, workdir):
            "output": {"path": out}}
     with open(path, "w") as f:
         json.dump(cfg, f)
-    del model
-    _, launches, wall = _run_cli(path, "20b regional run file")
-    name = "B2+kinds+B8@SSPRK104"
-    if launches != {name: SOIL_CLI_LAUNCHES}:
-        raise AssertionError(f"20b: launches {launches}, expected {SOIL_CLI_LAUNCHES} of {name}")
-    saved = np.load(out)
-    run_model, st, Y_ic, _, _, _ = cli.load_run(path, device)
-    run = ck.make_fused_column_run(run_model, st, dt=GRID_DT, steps_per_call=GRID_SPC)
-    Yk = _clone(Y_ic)
-    torch.cuda.synchronize()
-    ck.LAUNCHES.clear()
-    run(Yk, 0.0)
-    torch.cuda.synchronize()
-    if dict(ck.LAUNCHES) != {name: 1} or run.name != name:
-        raise AssertionError(f"20b: the file's first launch counted {dict(ck.LAUNCHES)} of {run.name}")
-    first = _np(Yk)
-    if not all(np.array_equal(saved[k][1], first[k], equal_nan=True) for k in first):
-        raise AssertionError("20b: the CLI's first save differs from the file's first launch in this process")
-    idx = torch.arange(0, GRID_NCOL, SOIL_CLI_STRIDE, device=device)
-    sub, Yp = column_slice(run_model, Y_ic, idx)
-    start = _np(Yp)
-    torch.cuda.synchronize()
-    clock = time.perf_counter()
-    Yp = ck.fused_column_run_plain(sub, st, GRID_DT, GRID_SPC, Yp, 0.0)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - clock) * 1e3
-    cols = idx.cpu().numpy()
-    kern = {k: v[:, cols] for k, v in first.items()}
-    shares, err, div = check_diverged(kern, _np(Yp), start, torch.float64, "20b first launch vs plain",
-                                      ("vartheta_l", "rho_e_int"))
-    end = {k: saved[k][-1] for k in first}
-    lost = int((~_sound_columns(end)).sum())
-    k1, k2 = (_time_ms(lambda: run(Yk, 0.0), 1) for _ in range(2))
-    nz, ncol = GRID_NZ, GRID_NCOL
-    b_ms, b_by = bound_ms(ck, costs, run.mode, torch.float64, nz * ncol, GRID_SPC,
-                          read_values=per_column_values(run, nz, ncol, torch.float64))
-    ms = (k1 + k2) / 2
-    print(f"[20b cli] regional_grid.py's variable-depth twin, lagged, as a run file (SSPRK104, engine pallas, "
-          f"constant start {SOIL_CLI_VARTHETA} at 288 K): python -m landhydrology_tpu_torch run: kernel launches "
-          f"{launches}, {nz * ncol * n / wall:.4e} grid-points/s end to end ({wall:.3f} s host clock); its first save "
-          f"equal bit for bit to the file's first launch here; every {SOIL_CLI_STRIDE}th column ({len(cols)}) of it vs "
-          f"plain max abs {err:.3e}, change error / largest change {_fmt(shares)} ({div} columns diverged in both); "
-          f"{lost} of {ncol} columns out of the range after {n} steps; kernel {k1:.3f}/{k2:.3f} ms per launch of "
-          f"{GRID_SPC} steps, plain {plain_ms:.3f} ms on the strided columns, bound {b_ms:.3f} ms by {b_by} "
-          f"({b_ms / ms:.3f} of the kernel's time) on {smi}", flush=True)
-    kernel, source = kernel_of(ck, run.mode, torch.float64)
-    return {"name": f"{kernel}<f64, {name}>", "route": "cuda", "source": source, "replaces": REPLACES,
-            "launches": SOIL_CLI_LAUNCHES, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "plain_at": f"20b: every {SOIL_CLI_STRIDE}th column, {GRID_SPC} steps", "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+    return path
+
+
+def regional_cli(ck, costs, smi, device, workdir, started=None):
+    """20b: ``regional_grid.py``'s variable-depth twin (nz=48 x 131,072, f64)
+    with lagged coefficients, written by ``to_config`` into a run file
+    (``regional_run_file``: a constant start of vartheta_l
+    ``SOIL_CLI_VARTHETA`` at 288 K, SSPRK104, ``"engine": "pallas"``,
+    ``SOIL_CLI_LAUNCHES`` launches of ``GRID_SPC`` steps of ``GRID_DT``,
+    saved at each) and run by ``python -m landhydrology_tpu_torch run`` in a
+    subprocess (``B2+kinds+B8@SSPRK104``), held by ``run_file_cli`` on every
+    ``SOIL_CLI_STRIDE``-th column.  ``started``: the CLI's subprocess of the
+    file in ``workdir``, started beside other work (``_start_cli``); else it
+    is run here.  Returns its kernel record."""
+    path = os.path.join(workdir, "regional.json")
+    if started is None:
+        started = _start_cli(regional_run_file(device, workdir))
+    spec = RunFile(path, "B2+kinds+B8@SSPRK104", "rk_columns_kernel", SOIL_CLI_LAUNCHES, GRID_SPC, GRID_DT,
+                   SOIL_CLI_STRIDE, "20b", f"regional_grid.py's variable-depth twin, lagged, as a run file (SSPRK104, "
+                   f"engine pallas, constant start {SOIL_CLI_VARTHETA} at 288 K)")
+    return run_file_cli(ck, costs, smi, device, spec, started)
 
 
 def soil_columns_phase(ck, costs, smi, device, t_start):
@@ -6293,8 +6635,10 @@ def soil_columns_phase(ck, costs, smi, device, t_start):
     ``B1-no-ice+kinds+B8``, f32 and f64), whose diverged columns must be
     those phase 12's SSPRK33 B1 run leaves (``REGIONAL_DIVERGED``; run here
     when phase 12 did not), then timed as phase 6 times its paths; 20b the
-    SSPRK104 run file (``regional_cli``); 20c and 20d the 44 new instances
-    (``soil_columns_checks``), f64 and f32.  Returns the kernel records."""
+    SSPRK104 run file (``regional_cli``), its CLI run started before 20c's
+    checks of the 44 new instances (``soil_columns_checks``, f64 and f32),
+    which run while it starts up; then 20d's times
+    (``soil_columns_times``).  Returns the kernel records."""
     import tempfile
 
     paths, failures = [], []
@@ -6318,14 +6662,396 @@ def soil_columns_phase(ck, costs, smi, device, t_start):
     del paths
     _mark(t_start, "phase 20a")
     with tempfile.TemporaryDirectory() as workdir:
-        entries.append(regional_cli(ck, costs, smi, device, workdir))
+        # 20b's CLI starts up in its subprocess while 20c's checks run (20d's times come after it)
+        started = _start_cli(regional_run_file(device, workdir))
+        checked = {}
+        for dtype in (torch.float64, torch.float32):
+            checked[dtype] = soil_columns_checks(ck, dtype, device)
+            _mark(t_start, f"phase 20c's {str(dtype)[6:]} checks")
+        entries.append(regional_cli(ck, costs, smi, device, workdir, started))
     torch.cuda.empty_cache()
     _mark(t_start, "phase 20b")
     for dtype in (torch.float64, torch.float32):
-        entries += soil_columns_checks(ck, costs, smi, dtype, device)
-        _mark(t_start, f"phase 20c-d's {str(dtype)[6:]} instances")
+        entries += soil_columns_times(ck, costs, smi, dtype, device, checked[dtype])
+        _mark(t_start, f"phase 20d's {str(dtype)[6:]} times")
     if failures:
         raise AssertionError("phase 20a failed: " + " | ".join(failures))
+    return entries
+
+
+# ---- phase 21: per-column BC kinds and geometry under the implicit steppers with a MOST top (ROADMAP B item 2,
+# MOST remainder: B1-batched and B8 under TR-BDF2, BackwardEulerSoil and BackwardEulerRichards, each policy) ----
+
+#: 21c: the 24 instances of csrc/implicit_most_columns_kernel.cu: each implicit stepper under the MOST top without
+#: a step policy and with each of IMPLICIT_POLICIES
+MOST_COLUMNS_MODES = tuple(st + p + "+B5" for st in IMPLICIT_STEPPERS for p in ("",) + IMPLICIT_POLICIES)
+#: 21c: the instances also checked with PCR solves (read at run time)
+MOST_COLUMNS_PCR = ("B4-trbdf2+B2+B3-rate+B5", "B4-be-richards-no-ice+B5")
+#: 21a: 17d's two paths with per-column kinds and depths, the first with step-indexed theta_atm rows (+B7)
+MOST_COLUMNS_PATHS = ("B4-trbdf2+B3-rate+B5", "B4-trbdf2+B2+B3-eq+B5")
+MOST_COLUMNS_ROWS_PATH = "B4-trbdf2+B3-rate+B5"
+#: 21b: the flagship run file's soil (landhydrology_tpu/cli.py:406-423) alone, on a 1-D batch of
+#: regional_grid.py's column count with depths 0.8-1.2 of 2 m and a BatchedBC hydrology bottom: launches of
+#: FLAGSHIP_SPC steps of FLAGSHIP_DT under TRBDF2Soil (iters 2), the plain check on every FLAGSHIP_STRIDE-th column
+FLAGSHIP_NZ, FLAGSHIP_NCOL, FLAGSHIP_DT, FLAGSHIP_SPC, FLAGSHIP_LAUNCHES, FLAGSHIP_STRIDE = 24, 131072, 60.0, 8, 2, 64
+#: 21c's icy checks: the implicit no-ice instances with MODE_COLUMNS (implicit_columns_kernel.cu's and this
+#: source's) on the icy state, f64, one step of ICY_COLUMNS_DT: over it a one-ulp change of the start state moves the
+#: plain version by at most 6e-15 of itself (2 steps of 30 s: up to 4.7e-12 under BackwardEulerSoil lagged, past the
+#: bar of 1e-12), held under ICY_ULP_BAR here before the kernel is held to it
+ICY_COLUMNS_MODES = tuple(st + p for st in IMPLICIT_STEPPERS for p in ("-no-ice", "-no-ice+B2"))
+ICY_COLUMNS_DT, ICY_ULP_BAR = 5.0, 1e-13
+
+
+def most_columns_cases():
+    """21c's checks: ``(mode, tridiag, rows)`` of each of
+    ``MOST_COLUMNS_MODES`` with Thomas solves, step-indexed forcing rows on
+    every third, then ``MOST_COLUMNS_PCR`` with PCR solves."""
+    cases = [(mode, "thomas", i % 3 == 0) for i, mode in enumerate(MOST_COLUMNS_MODES)]
+    return cases + [(mode, "pcr", False) for mode in MOST_COLUMNS_PCR]
+
+
+def most_columns_variant(ncol, dtype, device, mode, tridiag="thomas", icy=False):
+    """``(model, state, stepper, dt, steps)`` of a 21c check of ``mode`` (a
+    name of ``MOST_COLUMNS_MODES``): ``policy_variant``'s cold MOST column
+    (17a's: ``IMPLICIT_STEPS`` steps of ``IMPLICIT_DT``) on ``ncol`` columns
+    with ``with_columns``' kinds at its bottom faces and depths, the stepper
+    with ``tridiag`` solves; with ``icy`` on its ``icy_state``."""
+    stepper, _ = implicit_case(mode)
+    soil, Y, _, dt, steps = policy_variant(mode, dtype, device)
+    if ncol != COLD_NCOL:
+        soil, Y = column_slice(soil, Y, torch.arange(ncol, device=Y["soil"]["vartheta_l"].device))
+    soil = with_columns(soil, COLUMNS_SEED)
+    if icy:
+        Y = icy_state(soil, Y)
+    return soil, Y, implicit(stepper, soil, 2, tridiag), dt, steps
+
+
+def most_columns_checks(ck, dtype, device):
+    """21c: each of ``most_columns_cases`` on ``COLD_NCOL`` columns
+    (``most_columns_variant``, rows from ``policy_rows`` where the case has
+    them), from t0 = 5 s, from ``implicit_most_columns_kernel``
+    (``columns_checks``).  Returns ``[(mode, tridiag, rows, run name, error,
+    plain ms)]`` for ``most_columns_times``."""
+
+    def build(case):
+        mode, tridiag, rows = case
+        model, Y, stepper, dt, steps = most_columns_variant(COLD_NCOL, dtype, device, mode, tridiag)
+        name = (pcr_name(mode) if tridiag == "pcr" else mode) + "+kinds+B8" + ("+B7" if rows else "")
+        forcing = policy_rows(model, steps, seed=37) if rows else None
+        return model, Y, stepper, dt, steps, name, "implicit_most_columns_kernel", forcing
+
+    return columns_checks(
+        ck, dtype, most_columns_cases(), build, 5.0, COLD_NCOL, "21c most columns",
+        f"the 24 implicit instances under the cold MOST top with per-column BC kinds (bottom hydrology flux / "
+        f"Dirichlet / free drainage, energy flux / Dirichlet) and depths (0.8-1.2 of 2 m) on {COLD_NCOL} columns at "
+        f"268-278 K with 0.02 of ice, {IMPLICIT_STEPS} steps of {IMPLICIT_DT:g} s (iters=2, two also with PCR), a "
+        f"third with per-column theta_atm rows")
+
+
+def most_columns_times(ck, costs, smi, dtype, device, checked):
+    """21d: each instance of 21c's ``checked`` (``most_columns_checks``)
+    timed at 17e's width (``build_cold_land``'s soil at nz=64 x 65,536 with
+    ``with_columns``' kinds and depths drawn for its columns,
+    ``IMPLICIT_DT``, rows of ``COLD_THETA_ATM`` where the check has rows;
+    ``columns_times``).  The bound's MOST probes per solve are counted once
+    per stepper (``cold_probes``: the plain version's step on every
+    ``COLD_PROBE_STRIDE``-th column of the same start state, under the
+    stepper without a policy): on this start state the 24 instances' own
+    counts differ from their stepper's by under 0.1% (101.73-101.76 per
+    solve in f64 on an H100).  Returns the kernel records."""
+    gc = _load_golden_config()
+    base = build_freeze_wide(gc, dtype, device, None)
+    probes_of = {}
+
+    def build(case):
+        mode, _, rows = case
+        stepper_name, name = implicit_case(mode)
+        soil, Y0, _, _ = build_cold_land(gc, dtype, device, name, base=base)
+        soil = with_columns(soil, COLUMNS_SEED)
+        if stepper_name not in probes_of:
+            bare = with_columns(build_cold_land(gc, dtype, device, "B5", base=base)[0], COLUMNS_SEED)
+            probes_of[stepper_name] = cold_probes(ck, bare, Y0, IMPLICIT_DT, implicit(stepper_name, bare, 2), 1)
+        forcing = None
+        if rows:
+            forcing = {"theta_atm": torch.full((COLUMNS_TIMED_STEPS, NCOL), COLD_THETA_ATM, dtype=dtype, device=device)}
+        return (soil, Y0, implicit(stepper_name, soil, 2), IMPLICIT_DT, 0.0, forcing, probes_of[stepper_name],
+                f"21c: nz=16 x {COLD_NCOL}, {IMPLICIT_STEPS} steps")
+
+    return columns_times(ck, costs, smi, checked, build, "21d")
+
+
+def _nudged(Y):
+    """``Y`` with every value moved one ulp up."""
+    return {g: {k: torch.nextafter(v, torch.full_like(v, float("inf"))) for k, v in f.items()} for g, f in Y.items()}
+
+
+def icy_columns_checks(ck, device):
+    """21c's icy checks: the six implicit no-ice instances with
+    ``MODE_COLUMNS`` on the plain soil (``build_grid_variant``'s cold column
+    with kinds at both faces and depths 0.8-3.0 m, on its ``icy_state``;
+    ``implicit_columns_kernel.cu``) and their six twins under the MOST top
+    (``most_columns_variant`` with ``icy``), f64, one step of
+    ``ICY_COLUMNS_DT`` from t0 = 2 s: the plain version from the start state
+    moved by one ulp must stay within ``ICY_ULP_BAR`` of itself (the step is
+    well conditioned), the kernel within ``_check``'s 1e-12 of it
+    (``check_diverged``), and the start state must hold cells with
+    vartheta_l past nu - theta_i, where the rhs's cap (``MODE_RHS_CAP``)
+    acts.  Returns ``{run name: (error, plain ms)}``."""
+    dtype, out, lines = torch.float64, {}, []
+    for most in (False, True):
+        for mode in ICY_COLUMNS_MODES:
+            if most:
+                model, Y, stepper, _, _ = most_columns_variant(COLD_NCOL, dtype, device, mode + "+B5", icy=True)
+                name = mode + "+B5+kinds+B8"
+            else:
+                model, Y, _, _, _ = build_grid_variant(SOIL_COLUMNS_NCOL, dtype, device, 7, mode, cold=True, icy=True)
+                stepper = implicit(implicit_case(mode + "+B5")[0], model, 2)
+                name = mode + "+kinds+B8"
+            what = f"21c icy f64 {name}"
+            nu = torch.as_tensor(model.soil_param_set.nu, dtype=dtype, device=device)
+            if not bool((Y["soil"]["vartheta_l"] > nu - Y["soil"]["theta_i"]).any()):
+                raise AssertionError(f"{what}: no cell of the start state has vartheta_l past nu - theta_i")
+            start = _np(Y)
+            torch.cuda.synchronize()
+            clock = time.perf_counter()
+            plain = _np(ck.fused_column_run_plain(model, stepper, ICY_COLUMNS_DT, 1, Y, 2.0))
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - clock) * 1e3
+            moved = _np(ck.fused_column_run_plain(model, stepper, ICY_COLUMNS_DT, 1, _nudged(Y), 2.0))
+            ok = _physical_columns(plain) & _physical_columns(moved)
+            with np.errstate(invalid="ignore", divide="ignore"):
+                ulp = max(float(np.max(np.abs(plain[k][:, ok] - moved[k][:, ok])
+                                       / np.maximum(np.abs(plain[k][:, ok]), np.finfo(np.float64).tiny)))
+                          for k in plain)
+            if not ulp < ICY_ULP_BAR:
+                raise AssertionError(f"{what}: a one-ulp change of the start state moves the plain version by {ulp:.2e} "
+                                     f"of itself (bar {ICY_ULP_BAR:g}): the step is not well conditioned")
+            run = ck.make_fused_column_run(model, stepper, dt=ICY_COLUMNS_DT, steps_per_call=1)
+            source = ck._entry(run.mode, dtype)[0]
+            if run.name != name or source != ("implicit_most_columns_kernel" if most else "implicit_columns_kernel"):
+                raise AssertionError(f"{what}: built {run.name} from {source}")
+            torch.cuda.synchronize()
+            ck.LAUNCHES.clear()
+            run(Y, 2.0)
+            torch.cuda.synchronize()
+            if dict(ck.LAUNCHES) != {name: 1}:
+                raise AssertionError(f"{what}: launches {dict(ck.LAUNCHES)}, expected one of {name}")
+            shares, err, diverged = check_diverged(_np(Y), plain, start, dtype, what, ("vartheta_l", "rho_e_int"),
+                                                   sound=_physical_columns)
+            out[name] = (err, plain_ms)
+            lines.append(f"{name} {err:.2e} ({_fmt(shares)}; one ulp of the start moves the plain version {ulp:.1e}"
+                         + (f"; {diverged} columns out of the range in both" if diverged else "") + ")")
+            del model, Y
+    print(f"[21c icy] f64 the 12 implicit no-ice instances with per-column kinds and depths on the icy state "
+          f"(theta_i 0.05, vartheta_l = nu - 0.02 in the lower half), one step of {ICY_COLUMNS_DT:g} s from t0 = 2 s "
+          f"(iters=2): kernel vs plain max abs (change error / largest change, bar {INCREMENT_RTOL[dtype]:g}): "
+          + "; ".join(lines), flush=True)
+    return out
+
+
+def most_columns_path(ck, costs, smi, dtype, device, name):
+    """21a: 17d's cold MOST column at width (``build_cold_land``'s soil,
+    nz=64 x 65,536) with ``with_columns``' kinds at its bottom faces and
+    depths 0.8-1.2 of 2 m, one launch of ``COLD_IMPLICIT_STEPS`` steps of
+    ``IMPLICIT_DT`` in instance ``name`` + ``+kinds+B8``: through
+    ``Simulation(engine="fused")`` (``drive_path``), or for
+    ``MOST_COLUMNS_ROWS_PATH`` with step-indexed per-column theta_atm rows
+    (``COLD_THETA_ATM`` +- 4 K) through ``make_forced_segment_run(engine=
+    "fused")`` (``+B7``); the run equal bit for bit to the script's own
+    launch of ``make_fused_column_run``, held to the plain version by a
+    launch of ``IMPLICIT_STEPS`` steps from the start state (the freeze bars
+    after as many projections, the change bar; in f32 an equilibrium path's
+    on ``unpartitioned``'s quantities); ice must form.
+    Then the launch timed from the start state (``time_at_width`` with
+    ``from_start``: from the third launch on, a few of these columns leave
+    the finite numbers in both versions), beside 17d's instance on the same
+    start state and rows without the kinds and depths, timed alike: the
+    cost of ``MODE_COLUMNS`` under MOST.  Returns the kernel record."""
+    from landhydrology_tpu_torch.runtime import make_forced_segment_run
+
+    stepper_name, case = implicit_case(name)
+    gc = _load_golden_config()
+    uniform, Y0, Ya, _ = build_cold_land(gc, dtype, device, case)
+    soil = with_columns(uniform, COLUMNS_SEED)
+    st = implicit(stepper_name, soil, 2)
+    n, tag = COLD_IMPLICIT_STEPS, str(dtype)[6:]
+    change_of, moving = None, ("vartheta_l", "rho_e_int")
+    if dtype == torch.float32 and _projection_allowance(soil, dtype)[0]:
+        change_of, moving = unpartitioned(soil), ("water", "rho_e_int")  # as 17d
+    # held by a launch of IMPLICIT_STEPS from the start state, as 17d's f64 paths, in f32 too (a cut of plain
+    # launches: 17d's f32 change errors over the whole launch sat at 5e-4 to 2e-3 of the change, the bar 0.1)
+    steps = IMPLICIT_STEPS
+    what = f"21a most columns {tag} {name}+kinds+B8"
+    rows = None
+    if name == MOST_COLUMNS_ROWS_PATH:
+        rng = np.random.default_rng(COLUMNS_SEED)
+        rows = {"theta_atm": torch.as_tensor(COLD_THETA_ATM + rng.uniform(-4.0, 4.0, (n, NCOL)), dtype=dtype,
+                                             device=device)}
+    fields = tuple(rows or ())
+    run = ck.make_fused_column_run(soil, st, dt=IMPLICIT_DT, steps_per_call=n, forcing_fields=fields)
+    if rows is None:
+        kern, _, err, wall = drive_path(ck, soil, Y0, Ya, IMPLICIT_DT, n, n, what, moving, stepper=st,
+                                        projections=n, change_of=change_of, plain_steps=steps)
+        plain_ms = sum(_PATH_PLAIN_MS[_path_key(soil, Y0, IMPLICIT_DT, n, st)])
+        Yl = _clone(Y0)
+        run(Yl, 0.0)
+    else:
+        segment = make_forced_segment_run(soil, st, IMPLICIT_DT, fields, engine="fused", steps_per_call=n)
+        torch.cuda.synchronize()
+        ck.LAUNCHES.clear()
+        clock = time.perf_counter()
+        Yk, _ = segment({"soil": Y0["soil"]}, Ya, 0.0, rows)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - clock) * 1e3
+        if dict(ck.LAUNCHES) != {run.name: 1}:
+            raise AssertionError(f"{what}: launches {dict(ck.LAUNCHES)}, expected one of {run.name}")
+        kern = _np(Yk)
+        if not all(np.isfinite(v).all() for v in kern.values()):
+            raise AssertionError(f"{what}: the forced run left the finite numbers")
+        Yl = _clone(Y0)
+        run(Yl, 0.0, forcing=rows)
+        part = {k: v[:steps] for k, v in rows.items()}
+        Ys = _clone(Y0)  # a launch of the checked steps from the start state
+        ck.make_fused_column_run(soil, st, dt=IMPLICIT_DT, steps_per_call=steps, forcing_fields=fields)(
+            Ys, 0.0, forcing=part)
+        torch.cuda.synchronize()
+        clock = time.perf_counter()
+        plain = _np(ck.fused_column_run_plain(soil, st, IMPLICIT_DT, steps, Y0, 0.0, forcing=part))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - clock) * 1e3
+        held, same = _np(Ys), change_of or (lambda Y: Y)
+        water, energy = _check_freeze(held, plain, soil, dtype, what, steps)
+        shares = _check_increment(same(held), same(plain), same(_np(Y0)), dtype, what, moving,
+                                  carried_allowance(soil, dtype, steps))
+        err = _max_abs(held, plain)
+        print(f"[21a most columns] {tag} {run.name} make_forced_segment_run(engine='fused') "
+              f"{tuple(kern['theta_i'].shape)} {n} steps: 1 launch, finite, kernel vs plain max abs {err:.3e} (held "
+              f"by a launch of {steps} steps); change error / largest change {_fmt(shares)} (bar "
+              f"{INCREMENT_RTOL[dtype]:g}) (freeze bars: partition +{water:.3e}, rho_e_int +{energy:.3e}); wall "
+              f"{wall:.3f} ms", flush=True)
+    loop = _np(Yl)
+    if not all(np.array_equal(kern[k], loop[k], equal_nan=True) for k in kern):
+        raise AssertionError(f"{what}: the run differs from the script's own launch")
+    ice = float(np.max(kern["theta_i"]))
+    if not ice > 1e-4:
+        raise AssertionError(f"{what}: no ice formed (max theta_i {ice})")
+    print(f"[21a most columns] {tag} {run.name} nz={NZ} x {NCOL}, {n} steps of dt={IMPLICIT_DT:g}, theta_atm "
+          f"{COLD_THETA_ATM} K: equal bit for bit to the script's own launch; max theta_i {ice:.4e} (> 1e-4: ice "
+          f"formed) in {int((kern['theta_i'].max(0) > 1e-6).sum())} columns; run {wall:.3f} ms", flush=True)
+    del kern, loop, Yl
+    record = time_at_width(ck, costs, smi, soil, Y0, st, IMPLICIT_DT, 0.0, run.name, (err, plain_ms), rows, steps=n,
+                           tag="21a", plain_at=f"21a: nz={NZ} x {NCOL}, {steps} steps", from_start=True)
+    twin = ck.make_fused_column_run(uniform, implicit(stepper_name, uniform, 2), dt=IMPLICIT_DT, steps_per_call=n,
+                                    forcing_fields=fields)
+    twin_ms = _from_start_ms(twin, Y0, 0.0, rows)
+    print(f"[21a cost] {tag} {run.name} {record['ms']:.3f} ms per launch of {n} steps from the start state, 17d's "
+          f"{twin.name} on the same state{' and rows' if rows else ''} {'/'.join(f'{m:.3f}' for m in twin_ms)} ms: "
+          f"MODE_COLUMNS under MOST costs {record['ms'] / (sum(twin_ms) / 2):.4f}x on {smi}", flush=True)
+    return record
+
+
+def flagship_soil(device, ncol=None):
+    """21b: the flagship run file's soil (``landhydrology_tpu/cli.py:406-423``:
+    vanGenuchten n 2.0, alpha 2.6, Ksat 3e-7, nu 0.4, a MOST top at 297 K)
+    on a 1-D batch of ``FLAGSHIP_NCOL`` columns (or ``ncol``) at nz=24, each
+    column's depth 0.8-1.2 of its 2 m and a ``BatchedBC`` hydrology bottom of
+    FLUX (-1e-7 m/s), DIRICHLET (0.30) or FREE_DRAINAGE, drawn from
+    ``default_rng(COLUMNS_SEED)``; f64."""
+    from landhydrology_tpu_torch import (
+        BatchedBC, PrescribedAtmosForcing, SoilColumnBC, SoilComponentBC, SoilEnergyModel, SoilHydrologyModel,
+        SoilModel, SoilParams, VariableDepthColumn, VerticalFlux,
+    )
+    from landhydrology_tpu_torch.models.soil import vanGenuchten
+
+    ncol = FLAGSHIP_NCOL if ncol is None else ncol
+    rng = np.random.default_rng(COLUMNS_SEED)
+    kind = torch.as_tensor(rng.integers(0, 3, ncol), dtype=torch.int32, device=device)
+    value = torch.where(kind == 1, torch.tensor(0.30, dtype=torch.float64, device=device),
+                        torch.tensor(-1e-7, dtype=torch.float64, device=device))
+    return SoilModel(
+        domain=VariableDepthColumn(z_bottom=-2.0 * rng.uniform(0.8, 1.2, ncol), nelements=FLAGSHIP_NZ,
+                                   batch_shape=(ncol,)),
+        energy_model=SoilEnergyModel(),
+        hydrology_model=SoilHydrologyModel(hydraulic_model=vanGenuchten(n=2.0, alpha=2.6, Ksat=3e-7, theta_r=0.05)),
+        boundary_conditions=SoilColumnBC(
+            top=PrescribedAtmosForcing(u_atm=2.0, theta_atm=297.0, z_atm=2.0, theta_scale=297.0, rho_a_sfc=1.2,
+                                       q_atm=0.005),
+            bottom=SoilComponentBC(hydrology=BatchedBC(kind=kind, value=value), energy=VerticalFlux(0.0))),
+        soil_param_set=SoilParams(nu=0.4, S_s=1e-3, rho_c_ds=1.3e6),
+        dtype=torch.float64, device=device)
+
+
+def flagship_run_file(device, workdir):
+    """21b's run file in ``workdir`` (``flagship_cli``): ``flagship_soil``,
+    the flagship's constant start, TRBDF2Soil on the fused engine; returns
+    its path."""
+    from landhydrology_tpu_torch.config import to_config
+
+    path, out = os.path.join(workdir, "flagship_soil.json"), os.path.join(workdir, "flagship_soil.npz")
+    n = FLAGSHIP_LAUNCHES * FLAGSHIP_SPC
+    cfg = {"model": to_config(flagship_soil(device)),
+           "simulation": {"dt": FLAGSHIP_DT, "t_final": n * FLAGSHIP_DT, "saveat": FLAGSHIP_SPC * FLAGSHIP_DT,
+                          "stepper": "TRBDF2Soil", "iters": 2, "engine": "pallas", "steps_per_call": FLAGSHIP_SPC},
+           "initial_conditions": {"kind": "constant", "vartheta_l": 0.18, "T": 291.0},
+           "output": {"path": out}}
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def flagship_cli(ck, costs, smi, device, workdir, started=None):
+    """21b: ``flagship_soil`` written by ``to_config`` into a run file
+    (``flagship_run_file``: a constant start of vartheta_l 0.18 at 291 K,
+    the flagship's; TRBDF2Soil with ``"iters": 2``, ``"engine": "pallas"``,
+    ``FLAGSHIP_LAUNCHES`` launches of ``FLAGSHIP_SPC`` steps of
+    ``FLAGSHIP_DT``, saved at each) and run by ``python -m
+    landhydrology_tpu_torch run`` in a subprocess
+    (``B4-trbdf2+B5+kinds+B8``; ``started``: that subprocess started beside
+    other work, ``_start_cli``, else run here), held by ``run_file_cli`` on
+    every ``FLAGSHIP_STRIDE``-th column, its bound with the MOST probes of
+    the plain version's step.  Returns its kernel record."""
+    path = os.path.join(workdir, "flagship_soil.json")
+    if started is None:
+        started = _start_cli(flagship_run_file(device, workdir))
+    spec = RunFile(path, "B4-trbdf2+B5+kinds+B8", "implicit_most_columns_kernel", FLAGSHIP_LAUNCHES, FLAGSHIP_SPC,
+                   FLAGSHIP_DT, FLAGSHIP_STRIDE, "21b", f"the flagship run file's soil on a variable-depth regolith "
+                   f"with a batched bottom (TRBDF2Soil, iters 2, engine pallas, constant start 0.18 at 291 K, dt "
+                   f"{FLAGSHIP_DT:g} s)", plain_stepper=lambda sub, st: implicit("TRBDF2Soil", sub, 2), most=True)
+    return run_file_cli(ck, costs, smi, device, spec, started)
+
+
+def most_columns_phase(ck, costs, smi, device, t_start):
+    """Phase 21: 21a 17d's cold MOST column with per-column kinds and depths
+    (``most_columns_path``: ``MOST_COLUMNS_PATHS``, f64 and f32); 21b the
+    flagship run file's soil through the CLI (``flagship_cli``), its run
+    started before 21c's checks, which run while it starts up: the 12
+    implicit no-ice instances with ``MODE_COLUMNS`` on the icy state
+    (``icy_columns_checks``) and the 24 new instances (``most_columns_checks``,
+    f64 and f32); then 21d's times (``most_columns_times``).  Returns the
+    kernel records."""
+    import tempfile
+
+    entries = []
+    for dtype in (torch.float64, torch.float32):
+        for name in MOST_COLUMNS_PATHS:
+            entries.append(most_columns_path(ck, costs, smi, dtype, device, name))
+            torch.cuda.empty_cache()
+    _mark(t_start, "phase 21a")
+    with tempfile.TemporaryDirectory() as workdir:
+        started = _start_cli(flagship_run_file(device, workdir))
+        icy_columns_checks(ck, device)
+        torch.cuda.empty_cache()
+        _mark(t_start, "phase 21c's icy checks")
+        checked = {}
+        for dtype in (torch.float64, torch.float32):
+            checked[dtype] = most_columns_checks(ck, dtype, device)
+            _mark(t_start, f"phase 21c's {str(dtype)[6:]} checks")
+        entries.append(flagship_cli(ck, costs, smi, device, workdir, started))
+    torch.cuda.empty_cache()
+    _mark(t_start, "phase 21b")
+    for dtype in (torch.float64, torch.float32):
+        entries += most_columns_times(ck, costs, smi, dtype, device, checked[dtype])
+        _mark(t_start, f"phase 21d's {str(dtype)[6:]} times")
     return entries
 
 
@@ -6335,6 +7061,11 @@ def _fmt_ms(values):
 
 def _fmt_rates(points, walls_ms):
     return "/".join(f"{points / (w / 1e3):.4e}" for w in walls_ms)
+
+
+#: phase 3: the steps of the plain launch that holds a golden's kernel run (64 steps; golden #6's 16 a quarter of
+#: it), a cut of plain launches for the script's time: the whole run stays held to the golden at rtol 1e-12
+GOLDEN_PLAIN_STEPS = 16
 
 
 def golden_phase(ck, gc, device):
@@ -6352,10 +7083,10 @@ def golden_phase(ck, gc, device):
                     ({"coefficient_update": "step", "assume_no_ice": True}, "lagged")):
         model, Y, _, dt = gc.build_model_and_state(torch.float64, device)
         check_golden(ck, dataclasses.replace(model, **kw), Y, dt, gc.N_STEPS, golden[ref],
-                     f"golden #1 vs golden_{ref}_f64.npz")
+                     f"golden #1 vs golden_{ref}_f64.npz", plain_steps=GOLDEN_PLAIN_STEPS)
     model, Y, _, dt = gc.build_freeze_model_and_state(torch.float64, device)
     kern = check_golden(ck, model, Y, dt, gc.FREEZE_STEPS, golden["freeze"],
-                        "freeze golden vs golden_freeze_f64.npz")
+                        "freeze golden vs golden_freeze_f64.npz", plain_steps=GOLDEN_PLAIN_STEPS)
     if not float(np.max(kern["theta_i"])) > 1e-4:
         raise AssertionError("freeze golden: no ice formed in the kernel run")
     for freeze, lagged in ((EquilibriumFreezeThaw(), "stage"), (FreezeThaw(tau=60.0), "step"),
@@ -6368,7 +7099,8 @@ def golden_phase(ck, gc, device):
         model, Y, _, _ = gc.build_model_and_state(torch.float64, device)
         check_golden(ck, model, Y, 120.0, gc.N_STEPS // 4, golden["implicit"],
                      f"golden #1 under TRBDF2Soil(iters=3, {tridiag!r}) vs golden_implicit_f64.npz",
-                     stepper=implicit("TRBDF2Soil", model, 3, tridiag), atol=atol)
+                     stepper=implicit("TRBDF2Soil", model, 3, tridiag), atol=atol,
+                     plain_steps=GOLDEN_PLAIN_STEPS // 4)
     for name in ("BackwardEulerSoil", "BackwardEulerRichards"):
         model, Y, _, _ = gc.build_model_and_state(torch.float64, device)
         check_golden(ck, model, Y, 120.0, gc.N_STEPS // 4, None, f"golden #1 under {name}(iters=2)",
@@ -6462,6 +7194,10 @@ def main() -> int:
                         help="run phases 1, 2 and 20 only (per-column BC kinds and geometry in the plain-soil modes "
                              "under every explicit stepper and implicit step policy: the regional hour with no ice, "
                              "its SSPRK104 run file, the 44 new instances)")
+    parser.add_argument("--most-columns-only", action="store_true",
+                        help="run phases 1, 2 and 21 only (per-column BC kinds and geometry under the implicit "
+                             "steppers with a MOST top: 17d's cold column with them, the flagship run file's soil, "
+                             "the 24 new instances, the implicit no-ice column instances on the icy state)")
     parser.add_argument("--grad-only", action="store_true",
                         help="run phases 1, 2 and 14 only (the gradient path, kernel modes B9 and B4 + step "
                              "policies, with the times of its B4 + policy instances)")
@@ -6545,6 +7281,11 @@ def main() -> int:
         soil_entries = soil_columns_phase(ck, costs, smi, device, t_start)
         _mark(t_start, "phase 20")
         return finish(soil_entries, smi, t_start)
+    if args.most_columns_only:
+        later.finish()
+        most_entries = most_columns_phase(ck, costs, smi, device, t_start)
+        _mark(t_start, "phase 21")
+        return finish(most_entries, smi, t_start)
     if args.land_only:
         land_paths = land_phase(ck, gc, device, smi)
         _mark(t_start, "phase 10")
@@ -6595,9 +7336,11 @@ def main() -> int:
                 # shrink with the change (phase 19's call 3), so the change bar holds the total water and
                 # rho_e_int, which no projection moves (as 17d's f32 equilibrium path), and _check_freeze the state
                 change_of, moving = unpartitioned(model), ("water", "rho_e_int")
+            # f64 held by a launch of a quarter of the path (phase 21's cut of plain launches: were half, over
+            # which its change errors sat at 1e-15 to 1e-10 of the change against the bar of 1e-9)
             kern, launches, err, _ = drive_path(ck, model, Y0, Ya, dt, FREEZE_STEPS, FREEZE_STEPS // 2,
                                                 "5 freeze", moving, change_of=change_of,
-                                                plain_steps=FREEZE_STEPS // 2)
+                                                plain_steps=FREEZE_STEPS // (4 if dtype == torch.float64 else 2))
             ice = float(np.max(kern["theta_i"]))
             if not ice > 1e-4:
                 raise AssertionError(f"freeze at width: no ice formed (max theta_i {ice})")
@@ -6699,7 +7442,8 @@ def main() -> int:
     _mark(t_start, "phase 14")
 
     # ---- 15: the run-file CLI and the explicit steppers of rk_kernel.cu ----
-    forced_entries += cli_main(ck, costs, smi, device, args.seed, t_start)
+    ahead = CliAhead(device, args.seed)  # 15b's and 18b's CLIs, run beside 17a's checks
+    forced_entries += cli_main(ck, costs, smi, device, args.seed, t_start, ahead)
     _mark(t_start, "phase 15")
 
     # ---- 16: the cold land path, kernel modes B5/B6 with freeze-thaw or no ice ----
@@ -6708,13 +7452,15 @@ def main() -> int:
     _mark(t_start, "phase 16")
 
     # ---- 17: cold forced and water-only land, B5/B6 + B7 and B4+B5 with the step policies ----
-    cold_entries, cold_paths = cold_forced_phase(ck, costs, smi, device, t_start, cold_checked, cold_probes_of)
+    ahead.start()
+    cold_entries, cold_paths = cold_forced_phase(ck, costs, smi, device, t_start, cold_checked, cold_probes_of,
+                                                 lambda: ahead.check(ck, costs, smi, device))
     paths += cold_paths
     forced_entries += cold_entries
     _mark(t_start, "phase 17")
 
     # ---- 18: the explicit steppers under MOST and a LandModel, the water-branch policies ----
-    rk_entries, rk_paths = land_rk_phase(ck, costs, smi, device, t_start)
+    rk_entries, rk_paths = land_rk_phase(ck, costs, smi, device, t_start, ahead)
     paths += rk_paths
     forced_entries += rk_entries
     _mark(t_start, "phase 18")
@@ -6726,6 +7472,10 @@ def main() -> int:
     # ---- 20: per-column BC kinds and geometry in the plain-soil modes, every stepper and step policy ----
     forced_entries += soil_columns_phase(ck, costs, smi, device, t_start)
     _mark(t_start, "phase 20")
+
+    # ---- 21: per-column BC kinds and geometry under the implicit steppers with a MOST top ----
+    forced_entries += most_columns_phase(ck, costs, smi, device, t_start)
+    _mark(t_start, "phase 21")
 
     # ---- 6: times at the main-path shapes, in turns ----
     entries = time_paths(ck, costs, smi, paths)
@@ -6859,7 +7609,10 @@ COMPARE_LAND = ("B5", "B6", "B2+B6-step", "B6-pond-water", "B6+B3-rate", "B5+B3-
 def compare_with(parent, smi) -> None:
     """``--compare-with PARENT``: this tree and the tree at ``PARENT`` (an
     unpacked ``git archive`` of the parent commit), each in a subprocess in
-    turns (parent, this, this, parent), each building its own kernels: every
+    turns (parent, this, this, parent), each with its own kernels, built
+    before any run is timed (this tree's by ``main``, the parent's in a
+    subprocess of its own: built in the first timed run, they left the card
+    idle for minutes before that run alone): every
     instance the parent builds keeps its registers per thread (ptxas) here
     but those of ``REPAIRED``; the new instances with ``MODE_COLUMNS``
     (``rk:<mode>+kinds+B8``, ``<implicit mode>+kinds+B8``) have their
@@ -6869,12 +7622,15 @@ def compare_with(parent, smi) -> None:
     or of 200 ms, whichever is longer) are within 2% of the parent's, f32
     and f64."""
     runs = []
-    for tree in (parent, HERE, HERE, parent):
-        code = _COMPARE_SNIPPET.format(tree=os.path.abspath(tree), land=COMPARE_LAND)
-        proc = subprocess.run([sys.executable, "-c", code], cwd=tree, capture_output=True, text=True, timeout=1500)
+    build = ("import sys; sys.path.insert(0, {tree!r}); from landhydrology_tpu_torch.ops.cuda import column_kernel; "
+             "column_kernel.build_library()")
+    for tree, code in [(parent, build)] + [(t, _COMPARE_SNIPPET) for t in (parent, HERE, HERE, parent)]:
+        proc = subprocess.run([sys.executable, "-c", code.format(tree=os.path.abspath(tree), land=COMPARE_LAND)],
+                              cwd=tree, capture_output=True, text=True, timeout=1500)
         if proc.returncode != 0:
             raise AssertionError(f"compare {tree}: exit {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
-        runs.append(json.loads(proc.stdout.split("COMPARE ", 1)[1]))
+        if code is _COMPARE_SNIPPET:
+            runs.append(json.loads(proc.stdout.split("COMPARE ", 1)[1]))
     before, after = runs[0]["registers"], runs[1]["registers"]
     spills_before, spills_after = runs[0]["spills"], runs[1]["spills"]
     repaired = {k: (v, after.get(k)) for k, v in before.items() if k.split(", ", 1)[1] in REPAIRED}
@@ -6913,11 +7669,13 @@ FIRST_SOURCES = ("column_kernel", "implicit_kernel", "land_kernel", "rk_kernel")
 LATER_BUILD = None
 #: the background build's compiles at a time, and its sources in the order it starts them, the longest first
 #: (their seconds in the calls of phase 20's PR, all twenty compiles at once: 130-273 s for the implicit and land
-#: policy sources in f64, 58-92 s for the others)
-LATER_JOBS = 6
-LATER_ORDER = ("implicit_most_kernel", "implicit_columns_kernel", "implicit_policy_kernel", "land_policy_columns_kernel",
-               "land_policy_rk_kernel", "land_policy_kernel", "implicit_branch_kernel", "land_columns_kernel",
-               "land_rk_kernel", "rk_columns_kernel")
+#: policy sources in f64, 58-92 s for the others; phase 21's source alone 43.4 / 58.4 s, f32 / f64).  Four at a
+#: time ran phases 3-8 in 121.9 s against 174.3 s with six (two runs on alike H100 hosts); phase 21's source last
+#: compiled alone beside phases 10-11 and the build ended 319.5 s from its start, first 256.8 s (an H100 host)
+LATER_JOBS = 4
+LATER_ORDER = ("implicit_most_columns_kernel", "implicit_most_kernel", "implicit_columns_kernel",
+               "implicit_policy_kernel", "land_policy_columns_kernel", "land_policy_rk_kernel", "land_policy_kernel",
+               "implicit_branch_kernel", "land_columns_kernel", "land_rk_kernel", "rk_columns_kernel")
 
 
 class LaterBuild(threading.Thread):

@@ -1,12 +1,14 @@
 // The fused multi-step soil-column kernel of the implicit steppers (kernel mode
 // B4): TR-BDF2, backward Euler for Richards, and backward Euler for the
 // coupled soil, one thread per column, `n_steps` steps per launch, in place,
-// and its launch.  Five sources instantiate it: implicit_kernel.cu the plain
+// and its launch.  Six sources instantiate it: implicit_kernel.cu the plain
 // soil and the MOST top without the step policies, implicit_policy_kernel.cu
 // the plain soil with them, implicit_most_kernel.cu the MOST top with them,
-// implicit_branch_kernel.cu the step policies on the water-only branch, and
+// implicit_branch_kernel.cu the step policies on the water-only branch,
 // implicit_columns_kernel.cu the plain soil's policy instances and
-// BackwardEulerSoil with per-column BC kinds and geometry (MODE_COLUMNS).
+// BackwardEulerSoil with per-column BC kinds and geometry (MODE_COLUMNS), and
+// implicit_most_columns_kernel.cu the three steppers under the MOST top, with
+// the policies or without, with MODE_COLUMNS.
 //
 // Replaces landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run
 // in its implicit modes, whose body traces landhydrology_tpu/imex.py

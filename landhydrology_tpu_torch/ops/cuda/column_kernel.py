@@ -3,7 +3,7 @@
 Replaces ``landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run``
 in its explicit modes, its implicit modes and its surface modes:
 ``steps_per_call`` steps of the soil (or land) tendency per launch, updating
-the state in place.  Fourteen CUDA sources share ``csrc/column_common.cuh``:
+the state in place.  Fifteen CUDA sources share ``csrc/column_common.cuh``:
 
 - ``csrc/column_kernel.cu``: SSPRK33 (kernel modes B1, B2, B3), on the
   coupled, water-only or heat-only branch;
@@ -52,7 +52,10 @@ the state in place.  Fourteen CUDA sources share ``csrc/column_common.cuh``:
   ``column_kernel.cu``'s fixed stages), and ``BackwardEulerSoil`` and every
   implicit step policy on the coupled and water-only branches (TR-BDF2 and
   ``BackwardEulerRichards`` without a policy keep ``implicit_kernel.cu``'s
-  instances).
+  instances);
+- ``csrc/implicit_most_columns_kernel.cu``: the three implicit steppers under
+  a MOST top with per-column BC kinds and geometry, without a step policy
+  and with each (24 instances per float type), with forcing rows or without.
 
 Each is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
 plain C interface at its first use (both float types in parallel;
@@ -91,9 +94,9 @@ plain C interface at its first use (both float types in parallel;
   ``(nz, ncol)`` centers read in place.  Both are read at run time by the
   template instances with ``MODE_COLUMNS``, one beside each mode that takes
   them (:func:`takes_per_column`: every explicit mode, the land modes with
-  forcing rows or without, and every implicit mode on the plain soil but
-  TR-BDF2 on the heat-only branch); the instances without it read what they
-  read before those modes, in fewer registers.
+  forcing rows or without, and every implicit mode on the plain soil and
+  under a MOST top but TR-BDF2 on the heat-only branch); the instances
+  without it read what they read before those modes, in fewer registers.
 
 The plain version, :func:`fused_column_run_plain`, is the same number of
 eager ``stepper.step`` calls, with the model's step policies wrapped around
@@ -122,10 +125,8 @@ on the heat-only branch (whose heat sweep in the reference reads theta_i
 from a state that holds none), the water-only Newton sweep with
 ``TemperatureDependentViscosity``, and the implicit steppers with a
 LandModel, which the reference kernel cannot run either (B4), and
-per-column kinds or geometry under the implicit steppers with a MOST top,
-with forcing rows or without (B1-batched, B8), or with TR-BDF2 on the
-heat-only branch (not queued: the reference's TR-BDF2 cannot run that
-branch at all).
+per-column kinds or geometry with TR-BDF2 on the heat-only branch (not
+queued: the reference's TR-BDF2 cannot run that branch at all).
 Lateral coupling, pond routing, a per-column rain callable and a 2-D column
 batch raise ``ValueError``, as the JAX kernel's factory does; so does
 a non-differentiable run on CUDA state tensors that require grad in grad
@@ -235,6 +236,7 @@ SOURCES = {
     "implicit_policy_kernel": CSRC / "implicit_policy_kernel.cu",
     "rk_columns_kernel": CSRC / "rk_columns_kernel.cu",
     "implicit_columns_kernel": CSRC / "implicit_columns_kernel.cu",
+    "implicit_most_columns_kernel": CSRC / "implicit_most_columns_kernel.cu",
 }
 #: a source's C entry points are ``<prefix>_f32`` and ``<prefix>_f64``; the
 #: library of each float type is compiled with ``-DKERNEL_<TAG>_ONLY`` and
@@ -247,7 +249,8 @@ _ENTRY_PREFIX = {"column_kernel": "column_kernel_ssprk33", "implicit_kernel": "i
                  "land_columns_kernel": "land_columns_kernel",
                  "land_policy_columns_kernel": "land_policy_columns_kernel", "rk_kernel": "rk_kernel",
                  "implicit_policy_kernel": "implicit_policy_kernel", "rk_columns_kernel": "rk_columns_kernel",
-                 "implicit_columns_kernel": "implicit_columns_kernel"}
+                 "implicit_columns_kernel": "implicit_columns_kernel",
+                 "implicit_most_columns_kernel": "implicit_most_columns_kernel"}
 BUILD_DIR = _PACKAGE / "_build"
 #: ``-split-compile=0`` optimizes the template instances of a source in
 #: parallel on all host cores
@@ -519,7 +522,9 @@ def _entry(mode: int, dtype) -> tuple:
     table_columns = mode & MODE_COLUMNS and (mode & MODE_RK or mode not in _SSPRK33_COLUMNS)
     if mode & MODE_IMPLICIT:
         policy = mode & _POLICY_BITS
-        if mode & MODE_COLUMNS and (policy or mode & MODE_BE_SOIL):
+        if mode & MODE_COLUMNS and mode & MODE_MOST:
+            name = "implicit_most_columns_kernel"
+        elif mode & MODE_COLUMNS and (policy or mode & MODE_BE_SOIL):
             name = "implicit_columns_kernel"
         elif policy:
             name = ("implicit_branch_kernel" if mode & MODE_WATER
@@ -1482,33 +1487,27 @@ def takes_per_column(mode: int) -> bool:
     and, for SSPRK33 in B5 and B6, ``csrc/land_kernel.cu``), and every
     implicit mode on the plain soil with each step policy, the water-only
     branch and PCR included (``csrc/implicit_kernel.cu``,
-    ``csrc/implicit_columns_kernel.cu``), but TR-BDF2 on the heat-only
-    branch.  Not the implicit steppers under a MOST top."""
-    if not mode & MODE_IMPLICIT:
-        return True
-    return not mode & (MODE_MOST | MODE_HEAT)
+    ``csrc/implicit_columns_kernel.cu``), and under a MOST top with each
+    step policy or none, PCR and forcing rows included
+    (``csrc/implicit_most_columns_kernel.cu``); but not TR-BDF2 on the
+    heat-only branch, which is not queued."""
+    return not (mode & MODE_IMPLICIT and mode & MODE_HEAT)
 
 
 def _check_per_column(model, stepper, streamed_geometry, forcing_fields) -> None:
-    """Refuse per-column kinds or geometry in a mode that does not take them
-    (:func:`takes_per_column`), naming its ROADMAP item: the implicit
-    steppers under a MOST top, with forcing rows or without (B1-batched,
-    B8), and TR-BDF2 on the heat-only branch, which is not queued."""
+    """Refuse per-column kinds or geometry in the one mode that does not take
+    them (:func:`takes_per_column`): TR-BDF2 on the heat-only branch, which
+    is not queued (ROADMAP B1-batched or B8)."""
     kinds, geometry = per_column_features(model, streamed_geometry)
     mode = kernel_mode(model, stepper) & ~MODE_COLUMNS
     if not (kinds or geometry) or takes_per_column(mode):
         return
     item, what = ("B1-batched", "per-column BC kinds (BatchedBC)") if kinds else ("B8", "per-column geometry")
     where = f"in mode {mode_name(mode)}" + (" with streamed forcing rows" if forcing_fields else "")
-    if mode & MODE_HEAT:
-        raise NotImplementedError(
-            f"{what} {where} have no kernel and are not queued (ROADMAP {item}, not queued): the reference's "
-            "TRBDF2Soil cannot run the heat-only branch at all (its heat sweep reads theta_i from a state that "
-            "holds none, KeyError 'theta_i'), so per-column inputs there would be a feature it lacks"
-        )
     raise NotImplementedError(
-        f"{what} {where} are not ported to the kernel yet (ROADMAP {item}): the implicit steppers under a MOST "
-        "top take them in the next slice of ROADMAP B item 2"
+        f"{what} {where} have no kernel and are not queued (ROADMAP {item}, not queued): the reference's "
+        "TRBDF2Soil cannot run the heat-only branch at all (its heat sweep reads theta_i from a state that "
+        "holds none, KeyError 'theta_i'), so per-column inputs there would be a feature it lacks"
     )
 
 

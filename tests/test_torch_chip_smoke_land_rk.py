@@ -17,6 +17,7 @@ import contextlib
 import io
 import json
 import re
+import threading
 
 import pytest
 import torch
@@ -155,19 +156,17 @@ def test_land_run_files_through_the_cli(plain_card, monkeypatch, capsys, tmp_pat
     the other steppers."""
     from landhydrology_tpu_torch import cli
 
-    def run_clis(paths, what):
-        out = []
-        for path in paths:
-            buf = io.StringIO()
-            with contextlib.redirect_stdout(buf):
-                assert cli.cmd_run(path, device="cpu") == 0
-            text = buf.getvalue()
-            launches = json.loads(text.split("kernel launches: ", 1)[1].splitlines()[0])
-            out.append((text, launches, float(re.search(r"cells in ([0-9.e+-]+) s \(host clock\)", text).group(1))))
-        return out
+    def run_cli(path, what):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert cli.cmd_run(path, device="cpu") == 0
+        text = buf.getvalue()
+        launches = json.loads(text.split("kernel launches: ", 1)[1].splitlines()[0])
+        return text, launches, float(re.search(r"cells in ([0-9.e+-]+) s \(host clock\)", text).group(1))
 
-    for name, value in (("_run_clis", run_clis), ("NZ", 8), ("NCOL", 16), ("SPC", 2), ("CLI_SAMPLE", 4),
-                        ("COLD_PROBE_STRIDE", 4), ("COLD_TIMED_STEPS", 2)):
+    # the CLIs run in process, in CliRuns' thread, when 18b collects them
+    for name, value in (("_start_cli", lambda path: path), ("_finish_cli", run_cli), ("NZ", 8), ("NCOL", 16),
+                        ("SPC", 2), ("CLI_SAMPLE", 4), ("COLD_PROBE_STRIDE", 4), ("COLD_TIMED_STEPS", 2)):
         monkeypatch.setattr(cs, name, value)
     records = cs.land_cli_phase(ck, COSTS, "smi", "cpu", str(tmp_path))
     names = [r["name"].split(", ", 1)[1][:-1] for r in records]
@@ -176,6 +175,66 @@ def test_land_run_files_through_the_cli(plain_card, monkeypatch, capsys, tmp_pat
     assert all(set(r) - {"plain_at"} == KEYS and r["max_abs_err"] == 0.0 for r in records)
     assert records[0]["launches"] == cs.CLI_LAUNCHES
     assert "the CLI's bit for bit" in capsys.readouterr().out
+
+
+def _in_process_cli():
+    """A stand-in for ``_finish_cli`` that runs the CLI in this process on
+    the CPU, one run at a time (``CliRuns``' threads share stdout here)."""
+    from landhydrology_tpu_torch import cli
+
+    lock = threading.Lock()
+
+    def run_cli(path, what):
+        buf = io.StringIO()
+        with lock, contextlib.redirect_stdout(buf):
+            assert cli.cmd_run(path, device="cpu") == 0
+        text = buf.getvalue()
+        launches = json.loads(text.split("kernel launches: ", 1)[1].splitlines()[0])
+        return text, launches, float(re.search(r"cells in ([0-9.e+-]+) s \(host clock\)", text).group(1))
+
+    return run_cli
+
+
+def test_run_file_clis_run_ahead_and_are_checked_later(plain_card, monkeypatch, capsys):  # noqa: F811
+    """``main``'s order on a narrow grid: 15b's and 18b's run files written
+    (``CliAhead``), 15b's times, the CLIs started and run (in this process)
+    while other work goes on, then checked: 15b's B resumes from A's
+    checkpoint and equals the straight run, 18b's saves equal a straight
+    ``Simulation``; 18b's times follow.  The records are 15b's and 18b's."""
+    for name, value in (("_start_cli", lambda path: path), ("_finish_cli", _in_process_cli()), ("NZ", 8),
+                        ("NCOL", 16), ("SPC", 2), ("CLI_SAMPLE", 4), ("COLD_PROBE_STRIDE", 4),
+                        ("COLD_TIMED_STEPS", 2)):
+        monkeypatch.setattr(cs, name, value)
+    ahead = cs.CliAhead("cpu", 0)
+    records, ahead.kernel_ms = cs.cli_times(ck, COSTS, "smi", "cpu", 0, ahead.spec)
+    assert [r["name"].split(", ", 1)[1][:-1] for r in records] == [
+        f"B1@{n}" for n in cs.RK_STEPPERS] * 2 and records[-1]["launches"] == cs.CLI_LAUNCHES
+    ahead.start()
+    cs._quiet()  # in this process the runs share the launch counts (on the card they are subprocesses)
+    records = ahead.check(ck, COSTS, "smi", "cpu")
+    assert [r["name"].split(", ", 1)[1][:-1] for r in records] == ["B6@SSPRK104", "B2+B6-step@SSPRK104"]
+    assert not any(runs.is_alive() for runs in cs._BACKGROUND)
+    records = cs.land_cli_times(ck, COSTS, "smi", "cpu", ahead.land_dts)
+    assert all(set(r) - {"plain_at"} == KEYS for r in records) and len(records) == 6
+    out = capsys.readouterr().out
+    assert "resumed run = straight run bit for bit" in out and "the CLI's run A:" in out
+    assert out.count("the CLI's bit for bit") == 2
+
+
+def test_cli_runs_keep_their_order_and_raise_the_first_failure(monkeypatch):
+    """``CliRuns`` returns its runs' results in the order of its paths, in
+    turn or together, and raises the first failure from ``results``."""
+    monkeypatch.setattr(cs, "_start_cli", lambda path: path)
+    monkeypatch.setattr(cs, "_finish_cli", lambda path, what: (path, what, 0.0))
+    assert cs.CliRuns(["a", "b"], "x").results() == [("a", "x", 0.0), ("b", "x", 0.0)]
+    assert cs.CliRuns(["c", "d"], "y", together=True).results() == [("c", "y", 0.0), ("d", "y", 0.0)]
+
+    def fail(path, what):
+        raise AssertionError(f"{what}: the CLI exited 1")
+
+    monkeypatch.setattr(cs, "_finish_cli", fail)
+    with pytest.raises(AssertionError, match="z: the CLI exited 1"):
+        cs.CliRuns(["e"], "z").results()
 
 
 def test_registers_name_the_stage_table_instances(tmp_path):

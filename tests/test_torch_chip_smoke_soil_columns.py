@@ -18,6 +18,7 @@ import dataclasses
 import io
 import json
 import re
+import subprocess
 
 import numpy as np
 import pytest
@@ -76,15 +77,20 @@ def test_soil_columns_variant_builds_its_instance(mode, stepper, tridiag):
 
 def test_soil_columns_checks_pass_the_plain_version(plain_card, monkeypatch, capsys):  # noqa: F811
     """20c and 20d over a shortened list: the plain version standing in for
-    the kernel passes the check; the records carry every key of the kernels
-    line, their names the instance with ``+kinds+B8`` and its stepper."""
+    the kernel passes the checks; 20d's records (all but the PCR repeat's)
+    carry every key of the kernels line, their names the instance with
+    ``+kinds+B8`` and its stepper."""
     monkeypatch.setattr(cs, "SOIL_COLUMNS_NCOL", 24)
     monkeypatch.setattr(cs, "GRID_TIMED_NCOL", 32)
     monkeypatch.setattr(cs, "GRID_TIMED_NZ", 8)
     cases = [("B2+B3-eq", "ForwardEuler", None), ("B1-heat-no-ice", "SSPRK22", None),
              ("B4-be-soil-no-ice+B2", None, "thomas"), ("B4-trbdf2+B2+B3-rate", None, "pcr")]
     monkeypatch.setattr(cs, "soil_columns_cases", lambda: cases)
-    records = cs.soil_columns_checks(ck, COSTS, "smi", F64, "cpu")
+    checked = cs.soil_columns_checks(ck, F64, "cpu")
+    records = cs.soil_columns_times(ck, COSTS, "smi", F64, "cpu", checked)
+    assert [c[3] for c in checked] == [
+        "B2+B3-eq+kinds+B8@ForwardEuler", "B1-heat-no-ice+kinds+B8@SSPRK22", "B4-be-soil-no-ice+B2+kinds+B8",
+        "B4-trbdf2-pcr+B2+B3-rate+kinds+B8"]
     assert [r["name"].split(", ", 1)[1][:-1] for r in records] == [
         "B2+B3-eq+kinds+B8@ForwardEuler", "B1-heat-no-ice+kinds+B8@SSPRK22", "B4-be-soil-no-ice+B2+kinds+B8"]
     for r in records:
@@ -112,7 +118,7 @@ def test_soil_columns_check_fails_a_kernel_on_the_uniform_grid(plain_card, monke
 
     monkeypatch.setattr(ck.FusedColumnRun, "__call__", uniform)
     with pytest.raises(AssertionError):
-        cs.soil_columns_checks(ck, COSTS, "smi", F64, "cpu")
+        cs.soil_columns_checks(ck, F64, "cpu")
 
 
 def test_regional_hour_without_ice_leaves_b1s_columns(plain_card, monkeypatch, capsys):  # noqa: F811
@@ -126,6 +132,7 @@ def test_regional_hour_without_ice_leaves_b1s_columns(plain_card, monkeypatch, c
         monkeypatch.setattr(cs, name, value)
     monkeypatch.setattr(cs, "REGIONAL_DIVERGED", {})
     monkeypatch.setattr(cs, "soil_columns_checks", lambda *a, **k: [])
+    monkeypatch.setattr(cs, "soil_columns_times", lambda *a, **k: [])
     from landhydrology_tpu_torch import cli
 
     def run_cli(path, what):
@@ -136,7 +143,8 @@ def test_regional_hour_without_ice_leaves_b1s_columns(plain_card, monkeypatch, c
         launches = json.loads(out.split("kernel launches: ", 1)[1].splitlines()[0])
         return out, launches, float(re.search(r"cells in ([0-9.e+-]+) s \(host clock\)", out).group(1))
 
-    monkeypatch.setattr(cs, "_run_cli", run_cli)
+    monkeypatch.setattr(cs, "_start_cli", lambda path: path)  # the CLI runs in process when 20b collects it
+    monkeypatch.setattr(cs, "_finish_cli", run_cli)
     records = cs.soil_columns_phase(ck, COSTS, "smi", "cpu", 0.0)
     names = [r["name"].split(", ", 1)[1][:-1] for r in records]
     assert names == ["B1-no-ice+kinds", "B1-no-ice+kinds+B8"] * 2 + ["B2+kinds+B8@SSPRK104"]
@@ -189,6 +197,13 @@ def test_later_build_runs_at_most_its_jobs_at_a_time(tmp_path, monkeypatch):
     monkeypatch.setattr(ck, "_nvcc", lambda: str(fake))
     monkeypatch.setattr(ck, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(ck, "BUILD_SECONDS", {})
+    popen, order = subprocess.Popen, []
+
+    def started(cmd, *args, **kwargs):  # the order the build starts its compiles in (the children race to log)
+        order.append(cmd[cmd.index("-o") + 1])
+        return popen(cmd, *args, **kwargs)
+
+    monkeypatch.setattr(subprocess, "Popen", started)
     sources = ("implicit_columns_kernel", "rk_columns_kernel", "implicit_policy_kernel")
     libs = ck.build_library(sources, jobs=2)
     assert list(libs) == [f"{s}_{t}" for s in sources for t in ("f64", "f32")]
@@ -199,5 +214,6 @@ def test_later_build_runs_at_most_its_jobs_at_a_time(tmp_path, monkeypatch):
         running += 1 if kind == "start" else -1
         most = max(most, running)
     assert most == 2
-    assert "implicit_columns_kernel_f64" in [e for e in events if e[0] == "start"][0][1]
+    started_keys = [o.rsplit("/", 1)[1].rsplit("_", 1)[0] for o in order]
+    assert started_keys == [f"{name}_{tag}" for name in sources for tag in ("f64", "f32")]
     assert sorted(cs.LATER_ORDER) == sorted(n for n in ck.SOURCES if n not in cs.FIRST_SOURCES)

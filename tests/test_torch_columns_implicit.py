@@ -18,9 +18,10 @@ fused kernel in interpret mode.
   DIRICHLET gets no diagonal boost in either package (imex.py boosts a plain
   Dirichlet alone).
 - Without JAX: every implicit mode on the plain soil takes kinds and
-  geometry and names its source; under a MOST top they still raise (ROADMAP
-  B1-batched, B8: queue B item 2's remainder); TR-BDF2 on the heat-only
-  branch raises as not queued, beside JAX's own ``KeyError``.
+  geometry and names its source, and so does each stepper under a MOST top
+  (``implicit_most_columns_kernel``; its cases against JAX are in
+  ``test_torch_most_columns_implicit.py``); TR-BDF2 on the heat-only branch
+  raises as not queued, beside JAX's own ``KeyError``.
 
 The kernels are held against this plain version on the card in
 ``chip_smoke.py`` phase 20 and by the ``cuda``-marked test here, which skips
@@ -29,6 +30,7 @@ without a GPU.
 
 from tests import torch_cpu  # noqa: F401  (one intra-op thread: see tests/torch_cpu.py)
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -183,17 +185,20 @@ def test_every_implicit_plain_soil_mode_takes_kinds_and_geometry():
 
 @pytest.mark.parametrize("stepper", sorted(STEPPERS.values()))
 def test_most_implicit_modes_still_refuse_kinds_and_geometry(stepper):
-    """Under a MOST top each implicit stepper, with a policy or without,
-    still refuses per-column kinds and geometry (queue B item 2's
-    remainder), naming B1-batched and B8."""
+    """Under a MOST top each implicit stepper, with a policy or without, now
+    takes per-column kinds and geometry (queue B item 2's remainder, no
+    longer refused): its run is named ``...+B5+kinds`` or ``...+B5+B8`` and
+    launches ``implicit_most_columns_kernel``'s instance."""
     import chip_smoke as cs
 
     for policy in ("B5", "B5+B3-rate"):
         soil = cs.policy_variant(policy, torch.float64, "cpu")[0]
-        for what, item in (("kinds", "B1-batched"), ("depth", "B8")):
+        for what, suffix in (("kinds", "+kinds"), ("depth", "+B8")):
             variant = cs.with_columns(soil, 3, kinds=what == "kinds", depth=what == "depth")
-            with pytest.raises(NotImplementedError, match=rf"in mode B4-\S*\+B5 are not ported .*ROADMAP {item}\)"):
-                ck.make_fused_column_run(variant, cs.implicit(stepper, variant, 2))
+            run = ck.make_fused_column_run(variant, cs.implicit(stepper, variant, 2))
+            assert re.fullmatch(rf"B4-\S*\+B5{re.escape(suffix)}", run.name), run.name
+            assert ck.takes_per_column(run.mode) and ck._entry(run.mode, torch.float64)[0] == \
+                "implicit_most_columns_kernel"
 
 
 def test_heat_only_trbdf2_with_kinds_raises_in_both_packages():

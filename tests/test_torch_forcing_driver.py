@@ -363,8 +363,8 @@ def test_per_column_rain_streams_as_rows_but_not_as_a_callable():
 def test_unported_forced_combinations_raise_naming_their_item():
     """Freeze-thaw and no ice take forcing rows under MOST and a LandModel,
     under the other explicit steppers too, and so does per-column geometry;
-    per-column geometry with rows under the implicit steppers (B8) stays
-    refused."""
+    per-column geometry with rows under the implicit steppers (B8) runs in
+    ``implicit_most_columns_kernel.cu``, no longer refused."""
     from landhydrology_tpu_torch.timestepping import SSPRK104
 
     jm, jY, jYa = _soil_case()
@@ -383,9 +383,10 @@ def test_unported_forced_combinations_raise_naming_their_item():
     geometry = (torch.full((ncol,), 0.1, dtype=F64), grid.zc.expand(-1, ncol).contiguous())
     run = ck.make_fused_column_run(frozen, SSPRK104(), forcing_fields=("u_atm",), streamed_geometry=geometry)
     assert run.name == "B5+B3-rate+B8+B7@SSPRK104"
-    with pytest.raises(NotImplementedError, match="ROADMAP B8"):
-        ck.make_fused_column_run(model, TRBDF2Soil(model=model, grid=grid), forcing_fields=("u_atm",),
-                                 streamed_geometry=geometry)
+    run = ck.make_fused_column_run(model, TRBDF2Soil(model=model, grid=grid), forcing_fields=("u_atm",),
+                                   streamed_geometry=geometry)
+    assert run.name == "B4-trbdf2+B5+B8+B7"
+    assert ck._entry(run.mode, F64)[0] == "implicit_most_columns_kernel"
 
 
 def test_kernel_args_carry_the_rows():

@@ -240,14 +240,23 @@ def _refused_variant(name, what):
                                             ("B4-be-richards+B5", "depth", "B8"),
                                             ("B4-trbdf2-heat", "kinds", "B1-batched, not queued")])
 def test_modes_outside_the_lists_still_refuse(name, what, item):
-    """Per-column kinds or geometry stay refused in the modes that do not
-    take them (``takes_per_column``): the implicit steppers under a MOST
-    top, with forcing rows or without (queue B item 2's remainder), naming
-    B1-batched or B8, and TR-BDF2 on the heat-only branch, which is not
-    queued (the reference's TRBDF2Soil cannot run that branch)."""
+    """Per-column kinds or geometry stay refused only in TR-BDF2 on the
+    heat-only branch, which is not queued (the reference's TRBDF2Soil cannot
+    run that branch), naming ``item``.  The implicit steppers under a MOST
+    top, with forcing rows or without, take them since queue B item 2's
+    remainder (B1-batched, B8): their runs are named ``<mode>+kinds`` or
+    ``<mode>+B8`` (``+B7`` with rows) and launch
+    ``implicit_most_columns_kernel``'s instances."""
     variant, stepper = _refused_variant(name, what)
-    assert not ck.takes_per_column(ck.kernel_mode(variant, stepper))
+    mode = ck.kernel_mode(variant, stepper)
     rows = ({},) + (({"forcing_fields": ("theta_atm",)},) if name.endswith("+B5") else ())
+    if name.endswith("+B5"):
+        assert ck.takes_per_column(mode) and ck._entry(mode, torch.float64)[0] == "implicit_most_columns_kernel"
+        for kw in rows:
+            suffix = ("+kinds" if what == "kinds" else "+B8") + ("+B7" if kw else "")
+            assert ck.make_fused_column_run(variant, stepper, **kw).name == name + suffix
+        return
+    assert not ck.takes_per_column(mode)
     for kw in rows:
         with pytest.raises(NotImplementedError, match=rf"in mode {name.replace('+', '[+]')}.*ROADMAP {item}\)"):
             ck.make_fused_column_run(variant, stepper, **kw)

@@ -248,9 +248,24 @@ def test_mode_words_names_and_scratch():
     assert ck._entry(ck.kernel_mode(plain), torch.float64)[0] == "land_kernel"
 
 
+#: the cases of ``_refused`` that queue B item 2's remainder ported (per-column kinds or geometry under the
+#: implicit steppers with a MOST top): the name of the run their call now builds from
+#: ``implicit_most_columns_kernel``
+PORTED_SINCE = {
+    "rows_most": "B4-trbdf2+B3-rate+B5+kinds+B7",
+    "rows_land": "B4-be-soil+B3-rate+B5+B8+B7",
+    "kinds": "B4-be-soil+B3-rate+B5+kinds",
+    "kinds_water_land": "B4-be-richards-no-ice+B5+kinds",
+    "geometry": "B4-trbdf2+B2+B5+B8",
+    "geometry_implicit_most": "B4-trbdf2+B3-rate+B5+B8",
+    "implicit_under_most": "B4-trbdf2+B5+B8",
+}
+
+
 def _refused(case):
-    """``(message pattern, the call that raises NotImplementedError)`` of
-    one refusal the policy slices keep."""
+    """``(message pattern, the call)`` of one refusal the policy slices
+    kept: the call raises ``NotImplementedError`` matching the pattern, or
+    for the cases of ``PORTED_SINCE`` (pattern ``None``) builds its run."""
     from landhydrology_tpu_torch import (
         BatchedBC, PrescribedTemperatureModel, SoilColumnBC, SoilComponentBC, VerticalFlux,
     )
@@ -270,13 +285,13 @@ def _refused(case):
     kinds = dataclasses.replace(soil, boundary_conditions=SoilColumnBC(top=bcs.top, bottom=SoilComponentBC(
         energy=bcs.bottom.energy, hydrology=BatchedBC(kind=torch.zeros(NCOL, dtype=torch.int64)))))
     if case == "rows_most":  # the implicit steppers under MOST with forcing rows and per-column kinds
-        return r"in mode B4-trbdf2\+B3-rate\+B5.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(
+        return None, lambda: ck.make_fused_column_run(
             kinds, TRBDF2Soil(model=kinds, grid=grid), forcing_fields=("theta_atm",))
     if case == "rows_land":  # per-column geometry in an implicit policy mode under MOST, with rows
-        return r"in mode B4-be-soil\+B3-rate\+B5.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
+        return None, lambda: ck.make_fused_column_run(
             soil, BackwardEulerSoil(model=soil, grid=grid), streamed_geometry=geometry, forcing_fields=("theta_atm",))
     if case == "kinds":  # per-column kinds under an implicit stepper with a policy, under MOST
-        return r"in mode B4-be-soil\+B3-rate\+B5.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(
+        return None, lambda: ck.make_fused_column_run(
             kinds, BackwardEulerSoil(model=kinds, grid=grid))
     from landhydrology_tpu_torch import PrescribedHydrologyModel
     from landhydrology_tpu_torch.imex import BackwardEulerRichards
@@ -286,14 +301,14 @@ def _refused(case):
                                                                 bottom=SoilComponentBC(energy=bcs.bottom.energy)))
     if case == "kinds_water_land":  # per-column kinds under an implicit stepper with no ice, under MOST
         no_ice = dataclasses.replace(kinds, assume_no_ice=True, freeze_thaw=None)
-        return r"in mode B4-be-richards-no-ice\+B5.*ROADMAP B1-batched\)", lambda: ck.make_fused_column_run(
+        return None, lambda: ck.make_fused_column_run(
             no_ice, BackwardEulerRichards(model=no_ice, grid=grid))
     if case == "geometry":  # per-column geometry under TR-BDF2 with lagged coefficients, under MOST
         lagged = dataclasses.replace(soil, coefficient_update="step", freeze_thaw=None)
-        return r"in mode B4-trbdf2\+B2\+B5.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
+        return None, lambda: ck.make_fused_column_run(
             lagged, TRBDF2Soil(model=lagged, grid=grid), streamed_geometry=geometry)
     if case == "geometry_implicit_most":  # per-column geometry under an implicit stepper with a policy
-        return r"in mode B4-trbdf2\+B3-rate\+B5.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
+        return None, lambda: ck.make_fused_column_run(
             soil, TRBDF2Soil(model=soil, grid=grid), streamed_geometry=geometry)
     if case == "explicit_stepper":  # TR-BDF2 on the heat-only branch with per-column geometry: not queued
         return r"in mode B4-trbdf2-heat .*ROADMAP B8, not queued\)", lambda: ck.make_fused_column_run(
@@ -306,7 +321,7 @@ def _refused(case):
             heat_kinds, TRBDF2Soil(model=heat_kinds, grid=grid))
     if case == "implicit_under_most":  # the MOST soil under TR-BDF2 without a policy, with per-column geometry
         bare = dataclasses.replace(soil, freeze_thaw=None)
-        return r"in mode B4-trbdf2\+B5.*ROADMAP B8\)", lambda: ck.make_fused_column_run(
+        return None, lambda: ck.make_fused_column_run(
             bare, TRBDF2Soil(model=bare, grid=grid), streamed_geometry=geometry)
     if case == "implicit_heat_branch":  # the policies on the heat-only branch, which JAX's kernel cannot run
         from landhydrology_tpu_torch import PrescribedHydrologyModel
@@ -333,17 +348,23 @@ def _refused(case):
                                   "water_only_land"])
 def test_refusal_names_its_roadmap_item(case):
     """What stays refused, each a ``NotImplementedError`` naming its ROADMAP
-    item: per-column BC kinds or geometry under the implicit steppers with a
-    MOST top, with a policy or without, with forcing rows or not (B1-batched,
-    B8), and under TR-BDF2 on the heat-only branch (not queued); the
-    implicit steppers with the policies on the heat-only branch, the
-    water-only sweep with ``TemperatureDependentViscosity``, and a
-    LandModel, which the reference kernel cannot run either (B4).  (The
-    cases ``rows_most``, ``rows_land``, ``kinds``, ``kinds_water_land``,
-    ``geometry``, ``explicit_stepper``, ``implicit_under_most`` and
-    ``water_only_land`` named refusals that are now ported; they hold their
-    neighbours that stay.)"""
+    item: per-column BC kinds or geometry under TR-BDF2 on the heat-only
+    branch (not queued); the implicit steppers with the policies on the
+    heat-only branch, the water-only sweep with
+    ``TemperatureDependentViscosity``, and a LandModel, which the reference
+    kernel cannot run either (B4).  The cases of ``PORTED_SINCE`` (per-column
+    kinds or geometry under the implicit steppers with a MOST top, with a
+    policy or without, with forcing rows or not: B1-batched, B8) are ported
+    since queue B item 2's remainder: each builds its run from
+    ``implicit_most_columns_kernel``.  (The cases ``explicit_stepper`` and
+    ``water_only_land`` named refusals ported earlier; they hold neighbours
+    that stay.)"""
     pattern, call = _refused(case)
+    if case in PORTED_SINCE:
+        run = call()
+        assert run.name == PORTED_SINCE[case] and ck.takes_per_column(run.mode)
+        assert ck._entry(run.mode, torch.float64)[0] == "implicit_most_columns_kernel"
+        return
     with pytest.raises(NotImplementedError, match=pattern):
         call()
 

@@ -25,8 +25,8 @@ kernel in interpret mode tracing the same stepper.
   LandModel on a water-only soil); each stepper four times or more.
 - The mode names and entries of the 48 land instances under each new
   stepper, the stage table a land launch carries, and the ``MODE_COLUMNS``
-  land instances under the new steppers, whose plain-soil neighbours stay
-  refused (ROADMAP B1-batched, B8).
+  land instances under the new steppers, and their implicit neighbours
+  under the MOST top (``implicit_most_columns_kernel.cu``).
 
 The kernel itself is held against this plain version on the card in
 ``chip_smoke.py`` phase 18c; the ``cuda``-marked tests skip without a GPU.
@@ -262,9 +262,9 @@ def test_per_column_land_instances_stay_refused(stepper):
     """``MODE_COLUMNS``'s land instances run every explicit stepper (B5 and
     B6 with per-column kinds or geometry from
     ``csrc/land_columns_kernel.cu``), and so do their plain-soil neighbours
-    (``csrc/rk_columns_kernel.cu``); the implicit steppers under the MOST
-    top stay refused with them, naming B1-batched and B8 (ROADMAP B queue
-    item 2's remainder)."""
+    (``csrc/rk_columns_kernel.cu``); since ROADMAP B queue item 2's
+    remainder the implicit steppers under the MOST top take them too, no
+    longer refused (``csrc/implicit_most_columns_kernel.cu``)."""
     from landhydrology_tpu_torch import BatchedBC, SoilColumnBC, SoilComponentBC, VerticalFlux
     from landhydrology_tpu_torch.domains import make_function_space
 
@@ -282,9 +282,10 @@ def test_per_column_land_instances_stay_refused(stepper):
     assert run.name == f"B1+kinds@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "rk_columns_kernel"
     from landhydrology_tpu_torch import BackwardEulerSoil
 
-    with pytest.raises(NotImplementedError, match=r"in mode B4-be-soil\+B5.*ROADMAP B1-batched\)"):
-        ck.make_fused_column_run(kinds, BackwardEulerSoil(model=kinds, grid=make_function_space(
-            soil.domain, torch.float64, "cpu")))
+    run = ck.make_fused_column_run(kinds, BackwardEulerSoil(model=kinds, grid=make_function_space(
+        soil.domain, torch.float64, "cpu")))
+    assert run.name == "B4-be-soil+B5+kinds"
+    assert ck._entry(run.mode, torch.float64)[0] == "implicit_most_columns_kernel"
     grid = make_function_space(soil.domain, torch.float64, "cpu")
     geometry = (torch.full((NCOL,), 0.125, dtype=torch.float64), grid.zc.expand(NZ, NCOL).contiguous())
     assert ck.make_fused_column_run(land, streamed_geometry=geometry).name == "B6+B8"
@@ -295,5 +296,6 @@ def test_per_column_land_instances_stay_refused(stepper):
     assert run.name == f"B1+B8@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "rk_columns_kernel"
     from landhydrology_tpu_torch import TRBDF2Soil
 
-    with pytest.raises(NotImplementedError, match=r"in mode B4-trbdf2\+B5.*ROADMAP B8\)"):
-        ck.make_fused_column_run(soil, TRBDF2Soil(model=soil, grid=grid), streamed_geometry=geometry)
+    run = ck.make_fused_column_run(soil, TRBDF2Soil(model=soil, grid=grid), streamed_geometry=geometry)
+    assert run.name == "B4-trbdf2+B5+B8"
+    assert ck._entry(run.mode, torch.float64)[0] == "implicit_most_columns_kernel"

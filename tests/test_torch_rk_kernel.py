@@ -254,8 +254,9 @@ def test_explicit_steppers_refused_where_no_kernel():
     plain soil in ``rk_columns_kernel.cu``'s ``MODE_COLUMNS`` instance
     (``B1+kinds@<stepper>``); a MOST top runs in the land kernel
     (``B5@<stepper>``), with kinds in its ``MODE_COLUMNS`` instance
-    (``B5+kinds@<stepper>``); TR-BDF2 under the MOST top with kinds has no
-    kernel yet and raises (ROADMAP B1-batched)."""
+    (``B5+kinds@<stepper>``); TR-BDF2 under the MOST top with kinds runs in
+    ``implicit_most_columns_kernel.cu`` (``B4-trbdf2+B5+kinds``), no longer
+    refused (ROADMAP B1-batched)."""
     from landhydrology_tpu_torch import BatchedBC, PrescribedAtmosForcing, SoilColumnBC, SoilComponentBC
 
     jm, _, _, _, _ = case("B1")
@@ -281,5 +282,6 @@ def test_explicit_steppers_refused_where_no_kernel():
     from landhydrology_tpu_torch.domains import make_function_space
 
     grid = make_function_space(most.domain, torch.float64, "cpu")
-    with pytest.raises(NotImplementedError, match=r"in mode B4-trbdf2\+B5 .*ROADMAP B1-batched\)"):
-        ck.make_fused_column_run(most_kinds, TRBDF2Soil(model=most_kinds, grid=grid))
+    run = ck.make_fused_column_run(most_kinds, TRBDF2Soil(model=most_kinds, grid=grid))
+    assert run.name == "B4-trbdf2+B5+kinds"
+    assert ck._entry(run.mode, torch.float64)[0] == "implicit_most_columns_kernel"
