@@ -22,7 +22,8 @@
 //   MODE_NO_ICE       SoilModel(assume_no_ice=True): the ice branches of the
 //                     closures drop out;
 //   MODE_COLUMNS      per-column BC kinds (B1-batched) and per-column
-//                     geometry and profiles (B8), read at run time.
+//                     geometry and profiles (B8), read at run time (B1's
+//                     is the column-tile kernel's, tile_columns_kernel.cu).
 // Per step the order is: coefficients, three stages, projection.
 //
 // Bound: transcendental throughput.  Each cell evaluates about ten exp/log
@@ -89,8 +90,9 @@ int launch(const KernelArgs* args, int block, void* stream) {
 // B1-no-ice carries MODE_RHS_CAP: its stage rhs caps theta_l at nu -
 // theta_i, as rhs.py does (B2-no-ice takes its closures from lagged.py's
 // sweep, which caps at nu).
-// MODE_COLUMNS joins B1, B2, B3-rate and B1-water (the other modes take it
-// in rk_columns_kernel.cu, from the stage table).
+// MODE_COLUMNS joins B2, B3-rate and B1-water (B1 and B1-no-ice take it in
+// tile_columns_kernel.cu, the other modes in rk_columns_kernel.cu, both from
+// the stage table).
 template <typename T>
 int dispatch(const KernelArgs* args, int block, void* stream) {
   switch (args->mode) {
@@ -107,7 +109,6 @@ int dispatch(const KernelArgs* args, int block, void* stream) {
       return launch<T, MODE_LAGGED | MODE_FREEZE_EQ>(args, block, stream);
     case MODE_WATER: return launch<T, MODE_WATER>(args, block, stream);
     case MODE_HEAT: return launch<T, MODE_HEAT>(args, block, stream);
-    case MODE_COLUMNS: return launch<T, MODE_COLUMNS>(args, block, stream);
     case MODE_LAGGED | MODE_COLUMNS: return launch<T, MODE_LAGGED | MODE_COLUMNS>(args, block, stream);
     case MODE_FREEZE_RATE | MODE_COLUMNS:
       return launch<T, MODE_FREEZE_RATE | MODE_COLUMNS>(args, block, stream);

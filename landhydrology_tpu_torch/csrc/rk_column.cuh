@@ -37,9 +37,10 @@
 // does (column_kernel.cu's B1-no-ice caps it at nu; ROADMAP C).
 //
 // Two sources instantiate it: rk_kernel.cu the 16 modes of RK_CASES(0), and
-// rk_columns_kernel.cu the same modes with MODE_COLUMNS (per-column BC kinds
-// and geometry, kernel modes B1-batched and B8: column_common.cuh's
-// load_grid, column_kind and load_profiles read them).
+// rk_columns_kernel.cu the 14 of RK_OTHER_CASES with MODE_COLUMNS (per-column
+// BC kinds and geometry, kernel modes B1-batched and B8: column_common.cuh's
+// load_grid, column_kind and load_profiles read them; B1 and B1-no-ice with
+// MODE_COLUMNS are the column-tile kernel's, tile_columns_kernel.cu).
 
 #pragma once
 
@@ -92,11 +93,15 @@ int launch(const KernelArgs* args, int block, void* stream) {
 // or with either freeze-thaw scheme, on the coupled plain soil, and lagged
 // coefficients and assume_no_ice (alone and together) on the water-only and
 // heat-only branches, each also without either.  The stepper bits select no
-// instance.
+// instance.  RK_OTHER_CASES leaves out the coupled soil with stage
+// coefficients, with ice and without: with MODE_COLUMNS those two are the
+// column-tile kernel's (tile_columns_kernel.cu).
 #define RK_CASES(C)                                                                                           \
   case C: return launch<T, C>(args, block, stream);                                                          \
-  case MODE_LAGGED | C: return launch<T, MODE_LAGGED | C>(args, block, stream);                              \
   case MODE_NO_ICE | C: return launch<T, MODE_NO_ICE | C>(args, block, stream);                              \
+  RK_OTHER_CASES(C)
+#define RK_OTHER_CASES(C)                                                                                     \
+  case MODE_LAGGED | C: return launch<T, MODE_LAGGED | C>(args, block, stream);                              \
   case MODE_LAGGED | MODE_NO_ICE | C: return launch<T, MODE_LAGGED | MODE_NO_ICE | C>(args, block, stream);  \
   case MODE_FREEZE_RATE | C: return launch<T, MODE_FREEZE_RATE | C>(args, block, stream);                    \
   case MODE_LAGGED | MODE_FREEZE_RATE | C:                                                                   \

@@ -1,11 +1,14 @@
 // Fused multi-step soil-column kernel for the explicit steppers with
 // per-column BC kinds and geometry (MODE_COLUMNS; kernel modes B1-batched and
-// B8): the 16 modes of rk_kernel.cu (the plain soil with stage or lagged
-// coefficients, no ice and either freeze-thaw scheme, and the step policies
-// on the water-only and heat-only branches) under ForwardEuler, SSPRK22,
-// SSPRK33 and SSPRK104, the stepper read at run time from the launch's stage
-// table (one instance per mode runs all four).  SSPRK33 in B1, B2, B3-rate and
-// B1-water keeps column_kernel.cu's fixed-stage MODE_COLUMNS instances.  The
+// B8): 14 of the 16 modes of rk_kernel.cu (the plain soil with lagged
+// coefficients, either freeze-thaw scheme, and the step policies on the
+// water-only and heat-only branches: RK_OTHER_CASES) under ForwardEuler,
+// SSPRK22, SSPRK33 and SSPRK104, the stepper read at run time from the
+// launch's stage table (one instance per mode runs all four).  SSPRK33 in B2,
+// B3-rate and B1-water keeps column_kernel.cu's fixed-stage MODE_COLUMNS
+// instances; the coupled soil with stage coefficients, with ice and without
+// (B1, B1-no-ice), runs in the column-tile kernel (tile_columns_kernel.cu)
+// under every stepper.  The
 // kernel, and what it replaces, is in rk_column.cuh; the per-column grid,
 // kinds and profile tables are read as column_common.cuh's load_grid,
 // column_kind and load_profiles read them with MODE_COLUMNS (the JAX kernel's
@@ -26,7 +29,7 @@ template <typename T>
 int dispatch(const KernelArgs* args, int block, void* stream) {
   if (args->n_stages < 1 || args->n_stages > kMaxStages) return static_cast<int>(cudaErrorInvalidValue);
   switch (args->mode & ~int64_t(MODE_EULER | MODE_SSPRK22 | MODE_SSPRK104)) {
-    RK_CASES(MODE_COLUMNS)
+    RK_OTHER_CASES(MODE_COLUMNS)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -3,10 +3,16 @@
 Replaces ``landhydrology_tpu/ops/pallas/column_kernel.py::make_fused_column_run``
 in its explicit modes, its implicit modes and its surface modes:
 ``steps_per_call`` steps of the soil (or land) tendency per launch, updating
-the state in place.  Fifteen CUDA sources share ``csrc/column_common.cuh``:
+the state in place.  Sixteen CUDA sources share ``csrc/column_common.cuh``:
 
 - ``csrc/column_kernel.cu``: SSPRK33 (kernel modes B1, B2, B3), on the
   coupled, water-only or heat-only branch;
+- ``csrc/tile_columns_kernel.cu``: the coupled plain soil with stage
+  coefficients and per-column BC kinds and geometry (``B1+kinds+B8`` and
+  ``B1-no-ice+kinds+B8``) under all four explicit steppers from the stage
+  table, in the column-tile kernel of ``csrc/tile_column.cuh``: a block keeps
+  a tile of columns in shared memory for the whole launch and spreads each
+  column's levels over its threads (:func:`tile_plan`);
 - ``csrc/implicit_kernel.cu``: ``TRBDF2Soil``, ``BackwardEulerRichards`` and
   ``BackwardEulerSoil`` (kernel mode B4), with Thomas or PCR solves, and
   under a MOST top (B4+B5) with its forcing rows;
@@ -47,9 +53,10 @@ the state in place.  Fifteen CUDA sources share ``csrc/column_common.cuh``:
   (:func:`stage_table`);
 - ``csrc/rk_columns_kernel.cu`` and ``csrc/implicit_columns_kernel.cu``: the
   plain-soil modes with per-column BC kinds and geometry (``MODE_COLUMNS``):
-  ``rk_kernel.cu``'s 16 modes under all four explicit steppers from the
-  stage table (SSPRK33 in B1, B2, B3-rate and B1-water keeps
-  ``column_kernel.cu``'s fixed stages), and ``BackwardEulerSoil`` and every
+  ``rk_kernel.cu``'s 16 modes but the two of ``tile_columns_kernel.cu``
+  under all four explicit steppers from the stage table (SSPRK33 in B2,
+  B3-rate and B1-water keeps ``column_kernel.cu``'s fixed stages), and
+  ``BackwardEulerSoil`` and every
   implicit step policy on the coupled and water-only branches (TR-BDF2 and
   ``BackwardEulerRichards`` without a policy keep ``implicit_kernel.cu``'s
   instances);
@@ -64,7 +71,10 @@ plain C interface at its first use (both float types in parallel;
 
 - One thread owns one column and sweeps its levels; the grid is
   ``ceil(ncol / tile_cols)`` blocks of ``tile_cols`` threads, with the ragged
-  last block masked, so ``ncol`` need not be a multiple of the tile.
+  last block masked, so ``ncol`` need not be a multiple of the tile.  The
+  column-tile kernel alone spreads a column's levels over threads: its blocks
+  of 256 threads hold at most ``tile_cols`` columns, the tile and its level
+  lanes planned from ``nz`` by :func:`tile_plan`.
 - The model and the stepper select the kernel's mode (:func:`kernel_mode`),
   a template instance of a source: the branch, the stepper, stage
   coefficients (B1) or lagged ones (``coefficient_update="step"``, B2),
@@ -237,6 +247,7 @@ SOURCES = {
     "rk_columns_kernel": CSRC / "rk_columns_kernel.cu",
     "implicit_columns_kernel": CSRC / "implicit_columns_kernel.cu",
     "implicit_most_columns_kernel": CSRC / "implicit_most_columns_kernel.cu",
+    "tile_columns_kernel": CSRC / "tile_columns_kernel.cu",
 }
 #: a source's C entry points are ``<prefix>_f32`` and ``<prefix>_f64``; the
 #: library of each float type is compiled with ``-DKERNEL_<TAG>_ONLY`` and
@@ -250,7 +261,8 @@ _ENTRY_PREFIX = {"column_kernel": "column_kernel_ssprk33", "implicit_kernel": "i
                  "land_policy_columns_kernel": "land_policy_columns_kernel", "rk_kernel": "rk_kernel",
                  "implicit_policy_kernel": "implicit_policy_kernel", "rk_columns_kernel": "rk_columns_kernel",
                  "implicit_columns_kernel": "implicit_columns_kernel",
-                 "implicit_most_columns_kernel": "implicit_most_columns_kernel"}
+                 "implicit_most_columns_kernel": "implicit_most_columns_kernel",
+                 "tile_columns_kernel": "tile_columns_kernel"}
 BUILD_DIR = _PACKAGE / "_build"
 #: ``-split-compile=0`` optimizes the template instances of a source in
 #: parallel on all host cores
@@ -317,13 +329,16 @@ _STEPPER_NAMES = {MODE_TRBDF2: "B4-trbdf2", MODE_BE_RICHARDS: "B4-be-richards",
                   MODE_SSPRK104: "SSPRK104"}
 #: the policies of ``csrc/land_policy_kernel.cu`` (with or without MODE_LAGGED)
 _FREEZE_OR_NO_ICE = MODE_FREEZE_RATE | MODE_FREEZE_EQ | MODE_NO_ICE
-#: the modes with MODE_COLUMNS whose SSPRK33 instance has fixed stages: B1, B2, B3-rate and B1-water
+#: the modes with MODE_COLUMNS whose SSPRK33 instance has fixed stages: B2, B3-rate and B1-water
 #: (``csrc/column_kernel.cu``), B5 and B6 (``csrc/land_kernel.cu``); the others, and these under the other
 #: steppers, run the stage table of ``csrc/rk_columns_kernel.cu``, ``csrc/land_columns_kernel.cu`` and
-#: ``csrc/land_policy_columns_kernel.cu``
-_SSPRK33_COLUMNS = frozenset({MODE_COLUMNS, MODE_LAGGED | MODE_COLUMNS, MODE_FREEZE_RATE | MODE_COLUMNS,
+#: ``csrc/land_policy_columns_kernel.cu``, but :data:`TILE_MODES`
+_SSPRK33_COLUMNS = frozenset({MODE_LAGGED | MODE_COLUMNS, MODE_FREEZE_RATE | MODE_COLUMNS,
                               MODE_WATER | MODE_COLUMNS, MODE_MOST | MODE_COLUMNS,
                               MODE_LAND | MODE_MOST | MODE_COLUMNS})
+#: the modes of the column-tile kernel (``csrc/tile_columns_kernel.cu``) under every explicit stepper (the
+#: stepper's bits aside): the coupled plain soil with stage coefficients and MODE_COLUMNS, with ice and without
+TILE_MODES = frozenset({MODE_COLUMNS, MODE_NO_ICE | MODE_COLUMNS})
 #: ``enum StageKind`` of the header and its most stages per step
 STAGE_AXPY, STAGE_COMB, STAGE_SPLIT, STAGE_FINAL = 0, 1, 2, 3
 MAX_STAGES = 10
@@ -512,7 +527,9 @@ def load_library(key: str) -> ctypes.CDLL:
             )
         fn = getattr(lib, f"{_ENTRY_PREFIX[name]}_{tag}")
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(_KernelArgs), ctypes.c_int, ctypes.c_void_p]
+        # the column-tile kernel takes its tile plan (columns, lanes, shared bytes), the others their block
+        ints = [ctypes.c_int] * (3 if name == "tile_columns_kernel" else 1)
+        fn.argtypes = [ctypes.POINTER(_KernelArgs), *ints, ctypes.c_void_p]
         _libraries[key] = lib
     return _libraries[key]
 
@@ -520,7 +537,9 @@ def load_library(key: str) -> ctypes.CDLL:
 def _entry(mode: int, dtype) -> tuple:
     """``(library name, C function)`` that launches ``mode`` in ``dtype``."""
     table_columns = mode & MODE_COLUMNS and (mode & MODE_RK or mode not in _SSPRK33_COLUMNS)
-    if mode & MODE_IMPLICIT:
+    if mode & ~MODE_RK in TILE_MODES:
+        name = "tile_columns_kernel"  # every explicit stepper from the stage table
+    elif mode & MODE_IMPLICIT:
         policy = mode & _POLICY_BITS
         if mode & MODE_COLUMNS and mode & MODE_MOST:
             name = "implicit_most_columns_kernel"
@@ -669,13 +688,87 @@ def scratch_fields(mode: int) -> int:
     register (read up to its fifth stage, written by its last).  Implicit:
     the iterate and the stage constants (three fields each), the sweep's F,
     K and C, the solver's cp and dp (Thomas) or two sets of (a, c, d, b)
-    (PCR), then the lagged coefficients."""
+    (PCR), then the lagged coefficients.  The column-tile kernel
+    (:data:`TILE_MODES`) keeps its stage registers in shared memory: none."""
+    if mode & ~MODE_RK in TILE_MODES:
+        return 0
     if mode & MODE_IMPLICIT:
         lagged = (5 if mode & MODE_FREEZE_RATE else 4) if mode & MODE_LAGGED else 0
         return 9 + (8 if mode & MODE_PCR else 2) + lagged
     if not mode & MODE_LAGGED:
         return 6
     return 11 if mode & MODE_FREEZE_RATE else 10
+
+
+#: the column-tile kernel's threads per block (``kTileMaxThreads`` of ``csrc/tile_column.cuh``) and its launch
+#: bounds' blocks per SM by value size (``TileMinBlocks``: f64 at 65,536 / (256 x 2) = 128 registers a thread, f32
+#: at 85)
+TILE_MAX_THREADS = 256
+TILE_MIN_BLOCKS = {4: 3, 8: 2}
+#: the most dynamic shared memory of a block (227 KB), the shared memory of an SM (228 KB) and what the runtime
+#: keeps of it per block (1 KB), on Hopper
+TILE_MAX_SMEM, SM_SMEM, SM_SMEM_PER_BLOCK = 232448, 233472, 1024
+#: an SM's registers and resident threads, and its most resident blocks
+SM_REGISTERS, SM_THREADS, SM_BLOCKS = 65536, 2048, 32
+#: the column-tile kernel's registers a thread, per value size, as ptxas reported them for sm_90a (f32 80, f64
+#: 126-128; ``chip_smoke.py``'s build prints them)
+TILE_REGISTERS = {4: 80, 8: 128}
+#: ``sizeof(Column<T>)`` per value size (``csrc/tile_columns_kernel.cu`` asserts it), and the cell planes besides
+#: the registers: the five published center fields and z (then two face planes of nz + 1 values)
+TILE_COLUMN_BYTES = {4: 168, 8: 320}
+TILE_PLANES = 6
+
+
+def stage_registers(stages) -> int:
+    """The stage registers a :func:`stage_table` touches: 1 (ForwardEuler),
+    2 (SSPRK22) or 3 (SSPRK33, SSPRK104); an axpy's auxiliary register is
+    never read (``tile_registers`` of ``csrc/tile_column.cuh``)."""
+    return 1 + max(max(reg_in, reg_out, reg_aux if kind != STAGE_AXPY else 0)
+                   for kind, reg_in, reg_out, reg_aux, _ in stages)
+
+
+def tile_smem_bytes(nz: int, columns: int, n_regs: int, itemsize: int) -> int:
+    """The column-tile kernel's dynamic shared memory for a block of
+    ``columns`` columns (``tile_smem_bytes`` of ``csrc/tile_column.cuh``):
+    each column's ``Column<T>`` at a stride of an odd number of 8-byte
+    words, per cell ``3 n_regs`` register values, the published center
+    fields and z, and per face the water and energy fluxes."""
+    words = -(-TILE_COLUMN_BYTES[itemsize] // 8) | 1
+    return columns * (8 * words + ((3 * n_regs + TILE_PLANES) * nz + 2 * (nz + 1)) * itemsize)
+
+
+TilePlan = collections.namedtuple("TilePlan", "columns lanes smem_bytes blocks_per_sm")
+
+
+def tile_plan(nz: int, itemsize: int, n_regs: int, tile_cols: int = 128) -> TilePlan:
+    """The column-tile kernel's block of :data:`TILE_MAX_THREADS` threads for
+    columns of ``nz`` levels in values of ``itemsize`` bytes under a stepper
+    of ``n_regs`` stage registers (:func:`stage_registers`): ``columns`` per
+    block (at most ``tile_cols``, the run's) times ``lanes`` level lanes (a
+    power of two), each thread taking levels ``lane, lane + lanes, ...`` of
+    its column, its shared bytes and the blocks an SM holds (by shared
+    memory, threads and :data:`TILE_REGISTERS`).  Of the lane counts it
+    picks the one that keeps the most threads with a level to work on
+    resident per SM (blocks x columns x nz / ceil(nz / lanes)), the fewest
+    lanes on a tie.  Raises ``ValueError`` where one column does not fit a
+    block's shared memory (beyond about 1,700 levels in f64)."""
+    regs = -(-TILE_REGISTERS[itemsize] // 8) * 8
+    best, lanes = None, 1
+    while lanes <= TILE_MAX_THREADS and lanes < 2 * nz:
+        columns = min(TILE_MAX_THREADS // lanes, int(tile_cols))
+        smem = tile_smem_bytes(nz, columns, n_regs, itemsize)
+        if smem <= TILE_MAX_SMEM:
+            blocks = min(SM_SMEM // (smem + SM_SMEM_PER_BLOCK), SM_THREADS // (columns * lanes),
+                         SM_REGISTERS // (regs * columns * lanes), SM_BLOCKS)
+            busy = blocks * columns * nz / -(-nz // lanes)
+            if blocks and (best is None or busy > best[0]):
+                best = (busy, TilePlan(columns, lanes, smem, blocks))
+        lanes *= 2
+    if best is None:
+        raise ValueError(
+            f"a column of nz={nz} levels takes {tile_smem_bytes(nz, 1, n_regs, itemsize)} B of shared memory in the "
+            f"column-tile kernel, past a block's {TILE_MAX_SMEM} B")
+    return best[1]
 
 
 # --------------------------------------------------------------------------
@@ -1298,11 +1391,13 @@ class FusedColumnRun:
         args, keep = self.launch_args(fields, h_s, t0, device, rows, dt)
         lib_name, fn_name = _entry(self.mode, dtype)
         lib = load_library(f"{lib_name}_{'f32' if dtype == torch.float32 else 'f64'}")
+        block = (self.tile_cols,)
+        if lib_name == "tile_columns_kernel":
+            stages = stage_table(self.stepper, dt, dtype)
+            block = tile_plan(args.nz, torch.finfo(dtype).bits // 8, stage_registers(stages), self.tile_cols)[:3]
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
-            rc = getattr(lib, fn_name)(
-                ctypes.byref(args), self.tile_cols, ctypes.c_void_p(stream)
-            )
+            rc = getattr(lib, fn_name)(ctypes.byref(args), *block, ctypes.c_void_p(stream))
         del keep
         if rc != 0:
             raise RuntimeError(f"column kernel launch failed: cudaError {rc}")
@@ -1661,7 +1756,12 @@ def make_fused_column_run(
     implicit steppers built with this ``model``; the kernel's mode follows
     the model and the stepper (:func:`kernel_mode`).  ``tile_cols`` is the
     number of columns (threads) per CUDA block, a multiple of 32 up to 1024;
-    ``ncol`` need not be a multiple of it.  Time advances
+    ``ncol`` need not be a multiple of it; in the column-tile kernel's modes
+    (:data:`TILE_MODES`: ``B1+kinds+B8`` and ``B1-no-ice+kinds+B8`` under
+    any explicit stepper) a block of 256 threads holds a tile of at most
+    ``tile_cols`` columns, each column's levels spread over level lanes:
+    :func:`tile_plan` picks the tile from ``nz`` (at most 32 columns at
+    nz=48, so the default does not bind there).  Time advances
     ``steps_per_call * dt`` per call.
 
     ``streamed_geometry``: an optional ``(dz, zc)`` pair of ``(ncol,)`` and

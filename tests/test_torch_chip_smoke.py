@@ -561,11 +561,11 @@ def test_regional_variable_depth_twin_and_column_slice():
 def test_grid_variants_cover_every_opened_mode():
     """Phase 12's variants hold every fixed-stage SSPRK33 and implicit
     ``MODE_COLUMNS`` instance of ``column_kernel.cu``, ``implicit_kernel.cu``
-    and ``land_kernel.cu`` against its plain version (the stage-table and
-    policy instances are phase 19's and 20's), and the cross-component
-    cases ride on B1."""
+    and ``land_kernel.cu``, and B1's, the column-tile kernel's, against its
+    plain version (the stage-table and policy instances are phase 19's and
+    20's), and the cross-component cases ride on B1."""
     modes = {c for c in cs.GRID_VARIANTS if not c.startswith("cross")}
-    sources = {"column_kernel": {"B1", "B2", "B3-rate", "B1-water"},
+    sources = {"column_kernel": {"B2", "B3-rate", "B1-water"}, "tile_columns_kernel": {"B1"},
                "implicit_kernel": {"B4-be-richards", "B4-be-richards-water", "B4-trbdf2", "B4-trbdf2-water"},
                "land_kernel": {"B5", "B6"}}
     assert modes == set().union(*sources.values())

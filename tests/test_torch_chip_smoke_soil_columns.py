@@ -62,7 +62,9 @@ def test_soil_columns_variant_builds_its_instance(mode, stepper, tridiag):
     model, Y, st, dt, name = cs.soil_columns_variant(12, F64, "cpu", 7, mode, stepper, tridiag)
     run = ck.make_fused_column_run(model, st, dt=dt)
     assert run.name == name and name.split("@")[0].endswith("+kinds+B8")
-    assert ck._entry(run.mode, F64)[0] == ("implicit_columns_kernel" if tridiag else "rk_columns_kernel")
+    assert ck._entry(run.mode, F64)[0] == ("implicit_columns_kernel" if tridiag
+                                          else "tile_columns_kernel" if mode in ("B1", "B1-no-ice")
+                                          else "rk_columns_kernel")
     assert isinstance(model.domain, VariableDepthColumn)
     faces = [getattr(model.boundary_conditions, f) for f in ("top", "bottom")]
     assert all(isinstance(getattr(face, "energy" if "-heat" in mode else "hydrology"), BatchedBC) for face in faces)
@@ -125,8 +127,9 @@ def test_regional_hour_without_ice_leaves_b1s_columns(plain_card, monkeypatch, c
     """20a on a narrowed grid: the hour with ``assume_no_ice`` launches
     ``B1-no-ice+kinds`` (and ``+B8`` on the twin), whose diverged columns
     are those of the B1 hour run for them, and the records name the
-    instances of ``rk_columns_kernel.cu``; 20b's run file runs in process,
-    its first save equal to the file's first launch."""
+    column-tile kernel's source (20a) and ``rk_columns_kernel.cu`` (20b);
+    20b's run file runs in process, its first save equal to the file's
+    first launch; 20e's checks of the column-tile kernel run."""
     for name, value in (("GRID_NZ", 6), ("GRID_NCOL", 96), ("GRID_SPC", 6), ("GRID_STEPS", 12),
                         ("SOIL_CLI_STRIDE", 8)):
         monkeypatch.setattr(cs, name, value)
@@ -148,7 +151,7 @@ def test_regional_hour_without_ice_leaves_b1s_columns(plain_card, monkeypatch, c
     records = cs.soil_columns_phase(ck, COSTS, "smi", "cpu", 0.0)
     names = [r["name"].split(", ", 1)[1][:-1] for r in records]
     assert names == ["B1-no-ice+kinds", "B1-no-ice+kinds+B8"] * 2 + ["B2+kinds+B8@SSPRK104"]
-    assert all(r["source"].endswith("rk_columns_kernel.cu") for r in records)
+    assert [r["source"].rsplit("/", 1)[1] for r in records] == ["tile_columns_kernel.cu"] * 4 + ["rk_columns_kernel.cu"]
     assert all(set(r) - {"plain_at"} == KEYS for r in records) and records[-1]["launches"] == cs.SOIL_CLI_LAUNCHES
     assert {k[2] for k in cs.REGIONAL_DIVERGED} == {False, True}
     for (dtype, depth, no_ice), cols in cs.REGIONAL_DIVERGED.items():

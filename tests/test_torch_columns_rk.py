@@ -2,8 +2,10 @@
 explicit steppers (kernel modes B1-batched and B8 with ``MODE_COLUMNS``:
 ``csrc/rk_columns_kernel.cu`` under ForwardEuler, SSPRK22, SSPRK33 and
 SSPRK104 from the stage table, ``csrc/column_kernel.cu``'s fixed-stage
-SSPRK33 B1, B2, B3-rate and B1-water) through the kernel's plain version,
-against the JAX package's fused kernel in interpret mode.
+SSPRK33 B2, B3-rate and B1-water, and the column-tile kernel of
+``csrc/tile_columns_kernel.cu`` for B1 and B1-no-ice under every stepper)
+through the kernel's plain version, against the JAX package's fused kernel
+in interpret mode.
 
 - The columns: golden #1's soil (nz=24 x 8, a callable Dirichlet top for
   the water, per-column soils), or the freeze golden's soil widened to
@@ -182,7 +184,7 @@ def test_no_ice_cap_on_an_icy_state():
     column made icy (vartheta_l = nu - 0.02 over 0.05 of ice in the lower
     half), where the rhs caps theta_l at nu - theta_i and the cap decides
     the closures."""
-    jm, Y, _ = check_case("B1-no-ice+kinds+B8", "rk_columns_kernel", Y=icy)
+    jm, Y, _ = check_case("B1-no-ice+kinds+B8", "tile_columns_kernel", Y=icy)
     soil = {k: np.asarray(v) for k, v in Y["soil"].items()}
     assert np.any(soil["vartheta_l"] > np.asarray(jm.soil_param_set.nu) - soil["theta_i"])
 
@@ -214,8 +216,9 @@ def test_other_steppers_match_jax_fused(name):
     """One mode per family under each other explicit stepper: the coupled
     soil, lagged without ice, the water-only branch lagged, the heat-only
     branch without ice (its energy kinds at the top face, its profiles on
-    each column's own centers)."""
-    check_case(name, "rk_columns_kernel")
+    each column's own centers); the coupled soil's instance is the
+    column-tile kernel's."""
+    check_case(name, source_of(name))
 
 
 # ---- every plain-soil mode, without JAX ----
@@ -225,7 +228,19 @@ RK_MODES = ("B1", "B2", "B1-no-ice", "B2-no-ice", "B3-rate", "B2+B3-rate", "B3-e
             "B2-water", "B1-water-no-ice", "B2-water-no-ice", "B1-heat", "B2-heat", "B1-heat-no-ice",
             "B2-heat-no-ice")
 #: the SSPRK33 modes whose MODE_COLUMNS instance keeps column_kernel.cu's fixed stages
-FIXED_STAGES = frozenset({"B1", "B2", "B3-rate", "B1-water"})
+FIXED_STAGES = frozenset({"B2", "B3-rate", "B1-water"})
+#: the modes whose MODE_COLUMNS instance is the column-tile kernel's, under every explicit stepper
+TILE_STAGES = frozenset({"B1", "B1-no-ice"})
+
+
+def source_of(name):
+    """The source of a run named ``name`` (``B1-no-ice+kinds+B8``,
+    ``B2+kinds+B8@SSPRK104``, ...)."""
+    mode, _, stepper = name.partition("@")
+    base = mode.replace("+kinds", "").replace("+B8", "")
+    if base in TILE_STAGES:
+        return "tile_columns_kernel"
+    return "column_kernel" if not stepper and base in FIXED_STAGES else "rk_columns_kernel"
 
 
 def port_columns_model(mode, kinds, depth):
@@ -242,8 +257,9 @@ def test_every_plain_soil_mode_takes_kinds_and_geometry():
     """Each of the 16 plain-soil modes with per-column kinds, with per-column
     geometry and with both, under each explicit stepper: its name ends in
     ``+kinds`` / ``+B8`` and the stepper, it launches from
-    ``rk_columns_kernel`` (SSPRK33 in B1, B2, B3-rate and B1-water from
-    ``column_kernel``'s fixed stages), one ``MODE_COLUMNS`` instance per
+    ``rk_columns_kernel`` (SSPRK33 in B2, B3-rate and B1-water from
+    ``column_kernel``'s fixed stages, B1 and B1-no-ice under every stepper
+    from ``tile_columns_kernel``), one ``MODE_COLUMNS`` instance per
     mode."""
     names = set()
     for mode in RK_MODES:
@@ -255,22 +271,33 @@ def test_every_plain_soil_mode_takes_kinds_and_geometry():
                 assert run.name == mode + suffix + ("" if stepper == "SSPRK33" else "@" + stepper)
                 assert run.mode & ck.MODE_COLUMNS and ck.takes_per_column(run.mode)
                 lib = ck._entry(run.mode, torch.float32)[0]
-                assert lib == ("column_kernel" if stepper == "SSPRK33" and mode in FIXED_STAGES
+                assert lib == ("tile_columns_kernel" if mode in TILE_STAGES
+                               else "column_kernel" if stepper == "SSPRK33" and mode in FIXED_STAGES
                                else "rk_columns_kernel")
                 names.add(ck.mode_name(run.mode & ~ck.MODE_RK))
     assert len(names) == 16
 
 
 def test_rk_columns_source_instantiates_the_sixteen_modes():
-    """``rk_columns_kernel.cu`` instantiates ``rk_column.cuh``'s
-    ``RK_CASES`` with ``MODE_COLUMNS``, as ``rk_kernel.cu`` does without
-    it."""
+    """``rk_kernel.cu`` instantiates ``rk_column.cuh``'s ``RK_CASES``, all
+    sixteen modes, and ``rk_columns_kernel.cu`` its ``RK_OTHER_CASES`` with
+    ``MODE_COLUMNS``: the fourteen but the coupled soil with stage
+    coefficients, with ice and without, whose ``MODE_COLUMNS`` instances are
+    the column-tile kernel's (``tile_columns_kernel.cu``)."""
     src = (ck.CSRC / "rk_columns_kernel.cu").read_text()
-    assert "RK_CASES(MODE_COLUMNS)" in src and "RK_CASES(0)" in (ck.CSRC / "rk_kernel.cu").read_text()
+    assert "RK_OTHER_CASES(MODE_COLUMNS)" in src and "RK_CASES(" not in src
+    assert "RK_CASES(0)" in (ck.CSRC / "rk_kernel.cu").read_text()
     cases = (ck.CSRC / "rk_column.cuh").read_text()
-    body = cases[cases.index("#define RK_CASES"):]
-    # eight coupled modes, and four per branch from RK_BRANCH_CASES, which RK_CASES expands twice
-    assert body.count("case ") == 8 + 4 and body.count("RK_BRANCH_CASES(MODE_") == 2
+    whole = cases[cases.index("#define RK_CASES"):cases.index("#define RK_OTHER_CASES")]
+    other = cases[cases.index("#define RK_OTHER_CASES"):cases.index("#define RK_BRANCH_CASES")]
+    branch = cases[cases.index("#define RK_BRANCH_CASES"):]
+    # RK_CASES: the two coupled stage-coefficient modes and RK_OTHER_CASES; that one six coupled modes and four
+    # per branch from RK_BRANCH_CASES, which it expands twice
+    assert whole.count("case ") == 2 and "RK_OTHER_CASES(C)" in whole
+    assert other.count("case ") == 6 and other.count("RK_BRANCH_CASES(MODE_") == 2
+    assert branch.count("case ") == 4
+    tile = (ck.CSRC / "tile_columns_kernel.cu").read_text()
+    assert tile.count("case ") == 2 and "case MODE_COLUMNS:" in tile and "case MODE_NO_ICE | MODE_COLUMNS:" in tile
 
 
 # ---- on the card ----
@@ -280,9 +307,10 @@ def test_rk_columns_source_instantiates_the_sixteen_modes():
 @pytest.mark.parametrize("name", ["B1-no-ice+kinds+B8", "B2+B3-eq+kinds+B8@SSPRK22", "B2-water+kinds+B8@SSPRK104",
                                   "B1-heat+kinds+B8@ForwardEuler"])
 def test_cuda_rk_columns_instances_match_plain(cuda_device, name):  # noqa: F811
-    """A launch of ``rk_columns_kernel.cu``'s instances against the plain
-    version on the card, f64 at rtol 1e-12 (the equilibrium case within
-    ``assert_matches``' allowance)."""
+    """A launch of ``rk_columns_kernel.cu``'s instances (``B1-no-ice+kinds+B8``:
+    the column-tile kernel's) against the plain version on the card, f64 at
+    rtol 1e-12 (the equilibrium case within ``assert_matches``'
+    allowance)."""
     jm, Y0, stepper, dt, n, t0 = columns_case(name)
     model = model_from_reference(jm, device=cuda_device)
     st = getattr(pts, stepper)()
@@ -293,5 +321,5 @@ def test_cuda_rk_columns_instances_match_plain(cuda_device, name):  # noqa: F811
     before = ck.LAUNCHES[run.name]
     run(Y, t0)
     torch.cuda.synchronize()
-    assert ck.LAUNCHES[run.name] == before + 1 and ck._entry(run.mode, torch.float64)[0] == "rk_columns_kernel"
+    assert ck.LAUNCHES[run.name] == before + 1 and ck._entry(run.mode, torch.float64)[0] == source_of(name)
     assert_matches({"soil": state_to_numpy(Y)["soil"]}, plain, jm)

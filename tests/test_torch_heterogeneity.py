@@ -348,9 +348,9 @@ def test_kind_codes_map_onto_the_kernel_enum():
                                             JSoilComponentBC(hydrology=JBatchedBC(kind=_KINDS6 + 1, value=0.3),
                                                              energy=JVerticalFlux(0.0))), device="cpu")
     assert ck.make_fused_column_run(coupled).name == "B1+kinds"
-    # B1-no-ice with kinds: the stage table's instance with MODE_COLUMNS, whose no-ice rhs caps at nu - theta_i
+    # B1-no-ice with kinds: the column-tile kernel's instance, whose no-ice rhs caps at nu - theta_i
     run = ck.make_fused_column_run(dataclasses.replace(coupled, assume_no_ice=True))
-    assert run.name == "B1-no-ice+kinds" and ck._entry(run.mode, torch.float64)[0] == "rk_columns_kernel"
+    assert run.name == "B1-no-ice+kinds" and ck._entry(run.mode, torch.float64)[0] == "tile_columns_kernel"
 
 
 # ---- lateral surface coupling ----

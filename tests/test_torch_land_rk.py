@@ -262,7 +262,8 @@ def test_per_column_land_instances_stay_refused(stepper):
     """``MODE_COLUMNS``'s land instances run every explicit stepper (B5 and
     B6 with per-column kinds or geometry from
     ``csrc/land_columns_kernel.cu``), and so do their plain-soil neighbours
-    (``csrc/rk_columns_kernel.cu``); since ROADMAP B queue item 2's
+    (B1's, the column-tile kernel's, ``csrc/tile_columns_kernel.cu``); since
+    ROADMAP B queue item 2's
     remainder the implicit steppers under the MOST top take them too, no
     longer refused (``csrc/implicit_most_columns_kernel.cu``)."""
     from landhydrology_tpu_torch import BatchedBC, SoilColumnBC, SoilComponentBC, VerticalFlux
@@ -279,7 +280,7 @@ def test_per_column_land_instances_stay_refused(stepper):
     plain_top = SoilComponentBC(hydrology=VerticalFlux(0.0), energy=VerticalFlux(0.0))
     plain = dataclasses.replace(kinds, boundary_conditions=SoilColumnBC(top=plain_top, bottom=bottom))
     run = ck.make_fused_column_run(plain, getattr(pts, stepper)())
-    assert run.name == f"B1+kinds@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "rk_columns_kernel"
+    assert run.name == f"B1+kinds@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "tile_columns_kernel"
     from landhydrology_tpu_torch import BackwardEulerSoil
 
     run = ck.make_fused_column_run(kinds, BackwardEulerSoil(model=kinds, grid=make_function_space(
@@ -293,7 +294,7 @@ def test_per_column_land_instances_stay_refused(stepper):
     assert run.name == f"B6+B8@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "land_columns_kernel"
     flat_plain = dataclasses.replace(plain, boundary_conditions=SoilColumnBC(top=plain_top, bottom=bcs.bottom))
     run = ck.make_fused_column_run(flat_plain, getattr(pts, stepper)(), streamed_geometry=geometry)
-    assert run.name == f"B1+B8@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "rk_columns_kernel"
+    assert run.name == f"B1+B8@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "tile_columns_kernel"
     from landhydrology_tpu_torch import TRBDF2Soil
 
     run = ck.make_fused_column_run(soil, TRBDF2Soil(model=soil, grid=grid), streamed_geometry=geometry)

@@ -251,8 +251,8 @@ def test_stage_table_and_rows(stepper):
 
 def test_explicit_steppers_refused_where_no_kernel():
     """ForwardEuler, SSPRK22 and SSPRK104 with per-column BC kinds run on the
-    plain soil in ``rk_columns_kernel.cu``'s ``MODE_COLUMNS`` instance
-    (``B1+kinds@<stepper>``); a MOST top runs in the land kernel
+    plain soil in the column-tile kernel (``tile_columns_kernel.cu``,
+    ``B1+kinds@<stepper>``); a MOST top runs in the land kernel
     (``B5@<stepper>``), with kinds in its ``MODE_COLUMNS`` instance
     (``B5+kinds@<stepper>``); TR-BDF2 under the MOST top with kinds runs in
     ``implicit_most_columns_kernel.cu`` (``B4-trbdf2+B5+kinds``), no longer
@@ -275,7 +275,7 @@ def test_explicit_steppers_refused_where_no_kernel():
         run = ck.make_fused_column_run(most, getattr(pts, stepper)())
         assert run.name == f"B5@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "land_rk_kernel"
         run = ck.make_fused_column_run(kinds, getattr(pts, stepper)())
-        assert run.name == f"B1+kinds@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "rk_columns_kernel"
+        assert run.name == f"B1+kinds@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "tile_columns_kernel"
         run = ck.make_fused_column_run(most_kinds, getattr(pts, stepper)())
         assert run.name == f"B5+kinds@{stepper}" and ck._entry(run.mode, torch.float64)[0] == "land_columns_kernel"
     from landhydrology_tpu_torch import TRBDF2Soil
